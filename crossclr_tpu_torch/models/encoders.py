@@ -1,0 +1,287 @@
+"""Dual video/text encoder towers as ``nn.Module``s.
+
+Counterpart of ``crossclr_tpu/models/encoders.py``.  Submodule names equal
+the Flax module names, so a state_dict key is the Flax parameter path
+(``block_0._MHA_0.query.weight``, ``block_0.LayerNorm_1.bias``,
+``input_proj.weight``, ``pos_embed``) with Flax's ``kernel``/``scale`` leaf
+read as ``weight``; ``utils.params.state_dict_from_flax`` moves weights
+across.
+
+The arithmetic follows the Flax towers step by step:
+
+* ``Dense(dtype=bf16)`` casts input and weight to the compute dtype, runs
+  the product, then adds the bias in that dtype (:class:`Dense`);
+* LayerNorm runs in fp32 with eps 1e-6;
+* GELU is the tanh approximation;
+* ``pos_embed`` is cast to the compute dtype before the add;
+* pooling is a masked mean in fp32 and ``output_proj`` runs in fp32.
+
+The towers run in eval mode: dropout is off and no backward is ported.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..ops.flash_attention import flash_attention
+
+__all__ = ["DualEncoder", "MLPTower", "TowerConfig", "TransformerTower"]
+
+_LN_EPS = 1e-6  # flax.linen.LayerNorm default
+
+
+@dataclasses.dataclass(frozen=True)
+class TowerConfig:
+    """Static architecture config for one tower; the fields and defaults
+    of the JAX ``TowerConfig``, so the JSON configs load.  ``attention``
+    takes ``"xla"`` (the Flax ``MultiHeadDotProductAttention`` arithmetic
+    in plain PyTorch) or ``"flash"`` (:func:`ops.flash_attention`: the CUDA
+    kernel on a CUDA tensor).  ``"ring"``, ``remat`` and ``ring_*`` are
+    accepted by the config and wait for later ports."""
+
+    kind: str = "mlp"  # "mlp" | "transformer"
+    input_dim: int = 512
+    embed_dim: int = 256
+    hidden_dim: int = 1024
+    num_layers: int = 2
+    num_heads: int = 8
+    max_seq_len: int = 32
+    dropout: float = 0.0
+    dtype: torch.dtype = torch.bfloat16
+    remat: bool = False
+    attention: str = "xla"
+    ring_block_impl: str = "auto"
+    ring_interpret: bool = False
+
+
+class Dense(nn.Linear):
+    """``flax.linen.Dense`` with ``dtype``: the product in the compute
+    dtype, then the bias added in that dtype."""
+
+    def __init__(self, in_features: int, out_features: int, dtype: torch.dtype):
+        super().__init__(in_features, out_features)
+        self.compute_dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        return torch.matmul(x.to(dt), self.weight.to(dt).t()) + self.bias.to(dt)
+
+
+def _gelu(x: torch.Tensor) -> torch.Tensor:
+    return F.gelu(x, approximate="tanh")
+
+
+def _ln(dim: int) -> nn.LayerNorm:
+    return nn.LayerNorm(dim, eps=_LN_EPS)
+
+
+class MLPTower(nn.Module):
+    """Residual MLP blocks over pooled features, then an fp32 LayerNorm;
+    block 0 reads ``input_dim``, later blocks ``embed_dim``."""
+
+    def __init__(self, cfg: TowerConfig):
+        super().__init__()
+        self.cfg = cfg
+        in_dim = cfg.input_dim
+        self.num_blocks = max(cfg.num_layers, 1)
+        for layer in range(self.num_blocks):
+            suffix = "" if layer == 0 else f"_{layer}"
+            self.add_module(f"skip{suffix}", Dense(in_dim, cfg.embed_dim, cfg.dtype))
+            self.add_module(f"fc1{suffix}", Dense(in_dim, cfg.hidden_dim, cfg.dtype))
+            self.add_module(
+                f"fc2{suffix}", Dense(cfg.hidden_dim, cfg.embed_dim, cfg.dtype)
+            )
+            in_dim = cfg.embed_dim
+        self.norm = _ln(cfg.embed_dim)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = x.to(self.cfg.dtype)
+        for layer in range(self.num_blocks):
+            suffix = "" if layer == 0 else f"_{layer}"
+            skip = self.get_submodule(f"skip{suffix}")(h)
+            y = _gelu(self.get_submodule(f"fc1{suffix}")(h))
+            h = skip + self.get_submodule(f"fc2{suffix}")(y)
+        return self.norm(h.float())
+
+
+class _HeadProjections(nn.Module):
+    """The q/k/v/out projections of Flax multi-head attention, held as
+    ``[E, E]`` Linears (Flax's ``[E, H, Dh]`` / ``[H, Dh, E]`` kernels
+    flattened)."""
+
+    def __init__(self, cfg: TowerConfig):
+        super().__init__()
+        if cfg.embed_dim % cfg.num_heads:
+            raise ValueError(
+                f"embed_dim {cfg.embed_dim} not divisible by num_heads "
+                f"{cfg.num_heads}"
+            )
+        self.cfg = cfg
+        self.heads = cfg.num_heads
+        self.head_dim = cfg.embed_dim // cfg.num_heads
+        for name in ("query", "key", "value", "out"):
+            self.add_module(name, Dense(cfg.embed_dim, cfg.embed_dim, cfg.dtype))
+
+    def _split(self, x: torch.Tensor, name: str) -> torch.Tensor:
+        b, s, _ = x.shape
+        return self.get_submodule(name)(x).view(b, s, self.heads, self.head_dim)
+
+    def _merge(self, o: torch.Tensor) -> torch.Tensor:
+        b, s = o.shape[:2]
+        return self.out(o.reshape(b, s, self.heads * self.head_dim))
+
+
+class _MHA(_HeadProjections):
+    """``crossclr_tpu.models.encoders._MHA`` (attention="flash"): the
+    attention core is :func:`ops.flash_attention`, which launches the CUDA
+    kernel on CUDA tensors.  ``attend`` is the core as an attribute, so a
+    check can swap in the plain version on the same weights."""
+
+    def __init__(self, cfg: TowerConfig):
+        super().__init__(cfg)
+        self.attend = flash_attention
+
+    def forward(self, x, mask):
+        # [B, S, H, Dh] -> [B, H, S, Dh]
+        q, k, v = (
+            self._split(x, n).transpose(1, 2) for n in ("query", "key", "value")
+        )
+        out = self.attend(q, k, v, mask)
+        return self._merge(out.transpose(1, 2).to(self.cfg.dtype))
+
+
+class MultiHeadDotProductAttention(_HeadProjections):
+    """``flax.linen.MultiHeadDotProductAttention`` (attention="xla") in its
+    own arithmetic: the query divided by sqrt(Dh) and both products in the
+    compute dtype, the mask ``query_valid ⊗ key_valid`` applied with the
+    dtype's most negative finite value, and the softmax in the compute
+    dtype."""
+
+    def forward(self, x, mask):
+        dt = self.cfg.dtype
+        q, k, v = (self._split(x, n) for n in ("query", "key", "value"))
+        q = q / torch.tensor(self.head_dim**0.5, dtype=torch.float32).to(dt)
+        logits = torch.einsum("bqhd,bkhd->bhqk", q, k)
+        if mask is not None:
+            m = mask.to(dt)
+            pair = (m[:, :, None] * m[:, None, :])[:, None]  # [B, 1, S, S]
+            logits = torch.where(
+                pair != 0, logits,
+                torch.tensor(torch.finfo(dt).min, dtype=dt, device=x.device),
+            )
+        weights = torch.softmax(logits, dim=-1).to(dt)
+        return self._merge(torch.einsum("bhqk,bkhd->bqhd", weights, v))
+
+
+_ATTENTION = {"flash": ("_MHA_0", _MHA),
+              "xla": ("MultiHeadDotProductAttention_0",
+                      MultiHeadDotProductAttention)}
+
+
+class _Block(nn.Module):
+    """Pre-norm transformer block (``LayerNorm_0``, attention,
+    ``LayerNorm_1``, ``Dense_0``, ``Dense_1``)."""
+
+    def __init__(self, cfg: TowerConfig):
+        super().__init__()
+        if cfg.attention not in _ATTENTION:
+            raise NotImplementedError(
+                f"attention={cfg.attention!r} is not ported to "
+                "crossclr_tpu_torch yet (supported: 'xla', 'flash')"
+            )
+        self.cfg = cfg
+        self.LayerNorm_0 = _ln(cfg.embed_dim)
+        name, cls = _ATTENTION[cfg.attention]
+        self.attn_name = name
+        self.add_module(name, cls(cfg))
+        self.LayerNorm_1 = _ln(cfg.embed_dim)
+        self.Dense_0 = Dense(cfg.embed_dim, cfg.hidden_dim, cfg.dtype)
+        self.Dense_1 = Dense(cfg.hidden_dim, cfg.embed_dim, cfg.dtype)
+
+    def forward(self, x, mask):
+        dt = self.cfg.dtype
+        y = self.LayerNorm_0(x.float()).to(dt)
+        x = x + self.get_submodule(self.attn_name)(y, mask)
+        y = self.LayerNorm_1(x.float()).to(dt)
+        return x + self.Dense_1(_gelu(self.Dense_0(y)))
+
+
+class TransformerTower(nn.Module):
+    """Transformer encoder over ``[B, S, input_dim]`` feature sequences:
+    learned positions, pre-norm blocks, masked mean pooling, projection to
+    ``embed_dim``.  ``mask``: ``[B, S]`` (1 = valid)."""
+
+    def __init__(self, cfg: TowerConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.input_proj = Dense(cfg.input_dim, cfg.embed_dim, cfg.dtype)
+        self.pos_embed = nn.Parameter(torch.zeros(cfg.max_seq_len, cfg.embed_dim))
+        for layer in range(cfg.num_layers):
+            self.add_module(f"block_{layer}", _Block(cfg))
+        self.final_norm = _ln(cfg.embed_dim)
+        self.output_proj = Dense(cfg.embed_dim, cfg.embed_dim, torch.float32)
+
+    def forward(self, x: torch.Tensor, mask: torch.Tensor | None = None):
+        cfg = self.cfg
+        s = x.shape[1]
+        if s > cfg.max_seq_len:
+            raise ValueError(
+                f"sequence length {s} exceeds TowerConfig.max_seq_len "
+                f"{cfg.max_seq_len} (positional embedding table size)"
+            )
+        h = self.input_proj(x) + self.pos_embed[None, :s].to(cfg.dtype)
+        for layer in range(cfg.num_layers):
+            h = self.get_submodule(f"block_{layer}")(h, mask)
+        h = self.final_norm(h.float())
+        if mask is None:
+            pooled = h.mean(dim=1)
+        else:
+            w = mask.float()[:, :, None]
+            pooled = (h * w).sum(dim=1) / w.sum(dim=1).clamp_min(1.0)
+        return self.output_proj(pooled)
+
+
+def _build_tower(cfg: TowerConfig) -> nn.Module:
+    if cfg.kind == "mlp":
+        return MLPTower(cfg)
+    if cfg.kind == "transformer":
+        return TransformerTower(cfg)
+    raise ValueError(f"unknown tower kind: {cfg.kind!r}")
+
+
+class DualEncoder(nn.Module):
+    """Video tower + text tower → fp32 embeddings (not normalized), plus
+    the criterion's scalar ``logit_scale`` so the module holds every leaf
+    of the JAX trainer's parameter tree."""
+
+    def __init__(self, video_cfg: TowerConfig, text_cfg: TowerConfig):
+        super().__init__()
+        self.video_cfg = video_cfg
+        self.text_cfg = text_cfg
+        self.video_tower = _build_tower(video_cfg)
+        self.text_tower = _build_tower(text_cfg)
+        self.logit_scale = nn.Parameter(torch.ones(()))
+
+    def forward(self, video, text, video_mask=None, text_mask=None):
+        return (self.encode("video", video, video_mask),
+                self.encode("text", text, text_mask))
+
+    def encode(self, side: str, x, mask=None) -> torch.Tensor:
+        """One modality through its own tower only."""
+        if side not in ("video", "text"):
+            raise ValueError(f"side must be 'video' or 'text', got {side!r}")
+        cfg = self.video_cfg if side == "video" else self.text_cfg
+        tower = self.video_tower if side == "video" else self.text_tower
+        if cfg.kind == "transformer":
+            return tower(x, mask).float()
+        if mask is not None:
+            raise ValueError(
+                "a sequence mask was provided but the tower kind is "
+                f"{cfg.kind!r} (pooled features; masks apply to "
+                "transformer towers only)"
+            )
+        return tower(x).float()

@@ -1,0 +1,17 @@
+"""Configs and the Flax → torch weight bridge."""
+
+from .config import (
+    DataConfig,
+    ExperimentConfig,
+    apply_overrides,
+    load_config,
+)
+from .params import state_dict_from_flax
+
+__all__ = [
+    "DataConfig",
+    "ExperimentConfig",
+    "apply_overrides",
+    "load_config",
+    "state_dict_from_flax",
+]

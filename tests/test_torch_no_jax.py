@@ -1,0 +1,89 @@
+"""The port runs where jax is not installed.
+
+A subprocess installs a ``sys.meta_path`` finder that makes any import of
+``jax``, ``flax`` or the JAX package raise, then imports
+``crossclr_tpu_torch``, builds the port's service on the CPU at a tiny
+size and answers one search over HTTP.
+"""
+
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parent.parent
+
+SCRIPT = r"""
+import importlib.abc
+import sys
+
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "crossclr_tpu")
+
+
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in BLOCKED:
+            raise ImportError(f"blocked import of {name}")
+        return None
+
+
+sys.meta_path.insert(0, Block())
+
+import json
+import threading
+import urllib.request
+from http.server import ThreadingHTTPServer
+
+import crossclr_tpu_torch
+from crossclr_tpu_torch.data import SyntheticPairs
+from crossclr_tpu_torch.serve import _make_handler, build_service
+from crossclr_tpu_torch.utils.config import ExperimentConfig, apply_overrides
+
+cfg = apply_overrides(ExperimentConfig(), [
+    "video_tower.kind=transformer", "text_tower.kind=transformer",
+    "video_tower.attention=flash", "text_tower.attention=flash",
+    "video_tower.input_dim=12", "text_tower.input_dim=10",
+    "video_tower.embed_dim=8", "text_tower.embed_dim=8",
+    "video_tower.hidden_dim=16", "text_tower.hidden_dim=16",
+    "video_tower.num_heads=2", "text_tower.num_heads=2",
+    "video_tower.num_layers=1", "text_tower.num_layers=1",
+    "video_tower.max_seq_len=4", "text_tower.max_seq_len=3",
+    "data.num_pairs=16", "data.video_dim=12", "data.text_dim=10",
+    "data.video_seq_len=4", "data.text_seq_len=3",
+    "data.variable_lengths=true", "data.batch_size=8",
+])
+service = build_service(cfg, None, "video", random_params=True, device="cpu")
+data = SyntheticPairs(num_pairs=16, video_dim=12, text_dim=10,
+                      video_seq_len=4, text_seq_len=3, variable_lengths=True)
+httpd = ThreadingHTTPServer(("127.0.0.1", 0), _make_handler(service))
+thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+thread.start()
+req = urllib.request.Request(
+    f"http://127.0.0.1:{httpd.server_address[1]}/search",
+    data=json.dumps({"features": data.text[:2].tolist(),
+                     "mask": data.text_mask[:2].tolist(), "k": 3}).encode(),
+    method="POST",
+)
+with urllib.request.urlopen(req) as resp:
+    out = json.loads(resp.read())
+httpd.shutdown()
+httpd.server_close()
+loaded = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "flax", "crossclr_tpu"))
+print(json.dumps({"indices": out["indices"], "loaded": loaded}))
+"""
+
+
+def test_port_serves_without_jax(tmp_path):
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run(
+        [sys.executable, "-c", SCRIPT], cwd=tmp_path, env=env,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    result = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert result["loaded"] == []
+    idx = result["indices"]
+    assert len(idx) == 2 and all(len(r) == 3 for r in idx)
+    assert all(0 <= i < 16 for r in idx for i in r)
