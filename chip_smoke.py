@@ -1,16 +1,18 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (crossclr_tpu_torch) on one NVIDIA GPU.
 
-Drives the port's retrieval-serving path once, at the full width of
+Drives the port's two paths once each and proves that they went through
+the repo's own CUDA kernels: retrieval serving at the full width of
 configs/lsmdc_transformer.json with attention="flash" on both towers, and
-proves that the path went through the repo's own CUDA kernel.  Phases,
-one line each; any failure raises and exits non-zero:
+training at the full width of configs/youcook2_mlp.json through the fused
+CrossCLR-intra loss kernels.  Phases, one line each; any failure raises
+and exits non-zero:
 
   1. device  — a CUDA device must exist (there is no CPU path); prints
                nvidia-smi's name and power limit, torch and CUDA versions.
-  2. build   — builds the flash-attention forward from
-               crossclr_tpu_torch/ops/csrc/flash_fwd.cu with nvcc for
-               sm_90a; prints the time, the .so path and ptxas' report.
+  2. build   — builds every crossclr_tpu_torch/ops/csrc/*.cu with nvcc for
+               sm_90a, one nvcc process each, all started together; prints
+               the time, the .so paths and ptxas' report.
   3. kernel  — kernel against the plain version on the same CUDA tensors
                (H=8, Dh=48, S in {64, 96, 37}, ragged masks, one entry
                fully masked; fp32 and bf16) within the stated limits, then
@@ -25,19 +27,43 @@ one line each; any failure raises and exits non-zero:
                during the corpus encode and during every search, and that
                query embeddings from the kernel path have cosine >= 0.999
                with the same weights run through the plain attention.
+  5. loss    — the four loss kernels of ops/csrc/fused_dual.cu (sym_fwd,
+               sym_bwd at τ=0.03; dual_fwd, dual_bwd at a tensor τ of 0.03
+               and 0.01) against their plain versions on the same CUDA
+               tensors, B in {1024, 4096, 1000} x D in {256, 512}, fp32
+               operands (highest) and bf16 operands (default), within the
+               limits below; the fused loss on CUDA against the eager
+               loss; then each kernel and its plain version timed at the
+               training slice's shape (B=1024, D=256) and the reference's
+               headline shape (B=4096, D=512), and the loss fwd+bwd of
+               both routes at the headline shape (CUDA events, median of
+               20), with contrastive pairs/s.
+  6. train   — crossclr_tpu_torch.train.main on configs/youcook2_mlp.json
+               at full width (synthetic data, 16384 pairs): 300 steps with
+               eval every 100, a resume to 340 steps, then 100 steps with a
+               learnable temperature.  Checks the sym kernels launched in
+               the first leg and the dual kernels in the second (launch
+               counts reset before each leg), finite losses, a last logged
+               loss below the first, eval v2t/R@1 above chance, the step
+               count continuing on resume, and logit_scale moved and within
+               ±ln 100; prints the steady train pairs/s.
 
-The second-to-last line is the kernels' JSON record; the last line is
-{"ok": true, "device": {...}}.
+The second-to-last line is the kernels' JSON record (five kernels); the
+last line is {"ok": true, "device": {...}}.
 
 Run from the root of a checkout:  python3 chip_smoke.py
 """
 
+import contextlib
 import copy
+import csv
 import importlib
 import json
+import math
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import urllib.request
@@ -49,6 +75,33 @@ import torch
 ROOT = Path(__file__).resolve().parent
 KERNEL_SOURCE = "crossclr_tpu_torch/ops/csrc/flash_fwd.cu"
 REPLACES = "crossclr_tpu/ops/flash_attention.py:201"
+LOSS_SOURCE = "crossclr_tpu_torch/ops/csrc/fused_dual.cu"
+LOSS_REPLACES = {
+    "sym_fwd": "crossclr_tpu/ops/fused_dual.py:831",
+    "sym_bwd": "crossclr_tpu/ops/fused_dual.py:1023",
+    "dual_fwd": "crossclr_tpu/ops/fused_dual.py:108",
+    "dual_bwd": "crossclr_tpu/ops/fused_dual.py:301",
+}
+LOSS_SHAPES = [(1024, 256), (1024, 512), (4096, 256), (4096, 512),
+               (1000, 256), (1000, 512)]
+SLICE_LOSS_SHAPE = (1024, 256)  # configs/youcook2_mlp.json: batch, embed
+HEADLINE_LOSS_SHAPE = (4096, 512)  # the reference's headline benchmark
+NEG_WEIGHT = 0.8
+# loss kernels vs plain (tests/test_fused_kernel.py:37,133,169,251): lse
+# atol = rtol = 2e-5; gradients max |err| <= 5e-5 of the largest |entry|;
+# Σ coeff⊙z (the dτ term) rtol 1e-4.  The same limits hold at the default
+# tier: kernel and plain take the same bf16 operands (widened exactly to
+# fp32) and differ only in the order of their fp32 sums.
+LSE_TOL = 2e-5
+GRAD_BOUND = 5e-5
+DS_RTOL = 1e-4
+TRAIN_CONFIG = "configs/youcook2_mlp.json"
+TRAIN_OVERRIDES = [
+    "data.source=synthetic", "data.num_pairs=16384", "data.video_dim=512",
+    "data.text_dim=384", "train.warmup_steps=30", "eval_every=100",
+    "log_every=20",
+]
+LOGIT_SCALE_BOUND = 4.6051702  # ln 100, the trainer's clamp
 OVERRIDES = [
     "video_tower.attention=flash", "text_tower.attention=flash",
     "data.source=synthetic", "data.num_pairs=4096", "data.video_dim=512",
@@ -91,13 +144,18 @@ def device_phase() -> str:
 def build_phase() -> None:
     from crossclr_tpu_torch.ops import _build
 
-    _build.load_library("flash_fwd.cu")
-    info = _build.build_info["flash_fwd.cu"]
-    log("build", f"nvcc {' '.join(_build.NVCC_FLAGS)} -> {info['path']} in "
-                 f"{info['seconds']:.2f} s (built={info['built']})")
-    for line in info["log"].splitlines():
-        if "registers" in line or "spill" in line:
-            log("build", "ptxas: " + line.strip())
+    sources = sorted(p.name for p in _build._CSRC.glob("*.cu"))
+    check("flash_fwd.cu" in sources and "fused_dual.cu" in sources,
+          f"kernel sources missing: {sources}")
+    _build.load_libraries(sources)
+    for source in sources:
+        info = _build.build_info[source]
+        log("build", f"nvcc {' '.join(_build.NVCC_FLAGS)} {source} -> "
+                     f"{info['path']} in {info['seconds']:.2f} s "
+                     f"(built={info['built']})")
+        for line in info["log"].splitlines():
+            if "registers" in line or "spill" in line:
+                log("build", "ptxas: " + line.strip())
 
 
 def ragged_mask(b: int, s: int, gen: torch.Generator) -> torch.Tensor:
@@ -134,8 +192,8 @@ def compare(fa, q, k, v, mask, tag: str) -> float:
     return out_err
 
 
-def median_ms(fn, n: int = 20) -> float:
-    with torch.inference_mode():
+def median_ms(fn, n: int = 20, grad: bool = False) -> float:
+    with contextlib.nullcontext() if grad else torch.inference_mode():
         for _ in range(3):
             fn()
         torch.cuda.synchronize()
@@ -268,17 +326,331 @@ def slice_phase(fa, smi: str) -> int:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the loss kernels (training)
+# ---------------------------------------------------------------------------
+
+
+def loss_inputs(b: int, d: int, seed: int):
+    """Unit-norm fp32 features and positive lse cotangents, as the loss
+    gives them (its mean over rows and directions: 1/(2B), here varied
+    by up to ±50% per row)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    v, t = (torch.nn.functional.normalize(
+        torch.randn(b, d, generator=gen, device="cuda"), dim=1) for _ in range(2))
+    g_v, g_t = ((0.5 + torch.rand(b, 1, generator=gen, device="cuda")) / (2 * b)
+                for _ in range(2))
+    return v, t, g_v, g_t
+
+
+def lse_err(got, want, what: str) -> float:
+    err = max((a - c).abs().max().item() for a, c in zip(got, want))
+    ok = all(bool(((a - c).abs() <= LSE_TOL + LSE_TOL * c.abs()).all())
+             for a, c in zip(got, want))
+    check(ok and all(bool(torch.isfinite(a).all()) for a in got),
+          f"{what}: lse outside atol = rtol = {LSE_TOL} (max err {err:.3e})")
+    return err
+
+
+def grad_err(got, want, what: str) -> float:
+    err, ratio = 0.0, 0.0
+    for a, c in zip(got, want):
+        e = (a - c).abs().max().item()
+        err = max(err, e)
+        ratio = max(ratio, e / max(c.abs().max().item(), 1e-30))
+    check(ratio <= GRAD_BOUND and all(bool(torch.isfinite(a).all()) for a in got),
+          f"{what}: gradient error {ratio:.3e} of the largest entry "
+          f"(limit {GRAD_BOUND})")
+    return err
+
+
+def plain_loss(fd, video, text, tau, tier):
+    """The fused loss with the plain pair in place of the kernels,
+    differentiated by autograd: the cuBLAS-products-plus-eager-softmax
+    baseline at the same operand tier."""
+    from crossclr_tpu_torch.losses.functional import l2_normalize
+
+    v = l2_normalize(video.float(), dim=1)
+    t = l2_normalize(text.float(), dim=1)
+    vk, tk = fd._fetch_cast(tier, v, t)
+    if isinstance(tau, torch.Tensor):
+        lse_v, lse_t = fd.dual_fwd_plain(vk, tk, (1.0 / tau).reshape(1), NEG_WEIGHT)
+    else:
+        lse_v, lse_t = fd.sym_fwd_plain(vk, tk, 1.0 / tau, NEG_WEIGHT)
+    pos = (v * t).sum(dim=1, keepdim=True) / tau
+    return ((lse_v - pos).mean() + (lse_t - pos).mean()) / 2
+
+
+def loss_check_phase(fd) -> dict:
+    """Every loss kernel against its plain version on identical inputs;
+    returns the worst absolute error of each kernel."""
+    from crossclr_tpu_torch.losses import functional as F
+    from crossclr_tpu_torch.ops.fused_crossclr import cross_clr_intra_fused
+
+    worst = dict.fromkeys(fd.KERNELS, 0.0)
+
+    def note(name, err):
+        worst[name] = max(worst[name], err)
+
+    for b, d in LOSS_SHAPES:
+        v32, t32, g_v, g_t = loss_inputs(b, d, seed=b + d)
+        for tier in ("highest", "default"):
+            v, t = (x.contiguous() for x in fd._fetch_cast(tier, v32, t32))
+            tag = f"B={b} D={d} {tier}"
+            s = 1.0 / 0.03
+            ref = fd.sym_fwd_plain(v, t, s, NEG_WEIGHT)
+            errs = [lse_err(fd.sym_fwd_cuda(v, t, s, NEG_WEIGHT), ref,
+                            f"{tag} sym_fwd")]
+            note("sym_fwd", errs[-1])
+            errs.append(grad_err(
+                fd.sym_bwd_cuda(v, t, *ref, g_v, g_t, s, NEG_WEIGHT),
+                fd.sym_bwd_plain(v, t, *ref, g_v, g_t, s, NEG_WEIGHT),
+                f"{tag} sym_bwd"))
+            note("sym_bwd", errs[-1])
+            for tau in (0.03, 0.01):
+                scale = torch.full((1,), 1.0 / tau, device="cuda")
+                ref = fd.dual_fwd_plain(v, t, scale, NEG_WEIGHT)
+                errs.append(lse_err(fd.dual_fwd_cuda(v, t, scale, NEG_WEIGHT),
+                                    ref, f"{tag} τ={tau} dual_fwd"))
+                note("dual_fwd", errs[-1])
+                got = fd.dual_bwd_cuda(v, t, scale, *ref, g_v, g_t, NEG_WEIGHT)
+                want = fd.dual_bwd_plain(v, t, scale, *ref, g_v, g_t, NEG_WEIGHT)
+                errs.append(grad_err(got[:2], want[:2], f"{tag} τ={tau} dual_bwd"))
+                note("dual_bwd", errs[-1])
+                ds_rel = ((got[2] - want[2]).abs() / want[2].abs()).item()
+                check(ds_rel <= DS_RTOL, f"{tag} τ={tau}: Σ coeff⊙z rel err "
+                                         f"{ds_rel:.3e} (limit {DS_RTOL})")
+            torch.cuda.synchronize()
+            log("loss", f"{tag}: max|kernel-plain| sym_fwd {errs[0]:.3e}, "
+                        f"sym_bwd {errs[1]:.3e}, dual_fwd {errs[2]:.3e} / "
+                        f"{errs[4]:.3e}, dual_bwd {errs[3]:.3e} / {errs[5]:.3e} "
+                        f"(τ=0.03 / 0.01; dτ term within rtol {DS_RTOL})")
+
+    # the fused loss through the kernels against the eager loss (fp32)
+    b, d = SLICE_LOSS_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    video, text = (torch.randn(b, d, generator=gen, device="cuda") for _ in range(2))
+    for tensor_tau in (False, True):
+        out = []
+        for fn in (cross_clr_intra_fused, F.cross_clr_intra):
+            v = video.clone().requires_grad_()
+            t = text.clone().requires_grad_()
+            tau = (torch.tensor(0.03, device="cuda", requires_grad=True)
+                   if tensor_tau else 0.03)
+            loss = fn(v, t, temperature=tau, negative_weight=NEG_WEIGHT)
+            loss.backward()
+            out.append((loss.detach(), v.grad, t.grad,
+                        tau.grad if tensor_tau else None))
+        (lk, vk, tk, dk), (lp, vp, tp, dp) = out
+        lerr = abs(lk.item() - lp.item())
+        check(lerr <= LSE_TOL + LSE_TOL * abs(lp.item()),
+              f"fused loss {lk.item()} vs eager {lp.item()}")
+        grad_err((vk, tk), (vp, tp), "fused loss feature gradients")
+        if tensor_tau:
+            check(abs(dk.item() - dp.item()) <= DS_RTOL * abs(dp.item()),
+                  f"fused loss dτ {dk.item()} vs eager {dp.item()}")
+        log("loss", f"cross_clr_intra_fused ({'tensor' if tensor_tau else 'float'}"
+                    f" τ=0.03, B={b} D={d}) vs the eager loss: |Δloss| "
+                    f"{lerr:.3e}" + (f", dτ {dk.item():.6g} vs {dp.item():.6g}"
+                                     if tensor_tau else ""))
+    return worst
+
+
+def loss_timing_phase(fd, smi: str) -> dict:
+    """Each kernel and its plain version, at the training slice's shape
+    and the headline shape (bf16 operands: the slice's `default` tier);
+    then the loss fwd+bwd of each route at the headline shape."""
+    from crossclr_tpu_torch.ops.fused_crossclr import cross_clr_intra_fused
+
+    times = {}
+    for b, d in (SLICE_LOSS_SHAPE, HEADLINE_LOSS_SHAPE):
+        v32, t32, g_v, g_t = loss_inputs(b, d, seed=3)
+        v, t = (x.contiguous() for x in fd._fetch_cast("default", v32, t32))
+        s = 1.0 / 0.03
+        scale = torch.full((1,), s, device="cuda")
+        lse = fd.sym_fwd_plain(v, t, s, NEG_WEIGHT)
+        pairs = {
+            "sym_fwd": (lambda: fd.sym_fwd_cuda(v, t, s, NEG_WEIGHT),
+                        lambda: fd.sym_fwd_plain(v, t, s, NEG_WEIGHT)),
+            "sym_bwd": (lambda: fd.sym_bwd_cuda(v, t, *lse, g_v, g_t, s, NEG_WEIGHT),
+                        lambda: fd.sym_bwd_plain(v, t, *lse, g_v, g_t, s, NEG_WEIGHT)),
+            "dual_fwd": (lambda: fd.dual_fwd_cuda(v, t, scale, NEG_WEIGHT),
+                         lambda: fd.dual_fwd_plain(v, t, scale, NEG_WEIGHT)),
+            "dual_bwd": (
+                lambda: fd.dual_bwd_cuda(v, t, scale, *lse, g_v, g_t, NEG_WEIGHT),
+                lambda: fd.dual_bwd_plain(v, t, scale, *lse, g_v, g_t, NEG_WEIGHT)),
+        }
+        for name, (kernel, plain) in pairs.items():
+            ms, plain_ms = median_ms(kernel), median_ms(plain)
+            times[(name, b, d)] = (ms, plain_ms)
+            log("loss", f"{name} B={b} D={d} bf16 operands: kernel {ms:.4f} ms, "
+                        f"plain {plain_ms:.4f} ms (median of 20; {smi})")
+
+    b, d = HEADLINE_LOSS_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    video, text = (torch.randn(b, d, generator=gen, device="cuda", requires_grad=True)
+                   for _ in range(2))
+    tau_leaf = torch.tensor(0.03, device="cuda", requires_grad=True)
+    for route, tau in (("sym", 0.03), ("dual", tau_leaf)):
+        for tier in ("highest", "default"):
+            def kernel_step():
+                cross_clr_intra_fused(video, text, temperature=tau,
+                                      negative_weight=NEG_WEIGHT,
+                                      precision=tier).backward()
+
+            def plain_step():
+                plain_loss(fd, video, text, tau, tier).backward()
+
+            ms = median_ms(kernel_step, grad=True)
+            plain_ms = median_ms(plain_step, grad=True)
+            log("loss", f"loss fwd+bwd, {route} route, {tier}, B={b} D={d}: "
+                        f"kernel {ms:.4f} ms ({b / ms * 1e3:.0f} pairs/s), plain "
+                        f"{plain_ms:.4f} ms ({b / plain_ms * 1e3:.0f} pairs/s) "
+                        f"(median of 20; {smi})")
+    return times
+
+
+# ---------------------------------------------------------------------------
+# the training slice
+# ---------------------------------------------------------------------------
+
+
+def csv_rows(path: Path) -> list[dict]:
+    with open(path, newline="") as fh:
+        return list(csv.DictReader(fh))
+
+
+def run_train(train, options: list[str], overrides: list[str]) -> None:
+    # argparse takes the positional overrides after every option
+    rc = train.main(["--config", str(ROOT / TRAIN_CONFIG), *options,
+                     *TRAIN_OVERRIDES, *overrides])
+    check(rc == 0, f"train.main exited {rc}")
+
+
+def train_rows(path: Path) -> tuple[list[dict], list[dict]]:
+    rows = csv_rows(path)
+    return ([r for r in rows if r.get("loss")],
+            [r for r in rows if r.get("eval/v2t/R@1")])
+
+
+def check_train_rows(rows: list[dict], evals: list[dict], n_eval: int, tag: str):
+    losses = [float(r["loss"]) for r in rows]
+    check(len(losses) >= 2 and all(math.isfinite(x) for x in losses),
+          f"{tag}: losses {losses}")
+    check(losses[-1] < losses[0], f"{tag}: loss did not fall: {losses}")
+    chance = 100.0 / n_eval
+    for r in evals:
+        check(float(r["eval/v2t/R@1"]) > chance,
+              f"{tag}: eval v2t/R@1 {r['eval/v2t/R@1']} at step {r['step']} "
+              f"not above chance {chance:.4f}")
+    return losses
+
+
+def reset_counts(fd) -> None:
+    for name in fd.launch_counts:
+        fd.launch_counts[name] = 0
+
+
+def train_phase(fd, smi: str) -> dict:
+    """The training CLI at full width: sym route, resume, then learnable τ
+    (dual route).  Returns each loss kernel's launches on its path."""
+    from crossclr_tpu_torch import train
+    from crossclr_tpu_torch.training import CheckpointManager
+
+    n_eval = int(16384 * 0.1)  # data.eval_fraction's default
+    launches = {}
+    with tempfile.TemporaryDirectory(prefix="crossclr_smoke_") as tmp:
+        tmp = Path(tmp)
+        ckpt, metrics = tmp / "ckpt", tmp / "metrics.csv"
+        leg = ["--metrics-csv", str(metrics)]
+        reset_counts(fd)  # the sym path: leg 1 and its resume
+        t0 = time.perf_counter()
+        run_train(train, ["--steps", "300", *leg], [f"checkpoint_dir={ckpt}"])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        leg1 = dict(fd.launch_counts)
+        rows, evals = train_rows(metrics)
+        losses = check_train_rows(rows, evals, n_eval, "leg 1")
+        check([int(r["step"]) for r in evals] == [100, 200, 300],
+              f"leg 1 evals at {[r['step'] for r in evals]}")
+        check(CheckpointManager(ckpt).latest_step() == 300, "leg 1 checkpoint")
+        pairs_per_sec = float(rows[-1]["pairs_per_sec"])
+        log("train", f"leg 1 (τ=0.03, sym route): 300 steps in {seconds:.1f} s; "
+                     f"loss {losses[0]:.4f} (step {rows[0]['step']}) -> "
+                     f"{losses[-1]:.4f} (step 300); eval v2t/R@1 "
+                     f"{float(evals[-1]['eval/v2t/R@1']):.2f}, t2v/R@1 "
+                     f"{float(evals[-1]['eval/t2v/R@1']):.2f} over {n_eval} "
+                     f"held-out pairs (chance {100 / n_eval:.3f}); launches {leg1}")
+        log("train", f"steady train rate (steps 221-300, batch 1024): "
+                     f"{pairs_per_sec:.1f} pairs/s, "
+                     f"{float(rows[-1]['steps_per_sec']):.2f} steps/s ({smi})")
+        check(leg1["sym_fwd"] > 0 and leg1["sym_bwd"] > 0,
+              f"leg 1 launched no sym kernel: {leg1}")
+        check(leg1["dual_fwd"] == 0 and leg1["dual_bwd"] == 0,
+              f"leg 1 took the dual route: {leg1}")
+
+        run_train(train, ["--steps", "340", *leg], [f"checkpoint_dir={ckpt}"])
+        rows2, _ = train_rows(metrics)
+        resumed = [int(r["step"]) for r in rows2[len(rows):]]
+        check(CheckpointManager(ckpt).latest_step() == 340 and resumed
+              and min(resumed) > 300 and max(resumed) == 340,
+              f"resume did not continue the step count: {resumed}")
+        launches.update({k: fd.launch_counts[k] for k in ("sym_fwd", "sym_bwd")})
+        log("train", f"resumed from step 300 to {max(resumed)}; sym launches "
+                     f"{launches}")
+
+        ckpt2, metrics2 = tmp / "ckpt_tau", tmp / "metrics_tau.csv"
+        reset_counts(fd)  # the dual path: learnable temperature
+        run_train(train, ["--steps", "100", "--metrics-csv", str(metrics2)],
+                  ["train.learnable_temperature=true", f"checkpoint_dir={ckpt2}"])
+        torch.cuda.synchronize()
+        leg2 = dict(fd.launch_counts)
+        rows, evals = train_rows(metrics2)
+        losses = check_train_rows(rows, evals, n_eval, "leg 2")
+        scales = [float(r["logit_scale"]) for r in rows]
+        check(all(abs(x) <= LOGIT_SCALE_BOUND + 1e-6 for x in scales)
+              and scales[-1] != 0.0,
+              f"logit_scale did not move or left ±ln 100: {scales}")
+        check(leg2["dual_fwd"] > 0 and leg2["dual_bwd"] > 0,
+              f"leg 2 launched no dual kernel: {leg2}")
+        check(leg2["sym_fwd"] == 0 and leg2["sym_bwd"] == 0,
+              f"leg 2 took the sym route: {leg2}")
+        launches.update({k: leg2[k] for k in ("dual_fwd", "dual_bwd")})
+        log("train", f"leg 2 (learnable τ, dual route): loss {losses[0]:.4f} -> "
+                     f"{losses[-1]:.4f}; logit_scale {scales[0]:.6f} -> "
+                     f"{scales[-1]:.6f} (effective τ "
+                     f"{float(rows[-1]['effective_temperature']):.6f}); eval "
+                     f"v2t/R@1 {float(evals[-1]['eval/v2t/R@1']):.2f}; "
+                     f"steady {float(rows[-1]['pairs_per_sec']):.1f} pairs/s; "
+                     f"launches {leg2} ({smi})")
+    return launches
+
+
 def main() -> int:
     smi = device_phase()
     sys.path.insert(0, str(ROOT))
+    # the plain versions' products in full fp32 (PyTorch's default, stated)
+    torch.backends.cuda.matmul.allow_tf32 = False
     fa = importlib.import_module("crossclr_tpu_torch.ops.flash_attention")
+    fd = importlib.import_module("crossclr_tpu_torch.ops.fused_dual")
     build_phase()
     kernel = kernel_phase(fa, smi)
     launches = slice_phase(fa, smi)
-    print(json.dumps({"kernels": [{
+    loss_worst = loss_check_phase(fd)
+    loss_times = loss_timing_phase(fd, smi)
+    loss_launches = train_phase(fd, smi)
+    records = [{
         "name": "flash_fwd", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": REPLACES, "launches": launches, **kernel,
-    }]}), flush=True)
+    }]
+    for name in fd.KERNELS:
+        ms, plain_ms = loss_times[(name, *SLICE_LOSS_SHAPE)]
+        records.append({
+            "name": name, "route": "cuda", "source": LOSS_SOURCE,
+            "replaces": LOSS_REPLACES[name], "launches": loss_launches[name],
+            "max_abs_err": loss_worst[name], "ms": ms, "plain_ms": plain_ms,
+        })
+    print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

@@ -10,7 +10,9 @@ bit-identical to the JAX package's for the same config and seed.
   bf16.  A bf16 store is kept as its raw ``uint16`` records (numpy has no
   bf16 without ml_dtypes); ``training.trainer.to_tensor`` reinterprets
   them as ``torch.bfloat16``.  int8 stores wait for a later port.
-* :func:`epoch_batches` — the deterministic per-(seed, epoch) batcher.
+* :func:`epoch_batches` — the deterministic per-(seed, epoch) batcher;
+  :func:`infinite_batches` — its endless, resumable stream.
+* :class:`RowSubset` / :func:`train_eval_split` — the held-out eval split.
 """
 
 from __future__ import annotations
@@ -25,10 +27,17 @@ import numpy as np
 
 __all__ = [
     "FeaturePairDataset",
+    "RowSubset",
     "SyntheticPairs",
     "dataset_from_config",
     "epoch_batches",
+    "infinite_batches",
+    "train_eval_split",
 ]
+
+# per-row companions to the two feature fields, carried through every view
+# and batcher (the JAX package also carries int8 scales, not ported yet)
+_AUX_FIELDS = ("video_mask", "text_mask")
 
 
 def dataset_from_config(data_cfg):
@@ -196,6 +205,34 @@ class FeaturePairDataset:
         return self.video.shape[0]
 
 
+class RowSubset:
+    """Lazy contiguous row-range view ``[start, stop)`` of a dataset (plain
+    slicing keeps memory-mapped stores lazy)."""
+
+    def __init__(self, dataset, start: int, stop: int):
+        self.video = dataset.video[start:stop]
+        self.text = dataset.text[start:stop]
+        for name in _AUX_FIELDS:
+            m = getattr(dataset, name, None)
+            setattr(self, name, None if m is None else m[start:stop])
+
+    def __len__(self) -> int:
+        return self.video.shape[0]
+
+
+def train_eval_split(dataset, eval_rows: int) -> tuple[RowSubset, RowSubset]:
+    """Disjoint ``(train, eval)`` row views: eval = the FIRST ``eval_rows``
+    rows, train = everything after (the same eval set across resumed
+    runs, with no extra state)."""
+    n = len(dataset)
+    if not 0 < eval_rows < n:
+        raise ValueError(
+            f"eval_rows must be in (0, {n}), got {eval_rows}: need at least "
+            "one train row and one eval row"
+        )
+    return RowSubset(dataset, eval_rows, n), RowSubset(dataset, 0, eval_rows)
+
+
 def _epoch_indices(n_rows: int, batch_size: int, *, seed: int, epoch: int,
                    shuffle: bool, drop_remainder: bool, start_batch: int
                    ) -> Iterator[np.ndarray]:
@@ -215,7 +252,7 @@ def epoch_batches(dataset, batch_size: int, *, seed: int = 0, epoch: int = 0,
     """Yield ``{"video", "text", "video_mask"?, "text_mask"?}`` numpy
     batches, deterministic in (seed, epoch)."""
     fields = {"video": dataset.video, "text": dataset.text}
-    for name in ("video_mask", "text_mask"):
+    for name in _AUX_FIELDS:
         m = getattr(dataset, name, None)
         if m is not None:
             fields[name] = m
@@ -224,3 +261,25 @@ def epoch_batches(dataset, batch_size: int, *, seed: int = 0, epoch: int = 0,
         drop_remainder=drop_remainder, start_batch=start_batch,
     ):
         yield {k: np.ascontiguousarray(src[idx]) for k, src in fields.items()}
+
+
+def infinite_batches(dataset, batch_size: int, *, seed: int = 0,
+                     start_step: int = 0, **kw) -> Iterator[dict]:
+    """Endless stream of epoch batches, reshuffled per epoch.
+    ``start_step`` fast-forwards to the state after that many batches (a
+    resumed run continues the exact sequence); the skip gathers no rows."""
+    n = len(dataset)
+    if kw.get("drop_remainder", True):
+        per_epoch = n // batch_size
+    else:
+        per_epoch = -(-n // batch_size)  # ceil: the last partial batch counts
+    if per_epoch == 0:
+        raise ValueError(f"batch_size {batch_size} exceeds dataset size {n}")
+    epoch, start_batch = divmod(start_step, per_epoch)
+    while True:
+        yield from epoch_batches(
+            dataset, batch_size, seed=seed, epoch=epoch,
+            start_batch=start_batch, **kw
+        )
+        start_batch = 0
+        epoch += 1

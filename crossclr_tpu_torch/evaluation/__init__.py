@@ -1,5 +1,15 @@
-"""Retrieval."""
+"""Retrieval and its metrics."""
 
-from .retrieval import retrieve_topk, similarity_matrix
+from .retrieval import (
+    rank_of_ground_truth,
+    retrieval_metrics,
+    retrieve_topk,
+    similarity_matrix,
+)
 
-__all__ = ["retrieve_topk", "similarity_matrix"]
+__all__ = [
+    "rank_of_ground_truth",
+    "retrieval_metrics",
+    "retrieve_topk",
+    "similarity_matrix",
+]

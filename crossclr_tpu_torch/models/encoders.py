@@ -16,7 +16,11 @@ The arithmetic follows the Flax towers step by step:
 * ``pos_embed`` is cast to the compute dtype before the add;
 * pooling is a masked mean in fp32 and ``output_proj`` runs in fp32.
 
-The towers run in eval mode: dropout is off and no backward is ported.
+Parameters stay fp32 and autograd runs through the casts, so the MLP
+towers train; ``MLPTower`` applies ``nn.Dropout`` after the GELU when
+``cfg.dropout > 0`` (train mode only).  The transformer towers have no
+training dropout yet, and a backward through ``attention="flash"`` is
+refused by the flash wrapper (its backward kernels are not ported).
 """
 
 from __future__ import annotations
@@ -97,6 +101,8 @@ class MLPTower(nn.Module):
             )
             in_dim = cfg.embed_dim
         self.norm = _ln(cfg.embed_dim)
+        # no parameters: the state_dict keys stay the Flax paths
+        self.dropout = nn.Dropout(cfg.dropout) if cfg.dropout > 0 else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h = x.to(self.cfg.dtype)
@@ -104,6 +110,8 @@ class MLPTower(nn.Module):
             suffix = "" if layer == 0 else f"_{layer}"
             skip = self.get_submodule(f"skip{suffix}")(h)
             y = _gelu(self.get_submodule(f"fc1{suffix}")(h))
+            if self.dropout is not None:
+                y = self.dropout(y)
             h = skip + self.get_submodule(f"fc2{suffix}")(y)
         return self.norm(h.float())
 

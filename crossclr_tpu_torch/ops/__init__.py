@@ -3,5 +3,14 @@ version.  Importing this package builds nothing: a kernel is compiled at
 its first launch on a CUDA tensor."""
 
 from .flash_attention import flash_attention, mha_reference
+from .fused_crossclr import cross_clr_intra_fused, fused_lse_pair
+from .fused_dual import dual_lse_pair, sym_supported
 
-__all__ = ["flash_attention", "mha_reference"]
+__all__ = [
+    "cross_clr_intra_fused",
+    "dual_lse_pair",
+    "flash_attention",
+    "fused_lse_pair",
+    "mha_reference",
+    "sym_supported",
+]

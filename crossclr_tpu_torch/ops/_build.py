@@ -9,8 +9,9 @@ threads or processes, serialize on a file lock, after the precedent of
 ``native/.build.lock`` in the JAX package.
 
 Nothing here runs at import time: the first launch of a kernel on a CUDA
-tensor calls :func:`load_library`.  A failed build raises; nothing falls
-back.
+tensor calls :func:`load_library`; :func:`load_libraries` builds several
+sources at once, one ``nvcc`` process each, all started together.  A failed
+build raises; nothing falls back.
 """
 
 from __future__ import annotations
@@ -53,44 +54,65 @@ def _nvcc() -> str:
     )
 
 
-def load_library(source: str) -> ctypes.CDLL:
-    """Build (if needed) and load ``csrc/<source>``; cached per process."""
+def _so_path(source: str) -> Path:
+    src = _CSRC / source
+    digest = hashlib.sha256(
+        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
+    ).hexdigest()[:16]
+    return _BUILD_DIR / f"{src.stem}_{digest}.so"
+
+
+def load_libraries(sources) -> list[ctypes.CDLL]:
+    """Build (if needed) and load ``csrc/<source>`` for each source; every
+    missing library compiles at the same time.  Cached per process."""
+    sources = list(sources)
     with _lock:
-        lib = _libraries.get(source)
-        if lib is not None:
-            return lib
-        src = _CSRC / source
-        digest = hashlib.sha256(
-            src.read_bytes() + " ".join(NVCC_FLAGS).encode()
-        ).hexdigest()[:16]
-        so = _BUILD_DIR / f"{src.stem}_{digest}.so"
+        missing = [s for s in sources if s not in _libraries]
         t0 = time.perf_counter()
-        built, log = False, ""
-        if not so.exists():
+        logs = {s: ("", False) for s in missing}
+        todo = [s for s in missing if not _so_path(s).exists()]
+        if todo:
             _BUILD_DIR.mkdir(parents=True, exist_ok=True)
             with open(_BUILD_DIR / ".build.lock", "w") as lock_file:
                 fcntl.flock(lock_file, fcntl.LOCK_EX)
-                if not so.exists():  # another process may have built it
-                    tmp = so.with_suffix(f".{os.getpid()}.tmp")
-                    proc = subprocess.run(
-                        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
-                        capture_output=True, text=True,
-                    )
-                    log = proc.stdout + proc.stderr
+                # another process may have built some while we waited
+                todo = [s for s in todo if not _so_path(s).exists()]
+                procs = {}
+                for source in todo:
+                    tmp = _so_path(source).with_suffix(f".{os.getpid()}.tmp")
+                    procs[source] = (tmp, subprocess.Popen(
+                        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+                         str(_CSRC / source)],
+                        stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                        text=True,
+                    ))
+                failed = []
+                for source, (tmp, proc) in procs.items():
+                    log = proc.communicate()[0]
                     if proc.returncode != 0:
                         tmp.unlink(missing_ok=True)
-                        raise RuntimeError(
-                            f"nvcc failed to build {src} "
-                            f"(exit {proc.returncode}):\n{log}"
+                        failed.append(
+                            f"nvcc failed to build {_CSRC / source} (exit "
+                            f"{proc.returncode}):\n{log}"
                         )
-                    os.replace(tmp, so)
-                    built = True
-        lib = ctypes.CDLL(str(so))
-        build_info[source] = {
-            "path": str(so),
-            "seconds": time.perf_counter() - t0,
-            "built": built,
-            "log": log,
-        }
-        _libraries[source] = lib
-        return lib
+                        continue
+                    os.replace(tmp, _so_path(source))
+                    logs[source] = (log, True)
+                if failed:
+                    raise RuntimeError("\n".join(failed))
+        for source in missing:
+            so = _so_path(source)
+            _libraries[source] = ctypes.CDLL(str(so))
+            log, built = logs[source]
+            build_info[source] = {
+                "path": str(so),
+                "seconds": time.perf_counter() - t0,
+                "built": built,
+                "log": log,
+            }
+        return [_libraries[s] for s in sources]
+
+
+def load_library(source: str) -> ctypes.CDLL:
+    """Build (if needed) and load ``csrc/<source>``; cached per process."""
+    return load_libraries([source])[0]

@@ -1,0 +1,524 @@
+// The CrossCLR-intra logsumexp pair for Hopper (sm_90a): four kernels with a
+// plain C interface.
+//
+// Replaces the TPU kernels of crossclr_tpu/ops/fused_dual.py (unpruned):
+//   crossclr_sym_fwd   <- _sym_fwd_kernel   (static τ: constant shift m0)
+//   crossclr_sym_bwd   <- _sym_bwd_kernel   (factored exp(z)·g·e^{-lse})
+//   crossclr_dual_fwd  <- _dual_fwd_kernel  (traced τ: online max)
+//   crossclr_dual_bwd  <- _dual_bwd_kernel  (subtract-first, and Σ coeff⊙z
+//                                            for d loss / d scale)
+// The JAX dual backward's `factored` form runs there only for a float τ
+// whose sym kernels a VMEM or tile gate refuses; here that τ takes sym.
+//
+// The math, for L2-normalized V, T [n, d] and scale s = 1/τ, weight w:
+//   lse_v[i] = log( Σ_j exp(s·v_i·t_j) + Σ_j exp(w·s·v_i·v_j) ),
+//   lse_t[i] = log( Σ_j exp(s·t_i·v_j) + Σ_j exp(w·s·t_i·t_j) ),
+// the intra logit of j = i ZEROED (exp(0) = 1 stays in the sum).  Given the
+// cotangents g_v, g_t of the two lse vectors, with M[i,j] =
+// g_v[i]·e^{z_vt[i,j] - lse_v[i]} + g_t[j]·e^{z_vt[i,j] - lse_t[j]} and the
+// intra coefficients Q_v, Q_t built the same way (0 on the diagonal):
+//   dV = s·(M·T + w·Q_v·V),   dT = s·(Mᵀ·V + w·Q_t·T),
+//   Σ M⊙z_vt + ½(Σ Q_v⊙z_vv + Σ Q_t⊙z_tt) = s · d loss / d s.
+//
+// Design: owner-computes.  A block owns one 64-row tile of ONE direction's
+// anchors (blockIdx.y = 0: video anchors, candidates T then V; 1: text
+// anchors, candidates V then T) and loops over every 64-row candidate tile
+// itself, recomputing the logits it needs.  The text direction's inter
+// logits are the video direction's transposed, so the role swap makes both
+// directions one code path.  The TPU kernels instead carry column sums and
+// column gradients across a sequential grid in VMEM scratch and share the
+// inter tile and the lower intra triangle between the two directions; blocks
+// on this card run in parallel in no order, so nothing carries over between
+// them.  Owners need no atomics: every output element is written by one
+// block and every sum has a fixed order, so runs are bit-reproducible.
+// d loss / d scale is reduced from per-block partials in index order by a
+// second one-block kernel.  The inter logits of the text-anchor blocks are
+// the transposes of the video-anchor blocks' ones, so only blockIdx.y = 0
+// adds Σ M⊙z_vt; each direction adds half of its own intra sum.
+//
+// The logit tiles are 64 x 64 products over d, staged through shared memory
+// in 32-feature chunks (fp32, or bf16 widened to fp32 on load: both tiers
+// accumulate in fp32).  256 threads each own a 4 x 4 micro tile.  A backward
+// block keeps its gradient rows [64, ≤512 features] in shared memory and
+// adds coefficient-tile × candidate-tile products into them; wider features
+// split over blockIdx.z, each z recomputing the logits.  Edges of n and d are
+// masked in the kernels, so any n and d run unpadded.
+//
+// What bounds it on this card: scalar fp32 FMAs issued from shared memory.
+// The forward does 4·n²·d FMAs, the backward 8·n²·d, about a third more
+// than the TPU design (which shares the inter tile and the intra triangle);
+// operands are read from L2 once per (row tile, column tile).  Tensor-core
+// products (mma / wgmma on bf16 tiles), sharing the inter tile between the
+// two directions and splitting the column loop over more blocks at small n
+// are the next steps.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stddef.h>
+
+namespace {
+
+constexpr int kTile = 64;         // anchor rows per block = candidate rows per tile
+constexpr int kThreads = 256;     // 16 x 16 threads, a 4 x 4 micro tile each
+constexpr int kChunk = 32;        // features per staged chunk of a logit product
+constexpr int kLd = kTile + 4;    // padded row stride, float4-aligned
+constexpr int kOutChunk = 512;    // gradient features one backward block owns
+constexpr float kNegFloor = -1e30f;  // the online max's finite floor
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+// s[k][r] = x[r0 + r][k0 + k] for a 64-row x 32-feature chunk, 0 outside.
+template <typename T>
+__device__ __forceinline__ void stage_chunk(const T* __restrict__ x, int r0,
+                                            int k0, int n, int d, float* s) {
+  for (int i = threadIdx.x; i < kTile * kChunk; i += kThreads) {
+    const int r = i / kChunk, k = i - r * kChunk;
+    const int row = r0 + r, col = k0 + k;
+    s[k * kLd + r] =
+        (row < n && col < d) ? to_f32(x[(size_t)row * d + col]) : 0.f;
+  }
+}
+
+// acc[r][c] = <x[x0 + 4ty + r], y[y0 + 4tx + c]> over all d features.
+template <typename T>
+__device__ void tile_dot(const T* __restrict__ x, int x0,
+                         const T* __restrict__ y, int y0, int n, int d,
+                         float* sx, float* sy, float (&acc)[4][4]) {
+  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[r][c] = 0.f;
+  for (int k0 = 0; k0 < d; k0 += kChunk) {
+    __syncthreads();  // the previous readers of sx, sy are done
+    stage_chunk(x, x0, k0, n, d, sx);
+    stage_chunk(y, y0, k0, n, d, sy);
+    __syncthreads();
+#pragma unroll 8
+    for (int k = 0; k < kChunk; ++k) {
+      const float4 a = *reinterpret_cast<const float4*>(sx + k * kLd + 4 * ty);
+      const float4 b = *reinterpret_cast<const float4*>(sy + k * kLd + 4 * tx);
+      const float av[4] = {a.x, a.y, a.z, a.w};
+      const float bv[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[r][c] = fmaf(av[r], bv[c], acc[r][c]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// forward: one direction's lse for a 64-row anchor tile
+// ---------------------------------------------------------------------------
+
+// kOnline = false: the sym kernel (static scale, constant shift m0, plain
+// sums); true: the dual kernel (scale read from device memory, online max).
+template <typename T, bool kOnline>
+__global__ void __launch_bounds__(kThreads)
+lse_fwd_kernel(const T* __restrict__ v, const T* __restrict__ t,
+               const float* __restrict__ scale_ptr, float scale_arg, float w,
+               float* __restrict__ lse_v, float* __restrict__ lse_t, int n,
+               int d) {
+  __shared__ __align__(16) float sx[kChunk * kLd];
+  __shared__ __align__(16) float sy[kChunk * kLd];
+  const bool text = blockIdx.y != 0;
+  const T* a = text ? t : v;
+  const T* o = text ? v : t;
+  const float s = kOnline ? *scale_ptr : scale_arg;
+  const float ws = w * s;
+  const float m0 = fmaxf(fmaxf(s, ws), 0.f);
+  const int r0 = blockIdx.x * kTile;
+  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
+
+  float m[4], l[4];
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    m[r] = kOnline ? kNegFloor : m0;
+    l[r] = 0.f;
+  }
+  float acc[4][4];
+  for (int c0 = 0; c0 < n; c0 += kTile) {
+    for (int part = 0; part < 2; ++part) {
+      const bool intra = part == 1;
+      tile_dot(a, r0, intra ? a : o, c0, n, d, sx, sy, acc);
+      const float zs = intra ? ws : s;
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int row = r0 + 4 * ty + r;
+        float z[4];
+        bool ok[4];
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int col = c0 + 4 * tx + c;
+          ok[c] = col < n;
+          // the zeroed (not dropped) self-similarity logit
+          z[c] = (intra && row == col) ? 0.f : zs * acc[r][c];
+        }
+        if constexpr (kOnline) {
+          float tmax = kNegFloor;
+#pragma unroll
+          for (int c = 0; c < 4; ++c)
+            if (ok[c]) tmax = fmaxf(tmax, z[c]);
+          const float mn = fmaxf(m[r], tmax);
+          float add = 0.f;
+#pragma unroll
+          for (int c = 0; c < 4; ++c)
+            if (ok[c]) add += expf(z[c] - mn);
+          l[r] = l[r] * expf(m[r] - mn) + add;
+          m[r] = mn;
+        } else {
+#pragma unroll
+          for (int c = 0; c < 4; ++c)
+            if (ok[c]) l[r] += expf(z[c] - m0);
+        }
+      }
+    }
+  }
+  // a row's 16 partials live on 16 consecutive lanes of one warp
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+#pragma unroll
+    for (int off = 8; off > 0; off >>= 1) {
+      const float lo = __shfl_xor_sync(0xffffffffu, l[r], off);
+      if constexpr (kOnline) {
+        const float mo = __shfl_xor_sync(0xffffffffu, m[r], off);
+        const float mn = fmaxf(m[r], mo);
+        l[r] = l[r] * expf(m[r] - mn) + lo * expf(mo - mn);
+        m[r] = mn;
+      } else {
+        l[r] += lo;
+      }
+    }
+    const int row = r0 + 4 * ty + r;
+    if (tx == 0 && row < n) (text ? lse_t : lse_v)[row] = m[r] + logf(l[r]);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// backward: one direction's gradient rows for a 64-row anchor tile
+// ---------------------------------------------------------------------------
+
+// sout[r][f] += Σ_c sc[r][c] · x[c0 + c][d0 + f] for f < dc.  `so` is a
+// [kTile][kLd] staging area (it aliases the logit chunks sx, sy).
+template <typename T>
+__device__ void add_product(const float* sc, const T* __restrict__ x, int c0,
+                            int n, int d, int d0, int dc, float* so,
+                            float* sout, int ldo) {
+  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
+  for (int f0 = 0; f0 < dc; f0 += kTile) {
+    __syncthreads();  // sc is written; the previous readers of so are done
+    for (int i = threadIdx.x; i < kTile * kTile; i += kThreads) {
+      const int c = i / kTile, f = i - c * kTile;
+      const int row = c0 + c;
+      so[c * kLd + f] = (row < n && f0 + f < dc)
+                            ? to_f32(x[(size_t)row * d + d0 + f0 + f])
+                            : 0.f;
+    }
+    __syncthreads();
+    float acc[4][4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[r][c] = 0.f;
+#pragma unroll 4
+    for (int c = 0; c < kTile; ++c) {
+      const float4 b = *reinterpret_cast<const float4*>(so + c * kLd + 4 * tx);
+      const float bv[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const float a = sc[(4 * ty + r) * kLd + c];
+#pragma unroll
+        for (int k = 0; k < 4; ++k) acc[r][k] = fmaf(a, bv[k], acc[r][k]);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int f = f0 + 4 * tx + k;
+        if (f < dc) sout[(4 * ty + r) * ldo + f] += acc[r][k];
+      }
+  }
+}
+
+__host__ __device__ __forceinline__ int out_ld(int dc) {
+  return (dc + kTile - 1) / kTile * kTile + 4;
+}
+
+// kTraced = false: the sym kernel (static scale, factored coefficients
+// exp(z)·(g e^{-lse})); true: the dual kernel (scale from device memory,
+// subtract-first g·exp(z - lse), and its Σ coeff⊙z output ds_part, one
+// partial per block).
+template <typename T, bool kTraced>
+__global__ void __launch_bounds__(kThreads)
+lse_bwd_kernel(const T* __restrict__ v, const T* __restrict__ t,
+               const float* __restrict__ scale_ptr, float scale_arg, float w,
+               const float* __restrict__ lse_v, const float* __restrict__ lse_t,
+               const float* __restrict__ g_v, const float* __restrict__ g_t,
+               float* __restrict__ dv, float* __restrict__ dt,
+               float* __restrict__ ds_part, int n, int d) {
+  constexpr bool kFactored = !kTraced;
+  extern __shared__ __align__(16) float smem[];
+  const int d0 = blockIdx.z * kOutChunk;
+  const int dc = min(kOutChunk, d - d0);
+  const int ldo = out_ld(dc);
+  float* sx = smem;                   // [kChunk][kLd]
+  float* sy = sx + kChunk * kLd;      // [kChunk][kLd]; sx..sy = [kTile][kLd]
+  float* sc = sy + kChunk * kLd;      // [kTile][kLd] coefficient tile
+  float* scol_a = sc + kTile * kLd;   // [kTile] candidate factors
+  float* scol_b = scol_a + kTile;     // [kTile]
+  float* sout = scol_b + kTile;       // [kTile][ldo] gradient rows
+
+  const bool text = blockIdx.y != 0;
+  const T* a = text ? t : v;
+  const T* o = text ? v : t;
+  const float* lse_a = text ? lse_t : lse_v;
+  const float* lse_o = text ? lse_v : lse_t;
+  const float* g_a = text ? g_t : g_v;
+  const float* g_o = text ? g_v : g_t;
+  float* out = text ? dt : dv;
+  const float s = kTraced ? *scale_ptr : scale_arg;
+  const int r0 = blockIdx.x * kTile;
+  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
+
+  for (int i = threadIdx.x; i < kTile * ldo; i += kThreads) sout[i] = 0.f;
+  // this thread's anchor-row factors
+  float ra[4], rb[4];
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int row = r0 + 4 * ty + r;
+    ra[r] = rb[r] = 0.f;
+    if (row < n) {
+      if constexpr (kFactored) {
+        ra[r] = g_a[row] * expf(-lse_a[row]);
+      } else {
+        ra[r] = g_a[row];
+        rb[r] = lse_a[row];
+      }
+    }
+  }
+  float ds_acc = 0.f;
+  float acc[4][4];
+  for (int c0 = 0; c0 < n; c0 += kTile) {
+    for (int part = 0; part < 2; ++part) {
+      const bool intra = part == 1;
+      const T* cand = intra ? a : o;
+      const float* g_c = intra ? g_a : g_o;
+      const float* lse_c = intra ? lse_a : lse_o;
+      tile_dot(a, r0, cand, c0, n, d, sx, sy, acc);
+      if (threadIdx.x < kTile) {
+        const int col = c0 + threadIdx.x;
+        float fa = 0.f, fb = 0.f;
+        if (col < n) {
+          if constexpr (kFactored) {
+            fa = g_c[col] * expf(-lse_c[col]);
+          } else {
+            fa = g_c[col];
+            fb = lse_c[col];
+          }
+        }
+        scol_a[threadIdx.x] = fa;
+        scol_b[threadIdx.x] = fb;
+      }
+      __syncthreads();
+      const float zs = intra ? w * s : s;
+      // each (anchor, candidate) logit enters d loss / d s once: the
+      // inter logits through the video-anchor blocks only, each intra
+      // logit half through either of its two anchors' blocks
+      const float ds_weight = intra ? 0.5f : (text ? 0.f : 1.f);
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int row = r0 + 4 * ty + r;
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int cl = 4 * tx + c;
+          const int col = c0 + cl;
+          const float z = zs * acc[r][c];
+          float coef = 0.f;
+          // a zeroed intra logit is a constant: no gradient
+          if (row < n && col < n && !(intra && row == col)) {
+            if constexpr (kFactored)
+              coef = expf(z) * (ra[r] + scol_a[cl]);
+            else
+              coef = ra[r] * expf(z - rb[r]) + scol_a[cl] * expf(z - scol_b[cl]);
+          }
+          if constexpr (kTraced) ds_acc = fmaf(ds_weight * coef, z, ds_acc);
+          sc[(4 * ty + r) * kLd + cl] = intra ? w * coef : coef;
+        }
+      }
+      add_product(sc, cand, c0, n, d, d0, dc, sx, sout, ldo);
+    }
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < kTile * dc; i += kThreads) {
+    const int rr = i / dc, f = i - rr * dc;
+    const int row = r0 + rr;
+    if (row < n) out[(size_t)row * d + d0 + f] = s * sout[rr * ldo + f];
+  }
+  if constexpr (kTraced) {
+    __shared__ float warp_sums[kThreads / 32];
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      ds_acc += __shfl_xor_sync(0xffffffffu, ds_acc, off);
+    if ((threadIdx.x & 31) == 0) warp_sums[threadIdx.x >> 5] = ds_acc;
+    __syncthreads();
+    if (threadIdx.x == 0 && blockIdx.z == 0) {
+      float total = 0.f;
+      for (int i = 0; i < kThreads / 32; ++i) total += warp_sums[i];
+      ds_part[blockIdx.y * gridDim.x + blockIdx.x] = total;
+    }
+  }
+}
+
+// out[0] = Σ part[i], in a fixed order.
+__global__ void __launch_bounds__(kThreads)
+sum_partials_kernel(const float* __restrict__ part, int count,
+                    float* __restrict__ out) {
+  __shared__ float buf[kThreads];
+  float x = 0.f;
+  for (int i = threadIdx.x; i < count; i += kThreads) x += part[i];
+  buf[threadIdx.x] = x;
+  __syncthreads();
+  for (int half = kThreads / 2; half > 0; half >>= 1) {
+    if (threadIdx.x < half) buf[threadIdx.x] += buf[threadIdx.x + half];
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) out[0] = buf[0];
+}
+
+int row_tiles(int n) { return (n + kTile - 1) / kTile; }
+
+size_t bwd_smem_bytes(int d) {
+  const int dc = d < kOutChunk ? d : kOutChunk;
+  return sizeof(float) *
+         (2 * kChunk * kLd + kTile * kLd + 2 * kTile + kTile * out_ld(dc));
+}
+
+template <typename T, bool kOnline>
+cudaError_t launch_fwd(const void* v, const void* t, const float* scale_ptr,
+                       float scale, float w, float* lse_v, float* lse_t, int n,
+                       int d, cudaStream_t stream) {
+  const dim3 grid(row_tiles(n), 2);
+  lse_fwd_kernel<T, kOnline><<<grid, kThreads, 0, stream>>>(
+      static_cast<const T*>(v), static_cast<const T*>(t), scale_ptr, scale, w,
+      lse_v, lse_t, n, d);
+  return cudaGetLastError();
+}
+
+template <typename T, bool kTraced>
+cudaError_t launch_bwd(const void* v, const void* t, const float* scale_ptr,
+                       float scale, float w, const float* lse_v,
+                       const float* lse_t, const float* g_v, const float* g_t,
+                       float* dv, float* dt, float* ds_part, int n, int d,
+                       cudaStream_t stream) {
+  const size_t smem = bwd_smem_bytes(d);
+  cudaError_t err = cudaFuncSetAttribute(
+      lse_bwd_kernel<T, kTraced>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(row_tiles(n), 2, (d + kOutChunk - 1) / kOutChunk);
+  lse_bwd_kernel<T, kTraced><<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(v), static_cast<const T*>(t), scale_ptr, scale, w,
+      lse_v, lse_t, g_v, g_t, dv, dt, ds_part, n, d);
+  return cudaGetLastError();
+}
+
+bool bad_shape(int dtype, int n, int d) {
+  return n < 1 || d < 1 || (dtype != 0 && dtype != 1);
+}
+
+}  // namespace
+
+// dtype: 0 = float32, 1 = bfloat16 (v, t); every other array is float32:
+// lse_*, g_* [n] (the [n, 1] columns), dv, dt [n, d], scale and ds [1].
+// Each function returns a cudaError_t; launches are asynchronous on `stream`.
+
+extern "C" int crossclr_sym_fwd(int dtype, const void* v, const void* t,
+                                void* lse_v, void* lse_t, int n, int d,
+                                float scale, float w, void* stream) {
+  if (bad_shape(dtype, n, d)) return (int)cudaErrorInvalidValue;
+  float* lv = static_cast<float*>(lse_v);
+  float* lt = static_cast<float*>(lse_t);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return (int)launch_fwd<float, false>(v, t, nullptr, scale, w, lv, lt, n,
+                                         d, st);
+  return (int)launch_fwd<__nv_bfloat16, false>(v, t, nullptr, scale, w, lv,
+                                               lt, n, d, st);
+}
+
+extern "C" int crossclr_dual_fwd(int dtype, const void* v, const void* t,
+                                 const void* scale, void* lse_v, void* lse_t,
+                                 int n, int d, float w, void* stream) {
+  if (bad_shape(dtype, n, d)) return (int)cudaErrorInvalidValue;
+  const float* sp = static_cast<const float*>(scale);
+  float* lv = static_cast<float*>(lse_v);
+  float* lt = static_cast<float*>(lse_t);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return (int)launch_fwd<float, true>(v, t, sp, 0.f, w, lv, lt, n, d, st);
+  return (int)launch_fwd<__nv_bfloat16, true>(v, t, sp, 0.f, w, lv, lt, n, d,
+                                              st);
+}
+
+extern "C" int crossclr_sym_bwd(int dtype, const void* v, const void* t,
+                                const void* lse_v, const void* lse_t,
+                                const void* g_v, const void* g_t, void* dv,
+                                void* dt, int n, int d, float scale, float w,
+                                void* stream) {
+  if (bad_shape(dtype, n, d)) return (int)cudaErrorInvalidValue;
+  const float* lv = static_cast<const float*>(lse_v);
+  const float* lt = static_cast<const float*>(lse_t);
+  const float* gv = static_cast<const float*>(g_v);
+  const float* gt = static_cast<const float*>(g_t);
+  float* ov = static_cast<float*>(dv);
+  float* ot = static_cast<float*>(dt);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return (int)launch_bwd<float, false>(v, t, nullptr, scale, w, lv, lt, gv,
+                                         gt, ov, ot, nullptr, n, d, st);
+  return (int)launch_bwd<__nv_bfloat16, false>(
+      v, t, nullptr, scale, w, lv, lt, gv, gt, ov, ot, nullptr, n, d, st);
+}
+
+// The float32 scratch `ds_part` holds crossclr_dual_bwd_partials(n) values;
+// `ds` receives Σ coeff⊙z (= scale · d loss / d scale).
+extern "C" int crossclr_dual_bwd_partials(int n) { return 2 * row_tiles(n); }
+
+extern "C" int crossclr_dual_bwd(int dtype, const void* v, const void* t,
+                                 const void* scale, const void* lse_v,
+                                 const void* lse_t, const void* g_v,
+                                 const void* g_t, void* dv, void* dt,
+                                 void* ds_part, void* ds, int n, int d, float w,
+                                 void* stream) {
+  if (bad_shape(dtype, n, d)) return (int)cudaErrorInvalidValue;
+  const float* sp = static_cast<const float*>(scale);
+  const float* lv = static_cast<const float*>(lse_v);
+  const float* lt = static_cast<const float*>(lse_t);
+  const float* gv = static_cast<const float*>(g_v);
+  const float* gt = static_cast<const float*>(g_t);
+  float* ov = static_cast<float*>(dv);
+  float* ot = static_cast<float*>(dt);
+  float* part = static_cast<float*>(ds_part);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (dtype == 0)
+    err = launch_bwd<float, true>(v, t, sp, 0.f, w, lv, lt, gv, gt, ov, ot,
+                                  part, n, d, st);
+  else
+    err = launch_bwd<__nv_bfloat16, true>(v, t, sp, 0.f, w, lv, lt, gv, gt,
+                                          ov, ot, part, n, d, st);
+  if (err != cudaSuccess) return (int)err;
+  sum_partials_kernel<<<1, kThreads, 0, st>>>(
+      part, crossclr_dual_bwd_partials(n), static_cast<float*>(ds));
+  return (int)cudaGetLastError();
+}
+
+extern "C" const char* crossclr_cuda_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}

@@ -1,0 +1,418 @@
+"""Both directions' logsumexps of the CrossCLR-intra loss in one fused pass:
+four CUDA kernels for Hopper beside their plain PyTorch versions.
+
+Counterpart of ``crossclr_tpu/ops/fused_dual.py``.  For L2-normalized
+``v, t [B, D]``, scale ``s = 1/τ`` and negative weight ``w``::
+
+    lse_v[i] = log( Σ_j exp(s·v_i·t_j) + Σ_j exp(w·s·v_i·v_j) )
+    lse_t[i] = log( Σ_j exp(s·t_i·v_j) + Σ_j exp(w·s·t_i·t_j) )
+
+with the intra logit of ``j = i`` zeroed (its ``exp(0) = 1`` stays in the
+sum, as in the released reference loss).  Two kernel pairs compute it, in
+``csrc/fused_dual.cu``:
+
+* ``sym`` (a static τ, ``_sym_fwd_kernel`` / ``_sym_bwd_kernel``): every
+  logit is bounded by ``m0 = max(s, w·s, 0)``, so the forward sums
+  ``exp(z − m0)`` with no running max and the backward uses the factored
+  coefficients ``exp(z)·(g·e^{−lse})``;
+* ``dual`` (a tensor τ, or a float τ outside the sym gates;
+  ``_dual_fwd_kernel`` / ``_dual_bwd_kernel``): an online max with a
+  −1e30 floor, subtract-first coefficients ``g·exp(z − lse)``, and
+  ``Σ coeff⊙z`` for the exact gradient of the scale.  The JAX package's
+  ``factored`` dual backward is reached there only when a float τ passes
+  the numerical gates but the sym kernels are refused by a VMEM or tile
+  gate; the port has no such gate, so that float τ always takes sym.
+
+Each kernel has its plain version here (``*_plain``: the CPU path and the
+oracle the kernel is held against on the card; the plain versions assume
+PyTorch's default ``torch.backends.cuda.matmul.allow_tf32 = False`` there),
+a wrapper that launches it on CUDA tensors (``*_cuda``) and counts the
+launch in :data:`launch_counts`, and a dispatcher that picks by the
+tensors' device.  Nothing falls back: a CUDA tensor launches the kernel or
+raises.
+
+Kept from the JAX package: the gates ``_coeff_safe`` and the numerical part
+of ``sym_supported``.  Not ported, because the CUDA kernels mask ragged
+edges and hold no VMEM budget: ``_MAX_COL_ACC_BYTES``,
+``_MAX_SYM_ACC_BYTES``, ``_pick_tiles``, ``_pick_square_tile``,
+``_lane_block_ok`` and ``_pad_lanes``; any B and D run.  The keep-mask
+(pruned) branch belongs to the full CrossCLR loss and is refused
+(ROADMAP queue 1 item 9).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+import threading
+
+import torch
+
+__all__ = [
+    "dual_lse_pair",
+    "launch_counts",
+    "sym_supported",
+]
+
+KERNELS = ("sym_fwd", "sym_bwd", "dual_fwd", "dual_bwd")
+# launches of each CUDA kernel, counted where its wrapper launches it
+launch_counts = dict.fromkeys(KERNELS, 0)
+_count_lock = threading.Lock()
+
+SOURCE = "fused_dual.cu"
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# None / "highest": fp32 operands; "default" / "bf16": bf16 operands with
+# fp32 accumulation ("bf16" is the JAX package's alias of "default")
+TIERS = (None, "highest", "default", "bf16")
+
+
+def _coeff_safe(b: int, scale: float, neg_weight: float) -> bool:
+    """Gate for the factored backward forms, which compute ``exp(z)`` and
+    ``exp(-lse)`` as separate factors: ``lse`` can reach
+    ``m0 + log(2B + 1)``, and ``exp(-x)`` past ~87 leaves the normal fp32
+    range.  The worst case must stay below 85 (the JAX package's gate,
+    kept as it is)."""
+    m0 = max(scale, neg_weight * scale, 0.0)
+    return m0 + math.log(2 * b + 1) <= 85.0
+
+
+def sym_supported(b: int, scale: float, neg_weight: float) -> bool:
+    """The static-max kernels hold for ``0 < s ≤ 80``, ``0 ≤ w·s ≤ 80`` and
+    :func:`_coeff_safe`; elsewhere the online-max kernels run."""
+    return (
+        0.0 < scale <= 80.0
+        and 0.0 <= neg_weight * scale <= 80.0
+        and _coeff_safe(b, scale, neg_weight)
+    )
+
+
+def _fetch_cast(precision, *arrays):
+    """bf16 operands for the ``default`` tier.  Applied inside the
+    autograd Functions, so the feature gradients still leave in the
+    features' own dtype (fp32)."""
+    if precision in ("default", "bf16"):
+        return tuple(a.to(torch.bfloat16) for a in arrays)
+    return arrays
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+# ---------------------------------------------------------------------------
+
+
+def _dots(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b.T`` in fp32; bf16 operands widen exactly, so this is the
+    bf16-operand, fp32-accumulation product of the ``default`` tier."""
+    return a.float() @ b.float().T
+
+
+def _eye(b: int, device) -> torch.Tensor:
+    return torch.eye(b, dtype=torch.bool, device=device)
+
+
+def sym_fwd_plain(v, t, scale: float, neg_weight: float):
+    """The sym forward: ``m0 + log(Σ exp(z − m0))`` over both candidate
+    blocks.  Returns ``(lse_v, lse_t)``, each fp32 ``[B, 1]``."""
+    eye = _eye(v.shape[0], v.device)
+    ws = neg_weight * scale
+    m0 = max(scale, ws, 0.0)
+    e_vt = torch.exp(scale * _dots(v, t) - m0)
+    e_vv = torch.exp((ws * _dots(v, v)).masked_fill(eye, 0.0) - m0)
+    e_tt = torch.exp((ws * _dots(t, t)).masked_fill(eye, 0.0) - m0)
+    lse_v = m0 + torch.log(e_vt.sum(1, keepdim=True) + e_vv.sum(1, keepdim=True))
+    lse_t = m0 + torch.log(e_vt.sum(0)[:, None] + e_tt.sum(1, keepdim=True))
+    return lse_v, lse_t
+
+
+def sym_bwd_plain(v, t, lse_v, lse_t, g_v, g_t, scale: float, neg_weight: float):
+    """The sym backward: ``(dV, dT)`` fp32 ``[B, D]`` from the factored
+    coefficients ``exp(z)·(g_r e^{−lse_r} + g_c e^{−lse_c})``, zero on the
+    intra diagonal."""
+    eye = _eye(v.shape[0], v.device)
+    ws = neg_weight * scale
+    f_v = g_v * torch.exp(-lse_v)  # [B, 1]
+    f_t = g_t * torch.exp(-lse_t)
+    m = torch.exp(scale * _dots(v, t)) * (f_v + f_t.T)
+    q_v = (torch.exp(ws * _dots(v, v)) * (f_v + f_v.T)).masked_fill(eye, 0.0)
+    q_t = (torch.exp(ws * _dots(t, t)) * (f_t + f_t.T)).masked_fill(eye, 0.0)
+    vf, tf = v.float(), t.float()
+    dv = scale * (m @ tf + neg_weight * (q_v @ vf))
+    dt = scale * (m.T @ vf + neg_weight * (q_t @ tf))
+    return dv, dt
+
+
+def dual_fwd_plain(v, t, scale, neg_weight: float):
+    """The dual forward: a max-shifted logsumexp over both candidate blocks
+    (``scale`` may be a tensor).  Returns ``(lse_v, lse_t)`` fp32 ``[B, 1]``."""
+    eye = _eye(v.shape[0], v.device)
+    z_vt = scale * _dots(v, t)
+    z_vv = ((neg_weight * scale) * _dots(v, v)).masked_fill(eye, 0.0)
+    z_tt = ((neg_weight * scale) * _dots(t, t)).masked_fill(eye, 0.0)
+    lse_v = torch.logsumexp(torch.cat([z_vt, z_vv], dim=1), dim=1, keepdim=True)
+    lse_t = torch.logsumexp(torch.cat([z_vt.T, z_tt], dim=1), dim=1, keepdim=True)
+    return lse_v, lse_t
+
+
+def dual_bwd_plain(v, t, scale, lse_v, lse_t, g_v, g_t, neg_weight: float):
+    """The dual backward: ``(dV, dT, ds_raw)`` from the subtract-first
+    coefficients, where ``ds_raw = Σ M⊙z_vt + ½(Σ Q_v⊙z_vv + Σ Q_t⊙z_tt)``
+    is ``scale · d loss / d scale``."""
+    eye = _eye(v.shape[0], v.device)
+
+    def coeff(z, g_r, l_r, g_c, l_c):
+        return g_r * torch.exp(z - l_r) + g_c * torch.exp(z - l_c)
+
+    z_vt = scale * _dots(v, t)
+    z_vv = (neg_weight * scale) * _dots(v, v)
+    z_tt = (neg_weight * scale) * _dots(t, t)
+    m = coeff(z_vt, g_v, lse_v, g_t.T, lse_t.T)
+    q_v = coeff(z_vv, g_v, lse_v, g_v.T, lse_v.T).masked_fill(eye, 0.0)
+    q_t = coeff(z_tt, g_t, lse_t, g_t.T, lse_t.T).masked_fill(eye, 0.0)
+    vf, tf = v.float(), t.float()
+    dv = scale * (m @ tf + neg_weight * (q_v @ vf))
+    dt = scale * (m.T @ vf + neg_weight * (q_t @ tf))
+    ds_raw = (m * z_vt).sum() + 0.5 * ((q_v * z_vv).sum() + (q_t * z_tt).sum())
+    return dv, dt, ds_raw.reshape(1)
+
+
+# ---------------------------------------------------------------------------
+# CUDA wrappers
+# ---------------------------------------------------------------------------
+
+_ptr, _int, _float = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_SIGNATURES = {
+    "crossclr_sym_fwd": [_int, _ptr, _ptr, _ptr, _ptr, _int, _int, _float,
+                         _float, _ptr],
+    "crossclr_sym_bwd": [_int, _ptr, _ptr, _ptr, _ptr, _ptr, _ptr, _ptr,
+                         _ptr, _int, _int, _float, _float, _ptr],
+    "crossclr_dual_fwd": [_int, _ptr, _ptr, _ptr, _ptr, _ptr, _int, _int,
+                          _float, _ptr],
+    "crossclr_dual_bwd": [_int, _ptr, _ptr, _ptr, _ptr, _ptr, _ptr, _ptr,
+                          _ptr, _ptr, _ptr, _ptr, _int, _int, _float, _ptr],
+    "crossclr_dual_bwd_partials": [_int],
+}
+
+
+def _library() -> ctypes.CDLL:
+    from ._build import load_library
+
+    lib = load_library(SOURCE)
+    if lib.crossclr_sym_fwd.argtypes is None:
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = _int
+        lib.crossclr_cuda_error_string.argtypes = [_int]
+        lib.crossclr_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _check_features(v, t, name: str) -> None:
+    if not (v.is_cuda and t.is_cuda) or v.device != t.device:
+        raise ValueError(f"{name} takes v and t as CUDA tensors on one device")
+    if v.dim() != 2 or v.shape != t.shape or v.shape[0] < 1 or v.shape[1] < 1:
+        raise ValueError(
+            f"{name} takes v, t of one shape [B, D], got {tuple(v.shape)} "
+            f"and {tuple(t.shape)}"
+        )
+    if v.dtype not in _DTYPE_CODES or t.dtype != v.dtype:
+        raise TypeError(
+            f"{name} takes float32 or bfloat16 v, t of one dtype, got "
+            f"{v.dtype}, {t.dtype}"
+        )
+    if not (v.is_contiguous() and t.is_contiguous()):
+        raise ValueError(f"{name} takes contiguous v, t")
+
+
+def _check_f32(x, shape, device, what: str) -> None:
+    if (x.device != device or x.dtype != torch.float32
+            or tuple(x.shape) != tuple(shape) or not x.is_contiguous()):
+        raise ValueError(
+            f"{what} must be a contiguous float32 tensor of shape "
+            f"{tuple(shape)} on {device}, got {x.dtype} {tuple(x.shape)} on "
+            f"{x.device}"
+        )
+
+
+def _launch(name: str, fn, *args, device) -> None:
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = fn(*args, stream)
+    if err != 0:
+        msg = _library().crossclr_cuda_error_string(err).decode()
+        raise RuntimeError(f"{name} launch failed: {msg} (cudaError {err})")
+    with _count_lock:
+        launch_counts[name] += 1
+
+
+def sym_fwd_cuda(v, t, scale: float, neg_weight: float):
+    """Launch the sym forward on CUDA ``v, t [B, D]``; returns fp32
+    ``(lse_v, lse_t)`` ``[B, 1]``."""
+    _check_features(v, t, "sym_fwd")
+    b, d = v.shape
+    lse_v = torch.empty((b, 1), device=v.device, dtype=torch.float32)
+    lse_t = torch.empty_like(lse_v)
+    _launch("sym_fwd", _library().crossclr_sym_fwd, _DTYPE_CODES[v.dtype],
+            v.data_ptr(), t.data_ptr(), lse_v.data_ptr(), lse_t.data_ptr(),
+            b, d, float(scale), float(neg_weight), device=v.device)
+    return lse_v, lse_t
+
+
+def sym_bwd_cuda(v, t, lse_v, lse_t, g_v, g_t, scale: float, neg_weight: float):
+    """Launch the sym backward; returns fp32 ``(dV, dT)`` ``[B, D]``."""
+    _check_features(v, t, "sym_bwd")
+    b, d = v.shape
+    for x, what in ((lse_v, "lse_v"), (lse_t, "lse_t"), (g_v, "g_v"), (g_t, "g_t")):
+        _check_f32(x, (b, 1), v.device, what)
+    dv = torch.empty((b, d), device=v.device, dtype=torch.float32)
+    dt = torch.empty_like(dv)
+    _launch("sym_bwd", _library().crossclr_sym_bwd, _DTYPE_CODES[v.dtype],
+            v.data_ptr(), t.data_ptr(), lse_v.data_ptr(), lse_t.data_ptr(),
+            g_v.data_ptr(), g_t.data_ptr(), dv.data_ptr(), dt.data_ptr(),
+            b, d, float(scale), float(neg_weight), device=v.device)
+    return dv, dt
+
+
+def dual_fwd_cuda(v, t, scale, neg_weight: float):
+    """Launch the dual forward; ``scale`` is a float32 ``[1]`` CUDA tensor,
+    read by the kernel (no host sync).  Returns fp32 ``(lse_v, lse_t)``."""
+    _check_features(v, t, "dual_fwd")
+    _check_f32(scale, (1,), v.device, "scale")
+    b, d = v.shape
+    lse_v = torch.empty((b, 1), device=v.device, dtype=torch.float32)
+    lse_t = torch.empty_like(lse_v)
+    _launch("dual_fwd", _library().crossclr_dual_fwd, _DTYPE_CODES[v.dtype],
+            v.data_ptr(), t.data_ptr(), scale.data_ptr(), lse_v.data_ptr(),
+            lse_t.data_ptr(), b, d, float(neg_weight), device=v.device)
+    return lse_v, lse_t
+
+
+def dual_bwd_cuda(v, t, scale, lse_v, lse_t, g_v, g_t, neg_weight: float):
+    """Launch the dual backward; returns fp32 ``(dV, dT, ds_raw [1])``."""
+    _check_features(v, t, "dual_bwd")
+    b, d = v.shape
+    _check_f32(scale, (1,), v.device, "scale")
+    for x, what in ((lse_v, "lse_v"), (lse_t, "lse_t"), (g_v, "g_v"), (g_t, "g_t")):
+        _check_f32(x, (b, 1), v.device, what)
+    lib = _library()
+    dv = torch.empty((b, d), device=v.device, dtype=torch.float32)
+    dt = torch.empty_like(dv)
+    ds_part = torch.empty(lib.crossclr_dual_bwd_partials(b), device=v.device,
+                          dtype=torch.float32)
+    ds_raw = torch.empty(1, device=v.device, dtype=torch.float32)
+    _launch("dual_bwd", lib.crossclr_dual_bwd, _DTYPE_CODES[v.dtype],
+            v.data_ptr(), t.data_ptr(), scale.data_ptr(), lse_v.data_ptr(),
+            lse_t.data_ptr(), g_v.data_ptr(), g_t.data_ptr(), dv.data_ptr(),
+            dt.data_ptr(), ds_part.data_ptr(), ds_raw.data_ptr(), b, d,
+            float(neg_weight), device=v.device)
+    return dv, dt, ds_raw
+
+
+# the route of each kernel follows the tensors' device
+def sym_fwd(v, t, scale, neg_weight):
+    return (sym_fwd_cuda if v.is_cuda else sym_fwd_plain)(v, t, scale, neg_weight)
+
+
+def sym_bwd(v, t, lse_v, lse_t, g_v, g_t, scale, neg_weight):
+    fn = sym_bwd_cuda if v.is_cuda else sym_bwd_plain
+    return fn(v, t, lse_v, lse_t, g_v, g_t, scale, neg_weight)
+
+
+def dual_fwd(v, t, scale, neg_weight):
+    return (dual_fwd_cuda if v.is_cuda else dual_fwd_plain)(v, t, scale, neg_weight)
+
+
+def dual_bwd(v, t, scale, lse_v, lse_t, g_v, g_t, neg_weight):
+    fn = dual_bwd_cuda if v.is_cuda else dual_bwd_plain
+    return fn(v, t, scale, lse_v, lse_t, g_v, g_t, neg_weight)
+
+
+# ---------------------------------------------------------------------------
+# autograd
+# ---------------------------------------------------------------------------
+
+
+def _cotangent(g: torch.Tensor) -> torch.Tensor:
+    return g.float().contiguous()
+
+
+class _SymLsePair(torch.autograd.Function):
+    """``(lse_v, lse_t)`` through the sym kernels at a static float scale;
+    gradients flow to the features only."""
+
+    @staticmethod
+    def forward(ctx, v, t, scale: float, neg_weight: float, precision):
+        vk, tk = (x.contiguous() for x in _fetch_cast(precision, v, t))
+        lse_v, lse_t = sym_fwd(vk, tk, scale, neg_weight)
+        ctx.save_for_backward(vk, tk, lse_v, lse_t)
+        ctx.scale, ctx.neg_weight = scale, neg_weight
+        ctx.dtypes = (v.dtype, t.dtype)
+        return lse_v, lse_t
+
+    @staticmethod
+    def backward(ctx, g_v, g_t):
+        vk, tk, lse_v, lse_t = ctx.saved_tensors
+        dv, dt = sym_bwd(vk, tk, lse_v, lse_t, _cotangent(g_v),
+                         _cotangent(g_t), ctx.scale, ctx.neg_weight)
+        return dv.to(ctx.dtypes[0]), dt.to(ctx.dtypes[1]), None, None, None
+
+
+class _DualLsePair(torch.autograd.Function):
+    """``(lse_v, lse_t)`` through the dual kernels at a scale TENSOR ``[1]``;
+    gradients flow to the features and to the scale."""
+
+    @staticmethod
+    def forward(ctx, v, t, scale, neg_weight: float, precision):
+        vk, tk = (x.contiguous() for x in _fetch_cast(precision, v, t))
+        lse_v, lse_t = dual_fwd(vk, tk, scale, neg_weight)
+        ctx.save_for_backward(vk, tk, scale, lse_v, lse_t)
+        ctx.neg_weight = neg_weight
+        ctx.dtypes = (v.dtype, t.dtype)
+        return lse_v, lse_t
+
+    @staticmethod
+    def backward(ctx, g_v, g_t):
+        vk, tk, scale, lse_v, lse_t = ctx.saved_tensors
+        dv, dt, ds_raw = dual_bwd(vk, tk, scale, lse_v, lse_t, _cotangent(g_v),
+                                  _cotangent(g_t), ctx.neg_weight)
+        # the kernel sums Σ coeff⊙z = scale · d loss / d scale
+        ds = ds_raw / scale
+        return dv.to(ctx.dtypes[0]), dt.to(ctx.dtypes[1]), ds, None, None
+
+
+# ---------------------------------------------------------------------------
+# entry point
+# ---------------------------------------------------------------------------
+
+
+def dual_lse_pair(v_norm: torch.Tensor, t_norm: torch.Tensor, *, temperature,
+                  negative_weight: float = 0.8, precision: str | None = None,
+                  keep_video=None, keep_text=None):
+    """Both directions' ``[B, 1]`` fp32 logsumexps of L2-normalized
+    ``v_norm, t_norm [B, D]``.
+
+    A float ``temperature`` that passes :func:`sym_supported` takes the sym
+    kernels; a tensor ``temperature`` (learnable τ), or a float outside
+    the gates, takes the dual kernels, whose backward also returns the
+    temperature's gradient.  ``precision``: None / ``"highest"`` (fp32
+    operands) or ``"default"`` / ``"bf16"`` (bf16 operands, fp32
+    accumulation; the gradients still leave in the features' dtype).
+    """
+    if keep_video is not None or keep_text is not None:
+        raise NotImplementedError(
+            "keep masks (the pruned full-CrossCLR variant) are not ported to "
+            "crossclr_tpu_torch yet (ROADMAP queue 1 item 9)"
+        )
+    if precision not in TIERS:
+        raise ValueError(f"precision must be one of {TIERS}, got {precision!r}")
+    if isinstance(temperature, torch.Tensor):
+        scale = (1.0 / temperature).float().reshape(1)
+        return _DualLsePair.apply(v_norm, t_norm, scale, negative_weight,
+                                  precision)
+    scale = 1.0 / float(temperature)
+    if sym_supported(v_norm.shape[0], scale, negative_weight):
+        return _SymLsePair.apply(v_norm, t_norm, scale, negative_weight,
+                                 precision)
+    scale_t = torch.full((1,), scale, dtype=torch.float32, device=v_norm.device)
+    return _DualLsePair.apply(v_norm, t_norm, scale_t, negative_weight,
+                              precision)

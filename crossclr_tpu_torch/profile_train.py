@@ -1,0 +1,194 @@
+"""Where a train step's time goes: ``python -m crossclr_tpu_torch.profile_train``.
+
+Builds the trainer of ``train.py`` from a config plus overrides (no eval,
+no checkpoints), warms it up with ``--warmup`` steps, then measures:
+
+* a synchronised split of single steps (median of ``--repeats``): host
+  gather, host→device copy, towers forward, loss forward, backward, the
+  optimizer update (with the clamp and EMA of ``Trainer.train_step``) and
+  the whole step;
+* one ``Trainer.fit`` of ``--steps`` steps under ``torch.profiler``: its
+  wall time and pairs/s, the device's busy share (the union of the device
+  events' intervals over the wall time), the device launches per step and
+  the ops and kernels that took the most device time.
+
+Each line carries nvidia-smi's name and power limit on a CUDA device;
+``--out`` also writes the numbers as JSON.  The split re-times the pieces
+of ``Trainer.train_step`` one by one and must follow it when that changes.
+
+Example (the training slice of chip_smoke.py):
+  python -m crossclr_tpu_torch.profile_train --config configs/youcook2_mlp.json \\
+      data.source=synthetic data.num_pairs=16384 data.video_dim=512 \\
+      data.text_dim=384
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import subprocess
+import time
+from pathlib import Path
+
+import torch
+
+
+def _card(device: torch.device) -> str:
+    if device.type != "cuda":
+        return "cpu"
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def split_step(trainer, state, batches, repeats: int) -> dict[str, float]:
+    """Median ms of each part of ``Trainer.train_step`` over ``repeats``
+    synchronised steps (the parts in its order)."""
+    from .training.trainer import _LOGIT_SCALE_BOUND, _optional, to_tensor
+
+    cfg, dev = trainer.cfg, trainer.device
+    times: dict[str, list[float]] = {}
+
+    def lap(name, t0):
+        _sync(dev)
+        t1 = time.perf_counter()
+        times.setdefault(name, []).append((t1 - t0) * 1e3)
+        return t1
+
+    model = state.model.train()
+    params = dict(model.named_parameters())
+    for _ in range(repeats):
+        _sync(dev)
+        start = t = time.perf_counter()
+        batch = next(batches)
+        t = lap("gather", t)
+        video, text = to_tensor(batch["video"], dev), to_tensor(batch["text"], dev)
+        v_mask = _optional(batch.get("video_mask"), dev)
+        t_mask = _optional(batch.get("text_mask"), dev)
+        t = lap("h2d", t)
+        v_emb, t_emb = model(video, text, v_mask, t_mask)
+        t = lap("towers_fwd", t)
+        temperature = None
+        if cfg.learnable_temperature:
+            temperature = cfg.temperature / torch.exp(model.logit_scale)
+        loss = trainer._loss_fn(v_emb, t_emb, temperature=temperature)
+        t = lap("loss_fwd", t)
+        grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
+        grads = {k: torch.zeros_like(p) if g is None else g
+                 for (k, p), g in zip(params.items(), grads)}
+        t = lap("backward", t)
+        trainer.optimizer.update(params, grads, state.opt_state)
+        with torch.no_grad():
+            if cfg.learnable_temperature:
+                model.logit_scale.clamp_(-_LOGIT_SCALE_BOUND, _LOGIT_SCALE_BOUND)
+            if state.ema is not None:
+                for name, p in params.items():
+                    state.ema[name].mul_(cfg.ema_decay).add_(
+                        p, alpha=1.0 - cfg.ema_decay)
+        lap("optimizer", t)
+        lap("whole", start)
+        state.step += 1
+    return {k: statistics.median(v) for k, v in times.items()}
+
+
+TOP_ROWS = 15  # ops and kernels listed by device time
+
+
+def profiled_fit(trainer, state, batches, steps: int) -> dict:
+    """One ``fit`` of ``steps`` steps under ``torch.profiler``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if trainer.device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    _sync(trainer.device)
+    with profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        trainer.fit(state, batches, steps=steps, log_every=steps)
+        _sync(trainer.device)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+    busy_us, end = 0.0, float("-inf")
+    for a, b in spans:  # the union of the device intervals
+        if b > end:
+            busy_us += b - max(a, end)
+            end = b
+    averages = sorted(prof.key_averages(), reverse=True,
+                      key=lambda a: a.self_device_time_total)
+    rows = [{"name": a.key, "count": a.count,
+             "device_ms": a.self_device_time_total / 1e3}
+            for a in averages[:TOP_ROWS] if a.self_device_time_total > 0]
+    return {
+        "steps": steps,
+        "wall_ms": wall_ms,
+        "device_busy_ms": busy_us / 1e3,
+        "device_busy_share": busy_us / 1e3 / wall_ms,
+        "device_events": len(spans),
+        "device_events_per_step": len(spans) / steps,
+        "top": rows,
+    }
+
+
+def main(argv: list[str] | None = None) -> int:
+    from .data import dataset_from_config, infinite_batches
+    from .training import Trainer
+    from .utils.config import ExperimentConfig, apply_overrides, load_config
+
+    ap = argparse.ArgumentParser(description=__doc__,
+                                 formatter_class=argparse.RawDescriptionHelpFormatter)
+    ap.add_argument("--config", default=None, help="ExperimentConfig JSON path")
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--warmup", type=int, default=60, help="steps before measuring")
+    ap.add_argument("--repeats", type=int, default=20, help="steps in the split")
+    ap.add_argument("--steps", type=int, default=60, help="steps of the profiled fit")
+    ap.add_argument("--out", default=None, help="write the numbers here as JSON")
+    ap.add_argument("overrides", nargs="*", help="section.key=value overrides")
+    args = ap.parse_args(argv)
+
+    cfg = load_config(args.config) if args.config else ExperimentConfig()
+    cfg = apply_overrides(cfg, args.overrides)
+    dataset, _ = dataset_from_config(cfg.data)
+    trainer = Trainer(cfg.video_tower, cfg.text_tower, cfg.train, args.device)
+    device = trainer.device
+    card = _card(device)
+    state = trainer.init_state()
+    batches = infinite_batches(dataset, cfg.data.batch_size, seed=cfg.data.seed)
+    state, _ = trainer.fit(state, batches, steps=args.warmup,
+                           log_every=max(args.warmup, 1))
+    route = "dual" if cfg.train.learnable_temperature else "sym"
+    tag = f"{cfg.train.loss}, {route} route, batch {cfg.data.batch_size}"
+
+    parts = split_step(trainer, state, batches, args.repeats)
+    print(f"{tag}: median ms per part of {args.repeats} synchronised steps: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in parts.items()) + f" ({card})",
+          flush=True)
+    fit = profiled_fit(trainer, state, batches, args.steps)
+    rate = args.steps * cfg.data.batch_size / (fit["wall_ms"] / 1e3)
+    print(f"{tag}: fit of {args.steps} steps {fit['wall_ms']:.1f} ms wall "
+          f"({rate:.1f} pairs/s under the profiler); device busy "
+          f"{fit['device_busy_ms']:.1f} ms = {100 * fit['device_busy_share']:.1f}% "
+          f"of wall; {fit['device_events_per_step']:.1f} device events per step "
+          f"({card})", flush=True)
+    for row in fit["top"]:
+        print(f"  {row['device_ms']:10.3f} ms {row['count']:7d}x  {row['name'][:100]}")
+    if args.out:
+        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+        Path(args.out).write_text(json.dumps({
+            "card": card, "config": args.config, "overrides": args.overrides,
+            "route": route, "parts_ms": parts, "pairs_per_sec_profiled": rate,
+            **fit,
+        }, indent=1))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,0 +1,188 @@
+"""Training CLI on one device: ``python -m crossclr_tpu_torch.train``.
+
+Counterpart of ``crossclr_tpu/train.py``: data → dual encoders →
+CrossCLR loss → AdamW → retrieval eval on a held-out split → checkpoints,
+from an ExperimentConfig JSON plus ``section.key=value`` overrides.  Every
+``eval_every`` steps the eval split is encoded and scored (``eval/R@1``
+…), a checkpoint is saved (``checkpoint_dir``), and with
+``train.keep_best_metric`` the best one is kept under
+``<checkpoint_dir>/best``.  A run resumes from the latest checkpoint; on
+SIGTERM or SIGINT it stops at the next dispatch boundary and checkpoints.
+
+Refused rather than ignored: mesh flags other than one device (ROADMAP
+queue 1 item 11), ``--profile-dir`` and ``--tensorboard-dir`` (item 14).
+
+Examples:
+  python -m crossclr_tpu_torch.train --config configs/youcook2_mlp.json \\
+      data.source=synthetic data.num_pairs=16384 --steps 300
+  python -m crossclr_tpu_torch.train --device cpu --steps 50 \\
+      data.batch_size=64 data.num_pairs=512
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import signal
+import sys
+from pathlib import Path
+
+
+def _refuse(what: str, item: str) -> SystemExit:
+    return SystemExit(
+        f"{what} is not ported to crossclr_tpu_torch yet (ROADMAP queue 1 "
+        f"{item}); use python -m crossclr_tpu.train for it"
+    )
+
+
+def main(argv: list[str] | None = None) -> int:
+    from .data import dataset_from_config, infinite_batches, train_eval_split
+    from .eval import _encode_split
+    from .evaluation import retrieval_metrics
+    from .training import CheckpointManager, Trainer
+    from .utils import MetricsWriter
+    from .utils.config import ExperimentConfig, apply_overrides, load_config
+
+    ap = argparse.ArgumentParser(description=__doc__)
+    ap.add_argument("--config", default=None, help="ExperimentConfig JSON path")
+    ap.add_argument("--steps", type=int, default=None, help="override total steps")
+    ap.add_argument(
+        "--stop-after", type=int, default=None,
+        help="run at most this many steps THIS invocation, then checkpoint "
+        "and exit; the LR schedule keeps train.total_steps as its horizon",
+    )
+    ap.add_argument("--metrics-csv", default=None)
+    ap.add_argument("--device", default="cuda",
+                    help="torch device (default cuda; pass cpu explicitly "
+                    "to train on the CPU)")
+    ap.add_argument("--tensorboard-dir", default=None, help="not ported (refused)")
+    ap.add_argument("--n-model", type=int, default=1,
+                    help="one device only: 1 (other values are refused)")
+    ap.add_argument("--mesh-dcn", default="auto", help="one device only (refused)")
+    ap.add_argument("--mesh-granule", default="slice",
+                    help="one device only (refused)")
+    ap.add_argument("--profile-dir", default=None, help="not ported (refused)")
+    ap.add_argument("overrides", nargs="*", help="section.key=value overrides")
+    args = ap.parse_args(argv)
+
+    if args.n_model != 1 or args.mesh_dcn != "auto" or args.mesh_granule != "slice":
+        raise _refuse("a device mesh (--n-model, --mesh-dcn, --mesh-granule)",
+                      "item 11")
+    if args.profile_dir:
+        raise _refuse("--profile-dir", "item 14")
+    if args.tensorboard_dir:
+        raise _refuse("--tensorboard-dir", "item 14")
+
+    cfg = load_config(args.config) if args.config else ExperimentConfig()
+    if args.overrides:
+        cfg = apply_overrides(cfg, args.overrides)
+    if cfg.train.eval_with_ema and cfg.train.ema_decay is None:
+        raise SystemExit(
+            "train.eval_with_ema requires train.ema_decay (the state "
+            "carries no EMA to evaluate with)"
+        )
+    if args.steps is not None:
+        cfg = dataclasses.replace(
+            cfg, train=dataclasses.replace(cfg.train, total_steps=args.steps)
+        )
+
+    # -- data: eval rows are held out of the train stream --------------------
+    dataset, _ = dataset_from_config(cfg.data)
+    if cfg.data.eval_fraction > 0:
+        n_eval = max(int(len(dataset) * cfg.data.eval_fraction), 1)
+        if n_eval >= len(dataset):
+            raise SystemExit(
+                f"data.eval_fraction {cfg.data.eval_fraction} leaves no train "
+                f"rows (dataset has {len(dataset)})"
+            )
+        train_data, eval_data = train_eval_split(dataset, n_eval)
+    else:
+        train_data = eval_data = dataset
+        print("data.eval_fraction=0: no held-out split; eval/R@K measures "
+              "memorization of training rows", file=sys.stderr)
+    batch_size = cfg.data.batch_size
+    if len(train_data) < batch_size:
+        raise SystemExit(
+            f"{len(train_data)} train rows < data.batch_size {batch_size}"
+        )
+
+    trainer = Trainer(cfg.video_tower, cfg.text_tower, cfg.train, args.device)
+    state = trainer.init_state()
+    ckpt = CheckpointManager(cfg.checkpoint_dir) if cfg.checkpoint_dir else None
+    best_ckpt = None
+    if ckpt is not None and cfg.train.keep_best_metric:
+        best_ckpt = CheckpointManager(
+            Path(cfg.checkpoint_dir) / "best", max_to_keep=1,
+            best_metric=cfg.train.keep_best_metric,
+        )
+    if ckpt is not None and ckpt.latest_step() is not None:
+        state = ckpt.restore(state)
+        print(f"resumed from step {state.step}", file=sys.stderr)
+
+    writer = MetricsWriter(args.metrics_csv)
+    stop_requested = {"flag": False}
+
+    def _on_signal(signum, frame):
+        stop_requested["flag"] = True
+        print(f"signal {signum}: stopping at the next step boundary "
+              "(checkpoint + clean exit)", file=sys.stderr)
+
+    prev_handlers = {}
+    for sig in (signal.SIGTERM, signal.SIGINT):
+        try:
+            prev_handlers[sig] = signal.signal(sig, _on_signal)
+        except ValueError:  # not the main thread (tests): leave them alone
+            pass
+
+    steps = cfg.train.total_steps
+    done = state.step
+    if args.stop_after is not None:
+        steps = min(steps, done + args.stop_after)
+    # the stream fast-forwards to the restored step: a resumed run
+    # continues the exact batch sequence
+    batches = infinite_batches(train_data, batch_size, seed=cfg.data.seed,
+                               start_step=done)
+    try:
+        while done < steps:
+            try:
+                state, _ = trainer.fit(
+                    state, batches, steps=min(cfg.eval_every, steps - done),
+                    log_every=cfg.log_every, writer=writer,
+                    should_stop=lambda: stop_requested["flag"],
+                )
+            except FloatingPointError as e:
+                # a poisoned state is not checkpointed: the last good
+                # checkpoint is the recovery point
+                raise SystemExit(f"aborted: {e}") from e
+            done = state.step
+            if stop_requested["flag"]:
+                if ckpt is not None and ckpt.latest_step() != done:
+                    ckpt.save(done, state)
+                    print(f"preemption checkpoint saved at step {done}",
+                          file=sys.stderr)
+                break
+            eval_state = (trainer.ema_state(state) if cfg.train.eval_with_ema
+                          else state)
+            v_emb, t_emb = _encode_split(trainer, eval_state, eval_data,
+                                         batch_size)
+            metrics = retrieval_metrics(v_emb, t_emb)
+            writer({"step": done, **{f"eval/{k}": v for k, v in metrics.items()}})
+            if ckpt is not None:
+                ckpt.save(done, state)
+            if best_ckpt is not None:
+                if cfg.train.keep_best_metric not in metrics:
+                    raise SystemExit(
+                        f"train.keep_best_metric "
+                        f"{cfg.train.keep_best_metric!r} is not an eval "
+                        f"metric; available: {sorted(metrics)}"
+                    )
+                best_ckpt.save(done, state, metrics=metrics)
+    finally:
+        for sig, handler in prev_handlers.items():
+            signal.signal(sig, handler)
+        writer.close()
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,5 +1,21 @@
-"""Training: config and the trainer's init/encode surface (no step yet)."""
+"""Training: config, optimizer, train step and loop, checkpoints."""
 
-from .trainer import TrainConfig, Trainer, TrainState
+from .checkpoint import CheckpointManager
+from .trainer import (
+    AdamW,
+    TrainConfig,
+    Trainer,
+    TrainState,
+    make_loss_fn,
+    make_optimizer,
+)
 
-__all__ = ["TrainConfig", "Trainer", "TrainState"]
+__all__ = [
+    "AdamW",
+    "CheckpointManager",
+    "TrainConfig",
+    "TrainState",
+    "Trainer",
+    "make_loss_fn",
+    "make_optimizer",
+]

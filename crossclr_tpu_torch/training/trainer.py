@@ -1,23 +1,49 @@
-"""The trainer's model-init and encode surface.
+"""The contrastive train step and training loop on one device.
 
-Counterpart of ``crossclr_tpu/training/trainer.py``.  ``TrainConfig`` has
-every field and default of the JAX one, so the JSON configs load; of them
-this slice reads only ``seed``.  There is no optimizer and no train step
-yet: the trainer builds the dual towers on an explicit device, fills them
-from a seeded ``torch.Generator``, and encodes in eval mode.
+Counterpart of ``crossclr_tpu/training/trainer.py`` for ``mesh=None``.
+``TrainConfig`` has every field and default of the JAX one, so the JSON
+configs load.  The step:
+
+* encodes both towers in train mode (bf16 products, fp32 parameters);
+* computes the loss of :func:`make_loss_fn` on the embeddings — under
+  ``learnable_temperature`` at ``τ = cfg.temperature / exp(logit_scale)``;
+* takes the gradient of every parameter, its global norm before clipping,
+  and applies :class:`AdamW` (optax's ``clip_by_global_norm`` +
+  ``adamw`` with a warmup-cosine schedule, written out);
+* clamps ``logit_scale`` to ±ln 100 after the update (learnable τ) and
+  updates the EMA (``ema_decay``).
+
+``fit`` runs ``steps_per_call`` steps per dispatch as a plain loop.
+Refused with a message rather than ignored: ``embedding_chunk`` and
+``optimizer="lamb"`` (ROADMAP queue 1 item 13), the full CrossCLR losses
+(item 9) and transformer-tower dropout (item 10).  ``zero1`` and
+``global_negatives`` are inert on one device, as in the JAX trainer with
+``mesh=None``.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import math
+import time
+from typing import Any, Callable
 
 import numpy as np
 import torch
 
+from ..losses import functional as F
 from ..models.encoders import DualEncoder, TowerConfig
 
-__all__ = ["TrainConfig", "TrainState", "Trainer", "to_tensor"]
+__all__ = [
+    "AdamW",
+    "TrainConfig",
+    "TrainState",
+    "Trainer",
+    "make_loss_fn",
+    "make_optimizer",
+    "to_tensor",
+]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,10 +80,14 @@ class TrainConfig:
 
 @dataclasses.dataclass
 class TrainState:
-    """The step count and the model whose parameters it holds."""
+    """The step count, the model whose parameters it holds, the optimizer
+    moments and the EMA of the parameters (None when not training /
+    without ``ema_decay``).  The step updates it in place."""
 
     step: int
     model: DualEncoder
+    opt_state: dict | None = None
+    ema: dict[str, torch.Tensor] | None = None
 
 
 def to_tensor(x, device, dtype=None) -> torch.Tensor:
@@ -74,19 +104,21 @@ def to_tensor(x, device, dtype=None) -> torch.Tensor:
     return t.to(device=device, dtype=dtype)
 
 
-def init_params(model: torch.nn.Module, seed: int) -> None:
+def init_params(model: torch.nn.Module, seed: int, logit_scale: float = 1.0) -> None:
     """Fill ``model`` in place from a CPU ``torch.Generator`` seeded with
     ``seed``, so the weights do not depend on the device.  The scales
     follow the Flax initializers: LeCun-normal weights (std 1/sqrt(fan_in),
     truncated at two standard deviations), zero biases, unit LayerNorm
-    scales, ``pos_embed`` ~ N(0, 0.02²); ``logit_scale`` starts at 1."""
+    scales, ``pos_embed`` ~ N(0, 0.02²); ``logit_scale`` starts at
+    ``logit_scale`` (the trainer passes 0 under ``learnable_temperature``,
+    so ``exp(0) = 1`` reproduces ``cfg.temperature``, else 1)."""
     gen = torch.Generator().manual_seed(int(seed))
     for name, p in model.named_parameters():
         leaf = name.rsplit(".", 1)[-1]
         if leaf == "pos_embed":
             value = torch.randn(p.shape, generator=gen) * 0.02
         elif leaf == "logit_scale":
-            value = torch.ones(p.shape)
+            value = torch.full(p.shape, float(logit_scale))
         elif leaf == "bias":
             value = torch.zeros(p.shape)
         elif p.ndim == 1:  # LayerNorm weight
@@ -100,33 +132,259 @@ def init_params(model: torch.nn.Module, seed: int) -> None:
             p.copy_(value)
 
 
-class Trainer:
-    """Owns the dual towers on ``device`` and their eval-mode encode.
+# ---------------------------------------------------------------------------
+# loss and optimizer
+# ---------------------------------------------------------------------------
 
-    Unlike the JAX trainer, no flash→xla demotion exists here: the port
-    runs on one device.
+# losses that take a tensor (learnable) temperature: the JAX package's list
+# (the full CrossCLR losses then fail in make_loss_fn as not ported)
+_TRACED_TEMP_LOSSES = ("crossclr_intra", "crossclr", "crossclr_fused",
+                       "info_nce", "crossclr_intra_fused")
+
+# CLIP clamps exp(logit_scale) at 100; the same bound, symmetric
+_LOGIT_SCALE_BOUND = 4.6051702  # ln(100)
+
+
+def make_loss_fn(cfg: TrainConfig) -> Callable:
+    """``loss_fn(v_emb, t_emb, temperature=None) -> scalar``; a given
+    ``temperature`` (a tensor under learnable τ) replaces
+    ``cfg.temperature``."""
+
+    def temp(override):
+        return cfg.temperature if override is None else override
+
+    if cfg.loss == "crossclr_intra":
+        return lambda v, t, temperature=None: F.cross_clr_intra(
+            v, t, temperature=temp(temperature),
+            negative_weight=cfg.negative_weight,
+        )
+    if cfg.loss == "crossclr_intra_fused":
+        from ..ops.fused_crossclr import cross_clr_intra_fused
+
+        return lambda v, t, temperature=None: cross_clr_intra_fused(
+            v, t, temperature=temp(temperature),
+            negative_weight=cfg.negative_weight, precision=cfg.loss_precision,
+        )
+    if cfg.loss in ("crossclr", "crossclr_fused"):
+        raise NotImplementedError(
+            f"loss {cfg.loss!r} (the full CrossCLR loss) is not ported to "
+            "crossclr_tpu_torch yet (ROADMAP queue 1 item 9)"
+        )
+    if cfg.loss == "info_nce":
+        return lambda v, t, temperature=None: F.info_nce(
+            v, t, temperature=temp(temperature)
+        )
+    if cfg.loss == "max_margin":
+        return lambda v, t, temperature=None: F.max_margin(v, t, margin=cfg.margin)
+    raise ValueError(f"unknown loss {cfg.loss!r}")
+
+
+class AdamW:
+    """``optax.chain(clip_by_global_norm(clip_norm), adamw(schedule,
+    weight_decay, mask))`` written out, with the JAX trainer's schedule
+    ``warmup_cosine_decay_schedule(0, lr, warmup, max(total, warmup + 1))``.
+
+    Per update, with ``count`` the number of earlier updates:
+    ``g ← g`` if ``‖g‖ < clip`` else ``g / ‖g‖ · clip`` (optax's formula,
+    not ``torch.nn.utils.clip_grad_norm_``, which adds 1e-6);
+    ``μ ← (1−b1)·g + b1·μ``, ``ν ← (1−b2)·g² + b2·ν``;
+    ``u = μ/(1−b1^{count+1}) / (sqrt(ν/(1−b2^{count+1})) + eps)``,
+    plus ``weight_decay · p`` except for ``logit_scale``;
+    ``p ← p − lr(count) · u``.  The learning rate is taken at the count
+    BEFORE the increment, so the first update has lr 0.
     """
+
+    b1, b2, eps = 0.9, 0.999, 1e-8
+    no_decay = ("logit_scale",)
+
+    def __init__(self, cfg: TrainConfig):
+        if cfg.optimizer == "lamb":
+            raise NotImplementedError(
+                "optimizer='lamb' is not ported to crossclr_tpu_torch yet "
+                "(ROADMAP queue 1 item 13)"
+            )
+        if cfg.optimizer != "adamw":
+            raise ValueError(
+                f"TrainConfig.optimizer must be 'adamw' or 'lamb', got "
+                f"{cfg.optimizer!r}"
+            )
+        self.peak = cfg.learning_rate
+        self.warmup = cfg.warmup_steps
+        self.decay_steps = max(cfg.total_steps, cfg.warmup_steps + 1)
+        self.weight_decay = cfg.weight_decay
+        self.clip_norm = cfg.clip_norm
+
+    def learning_rate(self, count: int) -> float:
+        """optax's warmup-cosine schedule at ``count``: linear from 0 over
+        the warmup, then a cosine decay to 0 at ``decay_steps``."""
+        if count < self.warmup:
+            return self.peak * count / self.warmup
+        span = self.decay_steps - self.warmup
+        step = min(count - self.warmup, span)
+        return self.peak * 0.5 * (1.0 + math.cos(math.pi * step / span))
+
+    @staticmethod
+    def init(params: dict[str, torch.Tensor]) -> dict:
+        return {
+            "count": 0,
+            "mu": {k: torch.zeros_like(p) for k, p in params.items()},
+            "nu": {k: torch.zeros_like(p) for k, p in params.items()},
+        }
+
+    @torch.no_grad()
+    def update(self, params: dict[str, torch.Tensor],
+               grads: dict[str, torch.Tensor], opt_state: dict) -> torch.Tensor:
+        """Clip ``grads``, update ``params`` and ``opt_state`` in place;
+        returns the global gradient norm before clipping (a device
+        scalar: no host sync)."""
+        gnorm = torch.sqrt(sum(torch.sum(g * g) for g in grads.values()))
+        keep = gnorm < self.clip_norm
+        count = opt_state["count"]
+        lr = self.learning_rate(count)
+        bc1 = 1.0 - self.b1 ** (count + 1)
+        bc2 = 1.0 - self.b2 ** (count + 1)
+        for name, p in params.items():
+            g = torch.where(keep, grads[name], grads[name] / gnorm * self.clip_norm)
+            mu, nu = opt_state["mu"][name], opt_state["nu"][name]
+            mu.copy_((1 - self.b1) * g + self.b1 * mu)
+            nu.copy_((1 - self.b2) * (g * g) + self.b2 * nu)
+            u = (mu / bc1) / (torch.sqrt(nu / bc2) + self.eps)
+            if name not in self.no_decay:
+                u = u + self.weight_decay * p
+            p.add_(-lr * u)
+        opt_state["count"] = count + 1
+        return gnorm
+
+
+def make_optimizer(cfg: TrainConfig) -> AdamW:
+    return AdamW(cfg)
+
+
+# ---------------------------------------------------------------------------
+# the trainer
+# ---------------------------------------------------------------------------
+
+
+class Trainer:
+    """Owns the dual towers' init, the train step and the loop, and the
+    eval-mode encode, on one explicit ``device``."""
 
     def __init__(self, video_cfg: TowerConfig, text_cfg: TowerConfig,
                  train_cfg: TrainConfig, device: str | torch.device = "cuda"):
+        if train_cfg.embedding_chunk:
+            raise NotImplementedError(
+                "train.embedding_chunk (the GradCache two-pass step) is not "
+                "ported to crossclr_tpu_torch yet (ROADMAP queue 1 item 13)"
+            )
+        for cfg in (video_cfg, text_cfg):
+            if cfg.kind == "transformer" and cfg.dropout > 0:
+                raise NotImplementedError(
+                    "training dropout of the transformer towers is not "
+                    "ported to crossclr_tpu_torch yet (ROADMAP queue 1 item 10)"
+                )
+        if (train_cfg.learnable_temperature
+                and train_cfg.loss not in _TRACED_TEMP_LOSSES):
+            raise ValueError(
+                f"learnable_temperature is not meaningful for loss "
+                f"{train_cfg.loss!r}; use one of {_TRACED_TEMP_LOSSES}"
+            )
+        if train_cfg.ema_decay is not None and not 0.0 < train_cfg.ema_decay < 1.0:
+            raise ValueError(
+                f"ema_decay must be in (0, 1), got {train_cfg.ema_decay}"
+            )
         self.video_cfg = video_cfg
         self.text_cfg = text_cfg
         self.cfg = train_cfg
         self.device = torch.device(device)
+        self.optimizer = make_optimizer(train_cfg)
+        self._loss_fn = make_loss_fn(train_cfg)
 
-    def init_state(self) -> TrainState:
-        """Step-0 state with towers seeded from ``train.seed``; a torch
-        module knows its shapes from the config, so no sample batch is
-        needed."""
+    # -- init ---------------------------------------------------------------
+
+    def init_state(self, state_dict: dict | None = None) -> TrainState:
+        """Step-0 state: towers seeded from ``train.seed`` (or loaded from
+        ``state_dict``, e.g. ``utils.params.state_dict_from_flax`` of a JAX
+        trainer's params), fresh optimizer moments, and the EMA at the
+        initial parameters when ``ema_decay`` is set."""
         model = DualEncoder(self.video_cfg, self.text_cfg)
-        init_params(model, self.cfg.seed)
-        return TrainState(step=0, model=model.to(self.device).eval())
+        init_params(model, self.cfg.seed,
+                    0.0 if self.cfg.learnable_temperature else 1.0)
+        if state_dict is not None:
+            model.load_state_dict(state_dict, strict=True)
+        model = model.to(self.device).eval()
+        params = dict(model.named_parameters())
+        ema = None
+        if self.cfg.ema_decay is not None:
+            ema = {k: p.detach().clone() for k, p in params.items()}
+        return TrainState(step=0, model=model,
+                          opt_state=self.optimizer.init(params), ema=ema)
+
+    def ema_state(self, state: TrainState) -> TrainState:
+        """``state`` with the EMA parameters in a copy of the model — what
+        eval encodes with under ``eval_with_ema``."""
+        if state.ema is None:
+            raise ValueError(
+                "state carries no EMA: set train.ema_decay in the config "
+                "(from step 0 of training)"
+            )
+        model = copy.deepcopy(state.model)
+        with torch.no_grad():
+            for name, p in model.named_parameters():
+                p.copy_(state.ema[name])
+        return TrainState(step=state.step, model=model)
+
+    # -- the step -----------------------------------------------------------
+
+    def train_step(self, state: TrainState, batch: dict) -> tuple[TrainState, dict]:
+        """One optimizer step on a host batch; updates ``state`` in place
+        and returns it with device-scalar metrics."""
+        cfg = self.cfg
+        model = state.model.train()
+        dev = self.device
+        v_emb, t_emb = model(
+            to_tensor(batch["video"], dev), to_tensor(batch["text"], dev),
+            _optional(batch.get("video_mask"), dev),
+            _optional(batch.get("text_mask"), dev),
+        )
+        temperature = None
+        if cfg.learnable_temperature:
+            # the RAW parameter: the stored value is clamped after the
+            # update, so the loss never differentiates through a clip
+            temperature = cfg.temperature / torch.exp(model.logit_scale)
+        loss = self._loss_fn(v_emb, t_emb, temperature=temperature)
+        params = dict(model.named_parameters())
+        grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
+        # a parameter the loss does not reach (logit_scale at a fixed τ)
+        # has a zero gradient, as under jax.grad
+        grads = {k: torch.zeros_like(p) if g is None else g
+                 for (k, p), g in zip(params.items(), grads)}
+        gnorm = self.optimizer.update(params, grads, state.opt_state)
+        metrics = {"loss": loss.detach(), "grad_norm": gnorm}
+        with torch.no_grad():
+            if cfg.learnable_temperature:
+                model.logit_scale.clamp_(-_LOGIT_SCALE_BOUND, _LOGIT_SCALE_BOUND)
+                metrics["logit_scale"] = model.logit_scale.detach().clone()
+                metrics["effective_temperature"] = (
+                    cfg.temperature / torch.exp(model.logit_scale)
+                )
+            if state.ema is not None:
+                d = cfg.ema_decay
+                # after the clamp: the EMA tracks the stored logit_scale
+                for name, p in params.items():
+                    state.ema[name].mul_(d).add_(p, alpha=1.0 - d)
+            metrics["video_emb_norm"] = torch.linalg.vector_norm(v_emb, dim=1).mean()
+            metrics["text_emb_norm"] = torch.linalg.vector_norm(t_emb, dim=1).mean()
+        state.step += 1
+        return state, metrics
+
+    # -- eval ---------------------------------------------------------------
 
     def encode(self, state: TrainState, batch: dict):
-        """``(video_emb, text_emb)`` fp32 ``[B, E]`` for a host batch."""
+        """``(video_emb, text_emb)`` fp32 ``[B, E]`` for a host batch, in
+        eval mode."""
         dev = self.device
         with torch.inference_mode():
-            return state.model(
+            return state.model.eval()(
                 to_tensor(batch["video"], dev),
                 to_tensor(batch["text"], dev),
                 _optional(batch.get("video_mask"), dev),
@@ -139,9 +397,76 @@ class Trainer:
         hot path): fp32 ``[B, E]`` on the trainer's device."""
         dev = self.device
         with torch.inference_mode():
-            return state.model.encode(
+            return state.model.eval().encode(
                 side, to_tensor(features, dev), _optional(mask, dev)
             )
+
+    # -- loop ---------------------------------------------------------------
+
+    def fit(self, state: TrainState, batches, *, steps: int,
+            log_every: int = 50, writer: Any = None,
+            step_offset: int | None = None,
+            should_stop: Callable[[], bool] | None = None,
+            ) -> tuple[TrainState, list[dict]]:
+        """Run ``steps`` train steps, ``cfg.steps_per_call`` per dispatch
+        (a plain loop; metrics and ``should_stop`` are read once per
+        dispatch, from its last step).  At each ``log_every`` boundary and
+        at the end the metrics are read to the host with ``steps_per_sec``
+        and ``pairs_per_sec`` (the clock restarts after the first
+        dispatch, so they are steady-state rates) and the global ``step``;
+        a non-finite loss there raises ``FloatingPointError`` under
+        ``abort_on_nonfinite``."""
+        history = []
+        it = iter(batches)
+        if step_offset is None:
+            step_offset = state.step
+        spc = max(1, self.cfg.steps_per_call)
+        t_start = time.perf_counter()
+        t_steady = t_start
+        steady_base = 0
+        done = 0
+        while done < steps:
+            if should_stop is not None and should_stop():
+                break
+            n = min(spc, steps - done)
+            for _ in range(n):
+                batch = next(it)
+                state, metrics = self.train_step(state, batch)
+            batch_rows = batch["video"].shape[0]
+            first_dispatch = done == 0
+            prev_done, done = done, done + n
+            if first_dispatch:
+                _synchronize(self.device)
+                t_steady = time.perf_counter()
+                steady_base = done
+            crossed_log = (done // log_every) > (prev_done // log_every)
+            if crossed_log or done >= steps:
+                metrics = {k: float(v) for k, v in metrics.items()}
+                if self.cfg.abort_on_nonfinite and not np.isfinite(metrics["loss"]):
+                    raise FloatingPointError(
+                        f"non-finite loss {metrics['loss']} at step "
+                        f"{step_offset + done}; aborting (resume from the "
+                        "last checkpoint; set train.abort_on_nonfinite=false "
+                        "to continue anyway)"
+                    )
+                if first_dispatch:
+                    rate = n / max(t_steady - t_start, 1e-9)
+                else:
+                    rate = (done - steady_base) / max(
+                        time.perf_counter() - t_steady, 1e-9
+                    )
+                metrics["steps_per_sec"] = rate
+                metrics["pairs_per_sec"] = rate * batch_rows
+                metrics["step"] = step_offset + done
+                history.append(metrics)
+                if writer is not None:
+                    writer(metrics)
+        return state, history
+
+
+def _synchronize(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
 
 
 def _optional(x, device):

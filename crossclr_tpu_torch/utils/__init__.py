@@ -1,4 +1,4 @@
-"""Configs and the Flax → torch weight bridge."""
+"""Configs, metrics logging and the Flax → torch weight bridge."""
 
 from .config import (
     DataConfig,
@@ -6,11 +6,13 @@ from .config import (
     apply_overrides,
     load_config,
 )
+from .logging import MetricsWriter
 from .params import state_dict_from_flax
 
 __all__ = [
     "DataConfig",
     "ExperimentConfig",
+    "MetricsWriter",
     "apply_overrides",
     "load_config",
     "state_dict_from_flax",

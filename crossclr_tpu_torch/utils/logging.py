@@ -1,0 +1,69 @@
+"""Metrics logging: CSV writer + stderr echo, usable as the trainer's
+``writer``.
+
+Counterpart of ``crossclr_tpu/utils/logging.py`` without the TensorBoard
+stream (not ported).  Train and eval rows log different key sets; the CSV
+schema is the union of all keys seen.  Rows are appended one flushed write
+at a time (a crash leaves a valid prefix); when new keys appear the file
+is rewritten with the widened header.  An existing file is extended, so a
+resumed run keeps its history.
+"""
+
+from __future__ import annotations
+
+import csv
+import sys
+from pathlib import Path
+
+__all__ = ["MetricsWriter"]
+
+
+class MetricsWriter:
+    def __init__(self, path: str | Path | None = None, *, echo: bool = True):
+        self.path = Path(path) if path else None
+        self.echo = echo
+        self._rows: list[dict] = []
+        self._fieldnames: list[str] = []
+        self._fh = None
+        self._append_writer = None
+        if self.path is not None and self.path.exists():
+            with open(self.path, newline="") as fh:
+                reader = csv.DictReader(fh)
+                if reader.fieldnames:
+                    self._fieldnames = list(reader.fieldnames)
+                    self._rows = [dict(row) for row in reader]
+
+    def __call__(self, metrics: dict) -> None:
+        if self.echo:
+            print(" ".join(
+                f"{k}={v:.5g}" if isinstance(v, float) else f"{k}={v}"
+                for k, v in metrics.items()
+            ), file=sys.stderr)
+        if self.path is None:
+            return
+        row = dict(metrics)
+        self._rows.append(row)
+        new_keys = [k for k in row if k not in self._fieldnames]
+        if new_keys or self._fh is None:
+            self._fieldnames.extend(new_keys)
+            self._rewrite()
+        else:
+            self._append_writer.writerow({k: row.get(k) for k in self._fieldnames})
+            self._fh.flush()
+
+    def _rewrite(self) -> None:
+        if self._fh is not None:
+            self._fh.close()
+        self.path.parent.mkdir(parents=True, exist_ok=True)
+        with open(self.path, "w", newline="") as fh:
+            w = csv.DictWriter(fh, fieldnames=self._fieldnames)
+            w.writeheader()
+            for row in self._rows:
+                w.writerow({k: row.get(k) for k in self._fieldnames})
+        self._fh = open(self.path, "a", newline="")
+        self._append_writer = csv.DictWriter(self._fh, fieldnames=self._fieldnames)
+
+    def close(self) -> None:
+        if self._fh is not None:
+            self._fh.close()
+            self._fh = None

@@ -75,6 +75,51 @@ print(json.dumps({"indices": out["indices"], "loaded": loaded}))
 """
 
 
+TRAIN_SCRIPT = SCRIPT.split("import json\n", 1)[0] + r"""
+import importlib
+import json
+import pkgutil
+
+import crossclr_tpu_torch
+from crossclr_tpu_torch import train
+
+modules = [m.name for m in pkgutil.walk_packages(crossclr_tpu_torch.__path__,
+                                                 "crossclr_tpu_torch.")]
+for name in modules:
+    importlib.import_module(name)
+rc = train.main([
+    "--device", "cpu", "--steps", "4", "--metrics-csv", "metrics.csv",
+    "video_tower.input_dim=12", "text_tower.input_dim=10",
+    "video_tower.embed_dim=8", "text_tower.embed_dim=8",
+    "video_tower.hidden_dim=16", "text_tower.hidden_dim=16",
+    "data.num_pairs=64", "data.video_dim=12", "data.text_dim=10",
+    "data.batch_size=16", "train.loss=crossclr_intra_fused",
+    "train.learnable_temperature=true", "train.warmup_steps=1",
+    "eval_every=2", "checkpoint_dir=ckpt",
+])
+loaded = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "flax", "optax", "orbax",
+                                       "crossclr_tpu"))
+print(json.dumps({"rc": rc, "modules": len(modules), "loaded": loaded}))
+"""
+
+
+def test_port_trains_without_jax(tmp_path):
+    """Every module of the port imports, and the training CLI trains,
+    evaluates and checkpoints, with jax, flax, optax and orbax blocked."""
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run(
+        [sys.executable, "-c", TRAIN_SCRIPT], cwd=tmp_path, env=env,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    result = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert result == {"rc": 0, "modules": result["modules"], "loaded": []}
+    assert result["modules"] >= 20
+    assert sorted(p.name for p in (tmp_path / "ckpt").iterdir()) == [
+        "step_2.pt", "step_4.pt"]
+
+
 def test_port_serves_without_jax(tmp_path):
     env = dict(os.environ, PYTHONPATH=str(REPO))
     proc = subprocess.run(
