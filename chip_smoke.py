@@ -1,55 +1,86 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (crossclr_tpu_torch) on one NVIDIA GPU.
 
-Drives the port's two paths once each and proves that they went through
-the repo's own CUDA kernels: retrieval serving at the full width of
-configs/lsmdc_transformer.json with attention="flash" on both towers, and
+Drives the port's three paths and proves that they went through the
+repo's own CUDA kernels: retrieval serving at the full width of
+configs/lsmdc_transformer.json with attention="flash" on both towers,
 training at the full width of configs/youcook2_mlp.json through the fused
-CrossCLR-intra loss kernels.  Phases, one line each; any failure raises
-and exits non-zero:
+CrossCLR-intra loss kernels, and training the transformer towers of
+configs/lsmdc_transformer.json through the flash forward and backward
+kernels with attention dropout.  Phases, one line each; any failure
+raises and exits non-zero:
 
-  1. device  — a CUDA device must exist (there is no CPU path); prints
-               nvidia-smi's name and power limit, torch and CUDA versions.
-  2. build   — builds every crossclr_tpu_torch/ops/csrc/*.cu with nvcc for
-               sm_90a, one nvcc process each, all started together; prints
-               the time, the .so paths and ptxas' report.
-  3. kernel  — kernel against the plain version on the same CUDA tensors
-               (H=8, Dh=48, S in {64, 96, 37}, ragged masks, one entry
-               fully masked; fp32 and bf16) within the stated limits, then
-               both timed at the serve encode shape (B=1024, H=8, S=96,
-               Dh=48, bf16; CUDA events, median of 20).
-  4. slice   — the port's build_service with seeded random weights on
-               cuda (4096 synthetic pairs, video corpus, text queries),
-               served by a ThreadingHTTPServer on 127.0.0.1:0; 8 POST
-               /search (1, 3, 5, 16 query rows, k=10), GET /healthz and
-               /metrics.  Checks HTTP 200, shapes, index range, descending
-               scores in [-1, 1], that the kernel's launch count grew
-               during the corpus encode and during every search, and that
-               query embeddings from the kernel path have cosine >= 0.999
-               with the same weights run through the plain attention.
-  5. loss    — the four loss kernels of ops/csrc/fused_dual.cu (sym_fwd,
-               sym_bwd at τ=0.03; dual_fwd, dual_bwd at a tensor τ of 0.03
-               and 0.01) against their plain versions on the same CUDA
-               tensors, B in {1024, 4096, 1000} x D in {256, 512}, fp32
-               operands (highest) and bf16 operands (default), within the
-               limits below; the fused loss on CUDA against the eager
-               loss; then each kernel and its plain version timed at the
-               training slice's shape (B=1024, D=256) and the reference's
-               headline shape (B=4096, D=512), and the loss fwd+bwd of
-               both routes at the headline shape (CUDA events, median of
-               20), with contrastive pairs/s.
-  6. train   — crossclr_tpu_torch.train.main on configs/youcook2_mlp.json
-               at full width (synthetic data, 16384 pairs): 300 steps with
-               eval every 100, a resume to 340 steps, then 100 steps with a
-               learnable temperature.  Checks the sym kernels launched in
-               the first leg and the dual kernels in the second (launch
-               counts reset before each leg), finite losses, a last logged
-               loss below the first, eval v2t/R@1 above chance, the step
-               count continuing on resume, and logit_scale moved and within
-               ±ln 100; prints the steady train pairs/s.
+  1. device    — a CUDA device must exist (there is no CPU path); prints
+                 nvidia-smi's name and power limit, torch and CUDA versions.
+  2. build     — builds every crossclr_tpu_torch/ops/csrc/*.cu with nvcc
+                 for sm_90a, one nvcc process each, all started together;
+                 prints the time, the .so paths and ptxas' report.
+  3. kernel    — the flash forward against the plain version on the same
+                 CUDA tensors (H=8, Dh=48, S in {64, 96, 37}, ragged masks,
+                 one entry fully masked; fp32 and bf16) within the stated
+                 limits, then both timed at the serve encode shape (B=1024,
+                 H=8, S=96, Dh=48, bf16; CUDA events, median of 20).
+  4. attention — the forward with dropout (r in {0.1, 0.5}, once at nonzero
+                 offsets) against the plain version; the exact keep mask
+                 recovered from the kernel's output (q = k = 0, v = I,
+                 Dh = S in {64, 96}); dq, dk and dv (r in {0, 0.1}) against
+                 autograd through the plain version; at the transformer
+                 leg's shapes (B=1024, S in {96, 64}, H=8, Dh=48, bf16,
+                 dropout 0.1, one entry fully masked) the forward against
+                 the plain version, dq, dk and dv against the plain version
+                 of the same backward (delta from the bf16 output), each
+                 backward kernel against its own plain version on the same
+                 operands, and the gap to autograd through fp32 logged; then,
+                 at (B, S) in {(1024, 96), (1024, 64), (4096, 96)}, the
+                 kernels in both builds (dropout 0 and 0.1), their plain
+                 versions and torch's scaled_dot_product_attention (the
+                 library yardstick, timed only) forward and backward.
+  5. slice     — the port's build_service with seeded random weights on
+                 cuda (4096 synthetic pairs, video corpus, text queries),
+                 served by a ThreadingHTTPServer on 127.0.0.1:0; 8 POST
+                 /search (1, 3, 5, 16 query rows, k=10), GET /healthz and
+                 /metrics.  Checks HTTP 200, shapes, index range, descending
+                 scores in [-1, 1], that the forward kernel's launch count
+                 grew during the corpus encode and during every search (and
+                 no backward kernel launched), and that query embeddings
+                 from the kernel path have cosine >= 0.999 with the same
+                 weights run through the plain attention.
+  6. loss      — the four loss kernels of ops/csrc/fused_dual.cu (sym_fwd,
+                 sym_bwd at τ=0.03; dual_fwd, dual_bwd at a tensor τ of 0.03
+                 and 0.01) against their plain versions on the same CUDA
+                 tensors, B in {1024, 4096, 1000} x D in {256, 512} and
+                 the transformer slice's 1024 x 384, fp32
+                 operands (highest) and bf16 operands (default), within the
+                 limits below; the fused loss on CUDA against the eager
+                 loss; then each kernel and its plain version timed at the
+                 MLP slice's shape (B=1024, D=256), the transformer slice's
+                 (B=1024, D=384) and the reference's headline shape
+                 (B=4096, D=512), and the loss fwd+bwd of both routes at the
+                 headline shape (CUDA events, median of 20), with
+                 contrastive pairs/s.
+  7. train     — crossclr_tpu_torch.train.main on configs/youcook2_mlp.json
+                 at full width (synthetic data, 16384 pairs): 300 steps with
+                 eval every 100, a resume to 340 steps, then 100 steps with a
+                 learnable temperature.  Checks the sym kernels launched in
+                 the first leg and the dual kernels in the second, finite
+                 losses, a last logged loss below the first, eval v2t/R@1
+                 above chance, the step count continuing on resume, and
+                 logit_scale moved and within ±ln 100.  Then the transformer
+                 leg: train.main on configs/lsmdc_transformer.json at full
+                 width (flash attention, dropout 0.1 on both towers, 4096
+                 synthetic pairs, batch 1024, 40 steps, eval every 20):
+                 flash_dq and flash_dkv launched exactly 8 x 40 times (4
+                 layers x 2 towers per step; eval runs without grad),
+                 flash_fwd at least that often, the sym loss kernels
+                 launched, the loss falling and R@1 above chance.  Launch
+                 counts reset before each leg; prints the steady train
+                 pairs/s of each.
 
-The second-to-last line is the kernels' JSON record (five kernels); the
-last line is {"ok": true, "device": {...}}.
+The second-to-last line is the kernels' JSON record: seven kernels, each
+with its time, its plain version's, the library call's where one exists,
+and its bound from this run's shapes; the flash records also name the
+shape and build they were timed at and what the library call computes.
+The last line is {"ok": true, "device": {...}}.
 
 Run from the root of a checkout:  python3 chip_smoke.py
 """
@@ -73,8 +104,16 @@ from pathlib import Path
 import torch
 
 ROOT = Path(__file__).resolve().parent
-KERNEL_SOURCE = "crossclr_tpu_torch/ops/csrc/flash_fwd.cu"
-REPLACES = "crossclr_tpu/ops/flash_attention.py:201"
+FLASH_SOURCES = {
+    "flash_fwd": "crossclr_tpu_torch/ops/csrc/flash_fwd.cu",
+    "flash_dq": "crossclr_tpu_torch/ops/csrc/flash_bwd.cu",
+    "flash_dkv": "crossclr_tpu_torch/ops/csrc/flash_bwd.cu",
+}
+FLASH_REPLACES = {
+    "flash_fwd": "crossclr_tpu/ops/flash_attention.py:201",
+    "flash_dq": "crossclr_tpu/ops/flash_attention.py:351",
+    "flash_dkv": "crossclr_tpu/ops/flash_attention.py:392",
+}
 LOSS_SOURCE = "crossclr_tpu_torch/ops/csrc/fused_dual.cu"
 LOSS_REPLACES = {
     "sym_fwd": "crossclr_tpu/ops/fused_dual.py:831",
@@ -82,9 +121,10 @@ LOSS_REPLACES = {
     "dual_fwd": "crossclr_tpu/ops/fused_dual.py:108",
     "dual_bwd": "crossclr_tpu/ops/fused_dual.py:301",
 }
-LOSS_SHAPES = [(1024, 256), (1024, 512), (4096, 256), (4096, 512),
-               (1000, 256), (1000, 512)]
+LOSS_SHAPES = [(1024, 256), (1024, 384), (1024, 512), (4096, 256),
+               (4096, 512), (1000, 256), (1000, 512)]
 SLICE_LOSS_SHAPE = (1024, 256)  # configs/youcook2_mlp.json: batch, embed
+TRANSFORMER_LOSS_SHAPE = (1024, 384)  # configs/lsmdc_transformer.json
 HEADLINE_LOSS_SHAPE = (4096, 512)  # the reference's headline benchmark
 NEG_WEIGHT = 0.8
 # loss kernels vs plain (tests/test_fused_kernel.py:37,133,169,251): lse
@@ -117,6 +157,30 @@ LIMITS = {
 COSINE_MIN = 0.999
 SCORE_SLACK = 1e-5  # a cosine of unit fp32 vectors may exceed 1 by rounding
 SERVE_SHAPE = (1024, 8, 96, 48)  # (B, H, S, Dh) of one text-tower encode
+# flash backward vs autograd through the plain version: fp32 max |err| <=
+# 5e-5 of the largest |entry| (both sum in fp32, in another order); bf16
+# atol = rtol = 1.6e-2 (one bf16 ulp of the outputs plus the order of sums)
+FLASH_GRAD_BOUND = 5e-5
+FLASH_BF16_TOL = 1.6e-2
+# (B, S) of the attention timings: the text and video towers at the
+# transformer slice's batch, and the text tower at the headline batch
+ATTENTION_TIMING = [(1024, 96), (1024, 64), (4096, 96)]
+LEG_BATCH, LEG_DROPOUT = 1024, 0.1  # the transformer leg's batch and rate
+TRANSFORMER_CONFIG = "configs/lsmdc_transformer.json"
+# 40 steps: the leg is host-bound (a 436 MB fp32 batch gathered and copied
+# per step), so its steps are cut to keep the whole smoke near 140 s; its
+# widths are the config's
+TRANSFORMER_STEPS = 40
+TRANSFORMER_OVERRIDES = [
+    *OVERRIDES, f"video_tower.dropout={LEG_DROPOUT}",
+    f"text_tower.dropout={LEG_DROPOUT}",
+    "train.warmup_steps=30", "eval_every=20", "log_every=10",
+]
+# the card's published peaks (NVIDIA H100 SXM data sheet, dense): the
+# bound of a kernel is the larger of its bytes over the memory rate and its
+# operations over the peak of its operands' type
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 
 
 def log(phase: str, msg: str) -> None:
@@ -145,7 +209,7 @@ def build_phase() -> None:
     from crossclr_tpu_torch.ops import _build
 
     sources = sorted(p.name for p in _build._CSRC.glob("*.cu"))
-    check("flash_fwd.cu" in sources and "fused_dual.cu" in sources,
+    check({"flash_fwd.cu", "flash_bwd.cu", "fused_dual.cu"} <= set(sources),
           f"kernel sources missing: {sources}")
     _build.load_libraries(sources)
     for source in sources:
@@ -172,17 +236,17 @@ def qkv(shape, dtype, seed):
     return q, k, v, ragged_mask(shape[0], shape[2], gen)
 
 
-def compare(fa, q, k, v, mask, tag: str) -> float:
+def compare(fa, q, k, v, mask, tag: str, phase: str = "kernel", **drop) -> float:
     with torch.inference_mode():
-        out, lse = fa.flash_attention_fwd(q, k, v, mask)
-        ref, ref_lse = fa.mha_reference(q, k, v, mask, return_lse=True)
+        out, lse = fa.flash_attention_fwd(q, k, v, mask, **drop)
+        ref, ref_lse = fa.mha_reference(q, k, v, mask, return_lse=True, **drop)
     torch.cuda.synchronize()
     atol, rtol, lse_atol = LIMITS[q.dtype]
     diff = (out.float() - ref.float()).abs()
     out_err = diff.max().item()
     lse_err = (lse - ref_lse).abs().max().item()
-    log("kernel", f"{tag}: max|out-plain| {out_err:.3e} (atol {atol}, rtol "
-                  f"{rtol}), max|lse-plain| {lse_err:.3e} (atol {lse_atol})")
+    log(phase, f"{tag}: max|out-plain| {out_err:.3e} (atol {atol}, rtol "
+               f"{rtol}), max|lse-plain| {lse_err:.3e} (atol {lse_atol})")
     check(bool(torch.isfinite(out.float()).all()), f"{tag}: non-finite output")
     check(bool((diff <= atol + rtol * ref.float().abs()).all()),
           f"{tag}: output outside the limit")
@@ -209,7 +273,7 @@ def median_ms(fn, n: int = 20, grad: bool = False) -> float:
     return statistics.median(times)
 
 
-def kernel_phase(fa, smi: str) -> dict:
+def kernel_phase(fa, smi: str) -> float:
     worst = 0.0
     for dtype in (torch.float32, torch.bfloat16):
         for s in (64, 96, 37):
@@ -222,7 +286,234 @@ def kernel_phase(fa, smi: str) -> dict:
     plain_ms = median_ms(lambda: fa.mha_reference(q, k, v, mask))
     log("kernel", f"B,H,S,Dh={SERVE_SHAPE} bf16: kernel {ms:.4f} ms, plain "
                   f"{plain_ms:.4f} ms (median of 20; {smi})")
-    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms}
+    return worst
+
+
+# ---------------------------------------------------------------------------
+# attention dropout and the flash backward (training the transformer towers)
+# ---------------------------------------------------------------------------
+
+
+def attention_grads(fn, q, k, v, mask, g, **drop):
+    q, k, v = (x.detach().clone().requires_grad_() for x in (q, k, v))
+    out = fn(q, k, v, mask, **drop)
+    (out.float() * g.float()).sum().backward()
+    return q.grad, k.grad, v.grad
+
+
+def attention_check_phase(fa) -> dict:
+    """The forward with dropout, the exact keep mask and the backward
+    kernels against the plain version; returns each flash kernel's worst
+    absolute error."""
+    worst = dict.fromkeys(fa.KERNELS, 0.0)
+    for dtype in (torch.float32, torch.bfloat16):
+        for s in (64, 96, 37):
+            q, k, v, mask = qkv((4, 8, s, 48), dtype, seed=100 + s)
+            for rate in (0.1, 0.5):
+                # S=37 sits at nonzero offsets, as a ring block would
+                offsets = (dict(q_offset=5, k_offset=70, bh_offset=32)
+                           if s == 37 else {})
+                tag = (f"{str(dtype)[6:]} S={s} dropout {rate}"
+                       + (f" at {offsets}" if offsets else ""))
+                err = compare(fa, q, k, v, mask, tag, "attention",
+                              dropout_rate=rate, dropout_seed=977 * s, **offsets)
+                worst["flash_fwd"] = max(worst["flash_fwd"], err)
+
+    # q = k = 0 and v = I: each valid key has probability 1/n_valid, so
+    # out · n_valid · (1 − r) is the keep mask itself, entry for entry
+    rate = 0.3
+    for s in (64, 96):
+        b, h = 2, 8
+        zeros = torch.zeros(b, h, s, s, device="cuda")
+        eye = torch.eye(s, device="cuda").expand(b, h, s, s).contiguous()
+        mask = torch.ones(b, s, device="cuda")
+        mask[1, s // 3:] = 0.0
+        with torch.inference_mode():
+            out, _ = fa.flash_attention_fwd(zeros, zeros, eye, mask,
+                                            dropout_rate=rate, dropout_seed=4242 + s)
+        scaled = out * mask.sum(dim=1)[:, None, None, None] * (1 - rate)
+        keep = fa.dropout_keep_mask(b, h, s, 4242 + s, rate, device="cuda")
+        want = (keep & mask.bool()[:, None, None, :]).float()
+        off = (scaled - want).abs().max().item()
+        check(torch.equal(torch.round(scaled), want) and off < 1e-4,
+              f"S={s}: the kernel's keep mask differs from dropout_keep_mask "
+              f"(max |out·n·(1−r) − keep| {off:.3e})")
+        log("attention", f"keep mask recovered exactly at S=Dh={s}, rate {rate}: "
+                         f"kept {want[0].mean().item():.4f} of entry 0, "
+                         f"max |out·n·(1−r) − keep| {off:.2e}")
+
+    for dtype in (torch.float32, torch.bfloat16):
+        for s in (64, 96, 37):
+            q, k, v, mask = qkv((4, 8, s, 48), dtype, seed=200 + s)
+            gen = torch.Generator(device="cuda").manual_seed(300 + s)
+            g = torch.randn(q.shape, generator=gen, device="cuda").to(dtype)
+            for rate in (0.0, 0.1):
+                drop = dict(dropout_rate=rate, dropout_seed=31 * s)
+                got = attention_grads(fa.flash_attention, q, k, v, mask, g, **drop)
+                want = attention_grads(fa.mha_reference, q, k, v, mask, g, **drop)
+                errs = check_grads(got, want, worst, f"{dtype} S={s} dropout {rate}")
+                log("attention", f"{str(dtype)[6:]} S={s} dropout {rate}: "
+                                 f"max|kernel-autograd(plain)| dq {errs[0]:.3e}, "
+                                 f"dk {errs[1]:.3e}, dv {errs[2]:.3e}")
+    return worst
+
+
+def check_grads(got, want, worst: dict, tag: str) -> list[float]:
+    """dq, dk, dv of the kernels against the plain version's within the
+    limits of their dtype (the fully masked entry's exactly 0); folds each
+    error into ``worst`` and returns the three."""
+    torch.cuda.synchronize()
+    errs = []
+    for name, a, w in zip(("flash_dq", "flash_dkv", "flash_dkv"), got, want):
+        err = (a.float() - w.float()).abs().max().item()
+        if a.dtype == torch.float32:
+            ok = err <= FLASH_GRAD_BOUND * w.abs().max().item()
+        else:
+            ok = bool(((a.float() - w.float()).abs() <= FLASH_BF16_TOL
+                       + FLASH_BF16_TOL * w.float().abs()).all())
+        check(ok and a.dtype == w.dtype and bool(torch.isfinite(a.float()).all())
+              and bool((a[-1] == 0).all()),
+              f"{tag}: {name} outside the limit (max err {err:.3e})")
+        worst[name] = max(worst[name], err)
+        errs.append(err)
+    return errs
+
+
+def plain_backward(fa, q, k, v, mask, g, drop: dict, out=None, lse=None):
+    """dq, dk, dv of the flash design in plain torch: delta from the
+    forward's output in q's dtype (the plain forward's unless ``out`` and
+    ``lse`` are given), then the backward kernels' plain versions."""
+    with torch.inference_mode():
+        if out is None:
+            out, lse = fa.mha_reference(q, k, v, mask, return_lse=True, **drop)
+        delta = (g.float() * out.float()).sum(dim=-1)
+        operands = (q, k, v, mask, lse, delta, g)
+        return (fa.flash_dq_plain(*operands, **drop),
+                *fa.flash_dkv_plain(*operands, **drop)), operands
+
+
+def leg_shape_check(fa, q, k, v, mask, g, drop: dict, worst: dict, tag: str) -> None:
+    """At a transformer leg's shape and dropout: the forward against the
+    plain version; dq, dk, dv through autograd against the plain version
+    of the same backward; each backward kernel against its plain version
+    on the kernel forward's own operands.  Also logs, unchecked, the gap to
+    autograd through the fp32 plain attention: delta = rowsum(dO∘out)
+    takes the output rounded to bf16, as the JAX package's backward does,
+    which on a row with few valid keys exceeds one bf16 ulp of dq."""
+    worst["flash_fwd"] = max(worst["flash_fwd"],
+                             compare(fa, q, k, v, mask, tag, "attention", **drop))
+    got = attention_grads(fa.flash_attention, q, k, v, mask, g, **drop)
+    want, _ = plain_backward(fa, q, k, v, mask, g, drop)
+    auto = check_grads(got, want, worst, tag + " autograd")
+    exact = attention_grads(fa.mha_reference, q, k, v, mask, g, **drop)
+    gap = [(a.float() - w.float()).abs().max().item() for a, w in zip(got, exact)]
+    del got, want, exact
+    with torch.inference_mode():
+        out, lse = fa.flash_attention_fwd(q, k, v, mask, **drop)
+    want, operands = plain_backward(fa, q, k, v, mask, g, drop, out, lse)
+    with torch.inference_mode():
+        got = (fa.flash_dq_cuda(*operands, **drop),
+               *fa.flash_dkv_cuda(*operands, **drop))
+    own = check_grads(got, want, worst, tag + " kernels vs their plain versions")
+    log("attention", f"{tag}: max|kernel-plain| through autograd dq "
+                     f"{auto[0]:.3e}, dk {auto[1]:.3e}, dv {auto[2]:.3e}; each "
+                     f"kernel on its own operands dq {own[0]:.3e}, dk "
+                     f"{own[1]:.3e}, dv {own[2]:.3e} (atol = rtol = "
+                     f"{FLASH_BF16_TOL}); unchecked gap to autograd through "
+                     f"the fp32 plain attention dq {gap[0]:.3e}, dk {gap[1]:.3e}, "
+                     f"dv {gap[2]:.3e}")
+
+
+def attention_bounds(b: int, s: int, mask, dtype, h: int = 8, dh: int = 48) -> dict:
+    """Each flash kernel's least time on the card from this run's inputs:
+    each input read once and each output written once, over the memory
+    rate, or its products over the valid (query, key) pairs at the peak
+    of its operands' type, whichever is larger."""
+    tensor = b * h * s * dh * torch.tensor([], dtype=dtype).element_size()
+    row = b * h * s * 4  # an fp32 [B, H, S] vector: lse or delta
+    mask_bytes = b * s * 4
+    pairs = h * s * mask.sum().item()  # every query row x its valid keys
+    work = {  # (bytes, flops)
+        "flash_fwd": (4 * tensor + row + mask_bytes, 2 * 2 * pairs * dh),
+        "flash_dq": (5 * tensor + 2 * row + mask_bytes, 3 * 2 * pairs * dh),
+        "flash_dkv": (6 * tensor + 2 * row + mask_bytes, 4 * 2 * pairs * dh),
+    }
+    return {name: bound(nbytes, flops, dtype) for name, (nbytes, flops) in work.items()}
+
+
+def bound(nbytes: float, flops: float, dtype) -> dict:
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def attention_timing_phase(fa, smi: str, worst: dict) -> dict:
+    """At the transformer leg's shapes first :func:`leg_shape_check`, its
+    errors folded into ``worst``; then the flash kernels (both builds:
+    dropout 0 and the leg's 0.1), their plain versions and torch's
+    scaled_dot_product_attention at the slice's shapes (bf16, H=8, Dh=48).
+    Returns {(name, B, S): ms}."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    times = {}
+    drop = dict(dropout_rate=LEG_DROPOUT, dropout_seed=5)
+    for b, s in ATTENTION_TIMING:
+        q, k, v, mask = qkv((b, 8, s, 48), torch.bfloat16, seed=7)
+        gen = torch.Generator(device="cuda").manual_seed(8)
+        g = torch.randn(q.shape, generator=gen, device="cuda").to(torch.bfloat16)
+        if b == LEG_BATCH:  # a shape the transformer leg launches
+            leg_shape_check(fa, q, k, v, mask, g, drop, worst,
+                            f"bfloat16 B={b} S={s} dropout {LEG_DROPOUT}")
+        mask[-1, 0] = 1.0  # every entry has a valid key (SDPA would give NaN)
+        with torch.inference_mode():
+            out, lse = fa.flash_attention_fwd(q, k, v, mask)
+            delta = (g.float() * out.float()).sum(dim=-1)
+            out_d, lse_d = fa.flash_attention_fwd(q, k, v, mask, **drop)
+            delta_d = (g.float() * out_d.float()).sum(dim=-1)
+        ops = (q, k, v, mask, lse, delta, g)
+        ops_d = (q, k, v, mask, lse_d, delta_d, g)
+        leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+        key_mask = mask.bool()[:, None, None, :]
+        plain_out = fa.mha_reference(*leaves, mask)
+        sdpa_out = sdpa(*leaves, attn_mask=key_mask)
+        fns = {
+            "flash_fwd": lambda: fa.flash_attention_fwd(q, k, v, mask),
+            "flash_fwd dropout": lambda: fa.flash_attention_fwd(q, k, v, mask, **drop),
+            "flash_dq": lambda: fa.flash_dq_cuda(*ops),
+            "flash_dq dropout": lambda: fa.flash_dq_cuda(*ops_d, **drop),
+            "flash_dkv": lambda: fa.flash_dkv_cuda(*ops),
+            "flash_dkv dropout": lambda: fa.flash_dkv_cuda(*ops_d, **drop),
+            "plain fwd": lambda: fa.mha_reference(q, k, v, mask),
+            "plain fwd dropout": lambda: fa.mha_reference(q, k, v, mask, **drop),
+            "plain dq dropout": lambda: fa.flash_dq_plain(*ops_d, **drop),
+            "plain dkv dropout": lambda: fa.flash_dkv_plain(*ops_d, **drop),
+            "sdpa fwd": lambda: sdpa(q, k, v, attn_mask=key_mask),
+        }
+        grad_fns = {
+            "flash fwd+bwd": lambda: fa.flash_attention(*leaves, mask).backward(g),
+            "flash fwd+bwd dropout": lambda: fa.flash_attention(
+                *leaves, mask, **drop).backward(g),
+            "plain bwd": lambda: torch.autograd.grad(plain_out, leaves, g,
+                                                     retain_graph=True),
+            "plain fwd+bwd": lambda: fa.mha_reference(*leaves, mask).backward(g),
+            "sdpa bwd": lambda: torch.autograd.grad(sdpa_out, leaves, g,
+                                                    retain_graph=True),
+            "sdpa fwd+bwd": lambda: sdpa(*leaves, attn_mask=key_mask).backward(g),
+        }
+        for name, fn in fns.items():
+            times[(name, b, s)] = median_ms(fn)
+        for name, fn in grad_fns.items():
+            times[(name, b, s)] = median_ms(fn, grad=True)
+        del plain_out, sdpa_out
+        bounds = attention_bounds(b, s, mask, torch.bfloat16)
+        times[("bounds", b, s)] = bounds
+        log("attention", f"B={b} S={s} H=8 Dh=48 bf16, ms (median of 20): "
+            + ", ".join(f"{name} {times[(name, b, s)]:.4f}"
+                        for name in (*fns, *grad_fns))
+            + "; bounds " + ", ".join(f"{n} {x['bound_ms']:.4f} ({x['bound_by']})"
+                                      for n, x in bounds.items())
+            + f" ({smi})")
+    return times
 
 
 def post(url: str, payload: dict) -> tuple[int, dict]:
@@ -259,12 +550,12 @@ def slice_phase(fa, smi: str) -> int:
 
     cfg = apply_overrides(load_config(ROOT / "configs/lsmdc_transformer.json"),
                           OVERRIDES)
-    fa.launch_count = 0  # every count starts here, just before the main path
+    reset_counts(fa)  # every count starts here, just before the serving path
     t0 = time.perf_counter()
     service = build_service(cfg, None, "video", random_params=True,
                             device="cuda")
     torch.cuda.synchronize()
-    encode_launches = fa.launch_count
+    encode_launches = fa.launch_counts["flash_fwd"]
     log("slice", f"build_service (4096 synthetic pairs, both towers encoded) "
                  f"{time.perf_counter() - t0:.2f} s, corpus "
                  f"{tuple(service.corpus_emb.shape)}, kernel launches "
@@ -280,14 +571,15 @@ def slice_phase(fa, smi: str) -> int:
     try:
         start = 0
         for rows in (1, 3, 5, 16) * 2:
-            before = fa.launch_count
+            before = fa.launch_counts["flash_fwd"]
             status, out = post(url, {
                 "features": data.text[start:start + rows].tolist(),
                 "mask": data.text_mask[start:start + rows].tolist(), "k": 10,
             })
             check(status == 200, f"/search answered {status}")
             check_result(out, rows, 10, service.corpus_rows)
-            check(fa.launch_count > before, "a search launched no kernel")
+            check(fa.launch_counts["flash_fwd"] > before,
+                  "a search launched no kernel")
             start += rows
         status, health = get(url, "/healthz")
         check(status == 200 and health["corpus_rows"] == 4096, "/healthz")
@@ -297,7 +589,9 @@ def slice_phase(fa, smi: str) -> int:
     finally:
         httpd.shutdown()
         httpd.server_close()
-    launches = fa.launch_count
+    launches = fa.launch_counts["flash_fwd"]
+    check(fa.launch_counts["flash_dq"] == fa.launch_counts["flash_dkv"] == 0,
+          f"serving launched a backward kernel: {fa.launch_counts}")
     log("slice", f"8 searches answered; kernel launches in the main path "
                  f"{launches} (corpus encode {encode_launches}); /metrics "
                  f"p50 {metrics['latency_ms']['p50']} ms ({smi})")
@@ -463,7 +757,7 @@ def loss_timing_phase(fd, smi: str) -> dict:
     from crossclr_tpu_torch.ops.fused_crossclr import cross_clr_intra_fused
 
     times = {}
-    for b, d in (SLICE_LOSS_SHAPE, HEADLINE_LOSS_SHAPE):
+    for b, d in (SLICE_LOSS_SHAPE, TRANSFORMER_LOSS_SHAPE, HEADLINE_LOSS_SHAPE):
         v32, t32, g_v, g_t = loss_inputs(b, d, seed=3)
         v, t = (x.contiguous() for x in fd._fetch_cast("default", v32, t32))
         s = 1.0 / 0.03
@@ -626,6 +920,65 @@ def train_phase(fd, smi: str) -> dict:
     return launches
 
 
+def transformer_train_phase(fa, fd, smi: str) -> dict:
+    """The training CLI on the transformer towers at full width, with
+    attention dropout; returns the flash kernels' launches on that path."""
+    from crossclr_tpu_torch import train
+
+    n_eval = int(4096 * 0.1)  # data.eval_fraction's default
+    want = 8 * TRANSFORMER_STEPS  # 4 layers x 2 towers per train step
+    with tempfile.TemporaryDirectory(prefix="crossclr_smoke_") as tmp:
+        tmp = Path(tmp)
+        metrics = tmp / "metrics.csv"
+        reset_counts(fa)  # the transformer path
+        reset_counts(fd)
+        t0 = time.perf_counter()
+        rc = train.main(["--config", str(ROOT / TRANSFORMER_CONFIG),
+                         "--steps", str(TRANSFORMER_STEPS),
+                         "--metrics-csv", str(metrics), *TRANSFORMER_OVERRIDES,
+                         f"checkpoint_dir={tmp / 'ckpt'}"])
+        check(rc == 0, f"train.main exited {rc}")
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        flash, loss = dict(fa.launch_counts), dict(fd.launch_counts)
+        rows, evals = train_rows(metrics)
+    losses = check_train_rows(rows, evals, n_eval, "transformer leg")
+    check([int(r["step"]) for r in evals] == [20, 40],
+          f"transformer leg evals at {[r['step'] for r in evals]}")
+    check(flash["flash_dq"] == want and flash["flash_dkv"] == want,
+          f"flash backward launches {flash}, want {want} each")
+    check(flash["flash_fwd"] >= want, f"flash forward launches {flash}")
+    check(loss["sym_fwd"] > 0 and loss["sym_bwd"] > 0,
+          f"transformer leg launched no sym kernel: {loss}")
+    log("train", f"transformer leg (LSMDC towers, flash attention, dropout "
+                 f"0.1, batch 1024): {TRANSFORMER_STEPS} steps in {seconds:.1f} s; "
+                 f"loss {losses[0]:.4f} (step {rows[0]['step']}) -> "
+                 f"{losses[-1]:.4f} (step {rows[-1]['step']}); eval v2t/R@1 "
+                 f"{float(evals[-1]['eval/v2t/R@1']):.2f}, t2v/R@1 "
+                 f"{float(evals[-1]['eval/t2v/R@1']):.2f} over {n_eval} held-out "
+                 f"pairs (chance {100 / n_eval:.3f}); launches {flash} {loss}")
+    log("train", f"transformer steady train rate (the last eval interval "
+                 f"after its first dispatch, batch 1024): "
+                 f"{float(rows[-1]['pairs_per_sec']):.1f} pairs/s, "
+                 f"{float(rows[-1]['steps_per_sec']):.2f} steps/s ({smi})")
+    return flash
+
+
+def loss_bounds(b: int, d: int) -> dict:
+    """Each loss kernel's least time at bf16 operands (the `default`
+    tier): V·Tᵀ, V·Vᵀ and T·Tᵀ at 2·B²·D each in the forward, those three
+    and the four gradient products in the backward, against the bf16
+    peak; each input read once and each output written once."""
+    features = 2 * b * d * 2  # V, T in bf16
+    fwd = (features + 2 * b * 4, 3 * 2 * b * b * d)  # + lse_v, lse_t
+    bwd = (features + 4 * b * 4 + 2 * b * d * 4, 7 * 2 * b * b * d)
+    work = {"sym_fwd": fwd, "sym_bwd": bwd,
+            "dual_fwd": (fwd[0] + 4, fwd[1]),  # + the scale
+            "dual_bwd": (bwd[0] + 8, bwd[1])}  # + the scale and its term
+    return {name: bound(nbytes, flops, torch.bfloat16)
+            for name, (nbytes, flops) in work.items()}
+
+
 def main() -> int:
     smi = device_phase()
     sys.path.insert(0, str(ROOT))
@@ -634,21 +987,55 @@ def main() -> int:
     fa = importlib.import_module("crossclr_tpu_torch.ops.flash_attention")
     fd = importlib.import_module("crossclr_tpu_torch.ops.fused_dual")
     build_phase()
-    kernel = kernel_phase(fa, smi)
-    launches = slice_phase(fa, smi)
+    fwd_worst = kernel_phase(fa, smi)
+    flash_worst = attention_check_phase(fa)
+    flash_worst["flash_fwd"] = max(flash_worst["flash_fwd"], fwd_worst)
+    flash_times = attention_timing_phase(fa, smi, flash_worst)
+    serve_launches = slice_phase(fa, smi)
     loss_worst = loss_check_phase(fd)
     loss_times = loss_timing_phase(fd, smi)
     loss_launches = train_phase(fd, smi)
-    records = [{
-        "name": "flash_fwd", "route": "cuda", "source": KERNEL_SOURCE,
-        "replaces": REPLACES, "launches": launches, **kernel,
-    }]
+    flash_launches = transformer_train_phase(fa, fd, smi)
+    log("train", f"flash_fwd launches: serving {serve_launches}, transformer "
+                 f"training {flash_launches['flash_fwd']}")
+
+    # the text tower at the leg's batch, timed in the build the leg's
+    # train steps launch (dropout 0.1) against the plain version of the
+    # same function; torch has one call for the forward and one for the
+    # whole backward, so both backward records carry the latter
+    b, s = ATTENTION_TIMING[0]
+    flash_bounds = flash_times[("bounds", b, s)]
+    timed_at = f"B={b} H=8 S={s} Dh=48 bf16, dropout {LEG_DROPOUT}"
+    flash_rows = {  # (kernel, plain version, library call, what it computes)
+        "flash_fwd": ("flash_fwd dropout", "plain fwd dropout", "sdpa fwd",
+                      "scaled_dot_product_attention forward, dropout 0"),
+        "flash_dq": ("flash_dq dropout", "plain dq dropout", "sdpa bwd",
+                     "scaled_dot_product_attention backward (dq, dk and dv "
+                     "together), dropout 0"),
+        "flash_dkv": ("flash_dkv dropout", "plain dkv dropout", "sdpa bwd",
+                      "scaled_dot_product_attention backward (dq, dk and dv "
+                      "together), dropout 0"),
+    }
+    records = []
+    for name, (kernel_key, plain_key, library_key, library_call) in flash_rows.items():
+        records.append({
+            "name": name, "route": "cuda", "source": FLASH_SOURCES[name],
+            "replaces": FLASH_REPLACES[name], "launches": flash_launches[name],
+            "max_abs_err": flash_worst[name],
+            "ms": flash_times[(kernel_key, b, s)],
+            "plain_ms": flash_times[(plain_key, b, s)],
+            **flash_bounds[name],
+            "library_ms": flash_times[(library_key, b, s)],
+            "timed_at": timed_at, "library_call": library_call,
+        })
+    bounds = loss_bounds(*SLICE_LOSS_SHAPE)
     for name in fd.KERNELS:
         ms, plain_ms = loss_times[(name, *SLICE_LOSS_SHAPE)]
         records.append({
             "name": name, "route": "cuda", "source": LOSS_SOURCE,
             "replaces": LOSS_REPLACES[name], "launches": loss_launches[name],
             "max_abs_err": loss_worst[name], "ms": ms, "plain_ms": plain_ms,
+            **bounds[name], "library_ms": None,
         })
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -16,11 +16,14 @@ The arithmetic follows the Flax towers step by step:
 * ``pos_embed`` is cast to the compute dtype before the add;
 * pooling is a masked mean in fp32 and ``output_proj`` runs in fp32.
 
-Parameters stay fp32 and autograd runs through the casts, so the MLP
-towers train; ``MLPTower`` applies ``nn.Dropout`` after the GELU when
-``cfg.dropout > 0`` (train mode only).  The transformer towers have no
-training dropout yet, and a backward through ``attention="flash"`` is
-refused by the flash wrapper (its backward kernels are not ported).
+Parameters stay fp32 and autograd runs through the casts, so both kinds
+of tower train.  Dropout acts in train mode only: ``MLPTower`` applies
+``nn.Dropout`` after the GELU, and the transformer towers with
+``attention="flash"`` apply the flash kernels' attention-probability
+dropout, one seed in [0, 2^23) per attention call drawn from the
+``torch.Generator`` that :class:`DualEncoder` holds (the trainer reseeds
+it every step).  ``attention="xla"`` has no dropout: its JAX counterpart
+draws the mask from ``jax.random``, which the port cannot reproduce.
 """
 
 from __future__ import annotations
@@ -36,6 +39,7 @@ from ..ops.flash_attention import flash_attention
 __all__ = ["DualEncoder", "MLPTower", "TowerConfig", "TransformerTower"]
 
 _LN_EPS = 1e-6  # flax.linen.LayerNorm default
+_SEED_RANGE = 1 << 23  # the flash kernels' seeds, as the JAX _MHA draws them
 
 
 @dataclasses.dataclass(frozen=True)
@@ -146,19 +150,28 @@ class _HeadProjections(nn.Module):
 class _MHA(_HeadProjections):
     """``crossclr_tpu.models.encoders._MHA`` (attention="flash"): the
     attention core is :func:`ops.flash_attention`, which launches the CUDA
-    kernel on CUDA tensors.  ``attend`` is the core as an attribute, so a
-    check can swap in the plain version on the same weights."""
+    kernels on CUDA tensors.  ``attend`` is the core as an attribute, so a
+    check can swap in the plain version on the same weights.  In train mode
+    with ``cfg.dropout > 0`` each call draws its dropout seed from
+    ``dropout_gen``, as the JAX ``_MHA`` draws one per call and step."""
 
-    def __init__(self, cfg: TowerConfig):
+    def __init__(self, cfg: TowerConfig, dropout_gen: torch.Generator):
         super().__init__(cfg)
         self.attend = flash_attention
+        self.dropout_gen = dropout_gen
 
     def forward(self, x, mask):
         # [B, S, H, Dh] -> [B, H, S, Dh]
         q, k, v = (
             self._split(x, n).transpose(1, 2) for n in ("query", "key", "value")
         )
-        out = self.attend(q, k, v, mask)
+        if self.training and self.cfg.dropout > 0:
+            seed = int(torch.randint(0, _SEED_RANGE, (),
+                                     generator=self.dropout_gen))
+            out = self.attend(q, k, v, mask, dropout_rate=self.cfg.dropout,
+                              dropout_seed=seed)
+        else:
+            out = self.attend(q, k, v, mask)
         return self._merge(out.transpose(1, 2).to(self.cfg.dtype))
 
 
@@ -170,6 +183,12 @@ class MultiHeadDotProductAttention(_HeadProjections):
     dtype."""
 
     def forward(self, x, mask):
+        if self.training and self.cfg.dropout > 0:
+            raise NotImplementedError(
+                "attention='xla' dropout is not ported to crossclr_tpu_torch "
+                "(ROADMAP queue 1 item 10): its JAX mask comes from "
+                "jax.random; use attention='flash'"
+            )
         dt = self.cfg.dtype
         q, k, v = (self._split(x, n) for n in ("query", "key", "value"))
         q = q / torch.tensor(self.head_dim**0.5, dtype=torch.float32).to(dt)
@@ -185,16 +204,14 @@ class MultiHeadDotProductAttention(_HeadProjections):
         return self._merge(torch.einsum("bhqk,bkhd->bqhd", weights, v))
 
 
-_ATTENTION = {"flash": ("_MHA_0", _MHA),
-              "xla": ("MultiHeadDotProductAttention_0",
-                      MultiHeadDotProductAttention)}
+_ATTENTION = {"flash": "_MHA_0", "xla": "MultiHeadDotProductAttention_0"}
 
 
 class _Block(nn.Module):
     """Pre-norm transformer block (``LayerNorm_0``, attention,
     ``LayerNorm_1``, ``Dense_0``, ``Dense_1``)."""
 
-    def __init__(self, cfg: TowerConfig):
+    def __init__(self, cfg: TowerConfig, dropout_gen: torch.Generator):
         super().__init__()
         if cfg.attention not in _ATTENTION:
             raise NotImplementedError(
@@ -203,9 +220,10 @@ class _Block(nn.Module):
             )
         self.cfg = cfg
         self.LayerNorm_0 = _ln(cfg.embed_dim)
-        name, cls = _ATTENTION[cfg.attention]
-        self.attn_name = name
-        self.add_module(name, cls(cfg))
+        self.attn_name = _ATTENTION[cfg.attention]
+        self.add_module(self.attn_name,
+                        _MHA(cfg, dropout_gen) if cfg.attention == "flash"
+                        else MultiHeadDotProductAttention(cfg))
         self.LayerNorm_1 = _ln(cfg.embed_dim)
         self.Dense_0 = Dense(cfg.embed_dim, cfg.hidden_dim, cfg.dtype)
         self.Dense_1 = Dense(cfg.hidden_dim, cfg.embed_dim, cfg.dtype)
@@ -221,15 +239,17 @@ class _Block(nn.Module):
 class TransformerTower(nn.Module):
     """Transformer encoder over ``[B, S, input_dim]`` feature sequences:
     learned positions, pre-norm blocks, masked mean pooling, projection to
-    ``embed_dim``.  ``mask``: ``[B, S]`` (1 = valid)."""
+    ``embed_dim``.  ``mask``: ``[B, S]`` (1 = valid).  ``dropout_gen`` is
+    the generator its attention-dropout seeds come from (the one
+    :class:`DualEncoder` holds and reseeds)."""
 
-    def __init__(self, cfg: TowerConfig):
+    def __init__(self, cfg: TowerConfig, dropout_gen: torch.Generator):
         super().__init__()
         self.cfg = cfg
         self.input_proj = Dense(cfg.input_dim, cfg.embed_dim, cfg.dtype)
         self.pos_embed = nn.Parameter(torch.zeros(cfg.max_seq_len, cfg.embed_dim))
         for layer in range(cfg.num_layers):
-            self.add_module(f"block_{layer}", _Block(cfg))
+            self.add_module(f"block_{layer}", _Block(cfg, dropout_gen))
         self.final_norm = _ln(cfg.embed_dim)
         self.output_proj = Dense(cfg.embed_dim, cfg.embed_dim, torch.float32)
 
@@ -253,26 +273,36 @@ class TransformerTower(nn.Module):
         return self.output_proj(pooled)
 
 
-def _build_tower(cfg: TowerConfig) -> nn.Module:
+def _build_tower(cfg: TowerConfig, dropout_gen: torch.Generator) -> nn.Module:
     if cfg.kind == "mlp":
         return MLPTower(cfg)
     if cfg.kind == "transformer":
-        return TransformerTower(cfg)
+        return TransformerTower(cfg, dropout_gen)
     raise ValueError(f"unknown tower kind: {cfg.kind!r}")
 
 
 class DualEncoder(nn.Module):
     """Video tower + text tower → fp32 embeddings (not normalized), plus
     the criterion's scalar ``logit_scale`` so the module holds every leaf
-    of the JAX trainer's parameter tree."""
+    of the JAX trainer's parameter tree.
+
+    ``dropout_gen`` is the CPU generator both transformer towers draw their
+    attention-dropout seeds from, in a fixed order (video tower, then text
+    tower, block by block); ``reseed_dropout`` sets it for one step."""
 
     def __init__(self, video_cfg: TowerConfig, text_cfg: TowerConfig):
         super().__init__()
         self.video_cfg = video_cfg
         self.text_cfg = text_cfg
-        self.video_tower = _build_tower(video_cfg)
-        self.text_tower = _build_tower(text_cfg)
+        self.dropout_gen = torch.Generator()
+        self.video_tower = _build_tower(video_cfg, self.dropout_gen)
+        self.text_tower = _build_tower(text_cfg, self.dropout_gen)
         self.logit_scale = nn.Parameter(torch.ones(()))
+
+    def reseed_dropout(self, seed: int, step: int) -> None:
+        """Set the dropout generator as a pure function of ``(seed, step)``,
+        so a step's masks do not depend on what ran before it."""
+        self.dropout_gen.manual_seed(((int(seed) << 32) + int(step)) % (1 << 64))
 
     def forward(self, video, text, video_mask=None, text_mask=None):
         return (self.encode("video", video, video_mask),

@@ -3,7 +3,8 @@
 Each ``csrc/*.cu`` file exposes a plain C interface and is compiled on its
 own into a shared library, loaded with :mod:`ctypes` (no PyTorch headers,
 so a build takes seconds, and no ``ninja``).  The library is named by a
-hash of its source and flags, so an edited kernel rebuilds, and it lands
+hash of its source, the shared ``csrc/*.cuh`` headers and the flags, so
+an edited kernel rebuilds, and it lands
 in ``ops/_build/`` (listed in ``.gitignore``).  Concurrent builds, from
 threads or processes, serialize on a file lock, after the precedent of
 ``native/.build.lock`` in the JAX package.
@@ -56,8 +57,10 @@ def _nvcc() -> str:
 
 def _so_path(source: str) -> Path:
     src = _CSRC / source
+    # the shared headers count too: editing one rebuilds its includers
+    headers = b"".join(h.read_bytes() for h in sorted(_CSRC.glob("*.cuh")))
     digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
+        src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()
     ).hexdigest()[:16]
     return _BUILD_DIR / f"{src.stem}_{digest}.so"
 

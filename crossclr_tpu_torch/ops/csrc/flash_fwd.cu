@@ -1,17 +1,21 @@
 // Flash-attention forward for Hopper (sm_90a), with a plain C interface.
 //
 // Replaces the TPU kernel `_fwd_kernel` in crossclr_tpu/ops/flash_attention.py
-// (launched by `_flash_fwd`) for the dropout-free branch: online-softmax
-// attention over q, k, v [BH, S, Dh] with an optional [B, S] key-padding
-// mask (1 = valid), emitting out [BH, S, Dh] in q's dtype and the per-row
-// logsumexp lse [BH, S] in fp32.
+// (launched by `_flash_fwd`): online-softmax attention over q, k, v
+// [BH, S, Dh] with an optional [B, S] key-padding mask (1 = valid), emitting
+// out [BH, S, Dh] in q's dtype and the per-row logsumexp lse [BH, S] in fp32,
+// with optional attention-probability dropout.
 //
 // Semantics kept from the TPU kernel:
 //   * a masked logit is -inf, so its probability is exactly 0;
 //   * the running max has a finite floor of -1e30, so a key tile with no
 //     valid key never computes -inf - (-inf);
 //   * a query row with no valid key emits 0 and lse = -1e30 + log(1);
-//   * scores, softmax statistics and the output accumulate in fp32.
+//   * scores, softmax statistics and the output accumulate in fp32;
+//   * dropout (rate > 0): the keep mask is the stateless hash of the global
+//     (bh, query, key) indices (flash_common.cuh); only the P·V accumulation
+//     sees it, the softmax denominator keeps every term, and the output is
+//     scaled by 1/(1-rate)/l.  lse does not depend on the mask.
 //
 // Design: one block of 256 threads per (bh, 64-row query tile); 64-row K/V
 // tiles stream through shared memory.  Four threads share a query row: each
@@ -19,34 +23,21 @@
 // the output accumulator, which lives in registers.  The row's max and sum
 // reduce over the four lanes with warp shuffles.  Edges of S and Dh are
 // masked in the kernel, so any S and any Dh <= 128 run without padding.
+// The dropout branch is a template argument: rate 0 compiles the branch out.
 //
 // What bounds it on this card: the products run as scalar fp32 FMAs out of
 // shared memory, so the kernel is bound by instruction throughput, not by
 // device memory (q, k, v are read once per query tile).  Tensor-core products
 // (mma / wgmma), TMA loads and a pipelined K/V ring are the next steps.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
 
+#include "flash_common.cuh"
+
 namespace {
 
-constexpr int kBlockQ = 64;
-constexpr int kBlockK = 64;
-constexpr int kThreads = 4 * kBlockQ;  // four threads per query row
-constexpr int kMaxDh = 128;
-constexpr int kColsPerThread = kBlockK / 4;
-constexpr float kMaxFloor = -1e30f;  // crossclr_tpu _MAX_FLOOR
-
-__device__ __forceinline__ float load_f32(const float* p) { return *p; }
-__device__ __forceinline__ float load_f32(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
-__device__ __forceinline__ void store_f32(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store_f32(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
+using namespace flash;
 
 size_t smem_bytes(int dh) {
   const size_t ld = dh + 1;
@@ -59,12 +50,12 @@ size_t smem_bytes(int dh) {
 
 // MaxDh bounds the head dim at compile time (64 or 128), so a thread's
 // accumulator holds MaxDh / 4 registers and no more.
-template <typename T, int MaxDh>
+template <typename T, int MaxDh, bool kDrop>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, const float* __restrict__ mask,
                  T* __restrict__ out, float* __restrict__ lse, int s, int dh,
-                 int heads, float scale) {
+                 int heads, float scale, Dropout drop) {
   extern __shared__ float smem[];
   const int ld = dh + 1;
   float* sq = smem;
@@ -134,8 +125,10 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < kColsPerThread; ++j) {
       const float p = expf(sc[j] - m_new);  // exp(-inf) = 0 for masked keys
-      sp[row * (kBlockK + 1) + lane4 + 4 * j] = p;
       psum += p;
+      float p_v = p;  // what the values see
+      if (kDrop && !keep(drop, bh, q0 + row, k0 + lane4 + 4 * j)) p_v = 0.f;
+      sp[row * (kBlockK + 1) + lane4 + 4 * j] = p_v;
     }
     psum += __shfl_xor_sync(0xffffffffu, psum, 1);
     psum += __shfl_xor_sync(0xffffffffu, psum, 2);
@@ -158,7 +151,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int qi = q0 + row;
   if (qi < s) {
     const float safe_l = l > 0.f ? l : 1.f;  // fully masked row: emit 0
-    const float inv = 1.f / safe_l;
+    float inv = 1.f / safe_l;
+    if (kDrop) inv = static_cast<float>(1.0 / (1.0 - (double)drop.rate)) / safe_l;
     T* orow = out + base + (size_t)qi * dh;
 #pragma unroll
     for (int i = 0; i < kDimsPerThread; ++i) {
@@ -169,52 +163,73 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+template <typename T, int MaxDh, bool kDrop>
+cudaError_t launch_variant(const void* q, const void* k, const void* v,
+                           const float* mask, void* out, float* lse, int bh,
+                           int s, int dh, int heads, float scale,
+                           const Dropout& drop, cudaStream_t stream) {
+  const size_t smem = smem_bytes(dh);
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_kernel<T, MaxDh, kDrop>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(bh, (s + kBlockQ - 1) / kBlockQ);
+  flash_fwd_kernel<T, MaxDh, kDrop><<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), mask, static_cast<T*>(out), lse, s, dh, heads,
+      scale, drop);
+  return cudaGetLastError();
+}
+
 template <typename T, int MaxDh>
 cudaError_t launch_dh(const void* q, const void* k, const void* v,
                       const float* mask, void* out, float* lse, int bh, int s,
-                      int dh, int heads, float scale, cudaStream_t stream) {
-  const size_t smem = smem_bytes(dh);
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, MaxDh>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid(bh, (s + kBlockQ - 1) / kBlockQ);
-  flash_fwd_kernel<T, MaxDh><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), mask, static_cast<T*>(out), lse, s, dh, heads,
-      scale);
-  return cudaGetLastError();
+                      int dh, int heads, float scale, const Dropout& drop,
+                      cudaStream_t stream) {
+  if (drop.rate > 0.f)
+    return launch_variant<T, MaxDh, true>(q, k, v, mask, out, lse, bh, s, dh,
+                                          heads, scale, drop, stream);
+  return launch_variant<T, MaxDh, false>(q, k, v, mask, out, lse, bh, s, dh,
+                                         heads, scale, drop, stream);
 }
 
 template <typename T>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const float* mask, void* out, float* lse, int bh, int s,
-                   int dh, int heads, float scale, cudaStream_t stream) {
+                   int dh, int heads, float scale, const Dropout& drop,
+                   cudaStream_t stream) {
   if (dh <= 64)
     return launch_dh<T, 64>(q, k, v, mask, out, lse, bh, s, dh, heads, scale,
-                            stream);
+                            drop, stream);
   return launch_dh<T, kMaxDh>(q, k, v, mask, out, lse, bh, s, dh, heads, scale,
-                              stream);
+                              drop, stream);
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  mask may be null.  Returns a
-// cudaError_t; the launch is asynchronous on `stream`.
+// dtype: 0 = float32, 1 = bfloat16.  mask may be null.  rate in [0, 1);
+// seed already folded to [0, 2^23); the offsets place the call's query and
+// key indices and its bh range inside the global ones (0 on one device).
+// Returns a cudaError_t; the launch is asynchronous on `stream`.
 extern "C" int crossclr_flash_fwd(int dtype, const void* q, const void* k,
                                   const void* v, const void* mask, void* out,
                                   void* lse, int bh, int s, int dh, int heads,
-                                  float scale, void* stream) {
-  if (bh < 1 || s < 1 || dh < 1 || dh > kMaxDh || heads < 1 || bh % heads)
+                                  float scale, float rate, unsigned int seed,
+                                  int q_offset, int k_offset, int bh_offset,
+                                  void* stream) {
+  if (bh < 1 || s < 1 || dh < 1 || dh > kMaxDh || heads < 1 || bh % heads ||
+      !(rate >= 0.f && rate < 1.f))
     return (int)cudaErrorInvalidValue;
+  const Dropout drop{rate, seed, q_offset, k_offset, bh_offset};
   const float* m = static_cast<const float*>(mask);
   float* l = static_cast<float*>(lse);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return (int)launch<float>(q, k, v, m, out, l, bh, s, dh, heads, scale, st);
+    return (int)launch<float>(q, k, v, m, out, l, bh, s, dh, heads, scale, drop,
+                              st);
   if (dtype == 1)
     return (int)launch<__nv_bfloat16>(q, k, v, m, out, l, bh, s, dh, heads,
-                                      scale, st);
+                                      scale, drop, st);
   return (int)cudaErrorInvalidValue;
 }
 

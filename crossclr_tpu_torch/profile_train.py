@@ -16,10 +16,17 @@ Each line carries nvidia-smi's name and power limit on a CUDA device;
 ``--out`` also writes the numbers as JSON.  The split re-times the pieces
 of ``Trainer.train_step`` one by one and must follow it when that changes.
 
-Example (the training slice of chip_smoke.py):
+Examples (the training slices of chip_smoke.py):
   python -m crossclr_tpu_torch.profile_train --config configs/youcook2_mlp.json \\
       data.source=synthetic data.num_pairs=16384 data.video_dim=512 \\
       data.text_dim=384
+  python -m crossclr_tpu_torch.profile_train \\
+      --config configs/lsmdc_transformer.json --warmup 20 --repeats 10 \\
+      --steps 20 video_tower.attention=flash text_tower.attention=flash \\
+      video_tower.dropout=0.1 text_tower.dropout=0.1 data.source=synthetic \\
+      data.num_pairs=4096 data.video_dim=512 data.text_dim=768 \\
+      data.video_seq_len=64 data.text_seq_len=96 data.variable_lengths=true \\
+      data.batch_size=1024
 """
 
 from __future__ import annotations
@@ -62,8 +69,7 @@ def split_step(trainer, state, batches, repeats: int) -> dict[str, float]:
         times.setdefault(name, []).append((t1 - t0) * 1e3)
         return t1
 
-    model = state.model.train()
-    params = dict(model.named_parameters())
+    params = dict(state.model.named_parameters())
     for _ in range(repeats):
         _sync(dev)
         start = t = time.perf_counter()
@@ -73,6 +79,7 @@ def split_step(trainer, state, batches, repeats: int) -> dict[str, float]:
         v_mask = _optional(batch.get("video_mask"), dev)
         t_mask = _optional(batch.get("text_mask"), dev)
         t = lap("h2d", t)
+        model = trainer.step_model(state)
         v_emb, t_emb = model(video, text, v_mask, t_mask)
         t = lap("towers_fwd", t)
         temperature = None
@@ -99,6 +106,13 @@ def split_step(trainer, state, batches, repeats: int) -> dict[str, float]:
 
 
 TOP_ROWS = 15  # ops and kernels listed by device time
+# the port's own kernels by family: a substring of the CUDA function names
+KERNEL_FAMILIES = {
+    "flash_fwd": "flash_fwd_kernel",
+    "flash_dq": "flash_dq_kernel",
+    "flash_dkv": "flash_dkv_kernel",
+    "loss": "lse_",  # lse_fwd_kernel, lse_bwd_kernel of fused_dual.cu
+}
 
 
 def profiled_fit(trainer, state, batches, steps: int) -> dict:
@@ -127,6 +141,11 @@ def profiled_fit(trainer, state, batches, steps: int) -> dict:
     rows = [{"name": a.key, "count": a.count,
              "device_ms": a.self_device_time_total / 1e3}
             for a in averages[:TOP_ROWS] if a.self_device_time_total > 0]
+    families = {
+        family: sum(a.self_device_time_total for a in averages
+                    if a.device_type == DeviceType.CUDA and pattern in a.key) / 1e3
+        for family, pattern in KERNEL_FAMILIES.items()
+    }
     return {
         "steps": steps,
         "wall_ms": wall_ms,
@@ -134,6 +153,7 @@ def profiled_fit(trainer, state, batches, steps: int) -> dict:
         "device_busy_share": busy_us / 1e3 / wall_ms,
         "device_events": len(spans),
         "device_events_per_step": len(spans) / steps,
+        "kernel_family_ms": families,
         "top": rows,
     }
 
@@ -178,6 +198,10 @@ def main(argv: list[str] | None = None) -> int:
           f"{fit['device_busy_ms']:.1f} ms = {100 * fit['device_busy_share']:.1f}% "
           f"of wall; {fit['device_events_per_step']:.1f} device events per step "
           f"({card})", flush=True)
+    busy = max(fit["device_busy_ms"], 1e-9)
+    print(f"{tag}: the port's kernels, ms of device time over the fit: "
+          + ", ".join(f"{k} {v:.3f} ({100 * v / busy:.1f}% of busy)"
+                      for k, v in fit["kernel_family_ms"].items()), flush=True)
     for row in fit["top"]:
         print(f"  {row['device_ms']:10.3f} ms {row['count']:7d}x  {row['name'][:100]}")
     if args.out:

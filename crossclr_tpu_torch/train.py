@@ -15,6 +15,13 @@ queue 1 item 11), ``--profile-dir`` and ``--tensorboard-dir`` (item 14).
 Examples:
   python -m crossclr_tpu_torch.train --config configs/youcook2_mlp.json \\
       data.source=synthetic data.num_pairs=16384 --steps 300
+  python -m crossclr_tpu_torch.train --config configs/lsmdc_transformer.json \\
+      --steps 60 video_tower.attention=flash text_tower.attention=flash \\
+      video_tower.dropout=0.1 text_tower.dropout=0.1 data.source=synthetic \\
+      data.num_pairs=4096 data.video_dim=512 data.text_dim=768 \\
+      data.video_seq_len=64 data.text_seq_len=96 \\
+      data.variable_lengths=true data.batch_size=1024 \\
+      checkpoint_dir=/tmp/lsmdc
   python -m crossclr_tpu_torch.train --device cpu --steps 50 \\
       data.batch_size=64 data.num_pairs=512
 """

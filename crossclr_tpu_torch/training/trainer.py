@@ -16,7 +16,10 @@ configs load.  The step:
 ``fit`` runs ``steps_per_call`` steps per dispatch as a plain loop.
 Refused with a message rather than ignored: ``embedding_chunk`` and
 ``optimizer="lamb"`` (ROADMAP queue 1 item 13), the full CrossCLR losses
-(item 9) and transformer-tower dropout (item 10).  ``zero1`` and
+(item 9) and transformer-tower dropout under ``attention="xla"`` (item
+10: its JAX mask comes from ``jax.random``).  Under ``attention="flash"``
+the towers' dropout generator is reseeded every step from
+``(train.seed, step)``, so a resumed run draws the same masks.  ``zero1`` and
 ``global_negatives`` are inert on one device, as in the JAX trainer with
 ``mesh=None``.
 """
@@ -277,10 +280,13 @@ class Trainer:
                 "ported to crossclr_tpu_torch yet (ROADMAP queue 1 item 13)"
             )
         for cfg in (video_cfg, text_cfg):
-            if cfg.kind == "transformer" and cfg.dropout > 0:
+            if (cfg.kind == "transformer" and cfg.dropout > 0
+                    and cfg.attention != "flash"):
                 raise NotImplementedError(
-                    "training dropout of the transformer towers is not "
-                    "ported to crossclr_tpu_torch yet (ROADMAP queue 1 item 10)"
+                    f"training dropout of transformer towers with attention="
+                    f"{cfg.attention!r} is not ported to crossclr_tpu_torch "
+                    "(ROADMAP queue 1 item 10): the JAX 'xla' mask comes from "
+                    "jax.random; use attention='flash'"
                 )
         if (train_cfg.learnable_temperature
                 and train_cfg.loss not in _TRACED_TEMP_LOSSES):
@@ -335,11 +341,19 @@ class Trainer:
 
     # -- the step -----------------------------------------------------------
 
+    def step_model(self, state: TrainState) -> torch.nn.Module:
+        """``state``'s model in train mode with this step's attention-dropout
+        masks: its generator reseeded from ``(train.seed, step)``, whatever
+        ran before the step."""
+        model = state.model.train()
+        model.reseed_dropout(self.cfg.seed, state.step)
+        return model
+
     def train_step(self, state: TrainState, batch: dict) -> tuple[TrainState, dict]:
         """One optimizer step on a host batch; updates ``state`` in place
         and returns it with device-scalar metrics."""
         cfg = self.cfg
-        model = state.model.train()
+        model = self.step_model(state)
         dev = self.device
         v_emb, t_emb = model(
             to_tensor(batch["video"], dev), to_tensor(batch["text"], dev),

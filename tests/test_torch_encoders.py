@@ -59,7 +59,8 @@ def _flax_and_port(kind, jcfg, tcfg, x, mask, seed=1):
     params = jmod.init(jax.random.PRNGKey(seed), *args)["params"]
     jout = np.asarray(jmod.apply({"params": params}, *args), np.float32)
 
-    tmod = tenc.MLPTower(tcfg) if kind == "mlp" else tenc.TransformerTower(tcfg)
+    tmod = (tenc.MLPTower(tcfg) if kind == "mlp"
+            else tenc.TransformerTower(tcfg, torch.Generator()))
     tmod.load_state_dict(state_dict_from_flax(jax.device_get(params), tmod))
     targs = [torch.from_numpy(x)] + (
         [] if kind == "mlp" else [None if mask is None else torch.from_numpy(mask)])
@@ -164,4 +165,5 @@ def test_port_config_mirrors_every_tower_field():
     assert tnames == jnames
     with pytest.raises(NotImplementedError, match="ring"):
         tenc.TransformerTower(tenc.TowerConfig(kind="transformer",
-                                               attention="ring"))
+                                               attention="ring"),
+                              torch.Generator())

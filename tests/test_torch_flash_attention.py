@@ -1,4 +1,5 @@
-"""The port's flash-attention forward against the JAX package's.
+"""The port's flash-attention forward against the JAX package's
+(dropout and the backward: ``tests/test_torch_flash_dropout.py``).
 
 On the CPU the port's ``flash_attention`` takes its plain version,
 ``mha_reference``; it is held against the JAX ``mha_reference``, the JAX
@@ -91,16 +92,28 @@ def test_plain_matches_jax_reference_and_interpreted_kernel(s, dh, mask_kind):
 
 
 def test_dispatch_follows_the_tensor_device_and_rejects_dropout():
+    """CPU tensors take the plain version, with dropout and under autograd
+    too; a dropout rate outside [0, 1) is rejected."""
     q, k, v, mask = (torch.from_numpy(x) for x in _inputs(1, 2, 5, 4, "ragged"))
-    before = port.launch_count
+    before = dict(port.launch_counts)
     out = port.flash_attention(q, k, v, mask)
-    assert port.launch_count == before  # CPU tensors never launch
     torch.testing.assert_close(out, port.mha_reference(q, k, v, mask),
                                rtol=0, atol=0)
-    with pytest.raises(NotImplementedError, match="dropout"):
-        port.flash_attention(q, k, v, mask, dropout_rate=0.1)
+    drop = dict(dropout_rate=0.1, dropout_seed=3)
+    qg = q.clone().requires_grad_()
+    dropped = port.flash_attention(qg, k, v, mask, **drop)
+    torch.testing.assert_close(dropped, port.mha_reference(q, k, v, mask, **drop),
+                               rtol=0, atol=0)
+    dropped.sum().backward()
+    assert qg.grad is not None and torch.isfinite(qg.grad).all()
+    assert port.launch_counts == before  # CPU tensors never launch
+    for rate in (1.0, -0.1):
+        with pytest.raises(ValueError, match="dropout_rate"):
+            port.flash_attention(q, k, v, mask, dropout_rate=rate)
     with pytest.raises(ValueError, match="CUDA"):
         port.flash_attention_fwd(q, k, v, mask)
+    with pytest.raises(ValueError, match="CUDA"):
+        port.flash_attention_bwd(q, k, v, mask, out, None, out)
 
 
 # --------------------------------------------------------------------------
@@ -132,12 +145,12 @@ def test_cuda_kernel_matches_plain(cuda, dtype, s):
         for x in _inputs(b, h, s, dh, "fully_masked", seed=s)
     )
     q, k, v = (x.to(dtype) for x in (q, k, v))
-    before = port.launch_count
+    before = port.launch_counts["flash_fwd"]
     with torch.inference_mode():
         out, lse = port.flash_attention(q, k, v, mask, return_lse=True)
         ref, ref_lse = port.mha_reference(q, k, v, mask, return_lse=True)
     torch.cuda.synchronize()
-    assert port.launch_count == before + 1
+    assert port.launch_counts["flash_fwd"] == before + 1
     atol, rtol, lse_atol = LIMITS[dtype]
     torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=rtol)
     torch.testing.assert_close(lse, ref_lse, atol=lse_atol, rtol=0)
@@ -146,10 +159,13 @@ def test_cuda_kernel_matches_plain(cuda, dtype, s):
 
 
 @pytest.mark.requires_cuda
-def test_cuda_kernel_rejects_grad_and_wide_heads(cuda):
+def test_cuda_kernel_accepts_dropout_and_grad_and_rejects_wide_heads(cuda):
     q = torch.randn(1, 1, 8, 8, device=cuda, requires_grad=True)
-    with pytest.raises(RuntimeError, match="backward"):
-        port.flash_attention(q, q, q)
+    before = dict(port.launch_counts)
+    port.flash_attention(q, q, q, dropout_rate=0.1, dropout_seed=1).sum().backward()
+    torch.cuda.synchronize()
+    assert all(port.launch_counts[n] == before[n] + 1 for n in port.KERNELS)
+    assert q.grad is not None and torch.isfinite(q.grad).all()
     wide = torch.randn(1, 1, 8, 129, device=cuda)
     with pytest.raises(ValueError, match="head dim"):
         port.flash_attention(wide, wide, wide)
