@@ -1,14 +1,15 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (crossclr_tpu_torch) on one NVIDIA GPU.
 
-Drives the port's three paths and proves that they went through the
+Drives the port's four paths and proves that they went through the
 repo's own CUDA kernels: retrieval serving at the full width of
 configs/lsmdc_transformer.json with attention="flash" on both towers,
 training at the full width of configs/youcook2_mlp.json through the fused
-CrossCLR-intra loss kernels, and training the transformer towers of
+CrossCLR-intra loss kernels, training the transformer towers of
 configs/lsmdc_transformer.json through the flash forward and backward
-kernels with attention dropout.  Phases, one line each; any failure
-raises and exits non-zero:
+kernels with attention dropout, and training the full CrossCLR loss of
+configs/fullcrossclr_fused_ragged.json through the row-block kernels.
+Phases, one line each; any failure raises and exits non-zero:
 
   1. device    — a CUDA device must exist (there is no CPU path); prints
                  nvidia-smi's name and power limit, torch and CUDA versions.
@@ -58,7 +59,28 @@ raises and exits non-zero:
                  (B=4096, D=512), and the loss fwd+bwd of both routes at the
                  headline shape (CUDA events, median of 20), with
                  contrastive pairs/s.
-  7. train     — crossclr_tpu_torch.train.main on configs/youcook2_mlp.json
+  7. global    — the three row-block kernels of ops/csrc/fused_global.cu
+                 (rows_lse, rows_bwd_rows, rows_bwd_cols): (a) each against
+                 its plain version on the same CUDA tensors at B x D in
+                 {4096 x 384, 1000 x 384, 1000 x 640}, offset 0 with
+                 anchors = candidates, fp32 (highest) and bf16 (default)
+                 operands, pruned (keep masks from
+                 connectivity_keep_and_weights at prune 0.1) and unpruned,
+                 at τ = 0.03 and 0.05 (the Σ p⊙z term of dτ row by row
+                 within LSE_TOL and in total within DS_RTOL); (b) four
+                 emulated ranks: blocks of 1024 rows at offsets 0, 1024,
+                 2048, 3072 of 4096 give the one-call lse and Σ p⊙z rows,
+                 and their summed candidate gradients and concatenated row
+                 gradients the one-call gradients;
+                 (c) a 1-rank NCCL group: global_cross_clr and
+                 global_cross_clr_intra (use_fused) at 4096 x 384 against
+                 cross_clr_fused / cross_clr_intra_fused and the eager
+                 losses, values and feature gradients, the rows counters
+                 grown; (d) each kernel held to its plain version and then
+                 both timed at the leg's 1024 x 384, at 4096 x 384 and at
+                 4096 x 512 (bf16 operands, pruned; CUDA events, median of
+                 20).
+  8. train     — crossclr_tpu_torch.train.main on configs/youcook2_mlp.json
                  at full width (synthetic data, 16384 pairs): 300 steps with
                  eval every 100, a resume to 340 steps, then 100 steps with a
                  learnable temperature.  Checks the sym kernels launched in
@@ -74,9 +96,17 @@ raises and exits non-zero:
                  flash_fwd at least that often, the sym loss kernels
                  launched, the loss falling and R@1 above chance.  Launch
                  counts reset before each leg; prints the steady train
-                 pairs/s of each.
+                 pairs/s of each.  Then the full-CrossCLR leg: train.main on
+                 configs/fullcrossclr_fused_ragged.json at full width (its
+                 crossclr_fused loss with learnable τ at the default tier,
+                 attention "xla", 4096 synthetic ragged pairs, batch 1024,
+                 30 steps, eval every 15): each rows kernel launched
+                 exactly 2 x 30 times, no flash and no sym/dual kernel, the
+                 loss falling, R@1 above chance, logit_scale moved and
+                 within ±ln 100; prints the weight ESS that the trainer
+                 reports on the leg's first batch.
 
-The second-to-last line is the kernels' JSON record: seven kernels, each
+The second-to-last line is the kernels' JSON record: ten kernels, each
 with its time, its plain version's, the library call's where one exists,
 and its bound from this run's shapes; the flash records also name the
 shape and build they were timed at and what the library call computes.
@@ -89,6 +119,7 @@ import contextlib
 import copy
 import csv
 import importlib
+import io
 import json
 import math
 import statistics
@@ -120,6 +151,12 @@ LOSS_REPLACES = {
     "sym_bwd": "crossclr_tpu/ops/fused_dual.py:1023",
     "dual_fwd": "crossclr_tpu/ops/fused_dual.py:108",
     "dual_bwd": "crossclr_tpu/ops/fused_dual.py:301",
+}
+ROWS_SOURCE = "crossclr_tpu_torch/ops/csrc/fused_global.cu"
+ROWS_REPLACES = {
+    "rows_lse": "crossclr_tpu/ops/fused_global.py:92",
+    "rows_bwd_rows": "crossclr_tpu/ops/fused_global.py:155",
+    "rows_bwd_cols": "crossclr_tpu/ops/fused_global.py:228",
 }
 LOSS_SHAPES = [(1024, 256), (1024, 384), (1024, 512), (4096, 256),
                (4096, 512), (1000, 256), (1000, 512)]
@@ -176,6 +213,26 @@ TRANSFORMER_OVERRIDES = [
     f"text_tower.dropout={LEG_DROPOUT}",
     "train.warmup_steps=30", "eval_every=20", "log_every=10",
 ]
+FULL_CONFIG = "configs/fullcrossclr_fused_ragged.json"
+FULL_STEPS = 30
+# the config's widths and loss as shipped; synthetic ragged data (its
+# data/*.npy files are not in the repository), batch 1024 for 4096, and a
+# warmup and dispatch size that fit 30 steps
+FULL_OVERRIDES = [
+    "data.source=synthetic", "data.num_pairs=4096", "data.video_dim=512",
+    "data.text_dim=768", "data.video_seq_len=64", "data.text_seq_len=96",
+    "data.variable_lengths=true", f"data.batch_size={LEG_BATCH}",
+    "train.warmup_steps=10", "train.steps_per_call=5", "eval_every=15",
+    "log_every=5",
+]
+# the rows kernels: the config's batch and the ragged edges, its width, and
+# a width past one 512-feature chunk (the backward splits it over blocks)
+GLOBAL_SHAPES = [(4096, 384), (1000, 384), (1000, 640)]
+GLOBAL_TIMING = [(1024, 384), (4096, 384), (4096, 512)]
+EMULATED_RANKS = 4
+DS_KEY = "rows_bwd_rows Σ p⊙z per row"  # the dτ term, held apart from d rows
+PRUNE = 0.1
+
 # the card's published peaks (NVIDIA H100 SXM data sheet, dense): the
 # bound of a kernel is the larger of its bytes over the memory rate and its
 # operations over the peak of its operands' type
@@ -209,7 +266,8 @@ def build_phase() -> None:
     from crossclr_tpu_torch.ops import _build
 
     sources = sorted(p.name for p in _build._CSRC.glob("*.cu"))
-    check({"flash_fwd.cu", "flash_bwd.cu", "fused_dual.cu"} <= set(sources),
+    check({"flash_fwd.cu", "flash_bwd.cu", "fused_dual.cu", "fused_global.cu"}
+          <= set(sources),
           f"kernel sources missing: {sources}")
     _build.load_libraries(sources)
     for source in sources:
@@ -805,6 +863,208 @@ def loss_timing_phase(fd, smi: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# the row-block kernels (the full CrossCLR loss and global negatives)
+# ---------------------------------------------------------------------------
+
+
+def rows_inputs(b: int, d: int, seed: int):
+    """Unit-norm fp32 features, their pruning masks (connectivity of the
+    features themselves, prune 0.1) and positive lse cotangents."""
+    from crossclr_tpu_torch.losses import functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    v, t = (torch.nn.functional.normalize(
+        torch.randn(b, d, generator=gen, device="cuda"), dim=1) for _ in range(2))
+    masks = [F.connectivity_keep_and_weights(
+        F.connectivity_scores(x), prune_percent=PRUNE,
+        weight_temperature=0.0035)[0] for x in (v, t)]
+    g = (0.5 + torch.rand(b, 1, generator=gen, device="cuda")) / (2 * b)
+    return v, t, masks, g
+
+
+def rows_check(fg, rows, a_all, o_all, off, scale, g, masks, worst, tag):
+    """Each rows kernel against its plain version on the same operands;
+    returns the kernels' outputs (lse, d_rows, ds_rows, d_other, d_anchor)."""
+    args = (rows, a_all, o_all, off, scale, NEG_WEIGHT, *masks)
+    want = fg.rows_lse_plain(*args)
+    lse = fg.rows_lse_cuda(*args)
+    worst["rows_lse"] = max(worst["rows_lse"], lse_err([lse], [want], f"{tag} rows_lse"))
+    bargs = (*args[:5], want, g, NEG_WEIGHT, *masks)
+    d_rows, ds_rows = fg.rows_bwd_rows_cuda(*bargs)
+    p_rows, p_ds = fg.rows_bwd_rows_plain(*bargs)
+    worst["rows_bwd_rows"] = max(worst["rows_bwd_rows"], grad_err(
+        [d_rows], [p_rows], f"{tag} rows_bwd_rows"))
+    # Σ p⊙z row by row (every z of a split feature dimension writes the
+    # same value from z = 0), then the total that feeds dτ
+    worst[DS_KEY] = max(worst[DS_KEY], lse_err(
+        [ds_rows], [p_ds], f"{tag} rows_bwd_rows Σ p⊙z per row"))
+    ds_rel = ((ds_rows.sum() - p_ds.sum()).abs() / p_ds.sum().abs()).item()
+    check(ds_rel <= DS_RTOL, f"{tag}: Σ p⊙z rel err {ds_rel:.3e} (limit {DS_RTOL})")
+    cols = fg.rows_bwd_cols_cuda(*bargs)
+    worst["rows_bwd_cols"] = max(worst["rows_bwd_cols"], grad_err(
+        cols, fg.rows_bwd_cols_plain(*bargs), f"{tag} rows_bwd_cols"))
+    return lse, d_rows, ds_rows, *cols
+
+
+def global_check_phase(fd, fg) -> dict:
+    """(a) the rows kernels against their plain versions; (b) four
+    emulated ranks against one call.  Returns each kernel's worst absolute
+    error."""
+    worst = dict.fromkeys((*fg.KERNELS, DS_KEY), 0.0)
+    for b, d in GLOBAL_SHAPES:
+        v32, t32, masks, g = rows_inputs(b, d, seed=b + d)
+        for tier in ("highest", "default"):
+            v, t = (x.contiguous() for x in fd._fetch_cast(tier, v32, t32))
+            for pruned in (False, True):
+                keep = (masks[1], masks[0]) if pruned else (None, None)
+                for tau in (0.03, 0.05):
+                    scale = torch.full((1,), 1.0 / tau, device="cuda")
+                    rows_check(fg, v, v, t, 0, scale, g, keep, worst,
+                               f"B={b} D={d} {tier} pruned={pruned} τ={tau}")
+            torch.cuda.synchronize()
+            log("global", f"B={b} D={d} {tier}: rows kernels vs plain, pruned "
+                          f"and unpruned, τ in (0.03, 0.05): worst max|kernel-plain| "
+                          + ", ".join(f"{k} {x:.3e}" for k, x in worst.items()))
+
+    # (b) blocks of b_loc rows at offsets r·b_loc against one call
+    b, d = GLOBAL_SHAPES[0]
+    b_loc = b // EMULATED_RANKS
+    v32, t32, masks, g = rows_inputs(b, d, seed=17)
+    v, t = (x.contiguous() for x in fd._fetch_cast("default", v32, t32))
+    scale = torch.full((1,), 1.0 / 0.03, device="cuda")
+    for pruned in (False, True):
+        keep = (masks[1], masks[0]) if pruned else (None, None)
+        tag = f"emulated ranks pruned={pruned}"
+        whole = rows_check(fg, v, v, t, 0, scale, g, keep, worst, tag + " one call")
+        parts = [rows_check(fg, v[r * b_loc:(r + 1) * b_loc].contiguous(), v, t,
+                            r * b_loc, scale, g[r * b_loc:(r + 1) * b_loc].contiguous(),
+                            keep, worst, f"{tag} rank {r}")
+                 for r in range(EMULATED_RANKS)]
+        lse_err([torch.cat([p[0] for p in parts])], [whole[0]], tag + " lse")
+        grad_err([torch.cat([p[1] for p in parts]), sum(p[3] for p in parts),
+                  sum(p[4] for p in parts)], [whole[1], whole[3], whole[4]],
+                 tag + " gradients")
+        lse_err([torch.cat([p[2] for p in parts])], [whole[2]], tag + " Σ p⊙z per row")
+        ds_rel = ((sum(p[2].sum() for p in parts) - whole[2].sum()).abs()
+                  / whole[2].sum().abs()).item()
+        check(ds_rel <= DS_RTOL, f"{tag}: Σ p⊙z rel err {ds_rel:.3e}")
+        log("global", f"{EMULATED_RANKS} emulated ranks of {b_loc} rows at offsets "
+                      f"{[r * b_loc for r in range(EMULATED_RANKS)]} of {b}, pruned="
+                      f"{pruned}, bf16 operands: the blocks' lse, concatenated row "
+                      f"gradients and summed candidate gradients equal one call's")
+    return worst
+
+
+def global_loss_phase(fg) -> None:
+    """(c) the global losses through a 1-rank NCCL group against the
+    one-device fused and eager losses (fp32 operands)."""
+    import torch.distributed as dist
+
+    from crossclr_tpu_torch.losses import functional as F
+    from crossclr_tpu_torch.ops.fused_crossclr import cross_clr_intra_fused
+    from crossclr_tpu_torch.parallel import global_cross_clr, global_cross_clr_intra
+
+    b, d = GLOBAL_SHAPES[0]
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    video, text = (torch.randn(b, d, generator=gen, device="cuda") for _ in range(2))
+    cases = {
+        "global_cross_clr": (
+            lambda v, t: global_cross_clr(v, t, use_fused=True),
+            [("cross_clr_fused", lambda v, t: fg.cross_clr_fused(v, t)),
+             ("eager cross_clr", lambda v, t: F.cross_clr(v, t))]),
+        "global_cross_clr_intra": (
+            lambda v, t: global_cross_clr_intra(v, t, use_fused=True),
+            [("cross_clr_intra_fused", lambda v, t: cross_clr_intra_fused(v, t)),
+             ("eager cross_clr_intra", lambda v, t: F.cross_clr_intra(v, t))]),
+    }
+
+    def run(fn):
+        v = video.clone().requires_grad_()
+        t = text.clone().requires_grad_()
+        loss = fn(v, t)
+        loss.backward()
+        return loss.detach(), v.grad, t.grad
+
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        for name, (fn, refs) in cases.items():
+            before = dict(fg.launch_counts)
+            got = run(fn)
+            torch.cuda.synchronize()
+            grown = {k: fg.launch_counts[k] - before[k] for k in fg.KERNELS}
+            check(all(x == 2 for x in grown.values()),
+                  f"{name} launched the rows kernels {grown} times, want 2 each")
+            for ref_name, ref in refs:
+                want = run(ref)
+                lerr = abs(got[0].item() - want[0].item())
+                check(lerr <= LSE_TOL + LSE_TOL * abs(want[0].item()),
+                      f"{name} {got[0].item()} vs {ref_name} {want[0].item()}")
+                gerr = grad_err(got[1:], want[1:], f"{name} vs {ref_name} gradients")
+                log("global", f"{name} (1-rank NCCL group, use_fused, B={b} D={d}) "
+                              f"{got[0].item():.9g} vs {ref_name} {want[0].item():.9g}: "
+                              f"|Δloss| {lerr:.3e}, max|Δgrad| {gerr:.3e}")
+    finally:
+        dist.destroy_process_group()
+
+
+def rows_bounds(b_loc: int, b: int, d: int) -> dict:
+    """Each rows kernel's least time at bf16 operands (the leg's `default`
+    tier), offset 0 with anchors = candidates (one [B, D] array serves as
+    anchor_rows and anchor_all): 2 products of 2·b_loc·B·D for the
+    forward, 4 for each backward kernel, at the bf16 peak; each input read
+    once (features, the two bool masks, the scale, lse and g) and each
+    output written once."""
+    features = 2 * b * d * 2  # anchor_all = anchor_rows, other_all in bf16
+    masks = 2 * b + 4  # + the scale
+    rows = b_loc * 4
+    product = 2 * b_loc * b * d
+    work = {
+        "rows_lse": (features + masks + rows, 2 * product),
+        "rows_bwd_rows": (features + masks + 2 * rows + b_loc * d * 4 + rows,
+                          4 * product),
+        "rows_bwd_cols": (features + masks + 2 * rows + 2 * b * d * 4, 4 * product),
+    }
+    return {name: bound(nbytes, flops, torch.bfloat16)
+            for name, (nbytes, flops) in work.items()}
+
+
+def global_timing_phase(fd, fg, smi: str, worst: dict) -> dict:
+    """(d) each rows kernel and its plain version, bf16 operands, pruned,
+    offset 0, first held to the plain version on the timed operands (into
+    ``worst``); returns {(name, B, D): (ms, plain_ms)}."""
+    times = {}
+    for b, d in GLOBAL_TIMING:
+        v32, t32, masks, g = rows_inputs(b, d, seed=3)
+        v, t = (x.contiguous() for x in fd._fetch_cast("default", v32, t32))
+        scale = torch.full((1,), 1.0 / 0.03, device="cuda")
+        args = (v, v, t, 0, scale, NEG_WEIGHT, masks[1], masks[0])
+        rows_check(fg, v, v, t, 0, scale, g, (masks[1], masks[0]), worst,
+                   f"timed B={b} D={d} default pruned")
+        log("global", f"B={b} D={d} default, pruned, the timed operands: rows "
+                      "kernels vs plain, worst max|kernel-plain| so far "
+                      + ", ".join(f"{k} {x:.3e}" for k, x in worst.items()))
+        lse = fg.rows_lse_plain(*args)
+        bargs = (*args[:5], lse, g, NEG_WEIGHT, masks[1], masks[0])
+        pairs = {
+            "rows_lse": (lambda: fg.rows_lse_cuda(*args),
+                         lambda: fg.rows_lse_plain(*args)),
+            "rows_bwd_rows": (lambda: fg.rows_bwd_rows_cuda(*bargs),
+                              lambda: fg.rows_bwd_rows_plain(*bargs)),
+            "rows_bwd_cols": (lambda: fg.rows_bwd_cols_cuda(*bargs),
+                              lambda: fg.rows_bwd_cols_plain(*bargs)),
+        }
+        bounds = rows_bounds(b, b, d)
+        for name, (kernel, plain) in pairs.items():
+            ms, plain_ms = median_ms(kernel), median_ms(plain)
+            times[(name, b, d)] = (ms, plain_ms)
+            log("global", f"{name} B={b} D={d} bf16 operands, pruned: kernel "
+                          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+                          f"{bounds[name]['bound_ms']:.4f} ms "
+                          f"({bounds[name]['bound_by']}) (median of 20; {smi})")
+    return times
+
+
+# ---------------------------------------------------------------------------
 # the training slice
 # ---------------------------------------------------------------------------
 
@@ -964,6 +1224,62 @@ def transformer_train_phase(fa, fd, smi: str) -> dict:
     return flash
 
 
+def full_train_phase(fa, fd, fg, smi: str) -> dict:
+    """The training CLI on the full-CrossCLR config at full width; returns
+    the rows kernels' launches on that path."""
+    from crossclr_tpu_torch import train
+
+    n_eval = int(4096 * 0.1)  # data.eval_fraction's default
+    want = 2 * FULL_STEPS  # one forward and one backward per direction per step
+    with tempfile.TemporaryDirectory(prefix="crossclr_smoke_") as tmp:
+        tmp = Path(tmp)
+        metrics = tmp / "metrics.csv"
+        for counts in (fa, fd, fg):  # the full-CrossCLR path
+            reset_counts(counts)
+        t0 = time.perf_counter()
+        err = io.StringIO()  # the trainer reports its weight ESS on stderr
+        try:
+            with contextlib.redirect_stderr(err):
+                rc = train.main(["--config", str(ROOT / FULL_CONFIG),
+                                 "--steps", str(FULL_STEPS), "--metrics-csv",
+                                 str(metrics), *FULL_OVERRIDES,
+                                 f"checkpoint_dir={tmp / 'ckpt'}"])
+        finally:
+            sys.stderr.write(err.getvalue())
+        check(rc == 0, f"train.main exited {rc}")
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        rows_counts = dict(fg.launch_counts)
+        others = {**fa.launch_counts, **fd.launch_counts}
+        rows, evals = train_rows(metrics)
+    losses = check_train_rows(rows, evals, n_eval, "full-CrossCLR leg")
+    check([int(r["step"]) for r in evals] == [15, 30],
+          f"full-CrossCLR leg evals at {[r['step'] for r in evals]}")
+    check(all(rows_counts[k] == want for k in fg.KERNELS),
+          f"rows kernel launches {rows_counts}, want {want} each")
+    check(not any(others.values()), f"flash or sym/dual kernels launched: {others}")
+    scales = [float(r["logit_scale"]) for r in rows]
+    check(all(abs(x) <= LOGIT_SCALE_BOUND + 1e-6 for x in scales)
+          and scales[-1] != 0.0,
+          f"logit_scale did not move or left ±ln 100: {scales}")
+    ess = [ln for ln in err.getvalue().splitlines() if "positive-weight ESS" in ln]
+    check(len(ess) == 1, f"full-CrossCLR leg: {len(ess)} weight ESS lines, want 1")
+    log("train", f"full-CrossCLR leg, the trainer's report: {ess[0]}")
+    log("train", f"full-CrossCLR leg ({FULL_CONFIG}, crossclr_fused, learnable τ, "
+                 f"default tier, batch {LEG_BATCH}): {FULL_STEPS} steps in "
+                 f"{seconds:.1f} s; loss {losses[0]:.4f} (step {rows[0]['step']}) -> "
+                 f"{losses[-1]:.4f} (step {rows[-1]['step']}); logit_scale "
+                 f"{scales[0]:.6f} -> {scales[-1]:.6f}; eval v2t/R@1 "
+                 f"{float(evals[-1]['eval/v2t/R@1']):.2f}, t2v/R@1 "
+                 f"{float(evals[-1]['eval/t2v/R@1']):.2f} over {n_eval} held-out "
+                 f"pairs (chance {100 / n_eval:.3f}); launches {rows_counts}")
+    log("train", f"full-CrossCLR steady train rate (the last eval interval after "
+                 f"its first dispatch, batch {LEG_BATCH}): "
+                 f"{float(rows[-1]['pairs_per_sec']):.1f} pairs/s, "
+                 f"{float(rows[-1]['steps_per_sec']):.2f} steps/s ({smi})")
+    return rows_counts
+
+
 def loss_bounds(b: int, d: int) -> dict:
     """Each loss kernel's least time at bf16 operands (the `default`
     tier): V·Tᵀ, V·Vᵀ and T·Tᵀ at 2·B²·D each in the forward, those three
@@ -986,6 +1302,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     fa = importlib.import_module("crossclr_tpu_torch.ops.flash_attention")
     fd = importlib.import_module("crossclr_tpu_torch.ops.fused_dual")
+    fg = importlib.import_module("crossclr_tpu_torch.ops.fused_global")
     build_phase()
     fwd_worst = kernel_phase(fa, smi)
     flash_worst = attention_check_phase(fa)
@@ -994,8 +1311,12 @@ def main() -> int:
     serve_launches = slice_phase(fa, smi)
     loss_worst = loss_check_phase(fd)
     loss_times = loss_timing_phase(fd, smi)
+    rows_worst = global_check_phase(fd, fg)
+    global_loss_phase(fg)
+    rows_times = global_timing_phase(fd, fg, smi, rows_worst)
     loss_launches = train_phase(fd, smi)
     flash_launches = transformer_train_phase(fa, fd, smi)
+    rows_launches = full_train_phase(fa, fd, fg, smi)
     log("train", f"flash_fwd launches: serving {serve_launches}, transformer "
                  f"training {flash_launches['flash_fwd']}")
 
@@ -1035,6 +1356,17 @@ def main() -> int:
             "name": name, "route": "cuda", "source": LOSS_SOURCE,
             "replaces": LOSS_REPLACES[name], "launches": loss_launches[name],
             "max_abs_err": loss_worst[name], "ms": ms, "plain_ms": plain_ms,
+            **bounds[name], "library_ms": None,
+        })
+    # the full-CrossCLR leg's shape: 1024 anchors against their own batch
+    b, d = GLOBAL_TIMING[0]
+    bounds = rows_bounds(b, b, d)
+    for name in fg.KERNELS:
+        ms, plain_ms = rows_times[(name, b, d)]
+        records.append({
+            "name": name, "route": "cuda", "source": ROWS_SOURCE,
+            "replaces": ROWS_REPLACES[name], "launches": rows_launches[name],
+            "max_abs_err": rows_worst[name], "ms": ms, "plain_ms": plain_ms,
             **bounds[name], "library_ms": None,
         })
     print(json.dumps({"kernels": records}), flush=True)

@@ -59,13 +59,33 @@ class CrossCLR_onlyIntraModality(nn.Module):
 
 
 class CrossCLR(nn.Module):
-    """Full CrossCLR (pruning and connectivity-weighted positives): not
-    ported yet."""
+    """Full CrossCLR: inter+intra negatives, influential-sample pruning and
+    connectivity-weighted positives (:func:`.functional.cross_clr`).
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "the full CrossCLR loss is not ported to crossclr_tpu_torch yet "
-            "(ROADMAP queue 1 item 9); use CrossCLR_onlyIntraModality"
+    ``forward`` takes optional raw input features for connectivity
+    scoring; with the embeddings alone the two-argument reference
+    signature still works (the scores then come from the embeddings).
+    """
+
+    def __init__(self, temperature: float = 0.03, negative_weight: float = 0.8,
+                 weight_temperature: float = 0.0035, prune_percent: float = 0.10,
+                 weight_norm: str = "raw", logger: Any = None):
+        super().__init__()
+        self.temperature = float(temperature)
+        self.negative_w = float(negative_weight)
+        self.weight_temperature = float(weight_temperature)
+        self.prune_percent = float(prune_percent)
+        self.weight_norm = str(weight_norm)
+        self.logger = logger
+        self.logit_scale = nn.Parameter(torch.ones(()))
+
+    def forward(self, video_features, text_features, video_inputs=None,
+                text_inputs=None):
+        return F.cross_clr(
+            video_features, text_features, video_inputs, text_inputs,
+            temperature=self.temperature, negative_weight=self.negative_w,
+            weight_temperature=self.weight_temperature,
+            prune_percent=self.prune_percent, weight_norm=self.weight_norm,
         )
 
 

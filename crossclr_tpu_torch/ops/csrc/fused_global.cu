@@ -1,0 +1,572 @@
+// A block of anchor rows against a set of candidates, for Hopper (sm_90a):
+// the row-block logsumexp of CrossCLR and its two backward kernels, with a
+// plain C interface.
+//
+// Replaces the TPU kernels of crossclr_tpu/ops/fused_global.py:
+//   crossclr_rows_lse       <- _rows_lse_kernel       (per-row lse)
+//   crossclr_rows_bwd_rows  <- _rows_bwd_rows_kernel  (d anchor_rows, and the
+//                                                      per-row Σ p⊙z of dτ)
+//   crossclr_rows_bwd_cols  <- _rows_bwd_cols_kernel  (d other_all,
+//                                                      d anchor_all)
+//
+// The math, for L2-normalized anchor rows A_r [bl, d] that are rows
+// off .. off + bl of the candidates' batch, candidates A, O [n, d], scale
+// s = 1/τ and weight w: with z_inter[r, j] = s·a_r·o_j and z_intra[r, j] =
+// w·s·a_r·a_j,
+//   lse[r] = log( Σ_j exp(z_inter[r, j]) + Σ_j exp(z_intra[r, j]) ).
+// Unpruned (the released loss): the intra logit of j = off + r is ZEROED
+// (exp(0) = 1 stays in the sum).  Pruned (keep masks ki, ka [n] given): an
+// inter column is kept where ki[j] | on_diag, an intra column where
+// ka[j] & ~on_diag; an excluded logit is kMasked = -1e9.  Every row keeps
+// its positive, so once a real logit has been seen the masked terms are
+// exp(-1e9 - m) = 0 in whatever order the tiles come: a thread whose own
+// columns are all masked holds a bogus partial (m = -1e9, l = its count)
+// that the rescale exp(-1e9 - m_real) wipes when the row's partials are
+// combined.  The running max starts at -1e30, BELOW kMasked, so it floors
+// nothing a real or masked logit could reach (a floor above -1e9 would
+// corrupt rows whose kept logits all lie below it, at extreme 1/τ).
+// Given the cotangent g of lse, p = g_r·exp(z_inter - lse_r) and
+// q = g_r·exp(z_intra - lse_r) (0 where the intra logit is zeroed or
+// excluded; an excluded inter logit gives exactly 0 through the exp):
+//   d A_r = s·(p·O + w·q·A),   d O = s·pᵀ·A_r,   d A = s·w·qᵀ·A_r,
+//   ds_rows[r] = Σ_j (p⊙z_inter + q⊙z_intra)[r, j] = s · d lse_r / d s
+// (an excluded logit adds 0 · -1e9 = -0, never NaN).
+//
+// Design: owner-computes, in the style of fused_dual.cu.  The TPU kernels
+// run a sequential candidate axis j (rows kernels) or anchor axis i (the
+// columns kernel) of the grid and carry m, l and the gradient sums across
+// it in VMEM scratch; blocks on this card run in parallel in no order, so
+// that axis becomes a loop inside the block:
+//   rows_lse, rows_bwd_rows: a block owns 64 anchor rows and loops over
+//     every 64-candidate tile of O and then of A;
+//   rows_bwd_cols: a block owns 64 candidates of ONE array (blockIdx.y = 0:
+//     O and d O, 1: A and d A) and loops over every 64-row anchor tile.
+// Every output element is written by one block and every sum has a fixed
+// order (the per-row partials combine by warp shuffles in a fixed
+// pattern), so there are no atomics and runs are bit-reproducible.  The
+// TPU workarounds are gone: no lane padding of d, no tile picking (edges of
+// bl, n and d are masked here), the row offset is an int (not an fp32 SMEM
+// scalar), and the columns kernel takes lse and g as they are (no
+// pre-transposed (1, TB) vectors or [TC, 1] masks).
+//
+// The logit tiles are 64 x 64 products over d, staged through shared memory
+// in 32-feature chunks (fp32, or bf16 widened to fp32 on load: both tiers
+// accumulate in fp32); 256 threads own a 4 x 4 micro tile each.  A backward
+// block keeps its gradient rows [64, <=512 features] in shared memory and
+// adds coefficient-tile x operand-tile products into them; wider features
+// split over blockIdx.z, each z recomputing the logits.
+//
+// What bounds it on this card: scalar fp32 FMAs issued from shared memory.
+// The forward does 2·bl·n·d FMAs (two products), each backward kernel
+// 4·bl·n·d (the logits again and the gradient products).  The rows kernels'
+// grid has only ceil(bl/64) blocks, fewer than the 132 SMs below bl = 8448,
+// so at the training slice's bl = 1024 most of the card idles.  Tensor-core
+// products (mma / wgmma on bf16 tiles) and splitting the candidate loop over
+// more blocks (a second pass combining per-split (m, l) and gradient
+// partials in a fixed order) are the next steps.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stddef.h>
+
+namespace {
+
+constexpr int kTile = 64;         // rows per block = rows per loop tile
+constexpr int kThreads = 256;     // 16 x 16 threads, a 4 x 4 micro tile each
+constexpr int kChunk = 32;        // features per staged chunk of a logit product
+constexpr int kLd = kTile + 4;    // padded row stride, float4-aligned
+constexpr int kOutChunk = 512;    // gradient features one backward block owns
+constexpr float kMasked = -1e9f;  // an excluded candidate's logit (pruned)
+constexpr float kMaxInit = -1e30f;  // the running max's start, below kMasked
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+// s[k][r] = x[r0 + r][k0 + k] for a 64-row x 32-feature chunk of x [n, d],
+// 0 outside.
+template <typename T>
+__device__ __forceinline__ void stage_chunk(const T* __restrict__ x, int r0,
+                                            int k0, int n, int d, float* s) {
+  for (int i = threadIdx.x; i < kTile * kChunk; i += kThreads) {
+    const int r = i / kChunk, k = i - r * kChunk;
+    const int row = r0 + r, col = k0 + k;
+    s[k * kLd + r] =
+        (row < n && col < d) ? to_f32(x[(size_t)row * d + col]) : 0.f;
+  }
+}
+
+// acc[i][j] = <x[x0 + 4ty + i], y[y0 + 4tx + j]> over all d features, for
+// x [nx, d] and y [ny, d]; rows past nx or ny give 0.
+template <typename T>
+__device__ void tile_dot(const T* __restrict__ x, int x0, int nx,
+                         const T* __restrict__ y, int y0, int ny, int d,
+                         float* sx, float* sy, float (&acc)[4][4]) {
+  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+  for (int k0 = 0; k0 < d; k0 += kChunk) {
+    __syncthreads();  // the previous readers of sx, sy are done
+    stage_chunk(x, x0, k0, nx, d, sx);
+    stage_chunk(y, y0, k0, ny, d, sy);
+    __syncthreads();
+#pragma unroll 8
+    for (int k = 0; k < kChunk; ++k) {
+      const float4 a = *reinterpret_cast<const float4*>(sx + k * kLd + 4 * ty);
+      const float4 b = *reinterpret_cast<const float4*>(sy + k * kLd + 4 * tx);
+      const float av[4] = {a.x, a.y, a.z, a.w};
+      const float bv[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+    }
+  }
+}
+
+// Whether candidate `col` of anchor row `grow` (global index) counts, and
+// for the unpruned intra block whether its logit is the zeroed self one.
+template <bool kPruned>
+__device__ __forceinline__ bool kept(bool intra, int grow, int col,
+                                     const unsigned char* __restrict__ ki,
+                                     const unsigned char* __restrict__ ka) {
+  const bool diag = grow == col;
+  if constexpr (kPruned)
+    return intra ? (ka[col] != 0 && !diag) : (ki[col] != 0 || diag);
+  return true;
+}
+
+// ---------------------------------------------------------------------------
+// forward: the lse of a 64-row anchor tile
+// ---------------------------------------------------------------------------
+
+template <typename T, bool kPruned>
+__global__ void __launch_bounds__(kThreads)
+rows_lse_kernel(const T* __restrict__ ar, const T* __restrict__ aa,
+                const T* __restrict__ oa, const unsigned char* __restrict__ ki,
+                const unsigned char* __restrict__ ka,
+                const float* __restrict__ scale_ptr, float w,
+                float* __restrict__ lse, int bl, int n, int d, int off) {
+  __shared__ __align__(16) float sx[kChunk * kLd];
+  __shared__ __align__(16) float sy[kChunk * kLd];
+  const float s = *scale_ptr;
+  const int r0 = blockIdx.x * kTile;
+  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
+
+  float m[4], l[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = kMaxInit;
+    l[i] = 0.f;
+  }
+  float acc[4][4];
+  for (int c0 = 0; c0 < n; c0 += kTile) {
+    for (int part = 0; part < 2; ++part) {
+      const bool intra = part == 1;
+      tile_dot(ar, r0, bl, intra ? aa : oa, c0, n, d, sx, sy, acc);
+      const float zs = intra ? w * s : s;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int grow = off + r0 + 4 * ty + i;
+        float z[4];
+        bool ok[4];
+        float tmax = kMaxInit;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int col = c0 + 4 * tx + j;
+          ok[j] = col < n;
+          z[j] = zs * acc[i][j];
+          if (ok[j]) {
+            if (!kept<kPruned>(intra, grow, col, ki, ka)) z[j] = kMasked;
+            // the zeroed (not dropped) self logit of the released loss
+            if (!kPruned && intra && grow == col) z[j] = 0.f;
+            tmax = fmaxf(tmax, z[j]);
+          }
+        }
+        const float mn = fmaxf(m[i], tmax);
+        float add = 0.f;
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (ok[j]) add += expf(z[j] - mn);
+        l[i] = l[i] * expf(m[i] - mn) + add;
+        m[i] = mn;
+      }
+    }
+  }
+  // a row's 16 partials live on 16 consecutive lanes of one warp
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int sh = 8; sh > 0; sh >>= 1) {
+      const float lo = __shfl_xor_sync(0xffffffffu, l[i], sh);
+      const float mo = __shfl_xor_sync(0xffffffffu, m[i], sh);
+      const float mn = fmaxf(m[i], mo);
+      l[i] = l[i] * expf(m[i] - mn) + lo * expf(mo - mn);
+      m[i] = mn;
+    }
+    const int row = r0 + 4 * ty + i;
+    if (tx == 0 && row < bl) lse[row] = m[i] + logf(l[i]);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// the backward kernels
+// ---------------------------------------------------------------------------
+
+// sout[i][f] += Σ_c sc[i][c] · x[x0 + c][d0 + f] for f < dc, x [nx, d].
+// `so` is a [kTile][kLd] staging area (it aliases the logit chunks sx, sy).
+template <typename T>
+__device__ void add_product(const float* sc, const T* __restrict__ x, int x0,
+                            int nx, int d, int d0, int dc, float* so,
+                            float* sout, int ldo) {
+  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
+  for (int f0 = 0; f0 < dc; f0 += kTile) {
+    __syncthreads();  // sc is written; the previous readers of so are done
+    for (int i = threadIdx.x; i < kTile * kTile; i += kThreads) {
+      const int c = i / kTile, f = i - c * kTile;
+      const int row = x0 + c;
+      so[c * kLd + f] = (row < nx && f0 + f < dc)
+                            ? to_f32(x[(size_t)row * d + d0 + f0 + f])
+                            : 0.f;
+    }
+    __syncthreads();
+    float acc[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+#pragma unroll 4
+    for (int c = 0; c < kTile; ++c) {
+      const float4 b = *reinterpret_cast<const float4*>(so + c * kLd + 4 * tx);
+      const float bv[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float a = sc[(4 * ty + i) * kLd + c];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a, bv[j], acc[i][j]);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int f = f0 + 4 * tx + j;
+        if (f < dc) sout[(4 * ty + i) * ldo + f] += acc[i][j];
+      }
+  }
+}
+
+__host__ __device__ __forceinline__ int out_ld(int dc) {
+  return (dc + kTile - 1) / kTile * kTile + 4;
+}
+
+// The shared memory of a backward block: the logit chunks sx, sy (together
+// one [kTile][kLd] staging area for add_product), the coefficient tile sc,
+// two [kTile] vectors of factors and the gradient rows sout.
+struct BwdSmem {
+  float *sx, *sy, *sc, *fa, *fb, *sout;
+  int dc, ldo;
+  __device__ BwdSmem(float* smem, int d0, int d) {
+    dc = min(kOutChunk, d - d0);
+    ldo = out_ld(dc);
+    sx = smem;
+    sy = sx + kChunk * kLd;
+    sc = sy + kChunk * kLd;
+    fa = sc + kTile * kLd;
+    fb = fa + kTile;
+    sout = fb + kTile;
+    for (int i = threadIdx.x; i < kTile * ldo; i += kThreads) sout[i] = 0.f;
+  }
+};
+
+size_t bwd_smem_bytes(int d) {
+  const int dc = d < kOutChunk ? d : kOutChunk;
+  return sizeof(float) *
+         (2 * kChunk * kLd + kTile * kLd + 2 * kTile + kTile * out_ld(dc));
+}
+
+// d A_r and ds_rows for a 64-row anchor tile (blockIdx.z: feature chunk).
+template <typename T, bool kPruned>
+__global__ void __launch_bounds__(kThreads)
+rows_bwd_rows_kernel(const T* __restrict__ ar, const T* __restrict__ aa,
+                     const T* __restrict__ oa,
+                     const unsigned char* __restrict__ ki,
+                     const unsigned char* __restrict__ ka,
+                     const float* __restrict__ scale_ptr, float w,
+                     const float* __restrict__ lse, const float* __restrict__ g,
+                     float* __restrict__ d_rows, float* __restrict__ ds_rows,
+                     int bl, int n, int d, int off) {
+  extern __shared__ __align__(16) float smem[];
+  const int d0 = blockIdx.z * kOutChunk;
+  BwdSmem sm(smem, d0, d);
+  const float s = *scale_ptr;
+  const int r0 = blockIdx.x * kTile;
+  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
+
+  float rg[4], rl[4], ds[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = r0 + 4 * ty + i;
+    rg[i] = row < bl ? g[row] : 0.f;
+    rl[i] = row < bl ? lse[row] : 0.f;
+    ds[i] = 0.f;
+  }
+  float acc[4][4];
+  for (int c0 = 0; c0 < n; c0 += kTile) {
+    for (int part = 0; part < 2; ++part) {
+      const bool intra = part == 1;
+      const T* cand = intra ? aa : oa;
+      tile_dot(ar, r0, bl, cand, c0, n, d, sm.sx, sm.sy, acc);
+      const float zs = intra ? w * s : s;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int row = r0 + 4 * ty + i;
+        const int grow = off + row;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int cl = 4 * tx + j;
+          const int col = c0 + cl;
+          const float z = zs * acc[i][j];
+          float coef = 0.f;
+          // excluded: exp(-1e9 - lse) = 0 exactly; the zeroed self logit
+          // of the released loss is a constant with no gradient
+          if (row < bl && col < n && kept<kPruned>(intra, grow, col, ki, ka) &&
+              (kPruned || !(intra && grow == col)))
+            coef = rg[i] * expf(z - rl[i]);
+          ds[i] = fmaf(coef, z, ds[i]);
+          sm.sc[(4 * ty + i) * kLd + cl] = intra ? w * coef : coef;
+        }
+      }
+      add_product(sm.sc, cand, c0, n, d, d0, sm.dc, sm.sx, sm.sout, sm.ldo);
+    }
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < kTile * sm.dc; i += kThreads) {
+    const int rr = i / sm.dc, f = i - rr * sm.dc;
+    const int row = r0 + rr;
+    if (row < bl) d_rows[(size_t)row * d + d0 + f] = s * sm.sout[rr * sm.ldo + f];
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int sh = 8; sh > 0; sh >>= 1)
+      ds[i] += __shfl_xor_sync(0xffffffffu, ds[i], sh);
+    const int row = r0 + 4 * ty + i;
+    if (tx == 0 && blockIdx.z == 0 && row < bl) ds_rows[row] = ds[i];
+  }
+}
+
+// d O (blockIdx.y = 0) or d A (1) for 64 candidates (blockIdx.z: feature
+// chunk): the candidate tile against every anchor tile.
+template <typename T, bool kPruned>
+__global__ void __launch_bounds__(kThreads)
+rows_bwd_cols_kernel(const T* __restrict__ ar, const T* __restrict__ aa,
+                     const T* __restrict__ oa,
+                     const unsigned char* __restrict__ ki,
+                     const unsigned char* __restrict__ ka,
+                     const float* __restrict__ scale_ptr, float w,
+                     const float* __restrict__ lse, const float* __restrict__ g,
+                     float* __restrict__ d_other, float* __restrict__ d_anchor,
+                     int bl, int n, int d, int off) {
+  extern __shared__ __align__(16) float smem[];
+  const int d0 = blockIdx.z * kOutChunk;
+  BwdSmem sm(smem, d0, d);
+  const bool intra = blockIdx.y != 0;
+  const T* cand = intra ? aa : oa;
+  float* out = intra ? d_anchor : d_other;
+  const float s = *scale_ptr;
+  const float zs = intra ? w * s : s;
+  const int c0 = blockIdx.x * kTile;
+  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
+
+  float acc[4][4];
+  for (int r0 = 0; r0 < bl; r0 += kTile) {
+    // acc[i][j] = cand_{c0 + 4ty + i} · a_{r0 + 4tx + j}
+    tile_dot(cand, c0, n, ar, r0, bl, d, sm.sx, sm.sy, acc);
+    if (threadIdx.x < kTile) {
+      const int row = r0 + threadIdx.x;
+      sm.fa[threadIdx.x] = row < bl ? g[row] : 0.f;
+      sm.fb[threadIdx.x] = row < bl ? lse[row] : 0.f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int col = c0 + 4 * ty + i;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int rl = 4 * tx + j;
+        const int row = r0 + rl;
+        const int grow = off + row;
+        float coef = 0.f;
+        if (row < bl && col < n && kept<kPruned>(intra, grow, col, ki, ka) &&
+            (kPruned || !(intra && grow == col)))
+          coef = sm.fa[rl] * expf(zs * acc[i][j] - sm.fb[rl]);
+        sm.sc[(4 * ty + i) * kLd + rl] = intra ? w * coef : coef;
+      }
+    }
+    add_product(sm.sc, ar, r0, bl, d, d0, sm.dc, sm.sx, sm.sout, sm.ldo);
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < kTile * sm.dc; i += kThreads) {
+    const int cc = i / sm.dc, f = i - cc * sm.dc;
+    const int col = c0 + cc;
+    if (col < n) out[(size_t)col * d + d0 + f] = s * sm.sout[cc * sm.ldo + f];
+  }
+}
+
+int tiles(int n) { return (n + kTile - 1) / kTile; }
+int out_chunks(int d) { return (d + kOutChunk - 1) / kOutChunk; }
+
+bool bad_args(int dtype, const void* ki, const void* ka, int bl, int n, int d,
+              int off) {
+  return bl < 1 || n < 1 || d < 1 || (dtype != 0 && dtype != 1) ||
+         (ki == nullptr) != (ka == nullptr) || off < 0 || off > n - bl;
+}
+
+template <typename T, bool kPruned>
+cudaError_t launch_lse(const void* ar, const void* aa, const void* oa,
+                       const void* ki, const void* ka, const float* scale,
+                       float w, float* lse, int bl, int n, int d, int off,
+                       cudaStream_t stream) {
+  rows_lse_kernel<T, kPruned><<<tiles(bl), kThreads, 0, stream>>>(
+      static_cast<const T*>(ar), static_cast<const T*>(aa),
+      static_cast<const T*>(oa), static_cast<const unsigned char*>(ki),
+      static_cast<const unsigned char*>(ka), scale, w, lse, bl, n, d, off);
+  return cudaGetLastError();
+}
+
+template <typename T, bool kPruned>
+cudaError_t launch_bwd_rows(const void* ar, const void* aa, const void* oa,
+                            const void* ki, const void* ka, const float* scale,
+                            float w, const float* lse, const float* g,
+                            float* d_rows, float* ds_rows, int bl, int n,
+                            int d, int off, cudaStream_t stream) {
+  const size_t smem = bwd_smem_bytes(d);
+  cudaError_t err = cudaFuncSetAttribute(
+      rows_bwd_rows_kernel<T, kPruned>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(tiles(bl), 1, out_chunks(d));
+  rows_bwd_rows_kernel<T, kPruned><<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(ar), static_cast<const T*>(aa),
+      static_cast<const T*>(oa), static_cast<const unsigned char*>(ki),
+      static_cast<const unsigned char*>(ka), scale, w, lse, g, d_rows, ds_rows,
+      bl, n, d, off);
+  return cudaGetLastError();
+}
+
+template <typename T, bool kPruned>
+cudaError_t launch_bwd_cols(const void* ar, const void* aa, const void* oa,
+                            const void* ki, const void* ka, const float* scale,
+                            float w, const float* lse, const float* g,
+                            float* d_other, float* d_anchor, int bl, int n,
+                            int d, int off, cudaStream_t stream) {
+  const size_t smem = bwd_smem_bytes(d);
+  cudaError_t err = cudaFuncSetAttribute(
+      rows_bwd_cols_kernel<T, kPruned>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(tiles(n), 2, out_chunks(d));
+  rows_bwd_cols_kernel<T, kPruned><<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(ar), static_cast<const T*>(aa),
+      static_cast<const T*>(oa), static_cast<const unsigned char*>(ki),
+      static_cast<const unsigned char*>(ka), scale, w, lse, g, d_other,
+      d_anchor, bl, n, d, off);
+  return cudaGetLastError();
+}
+
+// One instantiation per (dtype, pruned).
+template <template <typename, bool> class Launch, typename... Args>
+cudaError_t dispatch(int dtype, bool pruned, Args... args) {
+  if (dtype == 0)
+    return pruned ? Launch<float, true>::run(args...)
+                  : Launch<float, false>::run(args...);
+  return pruned ? Launch<__nv_bfloat16, true>::run(args...)
+                : Launch<__nv_bfloat16, false>::run(args...);
+}
+
+template <typename T, bool P>
+struct Lse {
+  template <typename... A>
+  static cudaError_t run(A... a) { return launch_lse<T, P>(a...); }
+};
+template <typename T, bool P>
+struct BwdRows {
+  template <typename... A>
+  static cudaError_t run(A... a) { return launch_bwd_rows<T, P>(a...); }
+};
+template <typename T, bool P>
+struct BwdCols {
+  template <typename... A>
+  static cudaError_t run(A... a) { return launch_bwd_cols<T, P>(a...); }
+};
+
+}  // namespace
+
+// dtype: 0 = float32, 1 = bfloat16 (anchor_rows [bl, d], anchor_all and
+// other_all [n, d]); keep_inter, keep_intra: bool [n] (both, or both null
+// for the unpruned variant); scale [1], lse, g, ds_rows [bl] (the [bl, 1]
+// columns), d_rows [bl, d], d_other, d_anchor [n, d]: float32.  The anchor
+// rows are rows off .. off + bl of the candidates' batch.  Each function
+// returns a cudaError_t; launches are asynchronous on `stream`.
+
+extern "C" int crossclr_rows_lse(int dtype, const void* anchor_rows,
+                                 const void* anchor_all, const void* other_all,
+                                 const void* keep_inter,
+                                 const void* keep_intra, const void* scale,
+                                 void* lse, int bl, int n, int d, int off,
+                                 float w, void* stream) {
+  if (bad_args(dtype, keep_inter, keep_intra, bl, n, d, off))
+    return (int)cudaErrorInvalidValue;
+  return (int)dispatch<Lse>(
+      dtype, keep_inter != nullptr, anchor_rows, anchor_all, other_all,
+      keep_inter, keep_intra, static_cast<const float*>(scale), w,
+      static_cast<float*>(lse), bl, n, d, off,
+      static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int crossclr_rows_bwd_rows(int dtype, const void* anchor_rows,
+                                      const void* anchor_all,
+                                      const void* other_all,
+                                      const void* keep_inter,
+                                      const void* keep_intra,
+                                      const void* scale, const void* lse,
+                                      const void* g, void* d_rows,
+                                      void* ds_rows, int bl, int n, int d,
+                                      int off, float w, void* stream) {
+  if (bad_args(dtype, keep_inter, keep_intra, bl, n, d, off))
+    return (int)cudaErrorInvalidValue;
+  return (int)dispatch<BwdRows>(
+      dtype, keep_inter != nullptr, anchor_rows, anchor_all, other_all,
+      keep_inter, keep_intra, static_cast<const float*>(scale), w,
+      static_cast<const float*>(lse), static_cast<const float*>(g),
+      static_cast<float*>(d_rows), static_cast<float*>(ds_rows), bl, n, d, off,
+      static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int crossclr_rows_bwd_cols(int dtype, const void* anchor_rows,
+                                      const void* anchor_all,
+                                      const void* other_all,
+                                      const void* keep_inter,
+                                      const void* keep_intra,
+                                      const void* scale, const void* lse,
+                                      const void* g, void* d_other,
+                                      void* d_anchor, int bl, int n, int d,
+                                      int off, float w, void* stream) {
+  if (bad_args(dtype, keep_inter, keep_intra, bl, n, d, off))
+    return (int)cudaErrorInvalidValue;
+  return (int)dispatch<BwdCols>(
+      dtype, keep_inter != nullptr, anchor_rows, anchor_all, other_all,
+      keep_inter, keep_intra, static_cast<const float*>(scale), w,
+      static_cast<const float*>(lse), static_cast<const float*>(g),
+      static_cast<float*>(d_other), static_cast<float*>(d_anchor), bl, n, d,
+      off, static_cast<cudaStream_t>(stream));
+}
+
+extern "C" const char* crossclr_rows_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}

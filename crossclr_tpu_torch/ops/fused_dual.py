@@ -36,8 +36,8 @@ of ``sym_supported``.  Not ported, because the CUDA kernels mask ragged
 edges and hold no VMEM budget: ``_MAX_COL_ACC_BYTES``,
 ``_MAX_SYM_ACC_BYTES``, ``_pick_tiles``, ``_pick_square_tile``,
 ``_lane_block_ok`` and ``_pad_lanes``; any B and D run.  The keep-mask
-(pruned) branch belongs to the full CrossCLR loss and is refused
-(ROADMAP queue 1 item 9).
+(pruned) branch is not ported and is refused (ROADMAP queue 1 item 15):
+the full CrossCLR loss takes the row-block kernels of :mod:`.fused_global`.
 """
 
 from __future__ import annotations
@@ -400,8 +400,9 @@ def dual_lse_pair(v_norm: torch.Tensor, t_norm: torch.Tensor, *, temperature,
     """
     if keep_video is not None or keep_text is not None:
         raise NotImplementedError(
-            "keep masks (the pruned full-CrossCLR variant) are not ported to "
-            "crossclr_tpu_torch yet (ROADMAP queue 1 item 9)"
+            "keep masks (the pruned full-CrossCLR variant) of the sym/dual "
+            "kernels are not ported to crossclr_tpu_torch yet (ROADMAP queue "
+            "1 item 15); ops.cross_clr_fused takes the row-block kernels"
         )
     if precision not in TIERS:
         raise ValueError(f"precision must be one of {TIERS}, got {precision!r}")

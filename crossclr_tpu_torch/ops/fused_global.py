@@ -1,0 +1,419 @@
+"""A block of anchor rows against a set of candidates: the row-block
+logsumexp of CrossCLR, its two backward kernels, and the full CrossCLR
+loss built on them.  Three CUDA kernels for Hopper beside their plain
+PyTorch versions.
+
+Counterpart of ``crossclr_tpu/ops/fused_global.py``.  For ``b_loc``
+L2-normalized anchor rows ``a_r`` that are rows ``off .. off + b_loc`` of
+a batch of ``B`` (``anchor_all``, ``other_all`` ``[B, D]``), scale
+``s = 1/τ`` and negative weight ``w``::
+
+    lse_r = log( Σ_j exp(s·a_r·o_j) + Σ_j exp(w·s·a_r·a_j) )
+
+over the ``2B`` virtual candidates ``[inter ‖ w·intra]``, which never
+reach device memory.  Two variants:
+
+* unpruned (the released loss): the self intra logit ``j = off + r`` is
+  ZEROED, its ``exp(0) = 1`` stays in the sum;
+* pruned (full CrossCLR, keep masks ``[B]``): an inter column is kept
+  where ``keep_inter | on_diag``, an intra column where ``keep_intra &
+  ~on_diag``; an excluded logit is ``−1e9`` (:data:`MASKED`), whose exp
+  is exactly 0 once a real logit has been seen, and which keeps the
+  running max and the ``p⊙z`` products of the scale's gradient NaN-free
+  (``0 · −1e9 = −0``, where ``0 · −inf`` would be NaN).  Every row keeps
+  its positive, so a real logit always comes.
+
+The kernels, in ``csrc/fused_global.cu``: ``rows_lse`` (``_rows_lse_kernel``),
+``rows_bwd_rows`` (``_rows_bwd_rows_kernel``: d anchor_rows and the per-row
+``Σ p⊙z`` from which ``d loss/d s`` is taken here, outside the kernel, as
+``Σ / s``) and ``rows_bwd_cols`` (``_rows_bwd_cols_kernel``: d other_all
+and d anchor_all, the candidates' gradients, which a data-parallel caller
+reduce-scatters to their owners).  Each has its plain version here
+(``*_plain``: the CPU path and the oracle the kernel is held against on
+the card), a wrapper that launches it on CUDA tensors (``*_cuda``) and
+counts the launch in :data:`launch_counts`, and a dispatcher that picks
+by the tensors' device.  Nothing falls back: a CUDA tensor launches the
+kernel or raises.
+
+Not ported, because the CUDA kernels mask ragged edges and take the row
+offset as an ``int``: ``_pad_lanes``, ``_pick_tiles`` /
+``check_explicit_tiles`` and the ``interpret`` / ``tiles`` arguments; any
+``b_loc``, ``B`` and ``D`` run, so :func:`rows_supported` is always true.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import threading
+
+import torch
+
+from .fused_dual import TIERS, _check_f32, _cotangent, _fetch_cast
+
+__all__ = [
+    "cross_clr_fused",
+    "fused_lse_rows",
+    "launch_counts",
+    "rows_supported",
+]
+
+KERNELS = ("rows_lse", "rows_bwd_rows", "rows_bwd_cols")
+# launches of each CUDA kernel, counted where its wrapper launches it
+launch_counts = dict.fromkeys(KERNELS, 0)
+_count_lock = threading.Lock()
+
+SOURCE = "fused_global.cu"
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# the excluded-candidate logit of the pruned variant (see the module doc)
+MASKED = -1e9
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+# ---------------------------------------------------------------------------
+
+
+def _logits(anchor_rows, anchor_all, other_all, off: int, scale, neg_weight,
+            keep_inter, keep_intra):
+    """``(z_inter, z_intra, intra_live)`` ``[b_loc, B]`` fp32: the masked
+    logits of both candidate blocks and where an intra logit is a live
+    (differentiable) one.  bf16 operands widen exactly to fp32."""
+    a, aa, oa = anchor_rows.float(), anchor_all.float(), other_all.float()
+    rows = off + torch.arange(a.shape[0], device=a.device)[:, None]
+    on_diag = rows == torch.arange(aa.shape[0], device=a.device)[None, :]
+    z_inter = scale * (a @ oa.T)
+    z_intra = (neg_weight * scale) * (a @ aa.T)
+    if keep_inter is None:
+        return z_inter, z_intra.masked_fill(on_diag, 0.0), ~on_diag
+    z_inter = z_inter.masked_fill(~(keep_inter[None, :] | on_diag), MASKED)
+    live = keep_intra[None, :] & ~on_diag
+    return z_inter, z_intra.masked_fill(~live, MASKED), live
+
+
+def rows_lse_plain(anchor_rows, anchor_all, other_all, off: int, scale,
+                   neg_weight: float, keep_inter=None, keep_intra=None):
+    """The rows forward: fp32 ``lse [b_loc, 1]``."""
+    z_inter, z_intra, _ = _logits(anchor_rows, anchor_all, other_all, off,
+                                  scale, neg_weight, keep_inter, keep_intra)
+    return torch.logsumexp(torch.cat([z_inter, z_intra], dim=1), dim=1,
+                           keepdim=True)
+
+
+def _coefficients(anchor_rows, anchor_all, other_all, off, scale, lse, g,
+                  neg_weight, keep_inter, keep_intra):
+    """``p = g·exp(z_inter − lse)`` and ``q = g·exp(z_intra − lse)`` (0 where
+    the intra logit is not live), with the masked logits."""
+    z_inter, z_intra, live = _logits(anchor_rows, anchor_all, other_all, off,
+                                     scale, neg_weight, keep_inter, keep_intra)
+    p = g * torch.exp(z_inter - lse)
+    q = (g * torch.exp(z_intra - lse)).masked_fill(~live, 0.0)
+    return p, q, z_inter, z_intra
+
+
+def rows_bwd_rows_plain(anchor_rows, anchor_all, other_all, off: int, scale,
+                        lse, g, neg_weight: float, keep_inter=None,
+                        keep_intra=None):
+    """The rows backward: fp32 ``(d anchor_rows [b_loc, D], ds_rows
+    [b_loc, 1])`` with ``ds_rows = Σ (p⊙z_inter + q⊙z_intra)``, ``s ·
+    d loss / d s`` per row."""
+    p, q, z_inter, z_intra = _coefficients(
+        anchor_rows, anchor_all, other_all, off, scale, lse, g, neg_weight,
+        keep_inter, keep_intra)
+    d_rows = scale * (p @ other_all.float() + neg_weight * (q @ anchor_all.float()))
+    ds_rows = (p * z_inter + q * z_intra).sum(dim=1, keepdim=True)
+    return d_rows, ds_rows
+
+
+def rows_bwd_cols_plain(anchor_rows, anchor_all, other_all, off: int, scale,
+                        lse, g, neg_weight: float, keep_inter=None,
+                        keep_intra=None):
+    """The candidates' backward: fp32 ``(d other_all, d anchor_all)``
+    ``[B, D]``."""
+    p, q, _, _ = _coefficients(
+        anchor_rows, anchor_all, other_all, off, scale, lse, g, neg_weight,
+        keep_inter, keep_intra)
+    a = anchor_rows.float()
+    return scale * (p.T @ a), (neg_weight * scale) * (q.T @ a)
+
+
+# ---------------------------------------------------------------------------
+# CUDA wrappers
+# ---------------------------------------------------------------------------
+
+_ptr, _int, _float = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# (dtype, anchor_rows, anchor_all, other_all, keep_inter, keep_intra, scale,
+#  ..., b_loc, b, d, off, w, stream)
+_SIGNATURES = {
+    "crossclr_rows_lse": [_int, _ptr, _ptr, _ptr, _ptr, _ptr, _ptr, _ptr,
+                          _int, _int, _int, _int, _float, _ptr],
+    "crossclr_rows_bwd_rows": [_int, _ptr, _ptr, _ptr, _ptr, _ptr, _ptr, _ptr,
+                               _ptr, _ptr, _ptr, _int, _int, _int, _int,
+                               _float, _ptr],
+    "crossclr_rows_bwd_cols": [_int, _ptr, _ptr, _ptr, _ptr, _ptr, _ptr, _ptr,
+                               _ptr, _ptr, _ptr, _int, _int, _int, _int,
+                               _float, _ptr],
+}
+
+
+def _library() -> ctypes.CDLL:
+    from ._build import load_library
+
+    lib = load_library(SOURCE)
+    if lib.crossclr_rows_lse.argtypes is None:
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = _int
+        lib.crossclr_rows_error_string.argtypes = [_int]
+        lib.crossclr_rows_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _check_operands(anchor_rows, anchor_all, other_all, off: int, keep_inter,
+                    keep_intra, scale, name: str) -> None:
+    feats = (anchor_rows, anchor_all, other_all)
+    dev = anchor_rows.device
+    if not all(x.is_cuda and x.device == dev for x in feats):
+        raise ValueError(f"{name} takes its features as CUDA tensors on one device")
+    if (any(x.dim() != 2 for x in feats) or anchor_all.shape != other_all.shape
+            or anchor_rows.shape[1] != anchor_all.shape[1]
+            or min(anchor_rows.shape) < 1 or anchor_all.shape[0] < 1):
+        raise ValueError(
+            f"{name} takes anchor_rows [b_loc, D] and anchor_all, other_all "
+            f"[B, D], got {[tuple(x.shape) for x in feats]}"
+        )
+    if anchor_rows.dtype not in _DTYPE_CODES or any(x.dtype != anchor_rows.dtype
+                                                    for x in feats):
+        raise TypeError(
+            f"{name} takes float32 or bfloat16 features of one dtype, got "
+            f"{[x.dtype for x in feats]}"
+        )
+    if not all(x.is_contiguous() for x in feats):
+        raise ValueError(f"{name} takes contiguous features")
+    if not 0 <= off <= anchor_all.shape[0] - anchor_rows.shape[0]:
+        raise ValueError(
+            f"{name}: row offset {off} puts rows outside the {anchor_all.shape[0]} "
+            f"candidates"
+        )
+    for mask, what in ((keep_inter, "keep_inter"), (keep_intra, "keep_intra")):
+        if mask is not None and (mask.device != dev or mask.dtype != torch.bool
+                                 or tuple(mask.shape) != (anchor_all.shape[0],)
+                                 or not mask.is_contiguous()):
+            raise ValueError(
+                f"{what} must be a contiguous bool tensor of shape "
+                f"({anchor_all.shape[0]},) on {dev}"
+            )
+    _check_f32(scale, (1,), dev, "scale")
+
+
+def _mask_ptr(mask) -> int | None:
+    return None if mask is None else mask.data_ptr()
+
+
+def _launch(name: str, fn, *args, device) -> None:
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = fn(*args, stream)
+    if err != 0:
+        msg = _library().crossclr_rows_error_string(err).decode()
+        raise RuntimeError(f"{name} launch failed: {msg} (cudaError {err})")
+    with _count_lock:
+        launch_counts[name] += 1
+
+
+def rows_lse_cuda(anchor_rows, anchor_all, other_all, off: int, scale,
+                  neg_weight: float, keep_inter=None, keep_intra=None):
+    """Launch the rows forward; ``scale`` is a float32 ``[1]`` CUDA tensor
+    read by the kernel (no host sync).  Returns fp32 ``lse [b_loc, 1]``."""
+    _check_operands(anchor_rows, anchor_all, other_all, off, keep_inter,
+                    keep_intra, scale, "rows_lse")
+    (bl, d), b = anchor_rows.shape, anchor_all.shape[0]
+    lse = torch.empty((bl, 1), device=anchor_rows.device, dtype=torch.float32)
+    _launch("rows_lse", _library().crossclr_rows_lse,
+            _DTYPE_CODES[anchor_rows.dtype], anchor_rows.data_ptr(),
+            anchor_all.data_ptr(), other_all.data_ptr(), _mask_ptr(keep_inter),
+            _mask_ptr(keep_intra), scale.data_ptr(), lse.data_ptr(), bl, b, d,
+            off, float(neg_weight), device=anchor_rows.device)
+    return lse
+
+
+def _check_row_vectors(lse, g, bl: int, device) -> None:
+    _check_f32(lse, (bl, 1), device, "lse")
+    _check_f32(g, (bl, 1), device, "g")
+
+
+def rows_bwd_rows_cuda(anchor_rows, anchor_all, other_all, off: int, scale,
+                       lse, g, neg_weight: float, keep_inter=None,
+                       keep_intra=None):
+    """Launch the rows backward; returns fp32 ``(d anchor_rows, ds_rows)``."""
+    _check_operands(anchor_rows, anchor_all, other_all, off, keep_inter,
+                    keep_intra, scale, "rows_bwd_rows")
+    (bl, d), b = anchor_rows.shape, anchor_all.shape[0]
+    _check_row_vectors(lse, g, bl, anchor_rows.device)
+    d_rows = torch.empty((bl, d), device=anchor_rows.device, dtype=torch.float32)
+    ds_rows = torch.empty((bl, 1), device=anchor_rows.device, dtype=torch.float32)
+    _launch("rows_bwd_rows", _library().crossclr_rows_bwd_rows,
+            _DTYPE_CODES[anchor_rows.dtype], anchor_rows.data_ptr(),
+            anchor_all.data_ptr(), other_all.data_ptr(), _mask_ptr(keep_inter),
+            _mask_ptr(keep_intra), scale.data_ptr(), lse.data_ptr(),
+            g.data_ptr(), d_rows.data_ptr(), ds_rows.data_ptr(), bl, b, d, off,
+            float(neg_weight), device=anchor_rows.device)
+    return d_rows, ds_rows
+
+
+def rows_bwd_cols_cuda(anchor_rows, anchor_all, other_all, off: int, scale,
+                       lse, g, neg_weight: float, keep_inter=None,
+                       keep_intra=None):
+    """Launch the candidates' backward; returns fp32 ``(d other_all,
+    d anchor_all)``."""
+    _check_operands(anchor_rows, anchor_all, other_all, off, keep_inter,
+                    keep_intra, scale, "rows_bwd_cols")
+    (bl, d), b = anchor_rows.shape, anchor_all.shape[0]
+    _check_row_vectors(lse, g, bl, anchor_rows.device)
+    d_other = torch.empty((b, d), device=anchor_rows.device, dtype=torch.float32)
+    d_anchor = torch.empty_like(d_other)
+    _launch("rows_bwd_cols", _library().crossclr_rows_bwd_cols,
+            _DTYPE_CODES[anchor_rows.dtype], anchor_rows.data_ptr(),
+            anchor_all.data_ptr(), other_all.data_ptr(), _mask_ptr(keep_inter),
+            _mask_ptr(keep_intra), scale.data_ptr(), lse.data_ptr(),
+            g.data_ptr(), d_other.data_ptr(), d_anchor.data_ptr(), bl, b, d,
+            off, float(neg_weight), device=anchor_rows.device)
+    return d_other, d_anchor
+
+
+# the route of each kernel follows the tensors' device
+def rows_lse(*args, **kwargs):
+    return (rows_lse_cuda if args[0].is_cuda else rows_lse_plain)(*args, **kwargs)
+
+
+def rows_bwd_rows(*args, **kwargs):
+    fn = rows_bwd_rows_cuda if args[0].is_cuda else rows_bwd_rows_plain
+    return fn(*args, **kwargs)
+
+
+def rows_bwd_cols(*args, **kwargs):
+    fn = rows_bwd_cols_cuda if args[0].is_cuda else rows_bwd_cols_plain
+    return fn(*args, **kwargs)
+
+
+# ---------------------------------------------------------------------------
+# autograd
+# ---------------------------------------------------------------------------
+
+
+class _FusedLseRows(torch.autograd.Function):
+    """``lse [b_loc, 1]`` through the rows kernels; gradients flow to the
+    three feature arrays and to the scale TENSOR ``[1]``.  When
+    ``anchor_rows`` and ``anchor_all`` are one tensor, autograd adds their
+    two gradients."""
+
+    @staticmethod
+    def forward(ctx, anchor_rows, anchor_all, other_all, scale, keep_inter,
+                keep_intra, off: int, neg_weight: float, precision):
+        ak = tuple(x.contiguous() for x in
+                   _fetch_cast(precision, anchor_rows, anchor_all, other_all))
+        masks = (keep_inter, keep_intra)
+        lse = rows_lse(*ak, off, scale, neg_weight, *masks)
+        ctx.save_for_backward(*ak, scale, lse, *masks)
+        ctx.off, ctx.neg_weight = off, neg_weight
+        ctx.dtypes = (anchor_rows.dtype, anchor_all.dtype, other_all.dtype)
+        return lse
+
+    @staticmethod
+    def backward(ctx, g):
+        *ak, scale, lse, keep_inter, keep_intra = ctx.saved_tensors
+        args = (*ak, ctx.off, scale, lse, _cotangent(g), ctx.neg_weight,
+                keep_inter, keep_intra)
+        d_rows, ds_rows = rows_bwd_rows(*args)
+        d_other, d_anchor = rows_bwd_cols(*args)
+        # the kernel's rows sum Σ g·(p⊙z) = s · d loss / d s
+        ds = ds_rows.sum().reshape(1) / scale
+        rows_t, all_t, other_t = ctx.dtypes
+        return (d_rows.to(rows_t), d_anchor.to(all_t), d_other.to(other_t), ds,
+                None, None, None, None, None)
+
+
+# ---------------------------------------------------------------------------
+# entry points
+# ---------------------------------------------------------------------------
+
+
+def rows_supported(b_local: int, b_global: int, d: int) -> bool:
+    """Always true: the CUDA kernels mask ragged edges and hold no tile or
+    VMEM budget (the JAX package's gate is a TPU tiling rule)."""
+    del b_local, b_global, d
+    return True
+
+
+def fused_lse_rows(anchor_rows: torch.Tensor, anchor_all: torch.Tensor,
+                   other_all: torch.Tensor, row_offset, *, temperature=0.03,
+                   negative_weight: float = 0.8, precision: str | None = None,
+                   keep_inter: torch.Tensor | None = None,
+                   keep_intra: torch.Tensor | None = None) -> torch.Tensor:
+    """Per-row logsumexp ``[b_loc, 1]`` fp32 of the global-candidate
+    CrossCLR direction for L2-normalized ``anchor_rows [b_loc, D]``, rows
+    ``row_offset ..`` of the normalized ``anchor_all`` / ``other_all``
+    ``[B, D]``.  ``row_offset`` is a Python int or a 0-d tensor;
+    ``temperature`` a float or a tensor (learnable: its gradient is exact).
+    ``keep_inter`` / ``keep_intra`` (both or neither): ``[B]`` bool masks
+    of the pruned variant.  ``precision``: None / ``"highest"`` (fp32
+    operands) or ``"default"`` / ``"bf16"`` (bf16 operands, fp32
+    accumulation and gradients)."""
+    if precision not in TIERS:
+        raise ValueError(f"precision must be one of {TIERS}, got {precision!r}")
+    if (keep_inter is None) != (keep_intra is None):
+        raise ValueError("pass both keep masks or neither")
+    dev = anchor_rows.device
+    if isinstance(temperature, torch.Tensor):
+        scale = (1.0 / temperature).float().reshape(1)
+    else:
+        scale = torch.full((1,), 1.0 / float(temperature), dtype=torch.float32,
+                           device=dev)
+    if keep_inter is not None:
+        keep_inter = keep_inter.to(device=dev, dtype=torch.bool).contiguous()
+        keep_intra = keep_intra.to(device=dev, dtype=torch.bool).contiguous()
+    return _FusedLseRows.apply(anchor_rows, anchor_all, other_all, scale,
+                               keep_inter, keep_intra, int(row_offset),
+                               negative_weight, precision)
+
+
+def cross_clr_fused(video_features: torch.Tensor, text_features: torch.Tensor,
+                    video_inputs=None, text_inputs=None, *, temperature=0.03,
+                    negative_weight: float = 0.8,
+                    weight_temperature: float = 0.0035,
+                    prune_percent: float = 0.10, weight_norm: str = "raw",
+                    precision: str | None = None) -> torch.Tensor:
+    """Drop-in fused equivalent of ``losses.cross_clr`` (the full paper
+    loss).  Connectivity, the pruning quantile and the positive weights are
+    plain PyTorch on ``[B]`` / ``[B, D]`` data; each direction's ``[B, 2B]``
+    masked logsumexp runs through the pruned rows kernels at offset 0
+    (anchors = candidates).  The JAX package prefers the keep-mask branch
+    of its dual kernel here; the port's dual kernels have no keep-mask
+    branch yet, so the rows route, which computes the same function,
+    always runs.  ``temperature`` may be a tensor (learnable)."""
+    from ..losses.functional import (
+        connectivity_keep_and_weights,
+        connectivity_scores,
+        l2_normalize,
+    )
+
+    if video_inputs is None:
+        video_inputs = video_features
+    if text_inputs is None:
+        text_inputs = text_features
+    v = l2_normalize(video_features.float(), dim=1)
+    t = l2_normalize(text_features.float(), dim=1)
+    weights = dict(prune_percent=prune_percent,
+                   weight_temperature=weight_temperature, weight_norm=weight_norm)
+    keep_v, w_v = connectivity_keep_and_weights(connectivity_scores(video_inputs),
+                                                **weights)
+    keep_t, w_t = connectivity_keep_and_weights(connectivity_scores(text_inputs),
+                                                **weights)
+    kw = dict(temperature=temperature, negative_weight=negative_weight,
+              precision=precision)
+    # video anchors: inter columns are text samples (pruned by keep_t),
+    # intra columns video samples (keep_v); the text direction mirrors it
+    lse_v = fused_lse_rows(v, v, t, 0, keep_inter=keep_t, keep_intra=keep_v, **kw)
+    lse_t = fused_lse_rows(t, t, v, 0, keep_inter=keep_v, keep_intra=keep_t, **kw)
+    pos = (v * t).sum(dim=1) / temperature
+    return ((w_v * (lse_v[:, 0] - pos)).mean() + (w_t * (lse_t[:, 0] - pos)).mean()) / 2

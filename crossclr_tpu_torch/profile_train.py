@@ -27,6 +27,11 @@ Examples (the training slices of chip_smoke.py):
       data.num_pairs=4096 data.video_dim=512 data.text_dim=768 \\
       data.video_seq_len=64 data.text_seq_len=96 data.variable_lengths=true \\
       data.batch_size=1024
+  python -m crossclr_tpu_torch.profile_train \\
+      --config configs/fullcrossclr_fused_ragged.json --warmup 20 \\
+      --repeats 10 --steps 20 data.source=synthetic data.num_pairs=4096 \\
+      data.video_dim=512 data.text_dim=768 data.video_seq_len=64 \\
+      data.text_seq_len=96 data.variable_lengths=true data.batch_size=1024
 """
 
 from __future__ import annotations
@@ -82,10 +87,7 @@ def split_step(trainer, state, batches, repeats: int) -> dict[str, float]:
         model = trainer.step_model(state)
         v_emb, t_emb = model(video, text, v_mask, t_mask)
         t = lap("towers_fwd", t)
-        temperature = None
-        if cfg.learnable_temperature:
-            temperature = cfg.temperature / torch.exp(model.logit_scale)
-        loss = trainer._loss_fn(v_emb, t_emb, temperature=temperature)
+        loss = trainer.step_loss(model, v_emb, t_emb, video, text, v_mask, t_mask)
         t = lap("loss_fwd", t)
         grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
         grads = {k: torch.zeros_like(p) if g is None else g
@@ -106,12 +108,13 @@ def split_step(trainer, state, batches, repeats: int) -> dict[str, float]:
 
 
 TOP_ROWS = 15  # ops and kernels listed by device time
-# the port's own kernels by family: a substring of the CUDA function names
+# the port's own kernels by family: substrings of the CUDA function names
 KERNEL_FAMILIES = {
-    "flash_fwd": "flash_fwd_kernel",
-    "flash_dq": "flash_dq_kernel",
-    "flash_dkv": "flash_dkv_kernel",
-    "loss": "lse_",  # lse_fwd_kernel, lse_bwd_kernel of fused_dual.cu
+    "flash_fwd": ("flash_fwd_kernel",),
+    "flash_dq": ("flash_dq_kernel",),
+    "flash_dkv": ("flash_dkv_kernel",),
+    "loss": ("lse_fwd_kernel", "lse_bwd_kernel"),  # fused_dual.cu
+    "rows": ("rows_lse_kernel", "rows_bwd_"),  # fused_global.cu
 }
 
 
@@ -143,8 +146,9 @@ def profiled_fit(trainer, state, batches, steps: int) -> dict:
             for a in averages[:TOP_ROWS] if a.self_device_time_total > 0]
     families = {
         family: sum(a.self_device_time_total for a in averages
-                    if a.device_type == DeviceType.CUDA and pattern in a.key) / 1e3
-        for family, pattern in KERNEL_FAMILIES.items()
+                    if a.device_type == DeviceType.CUDA
+                    and any(p in a.key for p in patterns)) / 1e3
+        for family, patterns in KERNEL_FAMILIES.items()
     }
     return {
         "steps": steps,
@@ -184,7 +188,10 @@ def main(argv: list[str] | None = None) -> int:
     batches = infinite_batches(dataset, cfg.data.batch_size, seed=cfg.data.seed)
     state, _ = trainer.fit(state, batches, steps=args.warmup,
                            log_every=max(args.warmup, 1))
-    route = "dual" if cfg.train.learnable_temperature else "sym"
+    if cfg.train.loss == "crossclr_fused":
+        route = "rows"
+    else:
+        route = "dual" if cfg.train.learnable_temperature else "sym"
     tag = f"{cfg.train.loss}, {route} route, batch {cfg.data.batch_size}"
 
     parts = split_step(trainer, state, batches, args.repeats)

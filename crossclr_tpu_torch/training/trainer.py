@@ -7,16 +7,21 @@ configs load.  The step:
 * encodes both towers in train mode (bf16 products, fp32 parameters);
 * computes the loss of :func:`make_loss_fn` on the embeddings — under
   ``learnable_temperature`` at ``τ = cfg.temperature / exp(logit_scale)``;
+  the full CrossCLR losses score connectivity on the raw inputs, each
+  mean-pooled over its valid steps (:meth:`Trainer.step_loss`);
 * takes the gradient of every parameter, its global norm before clipping,
   and applies :class:`AdamW` (optax's ``clip_by_global_norm`` +
   ``adamw`` with a warmup-cosine schedule, written out);
 * clamps ``logit_scale`` to ±ln 100 after the update (learnable τ) and
   updates the EMA (``ema_decay``).
 
-``fit`` runs ``steps_per_call`` steps per dispatch as a plain loop.
-Refused with a message rather than ignored: ``embedding_chunk`` and
-``optimizer="lamb"`` (ROADMAP queue 1 item 13), the full CrossCLR losses
-(item 9) and transformer-tower dropout under ``attention="xla"`` (item
+``fit`` runs ``steps_per_call`` steps per dispatch as a plain loop; for
+the full CrossCLR losses it first reports on stderr, once per trainer, the
+positive weights' effective sample size on the first batch, and warns if
+the weight softmax is near-one-hot there
+(:meth:`Trainer.weight_degeneracy_check`).  Refused with a message rather
+than ignored: ``embedding_chunk`` and ``optimizer="lamb"`` (ROADMAP queue
+1 item 13) and transformer-tower dropout under ``attention="xla"`` (item
 10: its JAX mask comes from ``jax.random``).  Under ``attention="flash"``
 the towers' dropout generator is reseeded every step from
 ``(train.seed, step)``, so a resumed run draws the same masks.  ``zero1`` and
@@ -28,7 +33,9 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import itertools
 import math
+import sys
 import time
 from typing import Any, Callable
 
@@ -140,45 +147,57 @@ def init_params(model: torch.nn.Module, seed: int, logit_scale: float = 1.0) -> 
 # ---------------------------------------------------------------------------
 
 # losses that take a tensor (learnable) temperature: the JAX package's list
-# (the full CrossCLR losses then fail in make_loss_fn as not ported)
 _TRACED_TEMP_LOSSES = ("crossclr_intra", "crossclr", "crossclr_fused",
                        "info_nce", "crossclr_intra_fused")
+# the full CrossCLR losses: pruning and positive weights from connectivity
+_WEIGHTED_LOSSES = ("crossclr", "crossclr_fused")
 
 # CLIP clamps exp(logit_scale) at 100; the same bound, symmetric
 _LOGIT_SCALE_BOUND = 4.6051702  # ln(100)
 
 
 def make_loss_fn(cfg: TrainConfig) -> Callable:
-    """``loss_fn(v_emb, t_emb, temperature=None) -> scalar``; a given
-    ``temperature`` (a tensor under learnable τ) replaces
-    ``cfg.temperature``."""
+    """``loss_fn(v_emb, t_emb, v_raw=None, t_raw=None, temperature=None)
+    -> scalar``.  ``v_raw`` / ``t_raw`` are the raw inputs that the full
+    CrossCLR losses score connectivity on (the embeddings when None; the
+    other losses ignore them); a given ``temperature`` (a tensor under
+    learnable τ) replaces ``cfg.temperature``."""
 
     def temp(override):
         return cfg.temperature if override is None else override
 
     if cfg.loss == "crossclr_intra":
-        return lambda v, t, temperature=None: F.cross_clr_intra(
+        return lambda v, t, vr=None, tr=None, temperature=None: F.cross_clr_intra(
             v, t, temperature=temp(temperature),
             negative_weight=cfg.negative_weight,
         )
     if cfg.loss == "crossclr_intra_fused":
         from ..ops.fused_crossclr import cross_clr_intra_fused
 
-        return lambda v, t, temperature=None: cross_clr_intra_fused(
+        return lambda v, t, vr=None, tr=None, temperature=None: cross_clr_intra_fused(
             v, t, temperature=temp(temperature),
             negative_weight=cfg.negative_weight, precision=cfg.loss_precision,
         )
-    if cfg.loss in ("crossclr", "crossclr_fused"):
-        raise NotImplementedError(
-            f"loss {cfg.loss!r} (the full CrossCLR loss) is not ported to "
-            "crossclr_tpu_torch yet (ROADMAP queue 1 item 9)"
-        )
+    if cfg.loss in _WEIGHTED_LOSSES:
+        weighting = dict(negative_weight=cfg.negative_weight,
+                         weight_temperature=cfg.weight_temperature,
+                         prune_percent=cfg.prune_percent,
+                         weight_norm=cfg.weight_norm)
+        if cfg.loss == "crossclr":
+            return lambda v, t, vr=None, tr=None, temperature=None: F.cross_clr(
+                v, t, vr, tr, temperature=temp(temperature), **weighting)
+        from ..ops.fused_global import cross_clr_fused
+
+        return lambda v, t, vr=None, tr=None, temperature=None: cross_clr_fused(
+            v, t, vr, tr, temperature=temp(temperature),
+            precision=cfg.loss_precision, **weighting)
     if cfg.loss == "info_nce":
-        return lambda v, t, temperature=None: F.info_nce(
+        return lambda v, t, vr=None, tr=None, temperature=None: F.info_nce(
             v, t, temperature=temp(temperature)
         )
     if cfg.loss == "max_margin":
-        return lambda v, t, temperature=None: F.max_margin(v, t, margin=cfg.margin)
+        return lambda v, t, vr=None, tr=None, temperature=None: F.max_margin(
+            v, t, margin=cfg.margin)
     raise ValueError(f"unknown loss {cfg.loss!r}")
 
 
@@ -304,6 +323,64 @@ class Trainer:
         self.device = torch.device(device)
         self.optimizer = make_optimizer(train_cfg)
         self._loss_fn = make_loss_fn(train_cfg)
+        # once per trainer: the fit-startup check of the weighting channel
+        self._weight_diag_done = False
+
+    # -- diagnostics ---------------------------------------------------------
+
+    # rows the weighting check scores: a distributional diagnostic, cheap
+    # even for the largest batches
+    WEIGHT_CHECK_ROWS = 4096
+
+    def weight_degeneracy_check(self, batch: dict) -> dict[str, float] | None:
+        """Effective-sample-size fraction of the full-CrossCLR positive
+        weights on a host batch, per modality, in (0, 1] (1 = flat, 1/B =
+        one-hot), from the loss's own connectivity arithmetic on up to
+        ``WEIGHT_CHECK_ROWS`` rows; None for losses without a weighting
+        channel."""
+        max_rows = self.WEIGHT_CHECK_ROWS
+        if self.cfg.loss not in _WEIGHTED_LOSSES:
+            return None
+        fracs = {}
+        for name in ("video", "text"):
+            x = to_tensor(batch[name][:max_rows], self.device, torch.float32)
+            mask = batch.get(f"{name}_mask")
+            if mask is not None:
+                mask = to_tensor(mask[:max_rows], self.device)
+            conn = F.connectivity_scores(F.masked_mean_pool(x, mask))
+            _, w = F.connectivity_keep_and_weights(
+                conn, prune_percent=self.cfg.prune_percent,
+                weight_temperature=self.cfg.weight_temperature,
+                weight_norm=self.cfg.weight_norm,
+            )
+            fracs[name] = float(F.weight_effective_fraction(w))
+        return fracs
+
+    # an ESS fraction below this on the first batch: the weight softmax
+    # spends most of the batch's gradient on a handful of pairs
+    WEIGHT_ESS_WARN = 0.02
+
+    def _warn_if_degenerate_weights(self, batch: dict) -> None:
+        fracs = self.weight_degeneracy_check(batch)
+        if not fracs:
+            return
+        detail = ", ".join(f"{k} ESS={v:.4f}" for k, v in fracs.items())
+        print(f"positive-weight ESS on the first batch: {detail} "
+              "(1.0 = flat weights)", file=sys.stderr)
+        if min(fracs.values()) >= self.WEIGHT_ESS_WARN:
+            return
+        print(
+            "WARNING: the full-CrossCLR positive-weight softmax is "
+            f"near-one-hot on the first batch ({detail}; 1.0 = flat "
+            "weights): weight_temperature="
+            f"{self.cfg.weight_temperature} is far below this data's "
+            "connectivity spread, so most pairs contribute almost no "
+            "gradient.  Raise train.weight_temperature, or set "
+            'train.weight_norm="standardized" (z-scored connectivity) '
+            "with weight_temperature ~ 1.0 for a scale-robust weighting "
+            "channel.",
+            file=sys.stderr,
+        )
 
     # -- init ---------------------------------------------------------------
 
@@ -349,23 +426,36 @@ class Trainer:
         model.reseed_dropout(self.cfg.seed, state.step)
         return model
 
+    def step_loss(self, model: torch.nn.Module, v_emb, t_emb, video, text,
+                  video_mask=None, text_mask=None) -> torch.Tensor:
+        """The step's loss of the towers' embeddings on device inputs:
+        under ``learnable_temperature`` at ``cfg.temperature /
+        exp(logit_scale)`` (the RAW parameter: the stored value is clamped
+        after the update, so the loss never differentiates through a
+        clip); the full CrossCLR losses score connectivity on the raw
+        inputs pooled over their valid steps only, so padding never
+        counts."""
+        cfg = self.cfg
+        temperature = None
+        if cfg.learnable_temperature:
+            temperature = cfg.temperature / torch.exp(model.logit_scale)
+        v_raw = t_raw = None
+        if cfg.loss in _WEIGHTED_LOSSES:
+            v_raw = F.masked_mean_pool(video, video_mask)
+            t_raw = F.masked_mean_pool(text, text_mask)
+        return self._loss_fn(v_emb, t_emb, v_raw, t_raw, temperature=temperature)
+
     def train_step(self, state: TrainState, batch: dict) -> tuple[TrainState, dict]:
         """One optimizer step on a host batch; updates ``state`` in place
         and returns it with device-scalar metrics."""
         cfg = self.cfg
         model = self.step_model(state)
         dev = self.device
-        v_emb, t_emb = model(
-            to_tensor(batch["video"], dev), to_tensor(batch["text"], dev),
-            _optional(batch.get("video_mask"), dev),
-            _optional(batch.get("text_mask"), dev),
-        )
-        temperature = None
-        if cfg.learnable_temperature:
-            # the RAW parameter: the stored value is clamped after the
-            # update, so the loss never differentiates through a clip
-            temperature = cfg.temperature / torch.exp(model.logit_scale)
-        loss = self._loss_fn(v_emb, t_emb, temperature=temperature)
+        inputs = (to_tensor(batch["video"], dev), to_tensor(batch["text"], dev),
+                  _optional(batch.get("video_mask"), dev),
+                  _optional(batch.get("text_mask"), dev))
+        v_emb, t_emb = model(*inputs)
+        loss = self.step_loss(model, v_emb, t_emb, *inputs)
         params = dict(model.named_parameters())
         grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
         # a parameter the loss does not reach (logit_scale at a fixed τ)
@@ -432,6 +522,16 @@ class Trainer:
         ``abort_on_nonfinite``."""
         history = []
         it = iter(batches)
+        if (self.cfg.loss in _WEIGHTED_LOSSES and steps > 0
+                and not self._weight_diag_done):
+            # once per trainer (train.py calls fit once per eval interval):
+            # reports the positive weights' ESS, and a near-one-hot softmax
+            # warns instead of silently training on one pair
+            self._weight_diag_done = True
+            first = next(it, None)
+            if first is not None:
+                self._warn_if_degenerate_weights(first)
+                it = itertools.chain([first], it)
         if step_offset is None:
             step_offset = state.step
         spc = max(1, self.cfg.steps_per_call)

@@ -307,7 +307,7 @@ def test_refusals_and_cpu_tensors_launch_nothing():
     fd.dual_lse_pair(v, t, temperature=torch.tensor(0.03))
     assert fd.launch_counts == before
     keep = torch.ones(8, dtype=torch.bool)
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(NotImplementedError, match="item 15"):
         fd.dual_lse_pair(v, t, temperature=0.03, keep_video=keep, keep_text=keep)
     with pytest.raises(ValueError, match="precision"):
         fd.dual_lse_pair(v, t, temperature=0.03, precision="high")

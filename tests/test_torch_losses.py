@@ -176,5 +176,9 @@ def test_criterion_defaults_and_refusals():
     assert C.InfoNCE().temperature == 0.03 and C.MaxMarginCoot().margin == 0.1
     with pytest.raises(ValueError, match="backend"):
         C.CrossCLR_onlyIntraModality(backend="pallas")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        C.CrossCLR()
+    # the full CrossCLR criterion: the JAX class's defaults, the same
+    # vestigial parameter
+    full = C.CrossCLR()
+    assert (full.temperature, full.negative_w, full.weight_temperature,
+            full.prune_percent, full.weight_norm) == (0.03, 0.8, 0.0035, 0.1, "raw")
+    assert [n for n, _ in full.named_parameters()] == ["logit_scale"]

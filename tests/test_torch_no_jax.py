@@ -3,8 +3,9 @@
 A subprocess installs a ``sys.meta_path`` finder that makes any import of
 ``jax``, ``flax`` or the JAX package raise, then imports
 ``crossclr_tpu_torch``, builds the port's service on the CPU at a tiny
-size and answers one search over HTTP; others train the MLP and the
-transformer configs.
+size and answers one search over HTTP; others train the MLP, the
+transformer and the full-CrossCLR configs (the last also imports the
+global-negative losses of ``crossclr_tpu_torch.parallel``).
 """
 
 import json
@@ -130,6 +131,52 @@ loaded = sorted(m for m in sys.modules
                                        "crossclr_tpu"))
 print(json.dumps({"rc": rc, "loaded": loaded}))
 """
+
+
+FULL_CROSSCLR_SCRIPT = SCRIPT.split("import json\n", 1)[0] + r"""
+import json
+
+import crossclr_tpu_torch.parallel
+from crossclr_tpu_torch import train
+
+rc = train.main([
+    "--config", CONFIG, "--device", "cpu", "--steps", "4",
+    "--metrics-csv", "metrics.csv",
+    "video_tower.input_dim=12", "text_tower.input_dim=10",
+    "video_tower.embed_dim=8", "text_tower.embed_dim=8",
+    "video_tower.hidden_dim=16", "text_tower.hidden_dim=16",
+    "video_tower.num_layers=1", "text_tower.num_layers=1",
+    "video_tower.num_heads=2", "text_tower.num_heads=2",
+    "data.source=synthetic", "data.num_pairs=64", "data.video_dim=12",
+    "data.text_dim=10", "data.video_seq_len=5", "data.text_seq_len=4",
+    "data.variable_lengths=true", "data.batch_size=16",
+    "train.warmup_steps=1", "train.steps_per_call=2", "eval_every=2",
+    "checkpoint_dir=ckpt",
+])
+loaded = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "flax", "optax", "orbax",
+                                       "crossclr_tpu"))
+print(json.dumps({"rc": rc, "loaded": loaded}))
+"""
+
+
+def test_port_trains_full_crossclr_without_jax(tmp_path):
+    """The full-CrossCLR config (ragged transformer towers, the
+    ``crossclr_fused`` loss with learnable τ) trains, evaluates and
+    checkpoints with jax, flax, optax and orbax blocked; the global-loss
+    package imports."""
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    script = FULL_CROSSCLR_SCRIPT.replace(
+        "CONFIG", repr(str(REPO / "configs" / "fullcrossclr_fused_ragged.json")))
+    proc = subprocess.run(
+        [sys.executable, "-c", script], cwd=tmp_path, env=env,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    result = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert result == {"rc": 0, "loaded": []}
+    assert sorted(p.name for p in (tmp_path / "ckpt").iterdir()) == [
+        "step_2.pt", "step_4.pt"]
 
 
 def test_port_trains_transformer_towers_without_jax(tmp_path):

@@ -244,10 +244,12 @@ def test_overfit_synthetic_retrieval():
 def test_refusals():
     with pytest.raises(NotImplementedError, match="item 13"):
         _port_trainer(embedding_chunk=8)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        _port_trainer(loss="crossclr")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        _port_trainer(loss="crossclr_fused", learnable_temperature=True)
+    # the full CrossCLR losses train, a learnable τ included
+    batch = _batches(1)[0]
+    for loss in ("crossclr", "crossclr_fused"):
+        trainer = _port_trainer(loss=loss, learnable_temperature=True)
+        _, metrics = trainer.train_step(trainer.init_state(), batch)
+        assert np.isfinite(float(metrics["loss"])), loss
     with pytest.raises(ValueError, match="learnable_temperature"):
         _port_trainer(loss="max_margin", learnable_temperature=True)
     with pytest.raises(NotImplementedError, match="item 10"):
