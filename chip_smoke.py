@@ -1,14 +1,16 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (crossclr_tpu_torch) on one NVIDIA GPU.
 
-Drives the port's four paths and proves that they went through the
-repo's own CUDA kernels: retrieval serving at the full width of
+Drives the port's paths and proves that they went through the repo's own
+CUDA kernels: retrieval serving at the full width of
 configs/lsmdc_transformer.json with attention="flash" on both towers,
 training at the full width of configs/youcook2_mlp.json through the fused
 CrossCLR-intra loss kernels, training the transformer towers of
 configs/lsmdc_transformer.json through the flash forward and backward
-kernels with attention dropout, and training the full CrossCLR loss of
-configs/fullcrossclr_fused_ragged.json through the row-block kernels.
+kernels with attention dropout, the global-negative losses through the
+row-block kernels, and training the full CrossCLR loss of
+configs/fullcrossclr_fused_ragged.json through the keep-mask branch of
+the loss kernels (dual at its learnable τ, sym at a static τ).
 Phases, one line each; any failure raises and exits non-zero:
 
   1. device    — a CUDA device must exist (there is no CPU path); prints
@@ -58,7 +60,19 @@ Phases, one line each; any failure raises and exits non-zero:
                  (B=1024, D=384) and the reference's headline shape
                  (B=4096, D=512), and the loss fwd+bwd of both routes at the
                  headline shape (CUDA events, median of 20), with
-                 contrastive pairs/s.
+                 contrastive pairs/s.  Then the keep-mask (pruned) branch
+                 of the four kernels against their plain versions at
+                 B x D in {1024 x 384, 1000 x 384, 4096 x 384, 4096 x 512},
+                 both tiers, sym at τ = 0.03 and dual at a tensor τ of
+                 0.03 and 0.01, with keep masks from
+                 connectivity_keep_and_weights at prune 0.1, all pruned
+                 (each lse then equals its positive logit) and all kept;
+                 at 1024 x 384 the pruned dual lse also against
+                 rows_lse_cuda on the same operands (two kernels, one
+                 function); then the pruned pairs and their plain
+                 versions timed, forward and backward, at 1024 x 384 and
+                 4096 x 384 (bf16 operands), beside the rows route's two
+                 directions on the same operands.
   7. global    — the three row-block kernels of ops/csrc/fused_global.cu
                  (rows_lse, rows_bwd_rows, rows_bwd_cols): (a) each against
                  its plain version on the same CUDA tensors at B x D in
@@ -75,8 +89,10 @@ Phases, one line each; any failure raises and exits non-zero:
                  (c) a 1-rank NCCL group: global_cross_clr and
                  global_cross_clr_intra (use_fused) at 4096 x 384 against
                  cross_clr_fused / cross_clr_intra_fused and the eager
-                 losses, values and feature gradients, the rows counters
-                 grown; (d) each kernel held to its plain version and then
+                 losses, values and feature gradients, each rows kernel
+                 launched exactly twice per loss (the counts set to 0 just
+                 before and read just after: the rows kernels' main path);
+                 (d) each kernel held to its plain version and then
                  both timed at the leg's 1024 x 384, at 4096 x 384 and at
                  4096 x 512 (bf16 operands, pruned; CUDA events, median of
                  20).
@@ -100,16 +116,22 @@ Phases, one line each; any failure raises and exits non-zero:
                  configs/fullcrossclr_fused_ragged.json at full width (its
                  crossclr_fused loss with learnable τ at the default tier,
                  attention "xla", 4096 synthetic ragged pairs, batch 1024,
-                 30 steps, eval every 15): each rows kernel launched
-                 exactly 2 x 30 times, no flash and no sym/dual kernel, the
-                 loss falling, R@1 above chance, logit_scale moved and
-                 within ±ln 100; prints the weight ESS that the trainer
-                 reports on the leg's first batch.
+                 30 steps, eval every 15): dual_fwd and dual_bwd (their
+                 keep-mask branch) launched exactly 30 times each, no
+                 flash, sym or rows kernel, the loss falling, R@1 above
+                 chance, logit_scale moved and within ±ln 100; prints the
+                 weight ESS that the trainer reports on the leg's first
+                 batch.  Then the same leg at the config's static τ
+                 (train.learnable_temperature=false, 10 steps): sym_fwd
+                 and sym_bwd launched exactly 10 times each, no dual,
+                 flash or rows kernel, the loss falling.
 
 The second-to-last line is the kernels' JSON record: ten kernels, each
 with its time, its plain version's, the library call's where one exists,
 and its bound from this run's shapes; the flash records also name the
-shape and build they were timed at and what the library call computes.
+shape and build they were timed at and what the library call computes;
+the loss records add their pruned branch's time, plain time, bound and
+launches on the full-CrossCLR legs.
 The last line is {"ok": true, "device": {...}}.
 
 Run from the root of a checkout:  python3 chip_smoke.py
@@ -227,6 +249,11 @@ FULL_OVERRIDES = [
 ]
 # the rows kernels: the config's batch and the ragged edges, its width, and
 # a width past one 512-feature chunk (the backward splits it over blocks)
+FULL_STATIC_STEPS = 10  # the static-τ full-CrossCLR leg (sym route)
+# the pruned loss kernels: the leg's batch, the ragged edges and the
+# config's batch at its width, and the reference's headline shape
+PRUNED_SHAPES = [(1024, 384), (1000, 384), (4096, 384), (4096, 512)]
+PRUNED_TIMING = [(1024, 384), (4096, 384)]  # the leg's and the config's batch
 GLOBAL_SHAPES = [(4096, 384), (1000, 384), (1000, 640)]
 GLOBAL_TIMING = [(1024, 384), (4096, 384), (4096, 512)]
 EMULATED_RANKS = 4
@@ -863,23 +890,162 @@ def loss_timing_phase(fd, smi: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# the row-block kernels (the full CrossCLR loss and global negatives)
+# the keep-mask (pruned) branch of the loss kernels (the full CrossCLR loss)
+# ---------------------------------------------------------------------------
+
+
+def keep_masks(v, t):
+    """The pruning masks of the full CrossCLR loss, from the connectivity of
+    the features themselves at prune 0.1: ``(keep_v, keep_t)``."""
+    from crossclr_tpu_torch.losses import functional as F
+
+    return tuple(F.connectivity_keep_and_weights(
+        F.connectivity_scores(x), prune_percent=PRUNE,
+        weight_temperature=0.0035)[0] for x in (v, t))
+
+
+def pruned_check_phase(fd, fg) -> dict:
+    """The keep-mask branch of every loss kernel against its plain version
+    on identical inputs, with connectivity masks and both edges; at the
+    leg's shape the pruned dual lse also against the rows kernel.  Returns
+    the worst absolute error of each kernel."""
+    worst = dict.fromkeys(fd.KERNELS, 0.0)
+
+    def note(name, err):
+        worst[name] = max(worst[name], err)
+
+    for b, d in PRUNED_SHAPES:
+        v32, t32, g_v, g_t = loss_inputs(b, d, seed=b + d + 1)
+        masks = {"prune 0.1": keep_masks(v32, t32)}
+        for kind, fill in (("all pruned", False), ("all kept", True)):
+            masks[kind] = tuple(torch.full((b,), fill, dtype=torch.bool,
+                                           device="cuda") for _ in range(2))
+        for tier in ("highest", "default"):
+            v, t = (x.contiguous() for x in fd._fetch_cast(tier, v32, t32))
+            errs = dict.fromkeys(fd.KERNELS, 0.0)
+            for kind, keep in masks.items():
+                tag = f"B={b} D={d} {tier} {kind}"
+                s = 1.0 / 0.03
+                ref = fd.sym_fwd_plain(v, t, s, NEG_WEIGHT, *keep)
+                got = fd.sym_fwd_cuda(v, t, s, NEG_WEIGHT, *keep)
+                errs["sym_fwd"] = max(errs["sym_fwd"], lse_err(got, ref, f"{tag} sym_fwd"))
+                if kind == "all pruned":  # only the positive is left
+                    pos = s * (v.float() * t.float()).sum(dim=1, keepdim=True)
+                    lse_err(got, (pos, pos), f"{tag} sym_fwd vs the positive logit")
+                errs["sym_bwd"] = max(errs["sym_bwd"], grad_err(
+                    fd.sym_bwd_cuda(v, t, *ref, g_v, g_t, s, NEG_WEIGHT, *keep),
+                    fd.sym_bwd_plain(v, t, *ref, g_v, g_t, s, NEG_WEIGHT, *keep),
+                    f"{tag} sym_bwd"))
+                for tau in (0.03, 0.01):
+                    scale = torch.full((1,), 1.0 / tau, device="cuda")
+                    ref = fd.dual_fwd_plain(v, t, scale, NEG_WEIGHT, *keep)
+                    got = fd.dual_fwd_cuda(v, t, scale, NEG_WEIGHT, *keep)
+                    errs["dual_fwd"] = max(errs["dual_fwd"], lse_err(
+                        got, ref, f"{tag} τ={tau} dual_fwd"))
+                    if kind == "all pruned":
+                        pos = (1.0 / tau) * (v.float() * t.float()).sum(dim=1, keepdim=True)
+                        lse_err(got, (pos, pos), f"{tag} τ={tau} dual_fwd vs the "
+                                                 f"positive logit")
+                    if kind == "prune 0.1" and (b, d) == TRANSFORMER_LOSS_SHAPE:
+                        # two kernels, one function: the rows kernel's lse
+                        rows = (fg.rows_lse_cuda(v, v, t, 0, scale, NEG_WEIGHT,
+                                                 keep[1], keep[0]),
+                                fg.rows_lse_cuda(t, t, v, 0, scale, NEG_WEIGHT,
+                                                 keep[0], keep[1]))
+                        err = lse_err(got, rows, f"{tag} τ={tau} dual_fwd vs rows_lse")
+                        log("loss", f"{tag} τ={tau}: pruned dual_fwd vs rows_lse_cuda "
+                                    f"on the same operands: max|Δlse| {err:.3e}")
+                    kg = fd.dual_bwd_cuda(v, t, scale, *ref, g_v, g_t, NEG_WEIGHT, *keep)
+                    pg = fd.dual_bwd_plain(v, t, scale, *ref, g_v, g_t, NEG_WEIGHT, *keep)
+                    errs["dual_bwd"] = max(errs["dual_bwd"], grad_err(
+                        kg[:2], pg[:2], f"{tag} τ={tau} dual_bwd"))
+                    ds_rel = ((kg[2] - pg[2]).abs() / pg[2].abs()).item()
+                    check(ds_rel <= DS_RTOL, f"{tag} τ={tau}: Σ coeff⊙z rel err "
+                                             f"{ds_rel:.3e} (limit {DS_RTOL})")
+            torch.cuda.synchronize()
+            for name, err in errs.items():
+                note(name, err)
+            log("loss", f"B={b} D={d} {tier}, pruned (prune 0.1, all pruned, all "
+                        f"kept; sym τ=0.03, dual τ=0.03 / 0.01): max|kernel-plain| "
+                        + ", ".join(f"{k} {x:.3e}" for k, x in errs.items())
+                        + f" (dτ term within rtol {DS_RTOL})")
+    return worst
+
+
+def pruned_timing_phase(fd, fg, smi: str) -> dict:
+    """The pruned branch of each loss kernel and its plain version, bf16
+    operands, connectivity masks, at the leg's and the config's batch;
+    beside them the pairs' fwd+bwd and the rows route (both directions)
+    that took the full CrossCLR loss before.  Returns {(name, B, D): (ms,
+    plain_ms)}."""
+    times = {}
+    for b, d in PRUNED_TIMING:
+        v32, t32, g_v, g_t = loss_inputs(b, d, seed=3)
+        v, t = (x.contiguous() for x in fd._fetch_cast("default", v32, t32))
+        keep = keep_masks(v32, t32)
+        s = 1.0 / 0.03
+        scale = torch.full((1,), s, device="cuda")
+        lse = fd.sym_fwd_plain(v, t, s, NEG_WEIGHT, *keep)
+        pairs = {
+            "sym_fwd": (lambda: fd.sym_fwd_cuda(v, t, s, NEG_WEIGHT, *keep),
+                        lambda: fd.sym_fwd_plain(v, t, s, NEG_WEIGHT, *keep)),
+            "sym_bwd": (
+                lambda: fd.sym_bwd_cuda(v, t, *lse, g_v, g_t, s, NEG_WEIGHT, *keep),
+                lambda: fd.sym_bwd_plain(v, t, *lse, g_v, g_t, s, NEG_WEIGHT, *keep)),
+            "dual_fwd": (lambda: fd.dual_fwd_cuda(v, t, scale, NEG_WEIGHT, *keep),
+                         lambda: fd.dual_fwd_plain(v, t, scale, NEG_WEIGHT, *keep)),
+            "dual_bwd": (
+                lambda: fd.dual_bwd_cuda(v, t, scale, *lse, g_v, g_t, NEG_WEIGHT, *keep),
+                lambda: fd.dual_bwd_plain(v, t, scale, *lse, g_v, g_t, NEG_WEIGHT,
+                                          *keep)),
+        }
+        bounds = loss_bounds(b, d, pruned=True)
+        for name, (kernel, plain) in pairs.items():
+            ms, plain_ms = median_ms(kernel), median_ms(plain)
+            times[(name, b, d)] = (ms, plain_ms)
+            log("loss", f"{name} pruned B={b} D={d} bf16 operands: kernel {ms:.4f} "
+                        f"ms, plain {plain_ms:.4f} ms, bound "
+                        f"{bounds[name]['bound_ms']:.4f} ms ({bounds[name]['bound_by']}) "
+                        f"(median of 20; {smi})")
+        # the rows route: each direction's lse, d rows and candidates' grads
+        dirs = [((v, v, t, 0, scale), (keep[1], keep[0]), g_v),
+                ((t, t, v, 0, scale), (keep[0], keep[1]), g_t)]
+        lses = [fg.rows_lse_plain(*a, NEG_WEIGHT, *k) for a, k, _ in dirs]
+
+        def rows_fwd():
+            for a, k, _ in dirs:
+                fg.rows_lse_cuda(*a, NEG_WEIGHT, *k)
+
+        def rows_bwd():
+            for (a, k, g), lse_r in zip(dirs, lses):
+                fg.rows_bwd_rows_cuda(*a, lse_r, g, NEG_WEIGHT, *k)
+                fg.rows_bwd_cols_cuda(*a, lse_r, g, NEG_WEIGHT, *k)
+
+        rows_ms = (median_ms(rows_fwd), median_ms(rows_bwd))
+        times[("rows route", b, d)] = rows_ms
+        log("loss", f"B={b} D={d} bf16, pruned, fwd + bwd: dual pair "
+                    f"{times[('dual_fwd', b, d)][0]:.4f} + "
+                    f"{times[('dual_bwd', b, d)][0]:.4f} ms, sym pair "
+                    f"{times[('sym_fwd', b, d)][0]:.4f} + "
+                    f"{times[('sym_bwd', b, d)][0]:.4f} ms, the rows route (both "
+                    f"directions) {rows_ms[0]:.4f} + {rows_ms[1]:.4f} ms "
+                    f"(median of 20; {smi})")
+    return times
+
+
+# ---------------------------------------------------------------------------
+# the row-block kernels (global negatives)
 # ---------------------------------------------------------------------------
 
 
 def rows_inputs(b: int, d: int, seed: int):
-    """Unit-norm fp32 features, their pruning masks (connectivity of the
-    features themselves, prune 0.1) and positive lse cotangents."""
-    from crossclr_tpu_torch.losses import functional as F
-
+    """Unit-norm fp32 features, their pruning masks (:func:`keep_masks`)
+    and positive lse cotangents."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
     v, t = (torch.nn.functional.normalize(
         torch.randn(b, d, generator=gen, device="cuda"), dim=1) for _ in range(2))
-    masks = [F.connectivity_keep_and_weights(
-        F.connectivity_scores(x), prune_percent=PRUNE,
-        weight_temperature=0.0035)[0] for x in (v, t)]
     g = (0.5 + torch.rand(b, 1, generator=gen, device="cuda")) / (2 * b)
-    return v, t, masks, g
+    return v, t, keep_masks(v, t), g
 
 
 def rows_check(fg, rows, a_all, o_all, off, scale, g, masks, worst, tag):
@@ -955,9 +1121,10 @@ def global_check_phase(fd, fg) -> dict:
     return worst
 
 
-def global_loss_phase(fg) -> None:
+def global_loss_phase(fg) -> dict:
     """(c) the global losses through a 1-rank NCCL group against the
-    one-device fused and eager losses (fp32 operands)."""
+    one-device fused and eager losses (fp32 operands).  Returns the rows
+    kernels' launches in the global losses: their main path."""
     import torch.distributed as dist
 
     from crossclr_tpu_torch.losses import functional as F
@@ -986,14 +1153,17 @@ def global_loss_phase(fg) -> None:
         return loss.detach(), v.grad, t.grad
 
     dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+    launches = dict.fromkeys(fg.KERNELS, 0)
     try:
         for name, (fn, refs) in cases.items():
-            before = dict(fg.launch_counts)
+            reset_counts(fg)  # the rows kernels' path: one global loss
             got = run(fn)
             torch.cuda.synchronize()
-            grown = {k: fg.launch_counts[k] - before[k] for k in fg.KERNELS}
-            check(all(x == 2 for x in grown.values()),
+            grown = dict(fg.launch_counts)
+            check(all(grown[k] == 2 for k in fg.KERNELS),
                   f"{name} launched the rows kernels {grown} times, want 2 each")
+            for k in fg.KERNELS:
+                launches[k] += grown[k]
             for ref_name, ref in refs:
                 want = run(ref)
                 lerr = abs(got[0].item() - want[0].item())
@@ -1005,24 +1175,30 @@ def global_loss_phase(fg) -> None:
                               f"|Δloss| {lerr:.3e}, max|Δgrad| {gerr:.3e}")
     finally:
         dist.destroy_process_group()
+    return launches
 
 
 def rows_bounds(b_loc: int, b: int, d: int) -> dict:
     """Each rows kernel's least time at bf16 operands (the leg's `default`
     tier), offset 0 with anchors = candidates (one [B, D] array serves as
-    anchor_rows and anchor_all): 2 products of 2·b_loc·B·D for the
-    forward, 4 for each backward kernel, at the bf16 peak; each input read
-    once (features, the two bool masks, the scale, lse and g) and each
-    output written once."""
+    anchor_rows and anchor_all), at the bf16 peak. The inter logits are
+    one product of 2·b_loc·B·D; the intra ones hold the anchors' own
+    symmetric b_loc×b_loc block, of which only one triangle is needed
+    (half a product at b_loc = B). The forward is those logits; each
+    backward recomputes them and adds two gradient products. Each input
+    is read once (features, the two bool masks, the scale, lse and g)
+    and each output written once."""
     features = 2 * b * d * 2  # anchor_all = anchor_rows, other_all in bf16
     masks = 2 * b + 4  # + the scale
     rows = b_loc * 4
     product = 2 * b_loc * b * d
+    logits = product + (product - b_loc * b_loc * d)  # inter + intra
     work = {
-        "rows_lse": (features + masks + rows, 2 * product),
+        "rows_lse": (features + masks + rows, logits),
         "rows_bwd_rows": (features + masks + 2 * rows + b_loc * d * 4 + rows,
-                          4 * product),
-        "rows_bwd_cols": (features + masks + 2 * rows + 2 * b * d * 4, 4 * product),
+                          logits + 2 * product),
+        "rows_bwd_cols": (features + masks + 2 * rows + 2 * b * d * 4,
+                          logits + 2 * product),
     }
     return {name: bound(nbytes, flops, torch.bfloat16)
             for name, (nbytes, flops) in work.items()}
@@ -1224,13 +1400,13 @@ def transformer_train_phase(fa, fd, smi: str) -> dict:
     return flash
 
 
-def full_train_phase(fa, fd, fg, smi: str) -> dict:
-    """The training CLI on the full-CrossCLR config at full width; returns
-    the rows kernels' launches on that path."""
+def run_full_leg(fa, fd, fg, steps: int, extra: list[str]):
+    """train.main on the full-CrossCLR config at full width, every launch
+    count set to 0 just before and read just after.  Returns (the counts,
+    the logged rows, the eval rows, seconds, what the trainer wrote to
+    stderr)."""
     from crossclr_tpu_torch import train
 
-    n_eval = int(4096 * 0.1)  # data.eval_fraction's default
-    want = 2 * FULL_STEPS  # one forward and one backward per direction per step
     with tempfile.TemporaryDirectory(prefix="crossclr_smoke_") as tmp:
         tmp = Path(tmp)
         metrics = tmp / "metrics.csv"
@@ -1241,30 +1417,45 @@ def full_train_phase(fa, fd, fg, smi: str) -> dict:
         try:
             with contextlib.redirect_stderr(err):
                 rc = train.main(["--config", str(ROOT / FULL_CONFIG),
-                                 "--steps", str(FULL_STEPS), "--metrics-csv",
-                                 str(metrics), *FULL_OVERRIDES,
+                                 "--steps", str(steps), "--metrics-csv",
+                                 str(metrics), *FULL_OVERRIDES, *extra,
                                  f"checkpoint_dir={tmp / 'ckpt'}"])
         finally:
             sys.stderr.write(err.getvalue())
         check(rc == 0, f"train.main exited {rc}")
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-        rows_counts = dict(fg.launch_counts)
-        others = {**fa.launch_counts, **fd.launch_counts}
+        counts = {**fa.launch_counts, **fd.launch_counts, **fg.launch_counts}
         rows, evals = train_rows(metrics)
+    return counts, rows, evals, seconds, err.getvalue()
+
+
+def check_only(counts: dict, want: dict, tag: str) -> None:
+    """Exactly the launches ``want`` and no other kernel's."""
+    check(counts == {k: want.get(k, 0) for k in counts},
+          f"{tag}: launches {counts}, want {want} and none of any other kernel")
+
+
+def full_train_phase(fa, fd, fg, smi: str) -> dict:
+    """The training CLI on the full-CrossCLR config at full width, its
+    learnable τ: the keep-mask branch of the dual kernels.  Returns the
+    leg's launches."""
+    n_eval = int(4096 * 0.1)  # data.eval_fraction's default
+    counts, rows, evals, seconds, err = run_full_leg(fa, fd, fg, FULL_STEPS, [])
     losses = check_train_rows(rows, evals, n_eval, "full-CrossCLR leg")
     check([int(r["step"]) for r in evals] == [15, 30],
           f"full-CrossCLR leg evals at {[r['step'] for r in evals]}")
-    check(all(rows_counts[k] == want for k in fg.KERNELS),
-          f"rows kernel launches {rows_counts}, want {want} each")
-    check(not any(others.values()), f"flash or sym/dual kernels launched: {others}")
+    # one forward and one backward of the pair per step
+    check_only(counts, {"dual_fwd": FULL_STEPS, "dual_bwd": FULL_STEPS},
+               "full-CrossCLR leg")
     scales = [float(r["logit_scale"]) for r in rows]
     check(all(abs(x) <= LOGIT_SCALE_BOUND + 1e-6 for x in scales)
           and scales[-1] != 0.0,
           f"logit_scale did not move or left ±ln 100: {scales}")
-    ess = [ln for ln in err.getvalue().splitlines() if "positive-weight ESS" in ln]
+    ess = [ln for ln in err.splitlines() if "positive-weight ESS" in ln]
     check(len(ess) == 1, f"full-CrossCLR leg: {len(ess)} weight ESS lines, want 1")
     log("train", f"full-CrossCLR leg, the trainer's report: {ess[0]}")
+    launched = {k: x for k, x in counts.items() if x}
     log("train", f"full-CrossCLR leg ({FULL_CONFIG}, crossclr_fused, learnable τ, "
                  f"default tier, batch {LEG_BATCH}): {FULL_STEPS} steps in "
                  f"{seconds:.1f} s; loss {losses[0]:.4f} (step {rows[0]['step']}) -> "
@@ -1272,22 +1463,47 @@ def full_train_phase(fa, fd, fg, smi: str) -> dict:
                  f"{scales[0]:.6f} -> {scales[-1]:.6f}; eval v2t/R@1 "
                  f"{float(evals[-1]['eval/v2t/R@1']):.2f}, t2v/R@1 "
                  f"{float(evals[-1]['eval/t2v/R@1']):.2f} over {n_eval} held-out "
-                 f"pairs (chance {100 / n_eval:.3f}); launches {rows_counts}")
+                 f"pairs (chance {100 / n_eval:.3f}); launches {launched}")
     log("train", f"full-CrossCLR steady train rate (the last eval interval after "
                  f"its first dispatch, batch {LEG_BATCH}): "
                  f"{float(rows[-1]['pairs_per_sec']):.1f} pairs/s, "
                  f"{float(rows[-1]['steps_per_sec']):.2f} steps/s ({smi})")
-    return rows_counts
+    return launched
 
 
-def loss_bounds(b: int, d: int) -> dict:
+def full_static_phase(fa, fd, fg, smi: str) -> dict:
+    """The same leg at the config's static τ: the keep-mask branch of the
+    sym kernels (2·m0 = 66.7 passes the pruned gate).  Returns its
+    launches."""
+    n_eval = int(4096 * 0.1)
+    counts, rows, evals, seconds, _ = run_full_leg(
+        fa, fd, fg, FULL_STATIC_STEPS, ["train.learnable_temperature=false"])
+    losses = check_train_rows(rows, evals, n_eval, "static-τ full-CrossCLR leg")
+    check_only(counts, {"sym_fwd": FULL_STATIC_STEPS, "sym_bwd": FULL_STATIC_STEPS},
+               "static-τ full-CrossCLR leg")
+    launched = {k: x for k, x in counts.items() if x}
+    log("train", f"static-τ full-CrossCLR leg (τ=0.03, sym route, batch "
+                 f"{LEG_BATCH}): {FULL_STATIC_STEPS} steps in {seconds:.1f} s; loss "
+                 f"{losses[0]:.4f} (step {rows[0]['step']}) -> {losses[-1]:.4f} "
+                 f"(step {rows[-1]['step']}); launches {launched}; last dispatch "
+                 f"{float(rows[-1]['pairs_per_sec']):.1f} pairs/s ({smi})")
+    return launched
+
+
+def loss_bounds(b: int, d: int, pruned: bool = False) -> dict:
     """Each loss kernel's least time at bf16 operands (the `default`
-    tier): V·Tᵀ, V·Vᵀ and T·Tᵀ at 2·B²·D each in the forward, those three
-    and the four gradient products in the backward, against the bf16
-    peak; each input read once and each output written once."""
-    features = 2 * b * d * 2  # V, T in bf16
-    fwd = (features + 2 * b * 4, 3 * 2 * b * b * d)  # + lse_v, lse_t
-    bwd = (features + 4 * b * 4 + 2 * b * d * 4, 7 * 2 * b * b * d)
+    tier), in units of one B×B×D product (2·B²·D operations) against the
+    bf16 peak. V·Vᵀ and T·Tᵀ are symmetric, so each needs only its lower
+    triangle, half a unit, with or without keep masks (the JAX package's
+    sym kernels share them so: crossclr_tpu/ops/fused_dual.py:804-818).
+    The forward is V·Tᵀ plus the two halves, 2 units; the backward
+    recomputes those 2 and adds the four gradient products, 6 units.
+    Each input is read once (the pruned variant's two bool masks too)
+    and each output written once."""
+    unit = 2 * b * b * d
+    features = 2 * b * d * 2 + (2 * b if pruned else 0)  # V, T in bf16
+    fwd = (features + 2 * b * 4, 2 * unit)  # + lse_v, lse_t
+    bwd = (features + 4 * b * 4 + 2 * b * d * 4, 6 * unit)
     work = {"sym_fwd": fwd, "sym_bwd": bwd,
             "dual_fwd": (fwd[0] + 4, fwd[1]),  # + the scale
             "dual_bwd": (bwd[0] + 8, bwd[1])}  # + the scale and its term
@@ -1311,12 +1527,16 @@ def main() -> int:
     serve_launches = slice_phase(fa, smi)
     loss_worst = loss_check_phase(fd)
     loss_times = loss_timing_phase(fd, smi)
+    pruned_worst = pruned_check_phase(fd, fg)
+    pruned_times = pruned_timing_phase(fd, fg, smi)
     rows_worst = global_check_phase(fd, fg)
-    global_loss_phase(fg)
+    rows_launches = global_loss_phase(fg)
     rows_times = global_timing_phase(fd, fg, smi, rows_worst)
     loss_launches = train_phase(fd, smi)
     flash_launches = transformer_train_phase(fa, fd, smi)
-    rows_launches = full_train_phase(fa, fd, fg, smi)
+    # the pruned branch's path: the full-CrossCLR legs, dual then sym
+    pruned_launches = {**full_train_phase(fa, fd, fg, smi),
+                       **full_static_phase(fa, fd, fg, smi)}
     log("train", f"flash_fwd launches: serving {serve_launches}, transformer "
                  f"training {flash_launches['flash_fwd']}")
 
@@ -1350,13 +1570,23 @@ def main() -> int:
             "timed_at": timed_at, "library_call": library_call,
         })
     bounds = loss_bounds(*SLICE_LOSS_SHAPE)
+    # the pruned branch at the full-CrossCLR leg's shape
+    b, d = PRUNED_TIMING[0]
+    pruned_bounds = loss_bounds(b, d, pruned=True)
     for name in fd.KERNELS:
         ms, plain_ms = loss_times[(name, *SLICE_LOSS_SHAPE)]
+        pruned_ms, pruned_plain_ms = pruned_times[(name, b, d)]
+        launches = {"mlp": loss_launches[name],
+                    "full_crossclr": pruned_launches[name]}
         records.append({
             "name": name, "route": "cuda", "source": LOSS_SOURCE,
-            "replaces": LOSS_REPLACES[name], "launches": loss_launches[name],
-            "max_abs_err": loss_worst[name], "ms": ms, "plain_ms": plain_ms,
-            **bounds[name], "library_ms": None,
+            "replaces": LOSS_REPLACES[name], "launches": sum(launches.values()),
+            "launches_by_path": launches,
+            "max_abs_err": max(loss_worst[name], pruned_worst[name]),
+            "ms": ms, "plain_ms": plain_ms, **bounds[name], "library_ms": None,
+            "pruned_ms": pruned_ms, "pruned_plain_ms": pruned_plain_ms,
+            "pruned_bound_ms": pruned_bounds[name]["bound_ms"],
+            "pruned_timed_at": f"B={b} D={d} bf16, keep masks at prune {PRUNE}",
         })
     # the full-CrossCLR leg's shape: 1024 anchors against their own batch
     b, d = GLOBAL_TIMING[0]

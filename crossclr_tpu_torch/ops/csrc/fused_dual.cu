@@ -1,7 +1,8 @@
 // The CrossCLR-intra logsumexp pair for Hopper (sm_90a): four kernels with a
-// plain C interface.
+// plain C interface, each with an unpruned and a pruned (keep-mask) variant.
 //
-// Replaces the TPU kernels of crossclr_tpu/ops/fused_dual.py (unpruned):
+// Replaces the TPU kernels of crossclr_tpu/ops/fused_dual.py, pruned=False
+// and pruned=True:
 //   crossclr_sym_fwd   <- _sym_fwd_kernel   (static τ: constant shift m0)
 //   crossclr_sym_bwd   <- _sym_bwd_kernel   (factored exp(z)·g·e^{-lse})
 //   crossclr_dual_fwd  <- _dual_fwd_kernel  (traced τ: online max)
@@ -12,23 +13,45 @@
 //
 // The math, for L2-normalized V, T [n, d] and scale s = 1/τ, weight w:
 //   lse_v[i] = log( Σ_j exp(s·v_i·t_j) + Σ_j exp(w·s·v_i·v_j) ),
-//   lse_t[i] = log( Σ_j exp(s·t_i·v_j) + Σ_j exp(w·s·t_i·t_j) ),
-// the intra logit of j = i ZEROED (exp(0) = 1 stays in the sum).  Given the
-// cotangents g_v, g_t of the two lse vectors, with M[i,j] =
-// g_v[i]·e^{z_vt[i,j] - lse_v[i]} + g_t[j]·e^{z_vt[i,j] - lse_t[j]} and the
-// intra coefficients Q_v, Q_t built the same way (0 on the diagonal):
+//   lse_t[i] = log( Σ_j exp(s·t_i·v_j) + Σ_j exp(w·s·t_i·t_j) ).
+// Unpruned (the released loss): the intra logit of j = i is ZEROED (exp(0)
+// = 1 stays in the sum).  Pruned (full CrossCLR, keep masks kv, kt [n]
+// given): each anchor prunes its candidates by the CANDIDATE modality's
+// mask.  For video anchor i, inter column j is kept where kt[j] | j == i and
+// intra column j where kv[j] & j != i; text anchors mirror it (inter by kv,
+// intra by kt).  The self column is DROPPED, not zeroed, and the positive is
+// always kept.  Given the cotangents g_v, g_t of the two lse vectors, with
+//   M[i,j]   = g_v[i]·e^{z_vt[i,j] - lse_v[i]}·[kt[j] | i = j]
+//            + g_t[j]·e^{z_vt[i,j] - lse_t[j]}·[kv[i] | i = j],
+//   Q_v[i,j] = g_v[i]·e^{z_vv[i,j] - lse_v[i]}·[kv[j]]
+//            + g_v[j]·e^{z_vv[i,j] - lse_v[j]}·[kv[i]],  0 on the diagonal,
+// and Q_t the same on T (the bracketed masks are 1 when unpruned):
 //   dV = s·(M·T + w·Q_v·V),   dT = s·(Mᵀ·V + w·Q_t·T),
 //   Σ M⊙z_vt + ½(Σ Q_v⊙z_vv + Σ Q_t⊙z_tt) = s · d loss / d s.
+// How the masks enter: in the dual forward an excluded logit is kMasked =
+// -1e9 and the running max starts at -1e30, below it, so a thread whose own
+// columns are all excluded holds a bogus partial (m = -1e9, l = its count)
+// that the rescale exp(-1e9 - m_real) wipes when the row's partials combine
+// (every row keeps its positive), as in fused_global.cu.  The sym forward
+// has no running max to absorb -1e9, so the masks are 0/1 factors on
+// exp(z - m0); the wrapper gates that route to 2·m0 <= 80, where the kept
+// positive bounds each row sum below by exp(-2·m0) and nothing flushes.  In
+// both backwards each role's term of a coefficient is selected away where
+// its mask drops the pair, on the raw logit (never an exp of a masked
+// logit, which could overflow at large s); a dropped coefficient is 0 and
+// adds 0·z = ±0 to Σ coeff⊙z, never NaN.
 //
 // Design: owner-computes.  A block owns one 64-row tile of ONE direction's
 // anchors (blockIdx.y = 0: video anchors, candidates T then V; 1: text
 // anchors, candidates V then T) and loops over every 64-row candidate tile
 // itself, recomputing the logits it needs.  The text direction's inter
 // logits are the video direction's transposed, so the role swap makes both
-// directions one code path.  The TPU kernels instead carry column sums and
-// column gradients across a sequential grid in VMEM scratch and share the
-// inter tile and the lower intra triangle between the two directions; blocks
-// on this card run in parallel in no order, so nothing carries over between
+// directions one code path; it swaps the masks too (a video-anchor block
+// prunes inter candidates by kt and intra ones by kv, a text-anchor block
+// the opposite).  The TPU kernels instead carry column sums and column
+// gradients across a sequential grid in VMEM scratch and share the inter
+// tile and the lower intra triangle between the two directions; blocks on
+// this card run in parallel in no order, so nothing carries over between
 // them.  Owners need no atomics: every output element is written by one
 // block and every sum has a fixed order, so runs are bit-reproducible.
 // d loss / d scale is reduced from per-block partials in index order by a
@@ -42,12 +65,16 @@
 // block keeps its gradient rows [64, ≤512 features] in shared memory and
 // adds coefficient-tile × candidate-tile products into them; wider features
 // split over blockIdx.z, each z recomputing the logits.  Edges of n and d are
-// masked in the kernels, so any n and d run unpadded.
+// masked in the kernels, so any n and d run unpadded.  The pruned variants
+// are the same kernels (a template flag), one instantiation per (dtype,
+// pruned): the masks cost a byte load per candidate and a select per logit.
 //
 // What bounds it on this card: scalar fp32 FMAs issued from shared memory.
-// The forward does 4·n²·d FMAs, the backward 8·n²·d, about a third more
-// than the TPU design (which shares the inter tile and the intra triangle);
-// operands are read from L2 once per (row tile, column tile).  Tensor-core
+// The forward does 4·n²·d FMAs, the backward 8·n²·d, where the function
+// needs 2·n²·d and 6·n²·d: the inter tile once for both directions and one
+// triangle of each symmetric intra product, with or without keep masks (the
+// TPU design shares both so); chip_smoke.py's bound counts the latter.
+// Operands are read from L2 once per (row tile, column tile).  Tensor-core
 // products (mma / wgmma on bf16 tiles), sharing the inter tile between the
 // two directions and splitting the column loop over more blocks at small n
 // are the next steps.
@@ -57,6 +84,8 @@
 #include <math.h>
 #include <stddef.h>
 
+#include <type_traits>
+
 namespace {
 
 constexpr int kTile = 64;         // anchor rows per block = candidate rows per tile
@@ -64,7 +93,8 @@ constexpr int kThreads = 256;     // 16 x 16 threads, a 4 x 4 micro tile each
 constexpr int kChunk = 32;        // features per staged chunk of a logit product
 constexpr int kLd = kTile + 4;    // padded row stride, float4-aligned
 constexpr int kOutChunk = 512;    // gradient features one backward block owns
-constexpr float kNegFloor = -1e30f;  // the online max's finite floor
+constexpr float kNegFloor = -1e30f;  // the online max's start, below kMasked
+constexpr float kMasked = -1e9f;     // an excluded candidate's logit (pruned)
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -118,9 +148,12 @@ __device__ void tile_dot(const T* __restrict__ x, int x0,
 
 // kOnline = false: the sym kernel (static scale, constant shift m0, plain
 // sums); true: the dual kernel (scale read from device memory, online max).
-template <typename T, bool kOnline>
+// kPruned: keep masks kv, kt [n] given (null otherwise).
+template <typename T, bool kOnline, bool kPruned>
 __global__ void __launch_bounds__(kThreads)
 lse_fwd_kernel(const T* __restrict__ v, const T* __restrict__ t,
+               const unsigned char* __restrict__ kv,
+               const unsigned char* __restrict__ kt,
                const float* __restrict__ scale_ptr, float scale_arg, float w,
                float* __restrict__ lse_v, float* __restrict__ lse_t, int n,
                int d) {
@@ -129,6 +162,8 @@ lse_fwd_kernel(const T* __restrict__ v, const T* __restrict__ t,
   const bool text = blockIdx.y != 0;
   const T* a = text ? t : v;
   const T* o = text ? v : t;
+  const unsigned char* keep_a = text ? kt : kv;  // the anchors' modality
+  const unsigned char* keep_o = text ? kv : kt;  // the other modality
   const float s = kOnline ? *scale_ptr : scale_arg;
   const float ws = w * s;
   const float m0 = fmaxf(fmaxf(s, ws), 0.f);
@@ -147,17 +182,33 @@ lse_fwd_kernel(const T* __restrict__ v, const T* __restrict__ t,
       const bool intra = part == 1;
       tile_dot(a, r0, intra ? a : o, c0, n, d, sx, sy, acc);
       const float zs = intra ? ws : s;
+      // this thread's candidate columns kept by the candidates' modality
+      bool kc[4];
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int col = c0 + 4 * tx + c;
+        kc[c] = kPruned && col < n && (intra ? keep_a : keep_o)[col];
+      }
 #pragma unroll
       for (int r = 0; r < 4; ++r) {
         const int row = r0 + 4 * ty + r;
         float z[4];
-        bool ok[4];
+        bool ok[4], keep[4];
 #pragma unroll
         for (int c = 0; c < 4; ++c) {
           const int col = c0 + 4 * tx + c;
+          const bool diag = row == col;
           ok[c] = col < n;
-          // the zeroed (not dropped) self-similarity logit
-          z[c] = (intra && row == col) ? 0.f : zs * acc[r][c];
+          if constexpr (kPruned) {
+            // the positive always kept, the self column dropped
+            keep[c] = intra ? (kc[c] && !diag) : (kc[c] || diag);
+            z[c] = zs * acc[r][c];
+            if constexpr (kOnline) z[c] = keep[c] ? z[c] : kMasked;
+          } else {
+            keep[c] = true;
+            // the zeroed (not dropped) self-similarity logit
+            z[c] = (intra && diag) ? 0.f : zs * acc[r][c];
+          }
         }
         if constexpr (kOnline) {
           float tmax = kNegFloor;
@@ -172,9 +223,10 @@ lse_fwd_kernel(const T* __restrict__ v, const T* __restrict__ t,
           l[r] = l[r] * expf(m[r] - mn) + add;
           m[r] = mn;
         } else {
+          // the masks as 0/1 factors: no running max absorbs -1e9 here
 #pragma unroll
           for (int c = 0; c < 4; ++c)
-            if (ok[c]) l[r] += expf(z[c] - m0);
+            if (ok[c]) l[r] += (keep[c] ? 1.f : 0.f) * expf(z[c] - m0);
         }
       }
     }
@@ -253,10 +305,12 @@ __host__ __device__ __forceinline__ int out_ld(int dc) {
 // kTraced = false: the sym kernel (static scale, factored coefficients
 // exp(z)·(g e^{-lse})); true: the dual kernel (scale from device memory,
 // subtract-first g·exp(z - lse), and its Σ coeff⊙z output ds_part, one
-// partial per block).
-template <typename T, bool kTraced>
+// partial per block).  kPruned: keep masks kv, kt [n] given.
+template <typename T, bool kTraced, bool kPruned>
 __global__ void __launch_bounds__(kThreads)
 lse_bwd_kernel(const T* __restrict__ v, const T* __restrict__ t,
+               const unsigned char* __restrict__ kv,
+               const unsigned char* __restrict__ kt,
                const float* __restrict__ scale_ptr, float scale_arg, float w,
                const float* __restrict__ lse_v, const float* __restrict__ lse_t,
                const float* __restrict__ g_v, const float* __restrict__ g_t,
@@ -272,7 +326,8 @@ lse_bwd_kernel(const T* __restrict__ v, const T* __restrict__ t,
   float* sc = sy + kChunk * kLd;      // [kTile][kLd] coefficient tile
   float* scol_a = sc + kTile * kLd;   // [kTile] candidate factors
   float* scol_b = scol_a + kTile;     // [kTile]
-  float* sout = scol_b + kTile;       // [kTile][ldo] gradient rows
+  float* scol_k = scol_b + kTile;     // [kTile] candidates kept (1 / 0)
+  float* sout = scol_k + kTile;       // [kTile][ldo] gradient rows
 
   const bool text = blockIdx.y != 0;
   const T* a = text ? t : v;
@@ -281,18 +336,23 @@ lse_bwd_kernel(const T* __restrict__ v, const T* __restrict__ t,
   const float* lse_o = text ? lse_v : lse_t;
   const float* g_a = text ? g_t : g_v;
   const float* g_o = text ? g_v : g_t;
+  const unsigned char* keep_a = text ? kt : kv;  // the anchors' modality
+  const unsigned char* keep_o = text ? kv : kt;  // the other modality
   float* out = text ? dt : dv;
   const float s = kTraced ? *scale_ptr : scale_arg;
   const int r0 = blockIdx.x * kTile;
   const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
 
   for (int i = threadIdx.x; i < kTile * ldo; i += kThreads) sout[i] = 0.f;
-  // this thread's anchor-row factors
+  // this thread's anchor-row factors, and whether the other role (the
+  // candidate's own lse) keeps this anchor row as its candidate
   float ra[4], rb[4];
+  bool kr[4];
 #pragma unroll
   for (int r = 0; r < 4; ++r) {
     const int row = r0 + 4 * ty + r;
     ra[r] = rb[r] = 0.f;
+    kr[r] = kPruned && row < n && keep_a[row];
     if (row < n) {
       if constexpr (kFactored) {
         ra[r] = g_a[row] * expf(-lse_a[row]);
@@ -310,10 +370,12 @@ lse_bwd_kernel(const T* __restrict__ v, const T* __restrict__ t,
       const T* cand = intra ? a : o;
       const float* g_c = intra ? g_a : g_o;
       const float* lse_c = intra ? lse_a : lse_o;
+      const unsigned char* keep_c = intra ? keep_a : keep_o;
       tile_dot(a, r0, cand, c0, n, d, sx, sy, acc);
       if (threadIdx.x < kTile) {
         const int col = c0 + threadIdx.x;
         float fa = 0.f, fb = 0.f;
+        scol_k[threadIdx.x] = (kPruned && col < n && keep_c[col]) ? 1.f : 0.f;
         if (col < n) {
           if constexpr (kFactored) {
             fa = g_c[col] * expf(-lse_c[col]);
@@ -339,13 +401,26 @@ lse_bwd_kernel(const T* __restrict__ v, const T* __restrict__ t,
           const int cl = 4 * tx + c;
           const int col = c0 + cl;
           const float z = zs * acc[r][c];
+          const bool diag = row == col;
+          // role A (the anchor row's own lse) and role B (the candidate's):
+          // each term counts only where its role keeps the pair
+          bool keep_a_role, keep_b_role;
+          if constexpr (kPruned) {
+            const bool kc = scol_k[cl] != 0.f;
+            keep_a_role = intra ? (kc && !diag) : (kc || diag);
+            keep_b_role = intra ? (kr[r] && !diag) : (kr[r] || diag);
+          } else {
+            // a zeroed intra logit is a constant: no gradient
+            keep_a_role = keep_b_role = !(intra && diag);
+          }
           float coef = 0.f;
-          // a zeroed intra logit is a constant: no gradient
-          if (row < n && col < n && !(intra && row == col)) {
+          if (row < n && col < n && (keep_a_role || keep_b_role)) {
             if constexpr (kFactored)
-              coef = expf(z) * (ra[r] + scol_a[cl]);
+              coef = expf(z) * ((keep_a_role ? ra[r] : 0.f) +
+                                (keep_b_role ? scol_a[cl] : 0.f));
             else
-              coef = ra[r] * expf(z - rb[r]) + scol_a[cl] * expf(z - scol_b[cl]);
+              coef = (keep_a_role ? ra[r] * expf(z - rb[r]) : 0.f) +
+                     (keep_b_role ? scol_a[cl] * expf(z - scol_b[cl]) : 0.f);
           }
           if constexpr (kTraced) ds_acc = fmaf(ds_weight * coef, z, ds_acc);
           sc[(4 * ty + r) * kLd + cl] = intra ? w * coef : coef;
@@ -396,82 +471,110 @@ int row_tiles(int n) { return (n + kTile - 1) / kTile; }
 size_t bwd_smem_bytes(int d) {
   const int dc = d < kOutChunk ? d : kOutChunk;
   return sizeof(float) *
-         (2 * kChunk * kLd + kTile * kLd + 2 * kTile + kTile * out_ld(dc));
+         (2 * kChunk * kLd + kTile * kLd + 3 * kTile + kTile * out_ld(dc));
 }
 
-template <typename T, bool kOnline>
-cudaError_t launch_fwd(const void* v, const void* t, const float* scale_ptr,
-                       float scale, float w, float* lse_v, float* lse_t, int n,
-                       int d, cudaStream_t stream) {
+template <typename T, bool kOnline, bool kPruned>
+cudaError_t launch_fwd(const void* v, const void* t, const void* kv,
+                       const void* kt, const float* scale_ptr, float scale,
+                       float w, float* lse_v, float* lse_t, int n, int d,
+                       cudaStream_t stream) {
   const dim3 grid(row_tiles(n), 2);
-  lse_fwd_kernel<T, kOnline><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(v), static_cast<const T*>(t), scale_ptr, scale, w,
-      lse_v, lse_t, n, d);
+  lse_fwd_kernel<T, kOnline, kPruned><<<grid, kThreads, 0, stream>>>(
+      static_cast<const T*>(v), static_cast<const T*>(t),
+      static_cast<const unsigned char*>(kv),
+      static_cast<const unsigned char*>(kt), scale_ptr, scale, w, lse_v, lse_t,
+      n, d);
   return cudaGetLastError();
 }
 
-template <typename T, bool kTraced>
-cudaError_t launch_bwd(const void* v, const void* t, const float* scale_ptr,
-                       float scale, float w, const float* lse_v,
-                       const float* lse_t, const float* g_v, const float* g_t,
-                       float* dv, float* dt, float* ds_part, int n, int d,
+template <typename T, bool kTraced, bool kPruned>
+cudaError_t launch_bwd(const void* v, const void* t, const void* kv,
+                       const void* kt, const float* scale_ptr, float scale,
+                       float w, const float* lse_v, const float* lse_t,
+                       const float* g_v, const float* g_t, float* dv,
+                       float* dt, float* ds_part, int n, int d,
                        cudaStream_t stream) {
   const size_t smem = bwd_smem_bytes(d);
   cudaError_t err = cudaFuncSetAttribute(
-      lse_bwd_kernel<T, kTraced>,
+      lse_bwd_kernel<T, kTraced, kPruned>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(row_tiles(n), 2, (d + kOutChunk - 1) / kOutChunk);
-  lse_bwd_kernel<T, kTraced><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(v), static_cast<const T*>(t), scale_ptr, scale, w,
-      lse_v, lse_t, g_v, g_t, dv, dt, ds_part, n, d);
+  lse_bwd_kernel<T, kTraced, kPruned><<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(v), static_cast<const T*>(t),
+      static_cast<const unsigned char*>(kv),
+      static_cast<const unsigned char*>(kt), scale_ptr, scale, w, lse_v, lse_t,
+      g_v, g_t, dv, dt, ds_part, n, d);
   return cudaGetLastError();
 }
 
-bool bad_shape(int dtype, int n, int d) {
-  return n < 1 || d < 1 || (dtype != 0 && dtype != 1);
+// Both keep masks or neither.
+bool bad_args(int dtype, const void* kv, const void* kt, int n, int d) {
+  return n < 1 || d < 1 || (dtype != 0 && dtype != 1) ||
+         (kv == nullptr) != (kt == nullptr);
+}
+
+template <typename T>
+struct Type {
+  using type = T;
+};
+
+// f(Type<T>{}, std::bool_constant<pruned>{}): one instantiation per (dtype,
+// pruned).
+template <typename F>
+cudaError_t dispatch(int dtype, bool pruned, F f) {
+  using B16 = __nv_bfloat16;
+  if (dtype == 0)
+    return pruned ? f(Type<float>{}, std::true_type{})
+                  : f(Type<float>{}, std::false_type{});
+  return pruned ? f(Type<B16>{}, std::true_type{})
+                : f(Type<B16>{}, std::false_type{});
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (v, t); every other array is float32:
+// dtype: 0 = float32, 1 = bfloat16 (v, t); keep_v, keep_t: bool [n] (both,
+// or both null for the unpruned variant); every other array is float32:
 // lse_*, g_* [n] (the [n, 1] columns), dv, dt [n, d], scale and ds [1].
 // Each function returns a cudaError_t; launches are asynchronous on `stream`.
 
 extern "C" int crossclr_sym_fwd(int dtype, const void* v, const void* t,
+                                const void* keep_v, const void* keep_t,
                                 void* lse_v, void* lse_t, int n, int d,
                                 float scale, float w, void* stream) {
-  if (bad_shape(dtype, n, d)) return (int)cudaErrorInvalidValue;
+  if (bad_args(dtype, keep_v, keep_t, n, d)) return (int)cudaErrorInvalidValue;
   float* lv = static_cast<float*>(lse_v);
   float* lt = static_cast<float*>(lse_t);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return (int)launch_fwd<float, false>(v, t, nullptr, scale, w, lv, lt, n,
-                                         d, st);
-  return (int)launch_fwd<__nv_bfloat16, false>(v, t, nullptr, scale, w, lv,
-                                               lt, n, d, st);
+  return (int)dispatch(dtype, keep_v != nullptr, [&](auto ty, auto pruned) {
+    return launch_fwd<typename decltype(ty)::type, false, decltype(pruned)::value>(
+        v, t, keep_v, keep_t, nullptr, scale, w, lv, lt, n, d, st);
+  });
 }
 
 extern "C" int crossclr_dual_fwd(int dtype, const void* v, const void* t,
+                                 const void* keep_v, const void* keep_t,
                                  const void* scale, void* lse_v, void* lse_t,
                                  int n, int d, float w, void* stream) {
-  if (bad_shape(dtype, n, d)) return (int)cudaErrorInvalidValue;
+  if (bad_args(dtype, keep_v, keep_t, n, d)) return (int)cudaErrorInvalidValue;
   const float* sp = static_cast<const float*>(scale);
   float* lv = static_cast<float*>(lse_v);
   float* lt = static_cast<float*>(lse_t);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return (int)launch_fwd<float, true>(v, t, sp, 0.f, w, lv, lt, n, d, st);
-  return (int)launch_fwd<__nv_bfloat16, true>(v, t, sp, 0.f, w, lv, lt, n, d,
-                                              st);
+  return (int)dispatch(dtype, keep_v != nullptr, [&](auto ty, auto pruned) {
+    return launch_fwd<typename decltype(ty)::type, true, decltype(pruned)::value>(
+        v, t, keep_v, keep_t, sp, 0.f, w, lv, lt, n, d, st);
+  });
 }
 
 extern "C" int crossclr_sym_bwd(int dtype, const void* v, const void* t,
+                                const void* keep_v, const void* keep_t,
                                 const void* lse_v, const void* lse_t,
                                 const void* g_v, const void* g_t, void* dv,
                                 void* dt, int n, int d, float scale, float w,
                                 void* stream) {
-  if (bad_shape(dtype, n, d)) return (int)cudaErrorInvalidValue;
+  if (bad_args(dtype, keep_v, keep_t, n, d)) return (int)cudaErrorInvalidValue;
   const float* lv = static_cast<const float*>(lse_v);
   const float* lt = static_cast<const float*>(lse_t);
   const float* gv = static_cast<const float*>(g_v);
@@ -479,11 +582,11 @@ extern "C" int crossclr_sym_bwd(int dtype, const void* v, const void* t,
   float* ov = static_cast<float*>(dv);
   float* ot = static_cast<float*>(dt);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return (int)launch_bwd<float, false>(v, t, nullptr, scale, w, lv, lt, gv,
-                                         gt, ov, ot, nullptr, n, d, st);
-  return (int)launch_bwd<__nv_bfloat16, false>(
-      v, t, nullptr, scale, w, lv, lt, gv, gt, ov, ot, nullptr, n, d, st);
+  return (int)dispatch(dtype, keep_v != nullptr, [&](auto ty, auto pruned) {
+    return launch_bwd<typename decltype(ty)::type, false, decltype(pruned)::value>(
+        v, t, keep_v, keep_t, nullptr, scale, w, lv, lt, gv, gt, ov, ot,
+        nullptr, n, d, st);
+  });
 }
 
 // The float32 scratch `ds_part` holds crossclr_dual_bwd_partials(n) values;
@@ -491,12 +594,13 @@ extern "C" int crossclr_sym_bwd(int dtype, const void* v, const void* t,
 extern "C" int crossclr_dual_bwd_partials(int n) { return 2 * row_tiles(n); }
 
 extern "C" int crossclr_dual_bwd(int dtype, const void* v, const void* t,
+                                 const void* keep_v, const void* keep_t,
                                  const void* scale, const void* lse_v,
                                  const void* lse_t, const void* g_v,
                                  const void* g_t, void* dv, void* dt,
                                  void* ds_part, void* ds, int n, int d, float w,
                                  void* stream) {
-  if (bad_shape(dtype, n, d)) return (int)cudaErrorInvalidValue;
+  if (bad_args(dtype, keep_v, keep_t, n, d)) return (int)cudaErrorInvalidValue;
   const float* sp = static_cast<const float*>(scale);
   const float* lv = static_cast<const float*>(lse_v);
   const float* lt = static_cast<const float*>(lse_t);
@@ -506,13 +610,13 @@ extern "C" int crossclr_dual_bwd(int dtype, const void* v, const void* t,
   float* ot = static_cast<float*>(dt);
   float* part = static_cast<float*>(ds_part);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (dtype == 0)
-    err = launch_bwd<float, true>(v, t, sp, 0.f, w, lv, lt, gv, gt, ov, ot,
-                                  part, n, d, st);
-  else
-    err = launch_bwd<__nv_bfloat16, true>(v, t, sp, 0.f, w, lv, lt, gv, gt,
-                                          ov, ot, part, n, d, st);
+  const cudaError_t err =
+      dispatch(dtype, keep_v != nullptr, [&](auto ty, auto pruned) {
+        return launch_bwd<typename decltype(ty)::type, true,
+                          decltype(pruned)::value>(
+            v, t, keep_v, keep_t, sp, 0.f, w, lv, lt, gv, gt, ov, ot, part, n,
+            d, st);
+      });
   if (err != cudaSuccess) return (int)err;
   sum_partials_kernel<<<1, kThreads, 0, st>>>(
       part, crossclr_dual_bwd_partials(n), static_cast<float*>(ds));

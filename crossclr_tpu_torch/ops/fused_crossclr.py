@@ -6,10 +6,11 @@ the positive logits are plain PyTorch (autograd chains through them); the
 logsumexp pair of :mod:`.fused_dual`, whose autograd Functions carry a
 hand-written backward.  There is no jnp-style fallback: on a CUDA tensor
 the pair launches the CUDA kernels, on a CPU tensor it runs their plain
-versions.  The per-direction kernels of the JAX module
-(``_lse_fwd_kernel`` / ``_lse_bwd_kernel``) are reached there only past
-the dual kernel's VMEM budget, which the CUDA kernels do not have; they
-are not ported yet (ROADMAP queue 2 items 11-12).
+versions.  The full CrossCLR loss takes the same pair with keep masks
+(:func:`.fused_global.cross_clr_fused`).  The per-direction kernels of the
+JAX module (``_lse_fwd_kernel`` / ``_lse_bwd_kernel``) are reached there
+only past the dual kernel's VMEM budget, which the CUDA kernels do not
+have; they are not ported yet (ROADMAP queue 2 items 11-12).
 """
 
 from __future__ import annotations

@@ -1,7 +1,9 @@
 """A block of anchor rows against a set of candidates: the row-block
-logsumexp of CrossCLR, its two backward kernels, and the full CrossCLR
-loss built on them.  Three CUDA kernels for Hopper beside their plain
-PyTorch versions.
+logsumexp of CrossCLR and its two backward kernels, three CUDA kernels for
+Hopper beside their plain PyTorch versions, which the global-negative
+losses of :mod:`..parallel` run on; and the one-device full CrossCLR loss
+:func:`cross_clr_fused`, which takes the keep-mask branch of
+:mod:`.fused_dual` instead, as the JAX package does on one device.
 
 Counterpart of ``crossclr_tpu/ops/fused_global.py``.  For ``b_loc``
 L2-normalized anchor rows ``a_r`` that are rows ``off .. off + b_loc`` of
@@ -48,7 +50,14 @@ import threading
 
 import torch
 
-from .fused_dual import TIERS, _check_f32, _cotangent, _fetch_cast
+from .fused_dual import (
+    MASKED,
+    TIERS,
+    _check_f32,
+    _cotangent,
+    _fetch_cast,
+    dual_lse_pair,
+)
 
 __all__ = [
     "cross_clr_fused",
@@ -64,8 +73,6 @@ _count_lock = threading.Lock()
 
 SOURCE = "fused_global.cu"
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-# the excluded-candidate logit of the pruned variant (see the module doc)
-MASKED = -1e9
 
 
 # ---------------------------------------------------------------------------
@@ -385,12 +392,14 @@ def cross_clr_fused(video_features: torch.Tensor, text_features: torch.Tensor,
                     precision: str | None = None) -> torch.Tensor:
     """Drop-in fused equivalent of ``losses.cross_clr`` (the full paper
     loss).  Connectivity, the pruning quantile and the positive weights are
-    plain PyTorch on ``[B]`` / ``[B, D]`` data; each direction's ``[B, 2B]``
-    masked logsumexp runs through the pruned rows kernels at offset 0
-    (anchors = candidates).  The JAX package prefers the keep-mask branch
-    of its dual kernel here; the port's dual kernels have no keep-mask
-    branch yet, so the rows route, which computes the same function,
-    always runs.  ``temperature`` may be a tensor (learnable)."""
+    plain PyTorch on ``[B]`` / ``[B, D]`` data; both directions' ``[B, 2B]``
+    masked logsumexps run through the keep-mask branch of
+    :func:`.fused_dual.dual_lse_pair`, as the JAX package routes it on one
+    device: the sym kernels at a float τ inside their pruned gate, the dual
+    kernels at a tensor τ (learnable) or a float outside it.  The JAX
+    package falls back to its rows kernels past a TPU VMEM budget; the
+    port has no such budget, so the rows kernels here serve only the
+    global-negative losses of :mod:`..parallel`."""
     from ..losses.functional import (
         connectivity_keep_and_weights,
         connectivity_scores,
@@ -409,11 +418,9 @@ def cross_clr_fused(video_features: torch.Tensor, text_features: torch.Tensor,
                                                 **weights)
     keep_t, w_t = connectivity_keep_and_weights(connectivity_scores(text_inputs),
                                                 **weights)
-    kw = dict(temperature=temperature, negative_weight=negative_weight,
-              precision=precision)
-    # video anchors: inter columns are text samples (pruned by keep_t),
-    # intra columns video samples (keep_v); the text direction mirrors it
-    lse_v = fused_lse_rows(v, v, t, 0, keep_inter=keep_t, keep_intra=keep_v, **kw)
-    lse_t = fused_lse_rows(t, t, v, 0, keep_inter=keep_v, keep_intra=keep_t, **kw)
+    lse_v, lse_t = dual_lse_pair(v, t, temperature=temperature,
+                                 negative_weight=negative_weight,
+                                 precision=precision, keep_video=keep_v,
+                                 keep_text=keep_t)
     pos = (v * t).sum(dim=1) / temperature
     return ((w_v * (lse_v[:, 0] - pos)).mean() + (w_t * (lse_t[:, 0] - pos)).mean()) / 2

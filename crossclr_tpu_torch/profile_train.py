@@ -164,6 +164,7 @@ def profiled_fit(trainer, state, batches, steps: int) -> dict:
 
 def main(argv: list[str] | None = None) -> int:
     from .data import dataset_from_config, infinite_batches
+    from .ops.fused_dual import route as loss_route
     from .training import Trainer
     from .utils.config import ExperimentConfig, apply_overrides, load_config
 
@@ -188,10 +189,13 @@ def main(argv: list[str] | None = None) -> int:
     batches = infinite_batches(dataset, cfg.data.batch_size, seed=cfg.data.seed)
     state, _ = trainer.fit(state, batches, steps=args.warmup,
                            log_every=max(args.warmup, 1))
-    if cfg.train.loss == "crossclr_fused":
-        route = "rows"
-    else:
-        route = "dual" if cfg.train.learnable_temperature else "sym"
+    # the pair fused_dual.dual_lse_pair runs: a learnable τ reaches it as a
+    # tensor; crossclr_fused passes keep masks
+    temperature = cfg.train.temperature
+    if cfg.train.learnable_temperature:
+        temperature = torch.tensor(temperature)
+    route = loss_route(cfg.data.batch_size, temperature, cfg.train.negative_weight,
+                       pruned=cfg.train.loss == "crossclr_fused")
     tag = f"{cfg.train.loss}, {route} route, batch {cfg.data.batch_size}"
 
     parts = split_step(trainer, state, batches, args.repeats)

@@ -251,7 +251,7 @@ def _raw(seed, b, d):
 
 
 def test_cross_clr_fused_matches_jnp():
-    """The port's ``cross_clr_fused`` (the pruned rows route at offset 0)
+    """The port's ``cross_clr_fused`` (the keep-mask sym/dual pair)
     against the JAX ``cross_clr`` and ``cross_clr_fused``, with raw-input
     connectivity: values and gradients."""
     import jax

@@ -307,8 +307,12 @@ def test_refusals_and_cpu_tensors_launch_nothing():
     fd.dual_lse_pair(v, t, temperature=torch.tensor(0.03))
     assert fd.launch_counts == before
     keep = torch.ones(8, dtype=torch.bool)
-    with pytest.raises(NotImplementedError, match="item 15"):
-        fd.dual_lse_pair(v, t, temperature=0.03, keep_video=keep, keep_text=keep)
+    fd.dual_lse_pair(v, t, temperature=0.03, keep_video=keep, keep_text=keep)
+    fd.dual_lse_pair(v, t, temperature=torch.tensor(0.03), keep_video=keep,
+                     keep_text=keep)
+    assert fd.launch_counts == before
+    with pytest.raises(ValueError, match="both keep masks"):
+        fd.dual_lse_pair(v, t, temperature=0.03, keep_video=keep)
     with pytest.raises(ValueError, match="precision"):
         fd.dual_lse_pair(v, t, temperature=0.03, precision="high")
     with pytest.raises(ValueError, match="CUDA"):
