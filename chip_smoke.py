@@ -10,7 +10,9 @@ configs/lsmdc_transformer.json through the flash forward and backward
 kernels with attention dropout, the global-negative losses through the
 row-block kernels, and training the full CrossCLR loss of
 configs/fullcrossclr_fused_ragged.json through the keep-mask branch of
-the loss kernels (dual at its learnable τ, sym at a static τ).
+the loss kernels (dual at its learnable τ, sym at a static τ), and
+training configs/podslice_32k.json at B = 65,536 through the GradCache
+two-pass step and the per-direction loss kernels.
 Phases, one line each; any failure raises and exits non-zero:
 
   1. device    — a CUDA device must exist (there is no CPU path); prints
@@ -73,7 +75,30 @@ Phases, one line each; any failure raises and exits non-zero:
                  versions timed, forward and backward, at 1024 x 384 and
                  4096 x 384 (bf16 operands), beside the rows route's two
                  directions on the same operands.
-  7. global    — the three row-block kernels of ops/csrc/fused_global.cu
+  7. direction — the per-direction kernels of ops/csrc/fused_crossclr.cu
+                 (lse_fwd, lse_bwd) against their plain versions on the
+                 same CUDA tensors, both directions, B x D in {4096 x 256,
+                 1000 x 384, 4096 x 512}, fp32 (highest) and bf16 (default)
+                 operands, τ in {0.03, 0.01 (subtract-first backward),
+                 1/79 (s near 80, the factored backward's edge)} and
+                 w in {0.8, 0}, within the loss kernels' limits; the
+                 per-direction pair's lse against the sym pair's at
+                 4096 x 256.  At the leg's 65,536 x 256, both tiers and
+                 both directions: every row's lse against the plain lse
+                 taken in blocks of 2048 anchor rows (each against all
+                 131,072 candidates), and the gradient rows of three
+                 blocks against the plain backward on those rows; once
+                 for random unit features at the leg's τ = 0.03, once at
+                 τ = 1/79 for features collapsed near one direction (as a
+                 random-init tower's are), where lse passes 87 and the
+                 factored backward's g·e^{-lse} is subnormal (it also logs
+                 how far the factored gradient there lies from the
+                 subtract-first one, unchecked).  Then each kernel and its
+                 plain version timed
+                 at 4096 x 256 (median of 20), and the kernels alone at the
+                 leg's 65,536 x 256 (median of 3) beside the sym pair at
+                 that shape (bf16 operands).
+  8. global    — the three row-block kernels of ops/csrc/fused_global.cu
                  (rows_lse, rows_bwd_rows, rows_bwd_cols): (a) each against
                  its plain version on the same CUDA tensors at B x D in
                  {4096 x 384, 1000 x 384, 1000 x 640}, offset 0 with
@@ -96,7 +121,7 @@ Phases, one line each; any failure raises and exits non-zero:
                  both timed at the leg's 1024 x 384, at 4096 x 384 and at
                  4096 x 512 (bf16 operands, pruned; CUDA events, median of
                  20).
-  8. train     — crossclr_tpu_torch.train.main on configs/youcook2_mlp.json
+  9. train     — crossclr_tpu_torch.train.main on configs/youcook2_mlp.json
                  at full width (synthetic data, 16384 pairs): 300 steps with
                  eval every 100, a resume to 340 steps, then 100 steps with a
                  learnable temperature.  Checks the sym kernels launched in
@@ -124,14 +149,30 @@ Phases, one line each; any failure raises and exits non-zero:
                  batch.  Then the same leg at the config's static τ
                  (train.learnable_temperature=false, 10 steps): sym_fwd
                  and sym_bwd launched exactly 10 times each, no dual,
-                 flash or rows kernel, the loss falling.
+                 flash or rows kernel, the loss falling.  Then the
+                 large-batch leg: train.main on configs/podslice_32k.json at
+                 its widths (MLP towers 512/384 -> 2048 -> 256, bf16,
+                 crossclr_intra_fused at τ = 0.03, default tier,
+                 embedding_chunk 1024), synthetic data, 73,000 pairs, batch
+                 65,536, warmup 2, 8 steps in one dispatch: lse_fwd and
+                 lse_bwd launched exactly 16 times each and no other
+                 kernel, every step's loss finite and the last below the
+                 first; prints seconds and pairs/s.
+ 10. gradcache — the two-pass step on the card at the podslice widths
+                 in chunks of 1024: at B = 8192 pass 3's embeddings equal
+                 pass 1's bit for bit (bf16 towers); with fp32 towers and
+                 fp32 loss operands, at B = 8192 (the sym pair) and at the
+                 leg's 65,536 (the per-direction kernels), every parameter
+                 gradient within 1e-5 of its largest entry of the one-pass
+                 step's.
 
-The second-to-last line is the kernels' JSON record: ten kernels, each
+The second-to-last line is the kernels' JSON record: twelve kernels, each
 with its time, its plain version's, the library call's where one exists,
 and its bound from this run's shapes; the flash records also name the
 shape and build they were timed at and what the library call computes;
 the loss records add their pruned branch's time, plain time, bound and
-launches on the full-CrossCLR legs.
+launches on the full-CrossCLR legs; the per-direction records are timed at
+4096 x 256 and add their time and bound at the leg's 65,536 x 256.
 The last line is {"ok": true, "device": {...}}.
 
 Run from the root of a checkout:  python3 chip_smoke.py
@@ -140,6 +181,7 @@ Run from the root of a checkout:  python3 chip_smoke.py
 import contextlib
 import copy
 import csv
+import dataclasses
 import importlib
 import io
 import json
@@ -153,6 +195,7 @@ import time
 import urllib.request
 from http.server import ThreadingHTTPServer
 from pathlib import Path
+from unittest import mock
 
 import torch
 
@@ -179,6 +222,11 @@ ROWS_REPLACES = {
     "rows_lse": "crossclr_tpu/ops/fused_global.py:92",
     "rows_bwd_rows": "crossclr_tpu/ops/fused_global.py:155",
     "rows_bwd_cols": "crossclr_tpu/ops/fused_global.py:228",
+}
+DIRECTION_SOURCE = "crossclr_tpu_torch/ops/csrc/fused_crossclr.cu"
+DIRECTION_REPLACES = {
+    "lse_fwd": "crossclr_tpu/ops/fused_crossclr.py:179",
+    "lse_bwd": "crossclr_tpu/ops/fused_crossclr.py:279",
 }
 LOSS_SHAPES = [(1024, 256), (1024, 384), (1024, 512), (4096, 256),
                (4096, 512), (1000, 256), (1000, 512)]
@@ -254,6 +302,32 @@ FULL_STATIC_STEPS = 10  # the static-τ full-CrossCLR leg (sym route)
 # config's batch at its width, and the reference's headline shape
 PRUNED_SHAPES = [(1024, 384), (1000, 384), (4096, 384), (4096, 512)]
 PRUNED_TIMING = [(1024, 384), (4096, 384)]  # the leg's and the config's batch
+# the per-direction kernels: the config's batch cut to 4096 at its width,
+# the ragged edges at the transformer width, and the headline width
+DIRECTION_SHAPES = [(4096, 256), (1000, 384), (4096, 512)]
+DIRECTION_TAUS = (0.03, 0.01, 1.0 / 79)  # factored; subtract-first; s near 80
+DIRECTION_TIMING = (4096, 256)  # kernel and plain version, median of 20
+# at the leg's shape the plain version runs on blocks of anchor rows: every
+# row's lse, and the gradient of the first, a middle and the last block
+DIRECTION_BLOCK = 2048
+DIRECTION_LEG_CASES = ((0.03, 0.0), (1.0 / 79, 0.005))  # (τ, collapse noise)
+SUBNORMAL_LSE = 87.336544  # -ln of fp32's least normal, 2^-126
+PODSLICE_CONFIG = "configs/podslice_32k.json"
+# twice the config's batch, past the JAX dual kernels' budget at D = 256
+# (B > 49,152), so the loss takes the per-direction kernels
+PODSLICE_BATCH = 65536
+PODSLICE_STEPS = 8  # one dispatch at the config's steps_per_call
+PODSLICE_PAIRS = 73000  # 7300 held out for eval, 65,700 left to train on
+PODSLICE_OVERRIDES = [
+    "data.source=synthetic", f"data.num_pairs={PODSLICE_PAIRS}",
+    "data.video_dim=512", "data.text_dim=384",
+    f"data.batch_size={PODSLICE_BATCH}", "train.warmup_steps=2",
+]
+GRAD_CACHE_BATCH = 8192  # pass 3's masks against pass 1's
+# the two-pass step against the one-pass step: the sym pair's batch, then
+# the leg's (the per-direction kernels)
+GRAD_CACHE_COMPARE = (GRAD_CACHE_BATCH, PODSLICE_BATCH)
+GRAD_CACHE_BOUND = 1e-5  # max |error| / max |gradient|, fp32 towers
 GLOBAL_SHAPES = [(4096, 384), (1000, 384), (1000, 640)]
 GLOBAL_TIMING = [(1024, 384), (4096, 384), (4096, 512)]
 EMULATED_RANKS = 4
@@ -293,8 +367,8 @@ def build_phase() -> None:
     from crossclr_tpu_torch.ops import _build
 
     sources = sorted(p.name for p in _build._CSRC.glob("*.cu"))
-    check({"flash_fwd.cu", "flash_bwd.cu", "fused_dual.cu", "fused_global.cu"}
-          <= set(sources),
+    check({"flash_fwd.cu", "flash_bwd.cu", "fused_dual.cu", "fused_global.cu",
+           "fused_crossclr.cu"} <= set(sources),
           f"kernel sources missing: {sources}")
     _build.load_libraries(sources)
     for source in sources:
@@ -341,9 +415,9 @@ def compare(fa, q, k, v, mask, tag: str, phase: str = "kernel", **drop) -> float
     return out_err
 
 
-def median_ms(fn, n: int = 20, grad: bool = False) -> float:
+def median_ms(fn, n: int = 20, grad: bool = False, warmup: int = 3) -> float:
     with contextlib.nullcontext() if grad else torch.inference_mode():
-        for _ in range(3):
+        for _ in range(warmup):
             fn()
         torch.cuda.synchronize()
         times = []
@@ -1034,6 +1108,189 @@ def pruned_timing_phase(fd, fg, smi: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# the per-direction kernels (large-batch training)
+# ---------------------------------------------------------------------------
+
+
+def direction_check_phase(fc, fd) -> dict:
+    """Both per-direction kernels against their plain versions, each
+    direction, on identical inputs; then the per-direction pair's lse
+    against the sym pair's.  Returns the worst absolute error of each."""
+    worst = dict.fromkeys(fc.KERNELS, 0.0)
+    for b, d in DIRECTION_SHAPES:
+        v32, t32, g_v, g_t = loss_inputs(b, d, seed=b + d + 2)
+        for tier in ("highest", "default"):
+            v, t = (x.contiguous() for x in fd._fetch_cast(tier, v32, t32))
+            errs = dict.fromkeys(fc.KERNELS, 0.0)
+            for tau in DIRECTION_TAUS:
+                for w in (NEG_WEIGHT, 0.0):
+                    tag = f"B={b} D={d} {tier} τ={tau:.6g} w={w}"
+                    s = 1.0 / tau
+                    for a, o, g_a, g_o in ((v, t, g_v, g_t), (t, v, g_t, g_v)):
+                        lse_a = fc.lse_fwd_plain(a, o, s, w)
+                        lse_o = fc.lse_fwd_plain(o, a, s, w)
+                        errs["lse_fwd"] = max(errs["lse_fwd"], lse_err(
+                            (fc.lse_fwd_cuda(a, o, s, w),), (lse_a,),
+                            f"{tag} lse_fwd"))
+                        errs["lse_bwd"] = max(errs["lse_bwd"], grad_err(
+                            (fc.lse_bwd_cuda(a, o, lse_a, lse_o, g_a, g_o, s, w),),
+                            (fc.lse_bwd_plain(a, o, lse_a, lse_o, g_a, g_o, s, w),),
+                            f"{tag} lse_bwd"))
+            torch.cuda.synchronize()
+            for name, err in errs.items():
+                worst[name] = max(worst[name], err)
+            log("direction", f"B={b} D={d} {tier} (τ = 0.03, 0.01, 1/79; w = "
+                             f"{NEG_WEIGHT}, 0; both directions): max|kernel-plain| "
+                             + ", ".join(f"{k} {x:.3e}" for k, x in errs.items()))
+    # two kernel pairs, one function: the per-direction lse against sym's
+    b, d = DIRECTION_TIMING
+    v32, t32, _, _ = loss_inputs(b, d, seed=9)
+    s = 1.0 / 0.03
+    for tier in ("highest", "default"):
+        v, t = (x.contiguous() for x in fd._fetch_cast(tier, v32, t32))
+        got = (fc.lse_fwd_cuda(v, t, s, NEG_WEIGHT), fc.lse_fwd_cuda(t, v, s, NEG_WEIGHT))
+        err = lse_err(got, fd.sym_fwd_cuda(v, t, s, NEG_WEIGHT),
+                      f"B={b} D={d} {tier} per-direction vs sym lse")
+        log("direction", f"B={b} D={d} {tier} τ=0.03: the per-direction pair's lse "
+                         f"vs the sym pair's: max|Δlse| {err:.3e} (atol = rtol = "
+                         f"{LSE_TOL})")
+    return worst
+
+
+def leg_inputs(b: int, d: int, noise: float, seed: int):
+    """:func:`loss_inputs`; with ``noise`` > 0 the features collapsed near
+    one shared unit direction u, ``normalize(u + noise·N(0, I))``: every
+    cosine near ``1 − noise²·D``, as a random-init tower's embeddings lie."""
+    v, t, g_v, g_t = loss_inputs(b, d, seed)
+    if noise:
+        gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+        u = torch.nn.functional.normalize(
+            torch.randn(1, d, generator=gen, device="cuda"), dim=1)
+        v, t = (torch.nn.functional.normalize(
+            u + noise * torch.randn(b, d, generator=gen, device="cuda"), dim=1)
+            for _ in range(2))
+    return v, t, g_v, g_t
+
+
+def direction_leg_check_phase(fc, fd) -> dict:
+    """Both per-direction kernels at the leg's 65,536 x 256, where the
+    plain version's [B, 2B] logits (34 GB) do not fit: every row's lse
+    against the plain lse taken in blocks of DIRECTION_BLOCK anchor rows,
+    and the gradient rows of three blocks against the plain backward on
+    those rows (fed the plain lse); both tiers, both directions, w = 0.8,
+    each case of DIRECTION_LEG_CASES.  Returns the worst absolute error of
+    each kernel."""
+    b, d = PODSLICE_BATCH, 256
+    worst = dict.fromkeys(fc.KERNELS, 0.0)
+    n = b // DIRECTION_BLOCK
+    every = [slice(i * DIRECTION_BLOCK, (i + 1) * DIRECTION_BLOCK) for i in range(n)]
+    checked = [every[0], every[n // 2], every[-1]]
+    for tau, noise in DIRECTION_LEG_CASES:
+        s = 1.0 / tau
+        v32, t32, g_v, g_t = leg_inputs(b, d, noise, seed=11)
+        for tier in ("highest", "default"):
+            v, t = (x.contiguous() for x in fd._fetch_cast(tier, v32, t32))
+            tag = (f"B={b} D={d} {tier} τ={tau:.6g} w={NEG_WEIGHT}"
+                   + (f", collapsed (noise {noise})" if noise else ""))
+            lse_v, lse_t = (torch.cat([fc.lse_fwd_plain(a, o, s, NEG_WEIGHT, rows)
+                                       for rows in every])
+                            for a, o in ((v, t), (t, v)))
+            errs = {"lse_fwd": lse_err(
+                (fc.lse_fwd_cuda(v, t, s, NEG_WEIGHT), fc.lse_fwd_cuda(t, v, s, NEG_WEIGHT)),
+                (lse_v, lse_t), f"{tag} lse_fwd"), "lse_bwd": 0.0}
+            drift = 0.0  # the factored gradient against the subtract-first one
+            for a, o, la, lo, ga, go in ((v, t, lse_v, lse_t, g_v, g_t),
+                                         (t, v, lse_t, lse_v, g_t, g_v)):
+                grad = fc.lse_bwd_cuda(a, o, la, lo, ga, go, s, NEG_WEIGHT)
+                for rows in checked:
+                    want = fc.lse_bwd_plain(a, o, la, lo, ga, go, s, NEG_WEIGHT, rows)
+                    errs["lse_bwd"] = max(errs["lse_bwd"], grad_err(
+                        (grad[rows],), (want,),
+                        f"{tag} lse_bwd rows {rows.start}-{rows.stop - 1}"))
+                    if noise:  # the plain backward's other form, logged only
+                        with mock.patch.object(fc, "factored", lambda *_: False):
+                            exact = fc.lse_bwd_plain(a, o, la, lo, ga, go, s,
+                                                     NEG_WEIGHT, rows)
+                        drift = max(drift, ((grad[rows] - exact).abs().max()
+                                            / exact.abs().max()).item())
+            for name, err in errs.items():
+                worst[name] = max(worst[name], err)
+            lse = torch.cat([lse_v, lse_t])
+            line = (f"{tag}: max|kernel-plain| lse_fwd {errs['lse_fwd']:.3e} over all "
+                    f"{b} rows of each direction, lse_bwd {errs['lse_bwd']:.3e} over "
+                    f"rows {', '.join(f'{r.start}-{r.stop - 1}' for r in checked)}; "
+                    f"lse {lse.min().item():.4f} to {lse.max().item():.4f}")
+            if noise:
+                line += (f", e^(-lse) subnormal (lse > {SUBNORMAL_LSE}) in "
+                         f"{int((lse > SUBNORMAL_LSE).sum())} of {2 * b} rows; the "
+                         f"factored kernel's gradient vs the subtract-first plain: "
+                         f"{drift:.3e} of the largest entry (logged, unchecked)")
+            log("direction", line)
+            del v, t, lse_v, lse_t, lse, grad, want
+            torch.cuda.empty_cache()
+    return worst
+
+
+def direction_timing_phase(fc, fd, smi: str) -> dict:
+    """Each per-direction kernel and its plain version at 4096 x 256 (median
+    of 20); the kernels alone at the leg's 65,536 x 256 (median of 3), beside
+    the sym pair at that shape.  bf16 operands.  Returns {(name, B, D): ms}
+    with the plain times under ("plain " + name, B, D)."""
+    times = {}
+    s = 1.0 / 0.03
+    for (b, d), n in ((DIRECTION_TIMING, 20), ((PODSLICE_BATCH, 256), 3)):
+        v32, t32, g_v, g_t = loss_inputs(b, d, seed=3)
+        v, t = (x.contiguous() for x in fd._fetch_cast("default", v32, t32))
+        del v32, t32
+        lse_v = fc.lse_fwd_cuda(v, t, s, NEG_WEIGHT)
+        lse_t = fc.lse_fwd_cuda(t, v, s, NEG_WEIGHT)
+        bargs = (v, t, lse_v, lse_t, g_v, g_t, s, NEG_WEIGHT)
+        pairs = {"lse_fwd": (lambda: fc.lse_fwd_cuda(v, t, s, NEG_WEIGHT),
+                             lambda: fc.lse_fwd_plain(v, t, s, NEG_WEIGHT)),
+                 "lse_bwd": (lambda: fc.lse_bwd_cuda(*bargs),
+                             lambda: fc.lse_bwd_plain(*bargs))}
+        bounds = direction_bounds(b, d)
+        warmup = 3 if n == 20 else 1
+        for name, (kernel, plain) in pairs.items():
+            times[(name, b, d)] = ms = median_ms(kernel, n=n, warmup=warmup)
+            line = f"{name} B={b} D={d} bf16 operands: kernel {ms:.4f} ms"
+            if b == DIRECTION_TIMING[0]:
+                times[("plain " + name, b, d)] = plain_ms = median_ms(plain)
+                line += f", plain {plain_ms:.4f} ms"
+            log("direction", line + f", bound {bounds[name]['bound_ms']:.4f} ms "
+                                    f"({bounds[name]['bound_by']}) (median of {n}; {smi})")
+        if b == PODSLICE_BATCH:
+            lse = fd.sym_fwd_cuda(v, t, s, NEG_WEIGHT)
+            sym = (median_ms(lambda: fd.sym_fwd_cuda(v, t, s, NEG_WEIGHT), n=n,
+                             warmup=1),
+                   median_ms(lambda: fd.sym_bwd_cuda(v, t, *lse, g_v, g_t, s,
+                                                     NEG_WEIGHT), n=n, warmup=1))
+            mine = (2 * times[("lse_fwd", b, d)], 2 * times[("lse_bwd", b, d)])
+            times[("sym pair", b, d)] = sym
+            log("direction", f"B={b} D={d} bf16, both directions, fwd + bwd: the "
+                             f"per-direction pair (two launches each) {mine[0]:.1f} + "
+                             f"{mine[1]:.1f} ms, the sym pair {sym[0]:.1f} + "
+                             f"{sym[1]:.1f} ms (median of {n}; {smi})")
+        del v, t, lse_v, lse_t, bargs, pairs
+        torch.cuda.empty_cache()
+    return times
+
+
+def direction_bounds(b: int, d: int) -> dict:
+    """Each per-direction kernel's least time at bf16 operands (the leg's
+    `default` tier), counted as the rows kernels are: A·Oᵀ is one product
+    of 2·B²·D operations and A·Aᵀ is symmetric, half of one; the forward is
+    those 1.5 units, the backward recomputes them and adds P·O and Q·A,
+    3.5 units.  Each input is read once and each output written once."""
+    unit = 2 * b * b * d
+    features = 2 * b * d * 2  # anchor, other in bf16
+    work = {"lse_fwd": (features + b * 4, 1.5 * unit),
+            "lse_bwd": (features + 4 * b * 4 + b * d * 4, 3.5 * unit)}
+    return {name: bound(nbytes, flops, torch.bfloat16)
+            for name, (nbytes, flops) in work.items()}
+
+
+# ---------------------------------------------------------------------------
 # the row-block kernels (global negatives)
 # ---------------------------------------------------------------------------
 
@@ -1400,7 +1657,7 @@ def transformer_train_phase(fa, fd, smi: str) -> dict:
     return flash
 
 
-def run_full_leg(fa, fd, fg, steps: int, extra: list[str]):
+def run_full_leg(fa, fd, fg, fc, steps: int, extra: list[str]):
     """train.main on the full-CrossCLR config at full width, every launch
     count set to 0 just before and read just after.  Returns (the counts,
     the logged rows, the eval rows, seconds, what the trainer wrote to
@@ -1410,7 +1667,7 @@ def run_full_leg(fa, fd, fg, steps: int, extra: list[str]):
     with tempfile.TemporaryDirectory(prefix="crossclr_smoke_") as tmp:
         tmp = Path(tmp)
         metrics = tmp / "metrics.csv"
-        for counts in (fa, fd, fg):  # the full-CrossCLR path
+        for counts in (fa, fd, fg, fc):  # the full-CrossCLR path
             reset_counts(counts)
         t0 = time.perf_counter()
         err = io.StringIO()  # the trainer reports its weight ESS on stderr
@@ -1425,7 +1682,8 @@ def run_full_leg(fa, fd, fg, steps: int, extra: list[str]):
         check(rc == 0, f"train.main exited {rc}")
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-        counts = {**fa.launch_counts, **fd.launch_counts, **fg.launch_counts}
+        counts = {**fa.launch_counts, **fd.launch_counts, **fg.launch_counts,
+                  **fc.launch_counts}
         rows, evals = train_rows(metrics)
     return counts, rows, evals, seconds, err.getvalue()
 
@@ -1436,12 +1694,12 @@ def check_only(counts: dict, want: dict, tag: str) -> None:
           f"{tag}: launches {counts}, want {want} and none of any other kernel")
 
 
-def full_train_phase(fa, fd, fg, smi: str) -> dict:
+def full_train_phase(fa, fd, fg, fc, smi: str) -> dict:
     """The training CLI on the full-CrossCLR config at full width, its
     learnable τ: the keep-mask branch of the dual kernels.  Returns the
     leg's launches."""
     n_eval = int(4096 * 0.1)  # data.eval_fraction's default
-    counts, rows, evals, seconds, err = run_full_leg(fa, fd, fg, FULL_STEPS, [])
+    counts, rows, evals, seconds, err = run_full_leg(fa, fd, fg, fc, FULL_STEPS, [])
     losses = check_train_rows(rows, evals, n_eval, "full-CrossCLR leg")
     check([int(r["step"]) for r in evals] == [15, 30],
           f"full-CrossCLR leg evals at {[r['step'] for r in evals]}")
@@ -1471,13 +1729,13 @@ def full_train_phase(fa, fd, fg, smi: str) -> dict:
     return launched
 
 
-def full_static_phase(fa, fd, fg, smi: str) -> dict:
+def full_static_phase(fa, fd, fg, fc, smi: str) -> dict:
     """The same leg at the config's static τ: the keep-mask branch of the
     sym kernels (2·m0 = 66.7 passes the pruned gate).  Returns its
     launches."""
     n_eval = int(4096 * 0.1)
     counts, rows, evals, seconds, _ = run_full_leg(
-        fa, fd, fg, FULL_STATIC_STEPS, ["train.learnable_temperature=false"])
+        fa, fd, fg, fc, FULL_STATIC_STEPS, ["train.learnable_temperature=false"])
     losses = check_train_rows(rows, evals, n_eval, "static-τ full-CrossCLR leg")
     check_only(counts, {"sym_fwd": FULL_STATIC_STEPS, "sym_bwd": FULL_STATIC_STEPS},
                "static-τ full-CrossCLR leg")
@@ -1488,6 +1746,137 @@ def full_static_phase(fa, fd, fg, smi: str) -> dict:
                  f"(step {rows[-1]['step']}); launches {launched}; last dispatch "
                  f"{float(rows[-1]['pairs_per_sec']):.1f} pairs/s ({smi})")
     return launched
+
+
+def podslice_train_phase(fa, fd, fg, fc, smi: str) -> dict:
+    """The training CLI on configs/podslice_32k.json at its widths and
+    B = 65,536: the GradCache two-pass step (chunk 1024 as shipped) and the
+    per-direction loss kernels, every launch count set to 0 just before
+    and read just after.  Returns the leg's launches."""
+    from crossclr_tpu_torch import train
+    from crossclr_tpu_torch.training import Trainer
+
+    losses = []  # each step's loss, a device scalar: no extra sync
+    train_step = Trainer.train_step
+
+    def recording_step(self, state, batch):
+        state, metrics = train_step(self, state, batch)
+        losses.append(metrics["loss"])
+        return state, metrics
+
+    n_eval = int(PODSLICE_PAIRS * 0.1)  # data.eval_fraction's default
+    with tempfile.TemporaryDirectory(prefix="crossclr_smoke_") as tmp:
+        tmp = Path(tmp)
+        metrics = tmp / "metrics.csv"
+        for counts in (fa, fd, fg, fc):  # the large-batch path
+            reset_counts(counts)
+        Trainer.train_step = recording_step
+        t0 = time.perf_counter()
+        try:
+            rc = train.main(["--config", str(ROOT / PODSLICE_CONFIG), "--steps",
+                             str(PODSLICE_STEPS), "--metrics-csv", str(metrics),
+                             *PODSLICE_OVERRIDES, f"checkpoint_dir={tmp / 'ckpt'}"])
+        finally:
+            Trainer.train_step = train_step
+        check(rc == 0, f"train.main exited {rc}")
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = {**fa.launch_counts, **fd.launch_counts, **fg.launch_counts,
+                  **fc.launch_counts}
+        rows, evals = train_rows(metrics)
+    # two launches of each kernel per step: (v, t) and (t, v)
+    check_only(counts, {"lse_fwd": 2 * PODSLICE_STEPS, "lse_bwd": 2 * PODSLICE_STEPS},
+               "podslice leg")
+    losses = [float(x) for x in losses]
+    check(len(losses) == PODSLICE_STEPS and all(math.isfinite(x) for x in losses),
+          f"podslice leg: losses {losses}")
+    check(losses[-1] < losses[0], f"podslice leg: loss did not fall: {losses}")
+    check(len(rows) == 1 and int(rows[0]["step"]) == PODSLICE_STEPS,
+          f"podslice leg: one dispatch of {PODSLICE_STEPS} steps, logged {rows}")
+    launched = {k: x for k, x in counts.items() if x}
+    log("train", f"podslice leg ({PODSLICE_CONFIG}, crossclr_intra_fused τ=0.03, "
+                 f"default tier, batch {PODSLICE_BATCH}, embedding_chunk 1024, one "
+                 f"dispatch of {PODSLICE_STEPS} steps): {seconds:.1f} s with data, "
+                 f"eval and checkpoint; per-step loss "
+                 + ", ".join(f"{x:.4f}" for x in losses)
+                 + f"; eval v2t/R@1 {float(evals[-1]['eval/v2t/R@1']):.3f}, t2v/R@1 "
+                 f"{float(evals[-1]['eval/t2v/R@1']):.3f} over {n_eval} held-out "
+                 f"pairs (chance {100 / n_eval:.4f}); launches {launched}")
+    log("train", f"podslice train rate (the dispatch of {PODSLICE_STEPS} steps, "
+                 f"first step included): {float(rows[-1]['pairs_per_sec']):.1f} "
+                 f"pairs/s, {float(rows[-1]['steps_per_sec']):.4f} steps/s ({smi})")
+    return launched
+
+
+def grad_cache_phase(fc, smi: str) -> None:
+    """The two-pass step on the card at the podslice widths in chunks of
+    1024: at B = GRAD_CACHE_BATCH with the config's bf16 towers, pass 3's
+    embeddings equal pass 1's bit for bit; with fp32 towers and fp32 loss
+    operands, at each batch of GRAD_CACHE_COMPARE, every parameter
+    gradient within GRAD_CACHE_BOUND of its largest entry of the one-pass
+    step's, the per-direction kernels launched twice each per step where
+    the loss's route is theirs."""
+    from crossclr_tpu_torch.data import SyntheticPairs, epoch_batches
+    from crossclr_tpu_torch.training import Trainer, loss_route
+    from crossclr_tpu_torch.utils.config import apply_overrides, load_config
+
+    def first_batch(b: int):
+        data = SyntheticPairs(num_pairs=b, video_dim=512, text_dim=384, seed=4)
+        return next(iter(epoch_batches(data, b)))
+
+    cfg = load_config(ROOT / PODSLICE_CONFIG)
+    batch = first_batch(GRAD_CACHE_BATCH)
+    trainer = Trainer(cfg.video_tower, cfg.text_tower, cfg.train, "cuda")
+    state = trainer.init_state()
+    calls = []
+    hook = state.model.register_forward_hook(
+        lambda module, args, out: calls.append(
+            (torch.is_grad_enabled(), tuple(x.detach().clone() for x in out))))
+    _, metrics = trainer.train_step(state, batch)
+    hook.remove()
+    k = GRAD_CACHE_BATCH // cfg.train.embedding_chunk
+    check([grad for grad, _ in calls] == [False] * k + [True] * k,
+          f"two-pass step: {len(calls)} tower calls, want {k} without and {k} "
+          "with autograd")
+    for i in range(k):
+        for a, b in zip(calls[i][1], calls[k + i][1]):
+            check(torch.equal(a, b), f"pass 3 re-encoded chunk {i} differently")
+    log("gradcache", f"B={GRAD_CACHE_BATCH}, chunk {cfg.train.embedding_chunk}, "
+                     f"bf16 towers: pass 3's embeddings equal pass 1's bit for bit "
+                     f"over {k} chunks; loss {float(metrics['loss']):.4f}")
+
+    fp32 = apply_overrides(cfg, ["video_tower.dtype=float32",
+                                 "text_tower.dtype=float32",
+                                 "train.loss_precision=highest"])
+    for b in GRAD_CACHE_COMPARE:
+        batch = first_batch(b)
+        pair = loss_route(fp32.train, b, fp32.video_tower.embed_dim)
+        before = dict(fc.launch_counts)
+        grads = []
+        for chunk in (None, fp32.train.embedding_chunk):
+            tr = Trainer(fp32.video_tower, fp32.text_tower,
+                         dataclasses.replace(fp32.train, embedding_chunk=chunk), "cuda")
+            st = tr.init_state()
+            grads.append(tr.value_and_grad(st, tr.step_inputs(batch))[2])
+            del tr, st
+        worst = 0.0
+        for name, g in grads[0].items():
+            err = (grads[1][name] - g).abs().max().item()
+            ratio = err / max(g.abs().max().item(), 1e-30)
+            worst = max(worst, ratio)
+            check(ratio <= GRAD_CACHE_BOUND,
+                  f"B={b}: two-pass gradient of {name}: {ratio:.3e} of its "
+                  f"largest entry (limit {GRAD_CACHE_BOUND})")
+        launched = {k: x - before[k] for k, x in fc.launch_counts.items()}
+        per_step = 2 if pair == "per_direction" else 0
+        check(launched == dict.fromkeys(fc.KERNELS, 2 * per_step),
+              f"B={b} ({pair} route): per-direction launches {launched}")
+        log("gradcache", f"B={b} ({pair} route), fp32 towers and loss operands: "
+                         f"the two-pass gradients vs the one-pass step's, worst "
+                         f"max|Δ| {worst:.3e} of a parameter's largest entry "
+                         f"(limit {GRAD_CACHE_BOUND}; {smi})")
+        del batch, grads
+        torch.cuda.empty_cache()
 
 
 def loss_bounds(b: int, d: int, pruned: bool = False) -> dict:
@@ -1519,6 +1908,7 @@ def main() -> int:
     fa = importlib.import_module("crossclr_tpu_torch.ops.flash_attention")
     fd = importlib.import_module("crossclr_tpu_torch.ops.fused_dual")
     fg = importlib.import_module("crossclr_tpu_torch.ops.fused_global")
+    fc = importlib.import_module("crossclr_tpu_torch.ops.fused_crossclr")
     build_phase()
     fwd_worst = kernel_phase(fa, smi)
     flash_worst = attention_check_phase(fa)
@@ -1529,14 +1919,21 @@ def main() -> int:
     loss_times = loss_timing_phase(fd, smi)
     pruned_worst = pruned_check_phase(fd, fg)
     pruned_times = pruned_timing_phase(fd, fg, smi)
+    direction_worst = direction_check_phase(fc, fd)
+    for name, err in direction_leg_check_phase(fc, fd).items():
+        direction_worst[name] = max(direction_worst[name], err)
+    direction_times = direction_timing_phase(fc, fd, smi)
     rows_worst = global_check_phase(fd, fg)
     rows_launches = global_loss_phase(fg)
     rows_times = global_timing_phase(fd, fg, smi, rows_worst)
     loss_launches = train_phase(fd, smi)
     flash_launches = transformer_train_phase(fa, fd, smi)
     # the pruned branch's path: the full-CrossCLR legs, dual then sym
-    pruned_launches = {**full_train_phase(fa, fd, fg, smi),
-                       **full_static_phase(fa, fd, fg, smi)}
+    pruned_launches = {**full_train_phase(fa, fd, fg, fc, smi),
+                       **full_static_phase(fa, fd, fg, fc, smi)}
+    # the per-direction kernels' path: large-batch training
+    direction_launches = podslice_train_phase(fa, fd, fg, fc, smi)
+    grad_cache_phase(fc, smi)
     log("train", f"flash_fwd launches: serving {serve_launches}, transformer "
                  f"training {flash_launches['flash_fwd']}")
 
@@ -1598,6 +1995,25 @@ def main() -> int:
             "replaces": ROWS_REPLACES[name], "launches": rows_launches[name],
             "max_abs_err": rows_worst[name], "ms": ms, "plain_ms": plain_ms,
             **bounds[name], "library_ms": None,
+        })
+    # timed at 4096 x 256 beside the plain version, and alone at the leg's
+    # shape, where the plain version's [B, 2B] logits would take 34 GB
+    b, d = DIRECTION_TIMING
+    bounds = direction_bounds(b, d)
+    leg_bounds = direction_bounds(PODSLICE_BATCH, 256)
+    for name in fc.KERNELS:
+        records.append({
+            "name": name, "route": "cuda", "source": DIRECTION_SOURCE,
+            "replaces": DIRECTION_REPLACES[name],
+            "launches": direction_launches[name],
+            "max_abs_err": direction_worst[name],
+            "ms": direction_times[(name, b, d)],
+            "plain_ms": direction_times[("plain " + name, b, d)],
+            **bounds[name], "library_ms": None,
+            "timed_at": f"B={b} D={d} bf16",
+            "leg_ms": direction_times[(name, PODSLICE_BATCH, 256)],
+            "leg_bound_ms": leg_bounds[name]["bound_ms"],
+            "leg_timed_at": f"B={PODSLICE_BATCH} D=256 bf16",
         })
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -299,10 +299,17 @@ class DualEncoder(nn.Module):
         self.text_tower = _build_tower(text_cfg, self.dropout_gen)
         self.logit_scale = nn.Parameter(torch.ones(()))
 
-    def reseed_dropout(self, seed: int, step: int) -> None:
+    def reseed_dropout(self, seed: int, step: int, chunk: int | None = None) -> None:
         """Set the dropout generator as a pure function of ``(seed, step)``,
-        so a step's masks do not depend on what ran before it."""
-        self.dropout_gen.manual_seed(((int(seed) << 32) + int(step)) % (1 << 64))
+        so a step's masks do not depend on what ran before it.  A ``chunk``
+        index (the two-pass step's) is folded in too, as the JAX step folds
+        ``chunk_idx`` into its key: re-encoding a chunk draws its masks
+        again."""
+        value = ((int(seed) << 32) + int(step)) % (1 << 64)
+        if chunk is not None:
+            # an odd multiplier mixes the chunk into every bit of the seed
+            value = (value * 0x9E3779B97F4A7C15 + int(chunk) + 1) % (1 << 64)
+        self.dropout_gen.manual_seed(value)
 
     def forward(self, video, text, video_mask=None, text_mask=None):
         return (self.encode("video", video, video_mask),

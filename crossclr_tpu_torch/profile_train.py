@@ -4,9 +4,10 @@ Builds the trainer of ``train.py`` from a config plus overrides (no eval,
 no checkpoints), warms it up with ``--warmup`` steps, then measures:
 
 * a synchronised split of single steps (median of ``--repeats``): host
-  gather, host→device copy, towers forward, loss forward, backward, the
-  optimizer update (with the clamp and EMA of ``Trainer.train_step``) and
-  the whole step;
+  gather, host→device copy, towers forward, loss forward, backward (under
+  ``train.embedding_chunk``: the two-pass step's pass 1, pass 2 and pass
+  3), the optimizer update (``Trainer.apply_grads``: AdamW, the clamp and
+  the EMA) and the whole step;
 * one ``Trainer.fit`` of ``--steps`` steps under ``torch.profiler``: its
   wall time and pairs/s, the device's busy share (the union of the device
   events' intervals over the wall time), the device launches per step and
@@ -32,6 +33,10 @@ Examples (the training slices of chip_smoke.py):
       --repeats 10 --steps 20 data.source=synthetic data.num_pairs=4096 \\
       data.video_dim=512 data.text_dim=768 data.video_seq_len=64 \\
       data.text_seq_len=96 data.variable_lengths=true data.batch_size=1024
+  python -m crossclr_tpu_torch.profile_train --config configs/podslice_32k.json \\
+      --warmup 2 --repeats 3 --steps 3 data.source=synthetic \\
+      data.num_pairs=65536 data.video_dim=512 data.text_dim=384 \\
+      data.batch_size=65536 train.warmup_steps=2
 """
 
 from __future__ import annotations
@@ -62,10 +67,10 @@ def _sync(device: torch.device) -> None:
 
 def split_step(trainer, state, batches, repeats: int) -> dict[str, float]:
     """Median ms of each part of ``Trainer.train_step`` over ``repeats``
-    synchronised steps (the parts in its order)."""
-    from .training.trainer import _LOGIT_SCALE_BOUND, _optional, to_tensor
-
-    cfg, dev = trainer.cfg, trainer.device
+    synchronised steps (the parts in its order): one pass (towers forward,
+    loss forward, backward), or under ``embedding_chunk`` the two-pass
+    step's passes 1, 2 (the loss and its embedding gradients) and 3."""
+    dev = trainer.device
     times: dict[str, list[float]] = {}
 
     def lap(name, t0):
@@ -80,27 +85,26 @@ def split_step(trainer, state, batches, repeats: int) -> dict[str, float]:
         start = t = time.perf_counter()
         batch = next(batches)
         t = lap("gather", t)
-        video, text = to_tensor(batch["video"], dev), to_tensor(batch["text"], dev)
-        v_mask = _optional(batch.get("video_mask"), dev)
-        t_mask = _optional(batch.get("text_mask"), dev)
+        inputs = trainer.step_inputs(batch)
         t = lap("h2d", t)
-        model = trainer.step_model(state)
-        v_emb, t_emb = model(video, text, v_mask, t_mask)
-        t = lap("towers_fwd", t)
-        loss = trainer.step_loss(model, v_emb, t_emb, video, text, v_mask, t_mask)
-        t = lap("loss_fwd", t)
-        grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
-        grads = {k: torch.zeros_like(p) if g is None else g
-                 for (k, p), g in zip(params.items(), grads)}
-        t = lap("backward", t)
-        trainer.optimizer.update(params, grads, state.opt_state)
-        with torch.no_grad():
-            if cfg.learnable_temperature:
-                model.logit_scale.clamp_(-_LOGIT_SCALE_BOUND, _LOGIT_SCALE_BOUND)
-            if state.ema is not None:
-                for name, p in params.items():
-                    state.ema[name].mul_(cfg.ema_decay).add_(
-                        p, alpha=1.0 - cfg.ema_decay)
+        if trainer.two_pass(inputs[0].shape[0]):
+            v_emb, t_emb = trainer.encode_chunks(state, inputs)
+            t = lap("pass1_encode", t)
+            _, d_v, d_t, direct = trainer.embedding_grads(state, v_emb, t_emb, inputs)
+            t = lap("pass2_loss", t)
+            grads = trainer.tower_grads(state, inputs, d_v, d_t, direct)
+            t = lap("pass3_towers", t)
+        else:
+            model = trainer.step_model(state)
+            v_emb, t_emb = model(*inputs)
+            t = lap("towers_fwd", t)
+            loss = trainer.step_loss(model, v_emb, t_emb, *inputs)
+            t = lap("loss_fwd", t)
+            grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
+            grads = {k: torch.zeros_like(p) if g is None else g
+                     for (k, p), g in zip(params.items(), grads)}
+            t = lap("backward", t)
+        trainer.apply_grads(state, grads)
         lap("optimizer", t)
         lap("whole", start)
         state.step += 1
@@ -113,7 +117,9 @@ KERNEL_FAMILIES = {
     "flash_fwd": ("flash_fwd_kernel",),
     "flash_dq": ("flash_dq_kernel",),
     "flash_dkv": ("flash_dkv_kernel",),
-    "loss": ("lse_fwd_kernel", "lse_bwd_kernel"),  # fused_dual.cu
+    # fused_dual.cu's pair, or fused_crossclr.cu's per-direction kernels
+    "loss": ("lse_fwd_kernel", "lse_bwd_kernel", "direction_fwd_kernel",
+             "direction_bwd_kernel"),
     "rows": ("rows_lse_kernel", "rows_bwd_"),  # fused_global.cu
 }
 
@@ -164,8 +170,7 @@ def profiled_fit(trainer, state, batches, steps: int) -> dict:
 
 def main(argv: list[str] | None = None) -> int:
     from .data import dataset_from_config, infinite_batches
-    from .ops.fused_dual import route as loss_route
-    from .training import Trainer
+    from .training import Trainer, loss_route
     from .utils.config import ExperimentConfig, apply_overrides, load_config
 
     ap = argparse.ArgumentParser(description=__doc__,
@@ -189,14 +194,11 @@ def main(argv: list[str] | None = None) -> int:
     batches = infinite_batches(dataset, cfg.data.batch_size, seed=cfg.data.seed)
     state, _ = trainer.fit(state, batches, steps=args.warmup,
                            log_every=max(args.warmup, 1))
-    # the pair fused_dual.dual_lse_pair runs: a learnable τ reaches it as a
-    # tensor; crossclr_fused passes keep masks
-    temperature = cfg.train.temperature
-    if cfg.train.learnable_temperature:
-        temperature = torch.tensor(temperature)
-    route = loss_route(cfg.data.batch_size, temperature, cfg.train.negative_weight,
-                       pruned=cfg.train.loss == "crossclr_fused")
-    tag = f"{cfg.train.loss}, {route} route, batch {cfg.data.batch_size}"
+    b = cfg.data.batch_size
+    route = loss_route(cfg.train, b, cfg.video_tower.embed_dim)
+    tag = f"{cfg.train.loss}, {route or 'no fused'} route, batch {b}"
+    if trainer.two_pass(b):
+        tag += f", two-pass step (chunk {cfg.train.embedding_chunk})"
 
     parts = split_step(trainer, state, batches, args.repeats)
     print(f"{tag}: median ms per part of {args.repeats} synchronised steps: "

@@ -22,8 +22,16 @@ Examples:
       data.video_seq_len=64 data.text_seq_len=96 \\
       data.variable_lengths=true data.batch_size=1024 \\
       checkpoint_dir=/tmp/lsmdc
+  python -m crossclr_tpu_torch.train --config configs/podslice_32k.json \\
+      --steps 8 data.source=synthetic data.num_pairs=73000 \\
+      data.video_dim=512 data.text_dim=384 data.batch_size=65536 \\
+      train.warmup_steps=2 checkpoint_dir=/tmp/podslice
   python -m crossclr_tpu_torch.train --device cpu --steps 50 \\
       data.batch_size=64 data.num_pairs=512
+
+The podslice config trains through the GradCache two-pass step
+(``train.embedding_chunk``); its ``zero1`` and ``global_negatives`` are
+inert on one device, as in the JAX trainer without a mesh.
 """
 
 from __future__ import annotations

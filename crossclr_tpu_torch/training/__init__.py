@@ -6,6 +6,7 @@ from .trainer import (
     TrainConfig,
     Trainer,
     TrainState,
+    loss_route,
     make_loss_fn,
     make_optimizer,
 )
@@ -16,6 +17,7 @@ __all__ = [
     "TrainConfig",
     "TrainState",
     "Trainer",
+    "loss_route",
     "make_loss_fn",
     "make_optimizer",
 ]

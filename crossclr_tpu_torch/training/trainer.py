@@ -15,14 +15,25 @@ configs load.  The step:
 * clamps ``logit_scale`` to ±ln 100 after the update (learnable τ) and
   updates the EMA (``ema_decay``).
 
+With ``embedding_chunk`` below the batch the gradient comes from the JAX
+trainer's GradCache two-pass step (``value_and_grad_two_pass``): pass 1
+encodes the batch chunk by chunk without autograd, pass 2 differentiates
+the loss over the whole batch with respect to the embeddings and the
+model's direct parameters (``logit_scale``), pass 3 re-runs each chunk's
+towers with autograd and back-propagates its slice of the embeddings'
+gradient into summed parameter gradients.  Each chunk's dropout
+generator is reseeded from ``(train.seed, step, chunk)``, so pass 3 draws
+pass 1's masks again.  The gradient is the one-pass step's; only one
+chunk's activations are alive at a time.
+
 ``fit`` runs ``steps_per_call`` steps per dispatch as a plain loop; for
 the full CrossCLR losses it first reports on stderr, once per trainer, the
 positive weights' effective sample size on the first batch, and warns if
 the weight softmax is near-one-hot there
 (:meth:`Trainer.weight_degeneracy_check`).  Refused with a message rather
-than ignored: ``embedding_chunk`` and ``optimizer="lamb"`` (ROADMAP queue
-1 item 13) and transformer-tower dropout under ``attention="xla"`` (item
-10: its JAX mask comes from ``jax.random``).  Under ``attention="flash"``
+than ignored: ``optimizer="lamb"`` (ROADMAP queue 1 item 13) and
+transformer-tower dropout under ``attention="xla"`` (item 10: its JAX mask
+comes from ``jax.random``).  Under ``attention="flash"``
 the towers' dropout generator is reseeded every step from
 ``(train.seed, step)``, so a resumed run draws the same masks.  ``zero1`` and
 ``global_negatives`` are inert on one device, as in the JAX trainer with
@@ -50,6 +61,7 @@ __all__ = [
     "TrainConfig",
     "TrainState",
     "Trainer",
+    "loss_route",
     "make_loss_fn",
     "make_optimizer",
     "to_tensor",
@@ -201,6 +213,25 @@ def make_loss_fn(cfg: TrainConfig) -> Callable:
     raise ValueError(f"unknown loss {cfg.loss!r}")
 
 
+def loss_route(cfg: TrainConfig, batch: int, embed_dim: int) -> str | None:
+    """The kernel pair the loss of :func:`make_loss_fn` runs at this batch
+    and embedding width: ``"per_direction"``, ``"sym"`` or ``"dual"``
+    (a learnable τ reaches the loss as a tensor), or None for a loss that
+    runs no fused kernel."""
+    temperature = cfg.temperature
+    if cfg.learnable_temperature:
+        temperature = torch.tensor(temperature)
+    if cfg.loss == "crossclr_intra_fused":
+        from ..ops.fused_crossclr import route
+
+        return route(batch, embed_dim, temperature, cfg.negative_weight)
+    if cfg.loss == "crossclr_fused":  # always with keep masks
+        from ..ops.fused_dual import route
+
+        return route(batch, temperature, cfg.negative_weight, pruned=True)
+    return None
+
+
 class AdamW:
     """``optax.chain(clip_by_global_norm(clip_norm), adamw(schedule,
     weight_decay, mask))`` written out, with the JAX trainer's schedule
@@ -293,11 +324,6 @@ class Trainer:
 
     def __init__(self, video_cfg: TowerConfig, text_cfg: TowerConfig,
                  train_cfg: TrainConfig, device: str | torch.device = "cuda"):
-        if train_cfg.embedding_chunk:
-            raise NotImplementedError(
-                "train.embedding_chunk (the GradCache two-pass step) is not "
-                "ported to crossclr_tpu_torch yet (ROADMAP queue 1 item 13)"
-            )
         for cfg in (video_cfg, text_cfg):
             if (cfg.kind == "transformer" and cfg.dropout > 0
                     and cfg.attention != "flash"):
@@ -418,13 +444,22 @@ class Trainer:
 
     # -- the step -----------------------------------------------------------
 
-    def step_model(self, state: TrainState) -> torch.nn.Module:
+    def step_model(self, state: TrainState, chunk: int | None = None
+                   ) -> torch.nn.Module:
         """``state``'s model in train mode with this step's attention-dropout
-        masks: its generator reseeded from ``(train.seed, step)``, whatever
-        ran before the step."""
+        masks: its generator reseeded from ``(train.seed, step)`` (and the
+        two-pass step's ``chunk``), whatever ran before."""
         model = state.model.train()
-        model.reseed_dropout(self.cfg.seed, state.step)
+        model.reseed_dropout(self.cfg.seed, state.step, chunk)
         return model
+
+    def step_inputs(self, batch: dict) -> tuple:
+        """A host batch on the device: ``(video, text, video_mask,
+        text_mask)``, a mask None where the batch has none."""
+        dev = self.device
+        return (to_tensor(batch["video"], dev), to_tensor(batch["text"], dev),
+                _optional(batch.get("video_mask"), dev),
+                _optional(batch.get("text_mask"), dev))
 
     def step_loss(self, model: torch.nn.Module, v_emb, t_emb, video, text,
                   video_mask=None, text_mask=None) -> torch.Tensor:
@@ -445,25 +480,95 @@ class Trainer:
             t_raw = F.masked_mean_pool(text, text_mask)
         return self._loss_fn(v_emb, t_emb, v_raw, t_raw, temperature=temperature)
 
-    def train_step(self, state: TrainState, batch: dict) -> tuple[TrainState, dict]:
-        """One optimizer step on a host batch; updates ``state`` in place
-        and returns it with device-scalar metrics."""
-        cfg = self.cfg
+    def two_pass(self, batch_size: int) -> bool:
+        """Whether a step of ``batch_size`` rows is the two-pass step:
+        ``embedding_chunk`` set and below the batch."""
+        chunk = self.cfg.embedding_chunk
+        return bool(chunk) and chunk < batch_size
+
+    def value_and_grad(self, state: TrainState, inputs: tuple):
+        """``(loss, (v_emb, t_emb), grads)`` of one step on device
+        ``inputs`` (:meth:`step_inputs`), ``grads`` by parameter name (a
+        parameter the loss does not reach, ``logit_scale`` at a fixed τ,
+        gets zeros, as under ``jax.grad``).  The two-pass step when
+        ``embedding_chunk`` is below the batch, else one pass."""
+        if self.two_pass(inputs[0].shape[0]):
+            v_emb, t_emb = self.encode_chunks(state, inputs)
+            loss, d_v, d_t, direct = self.embedding_grads(state, v_emb, t_emb,
+                                                          inputs)
+            grads = self.tower_grads(state, inputs, d_v, d_t, direct)
+            return loss, (v_emb, t_emb), grads
         model = self.step_model(state)
-        dev = self.device
-        inputs = (to_tensor(batch["video"], dev), to_tensor(batch["text"], dev),
-                  _optional(batch.get("video_mask"), dev),
-                  _optional(batch.get("text_mask"), dev))
         v_emb, t_emb = model(*inputs)
         loss = self.step_loss(model, v_emb, t_emb, *inputs)
         params = dict(model.named_parameters())
         grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
-        # a parameter the loss does not reach (logit_scale at a fixed τ)
-        # has a zero gradient, as under jax.grad
-        grads = {k: torch.zeros_like(p) if g is None else g
-                 for (k, p), g in zip(params.items(), grads)}
-        gnorm = self.optimizer.update(params, grads, state.opt_state)
-        metrics = {"loss": loss.detach(), "grad_norm": gnorm}
+        return loss, (v_emb, t_emb), {
+            k: torch.zeros_like(p) if g is None else g
+            for (k, p), g in zip(params.items(), grads)}
+
+    def _chunks(self, inputs: tuple) -> list[tuple]:
+        """The two-pass step's row chunks of ``inputs``, in order."""
+        n, c = inputs[0].shape[0], self.cfg.embedding_chunk
+        if n % c:
+            raise ValueError(
+                f"embedding_chunk {c} does not divide the batch {n}")
+        return [tuple(None if x is None else x[i:i + c] for x in inputs)
+                for i in range(0, n, c)]
+
+    def encode_chunks(self, state: TrainState, inputs: tuple):
+        """Pass 1 of the two-pass step: the train-mode embeddings of the
+        whole batch, encoded chunk by chunk without autograd."""
+        with torch.no_grad():
+            embs = [self.step_model(state, i)(*rows)
+                    for i, rows in enumerate(self._chunks(inputs))]
+        return (torch.cat([v for v, _ in embs]), torch.cat([t for _, t in embs]))
+
+    def embedding_grads(self, state: TrainState, v_emb, t_emb, inputs: tuple):
+        """Pass 2: ``(loss, d_v, d_t, direct)`` — the loss over the whole
+        batch and its gradient with respect to the embeddings and to the
+        parameters the loss reaches directly (``direct``, by name:
+        ``logit_scale`` under a learnable τ).  The towers do not run."""
+        v = v_emb.detach().requires_grad_()
+        t = t_emb.detach().requires_grad_()
+        loss = self.step_loss(state.model, v, t, *inputs)
+        params = dict(state.model.named_parameters())
+        d_v, d_t, *grads = torch.autograd.grad(
+            loss, [v, t, *params.values()], allow_unused=True)
+        direct = {k: g for k, g in zip(params, grads) if g is not None}
+        return loss.detach(), d_v, d_t, direct
+
+    def tower_grads(self, state: TrainState, inputs: tuple, d_v, d_t,
+                    direct: dict) -> dict:
+        """Pass 3: each chunk's towers re-run with autograd (its dropout
+        masks drawn again) and back-propagated from its rows of ``d_v``,
+        ``d_t``; the parameter gradients summed over chunks in order, then
+        pass 2's ``direct`` gradients added (the JAX step's ``d_params +
+        g_towers``)."""
+        params = dict(state.model.named_parameters())
+        acc = {k: torch.zeros_like(p) for k, p in params.items()}
+        c = self.cfg.embedding_chunk
+        for i, rows in enumerate(self._chunks(inputs)):
+            embs = self.step_model(state, i)(*rows)
+            grads = torch.autograd.grad(
+                embs, list(params.values()),
+                grad_outputs=(d_v[i * c:(i + 1) * c], d_t[i * c:(i + 1) * c]),
+                allow_unused=True)
+            for (name, _), g in zip(params.items(), grads):
+                if g is not None:
+                    acc[name].add_(g)
+        for name, g in direct.items():
+            acc[name] = g + acc[name]
+        return acc
+
+    def apply_grads(self, state: TrainState, grads: dict) -> dict:
+        """Clip and apply AdamW to ``state``'s parameters in place, clamp
+        ``logit_scale`` (learnable τ) and update the EMA; returns the
+        device-scalar metrics of the update."""
+        cfg = self.cfg
+        model = state.model
+        params = dict(model.named_parameters())
+        metrics = {"grad_norm": self.optimizer.update(params, grads, state.opt_state)}
         with torch.no_grad():
             if cfg.learnable_temperature:
                 model.logit_scale.clamp_(-_LOGIT_SCALE_BOUND, _LOGIT_SCALE_BOUND)
@@ -476,6 +581,15 @@ class Trainer:
                 # after the clamp: the EMA tracks the stored logit_scale
                 for name, p in params.items():
                     state.ema[name].mul_(d).add_(p, alpha=1.0 - d)
+        return metrics
+
+    def train_step(self, state: TrainState, batch: dict) -> tuple[TrainState, dict]:
+        """One optimizer step on a host batch; updates ``state`` in place
+        and returns it with device-scalar metrics."""
+        loss, (v_emb, t_emb), grads = self.value_and_grad(
+            state, self.step_inputs(batch))
+        metrics = {"loss": loss.detach(), **self.apply_grads(state, grads)}
+        with torch.no_grad():
             metrics["video_emb_norm"] = torch.linalg.vector_norm(v_emb, dim=1).mean()
             metrics["text_emb_norm"] = torch.linalg.vector_norm(t_emb, dim=1).mean()
         state.step += 1

@@ -4,8 +4,10 @@ A subprocess installs a ``sys.meta_path`` finder that makes any import of
 ``jax``, ``flax`` or the JAX package raise, then imports
 ``crossclr_tpu_torch``, builds the port's service on the CPU at a tiny
 size and answers one search over HTTP; others train the MLP, the
-transformer and the full-CrossCLR configs (the last also imports the
-global-negative losses of ``crossclr_tpu_torch.parallel``).
+transformer, the full-CrossCLR and the podslice configs (the full
+CrossCLR one also imports the global-negative losses of
+``crossclr_tpu_torch.parallel``; the podslice one trains through the
+GradCache two-pass step).
 """
 
 import json
@@ -158,6 +160,52 @@ loaded = sorted(m for m in sys.modules
                                        "crossclr_tpu"))
 print(json.dumps({"rc": rc, "loaded": loaded}))
 """
+
+
+PODSLICE_SCRIPT = SCRIPT.split("import json\n", 1)[0] + r"""
+import json
+
+from crossclr_tpu_torch import train
+from crossclr_tpu_torch.training import Trainer
+
+passes = []
+encode_chunks = Trainer.encode_chunks
+Trainer.encode_chunks = lambda *a: passes.append(1) or encode_chunks(*a)
+rc = train.main([
+    "--config", CONFIG, "--device", "cpu", "--steps", "4",
+    "--metrics-csv", "metrics.csv",
+    "video_tower.input_dim=12", "text_tower.input_dim=10",
+    "video_tower.embed_dim=8", "text_tower.embed_dim=8",
+    "video_tower.hidden_dim=16", "text_tower.hidden_dim=16",
+    "data.source=synthetic", "data.num_pairs=72", "data.video_dim=12",
+    "data.text_dim=10", "data.batch_size=32", "train.embedding_chunk=8",
+    "train.warmup_steps=1", "train.steps_per_call=2", "eval_every=2",
+    "checkpoint_dir=ckpt",
+])
+loaded = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "flax", "optax", "orbax",
+                                       "crossclr_tpu"))
+print(json.dumps({"rc": rc, "passes": len(passes), "loaded": loaded}))
+"""
+
+
+def test_port_trains_the_podslice_config_without_jax(tmp_path):
+    """The podslice config (MLP towers, ``crossclr_intra_fused``,
+    ``embedding_chunk``, ``zero1`` and ``global_negatives`` inert on one
+    device) trains through the two-pass step, evaluates and checkpoints
+    with jax, flax, optax and orbax blocked."""
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    script = PODSLICE_SCRIPT.replace(
+        "CONFIG", repr(str(REPO / "configs" / "podslice_32k.json")))
+    proc = subprocess.run(
+        [sys.executable, "-c", script], cwd=tmp_path, env=env,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    result = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert result == {"rc": 0, "passes": 4, "loaded": []}
+    assert sorted(p.name for p in (tmp_path / "ckpt").iterdir()) == [
+        "step_2.pt", "step_4.pt"]
 
 
 def test_port_trains_full_crossclr_without_jax(tmp_path):

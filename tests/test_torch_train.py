@@ -243,7 +243,7 @@ def test_overfit_synthetic_retrieval():
 
 def test_refusals():
     with pytest.raises(NotImplementedError, match="item 13"):
-        _port_trainer(embedding_chunk=8)
+        _port_trainer(optimizer="lamb")
     # the full CrossCLR losses train, a learnable τ included
     batch = _batches(1)[0]
     for loss in ("crossclr", "crossclr_fused"):
