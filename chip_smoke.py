@@ -19,7 +19,11 @@ Phases, one line each; any failure raises and exits non-zero:
                  nvidia-smi's name and power limit, torch and CUDA versions.
   2. build     — builds every crossclr_tpu_torch/ops/csrc/*.cu with nvcc
                  for sm_90a, one nvcc process each, all started together;
-                 prints the time, the .so paths and ptxas' report.
+                 prints the time, the .so paths and ptxas' report, and the
+                 registers of each instantiation of the two tensor-core
+                 kernels (flash_fwd_bf16_kernel, flash_dkv_bf16_kernel: 8
+                 padded head dims x 2 dropout builds each), none of which
+                 may spill.
   3. kernel    — the flash forward against the plain version on the same
                  CUDA tensors (H=8, Dh=48, S in {64, 96, 37}, ragged masks,
                  one entry fully masked; fp32 and bf16) within the stated
@@ -27,8 +31,11 @@ Phases, one line each; any failure raises and exits non-zero:
                  H=8, S=96, Dh=48, bf16; CUDA events, median of 20).
   4. attention — the forward with dropout (r in {0.1, 0.5}, once at nonzero
                  offsets) against the plain version; the exact keep mask
-                 recovered from the kernel's output (q = k = 0, v = I,
-                 Dh = S in {64, 96}); dq, dk and dv (r in {0, 0.1}) against
+                 recovered, fp32 and bf16, from the forward's output
+                 (q = k = 0, v = I, Dh = S in {64, 96}) and from dk/dv's dv
+                 (dO = I: dv is its transpose); two launches of each flash
+                 kernel on the same inputs, both dtypes, bit for bit equal;
+                 dq, dk and dv (r in {0, 0.1}) against
                  autograd through the plain version; at the transformer
                  leg's shapes (B=1024, S in {96, 64}, H=8, Dh=48, bf16,
                  dropout 0.1, one entry fully masked) the forward against
@@ -176,8 +183,19 @@ launches on the full-CrossCLR legs; the per-direction records are timed at
 The last line is {"ok": true, "device": {...}}.
 
 Run from the root of a checkout:  python3 chip_smoke.py
+
+With --baseline DIR (DIR holding another revision's flash_fwd.cu,
+flash_bwd.cu and flash_common.cuh, e.g. the csrc directory of a parent
+commit's `git archive` unpacked under the ignored _checkout/), it runs only
+phases 1-2 and a comparison: this checkout's flash kernels against that
+revision's on the same operands (fp32 outputs, and bf16 dq, bit for bit),
+then at B=1024, S in {96, 64}, H=8, Dh=48, bf16, dropout 0 and 0.1 each
+kernel timed in turns (baseline, this, this, baseline; median of 20 each)
+beside its plain version, SDPA and its bound; the last line is a JSON
+record of those times.
 """
 
+import argparse
 import contextlib
 import copy
 import csv
@@ -186,6 +204,7 @@ import importlib
 import io
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -269,6 +288,12 @@ SERVE_SHAPE = (1024, 8, 96, 48)  # (B, H, S, Dh) of one text-tower encode
 # atol = rtol = 1.6e-2 (one bf16 ulp of the outputs plus the order of sums)
 FLASH_GRAD_BOUND = 5e-5
 FLASH_BF16_TOL = 1.6e-2
+# the bf16 builds of the forward and dk/dv: tensor-core kernels (mma.sync)
+MMA_KERNELS = ("flash_fwd_bf16_kernel", "flash_dkv_bf16_kernel")
+# the exact keep mask read back as out · n · (1 − r) (or dv · n · (1 − r)):
+# fp32 within 1e-4 of 0 or 1; bf16 within one bf16 ulp at 1, the rounding
+# of the output itself
+KEEP_OFF = {torch.float32: 1e-4, torch.bfloat16: 2.0**-8}
 # (B, S) of the attention timings: the text and video towers at the
 # transformer slice's batch, and the text tower at the headline batch
 ATTENTION_TIMING = [(1024, 96), (1024, 64), (4096, 96)]
@@ -379,6 +404,49 @@ def build_phase() -> None:
         for line in info["log"].splitlines():
             if "registers" in line or "spill" in line:
                 log("build", "ptxas: " + line.strip())
+    # the tensor-core kernels: one instantiation per padded head dim and
+    # dropout build, none may spill
+    report = {}
+    for source in ("flash_fwd.cu", "flash_bwd.cu"):
+        report.update(ptxas_report(_build.build_info[source]["log"]))
+    for kernel in MMA_KERNELS:
+        found = {name: r for name, r in report.items() if kernel in name}
+        check(len(found) == 16, f"ptxas reported {len(found)} instantiations "
+                                f"of {kernel}, want 16 (8 head dims x 2)")
+        for name, r in sorted(found.items(), key=lambda x: template_args(x[0])):
+            dhp, drop = template_args(name)
+            log("build", f"{kernel}<{dhp}, {bool(drop)}>: {r.get('registers')} "
+                         f"registers, spill stores {r.get('spill_stores')} B, "
+                         f"spill loads {r.get('spill_loads')} B")
+            check(r.get("spill_stores") == 0 and r.get("spill_loads") == 0,
+                  f"{kernel}<{dhp}, {drop}> spills: {r}")
+
+
+def ptxas_report(text: str) -> dict:
+    """{mangled kernel name: {"registers", "spill_stores", "spill_loads"}}
+    from nvcc's -Xptxas -v output."""
+    report, name = {}, None
+    for line in text.splitlines():
+        found = re.search(r"Compiling entry function '([^']+)'", line) or \
+            re.search(r"Function properties for (\S+)", line)
+        if found:
+            name = found.group(1)
+            report.setdefault(name, {})
+            continue
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if spill and name:
+            report[name].update(spill_stores=int(spill.group(1)),
+                                spill_loads=int(spill.group(2)))
+        regs = re.search(r"Used (\d+) registers", line)
+        if regs and name:
+            report[name]["registers"] = int(regs.group(1))
+    return report
+
+
+def template_args(mangled: str) -> tuple[int, int]:
+    """(padded head dim, dropout build) of a tensor-core kernel's name."""
+    found = re.search(r"ILi(\d+)ELb(\d)E", mangled)
+    return int(found.group(1)), int(found.group(2))
 
 
 def ragged_mask(b: int, s: int, gen: torch.Generator) -> torch.Tensor:
@@ -479,28 +547,13 @@ def attention_check_phase(fa) -> dict:
                 worst["flash_fwd"] = max(worst["flash_fwd"], err)
 
     # q = k = 0 and v = I: each valid key has probability 1/n_valid, so
-    # out · n_valid · (1 − r) is the keep mask itself, entry for entry
+    # out · n_valid · (1 − r) is the keep mask itself, entry for entry; and
+    # with dO = I, dv = P̂ᵀ, so dv · n_valid · (1 − r) is its transpose
     rate = 0.3
-    for s in (64, 96):
-        b, h = 2, 8
-        zeros = torch.zeros(b, h, s, s, device="cuda")
-        eye = torch.eye(s, device="cuda").expand(b, h, s, s).contiguous()
-        mask = torch.ones(b, s, device="cuda")
-        mask[1, s // 3:] = 0.0
-        with torch.inference_mode():
-            out, _ = fa.flash_attention_fwd(zeros, zeros, eye, mask,
-                                            dropout_rate=rate, dropout_seed=4242 + s)
-        scaled = out * mask.sum(dim=1)[:, None, None, None] * (1 - rate)
-        keep = fa.dropout_keep_mask(b, h, s, 4242 + s, rate, device="cuda")
-        want = (keep & mask.bool()[:, None, None, :]).float()
-        off = (scaled - want).abs().max().item()
-        check(torch.equal(torch.round(scaled), want) and off < 1e-4,
-              f"S={s}: the kernel's keep mask differs from dropout_keep_mask "
-              f"(max |out·n·(1−r) − keep| {off:.3e})")
-        log("attention", f"keep mask recovered exactly at S=Dh={s}, rate {rate}: "
-                         f"kept {want[0].mean().item():.4f} of entry 0, "
-                         f"max |out·n·(1−r) − keep| {off:.2e}")
-
+    for dtype in (torch.float32, torch.bfloat16):
+        for s in (64, 96):
+            keep_mask_check(fa, dtype, s, rate)
+    repeat_launch_check(fa)
     for dtype in (torch.float32, torch.bfloat16):
         for s in (64, 96, 37):
             q, k, v, mask = qkv((4, 8, s, 48), dtype, seed=200 + s)
@@ -515,6 +568,58 @@ def attention_check_phase(fa) -> dict:
                                  f"max|kernel-autograd(plain)| dq {errs[0]:.3e}, "
                                  f"dk {errs[1]:.3e}, dv {errs[2]:.3e}")
     return worst
+
+
+def keep_mask_check(fa, dtype, s: int, rate: float) -> None:
+    """The keep mask read back exactly through the forward's output and
+    through dv, at Dh = S."""
+    b, h, seed = 2, 8, 4242 + s
+    zeros = torch.zeros(b, h, s, s, device="cuda", dtype=dtype)
+    eye = torch.eye(s, device="cuda", dtype=dtype).expand(b, h, s, s).contiguous()
+    mask = torch.ones(b, s, device="cuda")
+    mask[1, s // 3:] = 0.0
+    drop = dict(dropout_rate=rate, dropout_seed=seed)
+    with torch.inference_mode():
+        out, lse = fa.flash_attention_fwd(zeros, zeros, eye, mask, **drop)
+        delta = torch.zeros(b, h, s, device="cuda")  # dv does not read it
+        _, dv = fa.flash_dkv_cuda(zeros, zeros, zeros, mask, lse, delta, eye, **drop)
+    n_scale = mask.sum(dim=1)[:, None, None, None] * (1 - rate)
+    keep = fa.dropout_keep_mask(b, h, s, seed, rate, device="cuda")
+    want = (keep & mask.bool()[:, None, None, :]).float()
+    for what, got, expect in (("forward", out.float() * n_scale, want),
+                              ("dv", dv.float() * n_scale, want.transpose(-1, -2))):
+        off = (got - expect).abs().max().item()
+        check(torch.equal(torch.round(got), expect) and off < KEEP_OFF[dtype],
+              f"{dtype} S={s}: the keep mask through the {what} differs from "
+              f"dropout_keep_mask (max |x·n·(1−r) − keep| {off:.3e})")
+        log("attention", f"keep mask recovered exactly through the {what}, "
+                         f"{str(dtype)[6:]} S=Dh={s}, rate {rate}: kept "
+                         f"{want[0].mean().item():.4f} of entry 0, max "
+                         f"|x·n·(1−r) − keep| {off:.2e} (limit {KEEP_OFF[dtype]:.2e})")
+
+
+def repeat_launch_check(fa) -> None:
+    """Two launches of each flash kernel on the same inputs give the same
+    bits (one writer per output row, a fixed order of sums)."""
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, mask = qkv((4, 8, 96, 48), dtype, seed=11)
+        gen = torch.Generator(device="cuda").manual_seed(12)
+        g = torch.randn(q.shape, generator=gen, device="cuda").to(dtype)
+        drop = dict(dropout_rate=LEG_DROPOUT, dropout_seed=13)
+        runs = []
+        with torch.inference_mode():
+            for _ in range(2):
+                out, lse = fa.flash_attention_fwd(q, k, v, mask, **drop)
+                delta = (g.float() * out.float()).sum(dim=-1)
+                ops = (q, k, v, mask, lse, delta, g)
+                runs.append((out, lse, fa.flash_dq_cuda(*ops, **drop),
+                             *fa.flash_dkv_cuda(*ops, **drop)))
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(*runs)),
+              f"{dtype}: two launches on the same inputs differ")
+        log("attention", f"{str(dtype)[6:]} B=4 S=96 dropout {LEG_DROPOUT}: two "
+                         "launches of flash_fwd, flash_dq and flash_dkv give the "
+                         "same bits")
 
 
 def check_grads(got, want, worst: dict, tag: str) -> list[float]:
@@ -673,6 +778,126 @@ def attention_timing_phase(fa, smi: str, worst: dict) -> dict:
                                       for n, x in bounds.items())
             + f" ({smi})")
     return times
+
+
+def build_baseline(fa, csrc: Path, out_dir: Path) -> dict:
+    """Build another revision's flash sources (``csrc`` holds its
+    flash_fwd.cu, flash_bwd.cu and flash_common.cuh) with this build's nvcc
+    flags, one nvcc each, started together; returns {source: CDLL} with the
+    launchers' signatures set."""
+    import ctypes
+
+    from crossclr_tpu_torch.ops import _build
+
+    procs = {}
+    for source in ("flash_fwd.cu", "flash_bwd.cu"):
+        so = out_dir / f"baseline_{source[:-3]}.so"
+        procs[source] = so, subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(so), str(csrc / source)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    libs = {}
+    for source, (so, proc) in procs.items():
+        text = proc.communicate()[0]
+        check(proc.returncode == 0, f"baseline {csrc / source} did not build:\n{text}")
+        lib = ctypes.CDLL(str(so))
+        for name, argtypes in fa._SIGNATURES[source].items():
+            getattr(lib, name).argtypes = argtypes
+            getattr(lib, name).restype = ctypes.c_int
+        lib.crossclr_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.crossclr_cuda_error_string.restype = ctypes.c_char_p
+        libs[source] = lib
+    return libs
+
+
+def baseline_phase(fa, smi: str, csrc: Path) -> list[dict]:
+    """The flash kernels of this checkout against those built from
+    ``csrc`` on the same operands: in fp32 every output must agree bit for
+    bit, and in bf16 dq's (the scalar design in both).  Then, at the
+    transformer leg's shapes (B=1024, S in {96, 64}, H=8, Dh=48, bf16,
+    dropout 0 and the leg's 0.1), each kernel timed in turns, baseline,
+    this checkout, this checkout, baseline (CUDA events, median of 20
+    each), beside its plain version, SDPA and its bound."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    records = []
+    with tempfile.TemporaryDirectory(prefix="crossclr_baseline_") as tmp:
+        libs = build_baseline(fa, csrc, Path(tmp))
+        baseline = lambda: mock.patch.object(fa, "_library", libs.__getitem__)  # noqa: E731
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, mask = qkv((LEG_BATCH, 8, 96, 48), dtype, seed=21)
+            gen = torch.Generator(device="cuda").manual_seed(22)
+            g = torch.randn(q.shape, generator=gen, device="cuda").to(dtype)
+            drop = dict(dropout_rate=LEG_DROPOUT, dropout_seed=23)
+            with torch.inference_mode():
+                out, lse = fa.flash_attention_fwd(q, k, v, mask, **drop)
+                ops = (q, k, v, mask, lse, (g.float() * out.float()).sum(dim=-1), g)
+                fns = {"flash_fwd": lambda: fa.flash_attention_fwd(q, k, v, mask, **drop),
+                       "flash_dq": lambda: fa.flash_dq_cuda(*ops, **drop),
+                       "flash_dkv": lambda: fa.flash_dkv_cuda(*ops, **drop)}
+                for name, fn in fns.items():
+                    new = fn()
+                    with baseline():
+                        old = fn()
+                    new, old = (x if isinstance(x, tuple) else (x,) for x in (new, old))
+                    torch.cuda.synchronize()
+                    same = all(torch.equal(x, y) for x, y in zip(new, old))
+                    diff = max((x.float() - y.float()).abs().max().item()
+                               for x, y in zip(new, old))
+                    log("baseline", f"{name} {str(dtype)[6:]} B={LEG_BATCH} S=96 "
+                                    f"dropout {LEG_DROPOUT}: max |this − baseline| "
+                                    f"{diff:.3e}, bit for bit {same}")
+                    if dtype == torch.float32 or name == "flash_dq":
+                        check(same, f"{name} {dtype}: differs from the baseline build")
+        for b, s in ATTENTION_TIMING[:2]:
+            q, k, v, mask = qkv((b, 8, s, 48), torch.bfloat16, seed=7)
+            mask[-1, 0] = 1.0  # every entry has a valid key (SDPA would give NaN)
+            gen = torch.Generator(device="cuda").manual_seed(8)
+            g = torch.randn(q.shape, generator=gen, device="cuda").to(torch.bfloat16)
+            key_mask = mask.bool()[:, None, None, :]
+            leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+            sdpa_out = sdpa(*leaves, attn_mask=key_mask)
+            library = {
+                "flash_fwd": median_ms(lambda: sdpa(q, k, v, attn_mask=key_mask)),
+                "sdpa_bwd": median_ms(lambda: torch.autograd.grad(
+                    sdpa_out, leaves, g, retain_graph=True), grad=True),
+            }
+            del sdpa_out
+            bounds = attention_bounds(b, s, mask, torch.bfloat16)
+            for rate in (0.0, LEG_DROPOUT):
+                drop = dict(dropout_rate=rate, dropout_seed=5)
+                with torch.inference_mode():
+                    out, lse = fa.flash_attention_fwd(q, k, v, mask, **drop)
+                    ops = (q, k, v, mask, lse,
+                           (g.float() * out.float()).sum(dim=-1), g)
+                fns = {
+                    "flash_fwd": (lambda: fa.flash_attention_fwd(q, k, v, mask, **drop),
+                                  lambda: fa.mha_reference(q, k, v, mask, **drop)),
+                    "flash_dq": (lambda: fa.flash_dq_cuda(*ops, **drop),
+                                 lambda: fa.flash_dq_plain(*ops, **drop)),
+                    "flash_dkv": (lambda: fa.flash_dkv_cuda(*ops, **drop),
+                                  lambda: fa.flash_dkv_plain(*ops, **drop)),
+                }
+                for name, (fn, plain) in fns.items():
+                    with baseline():
+                        old_1 = median_ms(fn)
+                    new_1, new_2 = median_ms(fn), median_ms(fn)
+                    with baseline():
+                        old_2 = median_ms(fn)
+                    record = {
+                        "name": name, "B": b, "S": s, "dropout": rate,
+                        "ms": [new_1, new_2], "baseline_ms": [old_1, old_2],
+                        "plain_ms": median_ms(plain), **bounds[name],
+                        "library_ms": library.get(name, library["sdpa_bwd"]),
+                    }
+                    records.append(record)
+                    log("baseline", f"{name} B={b} S={s} bf16 dropout {rate}: "
+                                    f"{new_1:.4f} / {new_2:.4f} ms, baseline "
+                                    f"{old_1:.4f} / {old_2:.4f}, plain "
+                                    f"{record['plain_ms']:.4f}, SDPA "
+                                    f"{record['library_ms']:.4f}"
+                                    f"{'' if name == 'flash_fwd' else ' (whole bwd)'}, "
+                                    f"bound {record['bound_ms']:.4f} "
+                                    f"({record['bound_by']}) ({smi})")
+    return records
 
 
 def post(url: str, payload: dict) -> tuple[int, dict]:
@@ -1900,7 +2125,15 @@ def loss_bounds(b: int, d: int, pruned: bool = False) -> dict:
             for name, (nbytes, flops) in work.items()}
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument(
+        "--baseline", type=Path, default=None,
+        help="only compare the flash kernels with those of another revision: "
+             "a directory holding its flash_fwd.cu, flash_bwd.cu and "
+             "flash_common.cuh (e.g. <unpacked git archive>/crossclr_tpu_torch"
+             "/ops/csrc); prints their times and a JSON line of records")
+    args = parser.parse_args(argv)
     smi = device_phase()
     sys.path.insert(0, str(ROOT))
     # the plain versions' products in full fp32 (PyTorch's default, stated)
@@ -1910,6 +2143,11 @@ def main() -> int:
     fg = importlib.import_module("crossclr_tpu_torch.ops.fused_global")
     fc = importlib.import_module("crossclr_tpu_torch.ops.fused_crossclr")
     build_phase()
+    if args.baseline is not None:
+        records = baseline_phase(fa, smi, args.baseline.resolve())
+        print(json.dumps({"baseline": str(args.baseline), "flash": records}),
+              flush=True)
+        return 0
     fwd_worst = kernel_phase(fa, smi)
     flash_worst = attention_check_phase(fa)
     flash_worst["flash_fwd"] = max(flash_worst["flash_fwd"], fwd_worst)

@@ -36,7 +36,8 @@ NVCC_FLAGS = (
 
 _lock = threading.Lock()
 _libraries: dict[str, ctypes.CDLL] = {}
-# per source: {"path", "seconds", "built", "log"} of the last load
+# per source: {"path", "seconds", "built", "log"} of the last load; "log"
+# is nvcc's output (ptxas' report) of the build, kept beside the library
 build_info: dict[str, dict] = {}
 
 
@@ -63,6 +64,10 @@ def _so_path(source: str) -> Path:
         src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()
     ).hexdigest()[:16]
     return _BUILD_DIR / f"{src.stem}_{digest}.so"
+
+
+def _log_path(source: str) -> Path:
+    return _so_path(source).with_suffix(".log")
 
 
 def load_libraries(sources) -> list[ctypes.CDLL]:
@@ -100,6 +105,7 @@ def load_libraries(sources) -> list[ctypes.CDLL]:
                         )
                         continue
                     os.replace(tmp, _so_path(source))
+                    _log_path(source).write_text(log)
                     logs[source] = (log, True)
                 if failed:
                     raise RuntimeError("\n".join(failed))
@@ -107,6 +113,8 @@ def load_libraries(sources) -> list[ctypes.CDLL]:
             so = _so_path(source)
             _libraries[source] = ctypes.CDLL(str(so))
             log, built = logs[source]
+            if not built and _log_path(source).exists():
+                log = _log_path(source).read_text()  # the build's ptxas report
             build_info[source] = {
                 "path": str(so),
                 "seconds": time.perf_counter() - t0,

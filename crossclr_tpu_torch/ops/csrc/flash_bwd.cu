@@ -21,23 +21,61 @@
 // global (bh, query, key) indices (flash_common.cuh), so they agree with it
 // element for element in either orientation.
 //
-// Design: one block of 256 threads per (bh, 64-row tile), four threads per
-// tile row, as in the forward.  dq: the query tile and its dO stay in shared
+// Two builds.
+//
+// fp32 (flash_dq_kernel, flash_dkv_kernel), and dq in both builds: one
+// block of 256 threads per (bh, 64-row tile), four threads per tile row,
+// as in the fp32 forward.  dq: the query tile and its dO stay in shared
 // memory while 64-row K/V tiles stream; dk/dv: the key tile and its V stay
 // while 64-row Q/dO tiles stream.  Each thread scores 16 of a tile's 64
-// columns and owns every fourth head dimension of its row's accumulators,
-// which live in registers.  No atomics: every output row is written by one
-// block and every sum runs in a fixed order, so runs are bit-reproducible.
+// columns with scalar FMAs and owns every fourth head dimension of its
+// row's accumulators, which live in registers.  Bound by instruction
+// throughput and shared-memory traffic; the backward does 2.5x the
+// forward's products.
 // Rows past S add nothing and are not written (the dk/dv kernel skips query
-// rows past S explicitly: their lse and delta are not loaded).  Any S and any
-// Dh <= 128 run without padding.
+// rows past S explicitly: their lse and delta are not loaded).  No
+// atomics: every output row is written by one block and every sum runs in
+// a fixed order, so runs are bit-reproducible.
 //
-// What bounds it on this card: scalar fp32 FMAs out of shared memory, as in
-// the forward; the backward does 2.5x the forward's products.  Tensor-core
-// products, TMA loads and a pipelined ring are the next steps.
+// bf16 dk/dv (flash_dkv_bf16_kernel): the products on tensor cores
+// (mma.sync m16n8k16, bf16 operands, fp32 accumulators).  At the towers'
+// shapes (S <= 128, Dh = 48) it does 2S/3 = 64 operations per byte moved
+// at S = 96, far below the card's ~295, so the bytes bound it: q, k, v,
+// dO read once, dk and dv written once.  The design reads each once and
+// keeps every intermediate in registers:
+//   * one block per (bh, key tile of up to 128 rows), one warp per 16 key
+//     rows, so at S = 96 a (bh) is one block of 6 warps and no tile
+//     computes a row past round16(S);
+//   * each warp holds its K and V rows as mma A fragments in registers
+//     (for Dh <= 64; wider heads reload them from shared memory per use,
+//     to stay clear of spills) and owns the dk and dv accumulators of its
+//     rows;
+//   * Q, dO (and lse, delta) go into shared memory in 64-row stages by
+//     16-byte cp.async, rows padded by 16 bytes for conflict-free
+//     ldmatrix; for S <= 128 the whole head is resident, longer S streams
+//     through the two stages as a double buffer;
+//   * per 16 queries: S^T = K Q^T and dP^T = V dO^T by mma (Q and dO by
+//     ldmatrix), P^T = exp(scale S^T - lse) with lse per query column,
+//     keep() per accumulator element on the transposed index, then
+//     dV += P^^T dO and dK += dS^T Q with both A operands converted from
+//     the accumulators in registers and dO, Q read by ldmatrix.trans;
+//     each A operand goes in as a bf16 hi part and a bf16 lo part (the
+//     remainder), two products on the same B fragments;
+//   * each warp sums only into its own rows: no cross-warp reduction, no
+//     atomics, and a run is bit-reproducible.
+// The TPU kernel's default-tier `jnp.dot(pT_v, do)` and `jnp.dot(dsT, q)`
+// round P^^T and dS^T to bf16 once, in single MXU passes.  One rounding
+// is too coarse for the limits against the fp32 plain version at wide
+// heads (at Dh = 100 a dk/dv element missed them on the card), so the
+// split carries both operands to about 16 bits at twice those two
+// products' mma count; the kernel stays bound by bytes.  dq keeps the
+// scalar design in both builds.
+// Any S and any Dh <= 128 run without padding.
 
 #include <math.h>
 #include <stddef.h>
+
+#include <type_traits>
 
 #include "flash_common.cuh"
 
@@ -278,6 +316,212 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16 dk/dv: tensor cores (see the header).  Shared memory, in bf16 rows of
+// stride Tile<kDhp>::kLd: the block's K rows, its V rows, then Q and dO of
+// min(round16(S), 128) rows each (stage 0 at row 0, stage 1 at row 64),
+// then two stages of 64 lse and 64 delta values (fp32).
+// ---------------------------------------------------------------------------
+
+// `rows` = min(round16(S), 128) key rows, and as many Q and dO rows
+size_t dkv_bf16_smem_bytes(int rows, int dhp) {
+  return sizeof(bf16) * (size_t)(4 * rows) * (dhp + 8) +
+         sizeof(float) * 4 * kStageRows;
+}
+
+// Stage query tile `t` (rows 64 t ...) of Q and dO with its lse and delta.
+// Past S: zero rows, lse = +inf and delta = 0, so those columns give
+// P = exp(0 - inf) = 0 and dS = 0 without a test.
+template <int kDhp>
+__device__ __forceinline__ void stage_q(bf16* sq, bf16* sdo, float* slse,
+                                        float* sdelta, const bf16* q,
+                                        const bf16* dout, const float* lse_bh,
+                                        const float* delta_bh, int t, int s,
+                                        int dh, bool vec) {
+  using T = Tile<kDhp>;
+  const int q0 = t * kStageRows;
+  const int rows = min(kStageRows, round16(s - q0));
+  const int off = (t & 1) * kStageRows;
+  stage_rows<kDhp>(sq + off * T::kLd, q, q0, rows, s, dh, vec, threadIdx.x,
+                   blockDim.x);
+  stage_rows<kDhp>(sdo + off * T::kLd, dout, q0, rows, s, dh, vec, threadIdx.x,
+                   blockDim.x);
+  for (int c = threadIdx.x; c < kStageRows; c += blockDim.x) {
+    const int qi = q0 + c;
+    slse[off + c] = qi < s ? lse_bh[qi] : INFINITY;
+    sdelta[off + c] = qi < s ? delta_bh[qi] : 0.f;
+  }
+}
+
+template <int kDhp, bool kDrop>
+__global__ void __launch_bounds__(kMaxResident * 2)
+flash_dkv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                      const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                      const float* __restrict__ lse,
+                      const float* __restrict__ delta,
+                      const float* __restrict__ mask, bf16* __restrict__ dk,
+                      bf16* __restrict__ dv, int s, int dh, int heads,
+                      float scale, Dropout drop, bool vec) {
+  using T = Tile<kDhp>;
+  constexpr int kN = 2 * T::kSteps;  // 8-wide output tiles over the head dim
+  constexpr bool kHoldKV = kDhp <= 64;  // K, V fragments live in registers
+  extern __shared__ __align__(16) unsigned char smem_bf16[];
+  const int k_rows = blockDim.x / 2;  // 16 per warp
+  const int q_rows = min(round16(s), kMaxResident);
+  bf16* sk = reinterpret_cast<bf16*>(smem_bf16);
+  bf16* sv = sk + k_rows * T::kLd;
+  bf16* sq = sv + k_rows * T::kLd;
+  bf16* sdo = sq + q_rows * T::kLd;
+  float* slse = reinterpret_cast<float*>(sdo + q_rows * T::kLd);
+  float* sdelta = slse + 2 * kStageRows;
+
+  const int bh = blockIdx.x;
+  const int k0 = blockIdx.y * k_rows;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, tq = lane & 3;
+  const int row0 = k0 + warp * 16;  // this warp's first key row
+  const bool active = row0 < s;
+  const size_t base = (size_t)bh * s * dh;
+  const float* mrow = mask == nullptr ? nullptr : mask + (size_t)(bh / heads) * s;
+  const float* lse_bh = lse + (size_t)bh * s;
+  const float* delta_bh = delta + (size_t)bh * s;
+  const int tiles = (s + kStageRows - 1) / kStageRows;
+
+  stage_rows<kDhp>(sk, k + base, k0, k_rows, s, dh, vec, threadIdx.x, blockDim.x);
+  stage_rows<kDhp>(sv, v + base, k0, k_rows, s, dh, vec, threadIdx.x, blockDim.x);
+  stage_q<kDhp>(sq, sdo, slse, sdelta, q + base, dout + base, lse_bh, delta_bh,
+                0, s, dh, vec);
+  cp_async_commit();
+
+  // this lane's key rows g and g + 8
+  bool key_ok[2];
+  uint32_t hk[2] = {0u, 0u}, hbh = 0u;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int kj = row0 + g + 8 * r;
+    key_ok[r] = kj < s && (mrow == nullptr || mrow[kj] > 0.5f);
+    if (kDrop) hk[r] = keep_key_word(drop, kj);
+  }
+  if (kDrop) hbh = keep_bh_word(drop, bh);
+  const float inv_keep =
+      kDrop ? static_cast<float>(1.0 / (1.0 - (double)drop.rate)) : 1.f;
+  const bf16* sk_w = sk + warp * 16 * T::kLd;
+  const bf16* sv_w = sv + warp * 16 * T::kLd;
+
+  uint32_t kf[kHoldKV ? T::kSteps : 1][4], vf[kHoldKV ? T::kSteps : 1][4];
+  float dk_acc[kN][4], dv_acc[kN][4];
+#pragma unroll
+  for (int n = 0; n < kN; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.f;
+
+  for (int t = 0; t < tiles; ++t) {
+    if (t + 1 < tiles) {
+      stage_q<kDhp>(sq, sdo, slse, sdelta, q + base, dout + base, lse_bh,
+                    delta_bh, t + 1, s, dh, vec);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (active) {
+      if constexpr (kHoldKV) {
+        if (t == 0) {
+#pragma unroll
+          for (int ks = 0; ks < T::kSteps; ++ks) {
+            ldmatrix_x4(kf[ks], ld_a<T::kLd>(sk_w + 16 * ks, lane));
+            ldmatrix_x4(vf[ks], ld_a<T::kLd>(sv_w + 16 * ks, lane));
+          }
+        }
+      }
+      const int q0 = t * kStageRows;
+      const int groups = min(4, round16(s - q0) / 16);  // 16-query groups
+      const bf16* qt = sq + (t & 1) * kStageRows * T::kLd;
+      const bf16* dot = sdo + (t & 1) * kStageRows * T::kLd;
+      const float* lt = slse + (t & 1) * kStageRows;
+      const float* dt = sdelta + (t & 1) * kStageRows;
+      for (int grp = 0; grp < groups; ++grp) {
+        const bf16* qg = qt + 16 * grp * T::kLd;
+        const bf16* dog = dot + 16 * grp * T::kLd;
+        // S^T = K Q^T and dP^T = V dO^T: [16 keys, 16 queries]
+        float st[2][4] = {}, dpt[2][4] = {};
+#pragma unroll
+        for (int ks = 0; ks < T::kSteps; ++ks) {
+          uint32_t a[4], b[4];
+          const uint32_t* ka = a;
+          if constexpr (kHoldKV) ka = kf[ks];
+          else ldmatrix_x4(a, ld_a<T::kLd>(sk_w + 16 * ks, lane));
+          ldmatrix_x4(b, ld_b<T::kLd>(qg + 16 * ks, lane));
+          mma_bf16(st[0], ka, b[0], b[1]);
+          mma_bf16(st[1], ka, b[2], b[3]);
+          const uint32_t* va = a;
+          if constexpr (kHoldKV) va = vf[ks];
+          else ldmatrix_x4(a, ld_a<T::kLd>(sv_w + 16 * ks, lane));
+          ldmatrix_x4(b, ld_b<T::kLd>(dog + 16 * ks, lane));
+          mma_bf16(dpt[0], va, b[0], b[1]);
+          mma_bf16(dpt[1], va, b[2], b[3]);
+        }
+        // element e of tile n: key row g + 8 (e / 2), query column
+        // 16 grp + 8 n + 2 tq + e % 2 of the stage
+#pragma unroll
+        for (int n = 0; n < 2; ++n) {
+          uint32_t hq[2] = {0u, 0u};
+          if (kDrop) {
+            hq[0] = keep_query_word(drop, q0 + 16 * grp + 8 * n + 2 * tq);
+            hq[1] = keep_query_word(drop, q0 + 16 * grp + 8 * n + 2 * tq + 1);
+          }
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int c = 16 * grp + 8 * n + 2 * tq + (e & 1);
+            const float p =
+                key_ok[e >> 1] ? __expf(scale * st[n][e] - lt[c]) : 0.f;
+            float pv = p, dp = dpt[n][e];
+            if (kDrop) {
+              if (keep_words(drop, hq[e & 1], hk[e >> 1], hbh)) {
+                pv *= inv_keep;
+                dp *= inv_keep;
+              } else {
+                pv = 0.f;
+                dp = 0.f;
+              }
+            }
+            st[n][e] = pv;                   // P^^T as the values saw it
+            dpt[n][e] = p * (dp - dt[c]);    // dS^T
+          }
+        }
+        // dV += P^^T dO and dK += dS^T Q, dO and Q by ldmatrix.trans; each
+        // A operand in a bf16 hi and lo part, two products on one B
+        uint32_t pv_hi[4], pv_lo[4], ds_hi[4], ds_lo[4];
+        acc_to_a_split(pv_hi, pv_lo, st[0], st[1]);
+        acc_to_a_split(ds_hi, ds_lo, dpt[0], dpt[1]);
+#pragma unroll
+        for (int np = 0; np < T::kSteps; ++np) {
+          uint32_t b[4];
+          ldmatrix_x4_trans(b, ld_b_trans<T::kLd>(dog + 16 * np, lane));
+          mma_bf16(dv_acc[2 * np], pv_hi, b[0], b[1]);
+          mma_bf16(dv_acc[2 * np], pv_lo, b[0], b[1]);
+          mma_bf16(dv_acc[2 * np + 1], pv_hi, b[2], b[3]);
+          mma_bf16(dv_acc[2 * np + 1], pv_lo, b[2], b[3]);
+          ldmatrix_x4_trans(b, ld_b_trans<T::kLd>(qg + 16 * np, lane));
+          mma_bf16(dk_acc[2 * np], ds_hi, b[0], b[1]);
+          mma_bf16(dk_acc[2 * np], ds_lo, b[0], b[1]);
+          mma_bf16(dk_acc[2 * np + 1], ds_hi, b[2], b[3]);
+          mma_bf16(dk_acc[2 * np + 1], ds_lo, b[2], b[3]);
+        }
+      }
+    }
+    if (t + 2 < tiles) __syncthreads();  // stage t & 1 is refilled next
+  }
+
+  if (!active) return;
+  // out through the warp's own K and V rows, read for the last time above
+  store_rows<kDhp>(sk + warp * 16 * T::kLd, dk_acc, scale, scale, dk + base,
+                   row0, s, dh, vec, lane);
+  store_rows<kDhp>(sv + warp * 16 * T::kLd, dv_acc, 1.f, 1.f, dv + base, row0,
+                   s, dh, vec, lane);
+}
+
 struct Args {
   const void* q;
   const void* k;
@@ -303,14 +547,17 @@ cudaError_t launch_variant(bool dkv, const Args& a, cudaStream_t stream) {
   const T* v = static_cast<const T*>(a.v);
   const T* dout = static_cast<const T*>(a.dout);
   cudaError_t err;
-  if (dkv) {
-    err = cudaFuncSetAttribute(flash_dkv_kernel<T, MaxDh, kDrop>,
+  // bf16 dk/dv is flash_dkv_bf16_kernel: only fp32 builds the scalar one
+  if (std::is_same<T, float>::value && dkv) {
+    err = cudaFuncSetAttribute(flash_dkv_kernel<float, MaxDh, kDrop>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)smem);
     if (err != cudaSuccess) return err;
-    flash_dkv_kernel<T, MaxDh, kDrop><<<grid, kThreads, smem, stream>>>(
-        q, k, v, dout, a.lse, a.delta, a.mask, static_cast<T*>(a.dk),
-        static_cast<T*>(a.dv), a.s, a.dh, a.heads, a.scale, a.drop);
+    flash_dkv_kernel<float, MaxDh, kDrop><<<grid, kThreads, smem, stream>>>(
+        static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+        static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
+        a.lse, a.delta, a.mask, static_cast<float*>(a.dk),
+        static_cast<float*>(a.dv), a.s, a.dh, a.heads, a.scale, a.drop);
   } else {
     err = cudaFuncSetAttribute(flash_dq_kernel<T, MaxDh, kDrop>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -329,6 +576,52 @@ cudaError_t launch_dh(bool dkv, const Args& a, cudaStream_t stream) {
   return launch_variant<T, MaxDh, false>(dkv, a, stream);
 }
 
+template <int kDhp, bool kDrop>
+cudaError_t launch_dkv_bf16_variant(const Args& a, bool vec,
+                                    cudaStream_t stream) {
+  // S <= 128: one block per (bh), one warp per 16 key rows; else 128 rows
+  const int rows = round16(a.s) < kMaxResident ? round16(a.s) : kMaxResident;
+  const size_t smem = dkv_bf16_smem_bytes(rows, kDhp);
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_dkv_bf16_kernel<kDhp, kDrop>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(a.bh, (a.s + rows - 1) / rows);
+  flash_dkv_bf16_kernel<kDhp, kDrop><<<grid, 2 * rows, smem, stream>>>(
+      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+      static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout), a.lse,
+      a.delta, a.mask, static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv),
+      a.s, a.dh, a.heads, a.scale, a.drop, vec);
+  return cudaGetLastError();
+}
+
+template <int kDhp>
+cudaError_t launch_dkv_bf16_dh(const Args& a, bool vec, cudaStream_t stream) {
+  if (a.drop.rate > 0.f) return launch_dkv_bf16_variant<kDhp, true>(a, vec, stream);
+  return launch_dkv_bf16_variant<kDhp, false>(a, vec, stream);
+}
+
+cudaError_t launch_dkv_bf16(const Args& a, cudaStream_t stream) {
+  const bool vec = a.dh % 8 == 0 && aligned16(a.q) && aligned16(a.k) &&
+                   aligned16(a.v) && aligned16(a.dout) && aligned16(a.dk) &&
+                   aligned16(a.dv);
+#define FLASH_DKV_BF16(DHP) \
+  case DHP / 16:            \
+    return launch_dkv_bf16_dh<DHP>(a, vec, stream);
+  switch (round16(a.dh) / 16) {
+    FLASH_DKV_BF16(16)
+    FLASH_DKV_BF16(32)
+    FLASH_DKV_BF16(48)
+    FLASH_DKV_BF16(64)
+    FLASH_DKV_BF16(80)
+    FLASH_DKV_BF16(96)
+    FLASH_DKV_BF16(112)
+    FLASH_DKV_BF16(128)
+  }
+#undef FLASH_DKV_BF16
+  return cudaErrorInvalidValue;
+}
+
 int launch(int dtype, bool dkv, const Args& a, void* stream) {
   if (a.bh < 1 || a.s < 1 || a.dh < 1 || a.dh > kMaxDh || a.heads < 1 ||
       a.bh % a.heads || !(a.drop.rate >= 0.f && a.drop.rate < 1.f))
@@ -337,6 +630,7 @@ int launch(int dtype, bool dkv, const Args& a, void* stream) {
   if (dtype == 0)
     return (int)(a.dh <= 64 ? launch_dh<float, 64>(dkv, a, st)
                             : launch_dh<float, kMaxDh>(dkv, a, st));
+  if (dtype == 1 && dkv) return (int)launch_dkv_bf16(a, st);
   if (dtype == 1)
     return (int)(a.dh <= 64 ? launch_dh<__nv_bfloat16, 64>(dkv, a, st)
                             : launch_dh<__nv_bfloat16, kMaxDh>(dkv, a, st));

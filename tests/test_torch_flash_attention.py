@@ -169,3 +169,35 @@ def test_cuda_kernel_accepts_dropout_and_grad_and_rejects_wide_heads(cuda):
     wide = torch.randn(1, 1, 8, 129, device=cuda)
     with pytest.raises(ValueError, match="head dim"):
         port.flash_attention(wide, wide, wide)
+
+
+# the bf16 build's shapes: Dh zero-filled to a multiple of 16 (40 and 100
+# pad; 100 also takes element loads, its rows not being 16-byte
+# multiples), S below, at and past one 64-row stage, and past the 128 rows
+# that stay resident (130 streams its key tiles)
+BF16_SHAPES = [(dh, s) for dh in (16, 40, 64, 100, 128) for s in (17, 37, 96, 130)]
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("dh,s", BF16_SHAPES)
+def test_cuda_bf16_forward_matches_plain_across_shapes(cuda, dh, s, rate):
+    """The bf16 (tensor-core) forward against the plain version, ragged
+    masks with one fully masked entry, dropout 0 and 0.1."""
+    q, k, v, mask = (
+        torch.from_numpy(x).to(cuda)
+        for x in _inputs(3, 2, s, dh, "fully_masked", seed=dh + s)
+    )
+    q, k, v = (x.to(torch.bfloat16) for x in (q, k, v))
+    drop = dict(dropout_rate=rate, dropout_seed=dh * s)
+    before = port.launch_counts["flash_fwd"]
+    with torch.inference_mode():
+        out, lse = port.flash_attention(q, k, v, mask, return_lse=True, **drop)
+        ref, ref_lse = port.mha_reference(q, k, v, mask, return_lse=True, **drop)
+    torch.cuda.synchronize()
+    assert port.launch_counts["flash_fwd"] == before + 1
+    atol, rtol, lse_atol = LIMITS[torch.bfloat16]
+    torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=rtol)
+    torch.testing.assert_close(lse, ref_lse, atol=lse_atol, rtol=0)
+    assert torch.all(out[-1] == 0)
+    assert torch.all(lse[-1] == port.MAX_FLOOR)

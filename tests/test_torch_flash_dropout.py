@@ -277,13 +277,16 @@ def test_cuda_forward_with_dropout_matches_plain(cuda, dtype, s, rate):
 
 
 @pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("s", [64, 96])
-def test_cuda_forward_recovers_the_keep_mask_exactly(cuda, s):
+def test_cuda_forward_recovers_the_keep_mask_exactly(cuda, s, dtype):
     """q = k = 0 and v = I (Dh = S): every valid key has probability
-    1/n_valid, so out · n_valid · (1 − r) is the keep mask itself."""
+    1/n_valid, so out · n_valid · (1 − r) is the keep mask itself (in
+    bf16 P̂ = 1 rounds exactly; the output's own rounding is far below
+    the 0.5 that ``round`` needs)."""
     b, h, rate = 2, 8, 0.3
-    q = torch.zeros(b, h, s, s, device=cuda)
-    v = torch.eye(s, device=cuda).expand(b, h, s, s).contiguous()
+    q = torch.zeros(b, h, s, s, device=cuda, dtype=dtype)
+    v = torch.eye(s, device=cuda, dtype=dtype).expand(b, h, s, s).contiguous()
     mask = torch.ones(b, s, device=cuda)
     mask[1, s // 2:] = 0.0
     with torch.inference_mode():
@@ -351,3 +354,81 @@ def test_cuda_backward_kernels_match_their_plain_versions(cuda, dtype, rate):
             torch.testing.assert_close(a.float(), w.float(), atol=BF16_TOL,
                                        rtol=BF16_TOL)
         assert torch.all(a[-1] == 0)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s", [64, 96])
+def test_cuda_dkv_recovers_the_keep_mask_exactly_through_dv(cuda, s, dtype):
+    """q = k = 0 and dO = I (Dh = S): P = 1/n_valid on every valid key, so
+    dv = P̂ᵀ·I and dv · n_valid · (1 − r) is the transposed keep mask,
+    with zero rows on the masked keys."""
+    b, h, rate, seed = 2, 8, 0.3, 78
+    zeros = torch.zeros(b, h, s, s, device=cuda, dtype=dtype)
+    dout = torch.eye(s, device=cuda, dtype=dtype).expand(b, h, s, s).contiguous()
+    mask = torch.ones(b, s, device=cuda)
+    mask[1, s // 2:] = 0.0
+    drop = dict(dropout_rate=rate, dropout_seed=seed)
+    before = port.launch_counts["flash_dkv"]
+    with torch.inference_mode():
+        out, lse = port.flash_attention_fwd(zeros, zeros, zeros, mask, **drop)
+        delta = (dout.float() * out.float()).sum(dim=-1)
+        _, dv = port.flash_dkv_cuda(zeros, zeros, zeros, mask, lse, delta, dout,
+                                    **drop)
+    torch.cuda.synchronize()
+    assert port.launch_counts["flash_dkv"] == before + 1
+    n_valid = mask.sum(dim=1)[:, None, None, None]
+    got = torch.round(dv.float() * n_valid * (1 - rate))
+    keep = port.dropout_keep_mask(b, h, s, seed, rate, device=cuda)
+    want = (keep & mask.bool()[:, None, None, :]).transpose(-1, -2).float()
+    assert torch.equal(got, want)
+
+
+# as tests/test_torch_flash_attention.py: Dh zero-filled to a multiple of 16
+# (100 with element loads), S within one stage, past it, and streamed
+BF16_SHAPES = [(dh, s) for dh in (16, 40, 64, 100, 128) for s in (17, 37, 96, 130)]
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("dh,s", BF16_SHAPES)
+def test_cuda_bf16_dkv_matches_plain_across_shapes(cuda, dh, s, rate):
+    """The bf16 (tensor-core) dk/dv kernel against its plain version on the
+    forward kernel's own operands, ragged masks with one fully masked entry,
+    dropout 0 and 0.1."""
+    q, k, v, mask, g = (torch.from_numpy(x).to(cuda)
+                        for x in _inputs(3, 2, s, dh, True, seed=dh + s))
+    q, k, v, g = (x.to(torch.bfloat16) for x in (q, k, v, g))
+    drop = dict(dropout_rate=rate, dropout_seed=dh + 7 * s)
+    before = port.launch_counts["flash_dkv"]
+    with torch.inference_mode():
+        out, lse = port.flash_attention_fwd(q, k, v, mask, **drop)
+        delta = (g.float() * out.float()).sum(dim=-1)
+        operands = (q, k, v, mask, lse, delta, g)
+        got = port.flash_dkv_cuda(*operands, **drop)
+        want = port.flash_dkv_plain(*operands, **drop)
+    torch.cuda.synchronize()
+    assert port.launch_counts["flash_dkv"] == before + 1
+    for a, w in zip(got, want):
+        assert a.dtype == torch.bfloat16
+        torch.testing.assert_close(a.float(), w.float(), atol=BF16_TOL,
+                                   rtol=BF16_TOL)
+        assert torch.all(a[-1] == 0)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_repeat_launches_are_bit_identical(cuda, dtype):
+    """Two launches of the forward and of dk/dv on the same inputs give the
+    same bits: every output row has one writer and a fixed order of sums."""
+    q, k, v, mask, g = _cuda_inputs(cuda, dtype, 3, 96, 48, seed=5)
+    drop = dict(dropout_rate=0.1, dropout_seed=17)
+    with torch.inference_mode():
+        runs = []
+        for _ in range(2):
+            out, lse = port.flash_attention_fwd(q, k, v, mask, **drop)
+            delta = (g.float() * out.float()).sum(dim=-1)
+            runs.append((out, lse, *port.flash_dkv_cuda(q, k, v, mask, lse,
+                                                         delta, g, **drop)))
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
