@@ -20,10 +20,11 @@ Phases, one line each; any failure raises and exits non-zero:
   2. build     — builds every crossclr_tpu_torch/ops/csrc/*.cu with nvcc
                  for sm_90a, one nvcc process each, all started together;
                  prints the time, the .so paths and ptxas' report, and the
-                 registers of each instantiation of the two tensor-core
-                 kernels (flash_fwd_bf16_kernel, flash_dkv_bf16_kernel: 8
-                 padded head dims x 2 dropout builds each), none of which
-                 may spill.
+                 registers of each instantiation of the tensor-core kernels
+                 (flash_fwd_bf16_kernel, flash_dkv_bf16_kernel,
+                 flash_dq_bf16_kernel: 8 padded head dims x 2 dropout
+                 builds each; direction_bwd_bf16_kernel: 3 feature-chunk
+                 widths x 2 coefficient forms), none of which may spill.
   3. kernel    — the flash forward against the plain version on the same
                  CUDA tensors (H=8, Dh=48, S in {64, 96, 37}, ragged masks,
                  one entry fully masked; fp32 and bf16) within the stated
@@ -185,13 +186,18 @@ The last line is {"ok": true, "device": {...}}.
 Run from the root of a checkout:  python3 chip_smoke.py
 
 With --baseline DIR (DIR holding another revision's flash_fwd.cu,
-flash_bwd.cu and flash_common.cuh, e.g. the csrc directory of a parent
-commit's `git archive` unpacked under the ignored _checkout/), it runs only
-phases 1-2 and a comparison: this checkout's flash kernels against that
-revision's on the same operands (fp32 outputs, and bf16 dq, bit for bit),
+flash_bwd.cu, fused_crossclr.cu and their headers, e.g. the csrc directory
+of a parent commit's `git archive` unpacked under the ignored _checkout/),
+it runs only phases 1-2 and a comparison: this checkout's flash and
+per-direction kernels against that revision's on the same operands, bit
+for bit where the design was kept (every fp32 output, the bf16 forward and
+dk/dv, lse_fwd in both tiers; the redesigned bf16 dq and lse_bwd are
+logged only: they are held to their plain versions by the phases above);
 then at B=1024, S in {96, 64}, H=8, Dh=48, bf16, dropout 0 and 0.1 each
-kernel timed in turns (baseline, this, this, baseline; median of 20 each)
-beside its plain version, SDPA and its bound; the last line is a JSON
+flash kernel timed in turns (baseline, this, this, baseline; median of 20
+each) beside its plain version, SDPA and its bound, and bf16 lse_bwd the
+same way at 4096 x 256 (median of 20, beside its plain version) and at the
+leg's 65,536 x 256 (median of 3) beside its bound; the last line is a JSON
 record of those times.
 """
 
@@ -243,6 +249,9 @@ ROWS_REPLACES = {
     "rows_bwd_cols": "crossclr_tpu/ops/fused_global.py:228",
 }
 DIRECTION_SOURCE = "crossclr_tpu_torch/ops/csrc/fused_crossclr.cu"
+# the bf16 build of lse_bwd: a tensor-core kernel, 6 instantiations (3
+# feature-chunk widths x the factored and subtract-first forms)
+DIRECTION_MMA_KERNEL = "direction_bwd_bf16_kernel"
 DIRECTION_REPLACES = {
     "lse_fwd": "crossclr_tpu/ops/fused_crossclr.py:179",
     "lse_bwd": "crossclr_tpu/ops/fused_crossclr.py:279",
@@ -288,8 +297,10 @@ SERVE_SHAPE = (1024, 8, 96, 48)  # (B, H, S, Dh) of one text-tower encode
 # atol = rtol = 1.6e-2 (one bf16 ulp of the outputs plus the order of sums)
 FLASH_GRAD_BOUND = 5e-5
 FLASH_BF16_TOL = 1.6e-2
-# the bf16 builds of the forward and dk/dv: tensor-core kernels (mma.sync)
-MMA_KERNELS = ("flash_fwd_bf16_kernel", "flash_dkv_bf16_kernel")
+# the bf16 builds of the flash kernels: tensor-core kernels (mma.sync), 16
+# instantiations each (8 padded head dims x 2 dropout builds)
+MMA_KERNELS = ("flash_fwd_bf16_kernel", "flash_dkv_bf16_kernel",
+               "flash_dq_bf16_kernel")
 # the exact keep mask read back as out · n · (1 − r) (or dv · n · (1 − r)):
 # fp32 within 1e-4 of 0 or 1; bf16 within one bf16 ulp at 1, the rounding
 # of the output itself
@@ -404,22 +415,24 @@ def build_phase() -> None:
         for line in info["log"].splitlines():
             if "registers" in line or "spill" in line:
                 log("build", "ptxas: " + line.strip())
-    # the tensor-core kernels: one instantiation per padded head dim and
-    # dropout build, none may spill
+    # the tensor-core kernels: every instantiation (flash: one per padded
+    # head dim and dropout build; lse_bwd: one per feature chunk and
+    # coefficient form) logged, none may spill
     report = {}
-    for source in ("flash_fwd.cu", "flash_bwd.cu"):
+    for source in ("flash_fwd.cu", "flash_bwd.cu", "fused_crossclr.cu"):
         report.update(ptxas_report(_build.build_info[source]["log"]))
-    for kernel in MMA_KERNELS:
+    for kernel, want in (*((k, 16) for k in MMA_KERNELS),
+                         (DIRECTION_MMA_KERNEL, 6)):
         found = {name: r for name, r in report.items() if kernel in name}
-        check(len(found) == 16, f"ptxas reported {len(found)} instantiations "
-                                f"of {kernel}, want 16 (8 head dims x 2)")
+        check(len(found) == want, f"ptxas reported {len(found)} instantiations "
+                                  f"of {kernel}, want {want}")
         for name, r in sorted(found.items(), key=lambda x: template_args(x[0])):
-            dhp, drop = template_args(name)
-            log("build", f"{kernel}<{dhp}, {bool(drop)}>: {r.get('registers')} "
+            width, flag = template_args(name)
+            log("build", f"{kernel}<{width}, {bool(flag)}>: {r.get('registers')} "
                          f"registers, spill stores {r.get('spill_stores')} B, "
                          f"spill loads {r.get('spill_loads')} B")
             check(r.get("spill_stores") == 0 and r.get("spill_loads") == 0,
-                  f"{kernel}<{dhp}, {drop}> spills: {r}")
+                  f"{kernel}<{width}, {flag}> spills: {r}")
 
 
 def ptxas_report(text: str) -> dict:
@@ -444,7 +457,8 @@ def ptxas_report(text: str) -> dict:
 
 
 def template_args(mangled: str) -> tuple[int, int]:
-    """(padded head dim, dropout build) of a tensor-core kernel's name."""
+    """The (int, bool) template arguments of a tensor-core kernel's name:
+    (padded head dim, dropout build), or (features per warp, factored)."""
     found = re.search(r"ILi(\d+)ELb(\d)E", mangled)
     return int(found.group(1)), int(found.group(2))
 
@@ -780,17 +794,18 @@ def attention_timing_phase(fa, smi: str, worst: dict) -> dict:
     return times
 
 
-def build_baseline(fa, csrc: Path, out_dir: Path) -> dict:
-    """Build another revision's flash sources (``csrc`` holds its
-    flash_fwd.cu, flash_bwd.cu and flash_common.cuh) with this build's nvcc
-    flags, one nvcc each, started together; returns {source: CDLL} with the
-    launchers' signatures set."""
+def build_baseline(fa, fc, csrc: Path, out_dir: Path) -> dict:
+    """Build another revision's flash and per-direction sources (``csrc``
+    holds its flash_fwd.cu, flash_bwd.cu, fused_crossclr.cu and their
+    headers) with this build's nvcc flags, one nvcc each, started together;
+    returns {source: CDLL} with the launchers' signatures set."""
     import ctypes
 
     from crossclr_tpu_torch.ops import _build
 
+    signatures = {**fa._SIGNATURES, fc.SOURCE: fc._SIGNATURES}
     procs = {}
-    for source in ("flash_fwd.cu", "flash_bwd.cu"):
+    for source in signatures:
         so = out_dir / f"baseline_{source[:-3]}.so"
         procs[source] = so, subprocess.Popen(
             [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(so), str(csrc / source)],
@@ -800,7 +815,7 @@ def build_baseline(fa, csrc: Path, out_dir: Path) -> dict:
         text = proc.communicate()[0]
         check(proc.returncode == 0, f"baseline {csrc / source} did not build:\n{text}")
         lib = ctypes.CDLL(str(so))
-        for name, argtypes in fa._SIGNATURES[source].items():
+        for name, argtypes in signatures[source].items():
             getattr(lib, name).argtypes = argtypes
             getattr(lib, name).restype = ctypes.c_int
         lib.crossclr_cuda_error_string.argtypes = [ctypes.c_int]
@@ -809,19 +824,49 @@ def build_baseline(fa, csrc: Path, out_dir: Path) -> dict:
     return libs
 
 
-def baseline_phase(fa, smi: str, csrc: Path) -> list[dict]:
-    """The flash kernels of this checkout against those built from
-    ``csrc`` on the same operands: in fp32 every output must agree bit for
-    bit, and in bf16 dq's (the scalar design in both).  Then, at the
-    transformer leg's shapes (B=1024, S in {96, 64}, H=8, Dh=48, bf16,
-    dropout 0 and the leg's 0.1), each kernel timed in turns, baseline,
-    this checkout, this checkout, baseline (CUDA events, median of 20
-    each), beside its plain version, SDPA and its bound."""
+def same_bits(new, old, tag: str, must: bool) -> None:
+    """Log how far this checkout's outputs lie from the baseline's; with
+    ``must``, fail unless they are equal bit for bit."""
+    new, old = (x if isinstance(x, tuple) else (x,) for x in (new, old))
+    torch.cuda.synchronize()
+    same = all(torch.equal(x, y) for x, y in zip(new, old))
+    diff = max((x.float() - y.float()).abs().max().item() for x, y in zip(new, old))
+    log("baseline", f"{tag}: max |this − baseline| {diff:.3e}, bit for bit {same}"
+                    + ("" if must else " (redesigned: held to plain, not to the "
+                                       "baseline)"))
+    if must:
+        check(same, f"{tag}: differs from the baseline build")
+
+
+def turns(fn, baseline, n: int, warmup: int) -> tuple[list, list]:
+    """``fn`` timed in turns, baseline, this, this, baseline (median of
+    ``n`` each): ([this, this], [baseline, baseline])."""
+    with baseline():
+        old_1 = median_ms(fn, n=n, warmup=warmup)
+    new = [median_ms(fn, n=n, warmup=warmup) for _ in range(2)]
+    with baseline():
+        old_2 = median_ms(fn, n=n, warmup=warmup)
+    return new, [old_1, old_2]
+
+
+def baseline_phase(fa, fc, fd, smi: str, csrc: Path) -> dict:
+    """The flash and per-direction kernels of this checkout against those
+    built from ``csrc`` on the same operands: bit for bit wherever this
+    checkout kept the design (every fp32 output, the bf16 forward and
+    dk/dv, lse_fwd in both tiers); the redesigned bf16 dq and lse_bwd only
+    logged.  Then, at the transformer leg's shapes (B=1024, S in {96, 64},
+    H=8, Dh=48, bf16, dropout 0 and the leg's 0.1), each flash kernel
+    timed in turns, baseline, this checkout, this checkout, baseline (CUDA
+    events, median of 20 each), beside its plain version, SDPA and its
+    bound; and bf16 lse_bwd timed the same way at 4096 x 256 (median of 20,
+    beside its plain version) and at the leg's 65,536 x 256 (median of 3),
+    beside its bound."""
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    records = []
+    records = {"flash": [], "direction": []}
     with tempfile.TemporaryDirectory(prefix="crossclr_baseline_") as tmp:
-        libs = build_baseline(fa, csrc, Path(tmp))
-        baseline = lambda: mock.patch.object(fa, "_library", libs.__getitem__)  # noqa: E731
+        libs = build_baseline(fa, fc, csrc, Path(tmp))
+        flash_base = lambda: mock.patch.object(fa, "_library", libs.__getitem__)  # noqa: E731
+        dir_base = lambda: mock.patch.object(fc, "_library", lambda: libs[fc.SOURCE])  # noqa: E731
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v, mask = qkv((LEG_BATCH, 8, 96, 48), dtype, seed=21)
             gen = torch.Generator(device="cuda").manual_seed(22)
@@ -835,18 +880,29 @@ def baseline_phase(fa, smi: str, csrc: Path) -> list[dict]:
                        "flash_dkv": lambda: fa.flash_dkv_cuda(*ops, **drop)}
                 for name, fn in fns.items():
                     new = fn()
-                    with baseline():
+                    with flash_base():
                         old = fn()
-                    new, old = (x if isinstance(x, tuple) else (x,) for x in (new, old))
-                    torch.cuda.synchronize()
-                    same = all(torch.equal(x, y) for x, y in zip(new, old))
-                    diff = max((x.float() - y.float()).abs().max().item()
-                               for x, y in zip(new, old))
-                    log("baseline", f"{name} {str(dtype)[6:]} B={LEG_BATCH} S=96 "
-                                    f"dropout {LEG_DROPOUT}: max |this − baseline| "
-                                    f"{diff:.3e}, bit for bit {same}")
-                    if dtype == torch.float32 or name == "flash_dq":
-                        check(same, f"{name} {dtype}: differs from the baseline build")
+                    same_bits(new, old, f"{name} {str(dtype)[6:]} B={LEG_BATCH} S=96 "
+                                        f"dropout {LEG_DROPOUT}",
+                              dtype == torch.float32 or name != "flash_dq")
+        b, d = DIRECTION_TIMING
+        v32, t32, g_v, g_t = loss_inputs(b, d, seed=24)
+        for tier in ("highest", "default"):
+            v, t = (x.contiguous() for x in fd._fetch_cast(tier, v32, t32))
+            for tau in DIRECTION_TAUS:
+                s = 1.0 / tau
+                fwd = lambda: (fc.lse_fwd_cuda(v, t, s, NEG_WEIGHT),  # noqa: E731
+                               fc.lse_fwd_cuda(t, v, s, NEG_WEIGHT))
+                new = fwd()
+                with dir_base():
+                    old = fwd()
+                tag = f"B={b} D={d} {tier} τ={tau:.6g} w={NEG_WEIGHT}"
+                same_bits(new, old, f"lse_fwd {tag}", True)
+                bwd = lambda: fc.lse_bwd_cuda(v, t, *new, g_v, g_t, s, NEG_WEIGHT)  # noqa: E731
+                grad = bwd()
+                with dir_base():
+                    old = bwd()
+                same_bits(grad, old, f"lse_bwd {tag}", tier == "highest")
         for b, s in ATTENTION_TIMING[:2]:
             q, k, v, mask = qkv((b, 8, s, 48), torch.bfloat16, seed=7)
             mask[-1, 0] = 1.0  # every entry has a valid key (SDPA would give NaN)
@@ -877,26 +933,45 @@ def baseline_phase(fa, smi: str, csrc: Path) -> list[dict]:
                                   lambda: fa.flash_dkv_plain(*ops, **drop)),
                 }
                 for name, (fn, plain) in fns.items():
-                    with baseline():
-                        old_1 = median_ms(fn)
-                    new_1, new_2 = median_ms(fn), median_ms(fn)
-                    with baseline():
-                        old_2 = median_ms(fn)
+                    new, old = turns(fn, flash_base, 20, 3)
                     record = {
                         "name": name, "B": b, "S": s, "dropout": rate,
-                        "ms": [new_1, new_2], "baseline_ms": [old_1, old_2],
+                        "ms": new, "baseline_ms": old,
                         "plain_ms": median_ms(plain), **bounds[name],
                         "library_ms": library.get(name, library["sdpa_bwd"]),
                     }
-                    records.append(record)
+                    records["flash"].append(record)
                     log("baseline", f"{name} B={b} S={s} bf16 dropout {rate}: "
-                                    f"{new_1:.4f} / {new_2:.4f} ms, baseline "
-                                    f"{old_1:.4f} / {old_2:.4f}, plain "
+                                    f"{new[0]:.4f} / {new[1]:.4f} ms, baseline "
+                                    f"{old[0]:.4f} / {old[1]:.4f}, plain "
                                     f"{record['plain_ms']:.4f}, SDPA "
                                     f"{record['library_ms']:.4f}"
                                     f"{'' if name == 'flash_fwd' else ' (whole bwd)'}, "
                                     f"bound {record['bound_ms']:.4f} "
                                     f"({record['bound_by']}) ({smi})")
+        s = 1.0 / 0.03
+        for (b, d), n in ((DIRECTION_TIMING, 20), ((PODSLICE_BATCH, 256), 3)):
+            v32, t32, g_v, g_t = loss_inputs(b, d, seed=3)
+            v, t = (x.contiguous() for x in fd._fetch_cast("default", v32, t32))
+            del v32, t32
+            lse = (fc.lse_fwd_cuda(v, t, s, NEG_WEIGHT), fc.lse_fwd_cuda(t, v, s, NEG_WEIGHT))
+            args = (v, t, *lse, g_v, g_t, s, NEG_WEIGHT)
+            new, old = turns(lambda: fc.lse_bwd_cuda(*args), dir_base, n,
+                             3 if n == 20 else 1)
+            plain_ms = median_ms(lambda: fc.lse_bwd_plain(*args)) if n == 20 else None
+            record = {"name": "lse_bwd", "B": b, "D": d, "ms": new, "baseline_ms": old,
+                      "plain_ms": plain_ms, **direction_bounds(b, d)["lse_bwd"],
+                      "library_ms": None}
+            records["direction"].append(record)
+            log("baseline", f"lse_bwd B={b} D={d} bf16 operands τ=0.03: "
+                            f"{new[0]:.4f} / {new[1]:.4f} ms, baseline {old[0]:.4f} / "
+                            f"{old[1]:.4f}, plain "
+                            + (f"{plain_ms:.4f}" if plain_ms is not None else
+                               "not timed (its [B, 2B] logits take 34 GB)")
+                            + f", bound {record['bound_ms']:.4f} ({record['bound_by']}) "
+                              f"(median of {n}; {smi})")
+            del v, t, lse, args
+            torch.cuda.empty_cache()
     return records
 
 
@@ -2129,10 +2204,11 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument(
         "--baseline", type=Path, default=None,
-        help="only compare the flash kernels with those of another revision: "
-             "a directory holding its flash_fwd.cu, flash_bwd.cu and "
-             "flash_common.cuh (e.g. <unpacked git archive>/crossclr_tpu_torch"
-             "/ops/csrc); prints their times and a JSON line of records")
+        help="only compare the flash and per-direction kernels with those of "
+             "another revision: a directory holding its flash_fwd.cu, "
+             "flash_bwd.cu, fused_crossclr.cu and their headers (e.g. "
+             "<unpacked git archive>/crossclr_tpu_torch/ops/csrc); prints their "
+             "times and a JSON line of records")
     args = parser.parse_args(argv)
     smi = device_phase()
     sys.path.insert(0, str(ROOT))
@@ -2144,9 +2220,8 @@ def main(argv=None) -> int:
     fc = importlib.import_module("crossclr_tpu_torch.ops.fused_crossclr")
     build_phase()
     if args.baseline is not None:
-        records = baseline_phase(fa, smi, args.baseline.resolve())
-        print(json.dumps({"baseline": str(args.baseline), "flash": records}),
-              flush=True)
+        records = baseline_phase(fa, fc, fd, smi, args.baseline.resolve())
+        print(json.dumps({"baseline": str(args.baseline), **records}), flush=True)
         return 0
     fwd_worst = kernel_phase(fa, smi)
     flash_worst = attention_check_phase(fa)

@@ -23,26 +23,26 @@
 //
 // Two builds.
 //
-// fp32 (flash_dq_kernel, flash_dkv_kernel), and dq in both builds: one
-// block of 256 threads per (bh, 64-row tile), four threads per tile row,
-// as in the fp32 forward.  dq: the query tile and its dO stay in shared
-// memory while 64-row K/V tiles stream; dk/dv: the key tile and its V stay
-// while 64-row Q/dO tiles stream.  Each thread scores 16 of a tile's 64
-// columns with scalar FMAs and owns every fourth head dimension of its
-// row's accumulators, which live in registers.  Bound by instruction
-// throughput and shared-memory traffic; the backward does 2.5x the
-// forward's products.
+// fp32 (flash_dq_kernel, flash_dkv_kernel): one block of 256 threads per
+// (bh, 64-row tile), four threads per tile row, as in the fp32 forward.
+// dq: the query tile and its dO stay in shared memory while 64-row K/V
+// tiles stream; dk/dv: the key tile and its V stay while 64-row Q/dO tiles
+// stream.  Each thread scores 16 of a tile's 64 columns with scalar FMAs
+// and owns every fourth head dimension of its row's accumulators, which
+// live in registers.  Bound by instruction throughput and shared-memory
+// traffic; the backward does 2.5x the forward's products.
 // Rows past S add nothing and are not written (the dk/dv kernel skips query
 // rows past S explicitly: their lse and delta are not loaded).  No
 // atomics: every output row is written by one block and every sum runs in
 // a fixed order, so runs are bit-reproducible.
 //
-// bf16 dk/dv (flash_dkv_bf16_kernel): the products on tensor cores
-// (mma.sync m16n8k16, bf16 operands, fp32 accumulators).  At the towers'
-// shapes (S <= 128, Dh = 48) it does 2S/3 = 64 operations per byte moved
-// at S = 96, far below the card's ~295, so the bytes bound it: q, k, v,
-// dO read once, dk and dv written once.  The design reads each once and
-// keeps every intermediate in registers:
+// bf16 (flash_dkv_bf16_kernel, flash_dq_bf16_kernel): the products on
+// tensor cores (mma.sync m16n8k16, bf16 operands, fp32 accumulators).  At
+// the towers' shapes (S <= 128, Dh = 48) dk/dv does 2S/3 = 64 operations
+// per byte moved at S = 96 and dq 3S/5, far below the card's ~295, so the
+// bytes bound both: each reads its inputs once and writes its outputs
+// once, and keeps every intermediate in registers.
+// dk/dv:
 //   * one block per (bh, key tile of up to 128 rows), one warp per 16 key
 //     rows, so at S = 96 a (bh) is one block of 6 warps and no tile
 //     computes a row past round16(S);
@@ -60,22 +60,31 @@
 //     dV += P^^T dO and dK += dS^T Q with both A operands converted from
 //     the accumulators in registers and dO, Q read by ldmatrix.trans;
 //     each A operand goes in as a bf16 hi part and a bf16 lo part (the
-//     remainder), two products on the same B fragments;
-//   * each warp sums only into its own rows: no cross-warp reduction, no
-//     atomics, and a run is bit-reproducible.
-// The TPU kernel's default-tier `jnp.dot(pT_v, do)` and `jnp.dot(dsT, q)`
-// round P^^T and dS^T to bf16 once, in single MXU passes.  One rounding
-// is too coarse for the limits against the fp32 plain version at wide
-// heads (at Dh = 100 a dk/dv element missed them on the card), so the
-// split carries both operands to about 16 bits at twice those two
-// products' mma count; the kernel stays bound by bytes.  dq keeps the
-// scalar design in both builds.
+//     remainder), two products on the same B fragments.
+// dq, the same design with the roles swapped:
+//   * one block per (bh, query tile of up to 128 rows), one warp per 16
+//     query rows; each warp holds its Q and dO rows as A fragments (for
+//     Dh <= 64), the lse and delta of its rows g and g + 8 and their
+//     dropout query words in registers, and owns the dq accumulators;
+//   * K and V go into shared memory in 64-row stages, with a key-valid
+//     flag and the key's dropout word per key (resident for S <= 128,
+//     double-buffered past it);
+//   * per 16 keys: S = Q K^T and dP = dO V^T by mma (K and V by
+//     ldmatrix), P = exp(scale S - lse) on valid keys, keep() per
+//     accumulator element, dS = P (dP^ - delta) in registers, then
+//     dQ += dS K with dS as a hi + lo A operand and K by ldmatrix.trans.
+// In both, each warp sums only into its own rows: no cross-warp
+// reduction, no atomics, and a run is bit-reproducible.
+// The TPU kernels' default-tier `jnp.dot(pT_v, do)`, `jnp.dot(dsT, q)` and
+// `jnp.dot(ds, k)` round P^^T and dS to bf16 once, in single MXU passes.
+// One rounding is too coarse for the limits against the fp32 plain version
+// at wide heads (at Dh = 100 a dk/dv element missed them on the card), so
+// the split carries those operands to about 16 bits at twice those
+// products' mma count; the kernels stay bound by bytes.
 // Any S and any Dh <= 128 run without padding.
 
 #include <math.h>
 #include <stddef.h>
-
-#include <type_traits>
 
 #include "flash_common.cuh"
 
@@ -522,6 +531,192 @@ flash_dkv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                    s, dh, vec, lane);
 }
 
+// ---------------------------------------------------------------------------
+// bf16 dq: tensor cores (see the header).  Shared memory, in bf16 rows of
+// stride Tile<kDhp>::kLd: the block's Q rows, its dO rows, then K and V of
+// min(round16(S), 128) rows each (stage 0 at row 0, stage 1 at row 64),
+// then two stages of 64 key-valid flags (fp32) and 64 key dropout words.
+// ---------------------------------------------------------------------------
+
+// `rows` = min(round16(S), 128) query rows, and as many K and V rows
+size_t dq_bf16_smem_bytes(int rows, int dhp) {
+  return sizeof(bf16) * (size_t)(4 * rows) * (dhp + 8) +
+         (sizeof(float) + sizeof(uint32_t)) * 2 * kStageRows;
+}
+
+// Stage key tile `t` (rows 64 t ...) of K and V with each key's valid flag
+// and dropout word.
+template <int kDhp, bool kDrop>
+__device__ __forceinline__ void stage_kv_dq(bf16* sk, bf16* sv, float* sflag,
+                                            uint32_t* skw, const bf16* k,
+                                            const bf16* v, const float* mrow,
+                                            const Dropout& drop, int t, int s,
+                                            int dh, bool vec) {
+  using T = Tile<kDhp>;
+  const int k0 = t * kStageRows;
+  const int rows = min(kStageRows, round16(s - k0));
+  const int off = (t & 1) * kStageRows;
+  stage_rows<kDhp>(sk + off * T::kLd, k, k0, rows, s, dh, vec, threadIdx.x,
+                   blockDim.x);
+  stage_rows<kDhp>(sv + off * T::kLd, v, k0, rows, s, dh, vec, threadIdx.x,
+                   blockDim.x);
+  for (int c = threadIdx.x; c < kStageRows; c += blockDim.x) {
+    const int kj = k0 + c;
+    sflag[off + c] =
+        (kj < s && (mrow == nullptr || mrow[kj] > 0.5f)) ? 1.f : 0.f;
+    if (kDrop) skw[off + c] = keep_key_word(drop, kj);
+  }
+}
+
+template <int kDhp, bool kDrop>
+__global__ void __launch_bounds__(kMaxResident * 2)
+flash_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                     const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ delta,
+                     const float* __restrict__ mask, bf16* __restrict__ dq,
+                     int s, int dh, int heads, float scale, Dropout drop,
+                     bool vec) {
+  using T = Tile<kDhp>;
+  constexpr int kN = 2 * T::kSteps;  // 8-wide output tiles over the head dim
+  constexpr bool kHoldQ = kDhp <= 64;  // Q, dO fragments live in registers
+  extern __shared__ __align__(16) unsigned char smem_bf16[];
+  const int q_rows = blockDim.x / 2;  // 16 per warp
+  const int kv_rows = min(round16(s), kMaxResident);
+  bf16* sq = reinterpret_cast<bf16*>(smem_bf16);
+  bf16* sdo = sq + q_rows * T::kLd;
+  bf16* sk = sdo + q_rows * T::kLd;
+  bf16* sv = sk + kv_rows * T::kLd;
+  float* sflag = reinterpret_cast<float*>(sv + kv_rows * T::kLd);
+  uint32_t* skw = reinterpret_cast<uint32_t*>(sflag + 2 * kStageRows);
+
+  const int bh = blockIdx.x;
+  const int q0 = blockIdx.y * q_rows;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, tq = lane & 3;
+  const int row0 = q0 + warp * 16;  // this warp's first query row
+  const bool active = row0 < s;
+  const size_t base = (size_t)bh * s * dh;
+  const float* mrow = mask == nullptr ? nullptr : mask + (size_t)(bh / heads) * s;
+  const int tiles = (s + kStageRows - 1) / kStageRows;
+
+  stage_rows<kDhp>(sq, q + base, q0, q_rows, s, dh, vec, threadIdx.x, blockDim.x);
+  stage_rows<kDhp>(sdo, dout + base, q0, q_rows, s, dh, vec, threadIdx.x,
+                   blockDim.x);
+  stage_kv_dq<kDhp, kDrop>(sk, sv, sflag, skw, k + base, v + base, mrow, drop,
+                           0, s, dh, vec);
+  cp_async_commit();
+
+  // this lane's query rows g and g + 8; past S: lse = +inf, so P = 0
+  float lse_r[2], delta_r[2];
+  uint32_t hq[2] = {0u, 0u}, hbh = 0u;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qi = row0 + g + 8 * r;
+    lse_r[r] = qi < s ? lse[(size_t)bh * s + qi] : INFINITY;
+    delta_r[r] = qi < s ? delta[(size_t)bh * s + qi] : 0.f;
+    if (kDrop) hq[r] = keep_query_word(drop, qi);
+  }
+  if (kDrop) hbh = keep_bh_word(drop, bh);
+  const float inv_keep =
+      kDrop ? static_cast<float>(1.0 / (1.0 - (double)drop.rate)) : 1.f;
+  const bf16* sq_w = sq + warp * 16 * T::kLd;
+  const bf16* sdo_w = sdo + warp * 16 * T::kLd;
+
+  uint32_t qf[kHoldQ ? T::kSteps : 1][4], of[kHoldQ ? T::kSteps : 1][4];
+  float dq_acc[kN][4];
+#pragma unroll
+  for (int n = 0; n < kN; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dq_acc[n][e] = 0.f;
+
+  for (int t = 0; t < tiles; ++t) {
+    if (t + 1 < tiles) {
+      stage_kv_dq<kDhp, kDrop>(sk, sv, sflag, skw, k + base, v + base, mrow,
+                               drop, t + 1, s, dh, vec);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (active) {
+      if constexpr (kHoldQ) {
+        if (t == 0) {
+#pragma unroll
+          for (int ks = 0; ks < T::kSteps; ++ks) {
+            ldmatrix_x4(qf[ks], ld_a<T::kLd>(sq_w + 16 * ks, lane));
+            ldmatrix_x4(of[ks], ld_a<T::kLd>(sdo_w + 16 * ks, lane));
+          }
+        }
+      }
+      const int k0 = t * kStageRows;
+      const int groups = min(4, round16(s - k0) / 16);  // 16-key groups
+      const bf16* kt = sk + (t & 1) * kStageRows * T::kLd;
+      const bf16* vt = sv + (t & 1) * kStageRows * T::kLd;
+      const float* ft = sflag + (t & 1) * kStageRows;
+      const uint32_t* wt = skw + (t & 1) * kStageRows;
+      for (int grp = 0; grp < groups; ++grp) {
+        const bf16* kg = kt + 16 * grp * T::kLd;
+        const bf16* vg = vt + 16 * grp * T::kLd;
+        // S = Q K^T and dP = dO V^T: [16 queries, 16 keys]
+        float sc[2][4] = {}, dp[2][4] = {};
+#pragma unroll
+        for (int ks = 0; ks < T::kSteps; ++ks) {
+          uint32_t a[4], b[4];
+          const uint32_t* qa = a;
+          if constexpr (kHoldQ) qa = qf[ks];
+          else ldmatrix_x4(a, ld_a<T::kLd>(sq_w + 16 * ks, lane));
+          ldmatrix_x4(b, ld_b<T::kLd>(kg + 16 * ks, lane));
+          mma_bf16(sc[0], qa, b[0], b[1]);
+          mma_bf16(sc[1], qa, b[2], b[3]);
+          const uint32_t* oa = a;
+          if constexpr (kHoldQ) oa = of[ks];
+          else ldmatrix_x4(a, ld_a<T::kLd>(sdo_w + 16 * ks, lane));
+          ldmatrix_x4(b, ld_b<T::kLd>(vg + 16 * ks, lane));
+          mma_bf16(dp[0], oa, b[0], b[1]);
+          mma_bf16(dp[1], oa, b[2], b[3]);
+        }
+        // element e of tile n: query row g + 8 (e / 2), key column
+        // 16 grp + 8 n + 2 tq + e % 2 of the stage
+#pragma unroll
+        for (int n = 0; n < 2; ++n) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int c = 16 * grp + 8 * n + 2 * tq + (e & 1);
+            const int r = e >> 1;
+            const float p =
+                ft[c] > 0.5f ? __expf(scale * sc[n][e] - lse_r[r]) : 0.f;
+            float dpv = dp[n][e];
+            if (kDrop)
+              dpv = keep_words(drop, hq[r], wt[c], hbh) ? dpv * inv_keep : 0.f;
+            sc[n][e] = p * (dpv - delta_r[r]);  // dS
+          }
+        }
+        // dQ += dS K, dS as a bf16 hi and lo part on one B, K by
+        // ldmatrix.trans
+        uint32_t ds_hi[4], ds_lo[4];
+        acc_to_a_split(ds_hi, ds_lo, sc[0], sc[1]);
+#pragma unroll
+        for (int np = 0; np < T::kSteps; ++np) {
+          uint32_t b[4];
+          ldmatrix_x4_trans(b, ld_b_trans<T::kLd>(kg + 16 * np, lane));
+          mma_bf16(dq_acc[2 * np], ds_hi, b[0], b[1]);
+          mma_bf16(dq_acc[2 * np], ds_lo, b[0], b[1]);
+          mma_bf16(dq_acc[2 * np + 1], ds_hi, b[2], b[3]);
+          mma_bf16(dq_acc[2 * np + 1], ds_lo, b[2], b[3]);
+        }
+      }
+    }
+    if (t + 2 < tiles) __syncthreads();  // stage t & 1 is refilled next
+  }
+
+  if (!active) return;
+  // out through the warp's own Q rows, read for the last time above
+  store_rows<kDhp>(sq + warp * 16 * T::kLd, dq_acc, scale, scale, dq + base,
+                   row0, s, dh, vec, lane);
+}
+
 struct Args {
   const void* q;
   const void* k;
@@ -538,42 +733,40 @@ struct Args {
   Dropout drop;
 };
 
-template <typename T, int MaxDh, bool kDrop>
+// fp32: the scalar kernels (the bf16 builds are the tensor-core kernels)
+template <int MaxDh, bool kDrop>
 cudaError_t launch_variant(bool dkv, const Args& a, cudaStream_t stream) {
   const size_t smem = smem_bytes(a.dh);
   const dim3 grid(a.bh, (a.s + kBlockQ - 1) / kBlockQ);
-  const T* q = static_cast<const T*>(a.q);
-  const T* k = static_cast<const T*>(a.k);
-  const T* v = static_cast<const T*>(a.v);
-  const T* dout = static_cast<const T*>(a.dout);
+  const float* q = static_cast<const float*>(a.q);
+  const float* k = static_cast<const float*>(a.k);
+  const float* v = static_cast<const float*>(a.v);
+  const float* dout = static_cast<const float*>(a.dout);
   cudaError_t err;
-  // bf16 dk/dv is flash_dkv_bf16_kernel: only fp32 builds the scalar one
-  if (std::is_same<T, float>::value && dkv) {
+  if (dkv) {
     err = cudaFuncSetAttribute(flash_dkv_kernel<float, MaxDh, kDrop>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)smem);
     if (err != cudaSuccess) return err;
     flash_dkv_kernel<float, MaxDh, kDrop><<<grid, kThreads, smem, stream>>>(
-        static_cast<const float*>(a.q), static_cast<const float*>(a.k),
-        static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
-        a.lse, a.delta, a.mask, static_cast<float*>(a.dk),
+        q, k, v, dout, a.lse, a.delta, a.mask, static_cast<float*>(a.dk),
         static_cast<float*>(a.dv), a.s, a.dh, a.heads, a.scale, a.drop);
   } else {
-    err = cudaFuncSetAttribute(flash_dq_kernel<T, MaxDh, kDrop>,
+    err = cudaFuncSetAttribute(flash_dq_kernel<float, MaxDh, kDrop>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)smem);
     if (err != cudaSuccess) return err;
-    flash_dq_kernel<T, MaxDh, kDrop><<<grid, kThreads, smem, stream>>>(
-        q, k, v, dout, a.lse, a.delta, a.mask, static_cast<T*>(a.dq), a.s,
+    flash_dq_kernel<float, MaxDh, kDrop><<<grid, kThreads, smem, stream>>>(
+        q, k, v, dout, a.lse, a.delta, a.mask, static_cast<float*>(a.dq), a.s,
         a.dh, a.heads, a.scale, a.drop);
   }
   return cudaGetLastError();
 }
 
-template <typename T, int MaxDh>
+template <int MaxDh>
 cudaError_t launch_dh(bool dkv, const Args& a, cudaStream_t stream) {
-  if (a.drop.rate > 0.f) return launch_variant<T, MaxDh, true>(dkv, a, stream);
-  return launch_variant<T, MaxDh, false>(dkv, a, stream);
+  if (a.drop.rate > 0.f) return launch_variant<MaxDh, true>(dkv, a, stream);
+  return launch_variant<MaxDh, false>(dkv, a, stream);
 }
 
 template <int kDhp, bool kDrop>
@@ -622,18 +815,61 @@ cudaError_t launch_dkv_bf16(const Args& a, cudaStream_t stream) {
   return cudaErrorInvalidValue;
 }
 
+template <int kDhp, bool kDrop>
+cudaError_t launch_dq_bf16_variant(const Args& a, bool vec,
+                                   cudaStream_t stream) {
+  // S <= 128: one block per (bh), one warp per 16 query rows; else 128 rows
+  const int rows = round16(a.s) < kMaxResident ? round16(a.s) : kMaxResident;
+  const size_t smem = dq_bf16_smem_bytes(rows, kDhp);
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_dq_bf16_kernel<kDhp, kDrop>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(a.bh, (a.s + rows - 1) / rows);
+  flash_dq_bf16_kernel<kDhp, kDrop><<<grid, 2 * rows, smem, stream>>>(
+      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+      static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout), a.lse,
+      a.delta, a.mask, static_cast<bf16*>(a.dq), a.s, a.dh, a.heads, a.scale,
+      a.drop, vec);
+  return cudaGetLastError();
+}
+
+template <int kDhp>
+cudaError_t launch_dq_bf16_dh(const Args& a, bool vec, cudaStream_t stream) {
+  if (a.drop.rate > 0.f) return launch_dq_bf16_variant<kDhp, true>(a, vec, stream);
+  return launch_dq_bf16_variant<kDhp, false>(a, vec, stream);
+}
+
+cudaError_t launch_dq_bf16(const Args& a, cudaStream_t stream) {
+  const bool vec = a.dh % 8 == 0 && aligned16(a.q) && aligned16(a.k) &&
+                   aligned16(a.v) && aligned16(a.dout) && aligned16(a.dq);
+#define FLASH_DQ_BF16(DHP) \
+  case DHP / 16:           \
+    return launch_dq_bf16_dh<DHP>(a, vec, stream);
+  switch (round16(a.dh) / 16) {
+    FLASH_DQ_BF16(16)
+    FLASH_DQ_BF16(32)
+    FLASH_DQ_BF16(48)
+    FLASH_DQ_BF16(64)
+    FLASH_DQ_BF16(80)
+    FLASH_DQ_BF16(96)
+    FLASH_DQ_BF16(112)
+    FLASH_DQ_BF16(128)
+  }
+#undef FLASH_DQ_BF16
+  return cudaErrorInvalidValue;
+}
+
 int launch(int dtype, bool dkv, const Args& a, void* stream) {
   if (a.bh < 1 || a.s < 1 || a.dh < 1 || a.dh > kMaxDh || a.heads < 1 ||
       a.bh % a.heads || !(a.drop.rate >= 0.f && a.drop.rate < 1.f))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return (int)(a.dh <= 64 ? launch_dh<float, 64>(dkv, a, st)
-                            : launch_dh<float, kMaxDh>(dkv, a, st));
-  if (dtype == 1 && dkv) return (int)launch_dkv_bf16(a, st);
+    return (int)(a.dh <= 64 ? launch_dh<64>(dkv, a, st)
+                            : launch_dh<kMaxDh>(dkv, a, st));
   if (dtype == 1)
-    return (int)(a.dh <= 64 ? launch_dh<__nv_bfloat16, 64>(dkv, a, st)
-                            : launch_dh<__nv_bfloat16, kMaxDh>(dkv, a, st));
+    return (int)(dkv ? launch_dkv_bf16(a, st) : launch_dq_bf16(a, st));
   return (int)cudaErrorInvalidValue;
 }
 

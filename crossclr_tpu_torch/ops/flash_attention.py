@@ -11,6 +11,11 @@ kernels replace its three TPU kernels:
   forward's lse and ``delta = rowsum(dO∘out)`` (a plain reduction here, as
   the JAX package computes it outside Pallas).
 
+Each kernel has two builds: fp32 q, k, v run scalar fp32 FMAs; bf16 q, k,
+v run the products on tensor cores (``mma.sync``, fp32 accumulators), the
+operands formed in registers (P̂ in the forward, P̂ᵀ and dSᵀ in dk/dv, dS in
+dq) carried as a bf16 part plus the bf16 rounding of the remainder.
+
 :class:`_FlashAttention` is the autograd Function around them.
 :func:`mha_reference` is the plain version: the CPU path (differentiated by
 autograd) and the oracle the kernels are held against.

@@ -115,11 +115,11 @@ TOP_ROWS = 15  # ops and kernels listed by device time
 # the port's own kernels by family: substrings of the CUDA function names
 KERNEL_FAMILIES = {
     "flash_fwd": ("flash_fwd_kernel", "flash_fwd_bf16_kernel"),
-    "flash_dq": ("flash_dq_kernel",),
+    "flash_dq": ("flash_dq_kernel", "flash_dq_bf16_kernel"),
     "flash_dkv": ("flash_dkv_kernel", "flash_dkv_bf16_kernel"),
     # fused_dual.cu's pair, or fused_crossclr.cu's per-direction kernels
     "loss": ("lse_fwd_kernel", "lse_bwd_kernel", "direction_fwd_kernel",
-             "direction_bwd_kernel"),
+             "direction_bwd_kernel", "direction_bwd_bf16_kernel"),
     "rows": ("rows_lse_kernel", "rows_bwd_"),  # fused_global.cu
 }
 

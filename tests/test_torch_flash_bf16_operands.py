@@ -1,10 +1,10 @@
 """The bf16 flash kernels' operand rounding, held to the smoke's limits on the CPU.
 
-The bf16 builds of the forward and dk/dv kernels run their products on
-tensor cores with fp32 accumulators.  The operands that they form in
-registers, P̂ (forward), P̂ᵀ and dSᵀ (dk/dv), go in as a bf16 part and
-the bf16 rounding of the remainder, two products each ("split", about 16
-significant bits).  The TPU kernels' default-tier ``jnp.dot`` rounds them
+The bf16 builds of the forward, dk/dv and dq kernels run their products
+on tensor cores with fp32 accumulators.  The operands that they form in
+registers, P̂ (forward), P̂ᵀ and dSᵀ (dk/dv), dS (dq), go in as a bf16 part
+and the bf16 rounding of the remainder, two products each ("split", about
+16 significant bits).  The TPU kernels' default-tier ``jnp.dot`` rounds them
 to bf16 once ("bf16").  One rounding of P̂ flips about 30% of the
 forward's bf16 outputs by an ulp; the backward's delta = rowsum(dO∘out)
 sums those flips, and at the transformer leg's B=1024 the smoke found dk
@@ -14,8 +14,8 @@ versions keep the operands in fp32.
 This test emulates each treatment on the plain algebra (``mha_reference``'s
 steps, ``_bwd_plain``) and holds the kernels' split against the unrounded
 plain versions within the limits ``chip_smoke.py`` holds the kernels to
-(``LIMITS[torch.bfloat16]`` for the forward, ``FLASH_BF16_TOL`` for dk and
-dv), at the transformer towers' head shape (H=8, S in {64, 96}, Dh=48;
+(``LIMITS[torch.bfloat16]`` for the forward, ``FLASH_BF16_TOL`` for dk, dv
+and dq), at the transformer towers' head shape (H=8, S in {64, 96}, Dh=48;
 B=4), ragged masks with one fully masked entry and dropout 0 and 0.1, and
 through the backward's delta taken from the emulated forward; the split
 lies no farther from plain than one rounding does; with no rounding
@@ -88,6 +88,14 @@ def emulated_dkv(q, k, v, mask, lse, delta, dout, mode, **drop):
     dk = scale * torch.einsum("bhqk,bhqd->bhkd", _operand(ds, mode), q.float())
     dv = torch.einsum("bhqk,bhqd->bhkd", _operand(p_hat, mode), dout.float())
     return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def emulated_dq(q, k, v, mask, lse, delta, dout, mode, **drop):
+    """``flash_dq_plain``'s algebra, with dS treated by :func:`_operand`
+    before dS·K."""
+    _, ds, scale = port._bwd_plain(q, k, v, mask, lse, delta, dout, None, drop)
+    dq = scale * torch.einsum("bhqk,bhkd->bhqd", _operand(ds, mode), k.float())
+    return dq.to(q.dtype)
 
 
 def _operands(s: int, dtype, seed: int, rate: float):
@@ -177,3 +185,40 @@ def test_unrounded_emulation_equals_the_plain_versions_exactly(s, rate):
     ops, drop = _operands(s, torch.float32, seed=s + 1, rate=rate)
     for a, w in zip(_outputs(ops, drop, None), _outputs(ops, drop, "plain")):
         assert torch.equal(a, w)
+
+
+# dq (flash_dq_bf16_kernel): dS goes in split, as in dk/dv
+
+
+@pytest.mark.parametrize("s,rate", CASES)
+def test_split_dq_stays_within_the_smoke_limit(s, rate):
+    """dq from the split dS within FLASH_BF16_TOL of the unrounded plain
+    dq, on the plain forward's delta and through the split forward's delta
+    (the kernels' path: the backward takes the forward kernel's output)."""
+    ops, drop = _operands(s, torch.bfloat16, seed=s + 4 + int(rate * 10),
+                          rate=rate)
+    q, k, v, mask, lse, _, g = ops
+    want = port.flash_dq_plain(*ops, **drop)
+    out = emulated_forward(q, k, v, mask, "split", **drop)
+    delta = (g.float() * out.float()).sum(dim=-1)
+    for got in (emulated_dq(*ops, "split", **drop),
+                emulated_dq(q, k, v, mask, lse, delta, g, "split", **drop)):
+        assert got.dtype == torch.bfloat16
+        torch.testing.assert_close(got.float(), want.float(), atol=GRAD_TOL,
+                                   rtol=GRAD_TOL)
+        assert torch.all(got[-1] == 0)  # the fully masked entry
+
+
+@pytest.mark.parametrize("s,rate", CASES)
+def test_split_dq_lies_no_farther_from_plain_than_one_rounding(s, rate):
+    ops, drop = _operands(s, torch.bfloat16, seed=s + 5, rate=rate)
+    want = port.flash_dq_plain(*ops, **drop)
+    split, once = (emulated_dq(*ops, mode, **drop) for mode in ("split", "bf16"))
+    assert _err(split, want) <= _err(once, want)
+
+
+@pytest.mark.parametrize("s,rate", CASES)
+def test_unrounded_dq_emulation_equals_plain_exactly(s, rate):
+    ops, drop = _operands(s, torch.float32, seed=s + 6, rate=rate)
+    assert torch.equal(emulated_dq(*ops, None, **drop),
+                       port.flash_dq_plain(*ops, **drop))

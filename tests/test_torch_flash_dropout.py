@@ -416,11 +416,45 @@ def test_cuda_bf16_dkv_matches_plain_across_shapes(cuda, dh, s, rate):
         assert torch.all(a[-1] == 0)
 
 
+# dq: each of the 8 padded head dims, two of them ragged (40 -> 48 and
+# 100 -> 112, element loads), S within one stage, at it, resident and
+# streamed
+DQ_BF16_SHAPES = [(dh, s) for dh in (16, 32, 40, 64, 80, 96, 100, 128)
+                  for s in (37, 64, 96, 200)]
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("dh,s", DQ_BF16_SHAPES)
+def test_cuda_bf16_dq_matches_plain_across_shapes(cuda, dh, s, rate):
+    """The bf16 (tensor-core) dq kernel against its plain version on the
+    forward kernel's own operands, ragged masks with one fully masked entry,
+    dropout 0 and 0.1."""
+    q, k, v, mask, g = (torch.from_numpy(x).to(cuda)
+                        for x in _inputs(3, 2, s, dh, True, seed=dh + s + 1))
+    q, k, v, g = (x.to(torch.bfloat16) for x in (q, k, v, g))
+    drop = dict(dropout_rate=rate, dropout_seed=dh + 5 * s)
+    before = port.launch_counts["flash_dq"]
+    with torch.inference_mode():
+        out, lse = port.flash_attention_fwd(q, k, v, mask, **drop)
+        delta = (g.float() * out.float()).sum(dim=-1)
+        operands = (q, k, v, mask, lse, delta, g)
+        got = port.flash_dq_cuda(*operands, **drop)
+        want = port.flash_dq_plain(*operands, **drop)
+    torch.cuda.synchronize()
+    assert port.launch_counts["flash_dq"] == before + 1
+    assert got.dtype == torch.bfloat16
+    torch.testing.assert_close(got.float(), want.float(), atol=BF16_TOL,
+                               rtol=BF16_TOL)
+    assert torch.all(got[-1] == 0)
+
+
 @pytest.mark.requires_cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_repeat_launches_are_bit_identical(cuda, dtype):
-    """Two launches of the forward and of dk/dv on the same inputs give the
-    same bits: every output row has one writer and a fixed order of sums."""
+    """Two launches of the forward, of dq and of dk/dv on the same inputs
+    give the same bits: every output row has one writer and a fixed order
+    of sums."""
     q, k, v, mask, g = _cuda_inputs(cuda, dtype, 3, 96, 48, seed=5)
     drop = dict(dropout_rate=0.1, dropout_seed=17)
     with torch.inference_mode():
@@ -428,7 +462,8 @@ def test_cuda_repeat_launches_are_bit_identical(cuda, dtype):
         for _ in range(2):
             out, lse = port.flash_attention_fwd(q, k, v, mask, **drop)
             delta = (g.float() * out.float()).sum(dim=-1)
-            runs.append((out, lse, *port.flash_dkv_cuda(q, k, v, mask, lse,
-                                                         delta, g, **drop)))
+            ops = (q, k, v, mask, lse, delta, g)
+            runs.append((out, lse, port.flash_dq_cuda(*ops, **drop),
+                         *port.flash_dkv_cuda(*ops, **drop)))
     torch.cuda.synchronize()
     assert all(torch.equal(a, b) for a, b in zip(*runs))

@@ -248,7 +248,11 @@ def cuda():
     return torch.device("cuda")
 
 
-CUDA_CASES = [(b, d, dtype) for b, d in [(256, 64), (200, 100), (64, 600)]
+# both tiers (the scalar fp32 build, the bf16 tensor-core build); ragged n
+# and d, each width of the bf16 build's feature chunk (64, 128, 256) and d
+# past one chunk (512, 600)
+CUDA_CASES = [(b, d, dtype) for b, d in [(256, 64), (200, 100), (64, 600),
+                                         (1000, 100), (4096, 512)]
               for dtype in (torch.float32, torch.bfloat16)]
 
 
@@ -272,6 +276,24 @@ def test_cuda_kernels_match_plain(cuda, b, d, dtype, tau):
     torch.cuda.synchronize()
     assert {k: fc.launch_counts[k] - before[k] for k in fc.KERNELS} == {
         "lse_fwd": 2, "lse_bwd": 2}
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("b,d", [(1000, 100), (4096, 256)])
+@pytest.mark.parametrize("tau", [0.03, 0.01])
+def test_cuda_bf16_lse_bwd_repeat_launches_are_bit_identical(cuda, b, d, tau):
+    """Two launches of the bf16 backward on the same inputs give the same
+    bits, factored (τ = 0.03) and subtract-first (0.01): one writer per
+    output element, a fixed order of sums."""
+    v, t = (torch.from_numpy(x).to(cuda, torch.bfloat16)
+            for x in _features(b, d, seed=b + 3))
+    g_v, g_t = (torch.from_numpy(x).to(cuda) for x in _cotangents(b))
+    s, w = 1.0 / tau, 0.8
+    lse_v, lse_t = fc.lse_fwd_cuda(v, t, s, w), fc.lse_fwd_cuda(t, v, s, w)
+    runs = [fc.lse_bwd_cuda(v, t, lse_v, lse_t, g_v, g_t, s, w) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(runs[0], runs[1])
+    assert bool(torch.isfinite(runs[0]).all())
 
 
 @pytest.mark.requires_cuda
