@@ -23,8 +23,10 @@ Phases, one line each; any failure raises and exits non-zero:
                  registers of each instantiation of the tensor-core kernels
                  (flash_fwd_bf16_kernel, flash_dkv_bf16_kernel,
                  flash_dq_bf16_kernel: 8 padded head dims x 2 dropout
-                 builds each; direction_bwd_bf16_kernel: 3 feature-chunk
-                 widths x 2 coefficient forms), none of which may spill.
+                 builds each; direction_fwd_bf16_kernel: 3 feature-chunk
+                 widths; direction_bwd_bf16_kernel: 3 widths x 2
+                 coefficient forms; sym_bwd_bf16_kernel: 3 widths x
+                 unpruned and pruned), none of which may spill.
   3. kernel    — the flash forward against the plain version on the same
                  CUDA tensors (H=8, Dh=48, S in {64, 96, 37}, ragged masks,
                  one entry fully masked; fp32 and bf16) within the stated
@@ -79,7 +81,12 @@ Phases, one line each; any failure raises and exits non-zero:
                  (each lse then equals its positive logit) and all kept;
                  at 1024 x 384 the pruned dual lse also against
                  rows_lse_cuda on the same operands (two kernels, one
-                 function); then the pruned pairs and their plain
+                 function); sym_bwd at the MLP leg's 1024 x 256 and, pruned,
+                 the static-τ full-CrossCLR leg's 1024 x 384, both tiers,
+                 on random features at τ = 0.03 and on features collapsed
+                 near one direction at τ = 1/79 (g·e^{-lse} subnormal),
+                 two launches of the bf16 build bit for bit; then the
+                 pruned pairs and their plain
                  versions timed, forward and backward, at 1024 x 384 and
                  4096 x 384 (bf16 operands), beside the rows route's two
                  directions on the same operands.
@@ -89,13 +96,17 @@ Phases, one line each; any failure raises and exits non-zero:
                  1000 x 384, 4096 x 512}, fp32 (highest) and bf16 (default)
                  operands, τ in {0.03, 0.01 (subtract-first backward),
                  1/79 (s near 80, the factored backward's edge)} and
-                 w in {0.8, 0}, within the loss kernels' limits; the
-                 per-direction pair's lse against the sym pair's at
+                 w in {0.8, 0}, within the loss kernels' limits; lse_fwd at
+                 4096 x 256 on random features at τ = 0.03 and collapsed
+                 ones at τ = 1/79, two launches of the bf16 build bit for
+                 bit; the per-direction pair's lse against the sym pair's at
                  4096 x 256.  At the leg's 65,536 x 256, both tiers and
                  both directions: every row's lse against the plain lse
                  taken in blocks of 2048 anchor rows (each against all
                  131,072 candidates), and the gradient rows of three
-                 blocks against the plain backward on those rows; once
+                 blocks against the plain backward on those rows (the bf16
+                 sym_bwd's rows too: both its directions are the factored
+                 lse_bwd there); once
                  for random unit features at the leg's τ = 0.03, once at
                  τ = 1/79 for features collapsed near one direction (as a
                  random-init tower's are), where lse passes 87 and the
@@ -186,19 +197,23 @@ The last line is {"ok": true, "device": {...}}.
 Run from the root of a checkout:  python3 chip_smoke.py
 
 With --baseline DIR (DIR holding another revision's flash_fwd.cu,
-flash_bwd.cu, fused_crossclr.cu and their headers, e.g. the csrc directory
-of a parent commit's `git archive` unpacked under the ignored _checkout/),
-it runs only phases 1-2 and a comparison: this checkout's flash and
-per-direction kernels against that revision's on the same operands, bit
-for bit where the design was kept (every fp32 output, the bf16 forward and
-dk/dv, lse_fwd in both tiers; the redesigned bf16 dq and lse_bwd are
+flash_bwd.cu, fused_crossclr.cu, fused_dual.cu and their headers, e.g. the
+csrc directory of a parent commit's `git archive` unpacked under the
+ignored _checkout/), it runs only phases 1-2 and a comparison: this
+checkout's flash, per-direction and loss-pair kernels against that
+revision's on the same operands, bit for bit where the design was kept
+(every fp32 output, the bf16 flash forward, dq and dk/dv, lse_bwd in both
+tiers, sym_fwd, dual_fwd and dual_bwd in both tiers, unpruned and pruned,
+at 1024 x 256 and 1024 x 384; the redesigned bf16 lse_fwd and sym_bwd are
 logged only: they are held to their plain versions by the phases above);
 then at B=1024, S in {96, 64}, H=8, Dh=48, bf16, dropout 0 and 0.1 each
 flash kernel timed in turns (baseline, this, this, baseline; median of 20
-each) beside its plain version, SDPA and its bound, and bf16 lse_bwd the
-same way at 4096 x 256 (median of 20, beside its plain version) and at the
-leg's 65,536 x 256 (median of 3) beside its bound; the last line is a JSON
-record of those times.
+each) beside its plain version, SDPA and its bound; bf16 lse_fwd and
+lse_bwd the same way at 4096 x 256 (median of 20, beside the plain
+version) and at the leg's 65,536 x 256 (median of 3) beside the bound;
+and bf16 sym_bwd at 1024 x 256 and, pruned, 1024 x 384 (median of 20)
+beside its plain version and bound; the last line is a JSON record of
+those times.
 """
 
 import argparse
@@ -249,9 +264,12 @@ ROWS_REPLACES = {
     "rows_bwd_cols": "crossclr_tpu/ops/fused_global.py:228",
 }
 DIRECTION_SOURCE = "crossclr_tpu_torch/ops/csrc/fused_crossclr.cu"
-# the bf16 build of lse_bwd: a tensor-core kernel, 6 instantiations (3
-# feature-chunk widths x the factored and subtract-first forms)
-DIRECTION_MMA_KERNEL = "direction_bwd_bf16_kernel"
+# the loss kernels' bf16 tensor-core builds and their instantiations: lse_fwd
+# (3 feature-chunk widths), lse_bwd (3 widths x the factored and
+# subtract-first forms), sym_bwd (3 widths x unpruned and pruned)
+LOSS_MMA_KERNELS = {"fused_crossclr.cu": (("direction_fwd_bf16_kernel", 3),
+                                          ("direction_bwd_bf16_kernel", 6)),
+                    "fused_dual.cu": (("sym_bwd_bf16_kernel", 6),)}
 DIRECTION_REPLACES = {
     "lse_fwd": "crossclr_tpu/ops/fused_crossclr.py:179",
     "lse_bwd": "crossclr_tpu/ops/fused_crossclr.py:279",
@@ -416,23 +434,23 @@ def build_phase() -> None:
             if "registers" in line or "spill" in line:
                 log("build", "ptxas: " + line.strip())
     # the tensor-core kernels: every instantiation (flash: one per padded
-    # head dim and dropout build; lse_bwd: one per feature chunk and
-    # coefficient form) logged, none may spill
+    # head dim and dropout build; the loss kernels: one per feature chunk
+    # and coefficient form or keep-mask branch) logged, none may spill
     report = {}
-    for source in ("flash_fwd.cu", "flash_bwd.cu", "fused_crossclr.cu"):
+    for source in ("flash_fwd.cu", "flash_bwd.cu", *LOSS_MMA_KERNELS):
         report.update(ptxas_report(_build.build_info[source]["log"]))
     for kernel, want in (*((k, 16) for k in MMA_KERNELS),
-                         (DIRECTION_MMA_KERNEL, 6)):
+                         *(k for kernels in LOSS_MMA_KERNELS.values() for k in kernels)):
         found = {name: r for name, r in report.items() if kernel in name}
         check(len(found) == want, f"ptxas reported {len(found)} instantiations "
                                   f"of {kernel}, want {want}")
         for name, r in sorted(found.items(), key=lambda x: template_args(x[0])):
-            width, flag = template_args(name)
-            log("build", f"{kernel}<{width}, {bool(flag)}>: {r.get('registers')} "
+            args = ", ".join(map(str, template_args(name)))
+            log("build", f"{kernel}<{args}>: {r.get('registers')} "
                          f"registers, spill stores {r.get('spill_stores')} B, "
                          f"spill loads {r.get('spill_loads')} B")
             check(r.get("spill_stores") == 0 and r.get("spill_loads") == 0,
-                  f"{kernel}<{width}, {flag}> spills: {r}")
+                  f"{kernel}<{args}> spills: {r}")
 
 
 def ptxas_report(text: str) -> dict:
@@ -456,11 +474,13 @@ def ptxas_report(text: str) -> dict:
     return report
 
 
-def template_args(mangled: str) -> tuple[int, int]:
-    """The (int, bool) template arguments of a tensor-core kernel's name:
-    (padded head dim, dropout build), or (features per warp, factored)."""
-    found = re.search(r"ILi(\d+)ELb(\d)E", mangled)
-    return int(found.group(1)), int(found.group(2))
+def template_args(mangled: str) -> tuple:
+    """The int and bool template arguments of a tensor-core kernel's name,
+    in order: (padded head dim, dropout build), (features per warp,
+    factored or pruned) or (features per chunk,)."""
+    found = re.search(r"I((?:L[ib]\d+E)+)E", mangled)
+    return tuple(int(x) if kind == "i" else bool(int(x))
+                 for kind, x in re.findall(r"L([ib])(\d+)E", found.group(1)))
 
 
 def ragged_mask(b: int, s: int, gen: torch.Generator) -> torch.Tensor:
@@ -794,16 +814,37 @@ def attention_timing_phase(fa, smi: str, worst: dict) -> dict:
     return times
 
 
-def build_baseline(fa, fc, csrc: Path, out_dir: Path) -> dict:
-    """Build another revision's flash and per-direction sources (``csrc``
-    holds its flash_fwd.cu, flash_bwd.cu, fused_crossclr.cu and their
-    headers) with this build's nvcc flags, one nvcc each, started together;
-    returns {source: CDLL} with the launchers' signatures set."""
+class NoScratchSymBwd:
+    """A revision's fused_dual.cu from before the bf16 sym backward took a
+    scratch buffer (no crossclr_sym_bwd_scratch): its library, called as
+    this checkout's wrapper calls it, the scratch argument dropped."""
+
+    def __init__(self, lib):
+        self.lib = lib
+
+    def __getattr__(self, name):
+        return getattr(self.lib, name)
+
+    @staticmethod
+    def crossclr_sym_bwd_scratch(*_):
+        return 0
+
+    def crossclr_sym_bwd(self, *args):
+        return self.lib.crossclr_sym_bwd(*args[:11], *args[12:])
+
+
+def build_baseline(fa, fc, fd, csrc: Path, out_dir: Path) -> dict:
+    """Build another revision's flash, per-direction and loss-pair sources
+    (``csrc`` holds its flash_fwd.cu, flash_bwd.cu, fused_crossclr.cu,
+    fused_dual.cu and their headers) with this build's nvcc flags, one nvcc
+    each, started together; returns {source: library} with the launchers'
+    signatures set."""
     import ctypes
 
     from crossclr_tpu_torch.ops import _build
 
-    signatures = {**fa._SIGNATURES, fc.SOURCE: fc._SIGNATURES}
+    signatures = {**fa._SIGNATURES, fc.SOURCE: fc._SIGNATURES,
+                  fd.SOURCE: fd._SIGNATURES}
     procs = {}
     for source in signatures:
         so = out_dir / f"baseline_{source[:-3]}.so"
@@ -815,12 +856,19 @@ def build_baseline(fa, fc, csrc: Path, out_dir: Path) -> dict:
         text = proc.communicate()[0]
         check(proc.returncode == 0, f"baseline {csrc / source} did not build:\n{text}")
         lib = ctypes.CDLL(str(so))
+        scratch = hasattr(lib, "crossclr_sym_bwd_scratch")
         for name, argtypes in signatures[source].items():
+            if name == "crossclr_sym_bwd" and not scratch:
+                argtypes = argtypes[:11] + argtypes[12:]
+            elif name == "crossclr_sym_bwd_scratch" and not scratch:
+                continue
             getattr(lib, name).argtypes = argtypes
-            getattr(lib, name).restype = ctypes.c_int
+            getattr(lib, name).restype = (ctypes.c_longlong
+                                          if name == "crossclr_sym_bwd_scratch"
+                                          else ctypes.c_int)
         lib.crossclr_cuda_error_string.argtypes = [ctypes.c_int]
         lib.crossclr_cuda_error_string.restype = ctypes.c_char_p
-        libs[source] = lib
+        libs[source] = lib if source != fd.SOURCE or scratch else NoScratchSymBwd(lib)
     return libs
 
 
@@ -850,23 +898,27 @@ def turns(fn, baseline, n: int, warmup: int) -> tuple[list, list]:
 
 
 def baseline_phase(fa, fc, fd, smi: str, csrc: Path) -> dict:
-    """The flash and per-direction kernels of this checkout against those
-    built from ``csrc`` on the same operands: bit for bit wherever this
-    checkout kept the design (every fp32 output, the bf16 forward and
-    dk/dv, lse_fwd in both tiers); the redesigned bf16 dq and lse_bwd only
-    logged.  Then, at the transformer leg's shapes (B=1024, S in {96, 64},
-    H=8, Dh=48, bf16, dropout 0 and the leg's 0.1), each flash kernel
-    timed in turns, baseline, this checkout, this checkout, baseline (CUDA
-    events, median of 20 each), beside its plain version, SDPA and its
-    bound; and bf16 lse_bwd timed the same way at 4096 x 256 (median of 20,
-    beside its plain version) and at the leg's 65,536 x 256 (median of 3),
-    beside its bound."""
+    """The flash, per-direction and loss-pair kernels of this checkout
+    against those built from ``csrc`` on the same operands: bit for bit
+    wherever this checkout kept the design (every fp32 output, the bf16
+    flash kernels, lse_bwd in both tiers, sym_fwd, dual_fwd and dual_bwd in
+    both tiers, pruned and not); the redesigned bf16 lse_fwd and sym_bwd
+    only logged.  Then, at the transformer leg's shapes (B=1024,
+    S in {96, 64}, H=8, Dh=48, bf16, dropout 0 and the leg's 0.1), each
+    flash kernel timed in turns, baseline, this checkout, this checkout,
+    baseline (CUDA events, median of 20 each), beside its plain version,
+    SDPA and its bound; bf16 lse_fwd and lse_bwd timed the same way at
+    4096 x 256 (median of 20, beside the plain version) and at the leg's
+    65,536 x 256 (median of 3), beside the bound; and bf16 sym_bwd at the
+    MLP leg's 1024 x 256 and, pruned, at the full-CrossCLR leg's 1024 x 384
+    (median of 20), beside its plain version and bound."""
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    records = {"flash": [], "direction": []}
+    records = {"flash": [], "direction": [], "loss": []}
     with tempfile.TemporaryDirectory(prefix="crossclr_baseline_") as tmp:
-        libs = build_baseline(fa, fc, csrc, Path(tmp))
+        libs = build_baseline(fa, fc, fd, csrc, Path(tmp))
         flash_base = lambda: mock.patch.object(fa, "_library", libs.__getitem__)  # noqa: E731
         dir_base = lambda: mock.patch.object(fc, "_library", lambda: libs[fc.SOURCE])  # noqa: E731
+        pair_base = lambda: mock.patch.object(fd, "_library", lambda: libs[fd.SOURCE])  # noqa: E731
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v, mask = qkv((LEG_BATCH, 8, 96, 48), dtype, seed=21)
             gen = torch.Generator(device="cuda").manual_seed(22)
@@ -883,8 +935,7 @@ def baseline_phase(fa, fc, fd, smi: str, csrc: Path) -> dict:
                     with flash_base():
                         old = fn()
                     same_bits(new, old, f"{name} {str(dtype)[6:]} B={LEG_BATCH} S=96 "
-                                        f"dropout {LEG_DROPOUT}",
-                              dtype == torch.float32 or name != "flash_dq")
+                                        f"dropout {LEG_DROPOUT}", True)
         b, d = DIRECTION_TIMING
         v32, t32, g_v, g_t = loss_inputs(b, d, seed=24)
         for tier in ("highest", "default"):
@@ -897,12 +948,39 @@ def baseline_phase(fa, fc, fd, smi: str, csrc: Path) -> dict:
                 with dir_base():
                     old = fwd()
                 tag = f"B={b} D={d} {tier} τ={tau:.6g} w={NEG_WEIGHT}"
-                same_bits(new, old, f"lse_fwd {tag}", True)
+                same_bits(new, old, f"lse_fwd {tag}", tier == "highest")
                 bwd = lambda: fc.lse_bwd_cuda(v, t, *new, g_v, g_t, s, NEG_WEIGHT)  # noqa: E731
                 grad = bwd()
                 with dir_base():
                     old = bwd()
-                same_bits(grad, old, f"lse_bwd {tag}", tier == "highest")
+                same_bits(grad, old, f"lse_bwd {tag}", True)
+        # the loss pair: the MLP leg's shape and the full-CrossCLR leg's,
+        # each unpruned and with keep masks; sym at τ = 0.03, dual at a
+        # tensor τ of 0.03
+        for b, d in (SLICE_LOSS_SHAPE, PRUNED_TIMING[0]):
+            v32, t32, g_v, g_t = loss_inputs(b, d, seed=25)
+            for keep in ((), keep_masks(v32, t32)):
+                for tier in ("highest", "default"):
+                    v, t = (x.contiguous() for x in fd._fetch_cast(tier, v32, t32))
+                    s = 1.0 / 0.03
+                    scale = torch.full((1,), s, device="cuda")
+                    lse = fd.sym_fwd_plain(v, t, s, NEG_WEIGHT, *keep)
+                    fns = {
+                        "sym_fwd": lambda: fd.sym_fwd_cuda(v, t, s, NEG_WEIGHT, *keep),
+                        "sym_bwd": lambda: fd.sym_bwd_cuda(v, t, *lse, g_v, g_t, s,
+                                                           NEG_WEIGHT, *keep),
+                        "dual_fwd": lambda: fd.dual_fwd_cuda(v, t, scale, NEG_WEIGHT,
+                                                             *keep),
+                        "dual_bwd": lambda: fd.dual_bwd_cuda(v, t, scale, *lse, g_v,
+                                                             g_t, NEG_WEIGHT, *keep),
+                    }
+                    for name, fn in fns.items():
+                        new = fn()
+                        with pair_base():
+                            old = fn()
+                        same_bits(new, old, f"{name} B={b} D={d} {tier}"
+                                            + (" pruned" if keep else ""),
+                                  name != "sym_bwd" or tier == "highest")
         for b, s in ATTENTION_TIMING[:2]:
             q, k, v, mask = qkv((b, 8, s, 48), torch.bfloat16, seed=7)
             mask[-1, 0] = 1.0  # every entry has a valid key (SDPA would give NaN)
@@ -956,22 +1034,43 @@ def baseline_phase(fa, fc, fd, smi: str, csrc: Path) -> dict:
             del v32, t32
             lse = (fc.lse_fwd_cuda(v, t, s, NEG_WEIGHT), fc.lse_fwd_cuda(t, v, s, NEG_WEIGHT))
             args = (v, t, *lse, g_v, g_t, s, NEG_WEIGHT)
-            new, old = turns(lambda: fc.lse_bwd_cuda(*args), dir_base, n,
-                             3 if n == 20 else 1)
-            plain_ms = median_ms(lambda: fc.lse_bwd_plain(*args)) if n == 20 else None
-            record = {"name": "lse_bwd", "B": b, "D": d, "ms": new, "baseline_ms": old,
-                      "plain_ms": plain_ms, **direction_bounds(b, d)["lse_bwd"],
-                      "library_ms": None}
-            records["direction"].append(record)
-            log("baseline", f"lse_bwd B={b} D={d} bf16 operands τ=0.03: "
-                            f"{new[0]:.4f} / {new[1]:.4f} ms, baseline {old[0]:.4f} / "
-                            f"{old[1]:.4f}, plain "
-                            + (f"{plain_ms:.4f}" if plain_ms is not None else
-                               "not timed (its [B, 2B] logits take 34 GB)")
-                            + f", bound {record['bound_ms']:.4f} ({record['bound_by']}) "
-                              f"(median of {n}; {smi})")
-            del v, t, lse, args
+            bounds = direction_bounds(b, d)
+            pairs = {"lse_fwd": (lambda: fc.lse_fwd_cuda(v, t, s, NEG_WEIGHT),
+                                 lambda: fc.lse_fwd_plain(v, t, s, NEG_WEIGHT)),
+                     "lse_bwd": (lambda: fc.lse_bwd_cuda(*args),
+                                 lambda: fc.lse_bwd_plain(*args))}
+            for name, (fn, plain) in pairs.items():
+                new, old = turns(fn, dir_base, n, 3 if n == 20 else 1)
+                plain_ms = median_ms(plain) if n == 20 else None
+                record = {"name": name, "B": b, "D": d, "ms": new, "baseline_ms": old,
+                          "plain_ms": plain_ms, **bounds[name], "library_ms": None}
+                records["direction"].append(record)
+                log("baseline", f"{name} B={b} D={d} bf16 operands τ=0.03: "
+                                f"{new[0]:.4f} / {new[1]:.4f} ms, baseline {old[0]:.4f} / "
+                                f"{old[1]:.4f}, plain "
+                                + (f"{plain_ms:.4f}" if plain_ms is not None else
+                                   "not timed (its [B, 2B] logits take 34 GB)")
+                                + f", bound {record['bound_ms']:.4f} "
+                                  f"({record['bound_by']}) (median of {n}; {smi})")
+            del v, t, lse, args, pairs
             torch.cuda.empty_cache()
+        for (b, d), pruned in ((SLICE_LOSS_SHAPE, False), (PRUNED_TIMING[0], True)):
+            v32, t32, g_v, g_t = loss_inputs(b, d, seed=3)
+            v, t = (x.contiguous() for x in fd._fetch_cast("default", v32, t32))
+            keep = keep_masks(v32, t32) if pruned else ()
+            lse = fd.sym_fwd_plain(v, t, s, NEG_WEIGHT, *keep)
+            args = (v, t, *lse, g_v, g_t, s, NEG_WEIGHT, *keep)
+            new, old = turns(lambda: fd.sym_bwd_cuda(*args), pair_base, 20, 3)
+            record = {"name": "sym_bwd", "B": b, "D": d, "pruned": pruned, "ms": new,
+                      "baseline_ms": old, "plain_ms": median_ms(lambda: fd.sym_bwd_plain(*args)),
+                      **loss_bounds(b, d, pruned)["sym_bwd"], "library_ms": None}
+            records["loss"].append(record)
+            log("baseline", f"sym_bwd B={b} D={d} bf16 operands τ=0.03"
+                            + (f" pruned ({PRUNE})" if pruned else "")
+                            + f": {new[0]:.4f} / {new[1]:.4f} ms, baseline "
+                              f"{old[0]:.4f} / {old[1]:.4f}, plain "
+                              f"{record['plain_ms']:.4f}, bound {record['bound_ms']:.4f} "
+                              f"({record['bound_by']}) (median of 20; {smi})")
     return records
 
 
@@ -1346,6 +1445,40 @@ def pruned_check_phase(fd, fg) -> dict:
     return worst
 
 
+def sym_leg_check_phase(fd) -> float:
+    """sym_bwd at the MLP leg's shape and, with keep masks, the static-τ
+    full-CrossCLR leg's, both tiers, against its plain version fed the
+    plain lse: random features at τ = 0.03 and features collapsed near one
+    direction at τ = 1/79 (lse near 86.6, g·e^{-lse} subnormal); two
+    launches of the bf16 build bit for bit.  Returns the worst absolute
+    error."""
+    worst = 0.0
+    for tau, noise in DIRECTION_LEG_CASES:
+        s = 1.0 / tau
+        for (b, d), pruned in ((SLICE_LOSS_SHAPE, False), (PRUNED_TIMING[0], True)):
+            v32, t32, g_v, g_t = leg_inputs(b, d, noise, seed=13)
+            keep = keep_masks(v32, t32) if pruned else ()
+            for tier in ("highest", "default"):
+                v, t = (x.contiguous() for x in fd._fetch_cast(tier, v32, t32))
+                tag = (f"B={b} D={d} {tier} τ={tau:.6g}" + (" pruned" if pruned else "")
+                       + (f", collapsed (noise {noise})" if noise else ""))
+                lse = fd.sym_fwd_plain(v, t, s, NEG_WEIGHT, *keep)
+                args = (v, t, *lse, g_v, g_t, s, NEG_WEIGHT, *keep)
+                got = fd.sym_bwd_cuda(*args)
+                err = grad_err(got, fd.sym_bwd_plain(*args), f"{tag} sym_bwd")
+                worst = max(worst, err)
+                if tier == "default":
+                    again = fd.sym_bwd_cuda(*args)
+                    torch.cuda.synchronize()
+                    check(all(torch.equal(x, y) for x, y in zip(got, again)),
+                          f"{tag}: two launches of sym_bwd differ")
+                log("loss", f"{tag}: max|kernel-plain| sym_bwd {err:.3e}; lse "
+                            f"{min(x.min().item() for x in lse):.4f} to "
+                            f"{max(x.max().item() for x in lse):.4f}"
+                            + (", two launches bit for bit" if tier == "default" else ""))
+    return worst
+
+
 def pruned_timing_phase(fd, fg, smi: str) -> dict:
     """The pruned branch of each loss kernel and its plain version, bf16
     operands, connectivity masks, at the leg's and the config's batch;
@@ -1442,8 +1575,30 @@ def direction_check_phase(fc, fd) -> dict:
             log("direction", f"B={b} D={d} {tier} (τ = 0.03, 0.01, 1/79; w = "
                              f"{NEG_WEIGHT}, 0; both directions): max|kernel-plain| "
                              + ", ".join(f"{k} {x:.3e}" for k, x in errs.items()))
-    # two kernel pairs, one function: the per-direction lse against sym's
+    # at 4096 x 256: random features at τ = 0.03 and collapsed ones at
+    # τ = 1/79, and two launches of the bf16 forward bit for bit
     b, d = DIRECTION_TIMING
+    for tau, noise in DIRECTION_LEG_CASES:
+        s = 1.0 / tau
+        v32, t32, _, _ = leg_inputs(b, d, noise, seed=12)
+        for tier in ("highest", "default"):
+            v, t = (x.contiguous() for x in fd._fetch_cast(tier, v32, t32))
+            tag = (f"B={b} D={d} {tier} τ={tau:.6g} w={NEG_WEIGHT}"
+                   + (f", collapsed (noise {noise})" if noise else ""))
+            err = 0.0
+            for a, o in ((v, t), (t, v)):
+                got = fc.lse_fwd_cuda(a, o, s, NEG_WEIGHT)
+                err = max(err, lse_err((got,), (fc.lse_fwd_plain(a, o, s, NEG_WEIGHT),),
+                                       f"{tag} lse_fwd"))
+                if tier == "default":
+                    again = fc.lse_fwd_cuda(a, o, s, NEG_WEIGHT)
+                    torch.cuda.synchronize()
+                    check(torch.equal(got, again), f"{tag}: two launches of lse_fwd differ")
+            worst["lse_fwd"] = max(worst["lse_fwd"], err)
+            log("direction", f"{tag}: max|kernel-plain| lse_fwd {err:.3e} (both "
+                             f"directions)" + (", two launches bit for bit"
+                                               if tier == "default" else ""))
+    # two kernel pairs, one function: the per-direction lse against sym's
     v32, t32, _, _ = loss_inputs(b, d, seed=9)
     s = 1.0 / 0.03
     for tier in ("highest", "default"):
@@ -1478,10 +1633,11 @@ def direction_leg_check_phase(fc, fd) -> dict:
     against the plain lse taken in blocks of DIRECTION_BLOCK anchor rows,
     and the gradient rows of three blocks against the plain backward on
     those rows (fed the plain lse); both tiers, both directions, w = 0.8,
-    each case of DIRECTION_LEG_CASES.  Returns the worst absolute error of
-    each kernel."""
+    each case of DIRECTION_LEG_CASES.  The bf16 sym backward's rows too
+    (both its directions are the factored lse_bwd there).  Returns the
+    worst absolute error of each kernel, sym_bwd's included."""
     b, d = PODSLICE_BATCH, 256
-    worst = dict.fromkeys(fc.KERNELS, 0.0)
+    worst = dict.fromkeys((*fc.KERNELS, "sym_bwd"), 0.0)
     n = b // DIRECTION_BLOCK
     every = [slice(i * DIRECTION_BLOCK, (i + 1) * DIRECTION_BLOCK) for i in range(n)]
     checked = [every[0], every[n // 2], every[-1]]
@@ -1497,16 +1653,23 @@ def direction_leg_check_phase(fc, fd) -> dict:
                             for a, o in ((v, t), (t, v)))
             errs = {"lse_fwd": lse_err(
                 (fc.lse_fwd_cuda(v, t, s, NEG_WEIGHT), fc.lse_fwd_cuda(t, v, s, NEG_WEIGHT)),
-                (lse_v, lse_t), f"{tag} lse_fwd"), "lse_bwd": 0.0}
+                (lse_v, lse_t), f"{tag} lse_fwd"), "lse_bwd": 0.0, "sym_bwd": 0.0}
             drift = 0.0  # the factored gradient against the subtract-first one
-            for a, o, la, lo, ga, go in ((v, t, lse_v, lse_t, g_v, g_t),
-                                         (t, v, lse_t, lse_v, g_t, g_v)):
+            # the bf16 sym backward: both directions' factored lse_bwd
+            sym = (fd.sym_bwd_cuda(v, t, lse_v, lse_t, g_v, g_t, s, NEG_WEIGHT)
+                   if tier == "default" else None)
+            for k, (a, o, la, lo, ga, go) in enumerate(((v, t, lse_v, lse_t, g_v, g_t),
+                                                        (t, v, lse_t, lse_v, g_t, g_v))):
                 grad = fc.lse_bwd_cuda(a, o, la, lo, ga, go, s, NEG_WEIGHT)
                 for rows in checked:
                     want = fc.lse_bwd_plain(a, o, la, lo, ga, go, s, NEG_WEIGHT, rows)
                     errs["lse_bwd"] = max(errs["lse_bwd"], grad_err(
                         (grad[rows],), (want,),
                         f"{tag} lse_bwd rows {rows.start}-{rows.stop - 1}"))
+                    if sym is not None:
+                        errs["sym_bwd"] = max(errs["sym_bwd"], grad_err(
+                            (sym[k][rows],), (want,),
+                            f"{tag} sym_bwd rows {rows.start}-{rows.stop - 1}"))
                     if noise:  # the plain backward's other form, logged only
                         with mock.patch.object(fc, "factored", lambda *_: False):
                             exact = fc.lse_bwd_plain(a, o, la, lo, ga, go, s,
@@ -1517,8 +1680,9 @@ def direction_leg_check_phase(fc, fd) -> dict:
                 worst[name] = max(worst[name], err)
             lse = torch.cat([lse_v, lse_t])
             line = (f"{tag}: max|kernel-plain| lse_fwd {errs['lse_fwd']:.3e} over all "
-                    f"{b} rows of each direction, lse_bwd {errs['lse_bwd']:.3e} over "
-                    f"rows {', '.join(f'{r.start}-{r.stop - 1}' for r in checked)}; "
+                    f"{b} rows of each direction, lse_bwd {errs['lse_bwd']:.3e}"
+                    + (f" and sym_bwd {errs['sym_bwd']:.3e}" if sym is not None else "")
+                    + f" over rows {', '.join(f'{r.start}-{r.stop - 1}' for r in checked)}; "
                     f"lse {lse.min().item():.4f} to {lse.max().item():.4f}")
             if noise:
                 line += (f", e^(-lse) subnormal (lse > {SUBNORMAL_LSE}) in "
@@ -1526,7 +1690,7 @@ def direction_leg_check_phase(fc, fd) -> dict:
                          f"factored kernel's gradient vs the subtract-first plain: "
                          f"{drift:.3e} of the largest entry (logged, unchecked)")
             log("direction", line)
-            del v, t, lse_v, lse_t, lse, grad, want
+            del v, t, lse_v, lse_t, lse, grad, want, sym
             torch.cuda.empty_cache()
     return worst
 
@@ -2204,9 +2368,10 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument(
         "--baseline", type=Path, default=None,
-        help="only compare the flash and per-direction kernels with those of "
-             "another revision: a directory holding its flash_fwd.cu, "
-             "flash_bwd.cu, fused_crossclr.cu and their headers (e.g. "
+        help="only compare the flash, per-direction and loss-pair kernels "
+             "with those of another revision: a directory holding its "
+             "flash_fwd.cu, flash_bwd.cu, fused_crossclr.cu, fused_dual.cu and "
+             "their headers (e.g. "
              "<unpacked git archive>/crossclr_tpu_torch/ops/csrc); prints their "
              "times and a JSON line of records")
     args = parser.parse_args(argv)
@@ -2231,10 +2396,13 @@ def main(argv=None) -> int:
     loss_worst = loss_check_phase(fd)
     loss_times = loss_timing_phase(fd, smi)
     pruned_worst = pruned_check_phase(fd, fg)
+    loss_worst["sym_bwd"] = max(loss_worst["sym_bwd"], sym_leg_check_phase(fd))
     pruned_times = pruned_timing_phase(fd, fg, smi)
     direction_worst = direction_check_phase(fc, fd)
-    for name, err in direction_leg_check_phase(fc, fd).items():
-        direction_worst[name] = max(direction_worst[name], err)
+    leg_worst = direction_leg_check_phase(fc, fd)
+    for name in fc.KERNELS:
+        direction_worst[name] = max(direction_worst[name], leg_worst[name])
+    loss_worst["sym_bwd"] = max(loss_worst["sym_bwd"], leg_worst["sym_bwd"])
     direction_times = direction_timing_phase(fc, fd, smi)
     rows_worst = global_check_phase(fd, fg)
     rows_launches = global_loss_phase(fg)

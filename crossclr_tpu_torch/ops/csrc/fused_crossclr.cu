@@ -1,6 +1,6 @@
 // One direction of the CrossCLR-intra logsumexp and its anchor gradient for
-// Hopper (sm_90a), with a plain C interface: the forward, and the backward
-// in two builds.
+// Hopper (sm_90a), with a plain C interface: the forward and the backward,
+// each in two builds.
 //
 // Replaces the TPU kernels of crossclr_tpu/ops/fused_crossclr.py:
 //   crossclr_direction_fwd  <- _lse_fwd_kernel  (one direction's online lse)
@@ -38,67 +38,70 @@
 // Edges of n and d are masked, so any n and d run unpadded; indices past
 // 2^31 are formed in size_t, and the diagonal is found as row == col.
 //
-// The forward, and the backward's fp32 build (the `highest` tier): the
-// tiles of loss_tiles.cuh, shared with fused_dual.cu, 64 x 64 logit
-// products over d in 32-feature chunks with scalar fp32 FMAs.  The forward
-// keeps a running max and sum per row (the TPU kernel carries them across
-// its sequential grid in VMEM scratch); the backward keeps its gradient
-// rows [64, <= 512 features] in shared memory and adds coefficient-tile x
-// candidate-tile products into them, wider features split over
-// blockIdx.y, each y recomputing the logits.  The forward does 2·n²·d
-// FMAs, the backward 4·n²·d, where the function needs 1.5 and 3.5
-// products of n²·d (A·Aᵀ is symmetric, so one triangle suffices;
-// chip_smoke.py's bound counts that): bound by instruction issue and
-// shared-memory traffic.
+// The fp32 builds (the `highest` tier): the tiles of loss_tiles.cuh,
+// shared with fused_dual.cu, 64 x 64 logit products over d in 32-feature
+// chunks with scalar fp32 FMAs.  The forward keeps a running max and sum
+// per row (the TPU kernel carries them across its sequential grid in VMEM
+// scratch); the backward keeps its gradient rows [64, <= 512 features] in
+// shared memory and adds coefficient-tile x candidate-tile products into
+// them, wider features split over blockIdx.y, each y recomputing the
+// logits.  The forward does 2·n²·d FMAs, the backward 4·n²·d, where the
+// function needs 1.5 and 3.5 products of n²·d (A·Aᵀ is symmetric, so one
+// triangle suffices; chip_smoke.py's bound counts that): bound by
+// instruction issue and shared-memory traffic.
 //
-// The backward's bf16 build (direction_bwd_bf16_kernel, the `default`
-// tier the large-batch leg runs): the four products on tensor cores
-// (mma.sync m16n8k16, bf16 operands, fp32 accumulators; mma_common.cuh).
-// At n = 65,536, d = 256 it does 3.5 products of 2·n²·d against 67 MB of
-// features, far past the card's ~295 operations per byte: the operations
-// bound it.  A block of 8 warps owns 64 anchor rows and up to 256 gradient
-// features (wider d over blockIdx.y):
-//   * the anchor rows stay in shared memory (one 256-feature chunk; wider
-//     d restages its chunks per candidate tile), and each 64-row candidate
-//     tile of O, then of A, is staged by 16-byte cp.async into a double
-//     buffer, the next tile's loads in flight while this one computes, rows
-//     padded by 16 bytes for conflict-free ldmatrix;
-//   * each warp scores 16 anchors x 32 candidates by mma (A·Oᵀ or A·Aᵀ;
-//     bf16 features are exact mma operands, so the logits equal the scalar
-//     kernel's up to the order of the sums) and forms their coefficients in
-//     fp32 registers with exactly the scalar kernel's arithmetic (the row
-//     factors once per row, the candidate factors once per tile, the
-//     diagonal test, the w multiplier), so the factored form meets a
-//     subnormal g·e^{-lse} as the plain version does;
-//   * the coefficient tile goes to shared memory as a bf16 hi part and the
-//     bf16 rounding of the remainder (about 16 bits, as in the flash
-//     kernels), and each warp adds hi·X + lo·X for its 16 rows x 128
-//     features into fp32 accumulators in registers, the candidate tile X
-//     read by ldmatrix.trans; the gradient rows never touch shared memory.
-// The split doubles the coefficient products' mma count: 6 products of
-// 2·n²·d issued where the bound counts 3.5 (A·Aᵀ's triangle is not shared).
-// A warp's fp32 gradient tile (16 x 128 for d > 128) takes a thread past
-// the 128 registers that two blocks per SM would leave it, so the block of
-// 8 warps runs alone on its SM (for d <= 64, two blocks share one).
+// The bf16 builds (the `default` tier the large-batch leg runs) put the
+// products on tensor cores (mma.sync m16n8k16, bf16 operands, fp32
+// accumulators), with the pieces of loss_mma.cuh (shared with
+// fused_dual.cu's sym backward).  At n = 65,536, d = 256 the forward's 1.5
+// and the backward's 3.5 products of 2·n²·d against 67 MB of features are
+// far past the card's ~295 operations per byte: the operations bound both.
+// Bf16 features are exact mma operands, so the logits equal the scalar
+// kernels' up to the order of the sums.  A block of 8 warps owns 64 anchor
+// rows; each 64-row candidate tile of O, then of A, is staged by 16-byte
+// cp.async into a double buffer, the next tile's loads in flight while
+// this one computes, rows padded by 16 bytes for conflict-free ldmatrix;
+// each warp scores 16 anchors x 32 candidates.
+//   * The forward (direction_fwd_bf16_kernel) holds each warp's anchor
+//     fragments in registers for the whole candidate loop (d <= 256; a
+//     wider d restages them per tile) and keeps an online logsumexp in
+//     log2 units: a row's max over its quad once per tile, one rescale of
+//     the lane's partial sum, exp2 of each logit; the two warps that share
+//     a row merge their (max, sum) once, at the end, in a fixed order.  It
+//     issues the 2 products of 2·n²·d that the bound counts as 1.5 (A·Aᵀ's
+//     triangle is not shared) and one exp2 per logit; without gradient
+//     accumulators it fits 128 registers, two blocks per SM.
+//   * The backward (direction_bwd_bf16_kernel, loss_mma.cuh's bwd_block)
+//     forms the coefficients in fp32 registers with exactly the scalar
+//     kernel's arithmetic (so the factored form meets a subnormal
+//     g·e^{-lse} as the plain version does), writes the coefficient tile to
+//     shared memory as a bf16 hi part and the bf16 rounding of the
+//     remainder (about 16 bits, as in the flash kernels), and each warp
+//     adds hi·X + lo·X for its 16 rows x up to 128 features into fp32
+//     accumulators in registers; the gradient rows never touch shared
+//     memory.  The split doubles the coefficient products' mma count: 6
+//     products of 2·n²·d issued where the bound counts 3.5.  A warp's fp32
+//     gradient tile (16 x 128 for d > 128) takes a thread past the 128
+//     registers that two blocks per SM would leave it, so the block runs
+//     alone on its SM (for d <= 64, two blocks share one).
 
 #include <math.h>
 #include <stddef.h>
 
+#include "loss_mma.cuh"
 #include "loss_tiles.cuh"
-#include "mma_common.cuh"
 
 namespace {
 
+using namespace loss_mma;
 using namespace loss_tiles;
-using namespace tc;
 
 // ---------------------------------------------------------------------------
-// forward: one direction's lse for a 64-row anchor tile
+// forward, fp32 features: one direction's lse for a 64-row anchor tile
 // ---------------------------------------------------------------------------
 
-template <typename T>
 __global__ void __launch_bounds__(kThreads)
-direction_fwd_kernel(const T* __restrict__ a, const T* __restrict__ o,
+direction_fwd_kernel(const float* __restrict__ a, const float* __restrict__ o,
                      float s, float w, float* __restrict__ lse, int n, int d) {
   __shared__ __align__(16) float sx[kChunk * kLd];
   __shared__ __align__(16) float sy[kChunk * kLd];
@@ -256,167 +259,78 @@ direction_bwd_kernel(const T* __restrict__ a, const T* __restrict__ o,
 }
 
 // ---------------------------------------------------------------------------
-// backward, bf16 features: tensor cores (see the header)
+// forward, bf16 features: tensor cores (see the header)
 // ---------------------------------------------------------------------------
 
-constexpr int kRows = 64;  // anchor rows per block = candidates per tile
-constexpr int kBwdThreads = 256;  // 8 warps: 4 row groups x 2 halves
-constexpr int kCoefLd = kRows + 8;  // bf16 per row of the coefficient tile
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
-// kWarpF gradient features per warp; a block stages kChunkF = 2 kWarpF
-// features of each row at a time, and owns that many gradient features.
-template <int kWarpF>
-struct BwdTile {
-  static constexpr int kChunkF = 2 * kWarpF;
-  static constexpr int kLd = kChunkF + 8;  // bf16 per shared row, 16 (2m + 1) B
-  static constexpr int kSteps = kChunkF / 16;  // logit k-steps per chunk
-  static constexpr int kN = kWarpF / 8;  // 8-wide gradient tiles per warp
-};
-
-// two stages of candidate rows, and two of anchor rows where d takes more
-// than one chunk (else one, resident), the coefficient tile's hi and lo
-// parts, two stages of candidate factors
-template <int kWarpF>
-size_t bwd_bf16_smem_bytes(int chunks) {
-  using D = BwdTile<kWarpF>;
-  return sizeof(bf16) * (size_t)((chunks > 1 ? 4 : 3) * kRows * D::kLd +
-                                 2 * kRows * kCoefLd) +
+// the forward's shared memory: two stages of candidate rows (the first
+// holds the anchor rows while their fragments load), two of anchor rows
+// where d takes more than one chunk, and the two halves' (m, l) per row
+template <int kChunkF>
+size_t fwd_bf16_smem_bytes(int chunks) {
+  return sizeof(bf16) * (size_t)((chunks > 1 ? 4 : 2) * kRows *
+                                 Chunk<kChunkF>::kLd) +
          sizeof(float) * 4 * kRows;
 }
 
-// acc += t in fp32, rounded to nearest.  An mma does not round its sum as
-// an fp32 add does, and a long chain of mma on one accumulator drifts: with
-// the whole sum over the 131,072 candidates of the leg's n = 65,536 chained
-// that way, the gradient left its limit on the card (2.5e-4 of the largest
-// entry against 5e-5).  Short chains from zero, added here, do not.
-__device__ __forceinline__ void acc_add(float acc[4], const float t[4]) {
-#pragma unroll
-  for (int e = 0; e < 4; ++e) acc[e] += t[e];
-}
-
-// Stage features [f0, f0 + kChunkF) of rows [r0, r0 + 64) of a row-major
-// [n, d] bf16 matrix into a shared tile of stride kLd.  Rows past n and
-// features past d are zero.  `vec` (d % 8 == 0 and a 16-byte aligned
-// base): 16-byte cp.async copies; otherwise element loads.
-template <int kWarpF>
-__device__ __forceinline__ void stage_tile(bf16* dst, const bf16* src, int r0,
-                                           int f0, int n, int d, bool vec) {
-  using D = BwdTile<kWarpF>;
-  constexpr int kChunks = D::kChunkF / 8;
-  if (vec) {
-    for (int i = threadIdx.x; i < kRows * kChunks; i += kBwdThreads) {
-      const int r = i / kChunks, c = (i - r * kChunks) * 8;
-      bf16* p = dst + r * D::kLd + c;
-      if (r0 + r < n && f0 + c < d)
-        cp_async16(p, src + (size_t)(r0 + r) * d + f0 + c);
-      else
-        *reinterpret_cast<uint4*>(p) = make_uint4(0u, 0u, 0u, 0u);
-    }
-  } else {
-    for (int i = threadIdx.x; i < kRows * D::kChunkF; i += kBwdThreads) {
-      const int r = i / D::kChunkF, c = i - r * D::kChunkF;
-      dst[r * D::kLd + c] = (r0 + r < n && f0 + c < d)
-                                ? src[(size_t)(r0 + r) * d + f0 + c]
-                                : __float2bfloat16(0.f);
-    }
-  }
-}
-
-// Block (x, y): anchor rows [64 x, 64 x + 64), gradient features
-// [kChunkF y, kChunkF (y + 1)).  Warp w: logits of rows 16 (w % 4) + [0, 16)
-// over candidates 32 (w / 4) + [0, 32) of a tile; gradient rows
-// 16 (w % 4) + [0, 16), features kWarpF (w / 4) + [0, kWarpF) of the chunk.
-// The block walks stages st = (tile, part, chunk) in order, tile t holding
-// candidates [64 t, 64 t + 64), part 0 the other features O and part 1 the
-// anchors A; the loads of stage st + 1 go into the other buffer while
-// stage st computes.  The gradient tile of the two wider builds (16 x 64
-// and 16 x 128 fp32 a warp, beside the coefficients' A fragments) takes
-// more than the 128 registers that two blocks per SM would leave a thread,
-// so those builds run one block per SM.
-template <int kWarpF, bool kFactored>
-__global__ void __launch_bounds__(kBwdThreads, kWarpF <= 32 ? 2 : 1)
-direction_bwd_bf16_kernel(const bf16* __restrict__ a, const bf16* __restrict__ o,
-                          float s, float w, const float* __restrict__ lse_a,
-                          const float* __restrict__ lse_o,
-                          const float* __restrict__ g_a,
-                          const float* __restrict__ g_o, float* __restrict__ out,
-                          int n, int d, bool vec) {
-  using D = BwdTile<kWarpF>;
-  extern __shared__ __align__(16) unsigned char smem_bf16[];
-  const int chunks = (d + D::kChunkF - 1) / D::kChunkF;
-  const int a_bufs = chunks > 1 ? 2 : 1;
-  bf16* sx = reinterpret_cast<bf16*>(smem_bf16);  // candidate rows, 2 stages
-  bf16* sa = sx + 2 * kRows * D::kLd;             // anchor rows, 1 or 2
-  bf16* chi = sa + a_bufs * kRows * D::kLd;       // coefficients, bf16 hi
-  bf16* clo = chi + kRows * kCoefLd;              // and lo parts
-  float* scol_a = reinterpret_cast<float*>(clo + kRows * kCoefLd);
-  float* scol_b = scol_a + 2 * kRows;             // candidate factors, 2 stages
+// Block x: anchor rows [64 x, 64 x + 64).  Warp w scores rows 16 (w % 4) +
+// [0, 16) against candidates 32 (w / 4) + [0, 32) of every 64-row tile, O's
+// tiles and then A's, in stages (tile, part, chunk) whose loads go into the
+// other buffer while the last one computes.  Where d fits one chunk the
+// warp's A fragments stay in registers for the whole loop (kSteps x 4); a
+// wider d restages its anchor chunk with each stage and reloads them.  The
+// logits are in log2 units, z·log2 e: each row keeps a running max m (over
+// its quad, once per tile) and each lane its part of the row's sum l of
+// exp2(z - m), rescaled once per tile.  At the end the lanes of a quad add
+// their sums, and the two warps that share a row merge their (m, l) in a
+// fixed order: lse = ln 2 · (m + log2 l).
+template <int kChunkF>
+__global__ void __launch_bounds__(kMmaThreads, 2)
+direction_fwd_bf16_kernel(const bf16* __restrict__ a, const bf16* __restrict__ o,
+                          float s, float w, float* __restrict__ lse, int n,
+                          int d, bool vec) {
+  using C = Chunk<kChunkF>;
+  extern __shared__ __align__(16) unsigned char smem_fwd[];
+  const int chunks = (d + kChunkF - 1) / kChunkF;
+  bf16* sx = reinterpret_cast<bf16*>(smem_fwd);  // candidate rows, 2 stages
+  bf16* sa = sx + 2 * kRows * C::kLd;            // anchor rows, 2 stages
+  float* sm = reinterpret_cast<float*>(sa + (chunks > 1 ? 2 : 0) * kRows * C::kLd);
+  float* sl = sm + 2 * kRows;  // [half][row] of m and l
 
   const int r0 = blockIdx.x * kRows;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, tq = lane & 3;
-  const int wr = 16 * (warp & 3);      // the warp's rows in the tile
-  const int wc = 32 * (warp >> 2);     // its candidates in the logit tile
-  const int wf = kWarpF * (warp >> 2);  // its gradient features in the chunk
+  const int wr = 16 * (warp & 3);   // the warp's rows in the tile
+  const int wc = 32 * (warp >> 2);  // its candidates in the logit tile
 
-  // Issue the loads of stage st into buffer st & 1: the candidate rows of
-  // its chunk (the chunks run in the order that ends on this block's own,
-  // whose candidate rows the gradient products read), the anchor rows of
-  // the chunk where d takes more than one, and on a tile's first chunk the
-  // candidates' factors.
   const int stages = 2 * ((n + kRows - 1) / kRows) * chunks;
   auto issue = [&](int st) {
-    const int i = st % chunks, tile = st / chunks;
-    const int c0 = (tile >> 1) * kRows, buf = st & 1;
-    const bool intra = tile & 1;
-    const int f0 = ((blockIdx.y + 1 + i) % chunks) * D::kChunkF;
+    const int i = st % chunks, tile = st / chunks, buf = st & 1;
+    const int c0 = (tile >> 1) * kRows;
     if (chunks > 1)
-      stage_tile<kWarpF>(sa + buf * kRows * D::kLd, a, r0, f0, n, d, vec);
-    stage_tile<kWarpF>(sx + buf * kRows * D::kLd, intra ? a : o, c0, f0, n, d,
-                       vec);
+      stage_tile<kChunkF>(sa + buf * kRows * C::kLd, a, r0, i * kChunkF, n, d,
+                          vec);
+    stage_tile<kChunkF>(sx + buf * kRows * C::kLd, (tile & 1) ? a : o, c0,
+                        i * kChunkF, n, d, vec);
     cp_async_commit();
-    if (i == 0 && threadIdx.x < kRows) {
-      const int col = c0 + threadIdx.x;
-      const float* g_c = intra ? g_a : g_o;
-      const float* lse_c = intra ? lse_a : lse_o;
-      float fa = 0.f, fb = 0.f;
-      if (col < n) {
-        if constexpr (kFactored) {
-          fa = g_c[col] * expf(-lse_c[col]);
-        } else {
-          fa = g_c[col];
-          fb = lse_c[col];
-        }
-      }
-      scol_a[(tile & 1) * kRows + threadIdx.x] = fa;
-      scol_b[(tile & 1) * kRows + threadIdx.x] = fb;
-    }
   };
 
-  // this lane's anchor-row factors, rows wr + g and wr + g + 8
-  float ra[2], rb[2];
+  uint32_t af[C::kSteps][4];
+  if (chunks == 1) {  // the anchor fragments, once, through buffer 1
+    stage_tile<kChunkF>(sx + kRows * C::kLd, a, r0, 0, n, d, vec);
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = r0 + wr + g + 8 * r;
-    ra[r] = rb[r] = 0.f;
-    if (row < n) {
-      if constexpr (kFactored) {
-        ra[r] = g_a[row] * expf(-lse_a[row]);
-      } else {
-        ra[r] = g_a[row];
-        rb[r] = lse_a[row];
-      }
-    }
+    for (int ks = 0; ks < C::kSteps; ++ks)
+      ldmatrix_x4(af[ks], ld_a<C::kLd>(sx + (kRows + wr) * C::kLd + 16 * ks, lane));
   }
-  float acc[D::kN][4];
-#pragma unroll
-  for (int j = 0; j < D::kN; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+  issue(0);  // buffer 0; buffer 1 is next written after stage 0's barrier
 
-  // one chunk: the anchor rows stay resident, loaded with stage 0
-  if (chunks == 1) stage_tile<kWarpF>(sa, a, r0, 0, n, d, vec);
-  issue(0);
+  // rows wr + g and wr + g + 8: running max (log2 units) and this lane's sum
+  float m[2] = {kNegFloor, kNegFloor}, l[2] = {0.f, 0.f};
   float sc[4][4];
   for (int st = 0; st < stages; ++st) {
     const int i = st % chunks, tile = st / chunks, buf = st & 1;
@@ -425,101 +339,97 @@ direction_bwd_bf16_kernel(const bf16* __restrict__ a, const bf16* __restrict__ o
     cp_async_wait<0>();
     __syncthreads();  // stage st has landed; stage st - 1's readers are done
     if (st + 1 < stages) issue(st + 1);
-    const bf16* xt = sx + buf * kRows * D::kLd;
-    const bf16* at = sa + (chunks > 1 ? buf : 0) * kRows * D::kLd;
-    // S = A X^T over the chunk: [16 rows, 32 candidates] per warp, each
-    // 16-feature step from zero and added in fp32 (see acc_add)
+    const bf16* xt = sx + buf * kRows * C::kLd;
+    if (chunks > 1) {
+      const bf16* at = sa + buf * kRows * C::kLd;
+#pragma unroll
+      for (int ks = 0; ks < C::kSteps; ++ks)
+        ldmatrix_x4(af[ks], ld_a<C::kLd>(at + wr * C::kLd + 16 * ks, lane));
+    }
     if (i == 0) {
 #pragma unroll
       for (int j = 0; j < 4; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) sc[j][e] = 0.f;
     }
-#pragma unroll 4
-    for (int ks = 0; ks < D::kSteps; ++ks) {
-      uint32_t af[4], b[4];
-      ldmatrix_x4(af, ld_a<D::kLd>(at + wr * D::kLd + 16 * ks, lane));
+    // S = A X^T over the chunk, each 16-feature step from zero and added
+    // in fp32 (acc_add)
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        ldmatrix_x4(b, ld_b<D::kLd>(xt + (wc + 16 * h) * D::kLd + 16 * ks, lane));
-        float t0[4] = {}, t1[4] = {};
-        mma_bf16(t0, af, b[0], b[1]);
-        mma_bf16(t1, af, b[2], b[3]);
-        acc_add(sc[2 * h], t0);
-        acc_add(sc[2 * h + 1], t1);
-      }
-    }
+    for (int ks = 0; ks < C::kSteps; ++ks)
+      logit_step<C::kLd>(sc, af[ks], xt, wc, ks, lane);
     if (i + 1 < chunks) continue;
-    // the coefficients, with the scalar kernel's arithmetic; element e of
-    // tile j: row wr + g + 8 (e / 2), candidate wc + 8 j + 2 tq + e % 2
-    const float zs = intra ? w * s : s;
-    const float* fa = scol_a + (tile & 1) * kRows;
-    const float* fb = scol_b + (tile & 1) * kRows;
+    // the logits in log2 units; the zeroed (not dropped) self logit; the
+    // columns past n masked.  Element e of tile j: row wr + g + 8 (e / 2),
+    // candidate wc + 8 j + 2 tq + e % 2
+    const float zs = (intra ? w * s : s) * kLog2e;
+    const bool diag = intra && c0 == r0, edge = c0 + kRows > n;
+    float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
+    for (int j = 0; j < 4; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int row = r0 + wr + g + 8 * (e >> 1);
         const int cl = wc + 8 * j + 2 * tq + (e & 1);
-        const int col = c0 + cl;
-        const float z = zs * sc[j][e];
-        float coef = 0.f;
-        // a zeroed intra logit is a constant: no gradient
-        if (row < n && col < n && !(intra && row == col)) {
-          if constexpr (kFactored)
-            coef = expf(z) * (ra[e >> 1] + fa[cl]);
-          else
-            coef = ra[e >> 1] * expf(z - rb[e >> 1]) + fa[cl] * expf(z - fb[cl]);
-        }
-        sc[j][e] = intra ? w * coef : coef;
+        float z = zs * sc[j][e];
+        if (diag && cl == wr + g + 8 * (e >> 1)) z = 0.f;
+        if (edge && c0 + cl >= n) z = -INFINITY;
+        sc[j][e] = z;
+        mx[e >> 1] = fmaxf(mx[e >> 1], z);
       }
-      // as a bf16 hi part and the bf16 rounding of the remainder
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const float x0 = sc[j][2 * h], x1 = sc[j][2 * h + 1];
-        const __nv_bfloat162 hi = __floats2bfloat162_rn(x0, x1);
-        const float2 hf = __bfloat1622float2(hi);
-        const int idx = (wr + g + 8 * h) * kCoefLd + wc + 8 * j + 2 * tq;
-        *reinterpret_cast<__nv_bfloat162*>(chi + idx) = hi;
-        *reinterpret_cast<uint32_t*>(clo + idx) = pack_bf16(x0 - hf.x, x1 - hf.y);
-      }
-    }
-    __syncthreads();  // the coefficient tile is whole
-    // G += C X over the tile's 64 candidates, C as hi and lo A fragments,
-    // X by ldmatrix.trans; each 16-feature tile's product from zero, then
-    // added in fp32 (see acc_add)
-    uint32_t ah[kRows / 16][4], al[kRows / 16][4];
-#pragma unroll
-    for (int kg = 0; kg < kRows / 16; ++kg) {
-      ldmatrix_x4(ah[kg], ld_a<kCoefLd>(chi + wr * kCoefLd + 16 * kg, lane));
-      ldmatrix_x4(al[kg], ld_a<kCoefLd>(clo + wr * kCoefLd + 16 * kg, lane));
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m[r], mx[r]);
+      l[r] *= exp2f(m[r] - m_new);
+      m[r] = m_new;
     }
 #pragma unroll
-    for (int np = 0; np < kWarpF / 16; ++np) {
-      float t0[4] = {}, t1[4] = {};
+    for (int j = 0; j < 4; ++j)
 #pragma unroll
-      for (int kg = 0; kg < kRows / 16; ++kg) {
-        uint32_t b[4];
-        ldmatrix_x4_trans(
-            b, ld_b_trans<D::kLd>(xt + 16 * kg * D::kLd + wf + 16 * np, lane));
-        mma_bf16(t0, ah[kg], b[0], b[1]);
-        mma_bf16(t0, al[kg], b[0], b[1]);
-        mma_bf16(t1, ah[kg], b[2], b[3]);
-        mma_bf16(t1, al[kg], b[2], b[3]);
-      }
-      acc_add(acc[2 * np], t0);
-      acc_add(acc[2 * np + 1], t1);
+      for (int e = 0; e < 4; ++e) l[e >> 1] += exp2f(sc[j][e] - m[e >> 1]);
+  }
+  // the quad's sums (its m is one), then the two halves of each row
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    if (tq == 0) {
+      const int idx = (warp >> 2) * kRows + wr + g + 8 * r;
+      sm[idx] = m[r];
+      sl[idx] = l[r];
     }
   }
-  const int fbase = blockIdx.y * D::kChunkF + wf + 2 * tq;
-#pragma unroll
-  for (int j = 0; j < D::kN; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int row = r0 + wr + g + 8 * (e >> 1);
-      const int f = fbase + 8 * j + (e & 1);
-      if (row < n && f < d) out[(size_t)row * d + f] = s * acc[j][e];
-    }
+  __syncthreads();
+  if (threadIdx.x < kRows && r0 + threadIdx.x < n) {
+    const float m0 = sm[threadIdx.x], m1 = sm[kRows + threadIdx.x];
+    const float mm = fmaxf(m0, m1);
+    const float sum = sl[threadIdx.x] * exp2f(m0 - mm) +
+                      sl[kRows + threadIdx.x] * exp2f(m1 - mm);
+    lse[r0 + threadIdx.x] = kLn2 * (mm + log2f(sum));
+  }
+}
+
+// ---------------------------------------------------------------------------
+// backward, bf16 features: tensor cores (see the header and loss_mma.cuh)
+// ---------------------------------------------------------------------------
+
+// Block (x, y): anchor rows [64 x, 64 x + 64), gradient features
+// [kChunkF y, kChunkF (y + 1)), every candidate tile.  The gradient tile of
+// the two wider builds (16 x 64 and 16 x 128 fp32 a warp, beside the
+// coefficients' A fragments) takes more than the 128 registers that two
+// blocks per SM would leave a thread, so those builds run one block per SM.
+template <int kWarpF, bool kFactored>
+__global__ void __launch_bounds__(kMmaThreads, kWarpF <= 32 ? 2 : 1)
+direction_bwd_bf16_kernel(const bf16* __restrict__ a, const bf16* __restrict__ o,
+                          float s, float w, const float* __restrict__ lse_a,
+                          const float* __restrict__ lse_o,
+                          const float* __restrict__ g_a,
+                          const float* __restrict__ g_o, float* __restrict__ out,
+                          int n, int d, bool vec) {
+  bwd_block<kWarpF, kFactored, false>(a, o, nullptr, nullptr, s, w, lse_a,
+                                      lse_o, g_a, g_o, out, s, n, d, vec,
+                                      blockIdx.x * kRows, blockIdx.y, 0,
+                                      (n + kRows - 1) / kRows);
 }
 
 size_t bwd_smem_bytes(int d) {
@@ -528,11 +438,30 @@ size_t bwd_smem_bytes(int d) {
          (2 * kChunk * kLd + kTile * kLd + 2 * kTile + kTile * out_ld(dc));
 }
 
-template <typename T>
+// fp32 features: the scalar kernel
 cudaError_t launch_fwd(const void* a, const void* o, float s, float w,
                        float* lse, int n, int d, cudaStream_t stream) {
-  direction_fwd_kernel<T><<<row_tiles(n), kThreads, 0, stream>>>(
-      static_cast<const T*>(a), static_cast<const T*>(o), s, w, lse, n, d);
+  direction_fwd_kernel<<<row_tiles(n), kThreads, 0, stream>>>(
+      static_cast<const float*>(a), static_cast<const float*>(o), s, w, lse, n,
+      d);
+  return cudaGetLastError();
+}
+
+// bf16 features: the tensor-core kernel, on the narrowest chunk that holds
+// d, up to 256 features (wider d in chunks)
+template <int kChunkF>
+cudaError_t launch_fwd_bf16(const void* a, const void* o, float s, float w,
+                            float* lse, int n, int d, cudaStream_t stream) {
+  const size_t smem = fwd_bf16_smem_bytes<kChunkF>((d + kChunkF - 1) / kChunkF);
+  cudaError_t err = cudaFuncSetAttribute(
+      direction_fwd_bf16_kernel<kChunkF>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const bool vec = d % 8 == 0 && aligned16(a) && aligned16(o);
+  direction_fwd_bf16_kernel<kChunkF>
+      <<<(n + kRows - 1) / kRows, kMmaThreads, smem, stream>>>(
+          static_cast<const bf16*>(a), static_cast<const bf16*>(o), s, w, lse,
+          n, d, vec);
   return cudaGetLastError();
 }
 
@@ -562,7 +491,7 @@ cudaError_t launch_bwd_bf16(const void* a, const void* o, float s, float w,
                             const float* g_a, const float* g_o, float* out,
                             int n, int d, cudaStream_t stream) {
   const int chunk = BwdTile<kWarpF>::kChunkF;
-  const size_t smem = bwd_bf16_smem_bytes<kWarpF>((d + chunk - 1) / chunk);
+  const size_t smem = bwd_mma_smem_bytes<kWarpF>((d + chunk - 1) / chunk);
   cudaError_t err = cudaFuncSetAttribute(
       direction_bwd_bf16_kernel<kWarpF, kFactored>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -570,7 +499,7 @@ cudaError_t launch_bwd_bf16(const void* a, const void* o, float s, float w,
   const bool vec = d % 8 == 0 && aligned16(a) && aligned16(o);
   const dim3 grid((n + kRows - 1) / kRows, (d + chunk - 1) / chunk);
   direction_bwd_bf16_kernel<kWarpF, kFactored>
-      <<<grid, kBwdThreads, smem, stream>>>(
+      <<<grid, kMmaThreads, smem, stream>>>(
           static_cast<const bf16*>(a), static_cast<const bf16*>(o), s, w,
           lse_a, lse_o, g_a, g_o, out, n, d, vec);
   return cudaGetLastError();
@@ -610,10 +539,12 @@ extern "C" int crossclr_direction_fwd(int dtype, const void* anchor,
   if (bad_args(dtype, n, d)) return (int)cudaErrorInvalidValue;
   float* out = static_cast<float*>(lse);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return (int)launch_fwd<float>(anchor, other, scale, w, out, n, d, st);
-  return (int)launch_fwd<__nv_bfloat16>(anchor, other, scale, w, out, n, d,
-                                        st);
+  if (dtype == 0) return (int)launch_fwd(anchor, other, scale, w, out, n, d, st);
+  if (d <= 64)
+    return (int)launch_fwd_bf16<64>(anchor, other, scale, w, out, n, d, st);
+  if (d <= 128)
+    return (int)launch_fwd_bf16<128>(anchor, other, scale, w, out, n, d, st);
+  return (int)launch_fwd_bf16<256>(anchor, other, scale, w, out, n, d, st);
 }
 
 // factored: 1 for the factored coefficients, 0 to subtract first.

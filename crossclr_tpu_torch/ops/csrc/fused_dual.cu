@@ -59,35 +59,54 @@
 // the transposes of the video-anchor blocks' ones, so only blockIdx.y = 0
 // adds Σ M⊙z_vt; each direction adds half of its own intra sum.
 //
-// The logit tiles are 64 x 64 products over d, staged through shared memory
-// in 32-feature chunks (fp32, or bf16 widened to fp32 on load: both tiers
-// accumulate in fp32; loss_tiles.cuh, shared with fused_crossclr.cu).  256 threads each own a 4 x 4 micro tile.  A backward
+// The scalar kernels (both forwards, the dual backward, and the fp32 sym
+// backward): the logit tiles are 64 x 64 products over d, staged through
+// shared memory in 32-feature chunks (fp32, or bf16 widened to fp32 on
+// load: both tiers accumulate in fp32; loss_tiles.cuh, shared with
+// fused_crossclr.cu).  256 threads each own a 4 x 4 micro tile.  A backward
 // block keeps its gradient rows [64, ≤512 features] in shared memory and
 // adds coefficient-tile × candidate-tile products into them; wider features
 // split over blockIdx.z, each z recomputing the logits.  Edges of n and d are
 // masked in the kernels, so any n and d run unpadded.  The pruned variants
 // are the same kernels (a template flag), one instantiation per (dtype,
 // pruned): the masks cost a byte load per candidate and a select per logit.
+// What bounds them on this card: scalar fp32 FMAs issued from shared
+// memory.  The forward does 4·n²·d FMAs, the backward 8·n²·d, where the
+// function needs 2·n²·d and 6·n²·d: the inter tile once for both directions
+// and one triangle of each symmetric intra product, with or without keep
+// masks (the TPU design shares both so); chip_smoke.py's bound counts the
+// latter.  Operands are read from L2 once per (row tile, column tile).
 //
-// What bounds it on this card: scalar fp32 FMAs issued from shared memory.
-// The forward does 4·n²·d FMAs, the backward 8·n²·d, where the function
-// needs 2·n²·d and 6·n²·d: the inter tile once for both directions and one
-// triangle of each symmetric intra product, with or without keep masks (the
-// TPU design shares both so); chip_smoke.py's bound counts the latter.
-// Operands are read from L2 once per (row tile, column tile).  Tensor-core
-// products (mma / wgmma on bf16 tiles), sharing the inter tile between the
-// two directions and splitting the column loop over more blocks at small n
-// are the next steps.
+// The sym backward's bf16 build (sym_bwd_bf16_kernel, the `default` tier the
+// MLP and static-τ full-CrossCLR legs run): without masks its two
+// directions are the per-direction backward's factored form with (A, O) =
+// (V, T) and (T, V) (the formulas above against fused_crossclr.cu's), so it
+// runs that kernel's tensor-core block (loss_mma.cuh's bwd_block: logits by
+// mma.sync, coefficients in fp32 registers, hi + lo bf16 coefficient
+// fragments times the candidate tile into fp32 register accumulators), the
+// direction taken from blockIdx.y; the keep masks enter the coefficient
+// stage only, as the role selects above.  At the MLP leg's n = 1024 one
+// block per (row tile, direction) leaves most of the 132 SMs idle, so the
+// candidate tiles split over blockIdx.z into the parts split_parts picks
+// from n and the SM count; each part writes its fp32 partial gradient rows
+// to a scratch buffer the wrapper allocates, and sym_bwd_sum_kernel adds
+// them in index order and multiplies by s: no atomics, bit-reproducible.
+// It issues 12 products of 2·n²·d (each direction's two logit products and
+// its two coefficient products, each in two bf16 parts) where the bound
+// counts 6; at d > 256 each 256-feature chunk of the gradient (blockIdx.y)
+// recomputes the logits.
 
 #include <math.h>
 #include <stddef.h>
 
 #include <type_traits>
 
+#include "loss_mma.cuh"
 #include "loss_tiles.cuh"
 
 namespace {
 
+using namespace loss_mma;
 using namespace loss_tiles;
 
 constexpr float kMasked = -1e9f;  // an excluded candidate's logit (pruned)
@@ -369,6 +388,139 @@ sum_partials_kernel(const float* __restrict__ part, int count,
   if (threadIdx.x == 0) out[0] = buf[0];
 }
 
+// ---------------------------------------------------------------------------
+// sym backward, bf16 features: tensor cores (loss_mma.cuh)
+// ---------------------------------------------------------------------------
+
+// Block (x, y, z): anchor rows [64 x, 64 x + 64) of direction y / chunks
+// (0: video anchors, candidates T then V; 1: text anchors, candidates V
+// then T, the keep masks swapped with them), gradient features of chunk
+// y % chunks, and the candidate tiles of part z of gridDim.z.  One part
+// writes s · the gradient rows to dv / dt; more write each part's fp32
+// sum to its slice [z][direction] of `part` ([parts][2][n][d]), which
+// sym_bwd_sum_kernel adds in index order.
+template <int kWarpF, bool kPruned>
+__global__ void __launch_bounds__(kMmaThreads, kWarpF <= 32 ? 2 : 1)
+sym_bwd_bf16_kernel(const bf16* __restrict__ v, const bf16* __restrict__ t,
+                    const unsigned char* __restrict__ kv,
+                    const unsigned char* __restrict__ kt, float s, float w,
+                    const float* __restrict__ lse_v,
+                    const float* __restrict__ lse_t,
+                    const float* __restrict__ g_v, const float* __restrict__ g_t,
+                    float* __restrict__ dv, float* __restrict__ dt,
+                    float* __restrict__ part, int n, int d, bool vec) {
+  constexpr int kChunkF = BwdTile<kWarpF>::kChunkF;
+  const int chunks = (d + kChunkF - 1) / kChunkF;
+  const bool text = (int)blockIdx.y >= chunks;
+  const int tiles = (n + kRows - 1) / kRows, parts = gridDim.z, z = blockIdx.z;
+  float* out = parts == 1 ? (text ? dt : dv)
+                          : part + (size_t)(2 * z + (text ? 1 : 0)) * n * d;
+  bwd_block<kWarpF, true, kPruned>(
+      text ? t : v, text ? v : t, text ? kt : kv, text ? kv : kt, s, w,
+      text ? lse_t : lse_v, text ? lse_v : lse_t, text ? g_t : g_v,
+      text ? g_v : g_t, out, parts == 1 ? s : 1.f, n, d, vec,
+      blockIdx.x * kRows, blockIdx.y - (text ? chunks : 0), z * tiles / parts,
+      (z + 1) * tiles / parts);
+}
+
+// dv, dt = s · (part[0] + part[1] + ... ), in index order
+__global__ void __launch_bounds__(kThreads)
+sym_bwd_sum_kernel(const float* __restrict__ part, int parts, float s,
+                   float* __restrict__ dv, float* __restrict__ dt, size_t nd) {
+  for (size_t i = blockIdx.x * (size_t)kThreads + threadIdx.x; i < 2 * nd;
+       i += (size_t)gridDim.x * kThreads) {
+    float acc = part[i];
+    for (int z = 1; z < parts; ++z) acc += part[2 * nd * z + i];
+    if (i < nd)
+      dv[i] = s * acc;
+    else
+      dt[i - nd] = s * acc;
+  }
+}
+
+// The parts S the candidate tiles split into.  S = 1 where the blocks
+// already fill the card's slots (SMs x resident blocks); otherwise the S
+// up to ceil(slots / blocks) (and the tiles) whose waves x tiles per part
+// is least, the smallest of a tie: at n = 1024, d = 256 (32 blocks of one
+// per SM) S = 4.
+int split_parts(int tiles, int blocks, int slots) {
+  if (blocks >= slots) return 1;
+  int best = 1;
+  long long best_cost = tiles;
+  const int fill = (slots + blocks - 1) / blocks;
+  const int most = fill < tiles ? fill : tiles;
+  for (int parts = 2; parts <= most; ++parts) {
+    const long long cost = (long long)((blocks * parts + slots - 1) / slots) *
+                           ((tiles + parts - 1) / parts);
+    if (cost < best_cost) {
+      best = parts;
+      best_cost = cost;
+    }
+  }
+  return best;
+}
+
+// The bf16 sym backward's shared memory and parts on the current device.
+template <int kWarpF, bool kPruned>
+cudaError_t sym_bwd_plan(int n, int d, size_t* smem, int* parts) {
+  constexpr int kChunkF = BwdTile<kWarpF>::kChunkF;
+  const int chunks = (d + kChunkF - 1) / kChunkF;
+  *smem = bwd_mma_smem_bytes<kWarpF>(chunks);
+  cudaError_t err = cudaFuncSetAttribute(
+      sym_bwd_bf16_kernel<kWarpF, kPruned>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)*smem);
+  int dev = 0, sms = 0, per_sm = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, sym_bwd_bf16_kernel<kWarpF, kPruned>, kMmaThreads, *smem);
+  if (err != cudaSuccess) return err;
+  *parts = split_parts(row_tiles(n), 2 * chunks * row_tiles(n),
+                       sms * (per_sm > 1 ? per_sm : 1));
+  return cudaSuccess;
+}
+
+template <int kWarpF, bool kPruned>
+cudaError_t launch_sym_bwd_bf16(const void* v, const void* t, const void* kv,
+                                const void* kt, float s, float w,
+                                const float* lse_v, const float* lse_t,
+                                const float* g_v, const float* g_t, float* dv,
+                                float* dt, float* part, int n, int d,
+                                cudaStream_t stream) {
+  size_t smem = 0;
+  int parts = 1;
+  cudaError_t err = sym_bwd_plan<kWarpF, kPruned>(n, d, &smem, &parts);
+  if (err != cudaSuccess) return err;
+  if (parts > 1 && part == nullptr) return cudaErrorInvalidValue;
+  constexpr int kChunkF = BwdTile<kWarpF>::kChunkF;
+  const int chunks = (d + kChunkF - 1) / kChunkF;
+  const bool vec = d % 8 == 0 && aligned16(v) && aligned16(t);
+  const dim3 grid(row_tiles(n), 2 * chunks, parts);
+  sym_bwd_bf16_kernel<kWarpF, kPruned><<<grid, kMmaThreads, smem, stream>>>(
+      static_cast<const bf16*>(v), static_cast<const bf16*>(t),
+      static_cast<const unsigned char*>(kv),
+      static_cast<const unsigned char*>(kt), s, w, lse_v, lse_t, g_v, g_t, dv,
+      dt, part, n, d, vec);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || parts == 1) return err;
+  const size_t nd = (size_t)n * d;
+  const size_t blocks = (2 * nd + kThreads - 1) / kThreads;
+  sym_bwd_sum_kernel<<<(int)(blocks < 4096 ? blocks : 4096), kThreads, 0,
+                       stream>>>(part, parts, s, dv, dt, nd);
+  return cudaGetLastError();
+}
+
+// f(std::integral_constant<int, kWarpF>{}) on the narrowest feature chunk
+// that holds d, up to 256 features (wider d in chunks of 256)
+template <typename F>
+cudaError_t by_width(int d, F f) {
+  if (d <= 64) return f(std::integral_constant<int, 32>{});
+  if (d <= 128) return f(std::integral_constant<int, 64>{});
+  return f(std::integral_constant<int, 128>{});
+}
+
 size_t bwd_smem_bytes(int d) {
   const int dc = d < kOutChunk ? d : kOutChunk;
   return sizeof(float) *
@@ -469,12 +621,29 @@ extern "C" int crossclr_dual_fwd(int dtype, const void* v, const void* t,
   });
 }
 
+// The float32 scratch `part` of the bf16 sym backward holds
+// crossclr_sym_bwd_scratch(dtype, n, d, pruned) values (0: none needed,
+// pass null; negative: a cudaError_t, negated).
+extern "C" long long crossclr_sym_bwd_scratch(int dtype, int n, int d,
+                                              int pruned) {
+  if (dtype != 1 || n < 1 || d < 1) return 0;
+  size_t smem = 0;
+  int parts = 1;
+  const cudaError_t err = by_width(d, [&](auto width) {
+    constexpr int kWarpF = decltype(width)::value;
+    return pruned ? sym_bwd_plan<kWarpF, true>(n, d, &smem, &parts)
+                  : sym_bwd_plan<kWarpF, false>(n, d, &smem, &parts);
+  });
+  if (err != cudaSuccess) return -(long long)err;
+  return parts > 1 ? (long long)parts * 2 * n * d : 0;
+}
+
 extern "C" int crossclr_sym_bwd(int dtype, const void* v, const void* t,
                                 const void* keep_v, const void* keep_t,
                                 const void* lse_v, const void* lse_t,
                                 const void* g_v, const void* g_t, void* dv,
-                                void* dt, int n, int d, float scale, float w,
-                                void* stream) {
+                                void* dt, void* part, int n, int d,
+                                float scale, float w, void* stream) {
   if (bad_args(dtype, keep_v, keep_t, n, d)) return (int)cudaErrorInvalidValue;
   const float* lv = static_cast<const float*>(lse_v);
   const float* lt = static_cast<const float*>(lse_t);
@@ -482,11 +651,21 @@ extern "C" int crossclr_sym_bwd(int dtype, const void* v, const void* t,
   const float* gt = static_cast<const float*>(g_t);
   float* ov = static_cast<float*>(dv);
   float* ot = static_cast<float*>(dt);
+  float* pt = static_cast<float*>(part);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return (int)dispatch(dtype, keep_v != nullptr, [&](auto ty, auto pruned) {
-    return launch_bwd<typename decltype(ty)::type, false, decltype(pruned)::value>(
-        v, t, keep_v, keep_t, nullptr, scale, w, lv, lt, gv, gt, ov, ot,
-        nullptr, n, d, st);
+    constexpr bool kPruned = decltype(pruned)::value;
+    if constexpr (std::is_same_v<typename decltype(ty)::type, float>) {
+      return launch_bwd<float, false, kPruned>(
+          v, t, keep_v, keep_t, nullptr, scale, w, lv, lt, gv, gt, ov, ot,
+          nullptr, n, d, st);
+    } else {
+      return by_width(d, [&](auto width) {
+        return launch_sym_bwd_bf16<decltype(width)::value, kPruned>(
+            v, t, keep_v, keep_t, scale, w, lv, lt, gv, gt, ov, ot, pt, n, d,
+            st);
+      });
+    }
   });
 }
 

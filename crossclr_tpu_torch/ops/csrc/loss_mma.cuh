@@ -1,0 +1,338 @@
+// The bf16 tensor-core pieces of the CrossCLR logsumexp kernels, shared by
+// fused_crossclr.cu (the per-direction forward and backward) and
+// fused_dual.cu (the sym backward): 64-row tiles of bf16 features staged by
+// 16-byte cp.async, the logits A·Xᵀ by mma.sync (mma_common.cuh), and the
+// anchor-gradient block of one direction, whose formulas are
+//   P[i,j] = e^{z_ao[i,j]}·(f_a[i] + f_o[j])  (factored; or subtract-first
+//            g_a[i]·e^{z_ao - lse_a[i]} + g_o[j]·e^{z_ao - lse_o[j]}),
+//   Q[i,j] = the same over z_aa with f_a on both sides, 0 on the diagonal,
+//   dA = s·(P·O + w·Q·A),  f = g·e^{-lse}.
+// With keep masks (the pruned sym backward) each role's term of a
+// coefficient is kept by the other index's mask: the anchor row's term by
+// the candidate's mask (inter: keep_o[col] | row == col; intra: keep_a[col]
+// & row != col), the candidate's term by the anchor row's mask (keep_a[row],
+// the same diagonal rule).  A mask never reaches an exp.
+//
+// The block of 8 warps: 4 row groups x 2 halves.  Warp w scores rows
+// 16 (w % 4) + [0, 16) of the block's 64 anchors against candidates
+// 32 (w / 4) + [0, 32) of each 64-row candidate tile; in the backward it
+// owns gradient rows 16 (w % 4) + [0, 16) and features kWarpF (w / 4) +
+// [0, kWarpF) of the block's feature chunk.  Every 16-feature logit step and
+// every 64-candidate gradient tile is an mma chain started from zero and
+// added in fp32 (acc_add): a long chain on one accumulator drifts.
+#pragma once
+
+#include <math.h>
+#include <stddef.h>
+
+#include "mma_common.cuh"
+
+namespace loss_mma {
+
+using namespace tc;
+
+constexpr int kRows = 64;          // anchor rows per block = candidates per tile
+constexpr int kMmaThreads = 256;   // 8 warps: 4 row groups x 2 halves
+constexpr int kCoefLd = kRows + 8;  // bf16 per row of the coefficient tile
+
+// kChunkF features of each row staged at a time
+template <int kChunkF>
+struct Chunk {
+  static constexpr int kLd = kChunkF + 8;      // bf16 per shared row, 16 (2m + 1) B
+  static constexpr int kSteps = kChunkF / 16;  // logit k-steps per chunk
+};
+
+// The backward: kWarpF gradient features per warp; a block stages kChunkF =
+// 2 kWarpF features of each row at a time, and owns that many gradient
+// features.
+template <int kWarpF>
+struct BwdTile : Chunk<2 * kWarpF> {
+  static constexpr int kChunkF = 2 * kWarpF;
+  static constexpr int kN = kWarpF / 8;  // 8-wide gradient tiles per warp
+};
+
+// The backward's shared memory: two stages of candidate rows, and two of
+// anchor rows where d takes more than one chunk (else one, resident), the
+// coefficient tile's hi and lo parts, two stages of candidate factors.
+template <int kWarpF>
+size_t bwd_mma_smem_bytes(int chunks) {
+  using D = BwdTile<kWarpF>;
+  return sizeof(bf16) * (size_t)((chunks > 1 ? 4 : 3) * kRows * D::kLd +
+                                 2 * kRows * kCoefLd) +
+         sizeof(float) * 4 * kRows;
+}
+
+// acc += t in fp32, rounded to nearest.  An mma does not round its sum as
+// an fp32 add does, and a long chain of mma on one accumulator drifts: with
+// the whole sum over the 131,072 candidates of the leg's n = 65,536 chained
+// that way, the gradient left its limit on the card (2.5e-4 of the largest
+// entry against 5e-5).  Short chains from zero, added here, do not.
+__device__ __forceinline__ void acc_add(float acc[4], const float t[4]) {
+#pragma unroll
+  for (int e = 0; e < 4; ++e) acc[e] += t[e];
+}
+
+// Stage features [f0, f0 + kChunkF) of rows [r0, r0 + 64) of a row-major
+// [n, d] bf16 matrix into a shared tile of stride kLd.  Rows past n and
+// features past d are zero.  `vec` (d % 8 == 0 and a 16-byte aligned
+// base): 16-byte cp.async copies; otherwise element loads.
+template <int kChunkF>
+__device__ __forceinline__ void stage_tile(bf16* dst, const bf16* src, int r0,
+                                           int f0, int n, int d, bool vec) {
+  constexpr int kLd = Chunk<kChunkF>::kLd;
+  constexpr int kChunks = kChunkF / 8;
+  if (vec) {
+    for (int i = threadIdx.x; i < kRows * kChunks; i += kMmaThreads) {
+      const int r = i / kChunks, c = (i - r * kChunks) * 8;
+      bf16* p = dst + r * kLd + c;
+      if (r0 + r < n && f0 + c < d)
+        cp_async16(p, src + (size_t)(r0 + r) * d + f0 + c);
+      else
+        *reinterpret_cast<uint4*>(p) = make_uint4(0u, 0u, 0u, 0u);
+    }
+  } else {
+    for (int i = threadIdx.x; i < kRows * kChunkF; i += kMmaThreads) {
+      const int r = i / kChunkF, c = i - r * kChunkF;
+      dst[r * kLd + c] = (r0 + r < n && f0 + c < d)
+                             ? src[(size_t)(r0 + r) * d + f0 + c]
+                             : __float2bfloat16(0.f);
+    }
+  }
+}
+
+// One 16-feature step of the warp's logits S += A Xᵀ: A's 16 rows as the
+// fragment af, the candidate tile xt (stride kLd) at 16-feature column ks;
+// S is [16 rows, 32 candidates], four 8-wide tiles from candidate wc.
+template <int kLd>
+__device__ __forceinline__ void logit_step(float sc[4][4], const uint32_t af[4],
+                                           const bf16* xt, int wc, int ks,
+                                           int lane) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    uint32_t b[4];
+    ldmatrix_x4(b, ld_b<kLd>(xt + (wc + 16 * h) * kLd + 16 * ks, lane));
+    float t0[4] = {}, t1[4] = {};
+    mma_bf16(t0, af, b[0], b[1]);
+    mma_bf16(t1, af, b[2], b[3]);
+    acc_add(sc[2 * h], t0);
+    acc_add(sc[2 * h + 1], t1);
+  }
+}
+
+// The anchor-gradient block of one direction: anchor rows [r0, r0 + 64),
+// gradient features [kChunkF fc, kChunkF (fc + 1)), candidate tiles
+// [t0, t1) (64 rows each).  It writes out_scale · (its sum over those
+// tiles) to out[row · d + feature]: s · the gradient where one block sees
+// every tile, or the fp32 partial (out_scale = 1) of a split.
+// The block walks stages st = (tile, part, chunk) in order, part 0 the
+// other features O and part 1 the anchors A; the loads of stage st + 1 go
+// into the other buffer while stage st computes.  Each warp scores 16
+// anchors x 32 candidates by mma and forms their coefficients in fp32
+// registers with exactly the scalar kernels' arithmetic (the row factors
+// once per row, the candidate factors once per tile, the diagonal test, the
+// w multiplier), so the factored form meets a subnormal g·e^{-lse} as the
+// plain version does.  The coefficient tile goes to shared memory as a bf16
+// hi part and the bf16 rounding of the remainder, and each warp adds
+// hi·X + lo·X for its 16 rows x kWarpF features into fp32 accumulators in
+// registers, the candidate tile X read by ldmatrix.trans.
+// kFactored = true: exp(z)·(g_a e^{-lse_a} + g_c e^{-lse_c}); false:
+// g_a·exp(z - lse_a) + g_c·exp(z - lse_c).  kPruned: keep masks keep_a,
+// keep_o [n] (factored only).
+template <int kWarpF, bool kFactored, bool kPruned>
+__device__ __forceinline__ void bwd_block(
+    const bf16* __restrict__ a, const bf16* __restrict__ o,
+    const unsigned char* __restrict__ keep_a,
+    const unsigned char* __restrict__ keep_o, float s, float w,
+    const float* __restrict__ lse_a, const float* __restrict__ lse_o,
+    const float* __restrict__ g_a, const float* __restrict__ g_o,
+    float* __restrict__ out, float out_scale, int n, int d, bool vec, int r0,
+    int fc, int t0, int t1) {
+  static_assert(kFactored || !kPruned, "the pruned coefficients are factored");
+  using D = BwdTile<kWarpF>;
+  extern __shared__ __align__(16) unsigned char smem_bf16[];
+  const int chunks = (d + D::kChunkF - 1) / D::kChunkF;
+  const int a_bufs = chunks > 1 ? 2 : 1;
+  bf16* sx = reinterpret_cast<bf16*>(smem_bf16);  // candidate rows, 2 stages
+  bf16* sa = sx + 2 * kRows * D::kLd;             // anchor rows, 1 or 2
+  bf16* chi = sa + a_bufs * kRows * D::kLd;       // coefficients, bf16 hi
+  bf16* clo = chi + kRows * kCoefLd;              // and lo parts
+  float* scol_a = reinterpret_cast<float*>(clo + kRows * kCoefLd);
+  // candidate factors, 2 stages: lse (subtract-first), or the candidate's
+  // keep flag 1 / 0 (pruned)
+  float* scol_b = scol_a + 2 * kRows;
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, tq = lane & 3;
+  const int wr = 16 * (warp & 3);      // the warp's rows in the tile
+  const int wc = 32 * (warp >> 2);     // its candidates in the logit tile
+  const int wf = kWarpF * (warp >> 2);  // its gradient features in the chunk
+
+  // Issue the loads of stage st into buffer st & 1: the candidate rows of
+  // its chunk (the chunks run in the order that ends on this block's own,
+  // whose candidate rows the gradient products read), the anchor rows of
+  // the chunk where d takes more than one, and on a tile's first chunk the
+  // candidates' factors.
+  const int stages = 2 * (t1 - t0) * chunks;
+  auto issue = [&](int st) {
+    const int i = st % chunks, tile = st / chunks;
+    const int c0 = (t0 + (tile >> 1)) * kRows, buf = st & 1;
+    const bool intra = tile & 1;
+    const int f0 = ((fc + 1 + i) % chunks) * D::kChunkF;
+    if (chunks > 1)
+      stage_tile<D::kChunkF>(sa + buf * kRows * D::kLd, a, r0, f0, n, d, vec);
+    stage_tile<D::kChunkF>(sx + buf * kRows * D::kLd, intra ? a : o, c0, f0, n,
+                           d, vec);
+    cp_async_commit();
+    if (i == 0 && threadIdx.x < kRows) {
+      const int col = c0 + threadIdx.x;
+      const float* g_c = intra ? g_a : g_o;
+      const float* lse_c = intra ? lse_a : lse_o;
+      float fa = 0.f, fb = 0.f;
+      if (col < n) {
+        if constexpr (kFactored) {
+          fa = g_c[col] * expf(-lse_c[col]);
+          if constexpr (kPruned) fb = (intra ? keep_a : keep_o)[col] ? 1.f : 0.f;
+        } else {
+          fa = g_c[col];
+          fb = lse_c[col];
+        }
+      }
+      scol_a[(tile & 1) * kRows + threadIdx.x] = fa;
+      scol_b[(tile & 1) * kRows + threadIdx.x] = fb;
+    }
+  };
+
+  // this lane's anchor-row factors, rows wr + g and wr + g + 8, and (pruned)
+  // whether each row's mask keeps it as the candidates' candidate
+  float ra[2], rb[2];
+  bool kr[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = r0 + wr + g + 8 * r;
+    ra[r] = rb[r] = 0.f;
+    kr[r] = kPruned && row < n && keep_a[row];
+    if (row < n) {
+      if constexpr (kFactored) {
+        ra[r] = g_a[row] * expf(-lse_a[row]);
+      } else {
+        ra[r] = g_a[row];
+        rb[r] = lse_a[row];
+      }
+    }
+  }
+  float acc[D::kN][4];
+#pragma unroll
+  for (int j = 0; j < D::kN; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+
+  // one chunk: the anchor rows stay resident, loaded with stage 0
+  if (chunks == 1) stage_tile<D::kChunkF>(sa, a, r0, 0, n, d, vec);
+  issue(0);
+  float sc[4][4];
+  for (int st = 0; st < stages; ++st) {
+    const int i = st % chunks, tile = st / chunks, buf = st & 1;
+    const int c0 = (t0 + (tile >> 1)) * kRows;
+    const bool intra = tile & 1;
+    cp_async_wait<0>();
+    __syncthreads();  // stage st has landed; stage st - 1's readers are done
+    if (st + 1 < stages) issue(st + 1);
+    const bf16* xt = sx + buf * kRows * D::kLd;
+    const bf16* at = sa + (chunks > 1 ? buf : 0) * kRows * D::kLd;
+    // S = A X^T over the chunk: [16 rows, 32 candidates] per warp
+    if (i == 0) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[j][e] = 0.f;
+    }
+#pragma unroll 4
+    for (int ks = 0; ks < D::kSteps; ++ks) {
+      uint32_t af[4];
+      ldmatrix_x4(af, ld_a<D::kLd>(at + wr * D::kLd + 16 * ks, lane));
+      logit_step<D::kLd>(sc, af, xt, wc, ks, lane);
+    }
+    if (i + 1 < chunks) continue;
+    // the coefficients, with the scalar kernels' arithmetic; element e of
+    // tile j: row wr + g + 8 (e / 2), candidate wc + 8 j + 2 tq + e % 2
+    const float zs = intra ? w * s : s;
+    const float* fa = scol_a + (tile & 1) * kRows;
+    const float* fb = scol_b + (tile & 1) * kRows;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = r0 + wr + g + 8 * (e >> 1);
+        const int cl = wc + 8 * j + 2 * tq + (e & 1);
+        const int col = c0 + cl;
+        const float z = zs * sc[j][e];
+        float coef = 0.f;
+        if constexpr (kPruned) {
+          // each role's term where its mask keeps the pair; on the
+          // diagonal the positive (inter) keeps both, intra neither
+          bool keep_row_term = fb[cl] != 0.f, keep_col_term = kr[e >> 1];
+          if (row == col) keep_row_term = keep_col_term = !intra;
+          if (row < n && col < n && (keep_row_term || keep_col_term))
+            coef = expf(z) * ((keep_row_term ? ra[e >> 1] : 0.f) +
+                              (keep_col_term ? fa[cl] : 0.f));
+        } else {
+          // a zeroed intra logit is a constant: no gradient
+          if (row < n && col < n && !(intra && row == col)) {
+            if constexpr (kFactored)
+              coef = expf(z) * (ra[e >> 1] + fa[cl]);
+            else
+              coef = ra[e >> 1] * expf(z - rb[e >> 1]) + fa[cl] * expf(z - fb[cl]);
+          }
+        }
+        sc[j][e] = intra ? w * coef : coef;
+      }
+      // as a bf16 hi part and the bf16 rounding of the remainder
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float x0 = sc[j][2 * h], x1 = sc[j][2 * h + 1];
+        const __nv_bfloat162 hi = __floats2bfloat162_rn(x0, x1);
+        const float2 hf = __bfloat1622float2(hi);
+        const int idx = (wr + g + 8 * h) * kCoefLd + wc + 8 * j + 2 * tq;
+        *reinterpret_cast<__nv_bfloat162*>(chi + idx) = hi;
+        *reinterpret_cast<uint32_t*>(clo + idx) = pack_bf16(x0 - hf.x, x1 - hf.y);
+      }
+    }
+    __syncthreads();  // the coefficient tile is whole
+    // G += C X over the tile's 64 candidates, C as hi and lo A fragments,
+    // X by ldmatrix.trans; each 16-feature tile's product from zero, then
+    // added in fp32 (see acc_add)
+    uint32_t ah[kRows / 16][4], al[kRows / 16][4];
+#pragma unroll
+    for (int kg = 0; kg < kRows / 16; ++kg) {
+      ldmatrix_x4(ah[kg], ld_a<kCoefLd>(chi + wr * kCoefLd + 16 * kg, lane));
+      ldmatrix_x4(al[kg], ld_a<kCoefLd>(clo + wr * kCoefLd + 16 * kg, lane));
+    }
+#pragma unroll
+    for (int np = 0; np < kWarpF / 16; ++np) {
+      float t0_[4] = {}, t1_[4] = {};
+#pragma unroll
+      for (int kg = 0; kg < kRows / 16; ++kg) {
+        uint32_t b[4];
+        ldmatrix_x4_trans(
+            b, ld_b_trans<D::kLd>(xt + 16 * kg * D::kLd + wf + 16 * np, lane));
+        mma_bf16(t0_, ah[kg], b[0], b[1]);
+        mma_bf16(t0_, al[kg], b[0], b[1]);
+        mma_bf16(t1_, ah[kg], b[2], b[3]);
+        mma_bf16(t1_, al[kg], b[2], b[3]);
+      }
+      acc_add(acc[2 * np], t0_);
+      acc_add(acc[2 * np + 1], t1_);
+    }
+  }
+  const int fbase = fc * D::kChunkF + wf + 2 * tq;
+#pragma unroll
+  for (int j = 0; j < D::kN; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int row = r0 + wr + g + 8 * (e >> 1);
+      const int f = fbase + 8 * j + (e & 1);
+      if (row < n && f < d) out[(size_t)row * d + f] = out_scale * acc[j][e];
+    }
+}
+
+}  // namespace loss_mma

@@ -1,6 +1,7 @@
-// The bf16 tensor-core pieces shared by the port's kernels (flash_fwd.cu,
-// flash_bwd.cu through flash_common.cuh, and fused_crossclr.cu): 16-byte
-// cp.async staging, ldmatrix, mma.sync and their fragment index map.
+// The bf16 tensor-core pieces shared by the port's kernels (flash_fwd.cu and
+// flash_bwd.cu through flash_common.cuh, fused_crossclr.cu and fused_dual.cu
+// through loss_mma.cuh): 16-byte cp.async staging, ldmatrix, mma.sync and
+// their fragment index map.
 #pragma once
 
 #include <cuda_bf16.h>

@@ -24,16 +24,18 @@ zeroed, not dropped) and ``lse_bwd`` (the gradient of ``g_a·lse_a +
 g_o·lse_o`` with respect to the anchors, ``s·(P·O + w·Q·A)``; the
 factored coefficients ``exp(z)·(g·e^{−lse})`` where ``0 < s < 80`` and
 ``0 ≤ w·s < 80``, subtract-first elsewhere — the JAX gate,
-``fused_crossclr.py:327``, kept as it is).  ``lse_bwd`` has two builds:
-fp32 features run scalar fp32 FMAs; bf16 features run its four products on
-tensor cores (``mma.sync``, fp32 accumulators), the coefficients formed in
-fp32 with the scalar build's arithmetic and carried into P·O and Q·A as a
-bf16 part plus the bf16 rounding of the remainder.  Each kernel has its
-plain version here (``*_plain``: the CPU path and the oracle the kernel is
-held against on the card), a wrapper that launches it on CUDA tensors
-(``*_cuda``) and counts the launch in :data:`launch_counts`, and a
-dispatcher that picks by the tensors' device.  Nothing falls back: a CUDA tensor launches the
-kernel or raises.
+``fused_crossclr.py:327``, kept as it is).  Each kernel has two builds:
+fp32 features run scalar fp32 FMAs; bf16 features run the products on
+tensor cores (``mma.sync``, fp32 accumulators; ``csrc/loss_mma.cuh``).
+The bf16 ``lse_fwd`` keeps each warp's anchor fragments in registers and
+an online logsumexp in log2 units; the bf16 ``lse_bwd`` forms the
+coefficients in fp32 with the scalar build's arithmetic and carries them
+into P·O and Q·A as a bf16 part plus the bf16 rounding of the remainder.
+Each kernel has its plain version here (``*_plain``: the CPU path and the
+oracle the kernel is held against on the card), a wrapper that launches it
+on CUDA tensors (``*_cuda``) and counts the launch in
+:data:`launch_counts`, and a dispatcher that picks by the tensors' device.
+Nothing falls back: a CUDA tensor launches the kernel or raises.
 
 Not ported, because the CUDA kernels mask ragged edges: ``_pad_lanes``,
 ``_pick_tiles``, ``check_explicit_tiles`` and the ``(1, B)`` pre-transposed

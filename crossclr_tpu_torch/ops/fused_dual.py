@@ -31,6 +31,14 @@ always kept.  Two kernel pairs compute it, in ``csrc/fused_dual.cu``:
   the numerical gates but the sym kernels are refused by a VMEM or tile
   gate; the port has no such gate, so that float τ always takes sym.
 
+The sym backward's bf16 build (the ``default`` tier) is a tensor-core
+kernel: per direction the per-direction backward's block
+(``csrc/loss_mma.cuh``), the keep masks as role selects on the
+coefficients, and where ``B`` leaves the card idle the candidate tiles
+split over more blocks whose fp32 partial gradients a second kernel adds in
+a fixed order.  The other kernels, and the fp32 sym backward, run scalar
+fp32 FMAs.
+
 Each kernel has its plain version here (``*_plain``: the CPU path and the
 oracle the kernel is held against on the card; the plain versions assume
 PyTorch's default ``torch.backends.cuda.matmul.allow_tf32 = False`` there),
@@ -263,13 +271,14 @@ _SIGNATURES = {
     "crossclr_sym_fwd": [_int, _ptr, _ptr, _ptr, _ptr, _ptr, _ptr, _int, _int,
                          _float, _float, _ptr],
     "crossclr_sym_bwd": [_int, _ptr, _ptr, _ptr, _ptr, _ptr, _ptr, _ptr, _ptr,
-                         _ptr, _ptr, _int, _int, _float, _float, _ptr],
+                         _ptr, _ptr, _ptr, _int, _int, _float, _float, _ptr],
     "crossclr_dual_fwd": [_int, _ptr, _ptr, _ptr, _ptr, _ptr, _ptr, _ptr, _int,
                           _int, _float, _ptr],
     "crossclr_dual_bwd": [_int, _ptr, _ptr, _ptr, _ptr, _ptr, _ptr, _ptr, _ptr,
                           _ptr, _ptr, _ptr, _ptr, _ptr, _int, _int, _float,
                           _ptr],
     "crossclr_dual_bwd_partials": [_int],
+    "crossclr_sym_bwd_scratch": [_int, _int, _int, _int],
 }
 
 
@@ -282,6 +291,7 @@ def _library() -> ctypes.CDLL:
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = _int
+        lib.crossclr_sym_bwd_scratch.restype = ctypes.c_longlong
         lib.crossclr_cuda_error_string.argtypes = [_int]
         lib.crossclr_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -365,19 +375,30 @@ def sym_fwd_cuda(v, t, scale: float, neg_weight: float, keep_video=None,
 
 def sym_bwd_cuda(v, t, lse_v, lse_t, g_v, g_t, scale: float, neg_weight: float,
                  keep_video=None, keep_text=None):
-    """Launch the sym backward; returns fp32 ``(dV, dT)`` ``[B, D]``."""
+    """Launch the sym backward; returns fp32 ``(dV, dT)`` ``[B, D]``.  The
+    bf16 build splits the candidates over more blocks where ``B`` leaves
+    the card idle: its fp32 partial gradients go to a scratch buffer of
+    the size the library names, allocated here."""
     _check_features(v, t, "sym_bwd")
     b, d = v.shape
     _check_masks(keep_video, keep_text, b, v.device, "sym_bwd")
     for x, what in ((lse_v, "lse_v"), (lse_t, "lse_t"), (g_v, "g_v"), (g_t, "g_t")):
         _check_f32(x, (b, 1), v.device, what)
+    lib = _library()
+    code = _DTYPE_CODES[v.dtype]
+    with torch.cuda.device(v.device):
+        size = lib.crossclr_sym_bwd_scratch(code, b, d, int(keep_video is not None))
+    if size < 0:
+        msg = lib.crossclr_cuda_error_string(-size).decode()
+        raise RuntimeError(f"sym_bwd launch failed: {msg} (cudaError {-size})")
+    part = torch.empty(size, device=v.device, dtype=torch.float32) if size else None
     dv = torch.empty((b, d), device=v.device, dtype=torch.float32)
     dt = torch.empty_like(dv)
-    _launch("sym_bwd", _library().crossclr_sym_bwd, _DTYPE_CODES[v.dtype],
-            v.data_ptr(), t.data_ptr(), *_mask_ptrs(keep_video, keep_text),
-            lse_v.data_ptr(), lse_t.data_ptr(), g_v.data_ptr(), g_t.data_ptr(),
-            dv.data_ptr(), dt.data_ptr(), b, d, float(scale), float(neg_weight),
-            device=v.device)
+    _launch("sym_bwd", lib.crossclr_sym_bwd, code, v.data_ptr(), t.data_ptr(),
+            *_mask_ptrs(keep_video, keep_text), lse_v.data_ptr(),
+            lse_t.data_ptr(), g_v.data_ptr(), g_t.data_ptr(), dv.data_ptr(),
+            dt.data_ptr(), None if part is None else part.data_ptr(), b, d,
+            float(scale), float(neg_weight), device=v.device)
     return dv, dt
 
 

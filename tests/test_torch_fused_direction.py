@@ -167,6 +167,99 @@ def test_gate_is_strict():
 
 
 # --------------------------------------------------------------------------
+# kernel 11's bf16 build: its blocked online logsumexp on the plain algebra
+# --------------------------------------------------------------------------
+
+LOG2E, LN2 = 1.4426950408889634, 0.6931471805599453
+
+
+def _blocked_lse(anchor, other, scale, w):
+    """``lse_fwd``'s bf16 kernel on the plain algebra, fp32: the logits in
+    log2 units (``(s·log2 e)·a·o``, the intra diagonal zeroed, columns past
+    B masked to −inf); each row's candidates in 64-wide tiles, O's tile and
+    then A's, each tile's 32-candidate halves held by the two warps that
+    share the row.  Each warp keeps per row a running max m over its half
+    of the tile (a quad's max) and a sum l rescaled once per tile; at the
+    end the two halves merge in a fixed order: ``lse = ln 2·(m + log2 l)``.
+    """
+    n = anchor.shape[0]
+    tiles = -(-n // 64)
+    a, o = anchor.float(), other.float()
+    f32 = lambda x: torch.tensor(x, dtype=torch.float32)  # noqa: E731
+    zs = f32(scale) * LOG2E
+    zw = (f32(w) * f32(scale)) * LOG2E
+    inter = zs * (a @ o.T)
+    intra = (zw * (a @ a.T)).masked_fill(torch.eye(n, dtype=torch.bool), 0.0)
+    pad = (0, tiles * 64 - n)
+    parts = [torch.nn.functional.pad(x, pad, value=-torch.inf).view(n, tiles, 64)
+             for x in (inter, intra)]
+    # stages in the kernel's order, (tile, part): [n, stage, half, 32]
+    halves = torch.stack(parts, dim=2).reshape(n, 2 * tiles, 2, 32)
+    m = torch.full((n, 2), -1e30)
+    l = torch.zeros(n, 2)
+    for st in range(2 * tiles):
+        z = halves[:, st]
+        m_new = torch.maximum(m, z.amax(dim=-1))
+        l = l * torch.exp2(m - m_new) + torch.exp2(z - m_new[..., None]).sum(dim=-1)
+        m = m_new
+    mm = m.amax(dim=1, keepdim=True)
+    total = l[:, :1] * torch.exp2(m[:, :1] - mm) + l[:, 1:] * torch.exp2(m[:, 1:] - mm)
+    return LN2 * (mm + torch.log2(total))
+
+
+def _bf16_features(b, d, seed, noise=0.0):
+    """Unit features rounded to bf16 (kept as fp32 values), collapsed near
+    one direction when ``noise`` > 0: ``normalize(u + noise·N(0, I))``."""
+    rng = np.random.default_rng(seed)
+    if noise:
+        u = rng.standard_normal((1, d))
+        x = [u / np.linalg.norm(u) + noise * rng.standard_normal((b, d)) for _ in range(2)]
+    else:
+        x = [rng.standard_normal((b, d)) for _ in range(2)]
+    return tuple(torch.from_numpy(y / np.linalg.norm(y, axis=1, keepdims=True))
+                 .to(torch.bfloat16).float() for y in x)
+
+
+@pytest.mark.parametrize("tau,noise", [(0.03, 0.0), (0.01, 0.0), (1.0 / 79, 0.0),
+                                       (1.0 / 79, 0.005)])
+@pytest.mark.parametrize("b,d", [(64, 48), (96, 100)])
+def test_blocked_lse_matches_plain_and_interpreted_kernel(b, d, tau, noise):
+    """The blocked logsumexp against ``lse_fwd_plain`` and the interpreted
+    ``_lse_fwd_direction`` (32 x 32 tiles), both directions, on the same
+    bf16-valued features (so the JAX kernel's fp32 products see what the
+    bf16 build's mma sees); lse atol = rtol = 2e-5.  τ = 1/79 on collapsed
+    features puts every logit near s = 79."""
+    import jax.numpy as jnp
+
+    from crossclr_tpu.ops import fused_crossclr as jfc
+
+    v, t = _bf16_features(b, d, seed=b + d, noise=noise)
+    s, w = 1.0 / tau, 0.8
+    for a, o in ((v, t), (t, v)):
+        got = _blocked_lse(a, o, s, w)
+        torch.testing.assert_close(got, fc.lse_fwd_plain(a, o, s, w),
+                                   rtol=RTOL, atol=ATOL)
+        want = jfc._lse_fwd_direction(jnp.asarray(a.numpy()), jnp.asarray(o.numpy()),
+                                      s, w, 32, 32, True)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL, atol=ATOL)
+    if noise:
+        assert float(got.min()) > 79.0  # every row past its largest logit
+
+
+@pytest.mark.parametrize("b", [1, 17, 63, 65, 100, 1000])
+@pytest.mark.parametrize("tau", [0.03, 1.0 / 79])
+def test_blocked_lse_masks_ragged_tiles(b, tau):
+    """Ragged B: the last tile's columns past B are masked (a warp half with
+    none left holds m = −1e30, l = 0 and merges away), and B = 1 keeps its
+    zeroed self logit; within atol = rtol = 2e-5 of the plain lse."""
+    v, t = _bf16_features(b, 24, seed=b)
+    for a, o in ((v, t), (t, v)):
+        torch.testing.assert_close(_blocked_lse(a, o, 1.0 / tau, 0.8),
+                                   fc.lse_fwd_plain(a, o, 1.0 / tau, 0.8),
+                                   rtol=RTOL, atol=ATOL)
+
+
+# --------------------------------------------------------------------------
 # the route
 # --------------------------------------------------------------------------
 
@@ -294,6 +387,73 @@ def test_cuda_bf16_lse_bwd_repeat_launches_are_bit_identical(cuda, b, d, tau):
     torch.cuda.synchronize()
     assert torch.equal(runs[0], runs[1])
     assert bool(torch.isfinite(runs[0]).all())
+
+
+# the bf16 tensor-core builds of lse_fwd and sym_bwd: ragged n (one tile,
+# its edges, 16 tiles), d below one 16-feature step, the element-load path
+# (d % 8 != 0), one chunk, and d past one 256-feature chunk
+BF16_NS, BF16_DS = [1, 17, 63, 65, 1000], [8, 100, 256, 384, 512]
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("d", BF16_DS)
+@pytest.mark.parametrize("n", BF16_NS)
+def test_cuda_bf16_lse_fwd_matches_plain(cuda, n, d):
+    """The bf16 forward against its plain version, both directions, τ =
+    0.03 and 1/79 (random features, and collapsed ones at 1/79); two
+    launches bit for bit."""
+    for tau, noise in ((0.03, 0.0), (1.0 / 79, 0.0), (1.0 / 79, 0.005)):
+        v, t = (x.to(cuda, torch.bfloat16) for x in _bf16_features(n, d, n + d, noise))
+        s = 1.0 / tau
+        for a, o in ((v, t), (t, v)):
+            got = fc.lse_fwd_cuda(a, o, s, 0.8)
+            torch.testing.assert_close(got, fc.lse_fwd_plain(a, o, s, 0.8),
+                                       rtol=RTOL, atol=ATOL)
+            again = fc.lse_fwd_cuda(a, o, s, 0.8)
+            torch.cuda.synchronize()
+            assert torch.equal(got, again)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("keep", [None, 0.8, 0.0])
+@pytest.mark.parametrize("d", BF16_DS)
+@pytest.mark.parametrize("n", BF16_NS)
+def test_cuda_bf16_sym_bwd_matches_plain(cuda, n, d, keep):
+    """The bf16 sym backward against its plain version at τ = 0.03:
+    unpruned, keep masks about 80% kept, and masks that drop every
+    candidate but the positive (keep 0); its split count from the card's
+    SMs (n = 65 and 1000 split the candidates); two launches bit for bit."""
+    v, t = (x.to(cuda, torch.bfloat16) for x in _bf16_features(n, d, n + d))
+    g_v, g_t = (torch.from_numpy(x).to(cuda) for x in _cotangents(n))
+    masks = ()
+    if keep is not None:
+        rng = np.random.default_rng(n)
+        masks = tuple(torch.from_numpy(rng.random(n) < keep).to(cuda) for _ in range(2))
+    s, w = 1.0 / 0.03, 0.8
+    lse = fd.sym_fwd_plain(v, t, s, w, *masks)
+    before = fd.launch_counts["sym_bwd"]
+    got = fd.sym_bwd_cuda(v, t, *lse, g_v, g_t, s, w, *masks)
+    want = fd.sym_bwd_plain(v, t, *lse, g_v, g_t, s, w, *masks)
+    for a, c in zip(got, want):
+        _assert_grad_close(a.cpu().numpy(), c.cpu().numpy(), "card")
+    again = fd.sym_bwd_cuda(v, t, *lse, g_v, g_t, s, w, *masks)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, c) for a, c in zip(got, again))
+    assert fd.launch_counts["sym_bwd"] - before == 2  # one per call
+
+
+@pytest.mark.requires_cuda
+def test_cuda_sym_bwd_split_counts_follow_n(cuda):
+    """The bf16 sym backward's scratch names its split: none where one
+    tile or the blocks fill the card, parts where few row tiles leave SMs
+    idle, more than one count over n; the fp32 build needs none."""
+    lib = fd._library()
+    split = {n: lib.crossclr_sym_bwd_scratch(1, n, 256, 0) / (2 * n * 256)
+             for n in (1, 65, 1000, 65536)}
+    assert split[1] == 0 and split[65536] == 0
+    assert split[65] >= 2 and split[1000] >= 2 and split[1000] == int(split[1000])
+    assert len(set(split.values())) >= 3
+    assert lib.crossclr_sym_bwd_scratch(0, 1000, 256, 0) == 0
 
 
 @pytest.mark.requires_cuda
