@@ -25,8 +25,9 @@ Phases, one line each; any failure raises and exits non-zero:
                  flash_dq_bf16_kernel: 8 padded head dims x 2 dropout
                  builds each; direction_fwd_bf16_kernel: 3 feature-chunk
                  widths; direction_bwd_bf16_kernel: 3 widths x 2
-                 coefficient forms; sym_bwd_bf16_kernel: 3 widths x
-                 unpruned and pruned), none of which may spill.
+                 coefficient forms; sym_fwd_bf16_kernel,
+                 sym_bwd_bf16_kernel and dual_bwd_bf16_kernel: 3 widths x
+                 unpruned and pruned each), none of which may spill.
   3. kernel    — the flash forward against the plain version on the same
                  CUDA tensors (H=8, Dh=48, S in {64, 96, 37}, ragged masks,
                  one entry fully masked; fp32 and bf16) within the stated
@@ -81,11 +82,12 @@ Phases, one line each; any failure raises and exits non-zero:
                  (each lse then equals its positive logit) and all kept;
                  at 1024 x 384 the pruned dual lse also against
                  rows_lse_cuda on the same operands (two kernels, one
-                 function); sym_bwd at the MLP leg's 1024 x 256 and, pruned,
-                 the static-τ full-CrossCLR leg's 1024 x 384, both tiers,
-                 on random features at τ = 0.03 and on features collapsed
-                 near one direction at τ = 1/79 (g·e^{-lse} subnormal),
-                 two launches of the bf16 build bit for bit; then the
+                 function); sym_fwd, sym_bwd and dual_bwd (a tensor τ) at
+                 the MLP leg's 1024 x 256 and, pruned, the full-CrossCLR
+                 leg's 1024 x 384, both tiers, on random features at τ =
+                 0.03 and on features collapsed near one direction at τ =
+                 1/79 (g·e^{-lse} subnormal; Σ coeff⊙z within DS_RTOL),
+                 two launches of each bf16 build bit for bit; then the
                  pruned pairs and their plain
                  versions timed, forward and backward, at 1024 x 384 and
                  4096 x 384 (bf16 operands), beside the rows route's two
@@ -202,18 +204,21 @@ csrc directory of a parent commit's `git archive` unpacked under the
 ignored _checkout/), it runs only phases 1-2 and a comparison: this
 checkout's flash, per-direction and loss-pair kernels against that
 revision's on the same operands, bit for bit where the design was kept
-(every fp32 output, the bf16 flash forward, dq and dk/dv, lse_bwd in both
-tiers, sym_fwd, dual_fwd and dual_bwd in both tiers, unpruned and pruned,
-at 1024 x 256 and 1024 x 384; the redesigned bf16 lse_fwd and sym_bwd are
-logged only: they are held to their plain versions by the phases above);
-then at B=1024, S in {96, 64}, H=8, Dh=48, bf16, dropout 0 and 0.1 each
-flash kernel timed in turns (baseline, this, this, baseline; median of 20
-each) beside its plain version, SDPA and its bound; bf16 lse_fwd and
-lse_bwd the same way at 4096 x 256 (median of 20, beside the plain
-version) and at the leg's 65,536 x 256 (median of 3) beside the bound;
-and bf16 sym_bwd at 1024 x 256 and, pruned, 1024 x 384 (median of 20)
-beside its plain version and bound; the last line is a JSON record of
-those times.
+(every fp32 output, the bf16 flash forward, dq and dk/dv, lse_fwd and
+lse_bwd in both tiers, sym_bwd and dual_fwd in both tiers, unpruned and
+pruned, at 1024 x 256 and 1024 x 384; the redesigned bf16 sym_fwd and
+dual_bwd (REDESIGNED) are logged only: they are held to their plain
+versions by the phases above; a revision whose entry points take no
+scratch is called through ParentLossLibrary); then at B=1024, S in {96,
+64}, H=8, Dh=48, bf16, dropout 0 and 0.1 each flash kernel timed in turns
+(baseline, this, this, baseline; median of 20 each) beside its plain
+version, SDPA and its bound; bf16 lse_fwd and lse_bwd the same way at
+4096 x 256 (median of 20, beside the plain version) and at the leg's
+65,536 x 256 (median of 3) beside the bound; bf16 sym_fwd, sym_bwd and
+dual_bwd at 1024 x 256 and, pruned, 1024 x 384 (median of 20) beside
+their plain versions and bounds; and the loss fwd+bwd at the headline
+4096 x 512 through the sym and the dual route (default tier) beside the
+plain pair's; the last line is a JSON record of those times.
 """
 
 import argparse
@@ -266,10 +271,13 @@ ROWS_REPLACES = {
 DIRECTION_SOURCE = "crossclr_tpu_torch/ops/csrc/fused_crossclr.cu"
 # the loss kernels' bf16 tensor-core builds and their instantiations: lse_fwd
 # (3 feature-chunk widths), lse_bwd (3 widths x the factored and
-# subtract-first forms), sym_bwd (3 widths x unpruned and pruned)
+# subtract-first forms), sym_fwd, sym_bwd and dual_bwd (3 widths x unpruned
+# and pruned each)
 LOSS_MMA_KERNELS = {"fused_crossclr.cu": (("direction_fwd_bf16_kernel", 3),
                                           ("direction_bwd_bf16_kernel", 6)),
-                    "fused_dual.cu": (("sym_bwd_bf16_kernel", 6),)}
+                    "fused_dual.cu": (("sym_fwd_bf16_kernel", 6),
+                                      ("sym_bwd_bf16_kernel", 6),
+                                      ("dual_bwd_bf16_kernel", 6))}
 DIRECTION_REPLACES = {
     "lse_fwd": "crossclr_tpu/ops/fused_crossclr.py:179",
     "lse_bwd": "crossclr_tpu/ops/fused_crossclr.py:279",
@@ -279,6 +287,9 @@ LOSS_SHAPES = [(1024, 256), (1024, 384), (1024, 512), (4096, 256),
 SLICE_LOSS_SHAPE = (1024, 256)  # configs/youcook2_mlp.json: batch, embed
 TRANSFORMER_LOSS_SHAPE = (1024, 384)  # configs/lsmdc_transformer.json
 HEADLINE_LOSS_SHAPE = (4096, 512)  # the reference's headline benchmark
+# the loss pair's bf16 builds this revision redesigned: --baseline holds them
+# to their plain versions (the phases above), not to the baseline's bits
+REDESIGNED = ("sym_fwd", "dual_bwd")
 NEG_WEIGHT = 0.8
 # loss kernels vs plain (tests/test_fused_kernel.py:37,133,169,251): lse
 # atol = rtol = 2e-5; gradients max |err| <= 5e-5 of the largest |entry|;
@@ -814,23 +825,50 @@ def attention_timing_phase(fa, smi: str, worst: dict) -> dict:
     return times
 
 
-class NoScratchSymBwd:
-    """A revision's fused_dual.cu from before the bf16 sym backward took a
-    scratch buffer (no crossclr_sym_bwd_scratch): its library, called as
-    this checkout's wrapper calls it, the scratch argument dropped."""
+class ParentLossLibrary:
+    """Another revision's fused_dual.cu library, called as this checkout's
+    wrapper calls it.  Where that revision's entry point takes no scratch
+    (crossclr_sym_bwd before it split its candidates, crossclr_sym_fwd and
+    crossclr_dual_bwd before theirs did), the scratch argument is dropped
+    and the size query answers 0; its crossclr_dual_bwd_partials took n
+    alone."""
+
+    # entry point: (its scratch-size query, the index of its scratch argument)
+    SPLITS = {"crossclr_sym_fwd": ("crossclr_sym_fwd_scratch", 7),
+              "crossclr_sym_bwd": ("crossclr_sym_bwd_scratch", 11),
+              "crossclr_dual_bwd": ("crossclr_dual_bwd_scratch", 12)}
 
     def __init__(self, lib):
         self.lib = lib
+        self.unsplit = {name for name, (query, _) in self.SPLITS.items()
+                        if not hasattr(lib, query)}
+
+    @classmethod
+    def argtypes(cls, lib, name: str, argtypes: list):
+        """The argtypes of ``name`` in ``lib``, None where it lacks it."""
+        split = {query: entry for entry, (query, _) in cls.SPLITS.items()}
+        if name in split and not hasattr(lib, name):
+            return None
+        if name in cls.SPLITS and not hasattr(lib, cls.SPLITS[name][0]):
+            index = cls.SPLITS[name][1]
+            return argtypes[:index] + argtypes[index + 1:]
+        if name == "crossclr_dual_bwd_partials" and not hasattr(
+                lib, "crossclr_dual_bwd_scratch"):
+            return argtypes[1:2]
+        return argtypes
 
     def __getattr__(self, name):
-        return getattr(self.lib, name)
-
-    @staticmethod
-    def crossclr_sym_bwd_scratch(*_):
-        return 0
-
-    def crossclr_sym_bwd(self, *args):
-        return self.lib.crossclr_sym_bwd(*args[:11], *args[12:])
+        fn = getattr(self.lib, name, None)
+        if name in self.SPLITS and name in self.unsplit:
+            index = self.SPLITS[name][1]
+            return lambda *args: fn(*args[:index], *args[index + 1:])
+        if fn is None and name.endswith("_scratch"):
+            return lambda *_: 0
+        if name == "crossclr_dual_bwd_partials" and "crossclr_dual_bwd" in self.unsplit:
+            return lambda dtype, n, d, pruned: fn(n)
+        if fn is None:
+            raise AttributeError(name)
+        return fn
 
 
 def build_baseline(fa, fc, fd, csrc: Path, out_dir: Path) -> dict:
@@ -856,19 +894,19 @@ def build_baseline(fa, fc, fd, csrc: Path, out_dir: Path) -> dict:
         text = proc.communicate()[0]
         check(proc.returncode == 0, f"baseline {csrc / source} did not build:\n{text}")
         lib = ctypes.CDLL(str(so))
-        scratch = hasattr(lib, "crossclr_sym_bwd_scratch")
+        loss = source == fd.SOURCE
         for name, argtypes in signatures[source].items():
-            if name == "crossclr_sym_bwd" and not scratch:
-                argtypes = argtypes[:11] + argtypes[12:]
-            elif name == "crossclr_sym_bwd_scratch" and not scratch:
-                continue
+            if loss:
+                argtypes = ParentLossLibrary.argtypes(lib, name, argtypes)
+                if argtypes is None:
+                    continue
             getattr(lib, name).argtypes = argtypes
-            getattr(lib, name).restype = (ctypes.c_longlong
-                                          if name == "crossclr_sym_bwd_scratch"
-                                          else ctypes.c_int)
+            getattr(lib, name).restype = (
+                ctypes.c_longlong if loss and name in fd._SIZE_QUERIES
+                and len(argtypes) == 4 else ctypes.c_int)
         lib.crossclr_cuda_error_string.argtypes = [ctypes.c_int]
         lib.crossclr_cuda_error_string.restype = ctypes.c_char_p
-        libs[source] = lib if source != fd.SOURCE or scratch else NoScratchSymBwd(lib)
+        libs[source] = ParentLossLibrary(lib) if loss else lib
     return libs
 
 
@@ -886,14 +924,14 @@ def same_bits(new, old, tag: str, must: bool) -> None:
         check(same, f"{tag}: differs from the baseline build")
 
 
-def turns(fn, baseline, n: int, warmup: int) -> tuple[list, list]:
+def turns(fn, baseline, n: int, warmup: int, grad: bool = False) -> tuple[list, list]:
     """``fn`` timed in turns, baseline, this, this, baseline (median of
     ``n`` each): ([this, this], [baseline, baseline])."""
     with baseline():
-        old_1 = median_ms(fn, n=n, warmup=warmup)
-    new = [median_ms(fn, n=n, warmup=warmup) for _ in range(2)]
+        old_1 = median_ms(fn, n=n, grad=grad, warmup=warmup)
+    new = [median_ms(fn, n=n, grad=grad, warmup=warmup) for _ in range(2)]
     with baseline():
-        old_2 = median_ms(fn, n=n, warmup=warmup)
+        old_2 = median_ms(fn, n=n, grad=grad, warmup=warmup)
     return new, [old_1, old_2]
 
 
@@ -901,9 +939,9 @@ def baseline_phase(fa, fc, fd, smi: str, csrc: Path) -> dict:
     """The flash, per-direction and loss-pair kernels of this checkout
     against those built from ``csrc`` on the same operands: bit for bit
     wherever this checkout kept the design (every fp32 output, the bf16
-    flash kernels, lse_bwd in both tiers, sym_fwd, dual_fwd and dual_bwd in
-    both tiers, pruned and not); the redesigned bf16 lse_fwd and sym_bwd
-    only logged.  Then, at the transformer leg's shapes (B=1024,
+    flash kernels, lse_fwd and lse_bwd in both tiers, sym_bwd and dual_fwd
+    in both tiers, pruned and not); the redesigned bf16 builds of
+    REDESIGNED only logged.  Then, at the transformer leg's shapes (B=1024,
     S in {96, 64}, H=8, Dh=48, bf16, dropout 0 and the leg's 0.1), each
     flash kernel timed in turns, baseline, this checkout, this checkout,
     baseline (CUDA events, median of 20 each), beside its plain version,
@@ -948,7 +986,7 @@ def baseline_phase(fa, fc, fd, smi: str, csrc: Path) -> dict:
                 with dir_base():
                     old = fwd()
                 tag = f"B={b} D={d} {tier} τ={tau:.6g} w={NEG_WEIGHT}"
-                same_bits(new, old, f"lse_fwd {tag}", tier == "highest")
+                same_bits(new, old, f"lse_fwd {tag}", True)
                 bwd = lambda: fc.lse_bwd_cuda(v, t, *new, g_v, g_t, s, NEG_WEIGHT)  # noqa: E731
                 grad = bwd()
                 with dir_base():
@@ -980,7 +1018,7 @@ def baseline_phase(fa, fc, fd, smi: str, csrc: Path) -> dict:
                             old = fn()
                         same_bits(new, old, f"{name} B={b} D={d} {tier}"
                                             + (" pruned" if keep else ""),
-                                  name != "sym_bwd" or tier == "highest")
+                                  name not in REDESIGNED or tier == "highest")
         for b, s in ATTENTION_TIMING[:2]:
             q, k, v, mask = qkv((b, 8, s, 48), torch.bfloat16, seed=7)
             mask[-1, 0] = 1.0  # every entry has a valid key (SDPA would give NaN)
@@ -1054,23 +1092,71 @@ def baseline_phase(fa, fc, fd, smi: str, csrc: Path) -> dict:
                                   f"({record['bound_by']}) (median of {n}; {smi})")
             del v, t, lse, args, pairs
             torch.cuda.empty_cache()
+        # the loss pair's bf16 kernels at the MLP leg's shape and, pruned,
+        # the full-CrossCLR leg's: sym at τ = 0.03, dual at a tensor τ of 0.03
+        scale = torch.full((1,), s, device="cuda")
         for (b, d), pruned in ((SLICE_LOSS_SHAPE, False), (PRUNED_TIMING[0], True)):
             v32, t32, g_v, g_t = loss_inputs(b, d, seed=3)
             v, t = (x.contiguous() for x in fd._fetch_cast("default", v32, t32))
             keep = keep_masks(v32, t32) if pruned else ()
             lse = fd.sym_fwd_plain(v, t, s, NEG_WEIGHT, *keep)
-            args = (v, t, *lse, g_v, g_t, s, NEG_WEIGHT, *keep)
-            new, old = turns(lambda: fd.sym_bwd_cuda(*args), pair_base, 20, 3)
-            record = {"name": "sym_bwd", "B": b, "D": d, "pruned": pruned, "ms": new,
-                      "baseline_ms": old, "plain_ms": median_ms(lambda: fd.sym_bwd_plain(*args)),
-                      **loss_bounds(b, d, pruned)["sym_bwd"], "library_ms": None}
-            records["loss"].append(record)
-            log("baseline", f"sym_bwd B={b} D={d} bf16 operands τ=0.03"
-                            + (f" pruned ({PRUNE})" if pruned else "")
-                            + f": {new[0]:.4f} / {new[1]:.4f} ms, baseline "
-                              f"{old[0]:.4f} / {old[1]:.4f}, plain "
-                              f"{record['plain_ms']:.4f}, bound {record['bound_ms']:.4f} "
-                              f"({record['bound_by']}) (median of 20; {smi})")
+            sym = (v, t, *lse, g_v, g_t, s, NEG_WEIGHT, *keep)
+            dual = (v, t, scale, *lse, g_v, g_t, NEG_WEIGHT, *keep)
+            pairs = {
+                "sym_fwd": (lambda: fd.sym_fwd_cuda(v, t, s, NEG_WEIGHT, *keep),
+                            lambda: fd.sym_fwd_plain(v, t, s, NEG_WEIGHT, *keep)),
+                "sym_bwd": (lambda: fd.sym_bwd_cuda(*sym), lambda: fd.sym_bwd_plain(*sym)),
+                "dual_bwd": (lambda: fd.dual_bwd_cuda(*dual),
+                             lambda: fd.dual_bwd_plain(*dual)),
+            }
+            bounds = loss_bounds(b, d, pruned)
+            for name, (fn, plain) in pairs.items():
+                new, old = turns(fn, pair_base, 20, 3)
+                record = {"name": name, "B": b, "D": d, "pruned": pruned, "ms": new,
+                          "baseline_ms": old, "plain_ms": median_ms(plain),
+                          **bounds[name], "library_ms": None}
+                records["loss"].append(record)
+                log("baseline", f"{name} B={b} D={d} bf16 operands τ=0.03"
+                                + (f" pruned ({PRUNE})" if pruned else "")
+                                + f": {new[0]:.4f} / {new[1]:.4f} ms, baseline "
+                                  f"{old[0]:.4f} / {old[1]:.4f}, plain "
+                                  f"{record['plain_ms']:.4f}, bound "
+                                  f"{record['bound_ms']:.4f} ({record['bound_by']}) "
+                                  f"(median of 20; {smi})")
+        # the reference's headline: the loss fwd+bwd at 4096 x 512 through
+        # each route, bf16 operands
+        records["headline"] = headline_turns(fd, pair_base, smi)
+    return records
+
+
+def headline_turns(fd, pair_base, smi: str) -> list:
+    """The loss fwd+bwd (cross_clr_intra_fused, default tier) at the
+    headline shape through the sym route (τ = 0.03) and the dual route (a
+    tensor τ of 0.03), in turns against the baseline's loss pair, beside
+    the plain pair's fwd+bwd."""
+    from crossclr_tpu_torch.ops.fused_crossclr import cross_clr_intra_fused
+
+    b, d = HEADLINE_LOSS_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    video, text = (torch.randn(b, d, generator=gen, device="cuda", requires_grad=True)
+                   for _ in range(2))
+    tau_leaf = torch.tensor(0.03, device="cuda", requires_grad=True)
+    records = []
+    for route, tau in (("sym", 0.03), ("dual", tau_leaf)):
+        def step():
+            cross_clr_intra_fused(video, text, temperature=tau,
+                                  negative_weight=NEG_WEIGHT,
+                                  precision="default").backward()
+
+        new, old = turns(step, pair_base, 20, 3, grad=True)
+        plain_ms = median_ms(lambda: plain_loss(fd, video, text, tau, "default")
+                             .backward(), grad=True)
+        records.append({"route": route, "B": b, "D": d, "ms": new,
+                        "baseline_ms": old, "plain_ms": plain_ms})
+        log("baseline", f"loss fwd+bwd, {route} route, default, B={b} D={d}: "
+                        f"{new[0]:.4f} / {new[1]:.4f} ms "
+                        f"({b / new[0] * 1e3:.0f} pairs/s), baseline {old[0]:.4f} / "
+                        f"{old[1]:.4f}, plain {plain_ms:.4f} (median of 20; {smi})")
     return records
 
 
@@ -1445,16 +1531,19 @@ def pruned_check_phase(fd, fg) -> dict:
     return worst
 
 
-def sym_leg_check_phase(fd) -> float:
-    """sym_bwd at the MLP leg's shape and, with keep masks, the static-τ
-    full-CrossCLR leg's, both tiers, against its plain version fed the
-    plain lse: random features at τ = 0.03 and features collapsed near one
-    direction at τ = 1/79 (lse near 86.6, g·e^{-lse} subnormal); two
-    launches of the bf16 build bit for bit.  Returns the worst absolute
-    error."""
-    worst = 0.0
+def leg_check_phase(fd) -> dict:
+    """sym_fwd, sym_bwd and dual_bwd at the MLP leg's shape and, with keep
+    masks, the full-CrossCLR leg's, both tiers, against their plain versions
+    (each backward fed the plain lse): random features at τ = 0.03 and
+    features collapsed near one direction at τ = 1/79 (lse near 86.6,
+    g·e^{-lse} subnormal; every logit near s, so Σ coeff⊙z gathers ~3n²
+    terms of one sign); dual at a tensor τ of the same value, its Σ
+    coeff⊙z within DS_RTOL; two launches of each bf16 build bit for bit.
+    Returns the worst absolute error of each kernel."""
+    worst = dict.fromkeys(("sym_fwd", "sym_bwd", "dual_bwd"), 0.0)
     for tau, noise in DIRECTION_LEG_CASES:
         s = 1.0 / tau
+        scale = torch.full((1,), s, device="cuda")
         for (b, d), pruned in ((SLICE_LOSS_SHAPE, False), (PRUNED_TIMING[0], True)):
             v32, t32, g_v, g_t = leg_inputs(b, d, noise, seed=13)
             keep = keep_masks(v32, t32) if pruned else ()
@@ -1463,16 +1552,33 @@ def sym_leg_check_phase(fd) -> float:
                 tag = (f"B={b} D={d} {tier} τ={tau:.6g}" + (" pruned" if pruned else "")
                        + (f", collapsed (noise {noise})" if noise else ""))
                 lse = fd.sym_fwd_plain(v, t, s, NEG_WEIGHT, *keep)
-                args = (v, t, *lse, g_v, g_t, s, NEG_WEIGHT, *keep)
-                got = fd.sym_bwd_cuda(*args)
-                err = grad_err(got, fd.sym_bwd_plain(*args), f"{tag} sym_bwd")
-                worst = max(worst, err)
+                sym = (v, t, *lse, g_v, g_t, s, NEG_WEIGHT, *keep)
+                dual_lse = fd.dual_fwd_plain(v, t, scale, NEG_WEIGHT, *keep)
+                dual = (v, t, scale, *dual_lse, g_v, g_t, NEG_WEIGHT, *keep)
+                runs = {"sym_fwd": lambda: fd.sym_fwd_cuda(v, t, s, NEG_WEIGHT, *keep),
+                        "sym_bwd": lambda: fd.sym_bwd_cuda(*sym),
+                        "dual_bwd": lambda: fd.dual_bwd_cuda(*dual)}
+                got = {name: run() for name, run in runs.items()}
+                errs = {"sym_fwd": lse_err(got["sym_fwd"], lse, f"{tag} sym_fwd"),
+                        "sym_bwd": grad_err(got["sym_bwd"], fd.sym_bwd_plain(*sym),
+                                            f"{tag} sym_bwd")}
+                want = fd.dual_bwd_plain(*dual)
+                errs["dual_bwd"] = grad_err(got["dual_bwd"][:2], want[:2],
+                                            f"{tag} dual_bwd")
+                ds_rel = ((got["dual_bwd"][2] - want[2]).abs() / want[2].abs()).item()
+                check(ds_rel <= DS_RTOL, f"{tag}: Σ coeff⊙z rel err {ds_rel:.3e} "
+                                         f"(limit {DS_RTOL})")
+                for name, err in errs.items():
+                    worst[name] = max(worst[name], err)
                 if tier == "default":
-                    again = fd.sym_bwd_cuda(*args)
-                    torch.cuda.synchronize()
-                    check(all(torch.equal(x, y) for x, y in zip(got, again)),
-                          f"{tag}: two launches of sym_bwd differ")
-                log("loss", f"{tag}: max|kernel-plain| sym_bwd {err:.3e}; lse "
+                    for name, run in runs.items():
+                        again = run()
+                        torch.cuda.synchronize()
+                        check(all(torch.equal(x, y) for x, y in zip(got[name], again)),
+                              f"{tag}: two launches of {name} differ")
+                log("loss", f"{tag}: max|kernel-plain| "
+                            + ", ".join(f"{k} {x:.3e}" for k, x in errs.items())
+                            + f", Σ coeff⊙z rel err {ds_rel:.3e}; lse "
                             f"{min(x.min().item() for x in lse):.4f} to "
                             f"{max(x.max().item() for x in lse):.4f}"
                             + (", two launches bit for bit" if tier == "default" else ""))
@@ -2396,7 +2502,8 @@ def main(argv=None) -> int:
     loss_worst = loss_check_phase(fd)
     loss_times = loss_timing_phase(fd, smi)
     pruned_worst = pruned_check_phase(fd, fg)
-    loss_worst["sym_bwd"] = max(loss_worst["sym_bwd"], sym_leg_check_phase(fd))
+    for name, err in leg_check_phase(fd).items():
+        loss_worst[name] = max(loss_worst[name], err)
     pruned_times = pruned_timing_phase(fd, fg, smi)
     direction_worst = direction_check_phase(fc, fd)
     leg_worst = direction_leg_check_phase(fc, fd)

@@ -53,7 +53,7 @@
 // The bf16 builds (the `default` tier the large-batch leg runs) put the
 // products on tensor cores (mma.sync m16n8k16, bf16 operands, fp32
 // accumulators), with the pieces of loss_mma.cuh (shared with
-// fused_dual.cu's sym backward).  At n = 65,536, d = 256 the forward's 1.5
+// fused_dual.cu's bf16 kernels).  At n = 65,536, d = 256 the forward's 1.5
 // and the backward's 3.5 products of 2·n²·d against 67 MB of features are
 // far past the card's ~295 operations per byte: the operations bound both.
 // Bf16 features are exact mma operands, so the logits equal the scalar

@@ -59,8 +59,8 @@
 // the transposes of the video-anchor blocks' ones, so only blockIdx.y = 0
 // adds Σ M⊙z_vt; each direction adds half of its own intra sum.
 //
-// The scalar kernels (both forwards, the dual backward, and the fp32 sym
-// backward): the logit tiles are 64 x 64 products over d, staged through
+// The scalar kernels (the fp32 builds of all four, and the dual forward's
+// bf16 build): the logit tiles are 64 x 64 products over d, staged through
 // shared memory in 32-feature chunks (fp32, or bf16 widened to fp32 on
 // load: both tiers accumulate in fp32; loss_tiles.cuh, shared with
 // fused_crossclr.cu).  256 threads each own a 4 x 4 micro tile.  A backward
@@ -77,28 +77,51 @@
 // masks (the TPU design shares both so); chip_smoke.py's bound counts the
 // latter.  Operands are read from L2 once per (row tile, column tile).
 //
-// The sym backward's bf16 build (sym_bwd_bf16_kernel, the `default` tier the
-// MLP and static-τ full-CrossCLR legs run): without masks its two
-// directions are the per-direction backward's factored form with (A, O) =
-// (V, T) and (T, V) (the formulas above against fused_crossclr.cu's), so it
-// runs that kernel's tensor-core block (loss_mma.cuh's bwd_block: logits by
-// mma.sync, coefficients in fp32 registers, hi + lo bf16 coefficient
-// fragments times the candidate tile into fp32 register accumulators), the
-// direction taken from blockIdx.y; the keep masks enter the coefficient
-// stage only, as the role selects above.  At the MLP leg's n = 1024 one
-// block per (row tile, direction) leaves most of the 132 SMs idle, so the
-// candidate tiles split over blockIdx.z into the parts split_parts picks
-// from n and the SM count; each part writes its fp32 partial gradient rows
-// to a scratch buffer the wrapper allocates, and sym_bwd_sum_kernel adds
-// them in index order and multiplies by s: no atomics, bit-reproducible.
-// It issues 12 products of 2·n²·d (each direction's two logit products and
-// its two coefficient products, each in two bf16 parts) where the bound
-// counts 6; at d > 256 each 256-feature chunk of the gradient (blockIdx.y)
-// recomputes the logits.
+// The bf16 builds of the sym forward, the sym backward and the dual
+// backward (the `default` tier every leg runs) are tensor-core kernels
+// (mma.sync m16n8k16, bf16 operands, fp32 accumulators) built from the
+// pieces of loss_mma.cuh.  A block of 8 warps owns 64 anchor rows of one
+// direction (blockIdx.y) and walks its candidate tiles, each staged by
+// 16-byte cp.async into a double buffer; every 16-feature logit step starts
+// from zero and is added in fp32.  At the MLP leg's n = 1024 one block per
+// (row tile, direction) leaves most of the 132 SMs idle, so the candidate
+// tiles split over blockIdx.z into the parts split_parts picks from n, the
+// SM count and the occupancy; each part writes its fp32 partial rows to a
+// scratch buffer the wrapper allocates (its size named by the
+// crossclr_*_scratch queries), and a second kernel adds them in index
+// order: no atomics, bit-reproducible.  A kernel's plan (its shared memory
+// and parts) takes its occupancy query once per (device, kernel, shared
+// memory size) from a cache; the rest is arithmetic.
+//   * sym_fwd_bf16_kernel: the per-direction forward's design
+//     (fused_crossclr.cu: A fragments in registers where d fits one chunk)
+//     with the static shift m0 in place of the online max: each logit is
+//     one FFMA into log2 units, (z - m0)·log2 e, and one exp2, its keep
+//     test a select where pruned; with a static shift the parts' partial
+//     sums add directly (sym_fwd_sum_kernel: m0 + log of their sum).  It
+//     issues 4 products of 2·n²·d (each direction recomputes V·Tᵀ and the
+//     whole of its intra product) where the bound counts 2.
+//   * sym_bwd_bf16_kernel: without masks its two directions are the
+//     per-direction backward's factored form with (A, O) = (V, T) and
+//     (T, V) (the formulas above against fused_crossclr.cu's), so it runs
+//     that kernel's block (loss_mma.cuh's bwd_block: coefficients in fp32
+//     registers, hi + lo bf16 coefficient fragments times the candidate
+//     tile into fp32 register accumulators); the keep masks enter the
+//     coefficient stage only, as the role selects above.
+//   * dual_bwd_bf16_kernel: the same block in its subtract-first form, the
+//     scale read from device memory once per block, each block also summing
+//     its share of Σ coeff⊙z (the ds weights above) from feature chunk 0
+//     only (every chunk recomputes the same logits, each in its own order);
+//     one partial per (part, direction, row tile), added in index order by
+//     sum_partials_kernel.
+//   Each backward issues 12 products of 2·n²·d (each direction's two logit
+//   products and its two coefficient products, each in two bf16 parts)
+//   where the bound counts 6; at d > 256 each 256-feature chunk of the
+//   gradient (blockIdx.y) recomputes the logits.
 
 #include <math.h>
 #include <stddef.h>
 
+#include <mutex>
 #include <type_traits>
 
 #include "loss_mma.cuh"
@@ -389,7 +412,188 @@ sum_partials_kernel(const float* __restrict__ part, int count,
 }
 
 // ---------------------------------------------------------------------------
-// sym backward, bf16 features: tensor cores (loss_mma.cuh)
+// sym forward, bf16 features: tensor cores (loss_mma.cuh)
+// ---------------------------------------------------------------------------
+
+constexpr float kLog2e = 1.4426950408889634f;
+
+// The sym forward's shared memory: two stages of candidate rows (the first
+// holds the anchor rows while their fragments load), two of anchor rows
+// where d takes more than one chunk, two stages of the candidates' keep
+// flags, and the two halves' partial sums per row.
+template <int kChunkF>
+size_t sym_fwd_smem_bytes(int chunks) {
+  return sizeof(bf16) * (size_t)((chunks > 1 ? 4 : 2) * kRows *
+                                 Chunk<kChunkF>::kLd) +
+         sizeof(float) * 4 * kRows;
+}
+
+// Block (x, y, z): anchor rows [64 x, 64 x + 64) of direction y (0: video
+// anchors, candidates T then V; 1: text anchors, candidates V then T, the
+// keep masks swapped with them), the candidate tiles of part z of
+// gridDim.z.  Warp w scores rows 16 (w % 4) + [0, 16) against candidates
+// 32 (w / 4) + [0, 32) of each tile, in stages (tile, part, chunk) whose
+// loads go into the other buffer while the last one computes; where d fits
+// one chunk the warp's A fragments stay in registers for the whole loop
+// (kSteps x 4), a wider d restages its anchor chunk with each stage.  With
+// the static shift every term is exp2((z - m0)·log2 e) <= 1 (unit
+// features): one FFMA and one exp2 a logit, no max to track; unpruned, the
+// intra self logit is zeroed (its exp(-m0) stays in the sum), pruned, the
+// keep test (the positive always kept, the self column dropped) selects
+// each term.  The lanes of a quad add their sums, then the two halves of
+// each row in a fixed order; one part writes m0 + log(l) to lse_v / lse_t,
+// more write l to their slice [z][direction] of `part` ([parts][2][n]).
+template <int kChunkF, bool kPruned>
+__global__ void __launch_bounds__(kMmaThreads, 2)
+sym_fwd_bf16_kernel(const bf16* __restrict__ v, const bf16* __restrict__ t,
+                    const unsigned char* __restrict__ kv,
+                    const unsigned char* __restrict__ kt, float s, float w,
+                    float* __restrict__ lse_v, float* __restrict__ lse_t,
+                    float* __restrict__ part, int n, int d, bool vec) {
+  using C = Chunk<kChunkF>;
+  extern __shared__ __align__(16) unsigned char smem_sym_fwd[];
+  const int chunks = (d + kChunkF - 1) / kChunkF;
+  bf16* sx = reinterpret_cast<bf16*>(smem_sym_fwd);  // candidate rows, 2 stages
+  bf16* sa = sx + 2 * kRows * C::kLd;                // anchor rows, 2 stages
+  float* skeep = reinterpret_cast<float*>(sa + (chunks > 1 ? 2 : 0) * kRows * C::kLd);
+  float* sl = skeep + 2 * kRows;  // [half][row] partial sums
+
+  const bool text = blockIdx.y != 0;
+  const bf16* a = text ? t : v;
+  const bf16* o = text ? v : t;
+  const unsigned char* keep_a = text ? kt : kv;  // the anchors' modality
+  const unsigned char* keep_o = text ? kv : kt;  // the other modality
+  const int tiles = (n + kRows - 1) / kRows, parts = gridDim.z, z = blockIdx.z;
+  const int t0 = z * tiles / parts, t1 = (z + 1) * tiles / parts;
+  const int r0 = blockIdx.x * kRows;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, tq = lane & 3;
+  const int wr = 16 * (warp & 3);   // the warp's rows in the tile
+  const int wc = 32 * (warp >> 2);  // its candidates in the logit tile
+  const float m0 = fmaxf(fmaxf(s, w * s), 0.f);
+  const float m0_log2 = m0 * kLog2e;
+
+  // Issue the loads of stage st into buffer st & 1, and on a tile's first
+  // chunk (pruned) the candidates' keep flags into stage tile & 1.
+  const int stages = 2 * (t1 - t0) * chunks;
+  auto issue = [&](int st) {
+    const int i = st % chunks, tile = st / chunks, buf = st & 1;
+    const int c0 = (t0 + (tile >> 1)) * kRows;
+    const bool intra = tile & 1;
+    if (chunks > 1)
+      stage_tile<kChunkF>(sa + buf * kRows * C::kLd, a, r0, i * kChunkF, n, d,
+                          vec);
+    stage_tile<kChunkF>(sx + buf * kRows * C::kLd, intra ? a : o, c0,
+                        i * kChunkF, n, d, vec);
+    cp_async_commit();
+    if constexpr (kPruned) {
+      if (i == 0 && threadIdx.x < kRows) {
+        const int col = c0 + threadIdx.x;
+        skeep[(tile & 1) * kRows + threadIdx.x] =
+            col < n && (intra ? keep_a : keep_o)[col] ? 1.f : 0.f;
+      }
+    }
+  };
+
+  uint32_t af[C::kSteps][4];
+  if (chunks == 1) {  // the anchor fragments, once, through buffer 1
+    stage_tile<kChunkF>(sx + kRows * C::kLd, a, r0, 0, n, d, vec);
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+#pragma unroll
+    for (int ks = 0; ks < C::kSteps; ++ks)
+      ldmatrix_x4(af[ks], ld_a<C::kLd>(sx + (kRows + wr) * C::kLd + 16 * ks, lane));
+  }
+  issue(0);  // buffer 0; buffer 1 is next written after stage 0's barrier
+
+  float l[2] = {0.f, 0.f};  // this lane's sums of rows wr + g, wr + g + 8
+  float sc[4][4];
+  for (int st = 0; st < stages; ++st) {
+    const int i = st % chunks, tile = st / chunks, buf = st & 1;
+    const int c0 = (t0 + (tile >> 1)) * kRows;
+    const bool intra = tile & 1;
+    cp_async_wait<0>();
+    __syncthreads();  // stage st has landed; stage st - 1's readers are done
+    if (st + 1 < stages) issue(st + 1);
+    const bf16* xt = sx + buf * kRows * C::kLd;
+    if (chunks > 1) {
+      const bf16* at = sa + buf * kRows * C::kLd;
+#pragma unroll
+      for (int ks = 0; ks < C::kSteps; ++ks)
+        ldmatrix_x4(af[ks], ld_a<C::kLd>(at + wr * C::kLd + 16 * ks, lane));
+    }
+    if (i == 0) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[j][e] = 0.f;
+    }
+    // S = A X^T over the chunk, each 16-feature step from zero and added
+    // in fp32 (acc_add)
+#pragma unroll
+    for (int ks = 0; ks < C::kSteps; ++ks)
+      logit_step<C::kLd>(sc, af[ks], xt, wc, ks, lane);
+    if (i + 1 < chunks) continue;
+    // element e of tile j: row wr + g + 8 (e / 2), candidate wc + 8 j +
+    // 2 tq + e % 2; the columns past n dropped
+    const float zs = (intra ? w * s : s) * kLog2e;
+    const bool diag = intra && c0 == r0, edge = c0 + kRows > n;
+    const float* kc = skeep + (tile & 1) * kRows;
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int rl = wr + g + 8 * (e >> 1);
+        const int cl = wc + 8 * j + 2 * tq + (e & 1);
+        float x = fmaf(sc[j][e], zs, -m0_log2);
+        bool keep = !(edge && c0 + cl >= n);
+        if constexpr (kPruned) {
+          // the positive always kept, the self column dropped
+          const bool self = c0 + cl == r0 + rl;
+          keep = keep && (intra ? (kc[cl] != 0.f && !self) : (kc[cl] != 0.f || self));
+        } else {
+          if (diag && cl == rl) x = -m0_log2;  // the zeroed (not dropped) self logit
+        }
+        l[e >> 1] += keep ? exp2f(x) : 0.f;
+      }
+  }
+  // the quad's sums, then the two halves of each row, in a fixed order
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    if (tq == 0) sl[(warp >> 2) * kRows + wr + g + 8 * r] = l[r];
+  }
+  __syncthreads();
+  const int row = r0 + threadIdx.x;
+  if (threadIdx.x < kRows && row < n) {
+    const float sum = sl[threadIdx.x] + sl[kRows + threadIdx.x];
+    if (parts == 1)
+      (text ? lse_t : lse_v)[row] = m0 + logf(sum);
+    else
+      part[((size_t)2 * z + (text ? 1 : 0)) * n + row] = sum;
+  }
+}
+
+// lse_v, lse_t = m0 + log(part[0] + part[1] + ... ), in index order
+__global__ void __launch_bounds__(kThreads)
+sym_fwd_sum_kernel(const float* __restrict__ part, int parts, float s, float w,
+                   float* __restrict__ lse_v, float* __restrict__ lse_t, int n) {
+  const float m0 = fmaxf(fmaxf(s, w * s), 0.f);
+  for (int i = blockIdx.x * kThreads + threadIdx.x; i < 2 * n;
+       i += gridDim.x * kThreads) {
+    float acc = part[i];
+    for (int z = 1; z < parts; ++z) acc += part[(size_t)2 * n * z + i];
+    if (i < n)
+      lse_v[i] = m0 + logf(acc);
+    else
+      lse_t[i - n] = m0 + logf(acc);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// sym and dual backwards, bf16 features: tensor cores (loss_mma.cuh)
 // ---------------------------------------------------------------------------
 
 // Block (x, y, z): anchor rows [64 x, 64 x + 64) of direction y / chunks
@@ -398,7 +602,7 @@ sum_partials_kernel(const float* __restrict__ part, int count,
 // y % chunks, and the candidate tiles of part z of gridDim.z.  One part
 // writes s · the gradient rows to dv / dt; more write each part's fp32
 // sum to its slice [z][direction] of `part` ([parts][2][n][d]), which
-// sym_bwd_sum_kernel adds in index order.
+// bwd_sum_kernel adds in index order.
 template <int kWarpF, bool kPruned>
 __global__ void __launch_bounds__(kMmaThreads, kWarpF <= 32 ? 2 : 1)
 sym_bwd_bf16_kernel(const bf16* __restrict__ v, const bf16* __restrict__ t,
@@ -423,10 +627,53 @@ sym_bwd_bf16_kernel(const bf16* __restrict__ v, const bf16* __restrict__ t,
       (z + 1) * tiles / parts);
 }
 
-// dv, dt = s · (part[0] + part[1] + ... ), in index order
+// The dual backward: the block of sym_bwd_bf16_kernel (the same grid and
+// `part`) in the subtract-first form at the scale *scale_ptr, and the
+// block's share of Σ coeff⊙z in ds_part[(2 z + direction) · gridDim.x + x]
+// from the blocks of feature chunk 0: the inter logits through the
+// video-anchor blocks only (the text-anchor blocks' are their transposes),
+// each intra logit half through either of its two anchors' blocks.  Its
+// row lse, Σ coeff⊙z and scale take the 32-feature build past the 128
+// registers that two blocks per SM leave a thread (it spilled 32 B there),
+// so every width runs one block per SM.
+template <int kWarpF, bool kPruned>
+__global__ void __launch_bounds__(kMmaThreads, 1)
+dual_bwd_bf16_kernel(const bf16* __restrict__ v, const bf16* __restrict__ t,
+                     const unsigned char* __restrict__ kv,
+                     const unsigned char* __restrict__ kt,
+                     const float* __restrict__ scale_ptr, float w,
+                     const float* __restrict__ lse_v,
+                     const float* __restrict__ lse_t,
+                     const float* __restrict__ g_v, const float* __restrict__ g_t,
+                     float* __restrict__ dv, float* __restrict__ dt,
+                     float* __restrict__ part, float* __restrict__ ds_part,
+                     int n, int d, bool vec) {
+  constexpr int kChunkF = BwdTile<kWarpF>::kChunkF;
+  const int chunks = (d + kChunkF - 1) / kChunkF;
+  const bool text = (int)blockIdx.y >= chunks;
+  const int fc = blockIdx.y - (text ? chunks : 0);
+  const int tiles = (n + kRows - 1) / kRows, parts = gridDim.z, z = blockIdx.z;
+  const float s = *scale_ptr;
+  float* out = parts == 1 ? (text ? dt : dv)
+                          : part + (size_t)(2 * z + (text ? 1 : 0)) * n * d;
+  float* ds_out =
+      fc == 0 ? ds_part + (size_t)(2 * z + (text ? 1 : 0)) * gridDim.x + blockIdx.x
+              : nullptr;
+  bwd_block<kWarpF, false, kPruned, true>(
+      text ? t : v, text ? v : t, text ? kt : kv, text ? kv : kt, s, w,
+      text ? lse_t : lse_v, text ? lse_v : lse_t, text ? g_t : g_v,
+      text ? g_v : g_t, out, parts == 1 ? s : 1.f, n, d, vec,
+      blockIdx.x * kRows, fc, z * tiles / parts, (z + 1) * tiles / parts,
+      text ? 0.f : 1.f, ds_out);
+}
+
+// dv, dt = s · (part[0] + part[1] + ... ), in index order; s = *scale_ptr
+// where given, else scale_arg
 __global__ void __launch_bounds__(kThreads)
-sym_bwd_sum_kernel(const float* __restrict__ part, int parts, float s,
-                   float* __restrict__ dv, float* __restrict__ dt, size_t nd) {
+bwd_sum_kernel(const float* __restrict__ part, int parts,
+               const float* __restrict__ scale_ptr, float scale_arg,
+               float* __restrict__ dv, float* __restrict__ dt, size_t nd) {
+  const float s = scale_ptr != nullptr ? *scale_ptr : scale_arg;
   for (size_t i = blockIdx.x * (size_t)kThreads + threadIdx.x; i < 2 * nd;
        i += (size_t)gridDim.x * kThreads) {
     float acc = part[i];
@@ -437,6 +684,19 @@ sym_bwd_sum_kernel(const float* __restrict__ part, int parts, float s,
       dt[i - nd] = s * acc;
   }
 }
+
+cudaError_t launch_bwd_sum(const float* part, int parts, const float* scale_ptr,
+                           float scale, float* dv, float* dt, size_t nd,
+                           cudaStream_t stream) {
+  const size_t blocks = (2 * nd + kThreads - 1) / kThreads;
+  bwd_sum_kernel<<<(int)(blocks < 4096 ? blocks : 4096), kThreads, 0, stream>>>(
+      part, parts, scale_ptr, scale, dv, dt, nd);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// launch plans of the bf16 kernels
+// ---------------------------------------------------------------------------
 
 // The parts S the candidate tiles split into.  S = 1 where the blocks
 // already fill the card's slots (SMs x resident blocks); otherwise the S
@@ -460,26 +720,114 @@ int split_parts(int tiles, int blocks, int slots) {
   return best;
 }
 
-// The bf16 sym backward's shared memory and parts on the current device.
-template <int kWarpF, bool kPruned>
-cudaError_t sym_bwd_plan(int n, int d, size_t* smem, int* parts) {
+// The SM count and the blocks of kernel `fn` resident on one SM at `smem`
+// bytes of dynamic shared memory, on the current device: queried once per
+// (device, kernel, smem) and cached.  The first query of a (device,
+// kernel) raises its dynamic shared memory limit to `max_smem`, the most
+// any launch of it takes, so that no later launch needs it raised again.
+cudaError_t occupancy(const void* fn, size_t smem, size_t max_smem, int* sms,
+                      int* per_sm) {
+  struct Entry {
+    int dev;
+    const void* fn;
+    size_t smem;
+    int sms, per_sm;
+  };
+  constexpr int kEntries = 64;
+  static std::mutex mu;
+  static Entry cache[kEntries];
+  static int used = 0;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  std::lock_guard<std::mutex> lock(mu);
+  bool raised = false;
+  for (int i = 0; i < used; ++i) {
+    const Entry& e = cache[i];
+    if (e.dev != dev || e.fn != fn) continue;
+    raised = true;
+    if (e.smem == smem) {
+      *sms = e.sms;
+      *per_sm = e.per_sm;
+      return cudaSuccess;
+    }
+  }
+  if (!raised)
+    err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)max_smem);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, fn, kMmaThreads,
+                                                        smem);
+  if (err != cudaSuccess) return err;
+  if (used < kEntries) cache[used++] = Entry{dev, fn, smem, *sms, *per_sm};
+  return cudaSuccess;
+}
+
+// A bf16 kernel's launch: its dynamic shared memory and the parts its
+// candidate tiles split into.
+struct Plan {
+  size_t smem;
+  int parts;
+};
+
+cudaError_t split_plan(const void* fn, size_t smem, size_t max_smem, int tiles,
+                       int blocks, Plan* plan) {
+  int sms = 0, per_sm = 0;
+  const cudaError_t err = occupancy(fn, smem, max_smem, &sms, &per_sm);
+  if (err != cudaSuccess) return err;
+  plan->smem = smem;
+  plan->parts = split_parts(tiles, blocks, sms * (per_sm > 1 ? per_sm : 1));
+  return cudaSuccess;
+}
+
+template <int kChunkF, bool kPruned>
+cudaError_t sym_fwd_plan(int n, int d, Plan* plan) {
+  const int chunks = (d + kChunkF - 1) / kChunkF;
+  return split_plan(reinterpret_cast<const void*>(sym_fwd_bf16_kernel<kChunkF, kPruned>),
+                    sym_fwd_smem_bytes<kChunkF>(chunks),
+                    sym_fwd_smem_bytes<kChunkF>(2), row_tiles(n),
+                    2 * row_tiles(n), plan);
+}
+
+// kDual: dual_bwd_bf16_kernel, else sym_bwd_bf16_kernel
+template <int kWarpF, bool kPruned, bool kDual>
+cudaError_t bwd_plan(int n, int d, Plan* plan) {
   constexpr int kChunkF = BwdTile<kWarpF>::kChunkF;
   const int chunks = (d + kChunkF - 1) / kChunkF;
-  *smem = bwd_mma_smem_bytes<kWarpF>(chunks);
-  cudaError_t err = cudaFuncSetAttribute(
-      sym_bwd_bf16_kernel<kWarpF, kPruned>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)*smem);
-  int dev = 0, sms = 0, per_sm = 0;
-  if (err == cudaSuccess) err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, sym_bwd_bf16_kernel<kWarpF, kPruned>, kMmaThreads, *smem);
+  const void* fn;
+  if constexpr (kDual)
+    fn = reinterpret_cast<const void*>(dual_bwd_bf16_kernel<kWarpF, kPruned>);
+  else
+    fn = reinterpret_cast<const void*>(sym_bwd_bf16_kernel<kWarpF, kPruned>);
+  return split_plan(fn, bwd_mma_smem_bytes<kWarpF>(chunks),
+                    bwd_mma_smem_bytes<kWarpF>(2), row_tiles(n),
+                    2 * chunks * row_tiles(n), plan);
+}
+
+template <int kChunkF, bool kPruned>
+cudaError_t launch_sym_fwd_bf16(const void* v, const void* t, const void* kv,
+                                const void* kt, float s, float w, float* lse_v,
+                                float* lse_t, float* part, int n, int d,
+                                cudaStream_t stream) {
+  Plan plan;
+  cudaError_t err = sym_fwd_plan<kChunkF, kPruned>(n, d, &plan);
   if (err != cudaSuccess) return err;
-  *parts = split_parts(row_tiles(n), 2 * chunks * row_tiles(n),
-                       sms * (per_sm > 1 ? per_sm : 1));
-  return cudaSuccess;
+  if (plan.parts > 1 && part == nullptr) return cudaErrorInvalidValue;
+  const bool vec = d % 8 == 0 && aligned16(v) && aligned16(t);
+  const dim3 grid(row_tiles(n), 2, plan.parts);
+  sym_fwd_bf16_kernel<kChunkF, kPruned><<<grid, kMmaThreads, plan.smem, stream>>>(
+      static_cast<const bf16*>(v), static_cast<const bf16*>(t),
+      static_cast<const unsigned char*>(kv),
+      static_cast<const unsigned char*>(kt), s, w, lse_v, lse_t, part, n, d,
+      vec);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || plan.parts == 1) return err;
+  const int blocks = (2 * n + kThreads - 1) / kThreads;
+  sym_fwd_sum_kernel<<<blocks < 4096 ? blocks : 4096, kThreads, 0, stream>>>(
+      part, plan.parts, s, w, lse_v, lse_t, n);
+  return cudaGetLastError();
 }
 
 template <int kWarpF, bool kPruned>
@@ -489,36 +837,110 @@ cudaError_t launch_sym_bwd_bf16(const void* v, const void* t, const void* kv,
                                 const float* g_v, const float* g_t, float* dv,
                                 float* dt, float* part, int n, int d,
                                 cudaStream_t stream) {
-  size_t smem = 0;
-  int parts = 1;
-  cudaError_t err = sym_bwd_plan<kWarpF, kPruned>(n, d, &smem, &parts);
+  Plan plan;
+  cudaError_t err = bwd_plan<kWarpF, kPruned, false>(n, d, &plan);
   if (err != cudaSuccess) return err;
-  if (parts > 1 && part == nullptr) return cudaErrorInvalidValue;
+  if (plan.parts > 1 && part == nullptr) return cudaErrorInvalidValue;
   constexpr int kChunkF = BwdTile<kWarpF>::kChunkF;
   const int chunks = (d + kChunkF - 1) / kChunkF;
   const bool vec = d % 8 == 0 && aligned16(v) && aligned16(t);
-  const dim3 grid(row_tiles(n), 2 * chunks, parts);
-  sym_bwd_bf16_kernel<kWarpF, kPruned><<<grid, kMmaThreads, smem, stream>>>(
+  const dim3 grid(row_tiles(n), 2 * chunks, plan.parts);
+  sym_bwd_bf16_kernel<kWarpF, kPruned><<<grid, kMmaThreads, plan.smem, stream>>>(
       static_cast<const bf16*>(v), static_cast<const bf16*>(t),
       static_cast<const unsigned char*>(kv),
       static_cast<const unsigned char*>(kt), s, w, lse_v, lse_t, g_v, g_t, dv,
       dt, part, n, d, vec);
   err = cudaGetLastError();
-  if (err != cudaSuccess || parts == 1) return err;
-  const size_t nd = (size_t)n * d;
-  const size_t blocks = (2 * nd + kThreads - 1) / kThreads;
-  sym_bwd_sum_kernel<<<(int)(blocks < 4096 ? blocks : 4096), kThreads, 0,
-                       stream>>>(part, parts, s, dv, dt, nd);
+  if (err != cudaSuccess || plan.parts == 1) return err;
+  return launch_bwd_sum(part, plan.parts, nullptr, s, dv, dt, (size_t)n * d,
+                        stream);
+}
+
+template <int kWarpF, bool kPruned>
+cudaError_t launch_dual_bwd_bf16(const void* v, const void* t, const void* kv,
+                                 const void* kt, const float* scale, float w,
+                                 const float* lse_v, const float* lse_t,
+                                 const float* g_v, const float* g_t, float* dv,
+                                 float* dt, float* part, float* ds_part,
+                                 float* ds, int n, int d, cudaStream_t stream) {
+  Plan plan;
+  cudaError_t err = bwd_plan<kWarpF, kPruned, true>(n, d, &plan);
+  if (err != cudaSuccess) return err;
+  if (plan.parts > 1 && part == nullptr) return cudaErrorInvalidValue;
+  constexpr int kChunkF = BwdTile<kWarpF>::kChunkF;
+  const int chunks = (d + kChunkF - 1) / kChunkF;
+  const bool vec = d % 8 == 0 && aligned16(v) && aligned16(t);
+  const dim3 grid(row_tiles(n), 2 * chunks, plan.parts);
+  dual_bwd_bf16_kernel<kWarpF, kPruned><<<grid, kMmaThreads, plan.smem, stream>>>(
+      static_cast<const bf16*>(v), static_cast<const bf16*>(t),
+      static_cast<const unsigned char*>(kv),
+      static_cast<const unsigned char*>(kt), scale, w, lse_v, lse_t, g_v, g_t,
+      dv, dt, part, ds_part, n, d, vec);
+  err = cudaGetLastError();
+  if (err == cudaSuccess && plan.parts > 1)
+    err = launch_bwd_sum(part, plan.parts, scale, 0.f, dv, dt, (size_t)n * d,
+                         stream);
+  if (err != cudaSuccess) return err;
+  sum_partials_kernel<<<1, kThreads, 0, stream>>>(
+      ds_part, plan.parts * 2 * row_tiles(n), ds);
   return cudaGetLastError();
 }
 
 // f(std::integral_constant<int, kWarpF>{}) on the narrowest feature chunk
-// that holds d, up to 256 features (wider d in chunks of 256)
+// that holds d, up to 256 features (wider d in chunks of 256): the
+// backwards' kWarpF = chunk / 2
 template <typename F>
 cudaError_t by_width(int d, F f) {
   if (d <= 64) return f(std::integral_constant<int, 32>{});
   if (d <= 128) return f(std::integral_constant<int, 64>{});
   return f(std::integral_constant<int, 128>{});
+}
+
+// the same for the sym forward's kChunkF
+template <typename F>
+cudaError_t by_chunk(int d, F f) {
+  if (d <= 64) return f(std::integral_constant<int, 64>{});
+  if (d <= 128) return f(std::integral_constant<int, 128>{});
+  return f(std::integral_constant<int, 256>{});
+}
+
+// f(std::bool_constant<pruned>{})
+template <typename F>
+cudaError_t by_pruned(bool pruned, F f) {
+  return pruned ? f(std::true_type{}) : f(std::false_type{});
+}
+
+enum PlanKind { kSymFwd, kSymBwd, kDualBwd };
+
+// The parts of a bf16 kernel's plan for (n, d, pruned) on the current
+// device.
+cudaError_t plan_parts(PlanKind kind, int n, int d, bool pruned, int* parts) {
+  Plan plan{0, 1};
+  const cudaError_t err = by_pruned(pruned, [&](auto p) {
+    constexpr bool kPruned = decltype(p)::value;
+    if (kind == kSymFwd)
+      return by_chunk(d, [&](auto chunk) {
+        return sym_fwd_plan<decltype(chunk)::value, kPruned>(n, d, &plan);
+      });
+    return by_width(d, [&](auto width) {
+      constexpr int kWarpF = decltype(width)::value;
+      return kind == kSymBwd ? bwd_plan<kWarpF, kPruned, false>(n, d, &plan)
+                             : bwd_plan<kWarpF, kPruned, true>(n, d, &plan);
+    });
+  });
+  *parts = plan.parts;
+  return err;
+}
+
+// per part: `each` floats of scratch where the bf16 plan splits, else 0; a
+// negative value is a cudaError_t, negated
+long long split_scratch(PlanKind kind, int dtype, int n, int d, int pruned,
+                        long long each) {
+  if (dtype != 1 || n < 1 || d < 1) return 0;
+  int parts = 1;
+  const cudaError_t err = plan_parts(kind, n, d, pruned != 0, &parts);
+  if (err != cudaSuccess) return -(long long)err;
+  return parts > 1 ? parts * each : 0;
 }
 
 size_t bwd_smem_bytes(int d) {
@@ -591,18 +1013,35 @@ cudaError_t dispatch(int dtype, bool pruned, F f) {
 // or both null for the unpruned variant); every other array is float32:
 // lse_*, g_* [n] (the [n, 1] columns), dv, dt [n, d], scale and ds [1].
 // Each function returns a cudaError_t; launches are asynchronous on `stream`.
+// The bf16 sym forward, sym backward and dual backward split their
+// candidates where n leaves the card idle: their float32 scratch `part`
+// holds crossclr_<kernel>_scratch(dtype, n, d, pruned) values (0: none
+// needed, pass null; negative: a cudaError_t, negated), sized from the
+// plan on the current device.
+
+extern "C" long long crossclr_sym_fwd_scratch(int dtype, int n, int d,
+                                              int pruned) {
+  return split_scratch(kSymFwd, dtype, n, d, pruned, 2LL * n);
+}
 
 extern "C" int crossclr_sym_fwd(int dtype, const void* v, const void* t,
                                 const void* keep_v, const void* keep_t,
-                                void* lse_v, void* lse_t, int n, int d,
-                                float scale, float w, void* stream) {
+                                void* lse_v, void* lse_t, void* part, int n,
+                                int d, float scale, float w, void* stream) {
   if (bad_args(dtype, keep_v, keep_t, n, d)) return (int)cudaErrorInvalidValue;
   float* lv = static_cast<float*>(lse_v);
   float* lt = static_cast<float*>(lse_t);
+  float* pt = static_cast<float*>(part);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return (int)dispatch(dtype, keep_v != nullptr, [&](auto ty, auto pruned) {
-    return launch_fwd<typename decltype(ty)::type, false, decltype(pruned)::value>(
-        v, t, keep_v, keep_t, nullptr, scale, w, lv, lt, n, d, st);
+  return (int)by_pruned(keep_v != nullptr, [&](auto pruned) {
+    constexpr bool kPruned = decltype(pruned)::value;
+    if (dtype == 0)
+      return launch_fwd<float, false, kPruned>(v, t, keep_v, keep_t, nullptr,
+                                               scale, w, lv, lt, n, d, st);
+    return by_chunk(d, [&](auto chunk) {
+      return launch_sym_fwd_bf16<decltype(chunk)::value, kPruned>(
+          v, t, keep_v, keep_t, scale, w, lv, lt, pt, n, d, st);
+    });
   });
 }
 
@@ -621,21 +1060,9 @@ extern "C" int crossclr_dual_fwd(int dtype, const void* v, const void* t,
   });
 }
 
-// The float32 scratch `part` of the bf16 sym backward holds
-// crossclr_sym_bwd_scratch(dtype, n, d, pruned) values (0: none needed,
-// pass null; negative: a cudaError_t, negated).
 extern "C" long long crossclr_sym_bwd_scratch(int dtype, int n, int d,
                                               int pruned) {
-  if (dtype != 1 || n < 1 || d < 1) return 0;
-  size_t smem = 0;
-  int parts = 1;
-  const cudaError_t err = by_width(d, [&](auto width) {
-    constexpr int kWarpF = decltype(width)::value;
-    return pruned ? sym_bwd_plan<kWarpF, true>(n, d, &smem, &parts)
-                  : sym_bwd_plan<kWarpF, false>(n, d, &smem, &parts);
-  });
-  if (err != cudaSuccess) return -(long long)err;
-  return parts > 1 ? (long long)parts * 2 * n * d : 0;
+  return split_scratch(kSymBwd, dtype, n, d, pruned, 2LL * n * d);
 }
 
 extern "C" int crossclr_sym_bwd(int dtype, const void* v, const void* t,
@@ -653,33 +1080,45 @@ extern "C" int crossclr_sym_bwd(int dtype, const void* v, const void* t,
   float* ot = static_cast<float*>(dt);
   float* pt = static_cast<float*>(part);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return (int)dispatch(dtype, keep_v != nullptr, [&](auto ty, auto pruned) {
+  return (int)by_pruned(keep_v != nullptr, [&](auto pruned) {
     constexpr bool kPruned = decltype(pruned)::value;
-    if constexpr (std::is_same_v<typename decltype(ty)::type, float>) {
+    if (dtype == 0)
       return launch_bwd<float, false, kPruned>(
           v, t, keep_v, keep_t, nullptr, scale, w, lv, lt, gv, gt, ov, ot,
           nullptr, n, d, st);
-    } else {
-      return by_width(d, [&](auto width) {
-        return launch_sym_bwd_bf16<decltype(width)::value, kPruned>(
-            v, t, keep_v, keep_t, scale, w, lv, lt, gv, gt, ov, ot, pt, n, d,
-            st);
-      });
-    }
+    return by_width(d, [&](auto width) {
+      return launch_sym_bwd_bf16<decltype(width)::value, kPruned>(
+          v, t, keep_v, keep_t, scale, w, lv, lt, gv, gt, ov, ot, pt, n, d,
+          st);
+    });
   });
 }
 
-// The float32 scratch `ds_part` holds crossclr_dual_bwd_partials(n) values;
-// `ds` receives Σ coeff⊙z (= scale · d loss / d scale).
-extern "C" int crossclr_dual_bwd_partials(int n) { return 2 * row_tiles(n); }
+// The float32 scratch `ds_part` holds crossclr_dual_bwd_partials(dtype, n,
+// d, pruned) values (one per block that sums Σ coeff⊙z; negative: a
+// cudaError_t, negated); `ds` receives Σ coeff⊙z (= scale · d loss /
+// d scale).
+extern "C" long long crossclr_dual_bwd_partials(int dtype, int n, int d,
+                                                int pruned) {
+  if (dtype != 1 || n < 1 || d < 1) return 2LL * row_tiles(n < 1 ? 1 : n);
+  int parts = 1;
+  const cudaError_t err = plan_parts(kDualBwd, n, d, pruned != 0, &parts);
+  if (err != cudaSuccess) return -(long long)err;
+  return 2LL * parts * row_tiles(n);
+}
+
+extern "C" long long crossclr_dual_bwd_scratch(int dtype, int n, int d,
+                                               int pruned) {
+  return split_scratch(kDualBwd, dtype, n, d, pruned, 2LL * n * d);
+}
 
 extern "C" int crossclr_dual_bwd(int dtype, const void* v, const void* t,
                                  const void* keep_v, const void* keep_t,
                                  const void* scale, const void* lse_v,
                                  const void* lse_t, const void* g_v,
                                  const void* g_t, void* dv, void* dt,
-                                 void* ds_part, void* ds, int n, int d, float w,
-                                 void* stream) {
+                                 void* part, void* ds_part, void* ds, int n,
+                                 int d, float w, void* stream) {
   if (bad_args(dtype, keep_v, keep_t, n, d)) return (int)cudaErrorInvalidValue;
   const float* sp = static_cast<const float*>(scale);
   const float* lv = static_cast<const float*>(lse_v);
@@ -688,19 +1127,26 @@ extern "C" int crossclr_dual_bwd(int dtype, const void* v, const void* t,
   const float* gt = static_cast<const float*>(g_t);
   float* ov = static_cast<float*>(dv);
   float* ot = static_cast<float*>(dt);
-  float* part = static_cast<float*>(ds_part);
+  float* pt = static_cast<float*>(part);
+  float* dp = static_cast<float*>(ds_part);
+  float* out = static_cast<float*>(ds);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      dispatch(dtype, keep_v != nullptr, [&](auto ty, auto pruned) {
-        return launch_bwd<typename decltype(ty)::type, true,
-                          decltype(pruned)::value>(
-            v, t, keep_v, keep_t, sp, 0.f, w, lv, lt, gv, gt, ov, ot, part, n,
-            d, st);
-      });
-  if (err != cudaSuccess) return (int)err;
-  sum_partials_kernel<<<1, kThreads, 0, st>>>(
-      part, crossclr_dual_bwd_partials(n), static_cast<float*>(ds));
-  return (int)cudaGetLastError();
+  return (int)by_pruned(keep_v != nullptr, [&](auto pruned) {
+    constexpr bool kPruned = decltype(pruned)::value;
+    if (dtype == 0) {
+      const cudaError_t err = launch_bwd<float, true, kPruned>(
+          v, t, keep_v, keep_t, sp, 0.f, w, lv, lt, gv, gt, ov, ot, dp, n, d,
+          st);
+      if (err != cudaSuccess) return err;
+      sum_partials_kernel<<<1, kThreads, 0, st>>>(dp, 2 * row_tiles(n), out);
+      return cudaGetLastError();
+    }
+    return by_width(d, [&](auto width) {
+      return launch_dual_bwd_bf16<decltype(width)::value, kPruned>(
+          v, t, keep_v, keep_t, sp, w, lv, lt, gv, gt, ov, ot, pt, dp, out, n,
+          d, st);
+    });
+  });
 }
 
 extern "C" const char* crossclr_cuda_error_string(int code) {

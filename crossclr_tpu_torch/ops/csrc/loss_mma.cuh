@@ -1,17 +1,21 @@
 // The bf16 tensor-core pieces of the CrossCLR logsumexp kernels, shared by
 // fused_crossclr.cu (the per-direction forward and backward) and
-// fused_dual.cu (the sym backward): 64-row tiles of bf16 features staged by
-// 16-byte cp.async, the logits A·Xᵀ by mma.sync (mma_common.cuh), and the
-// anchor-gradient block of one direction, whose formulas are
+// fused_dual.cu (the sym forward and backward, the dual backward): 64-row
+// tiles of bf16 features staged by 16-byte cp.async, the logits A·Xᵀ by
+// mma.sync (mma_common.cuh), and the anchor-gradient block of one
+// direction, whose formulas are
 //   P[i,j] = e^{z_ao[i,j]}·(f_a[i] + f_o[j])  (factored; or subtract-first
 //            g_a[i]·e^{z_ao - lse_a[i]} + g_o[j]·e^{z_ao - lse_o[j]}),
 //   Q[i,j] = the same over z_aa with f_a on both sides, 0 on the diagonal,
 //   dA = s·(P·O + w·Q·A),  f = g·e^{-lse}.
-// With keep masks (the pruned sym backward) each role's term of a
+// With keep masks (the pruned sym and dual backwards) each role's term of a
 // coefficient is kept by the other index's mask: the anchor row's term by
 // the candidate's mask (inter: keep_o[col] | row == col; intra: keep_a[col]
 // & row != col), the candidate's term by the anchor row's mask (keep_a[row],
-// the same diagonal rule).  A mask never reaches an exp.
+// the same diagonal rule).  A mask never reaches an exp: a dropped
+// subtract-first term is selected away on the raw logit, so an exp that
+// overflows at large s is never multiplied.  The dual backward also sums
+// its share of Σ P⊙z_ao + ½ Σ Q⊙z_aa (= s · d loss / d s) per block.
 //
 // The block of 8 warps: 4 row groups x 2 halves.  Warp w scores rows
 // 16 (w % 4) + [0, 16) of the block's 64 anchors against candidates
@@ -53,13 +57,14 @@ struct BwdTile : Chunk<2 * kWarpF> {
 
 // The backward's shared memory: two stages of candidate rows, and two of
 // anchor rows where d takes more than one chunk (else one, resident), the
-// coefficient tile's hi and lo parts, two stages of candidate factors.
+// coefficient tile's hi and lo parts, two stages of the candidates' factor,
+// lse and keep flag.
 template <int kWarpF>
 size_t bwd_mma_smem_bytes(int chunks) {
   using D = BwdTile<kWarpF>;
   return sizeof(bf16) * (size_t)((chunks > 1 ? 4 : 3) * kRows * D::kLd +
                                  2 * kRows * kCoefLd) +
-         sizeof(float) * 4 * kRows;
+         sizeof(float) * 6 * kRows;
 }
 
 // acc += t in fp32, rounded to nearest.  An mma does not round its sum as
@@ -137,8 +142,13 @@ __device__ __forceinline__ void logit_step(float sc[4][4], const uint32_t af[4],
 // registers, the candidate tile X read by ldmatrix.trans.
 // kFactored = true: exp(z)·(g_a e^{-lse_a} + g_c e^{-lse_c}); false:
 // g_a·exp(z - lse_a) + g_c·exp(z - lse_c).  kPruned: keep masks keep_a,
-// keep_o [n] (factored only).
-template <int kWarpF, bool kFactored, bool kPruned>
+// keep_o [n].  kDs (subtract-first only): the block also sums
+// ds_weight·coef·z over its logits, ds_weight = ds_inter for the inter
+// logits and ½ for the intra ones, each tile's 16 terms a thread holds
+// summed apart and then added to its running sum, the threads' sums
+// reduced in a fixed order; thread 0 writes it to *ds_out where ds_out is
+// not null.
+template <int kWarpF, bool kFactored, bool kPruned, bool kDs = false>
 __device__ __forceinline__ void bwd_block(
     const bf16* __restrict__ a, const bf16* __restrict__ o,
     const unsigned char* __restrict__ keep_a,
@@ -146,8 +156,8 @@ __device__ __forceinline__ void bwd_block(
     const float* __restrict__ lse_a, const float* __restrict__ lse_o,
     const float* __restrict__ g_a, const float* __restrict__ g_o,
     float* __restrict__ out, float out_scale, int n, int d, bool vec, int r0,
-    int fc, int t0, int t1) {
-  static_assert(kFactored || !kPruned, "the pruned coefficients are factored");
+    int fc, int t0, int t1, float ds_inter = 0.f, float* ds_out = nullptr) {
+  static_assert(!(kDs && kFactored), "Σ coeff⊙z is the subtract-first form's");
   using D = BwdTile<kWarpF>;
   extern __shared__ __align__(16) unsigned char smem_bf16[];
   const int chunks = (d + D::kChunkF - 1) / D::kChunkF;
@@ -156,10 +166,11 @@ __device__ __forceinline__ void bwd_block(
   bf16* sa = sx + 2 * kRows * D::kLd;             // anchor rows, 1 or 2
   bf16* chi = sa + a_bufs * kRows * D::kLd;       // coefficients, bf16 hi
   bf16* clo = chi + kRows * kCoefLd;              // and lo parts
+  // the candidates' factors, 2 stages each: g·e^{-lse} (factored) or g,
+  // lse (subtract-first), and the keep flag 1 / 0 (pruned)
   float* scol_a = reinterpret_cast<float*>(clo + kRows * kCoefLd);
-  // candidate factors, 2 stages: lse (subtract-first), or the candidate's
-  // keep flag 1 / 0 (pruned)
   float* scol_b = scol_a + 2 * kRows;
+  float* scol_k = scol_b + 2 * kRows;
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, tq = lane & 3;
@@ -187,18 +198,19 @@ __device__ __forceinline__ void bwd_block(
       const int col = c0 + threadIdx.x;
       const float* g_c = intra ? g_a : g_o;
       const float* lse_c = intra ? lse_a : lse_o;
-      float fa = 0.f, fb = 0.f;
+      float fa = 0.f, fb = 0.f, fk = 0.f;
       if (col < n) {
         if constexpr (kFactored) {
           fa = g_c[col] * expf(-lse_c[col]);
-          if constexpr (kPruned) fb = (intra ? keep_a : keep_o)[col] ? 1.f : 0.f;
         } else {
           fa = g_c[col];
           fb = lse_c[col];
         }
+        if constexpr (kPruned) fk = (intra ? keep_a : keep_o)[col] ? 1.f : 0.f;
       }
       scol_a[(tile & 1) * kRows + threadIdx.x] = fa;
       scol_b[(tile & 1) * kRows + threadIdx.x] = fb;
+      scol_k[(tile & 1) * kRows + threadIdx.x] = fk;
     }
   };
 
@@ -225,6 +237,7 @@ __device__ __forceinline__ void bwd_block(
   for (int j = 0; j < D::kN; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+  float ds_acc = 0.f;  // kDs: this thread's running Σ ds_weight·coef·z
 
   // one chunk: the anchor rows stay resident, loaded with stage 0
   if (chunks == 1) stage_tile<D::kChunkF>(sa, a, r0, 0, n, d, vec);
@@ -258,6 +271,10 @@ __device__ __forceinline__ void bwd_block(
     const float zs = intra ? w * s : s;
     const float* fa = scol_a + (tile & 1) * kRows;
     const float* fb = scol_b + (tile & 1) * kRows;
+    const float* fk = scol_k + (tile & 1) * kRows;
+    // each logit enters Σ coeff⊙z once over both directions' blocks
+    const float ds_w = intra ? 0.5f : ds_inter;
+    float ds_tile = 0.f;
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
 #pragma unroll
@@ -270,11 +287,16 @@ __device__ __forceinline__ void bwd_block(
         if constexpr (kPruned) {
           // each role's term where its mask keeps the pair; on the
           // diagonal the positive (inter) keeps both, intra neither
-          bool keep_row_term = fb[cl] != 0.f, keep_col_term = kr[e >> 1];
+          bool keep_row_term = fk[cl] != 0.f, keep_col_term = kr[e >> 1];
           if (row == col) keep_row_term = keep_col_term = !intra;
-          if (row < n && col < n && (keep_row_term || keep_col_term))
-            coef = expf(z) * ((keep_row_term ? ra[e >> 1] : 0.f) +
-                              (keep_col_term ? fa[cl] : 0.f));
+          if (row < n && col < n && (keep_row_term || keep_col_term)) {
+            if constexpr (kFactored)
+              coef = expf(z) * ((keep_row_term ? ra[e >> 1] : 0.f) +
+                                (keep_col_term ? fa[cl] : 0.f));
+            else
+              coef = (keep_row_term ? ra[e >> 1] * expf(z - rb[e >> 1]) : 0.f) +
+                     (keep_col_term ? fa[cl] * expf(z - fb[cl]) : 0.f);
+          }
         } else {
           // a zeroed intra logit is a constant: no gradient
           if (row < n && col < n && !(intra && row == col)) {
@@ -284,6 +306,7 @@ __device__ __forceinline__ void bwd_block(
               coef = ra[e >> 1] * expf(z - rb[e >> 1]) + fa[cl] * expf(z - fb[cl]);
           }
         }
+        if constexpr (kDs) ds_tile = fmaf(ds_w * coef, z, ds_tile);
         sc[j][e] = intra ? w * coef : coef;
       }
       // as a bf16 hi part and the bf16 rounding of the remainder
@@ -297,6 +320,7 @@ __device__ __forceinline__ void bwd_block(
         *reinterpret_cast<uint32_t*>(clo + idx) = pack_bf16(x0 - hf.x, x1 - hf.y);
       }
     }
+    if constexpr (kDs) ds_acc += ds_tile;
     __syncthreads();  // the coefficient tile is whole
     // G += C X over the tile's 64 candidates, C as hi and lo A fragments,
     // X by ldmatrix.trans; each 16-feature tile's product from zero, then
@@ -333,6 +357,19 @@ __device__ __forceinline__ void bwd_block(
       const int f = fbase + 8 * j + (e & 1);
       if (row < n && f < d) out[(size_t)row * d + f] = out_scale * acc[j][e];
     }
+  if constexpr (kDs) {
+    __shared__ float ds_warps[kMmaThreads / 32];
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      ds_acc += __shfl_xor_sync(0xffffffffu, ds_acc, off);
+    if (lane == 0) ds_warps[warp] = ds_acc;
+    __syncthreads();
+    if (threadIdx.x == 0 && ds_out != nullptr) {
+      float total = 0.f;
+      for (int i = 0; i < kMmaThreads / 32; ++i) total += ds_warps[i];
+      *ds_out = total;
+    }
+  }
 }
 
 }  // namespace loss_mma

@@ -31,13 +31,18 @@ always kept.  Two kernel pairs compute it, in ``csrc/fused_dual.cu``:
   the numerical gates but the sym kernels are refused by a VMEM or tile
   gate; the port has no such gate, so that float τ always takes sym.
 
-The sym backward's bf16 build (the ``default`` tier) is a tensor-core
-kernel: per direction the per-direction backward's block
-(``csrc/loss_mma.cuh``), the keep masks as role selects on the
-coefficients, and where ``B`` leaves the card idle the candidate tiles
-split over more blocks whose fp32 partial gradients a second kernel adds in
-a fixed order.  The other kernels, and the fp32 sym backward, run scalar
-fp32 FMAs.
+The bf16 builds (the ``default`` tier) of the sym forward, the sym
+backward and the dual backward are tensor-core kernels
+(``csrc/loss_mma.cuh``): the sym forward sums ``exp2`` of each logit in
+log2 units at the static shift; each backward runs the per-direction
+backward's block per direction, factored (sym) or subtract-first with a
+``Σ coeff⊙z`` partial per block (dual), the keep masks as role selects on
+the coefficients.  Where ``B`` leaves the card idle their candidate tiles
+split over more blocks whose fp32 partial sums a second kernel adds in a
+fixed order, in a scratch buffer allocated here: its size comes from the
+library once per (library, device, dtype, B, D, pruned) and is cached in
+:data:`_plans`.  The dual forward and every fp32 build run scalar fp32
+FMAs.
 
 Each kernel has its plain version here (``*_plain``: the CPU path and the
 oracle the kernel is held against on the card; the plain versions assume
@@ -268,18 +273,23 @@ def dual_bwd_plain(v, t, scale, lse_v, lse_t, g_v, g_t, neg_weight: float,
 _ptr, _int, _float = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # (dtype, v, t, keep_v, keep_t, ..., n, d, ..., stream)
 _SIGNATURES = {
-    "crossclr_sym_fwd": [_int, _ptr, _ptr, _ptr, _ptr, _ptr, _ptr, _int, _int,
-                         _float, _float, _ptr],
+    "crossclr_sym_fwd": [_int, _ptr, _ptr, _ptr, _ptr, _ptr, _ptr, _ptr, _int,
+                         _int, _float, _float, _ptr],
     "crossclr_sym_bwd": [_int, _ptr, _ptr, _ptr, _ptr, _ptr, _ptr, _ptr, _ptr,
                          _ptr, _ptr, _ptr, _int, _int, _float, _float, _ptr],
     "crossclr_dual_fwd": [_int, _ptr, _ptr, _ptr, _ptr, _ptr, _ptr, _ptr, _int,
                           _int, _float, _ptr],
     "crossclr_dual_bwd": [_int, _ptr, _ptr, _ptr, _ptr, _ptr, _ptr, _ptr, _ptr,
-                          _ptr, _ptr, _ptr, _ptr, _ptr, _int, _int, _float,
-                          _ptr],
-    "crossclr_dual_bwd_partials": [_int],
+                          _ptr, _ptr, _ptr, _ptr, _ptr, _ptr, _int, _int,
+                          _float, _ptr],
+    # (dtype, B, D, pruned) -> floats of scratch, or a negated cudaError_t
+    "crossclr_sym_fwd_scratch": [_int, _int, _int, _int],
     "crossclr_sym_bwd_scratch": [_int, _int, _int, _int],
+    "crossclr_dual_bwd_scratch": [_int, _int, _int, _int],
+    "crossclr_dual_bwd_partials": [_int, _int, _int, _int],
 }
+_SIZE_QUERIES = ("crossclr_sym_fwd_scratch", "crossclr_sym_bwd_scratch",
+                 "crossclr_dual_bwd_scratch", "crossclr_dual_bwd_partials")
 
 
 def _library() -> ctypes.CDLL:
@@ -290,11 +300,40 @@ def _library() -> ctypes.CDLL:
         for name, argtypes in _SIGNATURES.items():
             fn = getattr(lib, name)
             fn.argtypes = argtypes
-            fn.restype = _int
-        lib.crossclr_sym_bwd_scratch.restype = ctypes.c_longlong
+            fn.restype = ctypes.c_longlong if name in _SIZE_QUERIES else _int
         lib.crossclr_cuda_error_string.argtypes = [_int]
         lib.crossclr_cuda_error_string.restype = ctypes.c_char_p
     return lib
+
+
+# (library, size query, device, dtype code, B, D, pruned) -> the size the
+# query names: asked once per key, as the library's plan is
+_plans: dict = {}
+
+
+def _plan_size(lib, query: str, name: str, code: int, b: int, d: int,
+               pruned: bool, device) -> int:
+    """The size (in floats) that ``query`` of ``lib`` names for this call,
+    from :data:`_plans`; a negative answer (a CUDA error) raises."""
+    key = (lib, query, device, code, b, d, pruned)
+    size = _plans.get(key)
+    if size is None:
+        with torch.cuda.device(device):
+            size = getattr(lib, query)(code, b, d, int(pruned))
+        if size < 0:
+            msg = lib.crossclr_cuda_error_string(-size).decode()
+            raise RuntimeError(f"{name} launch failed: {msg} (cudaError {-size})")
+        _plans[key] = size
+    return size
+
+
+def _scratch(size: int, device):
+    """A float32 scratch buffer of ``size`` values, or None for none."""
+    return torch.empty(size, device=device, dtype=torch.float32) if size else None
+
+
+def _ptr_of(x):
+    return None if x is None else x.data_ptr()
 
 
 def _check_features(v, t, name: str) -> None:
@@ -364,11 +403,15 @@ def sym_fwd_cuda(v, t, scale: float, neg_weight: float, keep_video=None,
     _check_features(v, t, "sym_fwd")
     b, d = v.shape
     _check_masks(keep_video, keep_text, b, v.device, "sym_fwd")
+    lib = _library()
+    code = _DTYPE_CODES[v.dtype]
+    part = _scratch(_plan_size(lib, "crossclr_sym_fwd_scratch", "sym_fwd", code,
+                               b, d, keep_video is not None, v.device), v.device)
     lse_v = torch.empty((b, 1), device=v.device, dtype=torch.float32)
     lse_t = torch.empty_like(lse_v)
-    _launch("sym_fwd", _library().crossclr_sym_fwd, _DTYPE_CODES[v.dtype],
-            v.data_ptr(), t.data_ptr(), *_mask_ptrs(keep_video, keep_text),
-            lse_v.data_ptr(), lse_t.data_ptr(), b, d, float(scale),
+    _launch("sym_fwd", lib.crossclr_sym_fwd, code, v.data_ptr(), t.data_ptr(),
+            *_mask_ptrs(keep_video, keep_text), lse_v.data_ptr(),
+            lse_t.data_ptr(), _ptr_of(part), b, d, float(scale),
             float(neg_weight), device=v.device)
     return lse_v, lse_t
 
@@ -386,19 +429,15 @@ def sym_bwd_cuda(v, t, lse_v, lse_t, g_v, g_t, scale: float, neg_weight: float,
         _check_f32(x, (b, 1), v.device, what)
     lib = _library()
     code = _DTYPE_CODES[v.dtype]
-    with torch.cuda.device(v.device):
-        size = lib.crossclr_sym_bwd_scratch(code, b, d, int(keep_video is not None))
-    if size < 0:
-        msg = lib.crossclr_cuda_error_string(-size).decode()
-        raise RuntimeError(f"sym_bwd launch failed: {msg} (cudaError {-size})")
-    part = torch.empty(size, device=v.device, dtype=torch.float32) if size else None
+    part = _scratch(_plan_size(lib, "crossclr_sym_bwd_scratch", "sym_bwd", code,
+                               b, d, keep_video is not None, v.device), v.device)
     dv = torch.empty((b, d), device=v.device, dtype=torch.float32)
     dt = torch.empty_like(dv)
     _launch("sym_bwd", lib.crossclr_sym_bwd, code, v.data_ptr(), t.data_ptr(),
             *_mask_ptrs(keep_video, keep_text), lse_v.data_ptr(),
             lse_t.data_ptr(), g_v.data_ptr(), g_t.data_ptr(), dv.data_ptr(),
-            dt.data_ptr(), None if part is None else part.data_ptr(), b, d,
-            float(scale), float(neg_weight), device=v.device)
+            dt.data_ptr(), _ptr_of(part), b, d, float(scale), float(neg_weight),
+            device=v.device)
     return dv, dt
 
 
@@ -421,7 +460,10 @@ def dual_fwd_cuda(v, t, scale, neg_weight: float, keep_video=None,
 
 def dual_bwd_cuda(v, t, scale, lse_v, lse_t, g_v, g_t, neg_weight: float,
                   keep_video=None, keep_text=None):
-    """Launch the dual backward; returns fp32 ``(dV, dT, ds_raw [1])``."""
+    """Launch the dual backward; returns fp32 ``(dV, dT, ds_raw [1])``.
+    One scratch buffer holds the per-block partials of ``ds_raw`` and,
+    where the bf16 build splits the candidates, the partial gradients,
+    each of the size the library names."""
     _check_features(v, t, "dual_bwd")
     b, d = v.shape
     _check_masks(keep_video, keep_text, b, v.device, "dual_bwd")
@@ -429,17 +471,21 @@ def dual_bwd_cuda(v, t, scale, lse_v, lse_t, g_v, g_t, neg_weight: float,
     for x, what in ((lse_v, "lse_v"), (lse_t, "lse_t"), (g_v, "g_v"), (g_t, "g_t")):
         _check_f32(x, (b, 1), v.device, what)
     lib = _library()
+    code = _DTYPE_CODES[v.dtype]
+    pruned = keep_video is not None
+    rows, partials = (_plan_size(lib, query, "dual_bwd", code, b, d, pruned, v.device)
+                      for query in ("crossclr_dual_bwd_scratch",
+                                    "crossclr_dual_bwd_partials"))
+    scratch = torch.empty(partials + rows, device=v.device, dtype=torch.float32)
     dv = torch.empty((b, d), device=v.device, dtype=torch.float32)
     dt = torch.empty_like(dv)
-    ds_part = torch.empty(lib.crossclr_dual_bwd_partials(b), device=v.device,
-                          dtype=torch.float32)
     ds_raw = torch.empty(1, device=v.device, dtype=torch.float32)
-    _launch("dual_bwd", lib.crossclr_dual_bwd, _DTYPE_CODES[v.dtype],
-            v.data_ptr(), t.data_ptr(), *_mask_ptrs(keep_video, keep_text),
-            scale.data_ptr(), lse_v.data_ptr(),
+    _launch("dual_bwd", lib.crossclr_dual_bwd, code, v.data_ptr(), t.data_ptr(),
+            *_mask_ptrs(keep_video, keep_text), scale.data_ptr(), lse_v.data_ptr(),
             lse_t.data_ptr(), g_v.data_ptr(), g_t.data_ptr(), dv.data_ptr(),
-            dt.data_ptr(), ds_part.data_ptr(), ds_raw.data_ptr(), b, d,
-            float(neg_weight), device=v.device)
+            dt.data_ptr(), scratch[partials:].data_ptr() if rows else None,
+            scratch.data_ptr(), ds_raw.data_ptr(), b, d, float(neg_weight),
+            device=v.device)
     return dv, dt, ds_raw
 
 
