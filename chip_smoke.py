@@ -26,8 +26,10 @@ Phases, one line each; any failure raises and exits non-zero:
                  builds each; direction_fwd_bf16_kernel: 3 feature-chunk
                  widths; direction_bwd_bf16_kernel: 3 widths x 2
                  coefficient forms; sym_fwd_bf16_kernel,
-                 sym_bwd_bf16_kernel and dual_bwd_bf16_kernel: 3 widths x
-                 unpruned and pruned each), none of which may spill.
+                 dual_fwd_bf16_kernel, sym_bwd_bf16_kernel,
+                 dual_bwd_bf16_kernel and rows_bwd_rows_bf16_kernel: 3
+                 widths x unpruned and pruned each), none of which may
+                 spill.
   3. kernel    — the flash forward against the plain version on the same
                  CUDA tensors (H=8, Dh=48, S in {64, 96, 37}, ragged masks,
                  one entry fully masked; fp32 and bf16) within the stated
@@ -67,7 +69,8 @@ Phases, one line each; any failure raises and exits non-zero:
                  tensors, B in {1024, 4096, 1000} x D in {256, 512} and
                  the transformer slice's 1024 x 384, fp32
                  operands (highest) and bf16 operands (default), within the
-                 limits below; the fused loss on CUDA against the eager
+                 limits below, dual_fwd also with all-kept and none-kept
+                 keep masks; the fused loss on CUDA against the eager
                  loss; then each kernel and its plain version timed at the
                  MLP slice's shape (B=1024, D=256), the transformer slice's
                  (B=1024, D=384) and the reference's headline shape
@@ -82,8 +85,9 @@ Phases, one line each; any failure raises and exits non-zero:
                  (each lse then equals its positive logit) and all kept;
                  at 1024 x 384 the pruned dual lse also against
                  rows_lse_cuda on the same operands (two kernels, one
-                 function); sym_fwd, sym_bwd and dual_bwd (a tensor τ) at
-                 the MLP leg's 1024 x 256 and, pruned, the full-CrossCLR
+                 function); sym_fwd, sym_bwd, dual_fwd and dual_bwd (dual at
+                 a tensor τ) at the MLP leg's 1024 x 256 and, pruned, the
+                 full-CrossCLR
                  leg's 1024 x 384, both tiers, on random features at τ =
                  0.03 and on features collapsed near one direction at τ =
                  1/79 (g·e^{-lse} subnormal; Σ coeff⊙z within DS_RTOL),
@@ -127,7 +131,8 @@ Phases, one line each; any failure raises and exits non-zero:
                  operands, pruned (keep masks from
                  connectivity_keep_and_weights at prune 0.1) and unpruned,
                  at τ = 0.03 and 0.05 (the Σ p⊙z term of dτ row by row
-                 within LSE_TOL and in total within DS_RTOL); (b) four
+                 within LSE_TOL and in total within DS_RTOL), two launches
+                 of each bf16 rows_bwd_rows bit for bit; (b) four
                  emulated ranks: blocks of 1024 rows at offsets 0, 1024,
                  2048, 3072 of 4096 give the one-call lse and Σ p⊙z rows,
                  and their summed candidate gradients and concatenated row
@@ -199,26 +204,29 @@ The last line is {"ok": true, "device": {...}}.
 Run from the root of a checkout:  python3 chip_smoke.py
 
 With --baseline DIR (DIR holding another revision's flash_fwd.cu,
-flash_bwd.cu, fused_crossclr.cu, fused_dual.cu and their headers, e.g. the
-csrc directory of a parent commit's `git archive` unpacked under the
-ignored _checkout/), it runs only phases 1-2 and a comparison: this
-checkout's flash, per-direction and loss-pair kernels against that
-revision's on the same operands, bit for bit where the design was kept
-(every fp32 output, the bf16 flash forward, dq and dk/dv, lse_fwd and
-lse_bwd in both tiers, sym_bwd and dual_fwd in both tiers, unpruned and
-pruned, at 1024 x 256 and 1024 x 384; the redesigned bf16 sym_fwd and
-dual_bwd (REDESIGNED) are logged only: they are held to their plain
-versions by the phases above; a revision whose entry points take no
-scratch is called through ParentLossLibrary); then at B=1024, S in {96,
-64}, H=8, Dh=48, bf16, dropout 0 and 0.1 each flash kernel timed in turns
-(baseline, this, this, baseline; median of 20 each) beside its plain
-version, SDPA and its bound; bf16 lse_fwd and lse_bwd the same way at
-4096 x 256 (median of 20, beside the plain version) and at the leg's
-65,536 x 256 (median of 3) beside the bound; bf16 sym_fwd, sym_bwd and
-dual_bwd at 1024 x 256 and, pruned, 1024 x 384 (median of 20) beside
-their plain versions and bounds; and the loss fwd+bwd at the headline
-4096 x 512 through the sym and the dual route (default tier) beside the
-plain pair's; the last line is a JSON record of those times.
+flash_bwd.cu, fused_crossclr.cu, fused_dual.cu, fused_global.cu and their
+headers, e.g. the csrc directory of a parent commit's `git archive`
+unpacked under the ignored _checkout/), it runs only phases 1-2 and a
+comparison: this checkout's flash, per-direction, loss-pair and rows
+kernels against that revision's on the same operands, bit for bit where
+the design was kept (every fp32 output, the bf16 flash forward, dq and
+dk/dv, lse_fwd and lse_bwd in both tiers, sym_fwd, sym_bwd and dual_bwd in
+both tiers, unpruned and pruned, at 1024 x 256 and 1024 x 384, rows_lse and
+rows_bwd_cols in both tiers, pruned and not, at 1024 x 384; the
+redesigned bf16 dual_fwd and rows_bwd_rows (REDESIGNED) are logged only:
+they are held to their plain versions by the phases above; a revision
+whose entry points take no scratch is called through ParentLossLibrary);
+then at B=1024, S in {96, 64}, H=8, Dh=48, bf16, dropout 0 and 0.1 each
+flash kernel timed in turns (baseline, this, this, baseline; median of 20
+each) beside its plain version, SDPA and its bound; bf16 lse_fwd and
+lse_bwd the same way at 4096 x 256 (median of 20, beside the plain
+version) and at the leg's 65,536 x 256 (median of 3) beside the bound;
+bf16 sym_fwd, dual_fwd, sym_bwd and dual_bwd at 1024 x 256 and, pruned,
+1024 x 384 (median of 20) beside their plain versions and bounds, and
+dual_fwd also at 4096 x 512; bf16 rows_bwd_rows at 1024 x 384, pruned;
+and the loss fwd+bwd at the headline 4096 x 512 through the sym and the
+dual route (default tier) beside the plain pair's; the last line is a
+JSON record of those times.
 """
 
 import argparse
@@ -271,13 +279,15 @@ ROWS_REPLACES = {
 DIRECTION_SOURCE = "crossclr_tpu_torch/ops/csrc/fused_crossclr.cu"
 # the loss kernels' bf16 tensor-core builds and their instantiations: lse_fwd
 # (3 feature-chunk widths), lse_bwd (3 widths x the factored and
-# subtract-first forms), sym_fwd, sym_bwd and dual_bwd (3 widths x unpruned
-# and pruned each)
+# subtract-first forms), sym_fwd, dual_fwd, sym_bwd, dual_bwd and
+# rows_bwd_rows (3 widths x unpruned and pruned each)
 LOSS_MMA_KERNELS = {"fused_crossclr.cu": (("direction_fwd_bf16_kernel", 3),
                                           ("direction_bwd_bf16_kernel", 6)),
                     "fused_dual.cu": (("sym_fwd_bf16_kernel", 6),
+                                      ("dual_fwd_bf16_kernel", 6),
                                       ("sym_bwd_bf16_kernel", 6),
-                                      ("dual_bwd_bf16_kernel", 6))}
+                                      ("dual_bwd_bf16_kernel", 6)),
+                    "fused_global.cu": (("rows_bwd_rows_bf16_kernel", 6),)}
 DIRECTION_REPLACES = {
     "lse_fwd": "crossclr_tpu/ops/fused_crossclr.py:179",
     "lse_bwd": "crossclr_tpu/ops/fused_crossclr.py:279",
@@ -287,9 +297,9 @@ LOSS_SHAPES = [(1024, 256), (1024, 384), (1024, 512), (4096, 256),
 SLICE_LOSS_SHAPE = (1024, 256)  # configs/youcook2_mlp.json: batch, embed
 TRANSFORMER_LOSS_SHAPE = (1024, 384)  # configs/lsmdc_transformer.json
 HEADLINE_LOSS_SHAPE = (4096, 512)  # the reference's headline benchmark
-# the loss pair's bf16 builds this revision redesigned: --baseline holds them
-# to their plain versions (the phases above), not to the baseline's bits
-REDESIGNED = ("sym_fwd", "dual_bwd")
+# the bf16 builds this revision redesigned: --baseline holds them to their
+# plain versions (the phases above), not to the baseline's bits
+REDESIGNED = ("dual_fwd", "rows_bwd_rows")
 NEG_WEIGHT = 0.8
 # loss kernels vs plain (tests/test_fused_kernel.py:37,133,169,251): lse
 # atol = rtol = 2e-5; gradients max |err| <= 5e-5 of the largest |entry|;
@@ -826,17 +836,20 @@ def attention_timing_phase(fa, smi: str, worst: dict) -> dict:
 
 
 class ParentLossLibrary:
-    """Another revision's fused_dual.cu library, called as this checkout's
-    wrapper calls it.  Where that revision's entry point takes no scratch
-    (crossclr_sym_bwd before it split its candidates, crossclr_sym_fwd and
-    crossclr_dual_bwd before theirs did), the scratch argument is dropped
-    and the size query answers 0; its crossclr_dual_bwd_partials took n
-    alone."""
+    """Another revision's fused_dual.cu or fused_global.cu library, called
+    as this checkout's wrapper calls it.  Where that revision's entry point
+    takes no scratch (crossclr_sym_bwd before it split its candidates,
+    crossclr_sym_fwd and crossclr_dual_bwd before theirs did,
+    crossclr_dual_fwd and crossclr_rows_bwd_rows before theirs did), the
+    scratch argument is dropped and the size query answers 0; its
+    crossclr_dual_bwd_partials took n alone."""
 
     # entry point: (its scratch-size query, the index of its scratch argument)
     SPLITS = {"crossclr_sym_fwd": ("crossclr_sym_fwd_scratch", 7),
+              "crossclr_dual_fwd": ("crossclr_dual_fwd_scratch", 8),
               "crossclr_sym_bwd": ("crossclr_sym_bwd_scratch", 11),
-              "crossclr_dual_bwd": ("crossclr_dual_bwd_scratch", 12)}
+              "crossclr_dual_bwd": ("crossclr_dual_bwd_scratch", 12),
+              "crossclr_rows_bwd_rows": ("crossclr_rows_bwd_rows_scratch", 11)}
 
     def __init__(self, lib):
         self.lib = lib
@@ -871,18 +884,19 @@ class ParentLossLibrary:
         return fn
 
 
-def build_baseline(fa, fc, fd, csrc: Path, out_dir: Path) -> dict:
-    """Build another revision's flash, per-direction and loss-pair sources
-    (``csrc`` holds its flash_fwd.cu, flash_bwd.cu, fused_crossclr.cu,
-    fused_dual.cu and their headers) with this build's nvcc flags, one nvcc
-    each, started together; returns {source: library} with the launchers'
-    signatures set."""
+def build_baseline(fa, fc, fd, fg, csrc: Path, out_dir: Path) -> dict:
+    """Build another revision's flash, per-direction, loss-pair and rows
+    sources (``csrc`` holds its flash_fwd.cu, flash_bwd.cu,
+    fused_crossclr.cu, fused_dual.cu, fused_global.cu and their headers)
+    with this build's nvcc flags, one nvcc each, started together; returns
+    {source: library} with the launchers' signatures set."""
     import ctypes
 
     from crossclr_tpu_torch.ops import _build
 
     signatures = {**fa._SIGNATURES, fc.SOURCE: fc._SIGNATURES,
-                  fd.SOURCE: fd._SIGNATURES}
+                  fd.SOURCE: fd._SIGNATURES, fg.SOURCE: fg._SIGNATURES}
+    queries = {*fd._SIZE_QUERIES, *fg._SIZE_QUERIES}
     procs = {}
     for source in signatures:
         so = out_dir / f"baseline_{source[:-3]}.so"
@@ -894,19 +908,22 @@ def build_baseline(fa, fc, fd, csrc: Path, out_dir: Path) -> dict:
         text = proc.communicate()[0]
         check(proc.returncode == 0, f"baseline {csrc / source} did not build:\n{text}")
         lib = ctypes.CDLL(str(so))
-        loss = source == fd.SOURCE
+        adapted = source in (fd.SOURCE, fg.SOURCE)
         for name, argtypes in signatures[source].items():
-            if loss:
+            if adapted:
                 argtypes = ParentLossLibrary.argtypes(lib, name, argtypes)
                 if argtypes is None:
                     continue
             getattr(lib, name).argtypes = argtypes
             getattr(lib, name).restype = (
-                ctypes.c_longlong if loss and name in fd._SIZE_QUERIES
-                and len(argtypes) == 4 else ctypes.c_int)
-        lib.crossclr_cuda_error_string.argtypes = [ctypes.c_int]
-        lib.crossclr_cuda_error_string.restype = ctypes.c_char_p
-        libs[source] = ParentLossLibrary(lib) if loss else lib
+                ctypes.c_longlong if name in queries and len(argtypes) >= 4
+                else ctypes.c_int)
+        # fused_global.cu names its error string function apart
+        for name in ("crossclr_cuda_error_string", "crossclr_rows_error_string"):
+            if hasattr(lib, name):
+                getattr(lib, name).argtypes = [ctypes.c_int]
+                getattr(lib, name).restype = ctypes.c_char_p
+        libs[source] = ParentLossLibrary(lib) if adapted else lib
     return libs
 
 
@@ -935,28 +952,32 @@ def turns(fn, baseline, n: int, warmup: int, grad: bool = False) -> tuple[list, 
     return new, [old_1, old_2]
 
 
-def baseline_phase(fa, fc, fd, smi: str, csrc: Path) -> dict:
-    """The flash, per-direction and loss-pair kernels of this checkout
-    against those built from ``csrc`` on the same operands: bit for bit
-    wherever this checkout kept the design (every fp32 output, the bf16
-    flash kernels, lse_fwd and lse_bwd in both tiers, sym_bwd and dual_fwd
-    in both tiers, pruned and not); the redesigned bf16 builds of
-    REDESIGNED only logged.  Then, at the transformer leg's shapes (B=1024,
-    S in {96, 64}, H=8, Dh=48, bf16, dropout 0 and the leg's 0.1), each
-    flash kernel timed in turns, baseline, this checkout, this checkout,
-    baseline (CUDA events, median of 20 each), beside its plain version,
-    SDPA and its bound; bf16 lse_fwd and lse_bwd timed the same way at
-    4096 x 256 (median of 20, beside the plain version) and at the leg's
-    65,536 x 256 (median of 3), beside the bound; and bf16 sym_bwd at the
-    MLP leg's 1024 x 256 and, pruned, at the full-CrossCLR leg's 1024 x 384
-    (median of 20), beside its plain version and bound."""
+def baseline_phase(fa, fc, fd, fg, smi: str, csrc: Path) -> dict:
+    """The flash, per-direction, loss-pair and rows kernels of this
+    checkout against those built from ``csrc`` on the same operands: bit
+    for bit wherever this checkout kept the design (every fp32 output, the
+    bf16 flash kernels, lse_fwd and lse_bwd in both tiers, sym_fwd, sym_bwd
+    and dual_bwd in both tiers, pruned and not, rows_lse and rows_bwd_cols
+    in both tiers); the redesigned bf16 builds of REDESIGNED only logged.
+    Then, at the transformer leg's shapes (B=1024, S in {96, 64}, H=8,
+    Dh=48, bf16, dropout 0 and the leg's 0.1), each flash kernel timed in
+    turns, baseline, this checkout, this checkout, baseline (CUDA events,
+    median of 20 each), beside its plain version, SDPA and its bound; bf16
+    lse_fwd and lse_bwd timed the same way at 4096 x 256 (median of 20,
+    beside the plain version) and at the leg's 65,536 x 256 (median of 3),
+    beside the bound; bf16 sym_fwd, dual_fwd, sym_bwd and dual_bwd at the
+    MLP leg's 1024 x 256 and, pruned, at the full-CrossCLR leg's 1024 x 384,
+    dual_fwd also at the headline 4096 x 512, and bf16 rows_bwd_rows at
+    1024 x 384, pruned (median of 20), beside their plain versions and
+    bounds."""
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    records = {"flash": [], "direction": [], "loss": []}
+    records = {"flash": [], "direction": [], "loss": [], "rows": []}
     with tempfile.TemporaryDirectory(prefix="crossclr_baseline_") as tmp:
-        libs = build_baseline(fa, fc, fd, csrc, Path(tmp))
+        libs = build_baseline(fa, fc, fd, fg, csrc, Path(tmp))
         flash_base = lambda: mock.patch.object(fa, "_library", libs.__getitem__)  # noqa: E731
         dir_base = lambda: mock.patch.object(fc, "_library", lambda: libs[fc.SOURCE])  # noqa: E731
         pair_base = lambda: mock.patch.object(fd, "_library", lambda: libs[fd.SOURCE])  # noqa: E731
+        rows_base = lambda: mock.patch.object(fg, "_library", lambda: libs[fg.SOURCE])  # noqa: E731
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v, mask = qkv((LEG_BATCH, 8, 96, 48), dtype, seed=21)
             gen = torch.Generator(device="cuda").manual_seed(22)
@@ -1019,6 +1040,27 @@ def baseline_phase(fa, fc, fd, smi: str, csrc: Path) -> dict:
                         same_bits(new, old, f"{name} B={b} D={d} {tier}"
                                             + (" pruned" if keep else ""),
                                   name not in REDESIGNED or tier == "highest")
+        # the rows kernels at the full-CrossCLR leg's shape, 1024 anchors
+        # against their own batch, pruned and not
+        b, d = GLOBAL_TIMING[0]
+        v32, t32, masks, g = rows_inputs(b, d, seed=26)
+        scale = torch.full((1,), 1.0 / 0.03, device="cuda")
+        for keep in ((None, None), (masks[1], masks[0])):
+            for tier in ("highest", "default"):
+                v, t = (x.contiguous() for x in fd._fetch_cast(tier, v32, t32))
+                args = (v, v, t, 0, scale, NEG_WEIGHT, *keep)
+                lse = fg.rows_lse_plain(*args)
+                bargs = (*args[:5], lse, g, NEG_WEIGHT, *keep)
+                fns = {"rows_lse": lambda: fg.rows_lse_cuda(*args),
+                       "rows_bwd_rows": lambda: fg.rows_bwd_rows_cuda(*bargs),
+                       "rows_bwd_cols": lambda: fg.rows_bwd_cols_cuda(*bargs)}
+                for name, fn in fns.items():
+                    new = fn()
+                    with rows_base():
+                        old = fn()
+                    same_bits(new, old, f"{name} B={b} D={d} {tier}"
+                                        + (" pruned" if keep[0] is not None else ""),
+                              name not in REDESIGNED or tier == "highest")
         for b, s in ATTENTION_TIMING[:2]:
             q, k, v, mask = qkv((b, 8, s, 48), torch.bfloat16, seed=7)
             mask[-1, 0] = 1.0  # every entry has a valid key (SDPA would give NaN)
@@ -1093,9 +1135,11 @@ def baseline_phase(fa, fc, fd, smi: str, csrc: Path) -> dict:
             del v, t, lse, args, pairs
             torch.cuda.empty_cache()
         # the loss pair's bf16 kernels at the MLP leg's shape and, pruned,
-        # the full-CrossCLR leg's: sym at τ = 0.03, dual at a tensor τ of 0.03
+        # the full-CrossCLR leg's, and the dual forward at the headline
+        # shape: sym at τ = 0.03, dual at a tensor τ of 0.03
         scale = torch.full((1,), s, device="cuda")
-        for (b, d), pruned in ((SLICE_LOSS_SHAPE, False), (PRUNED_TIMING[0], True)):
+        for (b, d), pruned in ((SLICE_LOSS_SHAPE, False), (PRUNED_TIMING[0], True),
+                               (HEADLINE_LOSS_SHAPE, False)):
             v32, t32, g_v, g_t = loss_inputs(b, d, seed=3)
             v, t = (x.contiguous() for x in fd._fetch_cast("default", v32, t32))
             keep = keep_masks(v32, t32) if pruned else ()
@@ -1105,10 +1149,14 @@ def baseline_phase(fa, fc, fd, smi: str, csrc: Path) -> dict:
             pairs = {
                 "sym_fwd": (lambda: fd.sym_fwd_cuda(v, t, s, NEG_WEIGHT, *keep),
                             lambda: fd.sym_fwd_plain(v, t, s, NEG_WEIGHT, *keep)),
+                "dual_fwd": (lambda: fd.dual_fwd_cuda(v, t, scale, NEG_WEIGHT, *keep),
+                             lambda: fd.dual_fwd_plain(v, t, scale, NEG_WEIGHT, *keep)),
                 "sym_bwd": (lambda: fd.sym_bwd_cuda(*sym), lambda: fd.sym_bwd_plain(*sym)),
                 "dual_bwd": (lambda: fd.dual_bwd_cuda(*dual),
                              lambda: fd.dual_bwd_plain(*dual)),
             }
+            if (b, d) == HEADLINE_LOSS_SHAPE:
+                pairs = {"dual_fwd": pairs["dual_fwd"]}
             bounds = loss_bounds(b, d, pruned)
             for name, (fn, plain) in pairs.items():
                 new, old = turns(fn, pair_base, 20, 3)
@@ -1123,6 +1171,23 @@ def baseline_phase(fa, fc, fd, smi: str, csrc: Path) -> dict:
                                   f"{record['plain_ms']:.4f}, bound "
                                   f"{record['bound_ms']:.4f} ({record['bound_by']}) "
                                   f"(median of 20; {smi})")
+        # the rows backward at the full-CrossCLR leg's shape, pruned
+        b, d = GLOBAL_TIMING[0]
+        v32, t32, masks, g = rows_inputs(b, d, seed=3)
+        v, t = (x.contiguous() for x in fd._fetch_cast("default", v32, t32))
+        args = (v, v, t, 0, scale, NEG_WEIGHT, masks[1], masks[0])
+        bargs = (*args[:5], fg.rows_lse_plain(*args), g, NEG_WEIGHT, masks[1], masks[0])
+        new, old = turns(lambda: fg.rows_bwd_rows_cuda(*bargs), rows_base, 20, 3)
+        record = {"name": "rows_bwd_rows", "B": b, "D": d, "pruned": True, "ms": new,
+                  "baseline_ms": old,
+                  "plain_ms": median_ms(lambda: fg.rows_bwd_rows_plain(*bargs)),
+                  **rows_bounds(b, b, d)["rows_bwd_rows"], "library_ms": None}
+        records["rows"].append(record)
+        log("baseline", f"rows_bwd_rows B={b} D={d} bf16 operands τ=0.03 pruned "
+                        f"({PRUNE}): {new[0]:.4f} / {new[1]:.4f} ms, baseline "
+                        f"{old[0]:.4f} / {old[1]:.4f}, plain {record['plain_ms']:.4f}, "
+                        f"bound {record['bound_ms']:.4f} ({record['bound_by']}) "
+                        f"(median of 20; {smi})")
         # the reference's headline: the loss fwd+bwd at 4096 x 512 through
         # each route, bf16 operands
         records["headline"] = headline_turns(fd, pair_base, smi)
@@ -1350,6 +1415,15 @@ def loss_check_phase(fd) -> dict:
                 ref = fd.dual_fwd_plain(v, t, scale, NEG_WEIGHT)
                 errs.append(lse_err(fd.dual_fwd_cuda(v, t, scale, NEG_WEIGHT),
                                     ref, f"{tag} τ={tau} dual_fwd"))
+                # the keep-mask branch's edges: every candidate kept, and
+                # none but the positive
+                for fill in (True, False):
+                    keep = tuple(torch.full((b,), fill, dtype=torch.bool, device="cuda")
+                                 for _ in range(2))
+                    errs[-1] = max(errs[-1], lse_err(
+                        fd.dual_fwd_cuda(v, t, scale, NEG_WEIGHT, *keep),
+                        fd.dual_fwd_plain(v, t, scale, NEG_WEIGHT, *keep),
+                        f"{tag} τ={tau} dual_fwd {'all kept' if fill else 'none kept'}"))
                 note("dual_fwd", errs[-1])
                 got = fd.dual_bwd_cuda(v, t, scale, *ref, g_v, g_t, NEG_WEIGHT)
                 want = fd.dual_bwd_plain(v, t, scale, *ref, g_v, g_t, NEG_WEIGHT)
@@ -1361,8 +1435,9 @@ def loss_check_phase(fd) -> dict:
             torch.cuda.synchronize()
             log("loss", f"{tag}: max|kernel-plain| sym_fwd {errs[0]:.3e}, "
                         f"sym_bwd {errs[1]:.3e}, dual_fwd {errs[2]:.3e} / "
-                        f"{errs[4]:.3e}, dual_bwd {errs[3]:.3e} / {errs[5]:.3e} "
-                        f"(τ=0.03 / 0.01; dτ term within rtol {DS_RTOL})")
+                        f"{errs[4]:.3e} (unpruned, all kept, none kept), dual_bwd "
+                        f"{errs[3]:.3e} / {errs[5]:.3e} (τ=0.03 / 0.01; dτ term "
+                        f"within rtol {DS_RTOL})")
 
     # the fused loss through the kernels against the eager loss (fp32)
     b, d = SLICE_LOSS_SHAPE
@@ -1532,15 +1607,15 @@ def pruned_check_phase(fd, fg) -> dict:
 
 
 def leg_check_phase(fd) -> dict:
-    """sym_fwd, sym_bwd and dual_bwd at the MLP leg's shape and, with keep
-    masks, the full-CrossCLR leg's, both tiers, against their plain versions
-    (each backward fed the plain lse): random features at τ = 0.03 and
-    features collapsed near one direction at τ = 1/79 (lse near 86.6,
-    g·e^{-lse} subnormal; every logit near s, so Σ coeff⊙z gathers ~3n²
-    terms of one sign); dual at a tensor τ of the same value, its Σ
-    coeff⊙z within DS_RTOL; two launches of each bf16 build bit for bit.
-    Returns the worst absolute error of each kernel."""
-    worst = dict.fromkeys(("sym_fwd", "sym_bwd", "dual_bwd"), 0.0)
+    """sym_fwd, sym_bwd, dual_fwd and dual_bwd at the MLP leg's shape and,
+    with keep masks, the full-CrossCLR leg's, both tiers, against their
+    plain versions (each backward fed the plain lse): random features at
+    τ = 0.03 and features collapsed near one direction at τ = 1/79 (lse
+    near 86.6, g·e^{-lse} subnormal; every logit near s, so Σ coeff⊙z
+    gathers ~3n² terms of one sign); dual at a tensor τ of the same value,
+    its Σ coeff⊙z within DS_RTOL; two launches of each bf16 build bit for
+    bit.  Returns the worst absolute error of each kernel."""
+    worst = dict.fromkeys(("sym_fwd", "sym_bwd", "dual_fwd", "dual_bwd"), 0.0)
     for tau, noise in DIRECTION_LEG_CASES:
         s = 1.0 / tau
         scale = torch.full((1,), s, device="cuda")
@@ -1557,11 +1632,15 @@ def leg_check_phase(fd) -> dict:
                 dual = (v, t, scale, *dual_lse, g_v, g_t, NEG_WEIGHT, *keep)
                 runs = {"sym_fwd": lambda: fd.sym_fwd_cuda(v, t, s, NEG_WEIGHT, *keep),
                         "sym_bwd": lambda: fd.sym_bwd_cuda(*sym),
+                        "dual_fwd": lambda: fd.dual_fwd_cuda(v, t, scale, NEG_WEIGHT,
+                                                             *keep),
                         "dual_bwd": lambda: fd.dual_bwd_cuda(*dual)}
                 got = {name: run() for name, run in runs.items()}
                 errs = {"sym_fwd": lse_err(got["sym_fwd"], lse, f"{tag} sym_fwd"),
                         "sym_bwd": grad_err(got["sym_bwd"], fd.sym_bwd_plain(*sym),
-                                            f"{tag} sym_bwd")}
+                                            f"{tag} sym_bwd"),
+                        "dual_fwd": lse_err(got["dual_fwd"], dual_lse,
+                                            f"{tag} dual_fwd")}
                 want = fd.dual_bwd_plain(*dual)
                 errs["dual_bwd"] = grad_err(got["dual_bwd"][:2], want[:2],
                                             f"{tag} dual_bwd")
@@ -1884,6 +1963,11 @@ def rows_check(fg, rows, a_all, o_all, off, scale, g, masks, worst, tag):
     worst["rows_lse"] = max(worst["rows_lse"], lse_err([lse], [want], f"{tag} rows_lse"))
     bargs = (*args[:5], want, g, NEG_WEIGHT, *masks)
     d_rows, ds_rows = fg.rows_bwd_rows_cuda(*bargs)
+    if rows.dtype == torch.bfloat16:  # the tensor-core build: its partials' order
+        again = fg.rows_bwd_rows_cuda(*bargs)
+        torch.cuda.synchronize()
+        check(torch.equal(again[0], d_rows) and torch.equal(again[1], ds_rows),
+              f"{tag}: two launches of rows_bwd_rows differ")
     p_rows, p_ds = fg.rows_bwd_rows_plain(*bargs)
     worst["rows_bwd_rows"] = max(worst["rows_bwd_rows"], grad_err(
         [d_rows], [p_rows], f"{tag} rows_bwd_rows"))
@@ -2474,10 +2558,10 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument(
         "--baseline", type=Path, default=None,
-        help="only compare the flash, per-direction and loss-pair kernels "
-             "with those of another revision: a directory holding its "
-             "flash_fwd.cu, flash_bwd.cu, fused_crossclr.cu, fused_dual.cu and "
-             "their headers (e.g. "
+        help="only compare the flash, per-direction, loss-pair and rows "
+             "kernels with those of another revision: a directory holding its "
+             "flash_fwd.cu, flash_bwd.cu, fused_crossclr.cu, fused_dual.cu, "
+             "fused_global.cu and their headers (e.g. "
              "<unpacked git archive>/crossclr_tpu_torch/ops/csrc); prints their "
              "times and a JSON line of records")
     args = parser.parse_args(argv)
@@ -2491,7 +2575,7 @@ def main(argv=None) -> int:
     fc = importlib.import_module("crossclr_tpu_torch.ops.fused_crossclr")
     build_phase()
     if args.baseline is not None:
-        records = baseline_phase(fa, fc, fd, smi, args.baseline.resolve())
+        records = baseline_phase(fa, fc, fd, fg, smi, args.baseline.resolve())
         print(json.dumps({"baseline": str(args.baseline), **records}), flush=True)
         return 0
     fwd_worst = kernel_phase(fa, smi)

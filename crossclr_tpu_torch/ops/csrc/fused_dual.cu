@@ -29,10 +29,11 @@
 //   dV = s·(M·T + w·Q_v·V),   dT = s·(Mᵀ·V + w·Q_t·T),
 //   Σ M⊙z_vt + ½(Σ Q_v⊙z_vv + Σ Q_t⊙z_tt) = s · d loss / d s.
 // How the masks enter: in the dual forward an excluded logit is kMasked =
-// -1e9 and the running max starts at -1e30, below it, so a thread whose own
-// columns are all excluded holds a bogus partial (m = -1e9, l = its count)
-// that the rescale exp(-1e9 - m_real) wipes when the row's partials combine
-// (every row keeps its positive), as in fused_global.cu.  The sym forward
+// -1e9 and the running max starts at -1e30, below it, so a thread (or a
+// part of a split) whose own columns are all excluded holds a bogus
+// partial (m = -1e9, l = its count) that the rescale exp(-1e9 - m_real)
+// wipes when the row's partials combine (every row keeps its positive), as
+// in fused_global.cu.  The sym forward
 // has no running max to absorb -1e9, so the masks are 0/1 factors on
 // exp(z - m0); the wrapper gates that route to 2·m0 <= 80, where the kept
 // positive bounds each row sum below by exp(-2·m0) and nothing flushes.  In
@@ -59,39 +60,38 @@
 // the transposes of the video-anchor blocks' ones, so only blockIdx.y = 0
 // adds Σ M⊙z_vt; each direction adds half of its own intra sum.
 //
-// The scalar kernels (the fp32 builds of all four, and the dual forward's
-// bf16 build): the logit tiles are 64 x 64 products over d, staged through
-// shared memory in 32-feature chunks (fp32, or bf16 widened to fp32 on
-// load: both tiers accumulate in fp32; loss_tiles.cuh, shared with
-// fused_crossclr.cu).  256 threads each own a 4 x 4 micro tile.  A backward
-// block keeps its gradient rows [64, ≤512 features] in shared memory and
-// adds coefficient-tile × candidate-tile products into them; wider features
-// split over blockIdx.z, each z recomputing the logits.  Edges of n and d are
-// masked in the kernels, so any n and d run unpadded.  The pruned variants
-// are the same kernels (a template flag), one instantiation per (dtype,
-// pruned): the masks cost a byte load per candidate and a select per logit.
-// What bounds them on this card: scalar fp32 FMAs issued from shared
-// memory.  The forward does 4·n²·d FMAs, the backward 8·n²·d, where the
-// function needs 2·n²·d and 6·n²·d: the inter tile once for both directions
-// and one triangle of each symmetric intra product, with or without keep
-// masks (the TPU design shares both so); chip_smoke.py's bound counts the
-// latter.  Operands are read from L2 once per (row tile, column tile).
+// The scalar kernels (the fp32 builds of all four): the logit tiles are
+// 64 x 64 products over d, staged through shared memory in 32-feature
+// chunks (loss_tiles.cuh, shared with fused_crossclr.cu).  256 threads each
+// own a 4 x 4 micro tile.  A backward block keeps its gradient rows [64,
+// ≤512 features] in shared memory and adds coefficient-tile ×
+// candidate-tile products into them; wider features split over blockIdx.z,
+// each z recomputing the logits.  Edges of n and d are masked in the
+// kernels, so any n and d run unpadded.  The pruned variants are the same
+// kernels (a template flag): the masks cost a byte load per candidate and
+// a select per logit.  What bounds them on this card: scalar fp32 FMAs
+// issued from shared memory.  The forward does 4·n²·d FMAs, the backward
+// 8·n²·d, where the function needs 2·n²·d and 6·n²·d: the inter tile once
+// for both directions and one triangle of each symmetric intra product,
+// with or without keep masks (the TPU design shares both so);
+// chip_smoke.py's bound counts the latter.  Operands are read from L2 once
+// per (row tile, column tile).
 //
-// The bf16 builds of the sym forward, the sym backward and the dual
-// backward (the `default` tier every leg runs) are tensor-core kernels
-// (mma.sync m16n8k16, bf16 operands, fp32 accumulators) built from the
-// pieces of loss_mma.cuh.  A block of 8 warps owns 64 anchor rows of one
-// direction (blockIdx.y) and walks its candidate tiles, each staged by
-// 16-byte cp.async into a double buffer; every 16-feature logit step starts
-// from zero and is added in fp32.  At the MLP leg's n = 1024 one block per
-// (row tile, direction) leaves most of the 132 SMs idle, so the candidate
-// tiles split over blockIdx.z into the parts split_parts picks from n, the
-// SM count and the occupancy; each part writes its fp32 partial rows to a
-// scratch buffer the wrapper allocates (its size named by the
-// crossclr_*_scratch queries), and a second kernel adds them in index
-// order: no atomics, bit-reproducible.  A kernel's plan (its shared memory
-// and parts) takes its occupancy query once per (device, kernel, shared
-// memory size) from a cache; the rest is arithmetic.
+// The bf16 builds of all four (the `default` tier every leg runs) are
+// tensor-core kernels (mma.sync m16n8k16, bf16 operands, fp32
+// accumulators) built from the pieces of loss_mma.cuh.  A block of 8 warps
+// owns 64 anchor rows of one direction (blockIdx.y) and walks its candidate
+// tiles, each staged by 16-byte cp.async into a double buffer; every
+// 16-feature logit step starts from zero and is added in fp32.  At the MLP
+// leg's n = 1024 one block per (row tile, direction) leaves most of the 132
+// SMs idle, so the candidate tiles split over blockIdx.z into the parts
+// split_parts picks from n, the SM count and the occupancy; each part
+// writes its fp32 partial rows to a scratch buffer the wrapper allocates
+// (its size named by the crossclr_*_scratch queries), and a second kernel
+// adds them in index order: no atomics, bit-reproducible.  A kernel's plan
+// (its shared memory and parts; loss_mma.cuh) takes its occupancy query
+// once per (device, kernel, shared memory size) from a cache; the rest is
+// arithmetic.
 //   * sym_fwd_bf16_kernel: the per-direction forward's design
 //     (fused_crossclr.cu: A fragments in registers where d fits one chunk)
 //     with the static shift m0 in place of the online max: each logit is
@@ -100,6 +100,15 @@
 //     sums add directly (sym_fwd_sum_kernel: m0 + log of their sum).  It
 //     issues 4 products of 2·n²·d (each direction recomputes V·Tᵀ and the
 //     whole of its intra product) where the bound counts 2.
+//   * dual_fwd_bf16_kernel: the sym forward's grid, staging and keep tests
+//     with the per-direction forward's online logsumexp in log2 units (the
+//     scale read from device memory once per block): a running max per row
+//     once per tile, exp2 of each logit; each part writes its (m, l) per
+//     row and dual_fwd_merge_kernel merges the parts in index order.  Where
+//     d takes two 256-feature chunks both anchor chunks stay in shared
+//     memory and only the candidate chunks stream, where the sym forward
+//     restages the anchor chunk with every candidate chunk.  It issues the
+//     same 4 products.
 //   * sym_bwd_bf16_kernel: without masks its two directions are the
 //     per-direction backward's factored form with (A, O) = (V, T) and
 //     (T, V) (the formulas above against fused_crossclr.cu's), so it runs
@@ -120,9 +129,6 @@
 
 #include <math.h>
 #include <stddef.h>
-
-#include <mutex>
-#include <type_traits>
 
 #include "loss_mma.cuh"
 #include "loss_tiles.cuh"
@@ -593,6 +599,232 @@ sym_fwd_sum_kernel(const float* __restrict__ part, int parts, float s, float w,
 }
 
 // ---------------------------------------------------------------------------
+// dual forward, bf16 features: tensor cores (loss_mma.cuh)
+// ---------------------------------------------------------------------------
+
+constexpr float kLn2 = 0.6931471805599453f;
+
+// The dual forward's shared memory: two stages of candidate rows (the first
+// holds the anchor rows while their fragments load where d fits one chunk),
+// two buffers of anchor rows where d takes more than one chunk (both chunks,
+// resident, where it takes two; two stages where it takes more), two stages
+// of the candidates' keep flags, and the two halves' (m, l) per row.
+template <int kChunkF>
+size_t dual_fwd_smem_bytes(int chunks) {
+  return sizeof(bf16) * (size_t)((chunks > 1 ? 4 : 2) * kRows *
+                                 Chunk<kChunkF>::kLd) +
+         sizeof(float) * 6 * kRows;
+}
+
+// Block (x, y, z): anchor rows [64 x, 64 x + 64) of direction y (0: video
+// anchors, candidates T then V; 1: text anchors, candidates V then T, the
+// keep masks swapped with them), the candidate tiles of part z of
+// gridDim.z, at the scale *scale_ptr (read once per block).  The grid,
+// staging and keep tests are sym_fwd_bf16_kernel's, except that where d
+// takes two chunks (256 < d <= 512) both anchor chunks stay in shared
+// memory for the whole loop and only the candidate chunks stream; a wider d
+// restages its anchor chunk with each stage.  The sum is the per-direction
+// forward's online logsumexp in log2 units (direction_fwd_bf16_kernel):
+// logits z·log2 e, a running max m per row over its quad once per tile,
+// the lane's sum l of exp2(z - m) rescaled once per tile.  Unpruned, the
+// intra self logit is zeroed (its exp2(0 - m) stays in the sum); pruned, an
+// excluded logit is kMasked (-1e9), below every real one, and m starts at
+// kNegFloor (-1e30), below kMasked: a lane or part whose columns are all
+// excluded holds (m = -1e9, l = their count), which the rescale by
+// exp2(-1e9 - m) wipes once the row's positive (always kept) is merged in.
+// The quad's lanes add their sums and the two halves of each row merge
+// their (m, l) in a fixed order; one part writes ln 2 · (m + log2 l) to
+// lse_v / lse_t, more write m and l to their slices [z][direction] of
+// `part` ([2][parts][2][n]: every m, then every l).
+template <int kChunkF, bool kPruned>
+__global__ void __launch_bounds__(kMmaThreads, 2)
+dual_fwd_bf16_kernel(const bf16* __restrict__ v, const bf16* __restrict__ t,
+                     const unsigned char* __restrict__ kv,
+                     const unsigned char* __restrict__ kt,
+                     const float* __restrict__ scale_ptr, float w,
+                     float* __restrict__ lse_v, float* __restrict__ lse_t,
+                     float* __restrict__ part, int n, int d, bool vec) {
+  using C = Chunk<kChunkF>;
+  extern __shared__ __align__(16) unsigned char smem_dual_fwd[];
+  const int chunks = (d + kChunkF - 1) / kChunkF;
+  const bool resident = chunks == 2;  // both anchor chunks stay staged
+  bf16* sx = reinterpret_cast<bf16*>(smem_dual_fwd);  // candidate rows, 2 stages
+  bf16* sa = sx + 2 * kRows * C::kLd;  // anchor rows: 2 chunks or 2 stages
+  float* skeep = reinterpret_cast<float*>(sa + (chunks > 1 ? 2 : 0) * kRows * C::kLd);
+  float* sm = skeep + 2 * kRows;  // [half][row] running max
+  float* sl = sm + 2 * kRows;     // [half][row] sum
+
+  const bool text = blockIdx.y != 0;
+  const bf16* a = text ? t : v;
+  const bf16* o = text ? v : t;
+  const unsigned char* keep_a = text ? kt : kv;  // the anchors' modality
+  const unsigned char* keep_o = text ? kv : kt;  // the other modality
+  const int tiles = (n + kRows - 1) / kRows, parts = gridDim.z, z = blockIdx.z;
+  const int t0 = z * tiles / parts, t1 = (z + 1) * tiles / parts;
+  const int r0 = blockIdx.x * kRows;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, tq = lane & 3;
+  const int wr = 16 * (warp & 3);   // the warp's rows in the tile
+  const int wc = 32 * (warp >> 2);  // its candidates in the logit tile
+  const float s = *scale_ptr;
+  const float ws = w * s;
+
+  // Issue the loads of stage st into buffer st & 1, and on a tile's first
+  // chunk (pruned) the candidates' keep flags into stage tile & 1.
+  const int stages = 2 * (t1 - t0) * chunks;
+  auto issue = [&](int st) {
+    const int i = st % chunks, tile = st / chunks, buf = st & 1;
+    const int c0 = (t0 + (tile >> 1)) * kRows;
+    const bool intra = tile & 1;
+    if (chunks > 1 && !resident)
+      stage_tile<kChunkF>(sa + buf * kRows * C::kLd, a, r0, i * kChunkF, n, d,
+                          vec);
+    stage_tile<kChunkF>(sx + buf * kRows * C::kLd, intra ? a : o, c0,
+                        i * kChunkF, n, d, vec);
+    cp_async_commit();
+    if constexpr (kPruned) {
+      if (i == 0 && threadIdx.x < kRows) {
+        const int col = c0 + threadIdx.x;
+        skeep[(tile & 1) * kRows + threadIdx.x] =
+            col < n && (intra ? keep_a : keep_o)[col] ? 1.f : 0.f;
+      }
+    }
+  };
+
+  uint32_t af[C::kSteps][4];
+  if (chunks == 1) {  // the anchor fragments, once, through buffer 1
+    stage_tile<kChunkF>(sx + kRows * C::kLd, a, r0, 0, n, d, vec);
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+#pragma unroll
+    for (int ks = 0; ks < C::kSteps; ++ks)
+      ldmatrix_x4(af[ks], ld_a<C::kLd>(sx + (kRows + wr) * C::kLd + 16 * ks, lane));
+  } else if (resident) {  // both anchor chunks, landing with stage 0
+    stage_tile<kChunkF>(sa, a, r0, 0, n, d, vec);
+    stage_tile<kChunkF>(sa + kRows * C::kLd, a, r0, kChunkF, n, d, vec);
+  }
+  issue(0);  // buffer 0; buffer 1 is next written after stage 0's barrier
+
+  // rows wr + g and wr + g + 8: running max (log2 units) and this lane's sum
+  float m[2] = {kNegFloor, kNegFloor}, l[2] = {0.f, 0.f};
+  float sc[4][4];
+  for (int st = 0; st < stages; ++st) {
+    const int i = st % chunks, tile = st / chunks, buf = st & 1;
+    const int c0 = (t0 + (tile >> 1)) * kRows;
+    const bool intra = tile & 1;
+    cp_async_wait<0>();
+    __syncthreads();  // stage st has landed; stage st - 1's readers are done
+    if (st + 1 < stages) issue(st + 1);
+    const bf16* xt = sx + buf * kRows * C::kLd;
+    if (chunks > 1) {
+      const bf16* at = sa + (resident ? i : buf) * kRows * C::kLd;
+#pragma unroll
+      for (int ks = 0; ks < C::kSteps; ++ks)
+        ldmatrix_x4(af[ks], ld_a<C::kLd>(at + wr * C::kLd + 16 * ks, lane));
+    }
+    if (i == 0) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[j][e] = 0.f;
+    }
+    // S = A X^T over the chunk, each 16-feature step from zero and added
+    // in fp32 (acc_add)
+#pragma unroll
+    for (int ks = 0; ks < C::kSteps; ++ks)
+      logit_step<C::kLd>(sc, af[ks], xt, wc, ks, lane);
+    if (i + 1 < chunks) continue;
+    // the logits in log2 units; element e of tile j: row wr + g + 8 (e /
+    // 2), candidate wc + 8 j + 2 tq + e % 2; the columns past n masked
+    const float zs = (intra ? ws : s) * kLog2e;
+    const bool diag = intra && c0 == r0, edge = c0 + kRows > n;
+    const float* kc = skeep + (tile & 1) * kRows;
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int rl = wr + g + 8 * (e >> 1);
+        const int cl = wc + 8 * j + 2 * tq + (e & 1);
+        float x = zs * sc[j][e];
+        if constexpr (kPruned) {
+          // the positive always kept, the self column dropped
+          const bool self = c0 + cl == r0 + rl;
+          if (!(intra ? (kc[cl] != 0.f && !self) : (kc[cl] != 0.f || self)))
+            x = kMasked;
+        } else {
+          if (diag && cl == rl) x = 0.f;  // the zeroed (not dropped) self logit
+        }
+        if (edge && c0 + cl >= n) x = -INFINITY;
+        sc[j][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m[r], mx[r]);
+      l[r] *= exp2f(m[r] - m_new);
+      m[r] = m_new;
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) l[e >> 1] += exp2f(sc[j][e] - m[e >> 1]);
+  }
+  // the quad's sums (its m is one), then the two halves of each row
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    if (tq == 0) {
+      const int idx = (warp >> 2) * kRows + wr + g + 8 * r;
+      sm[idx] = m[r];
+      sl[idx] = l[r];
+    }
+  }
+  __syncthreads();
+  const int row = r0 + threadIdx.x;
+  if (threadIdx.x < kRows && row < n) {
+    const float m0 = sm[threadIdx.x], m1 = sm[kRows + threadIdx.x];
+    const float mm = fmaxf(m0, m1);
+    const float sum = sl[threadIdx.x] * exp2f(m0 - mm) +
+                      sl[kRows + threadIdx.x] * exp2f(m1 - mm);
+    if (parts == 1) {
+      (text ? lse_t : lse_v)[row] = kLn2 * (mm + log2f(sum));
+    } else {
+      const size_t at = ((size_t)2 * z + (text ? 1 : 0)) * n + row;
+      part[at] = mm;
+      part[(size_t)2 * parts * n + at] = sum;
+    }
+  }
+}
+
+// lse_v, lse_t from the parts' (m, l): ln 2 · (M + log2 Σ_z l_z·2^(m_z - M)),
+// M = max_z m_z, the parts added in index order
+__global__ void __launch_bounds__(kThreads)
+dual_fwd_merge_kernel(const float* __restrict__ part, int parts,
+                      float* __restrict__ lse_v, float* __restrict__ lse_t,
+                      int n) {
+  const size_t each = 2 * (size_t)n;
+  const float* pl = part + parts * each;
+  for (int i = blockIdx.x * kThreads + threadIdx.x; i < 2 * n;
+       i += gridDim.x * kThreads) {
+    float mm = part[i];
+    for (int z = 1; z < parts; ++z) mm = fmaxf(mm, part[z * each + i]);
+    float sum = 0.f;
+    for (int z = 0; z < parts; ++z)
+      sum += pl[z * each + i] * exp2f(part[z * each + i] - mm);
+    const float lse = kLn2 * (mm + log2f(sum));
+    if (i < n)
+      lse_v[i] = lse;
+    else
+      lse_t[i - n] = lse;
+  }
+}
+
+// ---------------------------------------------------------------------------
 // sym and dual backwards, bf16 features: tensor cores (loss_mma.cuh)
 // ---------------------------------------------------------------------------
 
@@ -698,96 +930,21 @@ cudaError_t launch_bwd_sum(const float* part, int parts, const float* scale_ptr,
 // launch plans of the bf16 kernels
 // ---------------------------------------------------------------------------
 
-// The parts S the candidate tiles split into.  S = 1 where the blocks
-// already fill the card's slots (SMs x resident blocks); otherwise the S
-// up to ceil(slots / blocks) (and the tiles) whose waves x tiles per part
-// is least, the smallest of a tie: at n = 1024, d = 256 (32 blocks of one
-// per SM) S = 4.
-int split_parts(int tiles, int blocks, int slots) {
-  if (blocks >= slots) return 1;
-  int best = 1;
-  long long best_cost = tiles;
-  const int fill = (slots + blocks - 1) / blocks;
-  const int most = fill < tiles ? fill : tiles;
-  for (int parts = 2; parts <= most; ++parts) {
-    const long long cost = (long long)((blocks * parts + slots - 1) / slots) *
-                           ((tiles + parts - 1) / parts);
-    if (cost < best_cost) {
-      best = parts;
-      best_cost = cost;
-    }
-  }
-  return best;
-}
-
-// The SM count and the blocks of kernel `fn` resident on one SM at `smem`
-// bytes of dynamic shared memory, on the current device: queried once per
-// (device, kernel, smem) and cached.  The first query of a (device,
-// kernel) raises its dynamic shared memory limit to `max_smem`, the most
-// any launch of it takes, so that no later launch needs it raised again.
-cudaError_t occupancy(const void* fn, size_t smem, size_t max_smem, int* sms,
-                      int* per_sm) {
-  struct Entry {
-    int dev;
-    const void* fn;
-    size_t smem;
-    int sms, per_sm;
-  };
-  constexpr int kEntries = 64;
-  static std::mutex mu;
-  static Entry cache[kEntries];
-  static int used = 0;
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  std::lock_guard<std::mutex> lock(mu);
-  bool raised = false;
-  for (int i = 0; i < used; ++i) {
-    const Entry& e = cache[i];
-    if (e.dev != dev || e.fn != fn) continue;
-    raised = true;
-    if (e.smem == smem) {
-      *sms = e.sms;
-      *per_sm = e.per_sm;
-      return cudaSuccess;
-    }
-  }
-  if (!raised)
-    err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)max_smem);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, fn, kMmaThreads,
-                                                        smem);
-  if (err != cudaSuccess) return err;
-  if (used < kEntries) cache[used++] = Entry{dev, fn, smem, *sms, *per_sm};
-  return cudaSuccess;
-}
-
-// A bf16 kernel's launch: its dynamic shared memory and the parts its
-// candidate tiles split into.
-struct Plan {
-  size_t smem;
-  int parts;
-};
-
-cudaError_t split_plan(const void* fn, size_t smem, size_t max_smem, int tiles,
-                       int blocks, Plan* plan) {
-  int sms = 0, per_sm = 0;
-  const cudaError_t err = occupancy(fn, smem, max_smem, &sms, &per_sm);
-  if (err != cudaSuccess) return err;
-  plan->smem = smem;
-  plan->parts = split_parts(tiles, blocks, sms * (per_sm > 1 ? per_sm : 1));
-  return cudaSuccess;
-}
-
 template <int kChunkF, bool kPruned>
 cudaError_t sym_fwd_plan(int n, int d, Plan* plan) {
   const int chunks = (d + kChunkF - 1) / kChunkF;
   return split_plan(reinterpret_cast<const void*>(sym_fwd_bf16_kernel<kChunkF, kPruned>),
                     sym_fwd_smem_bytes<kChunkF>(chunks),
                     sym_fwd_smem_bytes<kChunkF>(2), row_tiles(n),
+                    2 * row_tiles(n), plan);
+}
+
+template <int kChunkF, bool kPruned>
+cudaError_t dual_fwd_plan(int n, int d, Plan* plan) {
+  const int chunks = (d + kChunkF - 1) / kChunkF;
+  return split_plan(reinterpret_cast<const void*>(dual_fwd_bf16_kernel<kChunkF, kPruned>),
+                    dual_fwd_smem_bytes<kChunkF>(chunks),
+                    dual_fwd_smem_bytes<kChunkF>(2), row_tiles(n),
                     2 * row_tiles(n), plan);
 }
 
@@ -827,6 +984,30 @@ cudaError_t launch_sym_fwd_bf16(const void* v, const void* t, const void* kv,
   const int blocks = (2 * n + kThreads - 1) / kThreads;
   sym_fwd_sum_kernel<<<blocks < 4096 ? blocks : 4096, kThreads, 0, stream>>>(
       part, plan.parts, s, w, lse_v, lse_t, n);
+  return cudaGetLastError();
+}
+
+template <int kChunkF, bool kPruned>
+cudaError_t launch_dual_fwd_bf16(const void* v, const void* t, const void* kv,
+                                 const void* kt, const float* scale, float w,
+                                 float* lse_v, float* lse_t, float* part, int n,
+                                 int d, cudaStream_t stream) {
+  Plan plan;
+  cudaError_t err = dual_fwd_plan<kChunkF, kPruned>(n, d, &plan);
+  if (err != cudaSuccess) return err;
+  if (plan.parts > 1 && part == nullptr) return cudaErrorInvalidValue;
+  const bool vec = d % 8 == 0 && aligned16(v) && aligned16(t);
+  const dim3 grid(row_tiles(n), 2, plan.parts);
+  dual_fwd_bf16_kernel<kChunkF, kPruned><<<grid, kMmaThreads, plan.smem, stream>>>(
+      static_cast<const bf16*>(v), static_cast<const bf16*>(t),
+      static_cast<const unsigned char*>(kv),
+      static_cast<const unsigned char*>(kt), scale, w, lse_v, lse_t, part, n, d,
+      vec);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || plan.parts == 1) return err;
+  const int blocks = (2 * n + kThreads - 1) / kThreads;
+  dual_fwd_merge_kernel<<<blocks < 4096 ? blocks : 4096, kThreads, 0, stream>>>(
+      part, plan.parts, lse_v, lse_t, n);
   return cudaGetLastError();
 }
 
@@ -886,17 +1067,8 @@ cudaError_t launch_dual_bwd_bf16(const void* v, const void* t, const void* kv,
   return cudaGetLastError();
 }
 
-// f(std::integral_constant<int, kWarpF>{}) on the narrowest feature chunk
-// that holds d, up to 256 features (wider d in chunks of 256): the
-// backwards' kWarpF = chunk / 2
-template <typename F>
-cudaError_t by_width(int d, F f) {
-  if (d <= 64) return f(std::integral_constant<int, 32>{});
-  if (d <= 128) return f(std::integral_constant<int, 64>{});
-  return f(std::integral_constant<int, 128>{});
-}
-
-// the same for the sym forward's kChunkF
+// f(std::integral_constant<int, kChunkF>{}) for the forwards' chunk: the
+// narrowest that holds d, up to 256 features (wider d in chunks of 256)
 template <typename F>
 cudaError_t by_chunk(int d, F f) {
   if (d <= 64) return f(std::integral_constant<int, 64>{});
@@ -904,13 +1076,7 @@ cudaError_t by_chunk(int d, F f) {
   return f(std::integral_constant<int, 256>{});
 }
 
-// f(std::bool_constant<pruned>{})
-template <typename F>
-cudaError_t by_pruned(bool pruned, F f) {
-  return pruned ? f(std::true_type{}) : f(std::false_type{});
-}
-
-enum PlanKind { kSymFwd, kSymBwd, kDualBwd };
+enum PlanKind { kSymFwd, kDualFwd, kSymBwd, kDualBwd };
 
 // The parts of a bf16 kernel's plan for (n, d, pruned) on the current
 // device.
@@ -918,9 +1084,11 @@ cudaError_t plan_parts(PlanKind kind, int n, int d, bool pruned, int* parts) {
   Plan plan{0, 1};
   const cudaError_t err = by_pruned(pruned, [&](auto p) {
     constexpr bool kPruned = decltype(p)::value;
-    if (kind == kSymFwd)
+    if (kind == kSymFwd || kind == kDualFwd)
       return by_chunk(d, [&](auto chunk) {
-        return sym_fwd_plan<decltype(chunk)::value, kPruned>(n, d, &plan);
+        constexpr int kChunkF = decltype(chunk)::value;
+        return kind == kSymFwd ? sym_fwd_plan<kChunkF, kPruned>(n, d, &plan)
+                               : dual_fwd_plan<kChunkF, kPruned>(n, d, &plan);
       });
     return by_width(d, [&](auto width) {
       constexpr int kWarpF = decltype(width)::value;
@@ -990,34 +1158,16 @@ bool bad_args(int dtype, const void* kv, const void* kt, int n, int d) {
          (kv == nullptr) != (kt == nullptr);
 }
 
-template <typename T>
-struct Type {
-  using type = T;
-};
-
-// f(Type<T>{}, std::bool_constant<pruned>{}): one instantiation per (dtype,
-// pruned).
-template <typename F>
-cudaError_t dispatch(int dtype, bool pruned, F f) {
-  using B16 = __nv_bfloat16;
-  if (dtype == 0)
-    return pruned ? f(Type<float>{}, std::true_type{})
-                  : f(Type<float>{}, std::false_type{});
-  return pruned ? f(Type<B16>{}, std::true_type{})
-                : f(Type<B16>{}, std::false_type{});
-}
-
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (v, t); keep_v, keep_t: bool [n] (both,
 // or both null for the unpruned variant); every other array is float32:
 // lse_*, g_* [n] (the [n, 1] columns), dv, dt [n, d], scale and ds [1].
 // Each function returns a cudaError_t; launches are asynchronous on `stream`.
-// The bf16 sym forward, sym backward and dual backward split their
-// candidates where n leaves the card idle: their float32 scratch `part`
-// holds crossclr_<kernel>_scratch(dtype, n, d, pruned) values (0: none
-// needed, pass null; negative: a cudaError_t, negated), sized from the
-// plan on the current device.
+// The bf16 builds split their candidates where n leaves the card idle:
+// their float32 scratch `part` holds crossclr_<kernel>_scratch(dtype, n, d,
+// pruned) values (0: none needed, pass null; negative: a cudaError_t,
+// negated), sized from the plan on the current device.
 
 extern "C" long long crossclr_sym_fwd_scratch(int dtype, int n, int d,
                                               int pruned) {
@@ -1045,18 +1195,31 @@ extern "C" int crossclr_sym_fwd(int dtype, const void* v, const void* t,
   });
 }
 
+extern "C" long long crossclr_dual_fwd_scratch(int dtype, int n, int d,
+                                               int pruned) {
+  return split_scratch(kDualFwd, dtype, n, d, pruned, 4LL * n);
+}
+
 extern "C" int crossclr_dual_fwd(int dtype, const void* v, const void* t,
                                  const void* keep_v, const void* keep_t,
                                  const void* scale, void* lse_v, void* lse_t,
-                                 int n, int d, float w, void* stream) {
+                                 void* part, int n, int d, float w,
+                                 void* stream) {
   if (bad_args(dtype, keep_v, keep_t, n, d)) return (int)cudaErrorInvalidValue;
   const float* sp = static_cast<const float*>(scale);
   float* lv = static_cast<float*>(lse_v);
   float* lt = static_cast<float*>(lse_t);
+  float* pt = static_cast<float*>(part);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return (int)dispatch(dtype, keep_v != nullptr, [&](auto ty, auto pruned) {
-    return launch_fwd<typename decltype(ty)::type, true, decltype(pruned)::value>(
-        v, t, keep_v, keep_t, sp, 0.f, w, lv, lt, n, d, st);
+  return (int)by_pruned(keep_v != nullptr, [&](auto pruned) {
+    constexpr bool kPruned = decltype(pruned)::value;
+    if (dtype == 0)
+      return launch_fwd<float, true, kPruned>(v, t, keep_v, keep_t, sp, 0.f, w,
+                                              lv, lt, n, d, st);
+    return by_chunk(d, [&](auto chunk) {
+      return launch_dual_fwd_bf16<decltype(chunk)::value, kPruned>(
+          v, t, keep_v, keep_t, sp, w, lv, lt, pt, n, d, st);
+    });
   });
 }
 

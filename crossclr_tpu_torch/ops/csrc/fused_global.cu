@@ -49,28 +49,46 @@
 // scalar), and the columns kernel takes lse and g as they are (no
 // pre-transposed (1, TB) vectors or [TC, 1] masks).
 //
-// The logit tiles are 64 x 64 products over d, staged through shared memory
-// in 32-feature chunks (fp32, or bf16 widened to fp32 on load: both tiers
-// accumulate in fp32); 256 threads own a 4 x 4 micro tile each.  A backward
-// block keeps its gradient rows [64, <=512 features] in shared memory and
-// adds coefficient-tile x operand-tile products into them; wider features
-// split over blockIdx.z, each z recomputing the logits.
+// The scalar kernels (rows_lse and rows_bwd_cols in both tiers, rows_bwd_rows
+// in fp32): the logit tiles are 64 x 64 products over d, staged through
+// shared memory in 32-feature chunks (fp32, or bf16 widened to fp32 on load:
+// both tiers accumulate in fp32); 256 threads own a 4 x 4 micro tile each.
+// A backward block keeps its gradient rows [64, <=512 features] in shared
+// memory and adds coefficient-tile x operand-tile products into them; wider
+// features split over blockIdx.z, each z recomputing the logits.  What
+// bounds them on this card: scalar fp32 FMAs issued from shared memory.  The
+// forward does 2·bl·n·d FMAs (two products), each backward kernel 4·bl·n·d
+// (the logits again and the gradient products).  Their grid has only
+// ceil(bl/64) blocks (x 2 for the columns kernel's two arrays), fewer than
+// the 132 SMs below bl = 8448, so at the training slice's bl = 1024 most of
+// the card idles.
 //
-// What bounds it on this card: scalar fp32 FMAs issued from shared memory.
-// The forward does 2·bl·n·d FMAs (two products), each backward kernel
-// 4·bl·n·d (the logits again and the gradient products).  The rows kernels'
-// grid has only ceil(bl/64) blocks, fewer than the 132 SMs below bl = 8448,
-// so at the training slice's bl = 1024 most of the card idles.  Tensor-core
-// products (mma / wgmma on bf16 tiles) and splitting the candidate loop over
-// more blocks (a second pass combining per-split (m, l) and gradient
-// partials in a fixed order) are the next steps.
+// The bf16 rows backward (rows_bwd_rows_bf16_kernel, the `default` tier) is
+// a tensor-core kernel: loss_mma.cuh's anchor-gradient block in its rows
+// form (mma.sync m16n8k16 logits from bf16 operands; the coefficients
+// g_r·exp(z - lse_r) in fp32 registers; hi + lo bf16 coefficient fragments
+// times the candidate tile into fp32 register accumulators; every
+// 16-feature step and 64-candidate tile a short chain added in fp32), one
+// block per (64 anchor rows, 256-feature chunk of the gradient) and its
+// candidate tiles split over blockIdx.z into the parts split_parts picks
+// from the SM count and occupancy (4 at bl = n = 1024, d = 384).  Each part
+// writes its fp32 partial rows and Σ coef⊙z per row to a scratch buffer
+// (its size named by crossclr_rows_bwd_rows_scratch), and rows_sum_kernel
+// adds them in index order, the rows times s: no atomics.  It issues 6
+// products of 2·bl·n·d (the two logit products, and the two coefficient
+// products in two bf16 parts each) where the bound counts 3.5 at bl = n;
+// at d > 256 each 256-feature chunk recomputes the logits.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
 
+#include "loss_mma.cuh"
+
 namespace {
+
+using namespace loss_mma;
 
 constexpr int kTile = 64;         // rows per block = rows per loop tile
 constexpr int kThreads = 256;     // 16 x 16 threads, a 4 x 4 micro tile each
@@ -360,6 +378,62 @@ rows_bwd_rows_kernel(const T* __restrict__ ar, const T* __restrict__ aa,
   }
 }
 
+// d A_r (bf16 features, tensor cores) for anchor rows [64 x, 64 x + 64),
+// gradient features [256 y, 256 y + 256) (narrower where d is), and the
+// candidate tiles of part z of gridDim.z.  One part writes s · the
+// gradient rows to d_rows and Σ coef⊙z per row to ds_rows; more write
+// their fp32 sums to `part` ([parts][bl][d], then [parts][bl] for the
+// rows' Σ coef⊙z), which rows_sum_kernel adds.  Σ coef⊙z comes from the
+// blocks of feature chunk 0 only (every chunk recomputes the same logits,
+// each in its own order).
+template <int kWarpF, bool kPruned>
+__global__ void __launch_bounds__(kMmaThreads, 1)
+rows_bwd_rows_bf16_kernel(const bf16* __restrict__ ar, const bf16* __restrict__ aa,
+                          const bf16* __restrict__ oa,
+                          const unsigned char* __restrict__ ki,
+                          const unsigned char* __restrict__ ka,
+                          const float* __restrict__ scale_ptr, float w,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ g, float* __restrict__ d_rows,
+                          float* __restrict__ ds_rows, float* __restrict__ part,
+                          int bl, int n, int d, int off, bool vec) {
+  const int cand_tiles = (n + kRows - 1) / kRows, parts = gridDim.z, z = blockIdx.z;
+  const float s = *scale_ptr;
+  const size_t rows_d = (size_t)bl * d;
+  float* out = parts == 1 ? d_rows : part + z * rows_d;
+  float* ds_out = blockIdx.y != 0 ? nullptr
+                  : parts == 1    ? ds_rows
+                                  : part + parts * rows_d + (size_t)z * bl;
+  // the candidates: intra A (keep_intra), inter O (keep_inter)
+  bwd_block<kWarpF, false, kPruned, false, true>(
+      aa, oa, ka, ki, s, w, lse, nullptr, g, nullptr, out, parts == 1 ? s : 1.f,
+      n, d, vec, blockIdx.x * kRows, blockIdx.y, z * cand_tiles / parts,
+      (z + 1) * cand_tiles / parts, 0.f, ds_out, ar, bl, off);
+}
+
+// d_rows = s · (part[0] + part[1] + ... ) and ds_rows = the parts' Σ coef⊙z
+// per row added, each in index order; s = *scale_ptr
+__global__ void __launch_bounds__(kThreads)
+rows_sum_kernel(const float* __restrict__ part, int parts,
+                const float* __restrict__ scale_ptr, float* __restrict__ d_rows,
+                float* __restrict__ ds_rows, int bl, size_t rows_d) {
+  const float s = *scale_ptr;
+  const float* ds_part = part + parts * rows_d;
+  for (size_t i = blockIdx.x * (size_t)kThreads + threadIdx.x; i < rows_d + bl;
+       i += (size_t)gridDim.x * kThreads) {
+    if (i < rows_d) {
+      float acc = part[i];
+      for (int z = 1; z < parts; ++z) acc += part[z * rows_d + i];
+      d_rows[i] = s * acc;
+    } else {
+      const size_t r = i - rows_d;
+      float acc = ds_part[r];
+      for (int z = 1; z < parts; ++z) acc += ds_part[(size_t)z * bl + r];
+      ds_rows[r] = acc;
+    }
+  }
+}
+
 // d O (blockIdx.y = 0) or d A (1) for 64 candidates (blockIdx.z: feature
 // chunk): the candidate tile against every anchor tile.
 template <typename T, bool kPruned>
@@ -459,6 +533,43 @@ cudaError_t launch_bwd_rows(const void* ar, const void* aa, const void* oa,
   return cudaGetLastError();
 }
 
+template <int kWarpF, bool kPruned>
+cudaError_t rows_plan(int bl, int n, int d, Plan* plan) {
+  constexpr int kChunkF = BwdTile<kWarpF>::kChunkF;
+  const int chunks = (d + kChunkF - 1) / kChunkF;
+  return split_plan(reinterpret_cast<const void*>(rows_bwd_rows_bf16_kernel<kWarpF, kPruned>),
+                    bwd_mma_smem_bytes<kWarpF>(chunks), bwd_mma_smem_bytes<kWarpF>(2),
+                    tiles(n), chunks * tiles(bl), plan);
+}
+
+template <int kWarpF, bool kPruned>
+cudaError_t launch_bwd_rows_bf16(const void* ar, const void* aa, const void* oa,
+                                 const void* ki, const void* ka,
+                                 const float* scale, float w, const float* lse,
+                                 const float* g, float* d_rows, float* ds_rows,
+                                 float* part, int bl, int n, int d, int off,
+                                 cudaStream_t stream) {
+  Plan plan;
+  cudaError_t err = rows_plan<kWarpF, kPruned>(bl, n, d, &plan);
+  if (err != cudaSuccess) return err;
+  if (plan.parts > 1 && part == nullptr) return cudaErrorInvalidValue;
+  constexpr int kChunkF = BwdTile<kWarpF>::kChunkF;
+  const bool vec = d % 8 == 0 && aligned16(ar) && aligned16(aa) && aligned16(oa);
+  const dim3 grid(tiles(bl), (d + kChunkF - 1) / kChunkF, plan.parts);
+  rows_bwd_rows_bf16_kernel<kWarpF, kPruned><<<grid, kMmaThreads, plan.smem, stream>>>(
+      static_cast<const bf16*>(ar), static_cast<const bf16*>(aa),
+      static_cast<const bf16*>(oa), static_cast<const unsigned char*>(ki),
+      static_cast<const unsigned char*>(ka), scale, w, lse, g, d_rows, ds_rows,
+      part, bl, n, d, off, vec);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || plan.parts == 1) return err;
+  const size_t rows_d = (size_t)bl * d;
+  const size_t blocks = (rows_d + bl + kThreads - 1) / kThreads;
+  rows_sum_kernel<<<(int)(blocks < 4096 ? blocks : 4096), kThreads, 0, stream>>>(
+      part, plan.parts, scale, d_rows, ds_rows, bl, rows_d);
+  return cudaGetLastError();
+}
+
 template <typename T, bool kPruned>
 cudaError_t launch_bwd_cols(const void* ar, const void* aa, const void* oa,
                             const void* ki, const void* ka, const float* scale,
@@ -495,11 +606,6 @@ struct Lse {
   static cudaError_t run(A... a) { return launch_lse<T, P>(a...); }
 };
 template <typename T, bool P>
-struct BwdRows {
-  template <typename... A>
-  static cudaError_t run(A... a) { return launch_bwd_rows<T, P>(a...); }
-};
-template <typename T, bool P>
 struct BwdCols {
   template <typename... A>
   static cudaError_t run(A... a) { return launch_bwd_cols<T, P>(a...); }
@@ -511,7 +617,8 @@ struct BwdCols {
 // other_all [n, d]); keep_inter, keep_intra: bool [n] (both, or both null
 // for the unpruned variant); scale [1], lse, g, ds_rows [bl] (the [bl, 1]
 // columns), d_rows [bl, d], d_other, d_anchor [n, d]: float32.  The anchor
-// rows are rows off .. off + bl of the candidates' batch.  Each function
+// rows are rows off .. off + bl of the candidates' batch.  The fp32 rows
+// backward and both builds of the other two are scalar kernels.  Each function
 // returns a cudaError_t; launches are asynchronous on `stream`.
 
 extern "C" int crossclr_rows_lse(int dtype, const void* anchor_rows,
@@ -529,6 +636,24 @@ extern "C" int crossclr_rows_lse(int dtype, const void* anchor_rows,
       static_cast<cudaStream_t>(stream));
 }
 
+// The bf16 rows backward splits its candidates where bl leaves the card
+// idle: its float32 scratch `part` holds crossclr_rows_bwd_rows_scratch(
+// dtype, bl, n, d, pruned) values (0: none needed, pass null; negative: a
+// cudaError_t, negated), sized from the plan on the current device.
+extern "C" long long crossclr_rows_bwd_rows_scratch(int dtype, int bl, int n,
+                                                    int d, int pruned) {
+  if (dtype != 1 || bl < 1 || n < 1 || d < 1) return 0;
+  Plan plan{0, 1};
+  const cudaError_t err = by_pruned(pruned != 0, [&](auto p) {
+    constexpr bool kPruned = decltype(p)::value;
+    return by_width(d, [&](auto width) {
+      return rows_plan<decltype(width)::value, kPruned>(bl, n, d, &plan);
+    });
+  });
+  if (err != cudaSuccess) return -(long long)err;
+  return plan.parts > 1 ? plan.parts * ((long long)bl * d + bl) : 0;
+}
+
 extern "C" int crossclr_rows_bwd_rows(int dtype, const void* anchor_rows,
                                       const void* anchor_all,
                                       const void* other_all,
@@ -536,16 +661,28 @@ extern "C" int crossclr_rows_bwd_rows(int dtype, const void* anchor_rows,
                                       const void* keep_intra,
                                       const void* scale, const void* lse,
                                       const void* g, void* d_rows,
-                                      void* ds_rows, int bl, int n, int d,
-                                      int off, float w, void* stream) {
+                                      void* ds_rows, void* part, int bl, int n,
+                                      int d, int off, float w, void* stream) {
   if (bad_args(dtype, keep_inter, keep_intra, bl, n, d, off))
     return (int)cudaErrorInvalidValue;
-  return (int)dispatch<BwdRows>(
-      dtype, keep_inter != nullptr, anchor_rows, anchor_all, other_all,
-      keep_inter, keep_intra, static_cast<const float*>(scale), w,
-      static_cast<const float*>(lse), static_cast<const float*>(g),
-      static_cast<float*>(d_rows), static_cast<float*>(ds_rows), bl, n, d, off,
-      static_cast<cudaStream_t>(stream));
+  const float* sp = static_cast<const float*>(scale);
+  const float* lp = static_cast<const float*>(lse);
+  const float* gp = static_cast<const float*>(g);
+  float* out = static_cast<float*>(d_rows);
+  float* ds = static_cast<float*>(ds_rows);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return (int)by_pruned(keep_inter != nullptr, [&](auto pruned) {
+    constexpr bool kPruned = decltype(pruned)::value;
+    if (dtype == 0)
+      return launch_bwd_rows<float, kPruned>(anchor_rows, anchor_all, other_all,
+                                             keep_inter, keep_intra, sp, w, lp,
+                                             gp, out, ds, bl, n, d, off, st);
+    return by_width(d, [&](auto width) {
+      return launch_bwd_rows_bf16<decltype(width)::value, kPruned>(
+          anchor_rows, anchor_all, other_all, keep_inter, keep_intra, sp, w, lp,
+          gp, out, ds, static_cast<float*>(part), bl, n, d, off, st);
+    });
+  });
 }
 
 extern "C" int crossclr_rows_bwd_cols(int dtype, const void* anchor_rows,

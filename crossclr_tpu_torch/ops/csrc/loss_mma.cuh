@@ -1,9 +1,11 @@
 // The bf16 tensor-core pieces of the CrossCLR logsumexp kernels, shared by
-// fused_crossclr.cu (the per-direction forward and backward) and
-// fused_dual.cu (the sym forward and backward, the dual backward): 64-row
-// tiles of bf16 features staged by 16-byte cp.async, the logits A·Xᵀ by
-// mma.sync (mma_common.cuh), and the anchor-gradient block of one
-// direction, whose formulas are
+// fused_crossclr.cu (the per-direction forward and backward), fused_dual.cu
+// (the sym forward and backward, the dual forward and backward) and
+// fused_global.cu (the rows backward's anchor rows): 64-row tiles of bf16
+// features staged by 16-byte cp.async, the logits A·Xᵀ by mma.sync
+// (mma_common.cuh), the anchor-gradient block of one direction, and the
+// launch plans that split a kernel's candidate tiles over more blocks.
+// The block's formulas are
 //   P[i,j] = e^{z_ao[i,j]}·(f_a[i] + f_o[j])  (factored; or subtract-first
 //            g_a[i]·e^{z_ao - lse_a[i]} + g_o[j]·e^{z_ao - lse_o[j]}),
 //   Q[i,j] = the same over z_aa with f_a on both sides, 0 on the diagonal,
@@ -15,7 +17,11 @@
 // the same diagonal rule).  A mask never reaches an exp: a dropped
 // subtract-first term is selected away on the raw logit, so an exp that
 // overflows at large s is never multiplied.  The dual backward also sums
-// its share of Σ P⊙z_ao + ½ Σ Q⊙z_aa (= s · d loss / d s) per block.
+// its share of Σ P⊙z_ao + ½ Σ Q⊙z_aa (= s · d loss / d s) per block.  The
+// rows form (the rows backward, fused_global.cu) takes its anchor rows from
+// an array of their own, rows off .. off + bl of the candidates' batch (the
+// diagonal is off + row == col), keeps only the anchor row's term,
+// g_a[i]·e^{z - lse_a[i]}, and sums Σ coef⊙z per anchor row.
 //
 // The block of 8 warps: 4 row groups x 2 halves.  Warp w scores rows
 // 16 (w % 4) + [0, 16) of the block's 64 anchors against candidates
@@ -28,6 +34,9 @@
 
 #include <math.h>
 #include <stddef.h>
+
+#include <mutex>
+#include <type_traits>
 
 #include "mma_common.cuh"
 
@@ -147,8 +156,15 @@ __device__ __forceinline__ void logit_step(float sc[4][4], const uint32_t af[4],
 // logits and ½ for the intra ones, each tile's 16 terms a thread holds
 // summed apart and then added to its running sum, the threads' sums
 // reduced in a fixed order; thread 0 writes it to *ds_out where ds_out is
-// not null.
-template <int kWarpF, bool kFactored, bool kPruned, bool kDs = false>
+// not null.  kRowsForm (subtract-first, without kDs): the anchor rows are
+// rows [r0, r0 + 64) of `rows` ([bl, d]; lse_a, g_a [bl]), anchor row r is
+// candidate row_off + r of `a` (the diagonal), the coefficient is the anchor
+// row's term alone, and each row's Σ coef⊙z (its 16 terms of a tile summed
+// apart, then the quad's lanes and the two halves in a fixed order) goes
+// to ds_out[row] where ds_out is not null.  Otherwise the anchors are rows
+// of `a` itself (bl = n, row_off = 0).
+template <int kWarpF, bool kFactored, bool kPruned, bool kDs = false,
+          bool kRowsForm = false>
 __device__ __forceinline__ void bwd_block(
     const bf16* __restrict__ a, const bf16* __restrict__ o,
     const unsigned char* __restrict__ keep_a,
@@ -156,9 +172,15 @@ __device__ __forceinline__ void bwd_block(
     const float* __restrict__ lse_a, const float* __restrict__ lse_o,
     const float* __restrict__ g_a, const float* __restrict__ g_o,
     float* __restrict__ out, float out_scale, int n, int d, bool vec, int r0,
-    int fc, int t0, int t1, float ds_inter = 0.f, float* ds_out = nullptr) {
+    int fc, int t0, int t1, float ds_inter = 0.f, float* ds_out = nullptr,
+    const bf16* __restrict__ rows = nullptr, int bl = 0, int row_off = 0) {
   static_assert(!(kDs && kFactored), "Σ coeff⊙z is the subtract-first form's");
+  static_assert(!(kRowsForm && (kDs || kFactored)),
+                "the rows form is subtract-first, with Σ coef⊙z per row");
   using D = BwdTile<kWarpF>;
+  const bf16* arows = kRowsForm ? rows : a;  // the anchor rows' array
+  const int na = kRowsForm ? bl : n;         // and its rows
+  const int diag = kRowsForm ? row_off : 0;  // anchor row r is candidate r + diag
   extern __shared__ __align__(16) unsigned char smem_bf16[];
   const int chunks = (d + D::kChunkF - 1) / D::kChunkF;
   const int a_bufs = chunks > 1 ? 2 : 1;
@@ -190,7 +212,8 @@ __device__ __forceinline__ void bwd_block(
     const bool intra = tile & 1;
     const int f0 = ((fc + 1 + i) % chunks) * D::kChunkF;
     if (chunks > 1)
-      stage_tile<D::kChunkF>(sa + buf * kRows * D::kLd, a, r0, f0, n, d, vec);
+      stage_tile<D::kChunkF>(sa + buf * kRows * D::kLd, arows, r0, f0, na, d,
+                             vec);
     stage_tile<D::kChunkF>(sx + buf * kRows * D::kLd, intra ? a : o, c0, f0, n,
                            d, vec);
     cp_async_commit();
@@ -202,7 +225,7 @@ __device__ __forceinline__ void bwd_block(
       if (col < n) {
         if constexpr (kFactored) {
           fa = g_c[col] * expf(-lse_c[col]);
-        } else {
+        } else if constexpr (!kRowsForm) {
           fa = g_c[col];
           fb = lse_c[col];
         }
@@ -222,8 +245,8 @@ __device__ __forceinline__ void bwd_block(
   for (int r = 0; r < 2; ++r) {
     const int row = r0 + wr + g + 8 * r;
     ra[r] = rb[r] = 0.f;
-    kr[r] = kPruned && row < n && keep_a[row];
-    if (row < n) {
+    kr[r] = kPruned && !kRowsForm && row < n && keep_a[row];
+    if (row < na) {
       if constexpr (kFactored) {
         ra[r] = g_a[row] * expf(-lse_a[row]);
       } else {
@@ -238,9 +261,10 @@ __device__ __forceinline__ void bwd_block(
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
   float ds_acc = 0.f;  // kDs: this thread's running Σ ds_weight·coef·z
+  float ds_row[2] = {0.f, 0.f};  // kRowsForm: its rows' running Σ coef·z
 
   // one chunk: the anchor rows stay resident, loaded with stage 0
-  if (chunks == 1) stage_tile<D::kChunkF>(sa, a, r0, 0, n, d, vec);
+  if (chunks == 1) stage_tile<D::kChunkF>(sa, arows, r0, 0, na, d, vec);
   issue(0);
   float sc[4][4];
   for (int st = 0; st < stages; ++st) {
@@ -274,7 +298,7 @@ __device__ __forceinline__ void bwd_block(
     const float* fk = scol_k + (tile & 1) * kRows;
     // each logit enters Σ coeff⊙z once over both directions' blocks
     const float ds_w = intra ? 0.5f : ds_inter;
-    float ds_tile = 0.f;
+    float ds_tile = 0.f, ds_rows_tile[2] = {0.f, 0.f};
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
 #pragma unroll
@@ -284,7 +308,15 @@ __device__ __forceinline__ void bwd_block(
         const int col = c0 + cl;
         const float z = zs * sc[j][e];
         float coef = 0.f;
-        if constexpr (kPruned) {
+        if constexpr (kRowsForm) {
+          // the anchor row's term where the candidate's mask keeps it; on
+          // the diagonal the positive (inter) is kept, the self logit
+          // (intra: dropped, or zeroed and constant) has none
+          bool keep = !kPruned || fk[cl] != 0.f;
+          if (row + diag == col) keep = !intra;
+          if (row < na && col < n && keep) coef = ra[e >> 1] * expf(z - rb[e >> 1]);
+          ds_rows_tile[e >> 1] = fmaf(coef, z, ds_rows_tile[e >> 1]);
+        } else if constexpr (kPruned) {
           // each role's term where its mask keeps the pair; on the
           // diagonal the positive (inter) keeps both, intra neither
           bool keep_row_term = fk[cl] != 0.f, keep_col_term = kr[e >> 1];
@@ -321,6 +353,10 @@ __device__ __forceinline__ void bwd_block(
       }
     }
     if constexpr (kDs) ds_acc += ds_tile;
+    if constexpr (kRowsForm) {
+      ds_row[0] += ds_rows_tile[0];
+      ds_row[1] += ds_rows_tile[1];
+    }
     __syncthreads();  // the coefficient tile is whole
     // G += C X over the tile's 64 candidates, C as hi and lo A fragments,
     // X by ldmatrix.trans; each 16-feature tile's product from zero, then
@@ -355,8 +391,21 @@ __device__ __forceinline__ void bwd_block(
     for (int e = 0; e < 4; ++e) {
       const int row = r0 + wr + g + 8 * (e >> 1);
       const int f = fbase + 8 * j + (e & 1);
-      if (row < n && f < d) out[(size_t)row * d + f] = out_scale * acc[j][e];
+      if (row < na && f < d) out[(size_t)row * d + f] = out_scale * acc[j][e];
     }
+  if constexpr (kRowsForm) {
+    __shared__ float ds_half[2][kRows];  // [warp / 4][row]
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      ds_row[r] += __shfl_xor_sync(0xffffffffu, ds_row[r], 1);
+      ds_row[r] += __shfl_xor_sync(0xffffffffu, ds_row[r], 2);
+      if (tq == 0) ds_half[warp >> 2][wr + g + 8 * r] = ds_row[r];
+    }
+    __syncthreads();
+    const int row = r0 + threadIdx.x;
+    if (ds_out != nullptr && threadIdx.x < kRows && row < na)
+      ds_out[row] = ds_half[0][threadIdx.x] + ds_half[1][threadIdx.x];
+  }
   if constexpr (kDs) {
     __shared__ float ds_warps[kMmaThreads / 32];
 #pragma unroll
@@ -370,6 +419,113 @@ __device__ __forceinline__ void bwd_block(
       *ds_out = total;
     }
   }
+}
+
+// ---------------------------------------------------------------------------
+// launch plans of the bf16 kernels (host)
+// ---------------------------------------------------------------------------
+
+// Host functions of internal linkage (static): each library keeps its own
+// plan cache.
+
+// The parts S the candidate tiles split into.  S = 1 where the blocks
+// already fill the card's slots (SMs x resident blocks); otherwise the S
+// up to ceil(slots / blocks) (and the tiles) whose waves x tiles per part
+// is least, the smallest of a tie: at n = 1024, d = 256 (32 blocks of one
+// per SM) S = 4.
+static int split_parts(int tiles, int blocks, int slots) {
+  if (blocks >= slots) return 1;
+  int best = 1;
+  long long best_cost = tiles;
+  const int fill = (slots + blocks - 1) / blocks;
+  const int most = fill < tiles ? fill : tiles;
+  for (int parts = 2; parts <= most; ++parts) {
+    const long long cost = (long long)((blocks * parts + slots - 1) / slots) *
+                           ((tiles + parts - 1) / parts);
+    if (cost < best_cost) {
+      best = parts;
+      best_cost = cost;
+    }
+  }
+  return best;
+}
+
+// The SM count and the blocks of kernel `fn` resident on one SM at `smem`
+// bytes of dynamic shared memory, on the current device: queried once per
+// (device, kernel, smem) and cached.  The first query of a (device,
+// kernel) raises its dynamic shared memory limit to `max_smem`, the most
+// any launch of it takes, so that no later launch needs it raised again.
+static cudaError_t occupancy(const void* fn, size_t smem, size_t max_smem,
+                             int* sms, int* per_sm) {
+  struct Entry {
+    int dev;
+    const void* fn;
+    size_t smem;
+    int sms, per_sm;
+  };
+  constexpr int kEntries = 64;
+  static std::mutex mu;
+  static Entry cache[kEntries];
+  static int used = 0;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  std::lock_guard<std::mutex> lock(mu);
+  bool raised = false;
+  for (int i = 0; i < used; ++i) {
+    const Entry& e = cache[i];
+    if (e.dev != dev || e.fn != fn) continue;
+    raised = true;
+    if (e.smem == smem) {
+      *sms = e.sms;
+      *per_sm = e.per_sm;
+      return cudaSuccess;
+    }
+  }
+  if (!raised)
+    err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)max_smem);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, fn, kMmaThreads,
+                                                        smem);
+  if (err != cudaSuccess) return err;
+  if (used < kEntries) cache[used++] = Entry{dev, fn, smem, *sms, *per_sm};
+  return cudaSuccess;
+}
+
+// A bf16 kernel's launch: its dynamic shared memory and the parts its
+// candidate tiles split into.
+struct Plan {
+  size_t smem;
+  int parts;
+};
+
+static cudaError_t split_plan(const void* fn, size_t smem, size_t max_smem,
+                              int tiles, int blocks, Plan* plan) {
+  int sms = 0, per_sm = 0;
+  const cudaError_t err = occupancy(fn, smem, max_smem, &sms, &per_sm);
+  if (err != cudaSuccess) return err;
+  plan->smem = smem;
+  plan->parts = split_parts(tiles, blocks, sms * (per_sm > 1 ? per_sm : 1));
+  return cudaSuccess;
+}
+
+// f(std::integral_constant<int, kWarpF>{}) on the narrowest feature chunk
+// that holds d, up to 256 features (wider d in chunks of 256): the
+// backwards' kWarpF = chunk / 2
+template <typename F>
+cudaError_t by_width(int d, F f) {
+  if (d <= 64) return f(std::integral_constant<int, 32>{});
+  if (d <= 128) return f(std::integral_constant<int, 64>{});
+  return f(std::integral_constant<int, 128>{});
+}
+
+// f(std::bool_constant<pruned>{})
+template <typename F>
+cudaError_t by_pruned(bool pruned, F f) {
+  return pruned ? f(std::true_type{}) : f(std::false_type{});
 }
 
 }  // namespace loss_mma

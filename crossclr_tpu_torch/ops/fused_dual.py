@@ -31,18 +31,18 @@ always kept.  Two kernel pairs compute it, in ``csrc/fused_dual.cu``:
   the numerical gates but the sym kernels are refused by a VMEM or tile
   gate; the port has no such gate, so that float τ always takes sym.
 
-The bf16 builds (the ``default`` tier) of the sym forward, the sym
-backward and the dual backward are tensor-core kernels
+The bf16 builds (the ``default`` tier) of all four are tensor-core kernels
 (``csrc/loss_mma.cuh``): the sym forward sums ``exp2`` of each logit in
-log2 units at the static shift; each backward runs the per-direction
-backward's block per direction, factored (sym) or subtract-first with a
-``Σ coeff⊙z`` partial per block (dual), the keep masks as role selects on
-the coefficients.  Where ``B`` leaves the card idle their candidate tiles
-split over more blocks whose fp32 partial sums a second kernel adds in a
-fixed order, in a scratch buffer allocated here: its size comes from the
-library once per (library, device, dtype, B, D, pruned) and is cached in
-:data:`_plans`.  The dual forward and every fp32 build run scalar fp32
-FMAs.
+log2 units at the static shift, the dual forward keeps an online max in
+log2 units; each backward runs the per-direction backward's block per
+direction, factored (sym) or subtract-first with a ``Σ coeff⊙z`` partial
+per block (dual), the keep masks as role selects on the coefficients.
+Where ``B`` leaves the card idle their candidate tiles split over more
+blocks whose fp32 partial sums (the dual forward's partial ``(m, l)``) a
+second kernel adds in a fixed order, in a scratch buffer allocated here:
+its size comes from the library once per (library, device, dtype, B, D,
+pruned) and is cached in :data:`_plans`.  Every fp32 build runs scalar
+fp32 FMAs.
 
 Each kernel has its plain version here (``*_plain``: the CPU path and the
 oracle the kernel is held against on the card; the plain versions assume
@@ -277,19 +277,21 @@ _SIGNATURES = {
                          _int, _float, _float, _ptr],
     "crossclr_sym_bwd": [_int, _ptr, _ptr, _ptr, _ptr, _ptr, _ptr, _ptr, _ptr,
                          _ptr, _ptr, _ptr, _int, _int, _float, _float, _ptr],
-    "crossclr_dual_fwd": [_int, _ptr, _ptr, _ptr, _ptr, _ptr, _ptr, _ptr, _int,
-                          _int, _float, _ptr],
+    "crossclr_dual_fwd": [_int, _ptr, _ptr, _ptr, _ptr, _ptr, _ptr, _ptr, _ptr,
+                          _int, _int, _float, _ptr],
     "crossclr_dual_bwd": [_int, _ptr, _ptr, _ptr, _ptr, _ptr, _ptr, _ptr, _ptr,
                           _ptr, _ptr, _ptr, _ptr, _ptr, _ptr, _int, _int,
                           _float, _ptr],
     # (dtype, B, D, pruned) -> floats of scratch, or a negated cudaError_t
     "crossclr_sym_fwd_scratch": [_int, _int, _int, _int],
+    "crossclr_dual_fwd_scratch": [_int, _int, _int, _int],
     "crossclr_sym_bwd_scratch": [_int, _int, _int, _int],
     "crossclr_dual_bwd_scratch": [_int, _int, _int, _int],
     "crossclr_dual_bwd_partials": [_int, _int, _int, _int],
 }
-_SIZE_QUERIES = ("crossclr_sym_fwd_scratch", "crossclr_sym_bwd_scratch",
-                 "crossclr_dual_bwd_scratch", "crossclr_dual_bwd_partials")
+_SIZE_QUERIES = ("crossclr_sym_fwd_scratch", "crossclr_dual_fwd_scratch",
+                 "crossclr_sym_bwd_scratch", "crossclr_dual_bwd_scratch",
+                 "crossclr_dual_bwd_partials")
 
 
 def _library() -> ctypes.CDLL:
@@ -306,22 +308,25 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-# (library, size query, device, dtype code, B, D, pruned) -> the size the
-# query names: asked once per key, as the library's plan is
+# (library, size query, device, the query's arguments: dtype code, shape,
+# pruned) -> the size the query names: asked once per key, as the
+# library's plan is
 _plans: dict = {}
 
 
-def _plan_size(lib, query: str, name: str, code: int, b: int, d: int,
-               pruned: bool, device) -> int:
-    """The size (in floats) that ``query`` of ``lib`` names for this call,
-    from :data:`_plans`; a negative answer (a CUDA error) raises."""
-    key = (lib, query, device, code, b, d, pruned)
+def _plan_size(lib, query: str, name: str, *args, device,
+               error_string=None) -> int:
+    """The size (in floats) that ``query`` of ``lib`` names for this call
+    (``query(*args)``), from :data:`_plans`; a negative answer (a CUDA
+    error, named by ``error_string``, by default the library's
+    ``crossclr_cuda_error_string``) raises."""
+    key = (lib, query, device, *args)
     size = _plans.get(key)
     if size is None:
         with torch.cuda.device(device):
-            size = getattr(lib, query)(code, b, d, int(pruned))
+            size = getattr(lib, query)(*args)
         if size < 0:
-            msg = lib.crossclr_cuda_error_string(-size).decode()
+            msg = (error_string or lib.crossclr_cuda_error_string)(-size).decode()
             raise RuntimeError(f"{name} launch failed: {msg} (cudaError {-size})")
         _plans[key] = size
     return size
@@ -406,7 +411,8 @@ def sym_fwd_cuda(v, t, scale: float, neg_weight: float, keep_video=None,
     lib = _library()
     code = _DTYPE_CODES[v.dtype]
     part = _scratch(_plan_size(lib, "crossclr_sym_fwd_scratch", "sym_fwd", code,
-                               b, d, keep_video is not None, v.device), v.device)
+                               b, d, int(keep_video is not None), device=v.device),
+                    v.device)
     lse_v = torch.empty((b, 1), device=v.device, dtype=torch.float32)
     lse_t = torch.empty_like(lse_v)
     _launch("sym_fwd", lib.crossclr_sym_fwd, code, v.data_ptr(), t.data_ptr(),
@@ -430,7 +436,8 @@ def sym_bwd_cuda(v, t, lse_v, lse_t, g_v, g_t, scale: float, neg_weight: float,
     lib = _library()
     code = _DTYPE_CODES[v.dtype]
     part = _scratch(_plan_size(lib, "crossclr_sym_bwd_scratch", "sym_bwd", code,
-                               b, d, keep_video is not None, v.device), v.device)
+                               b, d, int(keep_video is not None), device=v.device),
+                    v.device)
     dv = torch.empty((b, d), device=v.device, dtype=torch.float32)
     dt = torch.empty_like(dv)
     _launch("sym_bwd", lib.crossclr_sym_bwd, code, v.data_ptr(), t.data_ptr(),
@@ -444,16 +451,24 @@ def sym_bwd_cuda(v, t, lse_v, lse_t, g_v, g_t, scale: float, neg_weight: float,
 def dual_fwd_cuda(v, t, scale, neg_weight: float, keep_video=None,
                   keep_text=None):
     """Launch the dual forward; ``scale`` is a float32 ``[1]`` CUDA tensor,
-    read by the kernel (no host sync).  Returns fp32 ``(lse_v, lse_t)``."""
+    read by the kernel (no host sync).  Returns fp32 ``(lse_v, lse_t)``.
+    The bf16 build splits the candidates over more blocks where ``B``
+    leaves the card idle: each part's ``(m, l)`` per row goes to a scratch
+    buffer of the size the library names, allocated here."""
     _check_features(v, t, "dual_fwd")
     _check_f32(scale, (1,), v.device, "scale")
     b, d = v.shape
     _check_masks(keep_video, keep_text, b, v.device, "dual_fwd")
+    lib = _library()
+    code = _DTYPE_CODES[v.dtype]
+    part = _scratch(_plan_size(lib, "crossclr_dual_fwd_scratch", "dual_fwd", code,
+                               b, d, int(keep_video is not None), device=v.device),
+                    v.device)
     lse_v = torch.empty((b, 1), device=v.device, dtype=torch.float32)
     lse_t = torch.empty_like(lse_v)
-    _launch("dual_fwd", _library().crossclr_dual_fwd, _DTYPE_CODES[v.dtype],
-            v.data_ptr(), t.data_ptr(), *_mask_ptrs(keep_video, keep_text),
-            scale.data_ptr(), lse_v.data_ptr(), lse_t.data_ptr(), b, d,
+    _launch("dual_fwd", lib.crossclr_dual_fwd, code, v.data_ptr(), t.data_ptr(),
+            *_mask_ptrs(keep_video, keep_text), scale.data_ptr(),
+            lse_v.data_ptr(), lse_t.data_ptr(), _ptr_of(part), b, d,
             float(neg_weight), device=v.device)
     return lse_v, lse_t
 
@@ -473,7 +488,8 @@ def dual_bwd_cuda(v, t, scale, lse_v, lse_t, g_v, g_t, neg_weight: float,
     lib = _library()
     code = _DTYPE_CODES[v.dtype]
     pruned = keep_video is not None
-    rows, partials = (_plan_size(lib, query, "dual_bwd", code, b, d, pruned, v.device)
+    rows, partials = (_plan_size(lib, query, "dual_bwd", code, b, d, int(pruned),
+                                 device=v.device)
                       for query in ("crossclr_dual_bwd_scratch",
                                     "crossclr_dual_bwd_partials"))
     scratch = torch.empty(partials + rows, device=v.device, dtype=torch.float32)

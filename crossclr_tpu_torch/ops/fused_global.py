@@ -30,7 +30,14 @@ The kernels, in ``csrc/fused_global.cu``: ``rows_lse`` (``_rows_lse_kernel``),
 ``Σ p⊙z`` from which ``d loss/d s`` is taken here, outside the kernel, as
 ``Σ / s``) and ``rows_bwd_cols`` (``_rows_bwd_cols_kernel``: d other_all
 and d anchor_all, the candidates' gradients, which a data-parallel caller
-reduce-scatters to their owners).  Each has its plain version here
+reduce-scatters to their owners).  The bf16 build of ``rows_bwd_rows``
+(the ``default`` tier) is a tensor-core kernel, the rows form of the loss
+kernels' anchor-gradient block (``csrc/loss_mma.cuh``): where ``b_loc``
+leaves the card idle its candidate tiles split over more blocks whose fp32
+partial rows and per-row ``Σ p⊙z`` a second kernel adds in a fixed order,
+in a scratch buffer allocated here (its size asked of the library once per
+shape and cached in ``fused_dual._plans``).  The other builds are scalar
+fp32 kernels.  Each has its plain version here
 (``*_plain``: the CPU path and the oracle the kernel is held against on
 the card), a wrapper that launches it on CUDA tensors (``*_cuda``) and
 counts the launch in :data:`launch_counts`, and a dispatcher that picks
@@ -56,6 +63,9 @@ from .fused_dual import (
     _check_f32,
     _cotangent,
     _fetch_cast,
+    _plan_size,
+    _ptr_of,
+    _scratch,
     dual_lse_pair,
 )
 
@@ -154,12 +164,16 @@ _SIGNATURES = {
     "crossclr_rows_lse": [_int, _ptr, _ptr, _ptr, _ptr, _ptr, _ptr, _ptr,
                           _int, _int, _int, _int, _float, _ptr],
     "crossclr_rows_bwd_rows": [_int, _ptr, _ptr, _ptr, _ptr, _ptr, _ptr, _ptr,
-                               _ptr, _ptr, _ptr, _int, _int, _int, _int,
+                               _ptr, _ptr, _ptr, _ptr, _int, _int, _int, _int,
                                _float, _ptr],
     "crossclr_rows_bwd_cols": [_int, _ptr, _ptr, _ptr, _ptr, _ptr, _ptr, _ptr,
                                _ptr, _ptr, _ptr, _int, _int, _int, _int,
                                _float, _ptr],
+    # (dtype, b_loc, B, D, pruned) -> floats of scratch, or a negated
+    # cudaError_t
+    "crossclr_rows_bwd_rows_scratch": [_int, _int, _int, _int, _int],
 }
+_SIZE_QUERIES = ("crossclr_rows_bwd_rows_scratch",)
 
 
 def _library() -> ctypes.CDLL:
@@ -170,7 +184,7 @@ def _library() -> ctypes.CDLL:
         for name, argtypes in _SIGNATURES.items():
             fn = getattr(lib, name)
             fn.argtypes = argtypes
-            fn.restype = _int
+            fn.restype = ctypes.c_longlong if name in _SIZE_QUERIES else _int
         lib.crossclr_rows_error_string.argtypes = [_int]
         lib.crossclr_rows_error_string.restype = ctypes.c_char_p
     return lib
@@ -213,10 +227,6 @@ def _check_operands(anchor_rows, anchor_all, other_all, off: int, keep_inter,
     _check_f32(scale, (1,), dev, "scale")
 
 
-def _mask_ptr(mask) -> int | None:
-    return None if mask is None else mask.data_ptr()
-
-
 def _launch(name: str, fn, *args, device) -> None:
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
@@ -238,8 +248,8 @@ def rows_lse_cuda(anchor_rows, anchor_all, other_all, off: int, scale,
     lse = torch.empty((bl, 1), device=anchor_rows.device, dtype=torch.float32)
     _launch("rows_lse", _library().crossclr_rows_lse,
             _DTYPE_CODES[anchor_rows.dtype], anchor_rows.data_ptr(),
-            anchor_all.data_ptr(), other_all.data_ptr(), _mask_ptr(keep_inter),
-            _mask_ptr(keep_intra), scale.data_ptr(), lse.data_ptr(), bl, b, d,
+            anchor_all.data_ptr(), other_all.data_ptr(), _ptr_of(keep_inter),
+            _ptr_of(keep_intra), scale.data_ptr(), lse.data_ptr(), bl, b, d,
             off, float(neg_weight), device=anchor_rows.device)
     return lse
 
@@ -252,19 +262,28 @@ def _check_row_vectors(lse, g, bl: int, device) -> None:
 def rows_bwd_rows_cuda(anchor_rows, anchor_all, other_all, off: int, scale,
                        lse, g, neg_weight: float, keep_inter=None,
                        keep_intra=None):
-    """Launch the rows backward; returns fp32 ``(d anchor_rows, ds_rows)``."""
+    """Launch the rows backward; returns fp32 ``(d anchor_rows, ds_rows)``.
+    The bf16 build splits the candidates over more blocks where ``b_loc``
+    leaves the card idle: its fp32 partials go to a scratch buffer of the
+    size the library names, allocated here."""
     _check_operands(anchor_rows, anchor_all, other_all, off, keep_inter,
                     keep_intra, scale, "rows_bwd_rows")
     (bl, d), b = anchor_rows.shape, anchor_all.shape[0]
-    _check_row_vectors(lse, g, bl, anchor_rows.device)
-    d_rows = torch.empty((bl, d), device=anchor_rows.device, dtype=torch.float32)
-    ds_rows = torch.empty((bl, 1), device=anchor_rows.device, dtype=torch.float32)
-    _launch("rows_bwd_rows", _library().crossclr_rows_bwd_rows,
-            _DTYPE_CODES[anchor_rows.dtype], anchor_rows.data_ptr(),
-            anchor_all.data_ptr(), other_all.data_ptr(), _mask_ptr(keep_inter),
-            _mask_ptr(keep_intra), scale.data_ptr(), lse.data_ptr(),
-            g.data_ptr(), d_rows.data_ptr(), ds_rows.data_ptr(), bl, b, d, off,
-            float(neg_weight), device=anchor_rows.device)
+    dev = anchor_rows.device
+    _check_row_vectors(lse, g, bl, dev)
+    lib = _library()
+    code = _DTYPE_CODES[anchor_rows.dtype]
+    part = _scratch(_plan_size(lib, "crossclr_rows_bwd_rows_scratch", "rows_bwd_rows",
+                               code, bl, b, d, int(keep_inter is not None),
+                               device=dev, error_string=lib.crossclr_rows_error_string),
+                    dev)
+    d_rows = torch.empty((bl, d), device=dev, dtype=torch.float32)
+    ds_rows = torch.empty((bl, 1), device=dev, dtype=torch.float32)
+    _launch("rows_bwd_rows", lib.crossclr_rows_bwd_rows, code,
+            anchor_rows.data_ptr(), anchor_all.data_ptr(), other_all.data_ptr(),
+            _ptr_of(keep_inter), _ptr_of(keep_intra), scale.data_ptr(),
+            lse.data_ptr(), g.data_ptr(), d_rows.data_ptr(), ds_rows.data_ptr(),
+            _ptr_of(part), bl, b, d, off, float(neg_weight), device=dev)
     return d_rows, ds_rows
 
 
@@ -281,8 +300,8 @@ def rows_bwd_cols_cuda(anchor_rows, anchor_all, other_all, off: int, scale,
     d_anchor = torch.empty_like(d_other)
     _launch("rows_bwd_cols", _library().crossclr_rows_bwd_cols,
             _DTYPE_CODES[anchor_rows.dtype], anchor_rows.data_ptr(),
-            anchor_all.data_ptr(), other_all.data_ptr(), _mask_ptr(keep_inter),
-            _mask_ptr(keep_intra), scale.data_ptr(), lse.data_ptr(),
+            anchor_all.data_ptr(), other_all.data_ptr(), _ptr_of(keep_inter),
+            _ptr_of(keep_intra), scale.data_ptr(), lse.data_ptr(),
             g.data_ptr(), d_other.data_ptr(), d_anchor.data_ptr(), bl, b, d,
             off, float(neg_weight), device=anchor_rows.device)
     return d_other, d_anchor

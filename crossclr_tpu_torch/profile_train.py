@@ -119,11 +119,12 @@ KERNEL_FAMILIES = {
     "flash_dkv": ("flash_dkv_kernel", "flash_dkv_bf16_kernel"),
     # fused_dual.cu's pair, or fused_crossclr.cu's per-direction kernels
     "loss": ("lse_fwd_kernel", "lse_bwd_kernel", "sym_fwd_bf16_kernel",
-             "sym_fwd_sum_kernel", "sym_bwd_bf16_kernel", "dual_bwd_bf16_kernel",
-             "bwd_sum_kernel", "sum_partials_kernel", "direction_fwd_kernel",
+             "sym_fwd_sum_kernel", "dual_fwd_bf16_kernel", "dual_fwd_merge_kernel",
+             "sym_bwd_bf16_kernel", "dual_bwd_bf16_kernel", "bwd_sum_kernel",
+             "sum_partials_kernel", "direction_fwd_kernel",
              "direction_fwd_bf16_kernel", "direction_bwd_kernel",
              "direction_bwd_bf16_kernel"),
-    "rows": ("rows_lse_kernel", "rows_bwd_"),  # fused_global.cu
+    "rows": ("rows_lse_kernel", "rows_bwd_", "rows_sum_kernel"),  # fused_global.cu
 }
 
 
