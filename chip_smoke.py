@@ -27,9 +27,10 @@ Phases, one line each; any failure raises and exits non-zero:
                  widths; direction_bwd_bf16_kernel: 3 widths x 2
                  coefficient forms; sym_fwd_bf16_kernel,
                  dual_fwd_bf16_kernel, sym_bwd_bf16_kernel,
-                 dual_bwd_bf16_kernel and rows_bwd_rows_bf16_kernel: 3
-                 widths x unpruned and pruned each), none of which may
-                 spill.
+                 dual_bwd_bf16_kernel, rows_lse_bf16_kernel,
+                 rows_bwd_rows_bf16_kernel and rows_bwd_cols_bf16_kernel: 3
+                 widths x unpruned and pruned each; 99 in all), none of
+                 which may spill.
   3. kernel    — the flash forward against the plain version on the same
                  CUDA tensors (H=8, Dh=48, S in {64, 96, 37}, ragged masks,
                  one entry fully masked; fp32 and bf16) within the stated
@@ -132,11 +133,14 @@ Phases, one line each; any failure raises and exits non-zero:
                  connectivity_keep_and_weights at prune 0.1) and unpruned,
                  at τ = 0.03 and 0.05 (the Σ p⊙z term of dτ row by row
                  within LSE_TOL and in total within DS_RTOL), two launches
-                 of each bf16 rows_bwd_rows bit for bit; (b) four
-                 emulated ranks: blocks of 1024 rows at offsets 0, 1024,
-                 2048, 3072 of 4096 give the one-call lse and Σ p⊙z rows,
-                 and their summed candidate gradients and concatenated row
-                 gradients the one-call gradients;
+                 of each bf16 kernel bit for bit; (b) four emulated ranks:
+                 blocks of 1024 rows at offsets 0, 1024, 2048, 3072 of 4096
+                 give the one-call lse and Σ p⊙z rows, and their summed
+                 candidate gradients and concatenated row gradients the
+                 one-call gradients, each block held to plain too; (b') the
+                 same at blocks of 250 rows at offsets 0, 250, 500, 750 of
+                 1000 x 384, where a rank's own columns start inside a
+                 candidate tile;
                  (c) a 1-rank NCCL group: global_cross_clr and
                  global_cross_clr_intra (use_fused) at 4096 x 384 against
                  cross_clr_fused / cross_clr_intra_fused and the eager
@@ -146,7 +150,9 @@ Phases, one line each; any failure raises and exits non-zero:
                  (d) each kernel held to its plain version and then
                  both timed at the leg's 1024 x 384, at 4096 x 384 and at
                  4096 x 512 (bf16 operands, pruned; CUDA events, median of
-                 20).
+                 20); (d') the same at one rank's block of the global
+                 losses at 4 ranks: 1024 anchor rows at offset 1024 of a
+                 batch of 4096, D = 384.
   9. train     — crossclr_tpu_torch.train.main on configs/youcook2_mlp.json
                  at full width (synthetic data, 16384 pairs): 300 steps with
                  eval every 100, a resume to 340 steps, then 100 steps with a
@@ -197,8 +203,10 @@ with its time, its plain version's, the library call's where one exists,
 and its bound from this run's shapes; the flash records also name the
 shape and build they were timed at and what the library call computes;
 the loss records add their pruned branch's time, plain time, bound and
-launches on the full-CrossCLR legs; the per-direction records are timed at
-4096 x 256 and add their time and bound at the leg's 65,536 x 256.
+launches on the full-CrossCLR legs; the rows records are timed at 1024 x
+384 and add their time, plain time and bound at one rank's block (1024 of
+4096 x 384); the per-direction records are timed at 4096 x 256 and add
+their time and bound at the leg's 65,536 x 256.
 The last line is {"ok": true, "device": {...}}.
 
 Run from the root of a checkout:  python3 chip_smoke.py
@@ -210,12 +218,13 @@ unpacked under the ignored _checkout/), it runs only phases 1-2 and a
 comparison: this checkout's flash, per-direction, loss-pair and rows
 kernels against that revision's on the same operands, bit for bit where
 the design was kept (every fp32 output, the bf16 flash forward, dq and
-dk/dv, lse_fwd and lse_bwd in both tiers, sym_fwd, sym_bwd and dual_bwd in
-both tiers, unpruned and pruned, at 1024 x 256 and 1024 x 384, rows_lse and
-rows_bwd_cols in both tiers, pruned and not, at 1024 x 384; the
-redesigned bf16 dual_fwd and rows_bwd_rows (REDESIGNED) are logged only:
-they are held to their plain versions by the phases above; a revision
-whose entry points take no scratch is called through ParentLossLibrary);
+dk/dv, lse_fwd and lse_bwd in both tiers, sym_fwd, dual_fwd, sym_bwd and
+dual_bwd in both tiers, unpruned and pruned, at 1024 x 256 and 1024 x 384,
+rows_bwd_rows in both tiers and rows_lse and rows_bwd_cols in fp32, pruned
+and not, at 1024 x 384; the redesigned bf16 rows_lse and rows_bwd_cols
+(REDESIGNED) are logged only: they are held to their plain versions by the
+phases above; a revision whose entry points take no scratch is called
+through ParentLossLibrary);
 then at B=1024, S in {96, 64}, H=8, Dh=48, bf16, dropout 0 and 0.1 each
 flash kernel timed in turns (baseline, this, this, baseline; median of 20
 each) beside its plain version, SDPA and its bound; bf16 lse_fwd and
@@ -223,8 +232,9 @@ lse_bwd the same way at 4096 x 256 (median of 20, beside the plain
 version) and at the leg's 65,536 x 256 (median of 3) beside the bound;
 bf16 sym_fwd, dual_fwd, sym_bwd and dual_bwd at 1024 x 256 and, pruned,
 1024 x 384 (median of 20) beside their plain versions and bounds, and
-dual_fwd also at 4096 x 512; bf16 rows_bwd_rows at 1024 x 384, pruned;
-and the loss fwd+bwd at the headline 4096 x 512 through the sym and the
+dual_fwd also at 4096 x 512; bf16 rows_lse, rows_bwd_rows and
+rows_bwd_cols at 1024 x 384 and at one rank's block (1024 of 4096 x 384,
+offset 1024), pruned; and the loss fwd+bwd at the headline 4096 x 512 through the sym and the
 dual route (default tier) beside the plain pair's; the last line is a
 JSON record of those times.
 """
@@ -279,15 +289,17 @@ ROWS_REPLACES = {
 DIRECTION_SOURCE = "crossclr_tpu_torch/ops/csrc/fused_crossclr.cu"
 # the loss kernels' bf16 tensor-core builds and their instantiations: lse_fwd
 # (3 feature-chunk widths), lse_bwd (3 widths x the factored and
-# subtract-first forms), sym_fwd, dual_fwd, sym_bwd, dual_bwd and
-# rows_bwd_rows (3 widths x unpruned and pruned each)
+# subtract-first forms), sym_fwd, dual_fwd, sym_bwd, dual_bwd, rows_lse,
+# rows_bwd_rows and rows_bwd_cols (3 widths x unpruned and pruned each)
 LOSS_MMA_KERNELS = {"fused_crossclr.cu": (("direction_fwd_bf16_kernel", 3),
                                           ("direction_bwd_bf16_kernel", 6)),
                     "fused_dual.cu": (("sym_fwd_bf16_kernel", 6),
                                       ("dual_fwd_bf16_kernel", 6),
                                       ("sym_bwd_bf16_kernel", 6),
                                       ("dual_bwd_bf16_kernel", 6)),
-                    "fused_global.cu": (("rows_bwd_rows_bf16_kernel", 6),)}
+                    "fused_global.cu": (("rows_lse_bf16_kernel", 6),
+                                        ("rows_bwd_rows_bf16_kernel", 6),
+                                        ("rows_bwd_cols_bf16_kernel", 6))}
 DIRECTION_REPLACES = {
     "lse_fwd": "crossclr_tpu/ops/fused_crossclr.py:179",
     "lse_bwd": "crossclr_tpu/ops/fused_crossclr.py:279",
@@ -299,7 +311,7 @@ TRANSFORMER_LOSS_SHAPE = (1024, 384)  # configs/lsmdc_transformer.json
 HEADLINE_LOSS_SHAPE = (4096, 512)  # the reference's headline benchmark
 # the bf16 builds this revision redesigned: --baseline holds them to their
 # plain versions (the phases above), not to the baseline's bits
-REDESIGNED = ("dual_fwd", "rows_bwd_rows")
+REDESIGNED = ("rows_lse", "rows_bwd_cols")
 NEG_WEIGHT = 0.8
 # loss kernels vs plain (tests/test_fused_kernel.py:37,133,169,251): lse
 # atol = rtol = 2e-5; gradients max |err| <= 5e-5 of the largest |entry|;
@@ -406,6 +418,9 @@ GRAD_CACHE_BOUND = 1e-5  # max |error| / max |gradient|, fp32 towers
 GLOBAL_SHAPES = [(4096, 384), (1000, 384), (1000, 640)]
 GLOBAL_TIMING = [(1024, 384), (4096, 384), (4096, 512)]
 EMULATED_RANKS = 4
+# one rank's block of the global losses at 4 ranks: b_loc anchor rows of a
+# batch of B at the second rank's offset (b_loc, B, D, off)
+RANK_SHAPE = (1024, 4096, 384, 1024)
 DS_KEY = "rows_bwd_rows Σ p⊙z per row"  # the dτ term, held apart from d rows
 PRUNE = 0.1
 
@@ -457,7 +472,7 @@ def build_phase() -> None:
     # the tensor-core kernels: every instantiation (flash: one per padded
     # head dim and dropout build; the loss kernels: one per feature chunk
     # and coefficient form or keep-mask branch) logged, none may spill
-    report = {}
+    report, spills = {}, []
     for source in ("flash_fwd.cu", "flash_bwd.cu", *LOSS_MMA_KERNELS):
         report.update(ptxas_report(_build.build_info[source]["log"]))
     for kernel, want in (*((k, 16) for k in MMA_KERNELS),
@@ -470,8 +485,9 @@ def build_phase() -> None:
             log("build", f"{kernel}<{args}>: {r.get('registers')} "
                          f"registers, spill stores {r.get('spill_stores')} B, "
                          f"spill loads {r.get('spill_loads')} B")
-            check(r.get("spill_stores") == 0 and r.get("spill_loads") == 0,
-                  f"{kernel}<{args}> spills: {r}")
+            if r.get("spill_stores") != 0 or r.get("spill_loads") != 0:
+                spills.append(f"{kernel}<{args}>: {r}")
+    check(not spills, f"spilling instantiations: {spills}")
 
 
 def ptxas_report(text: str) -> dict:
@@ -840,7 +856,8 @@ class ParentLossLibrary:
     as this checkout's wrapper calls it.  Where that revision's entry point
     takes no scratch (crossclr_sym_bwd before it split its candidates,
     crossclr_sym_fwd and crossclr_dual_bwd before theirs did,
-    crossclr_dual_fwd and crossclr_rows_bwd_rows before theirs did), the
+    crossclr_dual_fwd and crossclr_rows_bwd_rows before theirs did,
+    crossclr_rows_lse and crossclr_rows_bwd_cols before theirs did), the
     scratch argument is dropped and the size query answers 0; its
     crossclr_dual_bwd_partials took n alone."""
 
@@ -849,7 +866,9 @@ class ParentLossLibrary:
               "crossclr_dual_fwd": ("crossclr_dual_fwd_scratch", 8),
               "crossclr_sym_bwd": ("crossclr_sym_bwd_scratch", 11),
               "crossclr_dual_bwd": ("crossclr_dual_bwd_scratch", 12),
-              "crossclr_rows_bwd_rows": ("crossclr_rows_bwd_rows_scratch", 11)}
+              "crossclr_rows_lse": ("crossclr_rows_lse_scratch", 8),
+              "crossclr_rows_bwd_rows": ("crossclr_rows_bwd_rows_scratch", 11),
+              "crossclr_rows_bwd_cols": ("crossclr_rows_bwd_cols_scratch", 11)}
 
     def __init__(self, lib):
         self.lib = lib
@@ -956,9 +975,10 @@ def baseline_phase(fa, fc, fd, fg, smi: str, csrc: Path) -> dict:
     """The flash, per-direction, loss-pair and rows kernels of this
     checkout against those built from ``csrc`` on the same operands: bit
     for bit wherever this checkout kept the design (every fp32 output, the
-    bf16 flash kernels, lse_fwd and lse_bwd in both tiers, sym_fwd, sym_bwd
-    and dual_bwd in both tiers, pruned and not, rows_lse and rows_bwd_cols
-    in both tiers); the redesigned bf16 builds of REDESIGNED only logged.
+    bf16 flash kernels, lse_fwd and lse_bwd in both tiers, sym_fwd,
+    dual_fwd, sym_bwd and dual_bwd in both tiers, pruned and not, and
+    rows_bwd_rows in both tiers); the redesigned bf16 builds of REDESIGNED
+    only logged.
     Then, at the transformer leg's shapes (B=1024, S in {96, 64}, H=8,
     Dh=48, bf16, dropout 0 and the leg's 0.1), each flash kernel timed in
     turns, baseline, this checkout, this checkout, baseline (CUDA events,
@@ -967,9 +987,9 @@ def baseline_phase(fa, fc, fd, fg, smi: str, csrc: Path) -> dict:
     beside the plain version) and at the leg's 65,536 x 256 (median of 3),
     beside the bound; bf16 sym_fwd, dual_fwd, sym_bwd and dual_bwd at the
     MLP leg's 1024 x 256 and, pruned, at the full-CrossCLR leg's 1024 x 384,
-    dual_fwd also at the headline 4096 x 512, and bf16 rows_bwd_rows at
-    1024 x 384, pruned (median of 20), beside their plain versions and
-    bounds."""
+    dual_fwd also at the headline 4096 x 512, and the bf16 rows kernels at
+    1024 x 384 and at one rank's block (RANK_SHAPE), pruned (median of 20),
+    beside their plain versions and bounds."""
     sdpa = torch.nn.functional.scaled_dot_product_attention
     records = {"flash": [], "direction": [], "loss": [], "rows": []}
     with tempfile.TemporaryDirectory(prefix="crossclr_baseline_") as tmp:
@@ -1171,23 +1191,32 @@ def baseline_phase(fa, fc, fd, fg, smi: str, csrc: Path) -> dict:
                                   f"{record['plain_ms']:.4f}, bound "
                                   f"{record['bound_ms']:.4f} ({record['bound_by']}) "
                                   f"(median of 20; {smi})")
-        # the rows backward at the full-CrossCLR leg's shape, pruned
+        # the rows kernels at the full-CrossCLR leg's shape (1024 anchors
+        # against their own batch) and at one rank's, pruned
         b, d = GLOBAL_TIMING[0]
-        v32, t32, masks, g = rows_inputs(b, d, seed=3)
-        v, t = (x.contiguous() for x in fd._fetch_cast("default", v32, t32))
-        args = (v, v, t, 0, scale, NEG_WEIGHT, masks[1], masks[0])
-        bargs = (*args[:5], fg.rows_lse_plain(*args), g, NEG_WEIGHT, masks[1], masks[0])
-        new, old = turns(lambda: fg.rows_bwd_rows_cuda(*bargs), rows_base, 20, 3)
-        record = {"name": "rows_bwd_rows", "B": b, "D": d, "pruned": True, "ms": new,
-                  "baseline_ms": old,
-                  "plain_ms": median_ms(lambda: fg.rows_bwd_rows_plain(*bargs)),
-                  **rows_bounds(b, b, d)["rows_bwd_rows"], "library_ms": None}
-        records["rows"].append(record)
-        log("baseline", f"rows_bwd_rows B={b} D={d} bf16 operands τ=0.03 pruned "
-                        f"({PRUNE}): {new[0]:.4f} / {new[1]:.4f} ms, baseline "
-                        f"{old[0]:.4f} / {old[1]:.4f}, plain {record['plain_ms']:.4f}, "
-                        f"bound {record['bound_ms']:.4f} ({record['bound_by']}) "
-                        f"(median of 20; {smi})")
+        for b_loc, b, d, off in ((b, b, d, 0), RANK_SHAPE):
+            args, bargs = rank_args(fd, fg, b_loc, b, d, off, seed=3)
+            bounds = rows_bounds(b_loc, b, d)
+            pairs = {"rows_lse": (lambda: fg.rows_lse_cuda(*args),
+                                  lambda: fg.rows_lse_plain(*args)),
+                     "rows_bwd_rows": (lambda: fg.rows_bwd_rows_cuda(*bargs),
+                                       lambda: fg.rows_bwd_rows_plain(*bargs)),
+                     "rows_bwd_cols": (lambda: fg.rows_bwd_cols_cuda(*bargs),
+                                       lambda: fg.rows_bwd_cols_plain(*bargs))}
+            for name, (fn, plain) in pairs.items():
+                new, old = turns(fn, rows_base, 20, 3)
+                record = {"name": name, "B_loc": b_loc, "B": b, "D": d, "off": off,
+                          "pruned": True, "ms": new, "baseline_ms": old,
+                          "plain_ms": median_ms(plain), **bounds[name],
+                          "library_ms": None}
+                records["rows"].append(record)
+                log("baseline", f"{name} b_loc={b_loc} of B={b} D={d} off={off} bf16 "
+                                f"operands τ=0.03 pruned ({PRUNE}): {new[0]:.4f} / "
+                                f"{new[1]:.4f} ms, baseline {old[0]:.4f} / "
+                                f"{old[1]:.4f}, plain {record['plain_ms']:.4f}, bound "
+                                f"{record['bound_ms']:.4f} ({record['bound_by']}) "
+                                f"(median of 20; {smi})")
+            del args, bargs, pairs
         # the reference's headline: the loss fwd+bwd at 4096 x 512 through
         # each route, bf16 operands
         records["headline"] = headline_turns(fd, pair_base, smi)
@@ -1954,20 +1983,40 @@ def rows_inputs(b: int, d: int, seed: int):
     return v, t, keep_masks(v, t), g
 
 
+def rank_args(fd, fg, b_loc: int, b: int, d: int, off: int, seed: int):
+    """The rows kernels' arguments at bf16 operands, pruned, τ = 0.03,
+    for anchor rows off .. off + b_loc of a batch of b: (args, bargs),
+    bargs with the plain lse and the rows' cotangents."""
+    v32, t32, masks, g = rows_inputs(b, d, seed=seed)
+    v, t = (x.contiguous() for x in fd._fetch_cast("default", v32, t32))
+    scale = torch.full((1,), 1.0 / 0.03, device="cuda")
+    keep = (masks[1], masks[0])
+    args = (v[off:off + b_loc].contiguous(), v, t, off, scale, NEG_WEIGHT, *keep)
+    bargs = (*args[:5], fg.rows_lse_plain(*args), g[off:off + b_loc].contiguous(),
+             NEG_WEIGHT, *keep)
+    return args, bargs
+
+
 def rows_check(fg, rows, a_all, o_all, off, scale, g, masks, worst, tag):
     """Each rows kernel against its plain version on the same operands;
     returns the kernels' outputs (lse, d_rows, ds_rows, d_other, d_anchor)."""
     args = (rows, a_all, o_all, off, scale, NEG_WEIGHT, *masks)
+
+    def once_more(fn, got, name):
+        # the tensor-core builds: their parts' fixed order
+        if rows.dtype == torch.bfloat16:
+            again = fn()
+            torch.cuda.synchronize()
+            check(all(torch.equal(x, y) for x, y in zip(again, got)),
+                  f"{tag}: two launches of {name} differ")
+
     want = fg.rows_lse_plain(*args)
     lse = fg.rows_lse_cuda(*args)
+    once_more(lambda: (fg.rows_lse_cuda(*args),), (lse,), "rows_lse")
     worst["rows_lse"] = max(worst["rows_lse"], lse_err([lse], [want], f"{tag} rows_lse"))
     bargs = (*args[:5], want, g, NEG_WEIGHT, *masks)
     d_rows, ds_rows = fg.rows_bwd_rows_cuda(*bargs)
-    if rows.dtype == torch.bfloat16:  # the tensor-core build: its partials' order
-        again = fg.rows_bwd_rows_cuda(*bargs)
-        torch.cuda.synchronize()
-        check(torch.equal(again[0], d_rows) and torch.equal(again[1], ds_rows),
-              f"{tag}: two launches of rows_bwd_rows differ")
+    once_more(lambda: fg.rows_bwd_rows_cuda(*bargs), (d_rows, ds_rows), "rows_bwd_rows")
     p_rows, p_ds = fg.rows_bwd_rows_plain(*bargs)
     worst["rows_bwd_rows"] = max(worst["rows_bwd_rows"], grad_err(
         [d_rows], [p_rows], f"{tag} rows_bwd_rows"))
@@ -1978,6 +2027,7 @@ def rows_check(fg, rows, a_all, o_all, off, scale, g, masks, worst, tag):
     ds_rel = ((ds_rows.sum() - p_ds.sum()).abs() / p_ds.sum().abs()).item()
     check(ds_rel <= DS_RTOL, f"{tag}: Σ p⊙z rel err {ds_rel:.3e} (limit {DS_RTOL})")
     cols = fg.rows_bwd_cols_cuda(*bargs)
+    once_more(lambda: fg.rows_bwd_cols_cuda(*bargs), cols, "rows_bwd_cols")
     worst["rows_bwd_cols"] = max(worst["rows_bwd_cols"], grad_err(
         cols, fg.rows_bwd_cols_plain(*bargs), f"{tag} rows_bwd_cols"))
     return lse, d_rows, ds_rows, *cols
@@ -2003,32 +2053,37 @@ def global_check_phase(fd, fg) -> dict:
                           f"and unpruned, τ in (0.03, 0.05): worst max|kernel-plain| "
                           + ", ".join(f"{k} {x:.3e}" for k, x in worst.items()))
 
-    # (b) blocks of b_loc rows at offsets r·b_loc against one call
-    b, d = GLOBAL_SHAPES[0]
-    b_loc = b // EMULATED_RANKS
-    v32, t32, masks, g = rows_inputs(b, d, seed=17)
-    v, t = (x.contiguous() for x in fd._fetch_cast("default", v32, t32))
-    scale = torch.full((1,), 1.0 / 0.03, device="cuda")
-    for pruned in (False, True):
-        keep = (masks[1], masks[0]) if pruned else (None, None)
-        tag = f"emulated ranks pruned={pruned}"
-        whole = rows_check(fg, v, v, t, 0, scale, g, keep, worst, tag + " one call")
-        parts = [rows_check(fg, v[r * b_loc:(r + 1) * b_loc].contiguous(), v, t,
-                            r * b_loc, scale, g[r * b_loc:(r + 1) * b_loc].contiguous(),
-                            keep, worst, f"{tag} rank {r}")
-                 for r in range(EMULATED_RANKS)]
-        lse_err([torch.cat([p[0] for p in parts])], [whole[0]], tag + " lse")
-        grad_err([torch.cat([p[1] for p in parts]), sum(p[3] for p in parts),
-                  sum(p[4] for p in parts)], [whole[1], whole[3], whole[4]],
-                 tag + " gradients")
-        lse_err([torch.cat([p[2] for p in parts])], [whole[2]], tag + " Σ p⊙z per row")
-        ds_rel = ((sum(p[2].sum() for p in parts) - whole[2].sum()).abs()
-                  / whole[2].sum().abs()).item()
-        check(ds_rel <= DS_RTOL, f"{tag}: Σ p⊙z rel err {ds_rel:.3e}")
-        log("global", f"{EMULATED_RANKS} emulated ranks of {b_loc} rows at offsets "
-                      f"{[r * b_loc for r in range(EMULATED_RANKS)]} of {b}, pruned="
-                      f"{pruned}, bf16 operands: the blocks' lse, concatenated row "
-                      f"gradients and summed candidate gradients equal one call's")
+    # (b) blocks of b_loc rows at offsets r·b_loc against one call: whole
+    # tiles at 4096 (b_loc = 1024), and (b') unaligned ones at 1000 (b_loc =
+    # 250: each rank's own columns start inside a candidate tile)
+    for b, d in (GLOBAL_SHAPES[0], GLOBAL_SHAPES[1]):
+        b_loc = b // EMULATED_RANKS
+        v32, t32, masks, g = rows_inputs(b, d, seed=17)
+        v, t = (x.contiguous() for x in fd._fetch_cast("default", v32, t32))
+        scale = torch.full((1,), 1.0 / 0.03, device="cuda")
+        for pruned in (False, True):
+            keep = (masks[1], masks[0]) if pruned else (None, None)
+            tag = f"emulated ranks B={b} pruned={pruned}"
+            whole = rows_check(fg, v, v, t, 0, scale, g, keep, worst, tag + " one call")
+            parts = [rows_check(fg, v[r * b_loc:(r + 1) * b_loc].contiguous(), v, t,
+                                r * b_loc, scale,
+                                g[r * b_loc:(r + 1) * b_loc].contiguous(), keep, worst,
+                                f"{tag} rank {r}")
+                     for r in range(EMULATED_RANKS)]
+            lse_err([torch.cat([p[0] for p in parts])], [whole[0]], tag + " lse")
+            grad_err([torch.cat([p[1] for p in parts]), sum(p[3] for p in parts),
+                      sum(p[4] for p in parts)], [whole[1], whole[3], whole[4]],
+                     tag + " gradients")
+            lse_err([torch.cat([p[2] for p in parts])], [whole[2]],
+                    tag + " Σ p⊙z per row")
+            ds_rel = ((sum(p[2].sum() for p in parts) - whole[2].sum()).abs()
+                      / whole[2].sum().abs()).item()
+            check(ds_rel <= DS_RTOL, f"{tag}: Σ p⊙z rel err {ds_rel:.3e}")
+            log("global", f"{EMULATED_RANKS} emulated ranks of {b_loc} rows at offsets "
+                          f"{[r * b_loc for r in range(EMULATED_RANKS)]} of {b}, "
+                          f"pruned={pruned}, bf16 operands: the blocks' lse, "
+                          f"concatenated row gradients and summed candidate gradients "
+                          f"equal one call's")
     return worst
 
 
@@ -2091,15 +2146,18 @@ def global_loss_phase(fg) -> dict:
 
 def rows_bounds(b_loc: int, b: int, d: int) -> dict:
     """Each rows kernel's least time at bf16 operands (the leg's `default`
-    tier), offset 0 with anchors = candidates (one [B, D] array serves as
-    anchor_rows and anchor_all), at the bf16 peak. The inter logits are
-    one product of 2·b_loc·B·D; the intra ones hold the anchors' own
-    symmetric b_loc×b_loc block, of which only one triangle is needed
-    (half a product at b_loc = B). The forward is those logits; each
-    backward recomputes them and adds two gradient products. Each input
-    is read once (features, the two bool masks, the scale, lse and g)
-    and each output written once."""
-    features = 2 * b * d * 2  # anchor_all = anchor_rows, other_all in bf16
+    tier) at the bf16 peak, for b_loc anchor rows of a batch of B. The
+    inter logits are one product of 2·b_loc·B·D; the intra ones hold the
+    anchors' own symmetric b_loc×b_loc block, of which only one triangle
+    is needed (half a product at b_loc = B). The forward is those logits;
+    each backward recomputes them and adds two gradient products. Each
+    input is read once (features, the two bool masks, the scale, lse and
+    g) and each output written once; at b_loc = B one [B, D] array serves
+    as anchor_rows and anchor_all, below it the anchor rows are an array
+    of their own (a rank's block)."""
+    features = 2 * b * d * 2  # anchor_all, other_all in bf16
+    if b_loc < b:
+        features += b_loc * d * 2  # anchor_rows
     masks = 2 * b + 4  # + the scale
     rows = b_loc * 4
     product = 2 * b_loc * b * d
@@ -2117,21 +2175,20 @@ def rows_bounds(b_loc: int, b: int, d: int) -> dict:
 
 def global_timing_phase(fd, fg, smi: str, worst: dict) -> dict:
     """(d) each rows kernel and its plain version, bf16 operands, pruned,
-    offset 0, first held to the plain version on the timed operands (into
-    ``worst``); returns {(name, B, D): (ms, plain_ms)}."""
+    offset 0 with anchors = candidates at each GLOBAL_TIMING shape, and
+    (d') one rank's block at RANK_SHAPE, first held to the plain version on
+    the timed operands (into ``worst``); returns {(name, b_loc, B, D):
+    (ms, plain_ms)}."""
     times = {}
-    for b, d in GLOBAL_TIMING:
-        v32, t32, masks, g = rows_inputs(b, d, seed=3)
-        v, t = (x.contiguous() for x in fd._fetch_cast("default", v32, t32))
-        scale = torch.full((1,), 1.0 / 0.03, device="cuda")
-        args = (v, v, t, 0, scale, NEG_WEIGHT, masks[1], masks[0])
-        rows_check(fg, v, v, t, 0, scale, g, (masks[1], masks[0]), worst,
-                   f"timed B={b} D={d} default pruned")
-        log("global", f"B={b} D={d} default, pruned, the timed operands: rows "
-                      "kernels vs plain, worst max|kernel-plain| so far "
-                      + ", ".join(f"{k} {x:.3e}" for k, x in worst.items()))
-        lse = fg.rows_lse_plain(*args)
-        bargs = (*args[:5], lse, g, NEG_WEIGHT, masks[1], masks[0])
+    cases = [(b, b, d, 0) for b, d in GLOBAL_TIMING] + [RANK_SHAPE]
+    for b_loc, b, d, off in cases:
+        args, bargs = rank_args(fd, fg, b_loc, b, d, off, seed=3)
+        rows, a_all, o_all, _, scale, _, *keep = args
+        rows_check(fg, rows, a_all, o_all, off, scale, bargs[6], keep, worst,
+                   f"timed b_loc={b_loc} of B={b} D={d} off={off} default pruned")
+        log("global", f"b_loc={b_loc} of B={b} D={d} off={off} default, pruned, the "
+                      "timed operands: rows kernels vs plain, worst max|kernel-plain| "
+                      "so far " + ", ".join(f"{k} {x:.3e}" for k, x in worst.items()))
         pairs = {
             "rows_lse": (lambda: fg.rows_lse_cuda(*args),
                          lambda: fg.rows_lse_plain(*args)),
@@ -2140,14 +2197,15 @@ def global_timing_phase(fd, fg, smi: str, worst: dict) -> dict:
             "rows_bwd_cols": (lambda: fg.rows_bwd_cols_cuda(*bargs),
                               lambda: fg.rows_bwd_cols_plain(*bargs)),
         }
-        bounds = rows_bounds(b, b, d)
+        bounds = rows_bounds(b_loc, b, d)
         for name, (kernel, plain) in pairs.items():
             ms, plain_ms = median_ms(kernel), median_ms(plain)
-            times[(name, b, d)] = (ms, plain_ms)
-            log("global", f"{name} B={b} D={d} bf16 operands, pruned: kernel "
-                          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-                          f"{bounds[name]['bound_ms']:.4f} ms "
+            times[(name, b_loc, b, d)] = (ms, plain_ms)
+            log("global", f"{name} b_loc={b_loc} of B={b} D={d} off={off} bf16 "
+                          f"operands, pruned: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+                          f"ms, bound {bounds[name]['bound_ms']:.4f} ms "
                           f"({bounds[name]['bound_by']}) (median of 20; {smi})")
+        del args, bargs, pairs
     return times
 
 
@@ -2657,16 +2715,25 @@ def main(argv=None) -> int:
             "pruned_bound_ms": pruned_bounds[name]["bound_ms"],
             "pruned_timed_at": f"B={b} D={d} bf16, keep masks at prune {PRUNE}",
         })
-    # the full-CrossCLR leg's shape: 1024 anchors against their own batch
+    # the full-CrossCLR leg's shape: 1024 anchors against their own batch;
+    # and one rank's block of the global losses at 4 ranks
     b, d = GLOBAL_TIMING[0]
     bounds = rows_bounds(b, b, d)
+    rank_loc, rank_b, rank_d, rank_off = RANK_SHAPE
+    rank_bounds = rows_bounds(rank_loc, rank_b, rank_d)
     for name in fg.KERNELS:
-        ms, plain_ms = rows_times[(name, b, d)]
+        ms, plain_ms = rows_times[(name, b, b, d)]
+        rank_ms, rank_plain_ms = rows_times[(name, rank_loc, rank_b, rank_d)]
         records.append({
             "name": name, "route": "cuda", "source": ROWS_SOURCE,
             "replaces": ROWS_REPLACES[name], "launches": rows_launches[name],
             "max_abs_err": rows_worst[name], "ms": ms, "plain_ms": plain_ms,
             **bounds[name], "library_ms": None,
+            "timed_at": f"B={b} D={d} bf16, keep masks at prune {PRUNE}",
+            "rank_ms": rank_ms, "rank_plain_ms": rank_plain_ms,
+            "rank_bound_ms": rank_bounds[name]["bound_ms"],
+            "rank_timed_at": f"b_loc={rank_loc} of B={rank_b} D={rank_d} "
+                             f"off={rank_off} bf16, keep masks at prune {PRUNE}",
         })
     # timed at 4096 x 256 beside the plain version, and alone at the leg's
     # shape, where the plain version's [B, 2B] logits would take 34 GB

@@ -262,9 +262,6 @@ direction_bwd_kernel(const T* __restrict__ a, const T* __restrict__ o,
 // forward, bf16 features: tensor cores (see the header)
 // ---------------------------------------------------------------------------
 
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr float kLn2 = 0.6931471805599453f;
-
 // the forward's shared memory: two stages of candidate rows (the first
 // holds the anchor rows while their fragments load), two of anchor rows
 // where d takes more than one chunk, and the two halves' (m, l) per row

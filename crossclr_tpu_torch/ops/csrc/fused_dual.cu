@@ -104,7 +104,9 @@
 //     with the per-direction forward's online logsumexp in log2 units (the
 //     scale read from device memory once per block): a running max per row
 //     once per tile, exp2 of each logit; each part writes its (m, l) per
-//     row and dual_fwd_merge_kernel merges the parts in index order.  Where
+//     row and dual_fwd_merge_kernel merges the parts in index order.  Its
+//     block is loss_mma.cuh's fwd_block, shared with the rows forward
+//     (fused_global.cu) in its rows form.  Where
 //     d takes two 256-feature chunks both anchor chunks stay in shared
 //     memory and only the candidate chunks stream, where the sym forward
 //     restages the anchor chunk with every candidate chunk.  It issues the
@@ -137,8 +139,6 @@ namespace {
 
 using namespace loss_mma;
 using namespace loss_tiles;
-
-constexpr float kMasked = -1e9f;  // an excluded candidate's logit (pruned)
 
 // ---------------------------------------------------------------------------
 // forward: one direction's lse for a 64-row anchor tile
@@ -421,8 +421,6 @@ sum_partials_kernel(const float* __restrict__ part, int count,
 // sym forward, bf16 features: tensor cores (loss_mma.cuh)
 // ---------------------------------------------------------------------------
 
-constexpr float kLog2e = 1.4426950408889634f;
-
 // The sym forward's shared memory: two stages of candidate rows (the first
 // holds the anchor rows while their fragments load), two of anchor rows
 // where d takes more than one chunk, two stages of the candidates' keep
@@ -602,40 +600,16 @@ sym_fwd_sum_kernel(const float* __restrict__ part, int parts, float s, float w,
 // dual forward, bf16 features: tensor cores (loss_mma.cuh)
 // ---------------------------------------------------------------------------
 
-constexpr float kLn2 = 0.6931471805599453f;
-
-// The dual forward's shared memory: two stages of candidate rows (the first
-// holds the anchor rows while their fragments load where d fits one chunk),
-// two buffers of anchor rows where d takes more than one chunk (both chunks,
-// resident, where it takes two; two stages where it takes more), two stages
-// of the candidates' keep flags, and the two halves' (m, l) per row.
-template <int kChunkF>
-size_t dual_fwd_smem_bytes(int chunks) {
-  return sizeof(bf16) * (size_t)((chunks > 1 ? 4 : 2) * kRows *
-                                 Chunk<kChunkF>::kLd) +
-         sizeof(float) * 6 * kRows;
-}
-
 // Block (x, y, z): anchor rows [64 x, 64 x + 64) of direction y (0: video
 // anchors, candidates T then V; 1: text anchors, candidates V then T, the
 // keep masks swapped with them), the candidate tiles of part z of
-// gridDim.z, at the scale *scale_ptr (read once per block).  The grid,
-// staging and keep tests are sym_fwd_bf16_kernel's, except that where d
-// takes two chunks (256 < d <= 512) both anchor chunks stay in shared
-// memory for the whole loop and only the candidate chunks stream; a wider d
-// restages its anchor chunk with each stage.  The sum is the per-direction
-// forward's online logsumexp in log2 units (direction_fwd_bf16_kernel):
-// logits z·log2 e, a running max m per row over its quad once per tile,
-// the lane's sum l of exp2(z - m) rescaled once per tile.  Unpruned, the
-// intra self logit is zeroed (its exp2(0 - m) stays in the sum); pruned, an
-// excluded logit is kMasked (-1e9), below every real one, and m starts at
-// kNegFloor (-1e30), below kMasked: a lane or part whose columns are all
-// excluded holds (m = -1e9, l = their count), which the rescale by
-// exp2(-1e9 - m) wipes once the row's positive (always kept) is merged in.
-// The quad's lanes add their sums and the two halves of each row merge
-// their (m, l) in a fixed order; one part writes ln 2 · (m + log2 l) to
-// lse_v / lse_t, more write m and l to their slices [z][direction] of
-// `part` ([2][parts][2][n]: every m, then every l).
+// gridDim.z, at the scale *scale_ptr (read once per block): loss_mma.cuh's
+// online-logsumexp block, whose grid, staging and keep tests are
+// sym_fwd_bf16_kernel's, except that where d takes two chunks (256 < d <=
+// 512) both anchor chunks stay in shared memory for the whole loop.  One
+// part writes ln 2 · (m + log2 l) to lse_v / lse_t, more write m and l to
+// their slices [z][direction] of `part` ([2][parts][2][n]: every m, then
+// every l).
 template <int kChunkF, bool kPruned>
 __global__ void __launch_bounds__(kMmaThreads, 2)
 dual_fwd_bf16_kernel(const bf16* __restrict__ v, const bf16* __restrict__ t,
@@ -644,165 +618,23 @@ dual_fwd_bf16_kernel(const bf16* __restrict__ v, const bf16* __restrict__ t,
                      const float* __restrict__ scale_ptr, float w,
                      float* __restrict__ lse_v, float* __restrict__ lse_t,
                      float* __restrict__ part, int n, int d, bool vec) {
-  using C = Chunk<kChunkF>;
-  extern __shared__ __align__(16) unsigned char smem_dual_fwd[];
-  const int chunks = (d + kChunkF - 1) / kChunkF;
-  const bool resident = chunks == 2;  // both anchor chunks stay staged
-  bf16* sx = reinterpret_cast<bf16*>(smem_dual_fwd);  // candidate rows, 2 stages
-  bf16* sa = sx + 2 * kRows * C::kLd;  // anchor rows: 2 chunks or 2 stages
-  float* skeep = reinterpret_cast<float*>(sa + (chunks > 1 ? 2 : 0) * kRows * C::kLd);
-  float* sm = skeep + 2 * kRows;  // [half][row] running max
-  float* sl = sm + 2 * kRows;     // [half][row] sum
-
   const bool text = blockIdx.y != 0;
-  const bf16* a = text ? t : v;
-  const bf16* o = text ? v : t;
-  const unsigned char* keep_a = text ? kt : kv;  // the anchors' modality
-  const unsigned char* keep_o = text ? kv : kt;  // the other modality
   const int tiles = (n + kRows - 1) / kRows, parts = gridDim.z, z = blockIdx.z;
-  const int t0 = z * tiles / parts, t1 = (z + 1) * tiles / parts;
-  const int r0 = blockIdx.x * kRows;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, tq = lane & 3;
-  const int wr = 16 * (warp & 3);   // the warp's rows in the tile
-  const int wc = 32 * (warp >> 2);  // its candidates in the logit tile
-  const float s = *scale_ptr;
-  const float ws = w * s;
-
-  // Issue the loads of stage st into buffer st & 1, and on a tile's first
-  // chunk (pruned) the candidates' keep flags into stage tile & 1.
-  const int stages = 2 * (t1 - t0) * chunks;
-  auto issue = [&](int st) {
-    const int i = st % chunks, tile = st / chunks, buf = st & 1;
-    const int c0 = (t0 + (tile >> 1)) * kRows;
-    const bool intra = tile & 1;
-    if (chunks > 1 && !resident)
-      stage_tile<kChunkF>(sa + buf * kRows * C::kLd, a, r0, i * kChunkF, n, d,
-                          vec);
-    stage_tile<kChunkF>(sx + buf * kRows * C::kLd, intra ? a : o, c0,
-                        i * kChunkF, n, d, vec);
-    cp_async_commit();
-    if constexpr (kPruned) {
-      if (i == 0 && threadIdx.x < kRows) {
-        const int col = c0 + threadIdx.x;
-        skeep[(tile & 1) * kRows + threadIdx.x] =
-            col < n && (intra ? keep_a : keep_o)[col] ? 1.f : 0.f;
-      }
-    }
-  };
-
-  uint32_t af[C::kSteps][4];
-  if (chunks == 1) {  // the anchor fragments, once, through buffer 1
-    stage_tile<kChunkF>(sx + kRows * C::kLd, a, r0, 0, n, d, vec);
-    cp_async_commit();
-    cp_async_wait<0>();
-    __syncthreads();
-#pragma unroll
-    for (int ks = 0; ks < C::kSteps; ++ks)
-      ldmatrix_x4(af[ks], ld_a<C::kLd>(sx + (kRows + wr) * C::kLd + 16 * ks, lane));
-  } else if (resident) {  // both anchor chunks, landing with stage 0
-    stage_tile<kChunkF>(sa, a, r0, 0, n, d, vec);
-    stage_tile<kChunkF>(sa + kRows * C::kLd, a, r0, kChunkF, n, d, vec);
-  }
-  issue(0);  // buffer 0; buffer 1 is next written after stage 0's barrier
-
-  // rows wr + g and wr + g + 8: running max (log2 units) and this lane's sum
-  float m[2] = {kNegFloor, kNegFloor}, l[2] = {0.f, 0.f};
-  float sc[4][4];
-  for (int st = 0; st < stages; ++st) {
-    const int i = st % chunks, tile = st / chunks, buf = st & 1;
-    const int c0 = (t0 + (tile >> 1)) * kRows;
-    const bool intra = tile & 1;
-    cp_async_wait<0>();
-    __syncthreads();  // stage st has landed; stage st - 1's readers are done
-    if (st + 1 < stages) issue(st + 1);
-    const bf16* xt = sx + buf * kRows * C::kLd;
-    if (chunks > 1) {
-      const bf16* at = sa + (resident ? i : buf) * kRows * C::kLd;
-#pragma unroll
-      for (int ks = 0; ks < C::kSteps; ++ks)
-        ldmatrix_x4(af[ks], ld_a<C::kLd>(at + wr * C::kLd + 16 * ks, lane));
-    }
-    if (i == 0) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) sc[j][e] = 0.f;
-    }
-    // S = A X^T over the chunk, each 16-feature step from zero and added
-    // in fp32 (acc_add)
-#pragma unroll
-    for (int ks = 0; ks < C::kSteps; ++ks)
-      logit_step<C::kLd>(sc, af[ks], xt, wc, ks, lane);
-    if (i + 1 < chunks) continue;
-    // the logits in log2 units; element e of tile j: row wr + g + 8 (e /
-    // 2), candidate wc + 8 j + 2 tq + e % 2; the columns past n masked
-    const float zs = (intra ? ws : s) * kLog2e;
-    const bool diag = intra && c0 == r0, edge = c0 + kRows > n;
-    const float* kc = skeep + (tile & 1) * kRows;
-    float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int rl = wr + g + 8 * (e >> 1);
-        const int cl = wc + 8 * j + 2 * tq + (e & 1);
-        float x = zs * sc[j][e];
-        if constexpr (kPruned) {
-          // the positive always kept, the self column dropped
-          const bool self = c0 + cl == r0 + rl;
-          if (!(intra ? (kc[cl] != 0.f && !self) : (kc[cl] != 0.f || self)))
-            x = kMasked;
+  fwd_block<kChunkF, kPruned>(
+      text ? t : v, text ? v : t, text ? kt : kv, text ? kv : kt, *scale_ptr, w,
+      n, d, vec, blockIdx.x * kRows, z * tiles / parts, (z + 1) * tiles / parts,
+      [&](int row, float mm, float sum) {
+        if (parts == 1) {
+          (text ? lse_t : lse_v)[row] = kLn2 * (mm + log2f(sum));
         } else {
-          if (diag && cl == rl) x = 0.f;  // the zeroed (not dropped) self logit
+          const size_t at = ((size_t)2 * z + (text ? 1 : 0)) * n + row;
+          part[at] = mm;
+          part[(size_t)2 * parts * n + at] = sum;
         }
-        if (edge && c0 + cl >= n) x = -INFINITY;
-        sc[j][e] = x;
-        mx[e >> 1] = fmaxf(mx[e >> 1], x);
-      }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      const float m_new = fmaxf(m[r], mx[r]);
-      l[r] *= exp2f(m[r] - m_new);
-      m[r] = m_new;
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) l[e >> 1] += exp2f(sc[j][e] - m[e >> 1]);
-  }
-  // the quad's sums (its m is one), then the two halves of each row
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-    if (tq == 0) {
-      const int idx = (warp >> 2) * kRows + wr + g + 8 * r;
-      sm[idx] = m[r];
-      sl[idx] = l[r];
-    }
-  }
-  __syncthreads();
-  const int row = r0 + threadIdx.x;
-  if (threadIdx.x < kRows && row < n) {
-    const float m0 = sm[threadIdx.x], m1 = sm[kRows + threadIdx.x];
-    const float mm = fmaxf(m0, m1);
-    const float sum = sl[threadIdx.x] * exp2f(m0 - mm) +
-                      sl[kRows + threadIdx.x] * exp2f(m1 - mm);
-    if (parts == 1) {
-      (text ? lse_t : lse_v)[row] = kLn2 * (mm + log2f(sum));
-    } else {
-      const size_t at = ((size_t)2 * z + (text ? 1 : 0)) * n + row;
-      part[at] = mm;
-      part[(size_t)2 * parts * n + at] = sum;
-    }
-  }
+      });
 }
 
-// lse_v, lse_t from the parts' (m, l): ln 2 · (M + log2 Σ_z l_z·2^(m_z - M)),
-// M = max_z m_z, the parts added in index order
+// lse_v, lse_t from the parts' (m, l), merged in index order (merge_parts)
 __global__ void __launch_bounds__(kThreads)
 dual_fwd_merge_kernel(const float* __restrict__ part, int parts,
                       float* __restrict__ lse_v, float* __restrict__ lse_t,
@@ -811,12 +643,7 @@ dual_fwd_merge_kernel(const float* __restrict__ part, int parts,
   const float* pl = part + parts * each;
   for (int i = blockIdx.x * kThreads + threadIdx.x; i < 2 * n;
        i += gridDim.x * kThreads) {
-    float mm = part[i];
-    for (int z = 1; z < parts; ++z) mm = fmaxf(mm, part[z * each + i]);
-    float sum = 0.f;
-    for (int z = 0; z < parts; ++z)
-      sum += pl[z * each + i] * exp2f(part[z * each + i] - mm);
-    const float lse = kLn2 * (mm + log2f(sum));
+    const float lse = merge_parts(part + i, pl + i, each, parts);
     if (i < n)
       lse_v[i] = lse;
     else
@@ -943,8 +770,8 @@ template <int kChunkF, bool kPruned>
 cudaError_t dual_fwd_plan(int n, int d, Plan* plan) {
   const int chunks = (d + kChunkF - 1) / kChunkF;
   return split_plan(reinterpret_cast<const void*>(dual_fwd_bf16_kernel<kChunkF, kPruned>),
-                    dual_fwd_smem_bytes<kChunkF>(chunks),
-                    dual_fwd_smem_bytes<kChunkF>(2), row_tiles(n),
+                    fwd_mma_smem_bytes<kChunkF>(chunks),
+                    fwd_mma_smem_bytes<kChunkF>(2), row_tiles(n),
                     2 * row_tiles(n), plan);
 }
 
@@ -1065,15 +892,6 @@ cudaError_t launch_dual_bwd_bf16(const void* v, const void* t, const void* kv,
   sum_partials_kernel<<<1, kThreads, 0, stream>>>(
       ds_part, plan.parts * 2 * row_tiles(n), ds);
   return cudaGetLastError();
-}
-
-// f(std::integral_constant<int, kChunkF>{}) for the forwards' chunk: the
-// narrowest that holds d, up to 256 features (wider d in chunks of 256)
-template <typename F>
-cudaError_t by_chunk(int d, F f) {
-  if (d <= 64) return f(std::integral_constant<int, 64>{});
-  if (d <= 128) return f(std::integral_constant<int, 128>{});
-  return f(std::integral_constant<int, 256>{});
 }
 
 enum PlanKind { kSymFwd, kDualFwd, kSymBwd, kDualBwd };

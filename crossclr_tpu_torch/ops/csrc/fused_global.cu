@@ -38,48 +38,60 @@
 // it in VMEM scratch; blocks on this card run in parallel in no order, so
 // that axis becomes a loop inside the block:
 //   rows_lse, rows_bwd_rows: a block owns 64 anchor rows and loops over
-//     every 64-candidate tile of O and then of A;
-//   rows_bwd_cols: a block owns 64 candidates of ONE array (blockIdx.y = 0:
-//     O and d O, 1: A and d A) and loops over every 64-row anchor tile.
+//     64-candidate tiles of O and of A;
+//   rows_bwd_cols: a block owns 64 candidates of ONE array (O and d O, or A
+//     and d A) and loops over 64-row anchor tiles.
 // Every output element is written by one block and every sum has a fixed
 // order (the per-row partials combine by warp shuffles in a fixed
-// pattern), so there are no atomics and runs are bit-reproducible.  The
-// TPU workarounds are gone: no lane padding of d, no tile picking (edges of
-// bl, n and d are masked here), the row offset is an int (not an fp32 SMEM
-// scalar), and the columns kernel takes lse and g as they are (no
-// pre-transposed (1, TB) vectors or [TC, 1] masks).
+// pattern, a split's parts in index order), so there are no atomics and
+// runs are bit-reproducible.  The TPU workarounds are gone: no lane padding
+// of d, no tile picking (edges of bl, n and d are masked here), the row
+// offset is an int (not an fp32 SMEM scalar), and the columns kernel takes
+// lse and g as they are (no pre-transposed (1, TB) vectors or [TC, 1]
+// masks).  The row offset puts each anchor row's own column anywhere in a
+// candidate tile (across two tiles for one block where off % 64 != 0), so
+// every kernel tests it per element.
 //
-// The scalar kernels (rows_lse and rows_bwd_cols in both tiers, rows_bwd_rows
-// in fp32): the logit tiles are 64 x 64 products over d, staged through
-// shared memory in 32-feature chunks (fp32, or bf16 widened to fp32 on load:
-// both tiers accumulate in fp32); 256 threads own a 4 x 4 micro tile each.
-// A backward block keeps its gradient rows [64, <=512 features] in shared
-// memory and adds coefficient-tile x operand-tile products into them; wider
-// features split over blockIdx.z, each z recomputing the logits.  What
-// bounds them on this card: scalar fp32 FMAs issued from shared memory.  The
-// forward does 2·bl·n·d FMAs (two products), each backward kernel 4·bl·n·d
-// (the logits again and the gradient products).  Their grid has only
-// ceil(bl/64) blocks (x 2 for the columns kernel's two arrays), fewer than
-// the 132 SMs below bl = 8448, so at the training slice's bl = 1024 most of
-// the card idles.
-//
-// The bf16 rows backward (rows_bwd_rows_bf16_kernel, the `default` tier) is
-// a tensor-core kernel: loss_mma.cuh's anchor-gradient block in its rows
-// form (mma.sync m16n8k16 logits from bf16 operands; the coefficients
-// g_r·exp(z - lse_r) in fp32 registers; hi + lo bf16 coefficient fragments
-// times the candidate tile into fp32 register accumulators; every
-// 16-feature step and 64-candidate tile a short chain added in fp32), one
-// block per (64 anchor rows, 256-feature chunk of the gradient) and its
-// candidate tiles split over blockIdx.z into the parts split_parts picks
-// from the SM count and occupancy (4 at bl = n = 1024, d = 384).  Each part
-// writes its fp32 partial rows and Σ coef⊙z per row to a scratch buffer
-// (its size named by crossclr_rows_bwd_rows_scratch), and rows_sum_kernel
-// adds them in index order, the rows times s: no atomics.  It issues 6
-// products of 2·bl·n·d (the two logit products, and the two coefficient
-// products in two bf16 parts each) where the bound counts 3.5 at bl = n;
-// at d > 256 each 256-feature chunk recomputes the logits.
+// The bf16 builds (the `default` tier every leg runs) are tensor-core
+// kernels built from loss_mma.cuh's blocks: mma.sync m16n8k16 logits from
+// bf16 operands, staged by 16-byte cp.async into double buffers, each
+// 16-feature step and 64-row tile a short chain added in fp32.  Their grids
+// have only ceil(bl/64) blocks per row direction at the training slice's
+// bl = 1024, so each splits its walked tiles over blockIdx.z into the parts
+// split_parts picks from the SM count and occupancy; each part writes fp32
+// partials to a scratch buffer whose size a crossclr_rows_*_scratch query
+// names, and a second kernel combines them in index order.
+//   * rows_lse_bf16_kernel: the dual forward's online-logsumexp block in
+//     its rows form (log2 units, the anchor fragments in registers where d
+//     fits one 256-feature chunk, both anchor chunks resident to d = 512);
+//     each part writes (m, l) per row and rows_lse_merge_kernel merges
+//     them.  8 parts at bl = n = 1024, d = 384.  It issues the two logit
+//     products of 2·bl·n·d where the bound counts 1.5 at bl = n.
+//   * rows_bwd_rows_bf16_kernel: the anchor-gradient block in its rows form
+//     (coefficients g_r·exp(z - lse_r) in fp32 registers; hi + lo bf16
+//     coefficient fragments times the candidate tile into fp32 register
+//     accumulators), one block per (64 anchor rows, 256-feature chunk of
+//     the gradient), the parts' rows and Σ coef⊙z per row added by
+//     rows_sum_kernel.  4 parts at bl = n = 1024, d = 384.
+//   * rows_bwd_cols_bf16_kernel: the same block in its cols form (the
+//     rows form transposed: the block's 64 candidates of one array against
+//     the walked anchor tiles, the anchor tile read by ldmatrix.trans for
+//     the gradient product), one block per (64 candidates, array,
+//     256-feature chunk), the parts' rows added by cols_sum_kernel.  2
+//     parts at bl = n = 1024, d = 384.
+//   Each backward issues 6 products of 2·bl·n·d (the two logit products and
+//   the two coefficient products in two bf16 parts each) where the bound
+//   counts 3.5 at bl = n; at d > 256 each 256-feature chunk recomputes the
+//   logits.
+// The fp32 builds (the `highest` tier) are scalar kernels: the logit tiles
+// are 64 x 64 products over d, staged through shared memory in 32-feature
+// chunks; 256 threads own a 4 x 4 micro tile each.  A backward block keeps
+// its gradient rows [64, <=512 features] in shared memory and adds
+// coefficient-tile x operand-tile products into them; wider features split
+// over blockIdx.z, each z recomputing the logits.  What bounds them: scalar
+// fp32 FMAs issued from shared memory, on ceil(bl/64) blocks (x 2 for the
+// columns kernel's two arrays).
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
@@ -95,32 +107,26 @@ constexpr int kThreads = 256;     // 16 x 16 threads, a 4 x 4 micro tile each
 constexpr int kChunk = 32;        // features per staged chunk of a logit product
 constexpr int kLd = kTile + 4;    // padded row stride, float4-aligned
 constexpr int kOutChunk = 512;    // gradient features one backward block owns
-constexpr float kMasked = -1e9f;  // an excluded candidate's logit (pruned)
-constexpr float kMaxInit = -1e30f;  // the running max's start, below kMasked
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
+// ---------------------------------------------------------------------------
+// the fp32 builds: scalar kernels
+// ---------------------------------------------------------------------------
 
 // s[k][r] = x[r0 + r][k0 + k] for a 64-row x 32-feature chunk of x [n, d],
 // 0 outside.
-template <typename T>
-__device__ __forceinline__ void stage_chunk(const T* __restrict__ x, int r0,
+__device__ __forceinline__ void stage_chunk(const float* __restrict__ x, int r0,
                                             int k0, int n, int d, float* s) {
   for (int i = threadIdx.x; i < kTile * kChunk; i += kThreads) {
     const int r = i / kChunk, k = i - r * kChunk;
     const int row = r0 + r, col = k0 + k;
-    s[k * kLd + r] =
-        (row < n && col < d) ? to_f32(x[(size_t)row * d + col]) : 0.f;
+    s[k * kLd + r] = (row < n && col < d) ? x[(size_t)row * d + col] : 0.f;
   }
 }
 
 // acc[i][j] = <x[x0 + 4ty + i], y[y0 + 4tx + j]> over all d features, for
 // x [nx, d] and y [ny, d]; rows past nx or ny give 0.
-template <typename T>
-__device__ void tile_dot(const T* __restrict__ x, int x0, int nx,
-                         const T* __restrict__ y, int y0, int ny, int d,
+__device__ void tile_dot(const float* __restrict__ x, int x0, int nx,
+                         const float* __restrict__ y, int y0, int ny, int d,
                          float* sx, float* sy, float (&acc)[4][4]) {
   const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
 #pragma unroll
@@ -158,14 +164,11 @@ __device__ __forceinline__ bool kept(bool intra, int grow, int col,
   return true;
 }
 
-// ---------------------------------------------------------------------------
-// forward: the lse of a 64-row anchor tile
-// ---------------------------------------------------------------------------
-
-template <typename T, bool kPruned>
+// the lse of a 64-row anchor tile
+template <bool kPruned>
 __global__ void __launch_bounds__(kThreads)
-rows_lse_kernel(const T* __restrict__ ar, const T* __restrict__ aa,
-                const T* __restrict__ oa, const unsigned char* __restrict__ ki,
+rows_lse_kernel(const float* __restrict__ ar, const float* __restrict__ aa,
+                const float* __restrict__ oa, const unsigned char* __restrict__ ki,
                 const unsigned char* __restrict__ ka,
                 const float* __restrict__ scale_ptr, float w,
                 float* __restrict__ lse, int bl, int n, int d, int off) {
@@ -178,7 +181,7 @@ rows_lse_kernel(const T* __restrict__ ar, const T* __restrict__ aa,
   float m[4], l[4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    m[i] = kMaxInit;
+    m[i] = kNegFloor;
     l[i] = 0.f;
   }
   float acc[4][4];
@@ -192,7 +195,7 @@ rows_lse_kernel(const T* __restrict__ ar, const T* __restrict__ aa,
         const int grow = off + r0 + 4 * ty + i;
         float z[4];
         bool ok[4];
-        float tmax = kMaxInit;
+        float tmax = kNegFloor;
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           const int col = c0 + 4 * tx + j;
@@ -231,14 +234,9 @@ rows_lse_kernel(const T* __restrict__ ar, const T* __restrict__ aa,
   }
 }
 
-// ---------------------------------------------------------------------------
-// the backward kernels
-// ---------------------------------------------------------------------------
-
 // sout[i][f] += Σ_c sc[i][c] · x[x0 + c][d0 + f] for f < dc, x [nx, d].
 // `so` is a [kTile][kLd] staging area (it aliases the logit chunks sx, sy).
-template <typename T>
-__device__ void add_product(const float* sc, const T* __restrict__ x, int x0,
+__device__ void add_product(const float* sc, const float* __restrict__ x, int x0,
                             int nx, int d, int d0, int dc, float* so,
                             float* sout, int ldo) {
   const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
@@ -248,7 +246,7 @@ __device__ void add_product(const float* sc, const T* __restrict__ x, int x0,
       const int c = i / kTile, f = i - c * kTile;
       const int row = x0 + c;
       so[c * kLd + f] = (row < nx && f0 + f < dc)
-                            ? to_f32(x[(size_t)row * d + d0 + f0 + f])
+                            ? x[(size_t)row * d + d0 + f0 + f]
                             : 0.f;
     }
     __syncthreads();
@@ -308,10 +306,10 @@ size_t bwd_smem_bytes(int d) {
 }
 
 // d A_r and ds_rows for a 64-row anchor tile (blockIdx.z: feature chunk).
-template <typename T, bool kPruned>
+template <bool kPruned>
 __global__ void __launch_bounds__(kThreads)
-rows_bwd_rows_kernel(const T* __restrict__ ar, const T* __restrict__ aa,
-                     const T* __restrict__ oa,
+rows_bwd_rows_kernel(const float* __restrict__ ar, const float* __restrict__ aa,
+                     const float* __restrict__ oa,
                      const unsigned char* __restrict__ ki,
                      const unsigned char* __restrict__ ka,
                      const float* __restrict__ scale_ptr, float w,
@@ -337,7 +335,7 @@ rows_bwd_rows_kernel(const T* __restrict__ ar, const T* __restrict__ aa,
   for (int c0 = 0; c0 < n; c0 += kTile) {
     for (int part = 0; part < 2; ++part) {
       const bool intra = part == 1;
-      const T* cand = intra ? aa : oa;
+      const float* cand = intra ? aa : oa;
       tile_dot(ar, r0, bl, cand, c0, n, d, sm.sx, sm.sy, acc);
       const float zs = intra ? w * s : s;
 #pragma unroll
@@ -378,68 +376,12 @@ rows_bwd_rows_kernel(const T* __restrict__ ar, const T* __restrict__ aa,
   }
 }
 
-// d A_r (bf16 features, tensor cores) for anchor rows [64 x, 64 x + 64),
-// gradient features [256 y, 256 y + 256) (narrower where d is), and the
-// candidate tiles of part z of gridDim.z.  One part writes s · the
-// gradient rows to d_rows and Σ coef⊙z per row to ds_rows; more write
-// their fp32 sums to `part` ([parts][bl][d], then [parts][bl] for the
-// rows' Σ coef⊙z), which rows_sum_kernel adds.  Σ coef⊙z comes from the
-// blocks of feature chunk 0 only (every chunk recomputes the same logits,
-// each in its own order).
-template <int kWarpF, bool kPruned>
-__global__ void __launch_bounds__(kMmaThreads, 1)
-rows_bwd_rows_bf16_kernel(const bf16* __restrict__ ar, const bf16* __restrict__ aa,
-                          const bf16* __restrict__ oa,
-                          const unsigned char* __restrict__ ki,
-                          const unsigned char* __restrict__ ka,
-                          const float* __restrict__ scale_ptr, float w,
-                          const float* __restrict__ lse,
-                          const float* __restrict__ g, float* __restrict__ d_rows,
-                          float* __restrict__ ds_rows, float* __restrict__ part,
-                          int bl, int n, int d, int off, bool vec) {
-  const int cand_tiles = (n + kRows - 1) / kRows, parts = gridDim.z, z = blockIdx.z;
-  const float s = *scale_ptr;
-  const size_t rows_d = (size_t)bl * d;
-  float* out = parts == 1 ? d_rows : part + z * rows_d;
-  float* ds_out = blockIdx.y != 0 ? nullptr
-                  : parts == 1    ? ds_rows
-                                  : part + parts * rows_d + (size_t)z * bl;
-  // the candidates: intra A (keep_intra), inter O (keep_inter)
-  bwd_block<kWarpF, false, kPruned, false, true>(
-      aa, oa, ka, ki, s, w, lse, nullptr, g, nullptr, out, parts == 1 ? s : 1.f,
-      n, d, vec, blockIdx.x * kRows, blockIdx.y, z * cand_tiles / parts,
-      (z + 1) * cand_tiles / parts, 0.f, ds_out, ar, bl, off);
-}
-
-// d_rows = s · (part[0] + part[1] + ... ) and ds_rows = the parts' Σ coef⊙z
-// per row added, each in index order; s = *scale_ptr
-__global__ void __launch_bounds__(kThreads)
-rows_sum_kernel(const float* __restrict__ part, int parts,
-                const float* __restrict__ scale_ptr, float* __restrict__ d_rows,
-                float* __restrict__ ds_rows, int bl, size_t rows_d) {
-  const float s = *scale_ptr;
-  const float* ds_part = part + parts * rows_d;
-  for (size_t i = blockIdx.x * (size_t)kThreads + threadIdx.x; i < rows_d + bl;
-       i += (size_t)gridDim.x * kThreads) {
-    if (i < rows_d) {
-      float acc = part[i];
-      for (int z = 1; z < parts; ++z) acc += part[z * rows_d + i];
-      d_rows[i] = s * acc;
-    } else {
-      const size_t r = i - rows_d;
-      float acc = ds_part[r];
-      for (int z = 1; z < parts; ++z) acc += ds_part[(size_t)z * bl + r];
-      ds_rows[r] = acc;
-    }
-  }
-}
-
 // d O (blockIdx.y = 0) or d A (1) for 64 candidates (blockIdx.z: feature
 // chunk): the candidate tile against every anchor tile.
-template <typename T, bool kPruned>
+template <bool kPruned>
 __global__ void __launch_bounds__(kThreads)
-rows_bwd_cols_kernel(const T* __restrict__ ar, const T* __restrict__ aa,
-                     const T* __restrict__ oa,
+rows_bwd_cols_kernel(const float* __restrict__ ar, const float* __restrict__ aa,
+                     const float* __restrict__ oa,
                      const unsigned char* __restrict__ ki,
                      const unsigned char* __restrict__ ka,
                      const float* __restrict__ scale_ptr, float w,
@@ -450,7 +392,7 @@ rows_bwd_cols_kernel(const T* __restrict__ ar, const T* __restrict__ aa,
   const int d0 = blockIdx.z * kOutChunk;
   BwdSmem sm(smem, d0, d);
   const bool intra = blockIdx.y != 0;
-  const T* cand = intra ? aa : oa;
+  const float* cand = intra ? aa : oa;
   float* out = intra ? d_anchor : d_other;
   const float s = *scale_ptr;
   const float zs = intra ? w * s : s;
@@ -492,8 +434,163 @@ rows_bwd_cols_kernel(const T* __restrict__ ar, const T* __restrict__ aa,
   }
 }
 
+// ---------------------------------------------------------------------------
+// the bf16 builds: tensor cores (loss_mma.cuh)
+// ---------------------------------------------------------------------------
+
+// The lse of anchor rows [64 x, 64 x + 64) against the candidate tiles of
+// part z of gridDim.z (O's, then A's, per tile), at the scale *scale_ptr:
+// loss_mma.cuh's online-logsumexp block in its rows form.  One part writes
+// lse; more write m and l to their slices of `part` ([2][parts][bl]:
+// every m, then every l), which rows_lse_merge_kernel merges.
+template <int kChunkF, bool kPruned>
+__global__ void __launch_bounds__(kMmaThreads, 2)
+rows_lse_bf16_kernel(const bf16* __restrict__ ar, const bf16* __restrict__ aa,
+                     const bf16* __restrict__ oa,
+                     const unsigned char* __restrict__ ki,
+                     const unsigned char* __restrict__ ka,
+                     const float* __restrict__ scale_ptr, float w,
+                     float* __restrict__ lse, float* __restrict__ part, int bl,
+                     int n, int d, int off, bool vec) {
+  const int tiles = (n + kRows - 1) / kRows, parts = gridDim.z, z = blockIdx.z;
+  // the candidates: intra A (keep_intra), inter O (keep_inter)
+  fwd_block<kChunkF, kPruned, true>(
+      aa, oa, ka, ki, *scale_ptr, w, n, d, vec, blockIdx.x * kRows,
+      z * tiles / parts, (z + 1) * tiles / parts,
+      [&](int row, float mm, float sum) {
+        if (parts == 1) {
+          lse[row] = kLn2 * (mm + log2f(sum));
+        } else {
+          part[(size_t)z * bl + row] = mm;
+          part[(size_t)(parts + z) * bl + row] = sum;
+        }
+      },
+      ar, bl, off);
+}
+
+// lse from the parts' (m, l), merged in index order (merge_parts)
+__global__ void __launch_bounds__(kThreads)
+rows_lse_merge_kernel(const float* __restrict__ part, int parts,
+                      float* __restrict__ lse, int bl) {
+  for (int i = blockIdx.x * kThreads + threadIdx.x; i < bl; i += gridDim.x * kThreads)
+    lse[i] = merge_parts(part + i, part + (size_t)parts * bl + i, bl, parts);
+}
+
+// d A_r for anchor rows [64 x, 64 x + 64), gradient features [256 y, 256 y
+// + 256) (narrower where d is), and the candidate tiles of part z of
+// gridDim.z.  One part writes s · the gradient rows to d_rows and Σ coef⊙z
+// per row to ds_rows; more write their fp32 sums to `part` ([parts][bl][d],
+// then [parts][bl] for the rows' Σ coef⊙z), which rows_sum_kernel adds.  Σ
+// coef⊙z comes from the blocks of feature chunk 0 only (every chunk
+// recomputes the same logits, each in its own order).
+template <int kWarpF, bool kPruned>
+__global__ void __launch_bounds__(kMmaThreads, 1)
+rows_bwd_rows_bf16_kernel(const bf16* __restrict__ ar, const bf16* __restrict__ aa,
+                          const bf16* __restrict__ oa,
+                          const unsigned char* __restrict__ ki,
+                          const unsigned char* __restrict__ ka,
+                          const float* __restrict__ scale_ptr, float w,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ g, float* __restrict__ d_rows,
+                          float* __restrict__ ds_rows, float* __restrict__ part,
+                          int bl, int n, int d, int off, bool vec) {
+  const int cand_tiles = (n + kRows - 1) / kRows, parts = gridDim.z, z = blockIdx.z;
+  const float s = *scale_ptr;
+  const size_t rows_d = (size_t)bl * d;
+  float* out = parts == 1 ? d_rows : part + z * rows_d;
+  float* ds_out = blockIdx.y != 0 ? nullptr
+                  : parts == 1    ? ds_rows
+                                  : part + parts * rows_d + (size_t)z * bl;
+  // the candidates: intra A (keep_intra), inter O (keep_inter)
+  bwd_block<kWarpF, false, kPruned, false, Form::rows>(
+      aa, oa, ka, ki, s, w, lse, nullptr, g, nullptr, out, parts == 1 ? s : 1.f,
+      n, d, vec, blockIdx.x * kRows, blockIdx.y, z * cand_tiles / parts,
+      (z + 1) * cand_tiles / parts, 0.f, ds_out, ar, bl, off);
+}
+
+// d_rows = s · (part[0] + part[1] + ... ) and ds_rows = the parts' Σ coef⊙z
+// per row added, each in index order; s = *scale_ptr
+__global__ void __launch_bounds__(kThreads)
+rows_sum_kernel(const float* __restrict__ part, int parts,
+                const float* __restrict__ scale_ptr, float* __restrict__ d_rows,
+                float* __restrict__ ds_rows, int bl, size_t rows_d) {
+  const float s = *scale_ptr;
+  const float* ds_part = part + parts * rows_d;
+  for (size_t i = blockIdx.x * (size_t)kThreads + threadIdx.x; i < rows_d + bl;
+       i += (size_t)gridDim.x * kThreads) {
+    if (i < rows_d) {
+      float acc = part[i];
+      for (int z = 1; z < parts; ++z) acc += part[z * rows_d + i];
+      d_rows[i] = s * acc;
+    } else {
+      const size_t r = i - rows_d;
+      float acc = ds_part[r];
+      for (int z = 1; z < parts; ++z) acc += ds_part[(size_t)z * bl + r];
+      ds_rows[r] = acc;
+    }
+  }
+}
+
+// d O (y < chunks) or d A for candidates [64 x, 64 x + 64), gradient
+// features of the 256-feature chunk y % chunks, and the anchor tiles of
+// part z of gridDim.z: the anchor-gradient block in its cols form.  One
+// part writes s · the gradient rows to d_other / d_anchor; more write their
+// fp32 sums to their slices [z][array] of `part` ([parts][2][n][d]), which
+// cols_sum_kernel adds.
+template <int kWarpF, bool kPruned>
+__global__ void __launch_bounds__(kMmaThreads, 1)
+rows_bwd_cols_bf16_kernel(const bf16* __restrict__ ar, const bf16* __restrict__ aa,
+                          const bf16* __restrict__ oa,
+                          const unsigned char* __restrict__ ki,
+                          const unsigned char* __restrict__ ka,
+                          const float* __restrict__ scale_ptr, float w,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ g, float* __restrict__ d_other,
+                          float* __restrict__ d_anchor, float* __restrict__ part,
+                          int bl, int n, int d, int off, bool vec) {
+  constexpr int kChunkF = BwdTile<kWarpF>::kChunkF;
+  const int chunks = (d + kChunkF - 1) / kChunkF;
+  const bool intra = (int)blockIdx.y >= chunks;
+  const int row_tiles = (bl + kRows - 1) / kRows, parts = gridDim.z, z = blockIdx.z;
+  const float s = *scale_ptr;
+  float* out = parts == 1 ? (intra ? d_anchor : d_other)
+                          : part + (size_t)(2 * z + (intra ? 1 : 0)) * n * d;
+  bwd_block<kWarpF, false, kPruned, false, Form::cols>(
+      aa, oa, ka, ki, s, w, lse, nullptr, g, nullptr, out, parts == 1 ? s : 1.f,
+      n, d, vec, blockIdx.x * kRows, blockIdx.y - (intra ? chunks : 0),
+      z * row_tiles / parts, (z + 1) * row_tiles / parts, 0.f, nullptr, ar, bl,
+      off, intra);
+}
+
+// d_other, d_anchor = s · (part[0] + part[1] + ... ), in index order; s =
+// *scale_ptr
+__global__ void __launch_bounds__(kThreads)
+cols_sum_kernel(const float* __restrict__ part, int parts,
+                const float* __restrict__ scale_ptr, float* __restrict__ d_other,
+                float* __restrict__ d_anchor, size_t nd) {
+  const float s = *scale_ptr;
+  for (size_t i = blockIdx.x * (size_t)kThreads + threadIdx.x; i < 2 * nd;
+       i += (size_t)gridDim.x * kThreads) {
+    float acc = part[i];
+    for (int z = 1; z < parts; ++z) acc += part[2 * nd * z + i];
+    if (i < nd)
+      d_other[i] = s * acc;
+    else
+      d_anchor[i - nd] = s * acc;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// launches (host)
+// ---------------------------------------------------------------------------
+
 int tiles(int n) { return (n + kTile - 1) / kTile; }
 int out_chunks(int d) { return (d + kOutChunk - 1) / kOutChunk; }
+// a grid-stride kernel's blocks for `count` elements
+int stride_blocks(size_t count) {
+  const size_t blocks = (count + kThreads - 1) / kThreads;
+  return (int)(blocks < 4096 ? blocks : 4096);
+}
 
 bool bad_args(int dtype, const void* ki, const void* ka, int bl, int n, int d,
               int off) {
@@ -501,19 +598,19 @@ bool bad_args(int dtype, const void* ki, const void* ka, int bl, int n, int d,
          (ki == nullptr) != (ka == nullptr) || off < 0 || off > n - bl;
 }
 
-template <typename T, bool kPruned>
+template <bool kPruned>
 cudaError_t launch_lse(const void* ar, const void* aa, const void* oa,
                        const void* ki, const void* ka, const float* scale,
                        float w, float* lse, int bl, int n, int d, int off,
                        cudaStream_t stream) {
-  rows_lse_kernel<T, kPruned><<<tiles(bl), kThreads, 0, stream>>>(
-      static_cast<const T*>(ar), static_cast<const T*>(aa),
-      static_cast<const T*>(oa), static_cast<const unsigned char*>(ki),
+  rows_lse_kernel<kPruned><<<tiles(bl), kThreads, 0, stream>>>(
+      static_cast<const float*>(ar), static_cast<const float*>(aa),
+      static_cast<const float*>(oa), static_cast<const unsigned char*>(ki),
       static_cast<const unsigned char*>(ka), scale, w, lse, bl, n, d, off);
   return cudaGetLastError();
 }
 
-template <typename T, bool kPruned>
+template <bool kPruned>
 cudaError_t launch_bwd_rows(const void* ar, const void* aa, const void* oa,
                             const void* ki, const void* ka, const float* scale,
                             float w, const float* lse, const float* g,
@@ -521,16 +618,47 @@ cudaError_t launch_bwd_rows(const void* ar, const void* aa, const void* oa,
                             int d, int off, cudaStream_t stream) {
   const size_t smem = bwd_smem_bytes(d);
   cudaError_t err = cudaFuncSetAttribute(
-      rows_bwd_rows_kernel<T, kPruned>,
+      rows_bwd_rows_kernel<kPruned>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(tiles(bl), 1, out_chunks(d));
-  rows_bwd_rows_kernel<T, kPruned><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(ar), static_cast<const T*>(aa),
-      static_cast<const T*>(oa), static_cast<const unsigned char*>(ki),
+  rows_bwd_rows_kernel<kPruned><<<grid, kThreads, smem, stream>>>(
+      static_cast<const float*>(ar), static_cast<const float*>(aa),
+      static_cast<const float*>(oa), static_cast<const unsigned char*>(ki),
       static_cast<const unsigned char*>(ka), scale, w, lse, g, d_rows, ds_rows,
       bl, n, d, off);
   return cudaGetLastError();
+}
+
+template <bool kPruned>
+cudaError_t launch_bwd_cols(const void* ar, const void* aa, const void* oa,
+                            const void* ki, const void* ka, const float* scale,
+                            float w, const float* lse, const float* g,
+                            float* d_other, float* d_anchor, int bl, int n,
+                            int d, int off, cudaStream_t stream) {
+  const size_t smem = bwd_smem_bytes(d);
+  cudaError_t err = cudaFuncSetAttribute(
+      rows_bwd_cols_kernel<kPruned>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(tiles(n), 2, out_chunks(d));
+  rows_bwd_cols_kernel<kPruned><<<grid, kThreads, smem, stream>>>(
+      static_cast<const float*>(ar), static_cast<const float*>(aa),
+      static_cast<const float*>(oa), static_cast<const unsigned char*>(ki),
+      static_cast<const unsigned char*>(ka), scale, w, lse, g, d_other,
+      d_anchor, bl, n, d, off);
+  return cudaGetLastError();
+}
+
+// The bf16 kernels' plans: the forward splits the candidate tiles of its
+// ceil(bl/64) blocks, the rows backward those of its ceil(bl/64) x chunks,
+// the cols backward the anchor tiles of its ceil(n/64) x 2 x chunks.
+template <int kChunkF, bool kPruned>
+cudaError_t lse_plan(int bl, int n, int d, Plan* plan) {
+  const int chunks = (d + kChunkF - 1) / kChunkF;
+  return split_plan(reinterpret_cast<const void*>(rows_lse_bf16_kernel<kChunkF, kPruned>),
+                    fwd_mma_smem_bytes<kChunkF>(chunks), fwd_mma_smem_bytes<kChunkF>(2),
+                    tiles(n), tiles(bl), plan);
 }
 
 template <int kWarpF, bool kPruned>
@@ -540,6 +668,41 @@ cudaError_t rows_plan(int bl, int n, int d, Plan* plan) {
   return split_plan(reinterpret_cast<const void*>(rows_bwd_rows_bf16_kernel<kWarpF, kPruned>),
                     bwd_mma_smem_bytes<kWarpF>(chunks), bwd_mma_smem_bytes<kWarpF>(2),
                     tiles(n), chunks * tiles(bl), plan);
+}
+
+template <int kWarpF, bool kPruned>
+cudaError_t cols_plan(int bl, int n, int d, Plan* plan) {
+  constexpr int kChunkF = BwdTile<kWarpF>::kChunkF;
+  const int chunks = (d + kChunkF - 1) / kChunkF;
+  return split_plan(reinterpret_cast<const void*>(rows_bwd_cols_bf16_kernel<kWarpF, kPruned>),
+                    bwd_mma_smem_bytes<kWarpF>(chunks), bwd_mma_smem_bytes<kWarpF>(2),
+                    tiles(bl), 2 * chunks * tiles(n), plan);
+}
+
+bool vec_ok(int d, const void* ar, const void* aa, const void* oa) {
+  return d % 8 == 0 && aligned16(ar) && aligned16(aa) && aligned16(oa);
+}
+
+template <int kChunkF, bool kPruned>
+cudaError_t launch_lse_bf16(const void* ar, const void* aa, const void* oa,
+                            const void* ki, const void* ka, const float* scale,
+                            float w, float* lse, float* part, int bl, int n,
+                            int d, int off, cudaStream_t stream) {
+  Plan plan;
+  cudaError_t err = lse_plan<kChunkF, kPruned>(bl, n, d, &plan);
+  if (err != cudaSuccess) return err;
+  if (plan.parts > 1 && part == nullptr) return cudaErrorInvalidValue;
+  const dim3 grid(tiles(bl), 1, plan.parts);
+  rows_lse_bf16_kernel<kChunkF, kPruned><<<grid, kMmaThreads, plan.smem, stream>>>(
+      static_cast<const bf16*>(ar), static_cast<const bf16*>(aa),
+      static_cast<const bf16*>(oa), static_cast<const unsigned char*>(ki),
+      static_cast<const unsigned char*>(ka), scale, w, lse, part, bl, n, d, off,
+      vec_ok(d, ar, aa, oa));
+  err = cudaGetLastError();
+  if (err != cudaSuccess || plan.parts == 1) return err;
+  rows_lse_merge_kernel<<<stride_blocks(bl), kThreads, 0, stream>>>(part, plan.parts,
+                                                                    lse, bl);
+  return cudaGetLastError();
 }
 
 template <int kWarpF, bool kPruned>
@@ -554,62 +717,74 @@ cudaError_t launch_bwd_rows_bf16(const void* ar, const void* aa, const void* oa,
   if (err != cudaSuccess) return err;
   if (plan.parts > 1 && part == nullptr) return cudaErrorInvalidValue;
   constexpr int kChunkF = BwdTile<kWarpF>::kChunkF;
-  const bool vec = d % 8 == 0 && aligned16(ar) && aligned16(aa) && aligned16(oa);
   const dim3 grid(tiles(bl), (d + kChunkF - 1) / kChunkF, plan.parts);
   rows_bwd_rows_bf16_kernel<kWarpF, kPruned><<<grid, kMmaThreads, plan.smem, stream>>>(
       static_cast<const bf16*>(ar), static_cast<const bf16*>(aa),
       static_cast<const bf16*>(oa), static_cast<const unsigned char*>(ki),
       static_cast<const unsigned char*>(ka), scale, w, lse, g, d_rows, ds_rows,
-      part, bl, n, d, off, vec);
+      part, bl, n, d, off, vec_ok(d, ar, aa, oa));
   err = cudaGetLastError();
   if (err != cudaSuccess || plan.parts == 1) return err;
   const size_t rows_d = (size_t)bl * d;
-  const size_t blocks = (rows_d + bl + kThreads - 1) / kThreads;
-  rows_sum_kernel<<<(int)(blocks < 4096 ? blocks : 4096), kThreads, 0, stream>>>(
+  rows_sum_kernel<<<stride_blocks(rows_d + bl), kThreads, 0, stream>>>(
       part, plan.parts, scale, d_rows, ds_rows, bl, rows_d);
   return cudaGetLastError();
 }
 
-template <typename T, bool kPruned>
-cudaError_t launch_bwd_cols(const void* ar, const void* aa, const void* oa,
-                            const void* ki, const void* ka, const float* scale,
-                            float w, const float* lse, const float* g,
-                            float* d_other, float* d_anchor, int bl, int n,
-                            int d, int off, cudaStream_t stream) {
-  const size_t smem = bwd_smem_bytes(d);
-  cudaError_t err = cudaFuncSetAttribute(
-      rows_bwd_cols_kernel<T, kPruned>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+template <int kWarpF, bool kPruned>
+cudaError_t launch_bwd_cols_bf16(const void* ar, const void* aa, const void* oa,
+                                 const void* ki, const void* ka,
+                                 const float* scale, float w, const float* lse,
+                                 const float* g, float* d_other, float* d_anchor,
+                                 float* part, int bl, int n, int d, int off,
+                                 cudaStream_t stream) {
+  Plan plan;
+  cudaError_t err = cols_plan<kWarpF, kPruned>(bl, n, d, &plan);
   if (err != cudaSuccess) return err;
-  const dim3 grid(tiles(n), 2, out_chunks(d));
-  rows_bwd_cols_kernel<T, kPruned><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(ar), static_cast<const T*>(aa),
-      static_cast<const T*>(oa), static_cast<const unsigned char*>(ki),
-      static_cast<const unsigned char*>(ka), scale, w, lse, g, d_other,
-      d_anchor, bl, n, d, off);
+  if (plan.parts > 1 && part == nullptr) return cudaErrorInvalidValue;
+  constexpr int kChunkF = BwdTile<kWarpF>::kChunkF;
+  const dim3 grid(tiles(n), 2 * ((d + kChunkF - 1) / kChunkF), plan.parts);
+  rows_bwd_cols_bf16_kernel<kWarpF, kPruned><<<grid, kMmaThreads, plan.smem, stream>>>(
+      static_cast<const bf16*>(ar), static_cast<const bf16*>(aa),
+      static_cast<const bf16*>(oa), static_cast<const unsigned char*>(ki),
+      static_cast<const unsigned char*>(ka), scale, w, lse, g, d_other, d_anchor,
+      part, bl, n, d, off, vec_ok(d, ar, aa, oa));
+  err = cudaGetLastError();
+  if (err != cudaSuccess || plan.parts == 1) return err;
+  const size_t nd = (size_t)n * d;
+  cols_sum_kernel<<<stride_blocks(2 * nd), kThreads, 0, stream>>>(
+      part, plan.parts, scale, d_other, d_anchor, nd);
   return cudaGetLastError();
 }
 
-// One instantiation per (dtype, pruned).
-template <template <typename, bool> class Launch, typename... Args>
-cudaError_t dispatch(int dtype, bool pruned, Args... args) {
-  if (dtype == 0)
-    return pruned ? Launch<float, true>::run(args...)
-                  : Launch<float, false>::run(args...);
-  return pruned ? Launch<__nv_bfloat16, true>::run(args...)
-                : Launch<__nv_bfloat16, false>::run(args...);
-}
+enum PlanKind { kLse, kBwdRows, kBwdCols };
 
-template <typename T, bool P>
-struct Lse {
-  template <typename... A>
-  static cudaError_t run(A... a) { return launch_lse<T, P>(a...); }
-};
-template <typename T, bool P>
-struct BwdCols {
-  template <typename... A>
-  static cudaError_t run(A... a) { return launch_bwd_cols<T, P>(a...); }
-};
+// floats of a bf16 kernel's scratch for (bl, n, d, pruned) on the current
+// device: 0 where its plan does not split; a negative value is a
+// cudaError_t, negated
+long long split_scratch(PlanKind kind, int dtype, int bl, int n, int d,
+                        int pruned) {
+  if (dtype != 1 || bl < 1 || n < 1 || d < 1) return 0;
+  Plan plan{0, 1};
+  const cudaError_t err = by_pruned(pruned != 0, [&](auto p) {
+    constexpr bool kPruned = decltype(p)::value;
+    if (kind == kLse)
+      return by_chunk(d, [&](auto chunk) {
+        return lse_plan<decltype(chunk)::value, kPruned>(bl, n, d, &plan);
+      });
+    return by_width(d, [&](auto width) {
+      constexpr int kWarpF = decltype(width)::value;
+      return kind == kBwdRows ? rows_plan<kWarpF, kPruned>(bl, n, d, &plan)
+                              : cols_plan<kWarpF, kPruned>(bl, n, d, &plan);
+    });
+  });
+  if (err != cudaSuccess) return -(long long)err;
+  if (plan.parts == 1) return 0;
+  const long long each = kind == kLse      ? 2LL * bl
+                         : kind == kBwdRows ? (long long)bl * d + bl
+                                            : 2LL * n * d;
+  return plan.parts * each;
+}
 
 }  // namespace
 
@@ -617,41 +792,45 @@ struct BwdCols {
 // other_all [n, d]); keep_inter, keep_intra: bool [n] (both, or both null
 // for the unpruned variant); scale [1], lse, g, ds_rows [bl] (the [bl, 1]
 // columns), d_rows [bl, d], d_other, d_anchor [n, d]: float32.  The anchor
-// rows are rows off .. off + bl of the candidates' batch.  The fp32 rows
-// backward and both builds of the other two are scalar kernels.  Each function
-// returns a cudaError_t; launches are asynchronous on `stream`.
+// rows are rows off .. off + bl of the candidates' batch.  Each function
+// returns a cudaError_t; launches are asynchronous on `stream`.  The bf16
+// builds split their walked tiles where bl leaves the card idle: their
+// float32 scratch `part` holds crossclr_rows_<kernel>_scratch(dtype, bl,
+// n, d, pruned) values (0: none needed, pass null; negative: a cudaError_t,
+// negated), sized from the plan on the current device.
+
+extern "C" long long crossclr_rows_lse_scratch(int dtype, int bl, int n, int d,
+                                               int pruned) {
+  return split_scratch(kLse, dtype, bl, n, d, pruned);
+}
 
 extern "C" int crossclr_rows_lse(int dtype, const void* anchor_rows,
                                  const void* anchor_all, const void* other_all,
                                  const void* keep_inter,
                                  const void* keep_intra, const void* scale,
-                                 void* lse, int bl, int n, int d, int off,
-                                 float w, void* stream) {
+                                 void* lse, void* part, int bl, int n, int d,
+                                 int off, float w, void* stream) {
   if (bad_args(dtype, keep_inter, keep_intra, bl, n, d, off))
     return (int)cudaErrorInvalidValue;
-  return (int)dispatch<Lse>(
-      dtype, keep_inter != nullptr, anchor_rows, anchor_all, other_all,
-      keep_inter, keep_intra, static_cast<const float*>(scale), w,
-      static_cast<float*>(lse), bl, n, d, off,
-      static_cast<cudaStream_t>(stream));
-}
-
-// The bf16 rows backward splits its candidates where bl leaves the card
-// idle: its float32 scratch `part` holds crossclr_rows_bwd_rows_scratch(
-// dtype, bl, n, d, pruned) values (0: none needed, pass null; negative: a
-// cudaError_t, negated), sized from the plan on the current device.
-extern "C" long long crossclr_rows_bwd_rows_scratch(int dtype, int bl, int n,
-                                                    int d, int pruned) {
-  if (dtype != 1 || bl < 1 || n < 1 || d < 1) return 0;
-  Plan plan{0, 1};
-  const cudaError_t err = by_pruned(pruned != 0, [&](auto p) {
-    constexpr bool kPruned = decltype(p)::value;
-    return by_width(d, [&](auto width) {
-      return rows_plan<decltype(width)::value, kPruned>(bl, n, d, &plan);
+  const float* sp = static_cast<const float*>(scale);
+  float* out = static_cast<float*>(lse);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return (int)by_pruned(keep_inter != nullptr, [&](auto pruned) {
+    constexpr bool kPruned = decltype(pruned)::value;
+    if (dtype == 0)
+      return launch_lse<kPruned>(anchor_rows, anchor_all, other_all, keep_inter,
+                                 keep_intra, sp, w, out, bl, n, d, off, st);
+    return by_chunk(d, [&](auto chunk) {
+      return launch_lse_bf16<decltype(chunk)::value, kPruned>(
+          anchor_rows, anchor_all, other_all, keep_inter, keep_intra, sp, w, out,
+          static_cast<float*>(part), bl, n, d, off, st);
     });
   });
-  if (err != cudaSuccess) return -(long long)err;
-  return plan.parts > 1 ? plan.parts * ((long long)bl * d + bl) : 0;
+}
+
+extern "C" long long crossclr_rows_bwd_rows_scratch(int dtype, int bl, int n,
+                                                    int d, int pruned) {
+  return split_scratch(kBwdRows, dtype, bl, n, d, pruned);
 }
 
 extern "C" int crossclr_rows_bwd_rows(int dtype, const void* anchor_rows,
@@ -674,15 +853,20 @@ extern "C" int crossclr_rows_bwd_rows(int dtype, const void* anchor_rows,
   return (int)by_pruned(keep_inter != nullptr, [&](auto pruned) {
     constexpr bool kPruned = decltype(pruned)::value;
     if (dtype == 0)
-      return launch_bwd_rows<float, kPruned>(anchor_rows, anchor_all, other_all,
-                                             keep_inter, keep_intra, sp, w, lp,
-                                             gp, out, ds, bl, n, d, off, st);
+      return launch_bwd_rows<kPruned>(anchor_rows, anchor_all, other_all,
+                                      keep_inter, keep_intra, sp, w, lp, gp, out,
+                                      ds, bl, n, d, off, st);
     return by_width(d, [&](auto width) {
       return launch_bwd_rows_bf16<decltype(width)::value, kPruned>(
           anchor_rows, anchor_all, other_all, keep_inter, keep_intra, sp, w, lp,
           gp, out, ds, static_cast<float*>(part), bl, n, d, off, st);
     });
   });
+}
+
+extern "C" long long crossclr_rows_bwd_cols_scratch(int dtype, int bl, int n,
+                                                    int d, int pruned) {
+  return split_scratch(kBwdCols, dtype, bl, n, d, pruned);
 }
 
 extern "C" int crossclr_rows_bwd_cols(int dtype, const void* anchor_rows,
@@ -692,16 +876,28 @@ extern "C" int crossclr_rows_bwd_cols(int dtype, const void* anchor_rows,
                                       const void* keep_intra,
                                       const void* scale, const void* lse,
                                       const void* g, void* d_other,
-                                      void* d_anchor, int bl, int n, int d,
-                                      int off, float w, void* stream) {
+                                      void* d_anchor, void* part, int bl, int n,
+                                      int d, int off, float w, void* stream) {
   if (bad_args(dtype, keep_inter, keep_intra, bl, n, d, off))
     return (int)cudaErrorInvalidValue;
-  return (int)dispatch<BwdCols>(
-      dtype, keep_inter != nullptr, anchor_rows, anchor_all, other_all,
-      keep_inter, keep_intra, static_cast<const float*>(scale), w,
-      static_cast<const float*>(lse), static_cast<const float*>(g),
-      static_cast<float*>(d_other), static_cast<float*>(d_anchor), bl, n, d,
-      off, static_cast<cudaStream_t>(stream));
+  const float* sp = static_cast<const float*>(scale);
+  const float* lp = static_cast<const float*>(lse);
+  const float* gp = static_cast<const float*>(g);
+  float* dother = static_cast<float*>(d_other);
+  float* danchor = static_cast<float*>(d_anchor);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return (int)by_pruned(keep_inter != nullptr, [&](auto pruned) {
+    constexpr bool kPruned = decltype(pruned)::value;
+    if (dtype == 0)
+      return launch_bwd_cols<kPruned>(anchor_rows, anchor_all, other_all,
+                                      keep_inter, keep_intra, sp, w, lp, gp,
+                                      dother, danchor, bl, n, d, off, st);
+    return by_width(d, [&](auto width) {
+      return launch_bwd_cols_bf16<decltype(width)::value, kPruned>(
+          anchor_rows, anchor_all, other_all, keep_inter, keep_intra, sp, w, lp,
+          gp, dother, danchor, static_cast<float*>(part), bl, n, d, off, st);
+    });
+  });
 }
 
 extern "C" const char* crossclr_rows_error_string(int code) {

@@ -1,11 +1,12 @@
 // The bf16 tensor-core pieces of the CrossCLR logsumexp kernels, shared by
 // fused_crossclr.cu (the per-direction forward and backward), fused_dual.cu
 // (the sym forward and backward, the dual forward and backward) and
-// fused_global.cu (the rows backward's anchor rows): 64-row tiles of bf16
-// features staged by 16-byte cp.async, the logits A·Xᵀ by mma.sync
-// (mma_common.cuh), the anchor-gradient block of one direction, and the
-// launch plans that split a kernel's candidate tiles over more blocks.
-// The block's formulas are
+// fused_global.cu (the rows kernels): 64-row tiles of bf16 features staged
+// by 16-byte cp.async, the logits A·Xᵀ by mma.sync (mma_common.cuh), the
+// online-logsumexp block of one direction (the dual forward, and its rows
+// form for the rows forward), the anchor-gradient block of one direction,
+// and the launch plans that split a kernel's tiles over more blocks.
+// The gradient block's formulas are
 //   P[i,j] = e^{z_ao[i,j]}·(f_a[i] + f_o[j])  (factored; or subtract-first
 //            g_a[i]·e^{z_ao - lse_a[i]} + g_o[j]·e^{z_ao - lse_o[j]}),
 //   Q[i,j] = the same over z_aa with f_a on both sides, 0 on the diagonal,
@@ -21,7 +22,11 @@
 // rows form (the rows backward, fused_global.cu) takes its anchor rows from
 // an array of their own, rows off .. off + bl of the candidates' batch (the
 // diagonal is off + row == col), keeps only the anchor row's term,
-// g_a[i]·e^{z - lse_a[i]}, and sums Σ coef⊙z per anchor row.
+// g_a[i]·e^{z - lse_a[i]}, and sums Σ coef⊙z per anchor row.  The cols form
+// (the rows backward's candidates) is the rows form transposed: the block's
+// rows are candidates of one array, the walked tiles the anchor rows, and
+// the coefficient the walked anchor row's term g_r·e^{z - lse_r}, kept by
+// the block's candidate's mask.
 //
 // The block of 8 warps: 4 row groups x 2 halves.  Warp w scores rows
 // 16 (w % 4) + [0, 16) of the block's 64 anchors against candidates
@@ -47,6 +52,13 @@ using namespace tc;
 constexpr int kRows = 64;          // anchor rows per block = candidates per tile
 constexpr int kMmaThreads = 256;   // 8 warps: 4 row groups x 2 halves
 constexpr int kCoefLd = kRows + 8;  // bf16 per row of the coefficient tile
+// The online logsumexp: logits in log2 units (z·log2 e, exp2), an excluded
+// (pruned) candidate's logit kMasked, below every real one, and a running
+// max that starts at kNegFloor, below kMasked
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+constexpr float kMasked = -1e9f;
+constexpr float kNegFloor = -1e30f;
 
 // kChunkF features of each row staged at a time
 template <int kChunkF>
@@ -133,6 +145,213 @@ __device__ __forceinline__ void logit_step(float sc[4][4], const uint32_t af[4],
   }
 }
 
+// The online-logsumexp block's shared memory: two stages of candidate rows
+// (the first holds the anchor rows while their fragments load where d fits
+// one chunk), two buffers of anchor rows where d takes more than one chunk
+// (both chunks, resident, where it takes two; two stages where it takes
+// more), two stages of the candidates' keep flags, and the two halves' (m,
+// l) per row.
+template <int kChunkF>
+size_t fwd_mma_smem_bytes(int chunks) {
+  return sizeof(bf16) * (size_t)((chunks > 1 ? 4 : 2) * kRows *
+                                 Chunk<kChunkF>::kLd) +
+         sizeof(float) * 6 * kRows;
+}
+
+// The online-logsumexp block of one direction: the lse of anchor rows [r0,
+// r0 + 64) against candidate tiles [t0, t1) of O (inter, scale s) then A
+// (intra, w·s), each tile O's and then A's.  Warp w scores rows 16 (w % 4) +
+// [0, 16) against candidates 32 (w / 4) + [0, 32) of each tile, in stages
+// (tile, part, chunk) whose loads go into the other buffer while the last
+// one computes; where d fits one chunk the warp's A fragments stay in
+// registers for the whole loop, where it takes two (256 < d <= 512) both
+// anchor chunks stay in shared memory and only the candidate chunks stream,
+// a wider d restages its anchor chunk with each stage.  The sum is online
+// in log2 units: logits z·log2 e, a running max m per row over its quad
+// once per tile, the lane's sum l of exp2(z - m) rescaled once per tile.
+// Unpruned, the intra self logit is zeroed (its exp2(0 - m) stays in the
+// sum); pruned, an inter column is kept where keep_o[col] or it is the
+// row's own, an intra one where keep_a[col] and it is not, an excluded logit
+// is kMasked, and m starts at kNegFloor: a lane or part whose columns are
+// all excluded holds (m = -1e9, l = their count), which the rescale by
+// exp2(-1e9 - m) wipes once the row's positive (always kept) is merged in.
+// The quad's lanes add their sums and the two halves of each row merge
+// their (m, l) in a fixed order, which write(row, m, l) stores (the kernel's
+// own: its parameters are read there, not held through the loop).
+// kRowsForm: the anchor rows are rows [r0, r0 + 64) of `rows` ([bl, d]) and
+// anchor row r is candidate row_off + r of `a` (its own column); otherwise
+// the anchors are rows of `a` itself (bl = n, row_off = 0).
+template <int kChunkF, bool kPruned, bool kRowsForm = false, typename Write>
+__device__ __forceinline__ void fwd_block(
+    const bf16* __restrict__ a, const bf16* __restrict__ o,
+    const unsigned char* __restrict__ keep_a,
+    const unsigned char* __restrict__ keep_o, float s, float w, int n, int d,
+    bool vec, int r0, int t0, int t1, Write write,
+    const bf16* __restrict__ rows = nullptr, int bl = 0, int row_off = 0) {
+  using C = Chunk<kChunkF>;
+  const bf16* arows = kRowsForm ? rows : a;  // the anchor rows' array
+  const int na = kRowsForm ? bl : n;         // and its rows
+  extern __shared__ __align__(16) unsigned char smem_fwd[];
+  const int chunks = (d + kChunkF - 1) / kChunkF;
+  const bool resident = chunks == 2;  // both anchor chunks stay staged
+  bf16* sx = reinterpret_cast<bf16*>(smem_fwd);  // candidate rows, 2 stages
+  bf16* sa = sx + 2 * kRows * C::kLd;  // anchor rows: 2 chunks or 2 stages
+  float* skeep = reinterpret_cast<float*>(sa + (chunks > 1 ? 2 : 0) * kRows * C::kLd);
+  float* sm = skeep + 2 * kRows;  // [half][row] running max
+  float* sl = sm + 2 * kRows;     // [half][row] sum
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, tq = lane & 3;
+  const int wr = 16 * (warp & 3);   // the warp's rows in the tile
+  const int wc = 32 * (warp >> 2);  // its candidates in the logit tile
+  const float ws = w * s;
+
+  // Issue the loads of stage st into buffer st & 1, and on a tile's first
+  // chunk (pruned) the candidates' keep flags into stage tile & 1.
+  const int stages = 2 * (t1 - t0) * chunks;
+  auto issue = [&](int st) {
+    const int i = st % chunks, tile = st / chunks, buf = st & 1;
+    const int c0 = (t0 + (tile >> 1)) * kRows;
+    const bool intra = tile & 1;
+    if (chunks > 1 && !resident)
+      stage_tile<kChunkF>(sa + buf * kRows * C::kLd, arows, r0, i * kChunkF, na,
+                          d, vec);
+    stage_tile<kChunkF>(sx + buf * kRows * C::kLd, intra ? a : o, c0,
+                        i * kChunkF, n, d, vec);
+    cp_async_commit();
+    if constexpr (kPruned) {
+      if (i == 0 && threadIdx.x < kRows) {
+        const int col = c0 + threadIdx.x;
+        skeep[(tile & 1) * kRows + threadIdx.x] =
+            col < n && (intra ? keep_a : keep_o)[col] ? 1.f : 0.f;
+      }
+    }
+  };
+
+  uint32_t af[C::kSteps][4];
+  if (chunks == 1) {  // the anchor fragments, once, through buffer 1
+    stage_tile<kChunkF>(sx + kRows * C::kLd, arows, r0, 0, na, d, vec);
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+#pragma unroll
+    for (int ks = 0; ks < C::kSteps; ++ks)
+      ldmatrix_x4(af[ks], ld_a<C::kLd>(sx + (kRows + wr) * C::kLd + 16 * ks, lane));
+  } else if (resident) {  // both anchor chunks, landing with stage 0
+    stage_tile<kChunkF>(sa, arows, r0, 0, na, d, vec);
+    stage_tile<kChunkF>(sa + kRows * C::kLd, arows, r0, kChunkF, na, d, vec);
+  }
+  issue(0);  // buffer 0; buffer 1 is next written after stage 0's barrier
+
+  // rows wr + g and wr + g + 8: running max (log2 units) and this lane's sum
+  float m[2] = {kNegFloor, kNegFloor}, l[2] = {0.f, 0.f};
+  float sc[4][4];
+  for (int st = 0; st < stages; ++st) {
+    const int i = st % chunks, tile = st / chunks, buf = st & 1;
+    const int c0 = (t0 + (tile >> 1)) * kRows;
+    const bool intra = tile & 1;
+    cp_async_wait<0>();
+    __syncthreads();  // stage st has landed; stage st - 1's readers are done
+    if (st + 1 < stages) issue(st + 1);
+    const bf16* xt = sx + buf * kRows * C::kLd;
+    if (chunks > 1) {
+      const bf16* at = sa + (resident ? i : buf) * kRows * C::kLd;
+#pragma unroll
+      for (int ks = 0; ks < C::kSteps; ++ks)
+        ldmatrix_x4(af[ks], ld_a<C::kLd>(at + wr * C::kLd + 16 * ks, lane));
+    }
+    if (i == 0) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[j][e] = 0.f;
+    }
+    // S = A X^T over the chunk, each 16-feature step from zero and added
+    // in fp32 (acc_add)
+#pragma unroll
+    for (int ks = 0; ks < C::kSteps; ++ks)
+      logit_step<C::kLd>(sc, af[ks], xt, wc, ks, lane);
+    if (i + 1 < chunks) continue;
+    // the logits in log2 units; element e of tile j: row wr + g + 8 (e /
+    // 2), candidate wc + 8 j + 2 tq + e % 2; the columns past n masked.
+    // Row rl's own column: the square form's diagonal of tile r0, the rows
+    // form's c0 + cl = row_off + r0 + rl (any column, of one tile or two;
+    // each test as written keeps the 128 registers of two blocks an SM)
+    const float zs = (intra ? ws : s) * kLog2e;
+    const int self_at = kRowsForm ? row_off + r0 - c0 : 0;
+    const bool diag = intra && c0 == r0, edge = c0 + kRows > n;
+    const float* kc = skeep + (tile & 1) * kRows;
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int rl = wr + g + 8 * (e >> 1);
+        const int cl = wc + 8 * j + 2 * tq + (e & 1);
+        float x = zs * sc[j][e];
+        if constexpr (kPruned) {
+          // the positive always kept, the self column dropped
+          const bool self =
+              kRowsForm ? c0 + cl == row_off + r0 + rl : c0 + cl == r0 + rl;
+          if (!(intra ? (kc[cl] != 0.f && !self) : (kc[cl] != 0.f || self)))
+            x = kMasked;
+        } else if constexpr (kRowsForm) {
+          if (intra && cl == rl + self_at) x = 0.f;  // the zeroed self logit
+        } else {
+          if (diag && cl == rl) x = 0.f;  // the zeroed (not dropped) self logit
+        }
+        if (edge && c0 + cl >= n) x = -INFINITY;
+        sc[j][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m[r], mx[r]);
+      l[r] *= exp2f(m[r] - m_new);
+      m[r] = m_new;
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) l[e >> 1] += exp2f(sc[j][e] - m[e >> 1]);
+  }
+  // the quad's sums (its m is one), then the two halves of each row
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    if (tq == 0) {
+      const int idx = (warp >> 2) * kRows + wr + g + 8 * r;
+      sm[idx] = m[r];
+      sl[idx] = l[r];
+    }
+  }
+  __syncthreads();
+  const int row = r0 + threadIdx.x;
+  if (threadIdx.x < kRows && row < na) {
+    const float m0 = sm[threadIdx.x], m1 = sm[kRows + threadIdx.x];
+    const float mm = fmaxf(m0, m1);
+    const float sum = sl[threadIdx.x] * exp2f(m0 - mm) +
+                      sl[kRows + threadIdx.x] * exp2f(m1 - mm);
+    write(row, mm, sum);
+  }
+}
+
+// The lse of the parts' (m, l) of one row, m[z · stride] and l[z ·
+// stride]: ln 2 · (M + log2 Σ_z l_z·2^(m_z - M)), M = max_z m_z, the parts
+// added in index order
+__device__ __forceinline__ float merge_parts(const float* __restrict__ m,
+                                             const float* __restrict__ l,
+                                             size_t stride, int parts) {
+  float mm = m[0];
+  for (int z = 1; z < parts; ++z) mm = fmaxf(mm, m[z * stride]);
+  float sum = 0.f;
+  for (int z = 0; z < parts; ++z) sum += l[z * stride] * exp2f(m[z * stride] - mm);
+  return kLn2 * (mm + log2f(sum));
+}
+
 // The anchor-gradient block of one direction: anchor rows [r0, r0 + 64),
 // gradient features [kChunkF fc, kChunkF (fc + 1)), candidate tiles
 // [t0, t1) (64 rows each).  It writes out_scale · (its sum over those
@@ -156,15 +375,24 @@ __device__ __forceinline__ void logit_step(float sc[4][4], const uint32_t af[4],
 // logits and ½ for the intra ones, each tile's 16 terms a thread holds
 // summed apart and then added to its running sum, the threads' sums
 // reduced in a fixed order; thread 0 writes it to *ds_out where ds_out is
-// not null.  kRowsForm (subtract-first, without kDs): the anchor rows are
-// rows [r0, r0 + 64) of `rows` ([bl, d]; lse_a, g_a [bl]), anchor row r is
-// candidate row_off + r of `a` (the diagonal), the coefficient is the anchor
-// row's term alone, and each row's Σ coef⊙z (its 16 terms of a tile summed
-// apart, then the quad's lanes and the two halves in a fixed order) goes
-// to ds_out[row] where ds_out is not null.  Otherwise the anchors are rows
-// of `a` itself (bl = n, row_off = 0).
+// not null.  The forms (Form, below; the rows and cols forms are
+// subtract-first, without kDs): `pairs`, the anchors are rows of `a` itself
+// (bl = n, row_off = 0).  `rows`: the anchor rows are rows [r0, r0 + 64) of
+// `rows` ([bl, d]; lse_a, g_a [bl]), anchor row r is candidate row_off + r
+// of `a` (the diagonal), the coefficient is the anchor row's term alone,
+// and each row's Σ coef⊙z (its 16 terms of a tile summed apart, then the
+// quad's lanes and the two halves in a fixed order) goes to ds_out[row]
+// where ds_out is not null.  `cols`: the block's rows are candidates [r0,
+// r0 + 64) of A (cols_intra) or O, with their mask keep_a or keep_o, the
+// walked tiles [t0, t1) are those of `rows` alone (no O / A alternation),
+// candidate c is anchor row c - row_off's own column, and the coefficient
+// is the walked anchor row's term g_a[r]·exp(z - lse_a[r]), kept where the
+// block's candidate's mask keeps the pair (on the diagonal the positive,
+// never the intra self logit).
+enum class Form { pairs, rows, cols };
+
 template <int kWarpF, bool kFactored, bool kPruned, bool kDs = false,
-          bool kRowsForm = false>
+          Form kForm = Form::pairs>
 __device__ __forceinline__ void bwd_block(
     const bf16* __restrict__ a, const bf16* __restrict__ o,
     const unsigned char* __restrict__ keep_a,
@@ -173,14 +401,21 @@ __device__ __forceinline__ void bwd_block(
     const float* __restrict__ g_a, const float* __restrict__ g_o,
     float* __restrict__ out, float out_scale, int n, int d, bool vec, int r0,
     int fc, int t0, int t1, float ds_inter = 0.f, float* ds_out = nullptr,
-    const bf16* __restrict__ rows = nullptr, int bl = 0, int row_off = 0) {
+    const bf16* __restrict__ rows = nullptr, int bl = 0, int row_off = 0,
+    bool cols_intra = false) {
+  constexpr bool kRowsForm = kForm == Form::rows, kColsForm = kForm == Form::cols;
   static_assert(!(kDs && kFactored), "Σ coeff⊙z is the subtract-first form's");
-  static_assert(!(kRowsForm && (kDs || kFactored)),
-                "the rows form is subtract-first, with Σ coef⊙z per row");
+  static_assert(kForm == Form::pairs || !(kDs || kFactored),
+                "the rows and cols forms are subtract-first, without Σ coeff⊙z");
   using D = BwdTile<kWarpF>;
-  const bf16* arows = kRowsForm ? rows : a;  // the anchor rows' array
-  const int na = kRowsForm ? bl : n;         // and its rows
+  // the block's rows and their count, and the walked tiles' rows: the
+  // anchor rows against the candidates, or (cols) the candidates against
+  // the anchor rows
+  const bf16* arows = kRowsForm ? rows : kColsForm && !cols_intra ? o : a;
+  const int na = kRowsForm ? bl : n;
+  const int nx = kColsForm ? bl : n;
   const int diag = kRowsForm ? row_off : 0;  // anchor row r is candidate r + diag
+  constexpr int kWalks = kColsForm ? 1 : 2;  // tiles walked per tile index
   extern __shared__ __align__(16) unsigned char smem_bf16[];
   const int chunks = (d + D::kChunkF - 1) / D::kChunkF;
   const int a_bufs = chunks > 1 ? 2 : 1;
@@ -205,31 +440,33 @@ __device__ __forceinline__ void bwd_block(
   // whose candidate rows the gradient products read), the anchor rows of
   // the chunk where d takes more than one, and on a tile's first chunk the
   // candidates' factors.
-  const int stages = 2 * (t1 - t0) * chunks;
+  const int stages = kWalks * (t1 - t0) * chunks;
   auto issue = [&](int st) {
     const int i = st % chunks, tile = st / chunks;
-    const int c0 = (t0 + (tile >> 1)) * kRows, buf = st & 1;
-    const bool intra = tile & 1;
+    const int c0 = (t0 + (kColsForm ? tile : tile >> 1)) * kRows, buf = st & 1;
+    const bool intra = kColsForm ? cols_intra : tile & 1;
     const int f0 = ((fc + 1 + i) % chunks) * D::kChunkF;
     if (chunks > 1)
       stage_tile<D::kChunkF>(sa + buf * kRows * D::kLd, arows, r0, f0, na, d,
                              vec);
-    stage_tile<D::kChunkF>(sx + buf * kRows * D::kLd, intra ? a : o, c0, f0, n,
-                           d, vec);
+    stage_tile<D::kChunkF>(sx + buf * kRows * D::kLd,
+                           kColsForm ? rows : intra ? a : o, c0, f0, nx, d, vec);
     cp_async_commit();
     if (i == 0 && threadIdx.x < kRows) {
       const int col = c0 + threadIdx.x;
-      const float* g_c = intra ? g_a : g_o;
-      const float* lse_c = intra ? lse_a : lse_o;
+      // the cols form's walked rows are the anchor rows: their g, lse
+      const float* g_c = intra || kColsForm ? g_a : g_o;
+      const float* lse_c = intra || kColsForm ? lse_a : lse_o;
       float fa = 0.f, fb = 0.f, fk = 0.f;
-      if (col < n) {
+      if (col < nx) {
         if constexpr (kFactored) {
           fa = g_c[col] * expf(-lse_c[col]);
         } else if constexpr (!kRowsForm) {
           fa = g_c[col];
           fb = lse_c[col];
         }
-        if constexpr (kPruned) fk = (intra ? keep_a : keep_o)[col] ? 1.f : 0.f;
+        if constexpr (kPruned && !kColsForm)
+          fk = (intra ? keep_a : keep_o)[col] ? 1.f : 0.f;
       }
       scol_a[(tile & 1) * kRows + threadIdx.x] = fa;
       scol_b[(tile & 1) * kRows + threadIdx.x] = fb;
@@ -238,15 +475,17 @@ __device__ __forceinline__ void bwd_block(
   };
 
   // this lane's anchor-row factors, rows wr + g and wr + g + 8, and (pruned)
-  // whether each row's mask keeps it as the candidates' candidate
+  // whether each row's mask keeps it as the candidates' candidate (cols:
+  // the block's candidates' masks keep the walked anchor rows' terms)
+  const unsigned char* keep_r = kColsForm && !cols_intra ? keep_o : keep_a;
   float ra[2], rb[2];
   bool kr[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = r0 + wr + g + 8 * r;
     ra[r] = rb[r] = 0.f;
-    kr[r] = kPruned && !kRowsForm && row < n && keep_a[row];
-    if (row < na) {
+    kr[r] = kPruned && !kRowsForm && row < n && keep_r[row];
+    if (!kColsForm && row < na) {
       if constexpr (kFactored) {
         ra[r] = g_a[row] * expf(-lse_a[row]);
       } else {
@@ -269,8 +508,8 @@ __device__ __forceinline__ void bwd_block(
   float sc[4][4];
   for (int st = 0; st < stages; ++st) {
     const int i = st % chunks, tile = st / chunks, buf = st & 1;
-    const int c0 = (t0 + (tile >> 1)) * kRows;
-    const bool intra = tile & 1;
+    const int c0 = (t0 + (kColsForm ? tile : tile >> 1)) * kRows;
+    const bool intra = kColsForm ? cols_intra : tile & 1;
     cp_async_wait<0>();
     __syncthreads();  // stage st has landed; stage st - 1's readers are done
     if (st + 1 < stages) issue(st + 1);
@@ -316,6 +555,13 @@ __device__ __forceinline__ void bwd_block(
           if (row + diag == col) keep = !intra;
           if (row < na && col < n && keep) coef = ra[e >> 1] * expf(z - rb[e >> 1]);
           ds_rows_tile[e >> 1] = fmaf(coef, z, ds_rows_tile[e >> 1]);
+        } else if constexpr (kColsForm) {
+          // the walked anchor row's term where the block's candidate's mask
+          // keeps it; on the diagonal (candidate row is anchor col's own)
+          // the positive (inter) is kept, the self logit has none
+          bool keep = !kPruned || kr[e >> 1];
+          if (row == col + row_off) keep = !intra;
+          if (row < na && col < nx && keep) coef = fa[cl] * expf(z - fb[cl]);
         } else if constexpr (kPruned) {
           // each role's term where its mask keeps the pair; on the
           // diagonal the positive (inter) keeps both, intra neither
@@ -510,6 +756,15 @@ static cudaError_t split_plan(const void* fn, size_t smem, size_t max_smem,
   plan->smem = smem;
   plan->parts = split_parts(tiles, blocks, sms * (per_sm > 1 ? per_sm : 1));
   return cudaSuccess;
+}
+
+// f(std::integral_constant<int, kChunkF>{}) for the forwards' chunk: the
+// narrowest that holds d, up to 256 features (wider d in chunks of 256)
+template <typename F>
+cudaError_t by_chunk(int d, F f) {
+  if (d <= 64) return f(std::integral_constant<int, 64>{});
+  if (d <= 128) return f(std::integral_constant<int, 128>{});
+  return f(std::integral_constant<int, 256>{});
 }
 
 // f(std::integral_constant<int, kWarpF>{}) on the narrowest feature chunk

@@ -19,7 +19,6 @@ constexpr int kThreads = 256;     // 16 x 16 threads, a 4 x 4 micro tile each
 constexpr int kChunk = 32;        // features per staged chunk of a logit product
 constexpr int kLd = kTile + 4;    // padded row stride, float4-aligned
 constexpr int kOutChunk = 512;    // gradient features one backward block owns
-constexpr float kNegFloor = -1e30f;  // an online max's start
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {

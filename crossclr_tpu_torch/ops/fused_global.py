@@ -30,14 +30,16 @@ The kernels, in ``csrc/fused_global.cu``: ``rows_lse`` (``_rows_lse_kernel``),
 ``Σ p⊙z`` from which ``d loss/d s`` is taken here, outside the kernel, as
 ``Σ / s``) and ``rows_bwd_cols`` (``_rows_bwd_cols_kernel``: d other_all
 and d anchor_all, the candidates' gradients, which a data-parallel caller
-reduce-scatters to their owners).  The bf16 build of ``rows_bwd_rows``
-(the ``default`` tier) is a tensor-core kernel, the rows form of the loss
-kernels' anchor-gradient block (``csrc/loss_mma.cuh``): where ``b_loc``
-leaves the card idle its candidate tiles split over more blocks whose fp32
-partial rows and per-row ``Σ p⊙z`` a second kernel adds in a fixed order,
-in a scratch buffer allocated here (its size asked of the library once per
-shape and cached in ``fused_dual._plans``).  The other builds are scalar
-fp32 kernels.  Each has its plain version here
+reduce-scatters to their owners).  The bf16 builds (the ``default`` tier)
+are tensor-core kernels built from the loss kernels' blocks
+(``csrc/loss_mma.cuh``): ``rows_lse`` the dual forward's online
+logsumexp in its rows form, ``rows_bwd_rows`` the anchor-gradient block in
+its rows form and ``rows_bwd_cols`` in its cols form (the rows form
+transposed).  Where ``b_loc`` leaves the card idle each splits its walked
+tiles over more blocks whose fp32 partials a second kernel combines in a
+fixed order, in a scratch buffer allocated here (its size asked of the
+library once per shape and cached in ``fused_dual._plans``).  The fp32
+builds are scalar kernels.  Each has its plain version here
 (``*_plain``: the CPU path and the oracle the kernel is held against on
 the card), a wrapper that launches it on CUDA tensors (``*_cuda``) and
 counts the launch in :data:`launch_counts`, and a dispatcher that picks
@@ -162,18 +164,18 @@ _ptr, _int, _float = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 #  ..., b_loc, b, d, off, w, stream)
 _SIGNATURES = {
     "crossclr_rows_lse": [_int, _ptr, _ptr, _ptr, _ptr, _ptr, _ptr, _ptr,
-                          _int, _int, _int, _int, _float, _ptr],
+                          _ptr, _int, _int, _int, _int, _float, _ptr],
     "crossclr_rows_bwd_rows": [_int, _ptr, _ptr, _ptr, _ptr, _ptr, _ptr, _ptr,
                                _ptr, _ptr, _ptr, _ptr, _int, _int, _int, _int,
                                _float, _ptr],
     "crossclr_rows_bwd_cols": [_int, _ptr, _ptr, _ptr, _ptr, _ptr, _ptr, _ptr,
-                               _ptr, _ptr, _ptr, _int, _int, _int, _int,
+                               _ptr, _ptr, _ptr, _ptr, _int, _int, _int, _int,
                                _float, _ptr],
-    # (dtype, b_loc, B, D, pruned) -> floats of scratch, or a negated
-    # cudaError_t
-    "crossclr_rows_bwd_rows_scratch": [_int, _int, _int, _int, _int],
 }
-_SIZE_QUERIES = ("crossclr_rows_bwd_rows_scratch",)
+# (dtype, b_loc, B, D, pruned) -> floats of a kernel's scratch, or a negated
+# cudaError_t
+_SIZE_QUERIES = tuple(f"{name}_scratch" for name in _SIGNATURES)
+_SIGNATURES.update((query, [_int] * 5) for query in _SIZE_QUERIES)
 
 
 def _library() -> ctypes.CDLL:
@@ -238,19 +240,35 @@ def _launch(name: str, fn, *args, device) -> None:
         launch_counts[name] += 1
 
 
+def _split_scratch(lib, name: str, code: int, bl: int, b: int, d: int,
+                   keep_inter, device):
+    """The bf16 build's scratch for this shape (None where its plan does
+    not split), of the size the library names."""
+    return _scratch(_plan_size(lib, f"crossclr_{name}_scratch", name, code, bl, b,
+                               d, int(keep_inter is not None), device=device,
+                               error_string=lib.crossclr_rows_error_string),
+                    device)
+
+
 def rows_lse_cuda(anchor_rows, anchor_all, other_all, off: int, scale,
                   neg_weight: float, keep_inter=None, keep_intra=None):
     """Launch the rows forward; ``scale`` is a float32 ``[1]`` CUDA tensor
-    read by the kernel (no host sync).  Returns fp32 ``lse [b_loc, 1]``."""
+    read by the kernel (no host sync).  Returns fp32 ``lse [b_loc, 1]``.
+    The bf16 build splits the candidates over more blocks where ``b_loc``
+    leaves the card idle: each part's ``(m, l)`` per row goes to a scratch
+    buffer allocated here."""
     _check_operands(anchor_rows, anchor_all, other_all, off, keep_inter,
                     keep_intra, scale, "rows_lse")
     (bl, d), b = anchor_rows.shape, anchor_all.shape[0]
-    lse = torch.empty((bl, 1), device=anchor_rows.device, dtype=torch.float32)
-    _launch("rows_lse", _library().crossclr_rows_lse,
-            _DTYPE_CODES[anchor_rows.dtype], anchor_rows.data_ptr(),
+    dev = anchor_rows.device
+    lib = _library()
+    code = _DTYPE_CODES[anchor_rows.dtype]
+    part = _split_scratch(lib, "rows_lse", code, bl, b, d, keep_inter, dev)
+    lse = torch.empty((bl, 1), device=dev, dtype=torch.float32)
+    _launch("rows_lse", lib.crossclr_rows_lse, code, anchor_rows.data_ptr(),
             anchor_all.data_ptr(), other_all.data_ptr(), _ptr_of(keep_inter),
-            _ptr_of(keep_intra), scale.data_ptr(), lse.data_ptr(), bl, b, d,
-            off, float(neg_weight), device=anchor_rows.device)
+            _ptr_of(keep_intra), scale.data_ptr(), lse.data_ptr(), _ptr_of(part),
+            bl, b, d, off, float(neg_weight), device=dev)
     return lse
 
 
@@ -273,10 +291,7 @@ def rows_bwd_rows_cuda(anchor_rows, anchor_all, other_all, off: int, scale,
     _check_row_vectors(lse, g, bl, dev)
     lib = _library()
     code = _DTYPE_CODES[anchor_rows.dtype]
-    part = _scratch(_plan_size(lib, "crossclr_rows_bwd_rows_scratch", "rows_bwd_rows",
-                               code, bl, b, d, int(keep_inter is not None),
-                               device=dev, error_string=lib.crossclr_rows_error_string),
-                    dev)
+    part = _split_scratch(lib, "rows_bwd_rows", code, bl, b, d, keep_inter, dev)
     d_rows = torch.empty((bl, d), device=dev, dtype=torch.float32)
     ds_rows = torch.empty((bl, 1), device=dev, dtype=torch.float32)
     _launch("rows_bwd_rows", lib.crossclr_rows_bwd_rows, code,
@@ -291,19 +306,24 @@ def rows_bwd_cols_cuda(anchor_rows, anchor_all, other_all, off: int, scale,
                        lse, g, neg_weight: float, keep_inter=None,
                        keep_intra=None):
     """Launch the candidates' backward; returns fp32 ``(d other_all,
-    d anchor_all)``."""
+    d anchor_all)``.  The bf16 build splits the anchor rows over more
+    blocks where ``B`` leaves the card idle: their fp32 partials go to a
+    scratch buffer allocated here."""
     _check_operands(anchor_rows, anchor_all, other_all, off, keep_inter,
                     keep_intra, scale, "rows_bwd_cols")
     (bl, d), b = anchor_rows.shape, anchor_all.shape[0]
-    _check_row_vectors(lse, g, bl, anchor_rows.device)
-    d_other = torch.empty((b, d), device=anchor_rows.device, dtype=torch.float32)
+    dev = anchor_rows.device
+    _check_row_vectors(lse, g, bl, dev)
+    lib = _library()
+    code = _DTYPE_CODES[anchor_rows.dtype]
+    part = _split_scratch(lib, "rows_bwd_cols", code, bl, b, d, keep_inter, dev)
+    d_other = torch.empty((b, d), device=dev, dtype=torch.float32)
     d_anchor = torch.empty_like(d_other)
-    _launch("rows_bwd_cols", _library().crossclr_rows_bwd_cols,
-            _DTYPE_CODES[anchor_rows.dtype], anchor_rows.data_ptr(),
-            anchor_all.data_ptr(), other_all.data_ptr(), _ptr_of(keep_inter),
-            _ptr_of(keep_intra), scale.data_ptr(), lse.data_ptr(),
-            g.data_ptr(), d_other.data_ptr(), d_anchor.data_ptr(), bl, b, d,
-            off, float(neg_weight), device=anchor_rows.device)
+    _launch("rows_bwd_cols", lib.crossclr_rows_bwd_cols, code,
+            anchor_rows.data_ptr(), anchor_all.data_ptr(), other_all.data_ptr(),
+            _ptr_of(keep_inter), _ptr_of(keep_intra), scale.data_ptr(),
+            lse.data_ptr(), g.data_ptr(), d_other.data_ptr(), d_anchor.data_ptr(),
+            _ptr_of(part), bl, b, d, off, float(neg_weight), device=dev)
     return d_other, d_anchor
 
 

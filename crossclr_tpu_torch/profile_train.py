@@ -124,7 +124,10 @@ KERNEL_FAMILIES = {
              "sum_partials_kernel", "direction_fwd_kernel",
              "direction_fwd_bf16_kernel", "direction_bwd_kernel",
              "direction_bwd_bf16_kernel"),
-    "rows": ("rows_lse_kernel", "rows_bwd_", "rows_sum_kernel"),  # fused_global.cu
+    # fused_global.cu: the rows forward, its merge, the two backwards (rows_bwd_rows,
+    # rows_bwd_cols; scalar and bf16 builds) and their sums
+    "rows": ("rows_lse_kernel", "rows_lse_bf16_kernel", "rows_lse_merge_kernel",
+             "rows_bwd_", "rows_sum_kernel", "cols_sum_kernel"),
 }
 
 
