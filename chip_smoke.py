@@ -12,7 +12,9 @@ row-block kernels, and training the full CrossCLR loss of
 configs/fullcrossclr_fused_ragged.json through the keep-mask branch of
 the loss kernels (dual at its learnable τ, sym at a static τ), and
 training configs/podslice_32k.json at B = 65,536 through the GradCache
-two-pass step and the per-direction loss kernels.
+two-pass step and the per-direction loss kernels; every training leg reads
+its batches through the host data path (the native gather into a pinned
+ring, prefetched to the card on a side stream).
 Phases, one line each; any failure raises and exits non-zero:
 
   1. device    — a CUDA device must exist (there is no CPU path); prints
@@ -30,7 +32,24 @@ Phases, one line each; any failure raises and exits non-zero:
                  dual_bwd_bf16_kernel, rows_lse_bf16_kernel,
                  rows_bwd_rows_bf16_kernel and rows_bwd_cols_bf16_kernel: 3
                  widths x unpruned and pruned each; 99 in all), none of
-                 which may spill.
+                 which may spill.  First it builds the host gather,
+                 crossclr_tpu_torch/data/csrc/host_io.cc, with g++, and
+                 prints its time; a failed build fails the phase.
+  2b. data     — the host data path: at the transformer leg's widths
+                 (640 ragged pairs, batch 64), fp32, bf16 and int8 stores
+                 (the latter two written to a temp directory), one-batch
+                 chunks and chunks of 4, a fast consumer and a slow one
+                 (device work queued on its stream and a host sleep before
+                 each draw): 12 chunks through train.py's path
+                 (stacked_chunks into a pinned ring of 4,
+                 prefetch_to_device), all held to the end, each equal bit
+                 for bit to the host stream once copied back, and each int8
+                 chunk's device dequantization equal bit for bit to the
+                 host's.  Then at the leg's batch (1024 rows) the numpy
+                 gather, the native gather into fresh pages and into the
+                 pinned ring, the pinned and the pageable H2D (CUDA
+                 events) and the prefetch worker's own gather and H2D,
+                 each in ms and GB/s, and the pinned bytes.
   3. kernel    — the flash forward against the plain version on the same
                  CUDA tensors (H=8, Dh=48, S in {64, 96, 37}, ragged masks,
                  one entry fully masked; fp32 and bf16) within the stated
@@ -189,7 +208,11 @@ Phases, one line each; any failure raises and exits non-zero:
                  65,536, warmup 2, 8 steps in one dispatch: lse_fwd and
                  lse_bwd launched exactly 16 times each and no other
                  kernel, every step's loss finite and the last below the
-                 first; prints seconds and pairs/s.
+                 first; prints seconds and pairs/s.  After the
+                 transformer leg, the same leg from a bf16 and from an
+                 int8 file store written from its synthetic pairs (20
+                 steps each, flash_dq and flash_dkv 8 x 20 launches, the
+                 loss falling); prints their pairs/s.
  10. gradcache — the two-pass step on the card at the podslice widths
                  in chunks of 1024: at B = 8192 pass 3's embeddings equal
                  pass 1's bit for bit (bf16 towers); with fp32 towers and
@@ -197,6 +220,11 @@ Phases, one line each; any failure raises and exits non-zero:
                  leg's 65,536 (the per-direction kernels), every parameter
                  gradient within 1e-5 of its largest entry of the one-pass
                  step's.
+ 11. paths     — each training leg (MLP, transformer, full-CrossCLR,
+                 large-batch) driven through Trainer.fit twice in one call:
+                 by the serial pageable iterator (infinite_batches, copied
+                 on the step's thread) and by train.py's prefetched chunks;
+                 prints both steady pairs/s.
 
 The second-to-last line is the kernels' JSON record: twelve kernels, each
 with its time, its plain version's, the library call's where one exists,
@@ -361,15 +389,26 @@ KEEP_OFF = {torch.float32: 1e-4, torch.bfloat16: 2.0**-8}
 ATTENTION_TIMING = [(1024, 96), (1024, 64), (4096, 96)]
 LEG_BATCH, LEG_DROPOUT = 1024, 0.1  # the transformer leg's batch and rate
 TRANSFORMER_CONFIG = "configs/lsmdc_transformer.json"
-# 40 steps: the leg is host-bound (a 436 MB fp32 batch gathered and copied
-# per step), so its steps are cut to keep the whole smoke near 140 s; its
-# widths are the config's
+# 40 steps: its widths and its 20 steps a dispatch are the config's.  The
+# synthetic batch is 873 MB (SyntheticPairs' features are float64 under
+# NumPy 2), so a stacked chunk of 20 is 17.5 GB, under the quarter of the
+# card's memory that the trainer allows a chunk, and the train CLI's
+# page-locked ring of two chunks locks 35 GB of host memory
 TRANSFORMER_STEPS = 40
 TRANSFORMER_OVERRIDES = [
     *OVERRIDES, f"video_tower.dropout={LEG_DROPOUT}",
     f"text_tower.dropout={LEG_DROPOUT}",
     "train.warmup_steps=30", "eval_every=20", "log_every=10",
 ]
+# the transformer leg again from bf16 and int8 file stores written from the
+# same synthetic pairs (the JAX package's default store dtype is bf16)
+STORE_STEPS = 40  # two dispatches of 20: the second is the steady rate
+# the host data path: prefetched chunks against the host stream at the
+# transformer leg's widths, DATA_DRAWS chunks (six wraps of the train
+# CLI's ring of two) per case
+DATA_PAIRS, DATA_BATCH, DATA_DRAWS = 640, 64, 12
+DATA_SLOW_S = 0.02  # the slow consumer's host sleep per chunk
+DATA_TIMING_PAIRS = 2048  # the H2D and gather rates at the leg's batch
 FULL_CONFIG = "configs/fullcrossclr_fused_ragged.json"
 FULL_STEPS = 30
 # the config's widths and loss as shipped; synthetic ragged data (its
@@ -454,8 +493,15 @@ def device_phase() -> str:
 
 
 def build_phase() -> None:
+    from crossclr_tpu_torch.data import native_io
     from crossclr_tpu_torch.ops import _build
 
+    # the host gather first: g++, seconds, while nvcc takes longer
+    native_io.load_library()
+    info = native_io.build_info
+    log("build", f"{info['compiler']} {' '.join(native_io.CXX_FLAGS)} "
+                 f"{native_io._SOURCE.relative_to(ROOT)} -> {info['path']} in "
+                 f"{info['seconds']:.2f} s (built={info['built']})")
     sources = sorted(p.name for p in _build._CSRC.glob("*.cu"))
     check({"flash_fwd.cu", "flash_bwd.cu", "fused_dual.cu", "fused_global.cu",
            "fused_crossclr.cu"} <= set(sources),
@@ -2591,6 +2637,317 @@ def grad_cache_phase(fc, smi: str) -> None:
         torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# the host data path
+# ---------------------------------------------------------------------------
+
+
+def host_bits(x) -> "np.ndarray":
+    """A device batch field as host numpy bits: bf16 as its uint16 payload."""
+    import numpy as np
+
+    if x.dtype == torch.bfloat16:
+        return x.view(torch.int16).cpu().numpy().view(np.uint16)
+    return x.cpu().numpy()
+
+
+def write_stores(data, tmp: Path) -> dict:
+    """bf16 and int8 file stores of ``data`` (with its masks) in ``tmp``:
+    {dtype: data.* overrides naming them}."""
+    import numpy as np
+
+    from crossclr_tpu_torch.data import f32_to_bf16, quantize_features
+
+    stores = {}
+    for dtype in ("bfloat16", "int8"):
+        paths = {}
+        for name in ("video", "text"):
+            path = tmp / f"{name}_{dtype}.npy"
+            x = getattr(data, name)
+            if dtype == "int8":
+                q, scale = quantize_features(x)
+                np.save(path, q)
+                np.save(path.with_name(path.stem + "_scale.npy"), scale)
+            else:
+                np.save(path, f32_to_bf16(x))
+            paths[name] = path
+            mask = getattr(data, f"{name}_mask")
+            if mask is not None:
+                np.save(tmp / f"{name}_mask.npy", mask)
+                paths[f"{name}_mask"] = tmp / f"{name}_mask.npy"
+        stores[dtype] = ["data.source=files", f"data.features_dtype={dtype}",
+                         *(f"data.{k}_path={v}" for k, v in paths.items())]
+    return stores
+
+
+def store_dataset(store: list[str], dtype: str):
+    """The FeaturePairDataset that ``write_stores``' overrides name."""
+    from crossclr_tpu_torch.data import FeaturePairDataset
+
+    overrides = dict(o.split("=", 1) for o in store)
+    return FeaturePairDataset(
+        overrides["data.video_path"], overrides["data.text_path"],
+        video_mask_path=overrides.get("data.video_mask_path"),
+        text_mask_path=overrides.get("data.text_mask_path"), dtype=dtype)
+
+
+def check_stream(data, n: int, slow: bool, tag: str) -> dict:
+    """DATA_DRAWS prefetched chunks, all held until the end (so three ring
+    wraps pass under them), each equal bit for bit to the host stream
+    once copied back; an int8 chunk's device dequantization equal bit for
+    bit to the host's.  The slow consumer queues ~10 ms of device work on
+    its stream and sleeps DATA_SLOW_S before each draw.  Returns the
+    prefetcher's stats."""
+    import numpy as np
+
+    from crossclr_tpu_torch.data import infinite_batches, stack_batches, train_stream
+    from crossclr_tpu_torch.data.quantize import dequantize_batch
+
+    host = infinite_batches(data, DATA_BATCH, seed=3)
+    if n > 1:
+        host = stack_batches(host, n)
+    it = train_stream(data, DATA_BATCH, n, device="cuda", seed=3)
+    held = []
+    try:
+        for _ in range(DATA_DRAWS):
+            if slow:
+                torch.cuda._sleep(20_000_000)
+                time.sleep(DATA_SLOW_S)
+            held.append(next(it))
+    finally:
+        it.close()
+    check(not it._thread.is_alive(), f"{tag}: prefetch worker still alive")
+    for i, got in enumerate(held):
+        want = next(host)
+        check(got.keys() == want.keys(), f"{tag}: fields {sorted(got)}")
+        for k, v in want.items():
+            check(got[k].device.type == "cuda" and np.array_equal(host_bits(got[k]), v),
+                  f"{tag}: chunk {i} field {k} differs from the host stream")
+        if "video_scale" in want:
+            deq = dequantize_batch(got)
+            for k in ("video", "text"):
+                scale = want[f"{k}_scale"]
+                ref = want[k].astype(np.float32) * scale.reshape(
+                    scale.shape + (1,) * (want[k].ndim - scale.ndim))
+                check(np.array_equal(deq[k].cpu().numpy(), ref),
+                      f"{tag}: chunk {i} {k} dequantized on the device differs")
+    return it.stats
+
+
+def data_phase(smi: str) -> dict:
+    """The host data path on the card: prefetched chunks against the host
+    stream, then the gather and copy rates at the transformer leg's batch.
+    Returns the rates."""
+    import numpy as np
+
+    from crossclr_tpu_torch.data import SyntheticPairs, gather_rows, train_stream
+    from crossclr_tpu_torch.data.datasets import TRAIN_RING
+    from crossclr_tpu_torch.data.native_io import gather_rows_plain
+
+    data = SyntheticPairs(num_pairs=DATA_PAIRS, video_dim=512, text_dim=768,
+                          video_seq_len=64, text_seq_len=96,
+                          variable_lengths=True, seed=5)
+    with tempfile.TemporaryDirectory(prefix="crossclr_smoke_") as tmp:
+        stores = {"float32": data, **{d: store_dataset(o, d) for d, o in
+                                      write_stores(data, Path(tmp)).items()}}
+        for dtype, store in stores.items():
+            for n in (1, 4):
+                for slow in (False, True):
+                    tag = (f"{dtype} store, {'stacked 4' if n > 1 else 'steps_per_call 1'}, "
+                           f"{'slow' if slow else 'fast'} consumer")
+                    stats = check_stream(store, n, slow, tag)
+                    check(len(stats["h2d_ms"]) >= DATA_DRAWS,
+                          f"{tag}: {len(stats['h2d_ms'])} copies timed")
+                    log("data", f"{tag}: {DATA_DRAWS} chunks of {n} x {DATA_BATCH} "
+                                "equal to the host stream bit for bit"
+                                + (", dequantized on the device equal to the host's"
+                                   if dtype == "int8" else "")
+                                + f"; worker gather median "
+                                f"{statistics.median(stats['gather_ms']):.3f} ms, "
+                                f"H2D {statistics.median(stats['h2d_ms']):.3f} ms")
+
+    # rates at the leg's batch (1024 rows of 64 x 512 and 96 x 768 fp32)
+    big = SyntheticPairs(num_pairs=DATA_TIMING_PAIRS, video_dim=512, text_dim=768,
+                         video_seq_len=64, text_seq_len=96,
+                         variable_lengths=True, seed=6)
+    idx = np.sort(np.random.default_rng(0).choice(DATA_TIMING_PAIRS, LEG_BATCH,
+                                                  replace=False))
+    fields = {"video": big.video, "text": big.text, "video_mask": big.video_mask,
+              "text_mask": big.text_mask}
+    nbytes = sum(src[idx].nbytes for src in fields.values())
+
+    def host_ms(fn, n=5):
+        times = []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+
+    from crossclr_tpu_torch.data.datasets import _pinned_empty
+
+    t0 = time.perf_counter()
+    pinned = {k: _pinned_empty((LEG_BATCH, *src.shape[1:]), src.dtype)
+              for k, src in fields.items()}
+    pin_s = time.perf_counter() - t0
+    # torch's pinned allocator for the same batch, for comparison: it rounds
+    # each block up to a power of two and keeps it cached
+    t0 = time.perf_counter()
+    torch_pinned = [torch.empty(src[:LEG_BATCH].shape, pin_memory=True,
+                                dtype=torch.from_numpy(src[:1]).dtype)
+                    for src in fields.values()]
+    torch_pin_s = time.perf_counter() - t0
+    del torch_pinned
+    rates = {
+        "plain gather (numpy, fresh pages)": host_ms(
+            lambda: [gather_rows_plain(src, idx) for src in fields.values()]),
+        "native gather (fresh pages)": host_ms(
+            lambda: [gather_rows(src, idx) for src in fields.values()]),
+        "native gather (into the pinned ring)": host_ms(
+            lambda: [gather_rows(src, idx, out=pinned[k]) for k, src in fields.items()]),
+    }
+    dev = {k: torch.empty(v.shape, dtype=torch.from_numpy(v[:0]).dtype, device="cuda")
+           for k, v in pinned.items()}
+
+    def copy_ms(host, non_blocking):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        times = []
+        for _ in range(5):
+            src = host()  # assembled before the clock starts
+            start.record()
+            for k, h in src.items():
+                dev[k].copy_(h, non_blocking=non_blocking)
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        return statistics.median(times)
+
+    pinned_t = {k: torch.from_numpy(v) for k, v in pinned.items()}
+    check(all(t.is_pinned() for t in pinned_t.values()), "ring buffers not pinned")
+    rates["H2D pinned (non_blocking)"] = copy_ms(lambda: pinned_t, True)
+    rates["H2D pageable (fresh arrays)"] = copy_ms(
+        lambda: {k: torch.from_numpy(gather_rows(src, idx)) for k, src in fields.items()},
+        False)
+    it = train_stream(big, LEG_BATCH, 1, device="cuda", seed=3)
+    try:
+        for _ in range(8):
+            next(it)
+    finally:
+        it.close()
+    stats = it.stats
+    rates["prefetch worker gather"] = statistics.median(stats["gather_ms"][1:])
+    rates["prefetch worker H2D"] = statistics.median(stats["h2d_ms"][1:])
+    ring_bytes = TRAIN_RING * nbytes
+    for what, ms in rates.items():
+        log("data", f"{what}: {ms:.3f} ms for {nbytes / 1e6:.1f} MB = "
+                    f"{nbytes / ms / 1e6:.2f} GB/s (batch {LEG_BATCH}, leg widths; {smi})")
+    log("data", f"page-locked: one batch {nbytes / 1e6:.1f} MB registered in "
+                f"{pin_s:.3f} s (torch's pinned allocator: {torch_pin_s:.3f} s); "
+                f"the train CLI's ring of {TRAIN_RING} at steps_per_call 1 locks "
+                f"{ring_bytes / 1e9:.3f} GB, at the leg's 20 "
+                f"{20 * ring_bytes / 1e9:.3f} GB")
+    del dev, pinned, pinned_t
+    return {"batch_bytes": nbytes, "ms": rates}
+
+
+def leg_trainer(config: str, overrides: list[str]):
+    """The CLI's trainer and train rows for a config and overrides."""
+    from crossclr_tpu_torch.data import dataset_from_config, train_eval_split
+    from crossclr_tpu_torch.training import Trainer
+    from crossclr_tpu_torch.utils.config import apply_overrides, load_config
+
+    cfg = apply_overrides(load_config(ROOT / config), overrides)
+    dataset, _ = dataset_from_config(cfg.data)
+    train_data, _ = train_eval_split(dataset, max(int(len(dataset) * 0.1), 1))
+    return cfg, Trainer(cfg.video_tower, cfg.text_tower, cfg.train, "cuda"), train_data
+
+
+def paths_phase(smi: str) -> dict:
+    """Each training leg's steady pairs/s through Trainer.fit twice in one
+    call: the serial pageable iterator (infinite_batches, copied on the
+    step's thread, steps_per_call steps a dispatch) and the train CLI's
+    prefetched stacked chunks.  The first dispatch of each fit is outside
+    the rate; the large-batch leg's rate is its one 8-step dispatch after
+    a first one.  Returns {leg: (serial, prefetched)}."""
+    from crossclr_tpu_torch.data import infinite_batches, train_stream
+    from crossclr_tpu_torch.train import chunk_steps
+
+    legs = {  # (config, overrides, steps): two dispatches or more each
+        "mlp": (TRAIN_CONFIG, TRAIN_OVERRIDES, 40),
+        "transformer": (TRANSFORMER_CONFIG, TRANSFORMER_OVERRIDES, 40),
+        "full_crossclr": (FULL_CONFIG, FULL_OVERRIDES, 15),
+        "large_batch": (PODSLICE_CONFIG, PODSLICE_OVERRIDES, 2 * PODSLICE_STEPS),
+    }
+    out = {}
+    for leg, (config, overrides, steps) in legs.items():
+        cfg, trainer, data = leg_trainer(config, overrides)
+        b, spc, n = cfg.data.batch_size, cfg.train.steps_per_call, chunk_steps(cfg)
+        rates = []
+        for prefetched in (False, True):
+            state = trainer.init_state()
+            if prefetched:
+                it = train_stream(data, b, n, device="cuda", seed=3,
+                                  max_chunk_bytes=trainer.stacked_budget())
+            else:
+                it = infinite_batches(data, b, seed=3)
+            try:
+                state, history = trainer.fit(state, it, steps=steps, log_every=steps,
+                                             prestacked=prefetched and n > 1)
+            finally:
+                if prefetched:
+                    it.close()
+            torch.cuda.synchronize()
+            rates.append(history[-1]["pairs_per_sec"])
+            del state
+            torch.cuda.empty_cache()
+        out[leg] = tuple(rates)
+        log("paths", f"{leg} leg ({config}, batch {b}, {spc} steps a dispatch, "
+                     f"{steps} steps): steady {rates[0]:.1f} pairs/s serial "
+                     f"pageable, {rates[1]:.1f} pairs/s prefetched "
+                     f"({rates[1] / rates[0]:.2f}x; {smi})")
+    return out
+
+
+def store_legs_phase(fa, smi: str) -> dict:
+    """The transformer leg through train.main from bf16 and int8 file stores
+    written from its synthetic pairs: flash_dq and flash_dkv launched
+    8 x STORE_STEPS times each, the loss falling.  Returns {dtype: steady
+    pairs/s}."""
+    from crossclr_tpu_torch import train
+    from crossclr_tpu_torch.data import SyntheticPairs
+
+    data = SyntheticPairs(num_pairs=4096, video_dim=512, text_dim=768,
+                          video_seq_len=64, text_seq_len=96, variable_lengths=True)
+    base = [o for o in TRANSFORMER_OVERRIDES if not o.startswith("data.")]
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="crossclr_smoke_") as tmp:
+        tmp = Path(tmp)
+        for dtype, store in write_stores(data, tmp).items():
+            metrics = tmp / f"metrics_{dtype}.csv"
+            reset_counts(fa)
+            rc = train.main(["--config", str(ROOT / TRANSFORMER_CONFIG), "--steps",
+                             str(STORE_STEPS), "--metrics-csv", str(metrics), *base,
+                             *store, f"data.batch_size={LEG_BATCH}",
+                             "train.warmup_steps=10",
+                             f"checkpoint_dir={tmp / ('ckpt_' + dtype)}"])
+            check(rc == 0, f"train.main exited {rc}")
+            torch.cuda.synchronize()
+            flash = dict(fa.launch_counts)
+            rows, evals = train_rows(metrics)
+            losses = check_train_rows(rows, evals, int(4096 * 0.1),
+                                      f"{dtype} store transformer leg")
+            want = 8 * STORE_STEPS
+            check(flash["flash_dq"] == want and flash["flash_dkv"] == want,
+                  f"{dtype} store leg: flash launches {flash}, want {want}")
+            out[dtype] = float(rows[-1]["pairs_per_sec"])
+            log("train", f"transformer leg from a {dtype} file store: "
+                         f"{STORE_STEPS} steps, loss {losses[0]:.4f} -> "
+                         f"{losses[-1]:.4f}; launches {flash}; steady "
+                         f"{out[dtype]:.1f} pairs/s ({smi})")
+    return out
+
+
 def loss_bounds(b: int, d: int, pruned: bool = False) -> dict:
     """Each loss kernel's least time at bf16 operands (the `default`
     tier), in units of one B×B×D product (2·B²·D operations) against the
@@ -2636,6 +2993,7 @@ def main(argv=None) -> int:
         records = baseline_phase(fa, fc, fd, fg, smi, args.baseline.resolve())
         print(json.dumps({"baseline": str(args.baseline), **records}), flush=True)
         return 0
+    data_phase(smi)
     fwd_worst = kernel_phase(fa, smi)
     flash_worst = attention_check_phase(fa)
     flash_worst["flash_fwd"] = max(flash_worst["flash_fwd"], fwd_worst)
@@ -2658,12 +3016,14 @@ def main(argv=None) -> int:
     rows_times = global_timing_phase(fd, fg, smi, rows_worst)
     loss_launches = train_phase(fd, smi)
     flash_launches = transformer_train_phase(fa, fd, smi)
+    store_legs_phase(fa, smi)
     # the pruned branch's path: the full-CrossCLR legs, dual then sym
     pruned_launches = {**full_train_phase(fa, fd, fg, fc, smi),
                        **full_static_phase(fa, fd, fg, fc, smi)}
     # the per-direction kernels' path: large-batch training
     direction_launches = podslice_train_phase(fa, fd, fg, fc, smi)
     grad_cache_phase(fc, smi)
+    paths_phase(smi)
     log("train", f"flash_fwd launches: serving {serve_launches}, transformer "
                  f"training {flash_launches['flash_fwd']}")
 

@@ -1,7 +1,10 @@
 """Split encoding for eval and serving.
 
 Counterpart of ``crossclr_tpu/eval.py:_encode_split``; the eval CLI and
-its metrics wait for a later port.
+its metrics wait for a later port (ROADMAP queue 1 #7).  Batches are
+gathered by the native thread pool (``data.epoch_batches``); fp32, bf16
+and int8 stores encode alike, an int8 batch dequantized on the device by
+``Trainer.encode``.
 """
 
 from __future__ import annotations

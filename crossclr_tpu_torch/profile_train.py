@@ -3,15 +3,24 @@
 Builds the trainer of ``train.py`` from a config plus overrides (no eval,
 no checkpoints), warms it up with ``--warmup`` steps, then measures:
 
-* a synchronised split of single steps (median of ``--repeats``): host
-  gather, host→device copy, towers forward, loss forward, backward (under
-  ``train.embedding_chunk``: the two-pass step's pass 1, pass 2 and pass
-  3), the optimizer update (``Trainer.apply_grads``: AdamW, the clamp and
-  the EMA) and the whole step;
-* one ``Trainer.fit`` of ``--steps`` steps under ``torch.profiler``: its
-  wall time and pairs/s, the device's busy share (the union of the device
-  events' intervals over the wall time), the device launches per step and
-  the ops and kernels that took the most device time.
+* a synchronised split of single steps (median of ``--repeats``) on the
+  train CLI's data path (``data.train_stream`` at ``train.chunk_steps``):
+  the consumer's wait for the next batch (with stacked chunks, at a
+  chunk's first step only; ``wait_mean`` is its mean per step), the
+  step's inputs (a chunk's batch indexed, an int8 batch dequantized), towers
+  forward, loss forward, backward (under ``train.embedding_chunk``: the
+  two-pass step's pass 1, pass 2 and pass 3), the optimizer update
+  (``Trainer.apply_grads``: AdamW, the clamp and the EMA) and the whole
+  step; beside it the prefetch worker's gather and host→device copy (its
+  stream's events) of the batches drawn meanwhile;
+* the same split on the serial pageable path, for comparison: the host
+  gather (``data.infinite_batches``) and the pageable copy on the step's
+  own thread;
+* one ``Trainer.fit`` of ``--steps`` steps on the train CLI's path under
+  ``torch.profiler``: its wall time and pairs/s, the device's busy share
+  (the union of the device events' intervals over the wall time), the
+  device launches per step and the ops and kernels that took the most
+  device time.
 
 Each line carries nvidia-smi's name and power limit on a CUDA device;
 ``--out`` also writes the numbers as JSON.  The split re-times the pieces
@@ -65,13 +74,24 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def split_step(trainer, state, batches, repeats: int) -> dict[str, float]:
+def split_step(trainer, state, batches, repeats: int,
+               stacked: bool = False) -> dict[str, float]:
     """Median ms of each part of ``Trainer.train_step`` over ``repeats``
-    synchronised steps (the parts in its order): one pass (towers forward,
-    loss forward, backward), or under ``embedding_chunk`` the two-pass
-    step's passes 1, 2 (the loss and its embedding gradients) and 3."""
+    synchronised steps (the parts in its order): the batch (from a
+    ``DevicePrefetcher``: the consumer's ``wait`` and the step's
+    ``inputs``, with the worker's ``worker_gather`` and ``worker_h2d`` of
+    the batches it drew meanwhile; else the serial ``gather`` and pageable
+    ``h2d``), one pass (towers forward, loss forward, backward), or under
+    ``embedding_chunk`` the two-pass step's passes 1, 2 (the loss and its
+    embedding gradients) and 3.  ``stacked``: ``batches`` yields
+    ``[n, B, ...]`` chunks, drawn every ``n`` steps."""
+    from .data import DevicePrefetcher
+
     dev = trainer.device
     times: dict[str, list[float]] = {}
+    prefetched = isinstance(batches, DevicePrefetcher)
+    if prefetched:
+        seen = {k: len(batches.stats[k]) for k in ("gather_ms", "h2d_ms")}
 
     def lap(name, t0):
         _sync(dev)
@@ -80,13 +100,20 @@ def split_step(trainer, state, batches, repeats: int) -> dict[str, float]:
         return t1
 
     params = dict(state.model.named_parameters())
+    chunk, i = None, 0
     for _ in range(repeats):
         _sync(dev)
         start = t = time.perf_counter()
-        batch = next(batches)
-        t = lap("gather", t)
+        if not stacked:
+            batch = next(batches)
+        else:
+            if chunk is None or i == chunk["video"].shape[0]:
+                chunk, i = next(batches), 0
+            batch = {k: v[i] for k, v in chunk.items()}
+            i += 1
+        t = lap("wait" if prefetched else "gather", t)
         inputs = trainer.step_inputs(batch)
-        t = lap("h2d", t)
+        t = lap("inputs" if prefetched else "h2d", t)
         if trainer.two_pass(inputs[0].shape[0]):
             v_emb, t_emb = trainer.encode_chunks(state, inputs)
             t = lap("pass1_encode", t)
@@ -108,7 +135,15 @@ def split_step(trainer, state, batches, repeats: int) -> dict[str, float]:
         lap("optimizer", t)
         lap("whole", start)
         state.step += 1
-    return {k: statistics.median(v) for k, v in times.items()}
+    if prefetched:
+        for key, part in (("gather_ms", "worker_gather"), ("h2d_ms", "worker_h2d")):
+            drawn = batches.stats[key][seen[key]:]
+            if drawn:
+                times[part] = drawn
+    parts = {k: statistics.median(v) for k, v in times.items()}
+    if prefetched:
+        parts["wait_mean"] = statistics.mean(times["wait"])
+    return parts
 
 
 TOP_ROWS = 15  # ops and kernels listed by device time
@@ -131,7 +166,8 @@ KERNEL_FAMILIES = {
 }
 
 
-def profiled_fit(trainer, state, batches, steps: int) -> dict:
+def profiled_fit(trainer, state, batches, steps: int,
+                 prestacked: bool = False) -> dict:
     """One ``fit`` of ``steps`` steps under ``torch.profiler``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -142,7 +178,8 @@ def profiled_fit(trainer, state, batches, steps: int) -> dict:
     _sync(trainer.device)
     with profile(activities=activities) as prof:
         t0 = time.perf_counter()
-        trainer.fit(state, batches, steps=steps, log_every=steps)
+        trainer.fit(state, batches, steps=steps, log_every=steps,
+                    prestacked=prestacked)
         _sync(trainer.device)
         wall_ms = (time.perf_counter() - t0) * 1e3
     spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
@@ -176,7 +213,8 @@ def profiled_fit(trainer, state, batches, steps: int) -> dict:
 
 
 def main(argv: list[str] | None = None) -> int:
-    from .data import dataset_from_config, infinite_batches
+    from .data import dataset_from_config, infinite_batches, train_stream
+    from .train import chunk_steps
     from .training import Trainer, loss_route
     from .utils.config import ExperimentConfig, apply_overrides, load_config
 
@@ -198,20 +236,31 @@ def main(argv: list[str] | None = None) -> int:
     device = trainer.device
     card = _card(device)
     state = trainer.init_state()
-    batches = infinite_batches(dataset, cfg.data.batch_size, seed=cfg.data.seed)
-    state, _ = trainer.fit(state, batches, steps=args.warmup,
-                           log_every=max(args.warmup, 1))
     b = cfg.data.batch_size
-    route = loss_route(cfg.train, b, cfg.video_tower.embed_dim)
-    tag = f"{cfg.train.loss}, {route or 'no fused'} route, batch {b}"
-    if trainer.two_pass(b):
-        tag += f", two-pass step (chunk {cfg.train.embedding_chunk})"
+    n = chunk_steps(cfg)  # the train CLI's path
+    batches = train_stream(dataset, b, n, device=device, seed=cfg.data.seed,
+                           max_chunk_bytes=trainer.stacked_budget())
+    try:
+        state, _ = trainer.fit(state, batches, steps=args.warmup,
+                               log_every=max(args.warmup, 1), prestacked=n > 1)
+        route = loss_route(cfg.train, b, cfg.video_tower.embed_dim)
+        tag = (f"{cfg.train.loss}, {route or 'no fused'} route, batch {b}, "
+               f"{n} steps a chunk")
+        if trainer.two_pass(b):
+            tag += f", two-pass step (chunk {cfg.train.embedding_chunk})"
 
-    parts = split_step(trainer, state, batches, args.repeats)
-    print(f"{tag}: median ms per part of {args.repeats} synchronised steps: "
-          + ", ".join(f"{k} {v:.3f}" for k, v in parts.items()) + f" ({card})",
-          flush=True)
-    fit = profiled_fit(trainer, state, batches, args.steps)
+        parts = split_step(trainer, state, batches, args.repeats, stacked=n > 1)
+        print(f"{tag}: median ms per part of {args.repeats} synchronised steps, "
+              "prefetched: " + ", ".join(f"{k} {v:.3f}" for k, v in parts.items())
+              + f" ({card})", flush=True)
+        serial = split_step(trainer, state, infinite_batches(
+            dataset, b, seed=cfg.data.seed), args.repeats)
+        print(f"{tag}: median ms per part of {args.repeats} synchronised steps, "
+              "serial pageable: " + ", ".join(f"{k} {v:.3f}" for k, v in serial.items())
+              + f" ({card})", flush=True)
+        fit = profiled_fit(trainer, state, batches, args.steps, prestacked=n > 1)
+    finally:
+        batches.close()
     rate = args.steps * cfg.data.batch_size / (fit["wall_ms"] / 1e3)
     print(f"{tag}: fit of {args.steps} steps {fit['wall_ms']:.1f} ms wall "
           f"({rate:.1f} pairs/s under the profiler); device busy "
@@ -228,7 +277,8 @@ def main(argv: list[str] | None = None) -> int:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps({
             "card": card, "config": args.config, "overrides": args.overrides,
-            "route": route, "parts_ms": parts, "pairs_per_sec_profiled": rate,
+            "route": route, "parts_ms": parts, "serial_parts_ms": serial,
+            "pairs_per_sec_profiled": rate,
             **fit,
         }, indent=1))
     return 0

@@ -16,7 +16,10 @@ Not ported yet, and refused with a message rather than ignored:
 checkpoint restore (``--checkpoint-dir``, ``/reload``), ``--ema``,
 ``--shard-corpus``, ``--corpus-dtype int8``, ``--batch-window-ms`` and
 ``--artifact``.  Weights are seeded random (``--random-params``) or handed
-to :func:`build_service` as a state_dict.
+to :func:`build_service` as a state_dict.  The corpus encode reads fp32,
+bf16 and int8 feature stores (``data.features_dtype``) through the native
+gather, an int8 batch dequantized on the device; the int8 INDEX
+(``--corpus-dtype int8``) is a different thing and stays refused.
 
 Example:
   python -m crossclr_tpu_torch.serve --config configs/lsmdc_transformer.json \\

@@ -9,6 +9,16 @@ from an ExperimentConfig JSON plus ``section.key=value`` overrides.  Every
 ``<checkpoint_dir>/best``.  A run resumes from the latest checkpoint; on
 SIGTERM or SIGINT it stops at the next dispatch boundary and checkpoints.
 
+The data path is the JAX CLI's, in ``data.train_stream``: the native
+thread pool gathers each chunk into a ring of two reused host buffers
+(page-locked on a CUDA device), and a worker thread copies the next chunks
+to the device on its own stream while the step runs.  With
+``train.steps_per_call > 1`` dividing ``eval_every``, a chunk is the
+``[n, B, ...]`` stack of one dispatch's batches (one prefetched ahead),
+refused before anything is allocated when it exceeds the trainer's
+``max_stacked_bytes`` budget; else one batch (two ahead).  fp32, bf16 and
+int8 stores train; an int8 batch is dequantized on the device.
+
 Refused rather than ignored: mesh flags other than one device (ROADMAP
 queue 1 item 11), ``--profile-dir`` and ``--tensorboard-dir`` (item 14).
 
@@ -50,8 +60,17 @@ def _refuse(what: str, item: str) -> SystemExit:
     )
 
 
+def chunk_steps(cfg) -> int:
+    """The steps one host chunk stacks: ``train.steps_per_call`` when it
+    divides ``eval_every`` (every ``fit`` runs ``eval_every`` steps or the
+    final tail, so a larger chunk would fall out of step across eval
+    boundaries), else 1."""
+    spc = cfg.train.steps_per_call
+    return spc if spc > 1 and cfg.eval_every % spc == 0 else 1
+
+
 def main(argv: list[str] | None = None) -> int:
-    from .data import dataset_from_config, infinite_batches, train_eval_split
+    from .data import dataset_from_config, train_eval_split, train_stream
     from .eval import _encode_split
     from .evaluation import retrieval_metrics
     from .training import CheckpointManager, Trainer
@@ -153,17 +172,28 @@ def main(argv: list[str] | None = None) -> int:
     done = state.step
     if args.stop_after is not None:
         steps = min(steps, done + args.stop_after)
-    # the stream fast-forwards to the restored step: a resumed run
-    # continues the exact batch sequence
-    batches = infinite_batches(train_data, batch_size, seed=cfg.data.seed,
-                               start_step=done)
+    n = chunk_steps(cfg)
+    prestacked = n > 1
+    spc = cfg.train.steps_per_call
+    if spc > 1 and not prestacked:
+        print(f"train.steps_per_call={spc} does not divide eval_every="
+              f"{cfg.eval_every}; host-side chunk pre-stacking disabled "
+              f"(fit still runs {spc} steps per dispatch)", file=sys.stderr)
+    it = None
     try:
+        try:  # a resumed run continues the exact batch sequence
+            it = train_stream(train_data, batch_size, n, device=trainer.device,
+                              seed=cfg.data.seed, start_step=done,
+                              max_chunk_bytes=trainer.stacked_budget())
+        except ValueError as e:  # the chunk or its host ring is too large
+            raise SystemExit(str(e)) from e
         while done < steps:
             try:
                 state, _ = trainer.fit(
-                    state, batches, steps=min(cfg.eval_every, steps - done),
+                    state, it, steps=min(cfg.eval_every, steps - done),
                     log_every=cfg.log_every, writer=writer,
                     should_stop=lambda: stop_requested["flag"],
+                    prestacked=prestacked,
                 )
             except FloatingPointError as e:
                 # a poisoned state is not checkpointed: the last good
@@ -193,6 +223,8 @@ def main(argv: list[str] | None = None) -> int:
                     )
                 best_ckpt.save(done, state, metrics=metrics)
     finally:
+        if it is not None:
+            it.close()  # stop and join the prefetch worker
         for sig, handler in prev_handlers.items():
             signal.signal(sig, handler)
         writer.close()

@@ -26,14 +26,22 @@ generator is reseeded from ``(train.seed, step, chunk)``, so pass 3 draws
 pass 1's masks again.  The gradient is the one-pass step's; only one
 chunk's activations are alive at a time.
 
-``fit`` runs ``steps_per_call`` steps per dispatch as a plain loop; for
-the full CrossCLR losses it first reports on stderr, once per trainer, the
-positive weights' effective sample size on the first batch, and warns if
-the weight softmax is near-one-hot there
-(:meth:`Trainer.weight_degeneracy_check`).  Refused with a message rather
-than ignored: ``optimizer="lamb"`` (ROADMAP queue 1 item 13) and
-transformer-tower dropout under ``attention="xla"`` (item 10: its JAX mask
-comes from ``jax.random``).  Under ``attention="flash"``
+Batches arrive as host arrays or as tensors already on the device (what
+``data.prefetch_to_device`` yields), which are not copied again.  An int8
+store's batch carries per-row scales; it is dequantized on the device
+before the towers and before the connectivity of the full CrossCLR losses
+(``data.quantize.dequantize_batch``, as the JAX step does).
+
+``fit`` runs ``steps_per_call`` steps per dispatch as a plain loop, or,
+``prestacked``, one ``[n, B, ...]`` chunk per dispatch
+(:meth:`Trainer.train_steps`, each step's batch indexed on the device,
+under the ``max_stacked_bytes`` budget); for the full CrossCLR losses it
+first reports on stderr, once per trainer, the positive weights' effective
+sample size on the first batch, and warns if the weight softmax is
+near-one-hot there (:meth:`Trainer.weight_degeneracy_check`).  Refused
+with a message rather than ignored: ``optimizer="lamb"`` (ROADMAP queue 1
+item 13) and transformer-tower dropout under ``attention="xla"`` (item 10:
+its JAX mask comes from ``jax.random``).  Under ``attention="flash"``
 the towers' dropout generator is reseeded every step from
 ``(train.seed, step)``, so a resumed run draws the same masks.  ``zero1`` and
 ``global_negatives`` are inert on one device, as in the JAX trainer with
@@ -53,6 +61,8 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
+from ..data.datasets import check_chunk_bytes
+from ..data.quantize import dequantize_batch
 from ..losses import functional as F
 from ..models.encoders import DualEncoder, TowerConfig
 
@@ -114,7 +124,7 @@ class TrainState:
 
 def to_tensor(x, device, dtype=None) -> torch.Tensor:
     """A host array (numpy, or a bf16 store's raw ``uint16`` records) as a
-    tensor on ``device``."""
+    tensor on ``device``; a tensor already there is returned as it is."""
     if isinstance(x, torch.Tensor):
         return x.to(device=device, dtype=dtype)
     x = np.asarray(x)
@@ -363,7 +373,8 @@ class Trainer:
         weights on a host batch, per modality, in (0, 1] (1 = flat, 1/B =
         one-hot), from the loss's own connectivity arithmetic on up to
         ``WEIGHT_CHECK_ROWS`` rows; None for losses without a weighting
-        channel."""
+        channel.  An int8 payload is cast without its scales, as the JAX
+        check does: the cosine connectivity cancels per-row scales."""
         max_rows = self.WEIGHT_CHECK_ROWS
         if self.cfg.loss not in _WEIGHTED_LOSSES:
             return None
@@ -454,12 +465,14 @@ class Trainer:
         return model
 
     def step_inputs(self, batch: dict) -> tuple:
-        """A host batch on the device: ``(video, text, video_mask,
-        text_mask)``, a mask None where the batch has none."""
-        dev = self.device
-        return (to_tensor(batch["video"], dev), to_tensor(batch["text"], dev),
-                _optional(batch.get("video_mask"), dev),
-                _optional(batch.get("text_mask"), dev))
+        """A host or device batch on the device (a host field copied, a
+        device one kept; an int8 store's features dequantized there):
+        ``(video, text, video_mask, text_mask)``, a mask None where the
+        batch has none."""
+        batch = dequantize_batch({k: to_tensor(v, self.device)
+                                  for k, v in batch.items()})
+        return (batch["video"], batch["text"], batch.get("video_mask"),
+                batch.get("text_mask"))
 
     def step_loss(self, model: torch.nn.Module, v_emb, t_emb, video, text,
                   video_mask=None, text_mask=None) -> torch.Tensor:
@@ -598,26 +611,51 @@ class Trainer:
     # -- eval ---------------------------------------------------------------
 
     def encode(self, state: TrainState, batch: dict):
-        """``(video_emb, text_emb)`` fp32 ``[B, E]`` for a host batch, in
-        eval mode."""
-        dev = self.device
+        """``(video_emb, text_emb)`` fp32 ``[B, E]`` for a host or device
+        batch (int8 features dequantized on the device), in eval mode."""
         with torch.inference_mode():
-            return state.model.eval()(
-                to_tensor(batch["video"], dev),
-                to_tensor(batch["text"], dev),
-                _optional(batch.get("video_mask"), dev),
-                _optional(batch.get("text_mask"), dev),
-            )
+            return state.model.eval()(*self.step_inputs(batch))
 
     def encode_modality(self, state: TrainState, side: str, features,
                         mask=None) -> torch.Tensor:
         """Encode ONE modality through its own tower only (the serving
-        hot path): fp32 ``[B, E]`` on the trainer's device."""
+        hot path): fp32 ``[B, E]`` on the trainer's device; host or device
+        features."""
         dev = self.device
         with torch.inference_mode():
             return state.model.eval().encode(
                 side, to_tensor(features, dev), _optional(mask, dev)
             )
+
+    # -- stacked chunks -----------------------------------------------------
+
+    def stacked_budget(self) -> int:
+        """The byte budget of ONE stacked ``[n, B, ...]`` chunk, 0 for none:
+        ``train.max_stacked_bytes`` when set, else a quarter of the card's
+        memory (the chunk and the prefetched next one, the two that
+        ``data.train_stream`` keeps on the card, must leave room for the
+        parameters and activations), 2 GiB on the CPU."""
+        if self.cfg.max_stacked_bytes is not None:
+            return self.cfg.max_stacked_bytes
+        if self.device.type == "cuda":
+            return torch.cuda.mem_get_info(self.device)[1] // 4
+        return 2 << 30
+
+    def train_steps(self, state: TrainState, stacked: dict,
+                    limit: int | None = None) -> tuple[TrainState, dict]:
+        """Run the chunk's ``n`` steps (its first ``limit``) in order, each
+        batch ``stacked[k][i]`` indexed on the device; returns the state
+        and the last step's metrics.  A chunk over :meth:`stacked_budget`
+        raises before its first step."""
+        n = stacked["video"].shape[0]
+        if limit is not None and not 0 < limit <= n:
+            raise ValueError(f"limit {limit} outside chunk length {n}")
+        check_chunk_bytes(sum(_nbytes(v) for v in stacked.values()), n,
+                          self.stacked_budget())
+        chunk = {k: to_tensor(v, self.device) for k, v in stacked.items()}
+        for i in range(n if limit is None else limit):
+            state, metrics = self.train_step(state, {k: v[i] for k, v in chunk.items()})
+        return state, metrics
 
     # -- loop ---------------------------------------------------------------
 
@@ -625,15 +663,18 @@ class Trainer:
             log_every: int = 50, writer: Any = None,
             step_offset: int | None = None,
             should_stop: Callable[[], bool] | None = None,
+            prestacked: bool = False,
             ) -> tuple[TrainState, list[dict]]:
         """Run ``steps`` train steps, ``cfg.steps_per_call`` per dispatch
         (a plain loop; metrics and ``should_stop`` are read once per
-        dispatch, from its last step).  At each ``log_every`` boundary and
-        at the end the metrics are read to the host with ``steps_per_sec``
-        and ``pairs_per_sec`` (the clock restarts after the first
-        dispatch, so they are steady-state rates) and the global ``step``;
-        a non-finite loss there raises ``FloatingPointError`` under
-        ``abort_on_nonfinite``."""
+        dispatch, from its last step).  ``prestacked``: ``batches`` yields
+        ``[n, B, ...]`` chunks (``data.stacked_chunks``), one dispatch each
+        through :meth:`train_steps`, the last one trimmed to the steps that
+        remain.  At each ``log_every`` boundary and at the end the metrics
+        are read to the host with ``steps_per_sec`` and ``pairs_per_sec``
+        (the clock restarts after the first dispatch, so they are
+        steady-state rates) and the global ``step``; a non-finite loss
+        there raises ``FloatingPointError`` under ``abort_on_nonfinite``."""
         history = []
         it = iter(batches)
         if (self.cfg.loss in _WEIGHTED_LOSSES and steps > 0
@@ -644,7 +685,8 @@ class Trainer:
             self._weight_diag_done = True
             first = next(it, None)
             if first is not None:
-                self._warn_if_degenerate_weights(first)
+                self._warn_if_degenerate_weights(
+                    {k: v[0] for k, v in first.items()} if prestacked else first)
                 it = itertools.chain([first], it)
         if step_offset is None:
             step_offset = state.step
@@ -656,11 +698,19 @@ class Trainer:
         while done < steps:
             if should_stop is not None and should_stop():
                 break
-            n = min(spc, steps - done)
-            for _ in range(n):
-                batch = next(it)
-                state, metrics = self.train_step(state, batch)
-            batch_rows = batch["video"].shape[0]
+            if prestacked:
+                chunk = next(it)
+                m = chunk["video"].shape[0]
+                n = min(m, steps - done)
+                state, metrics = self.train_steps(
+                    state, chunk, limit=n if n < m else None)
+                batch_rows = chunk["video"].shape[1]
+            else:
+                n = min(spc, steps - done)
+                for _ in range(n):
+                    batch = next(it)
+                    state, metrics = self.train_step(state, batch)
+                batch_rows = batch["video"].shape[0]
             first_dispatch = done == 0
             prev_done, done = done, done + n
             if first_dispatch:
@@ -699,3 +749,9 @@ def _synchronize(device: torch.device) -> None:
 
 def _optional(x, device):
     return None if x is None else to_tensor(x, device)
+
+
+def _nbytes(x) -> int:
+    if isinstance(x, torch.Tensor):
+        return x.numel() * x.element_size()
+    return np.asarray(x).nbytes

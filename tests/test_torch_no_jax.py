@@ -7,7 +7,9 @@ size and answers one search over HTTP; others train the MLP, the
 transformer, the full-CrossCLR and the podslice configs (the full
 CrossCLR one also imports the global-negative losses of
 ``crossclr_tpu_torch.parallel``; the podslice one trains through the
-GradCache two-pass step).
+GradCache two-pass step), and the MLP config from int8 and bf16 file
+stores, written by the port's own quantizer and bf16 conversion, with
+``ml_dtypes`` blocked too.
 """
 
 import json
@@ -15,6 +17,8 @@ import os
 import subprocess
 import sys
 from pathlib import Path
+
+import pytest
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -187,6 +191,58 @@ loaded = sorted(m for m in sys.modules
                                        "crossclr_tpu"))
 print(json.dumps({"rc": rc, "passes": len(passes), "loaded": loaded}))
 """
+
+
+STORE_SCRIPT = SCRIPT.split("import json\n", 1)[0].replace(
+    '"crossclr_tpu")', '"crossclr_tpu", "ml_dtypes")') + r"""
+import json
+
+import numpy as np
+
+from crossclr_tpu_torch import train
+from crossclr_tpu_torch.data import SyntheticPairs, f32_to_bf16, quantize_features
+
+data = SyntheticPairs(num_pairs=64, video_dim=12, text_dim=10)
+for name in ("video", "text"):
+    x = getattr(data, name)
+    if DTYPE == "int8":
+        q, scale = quantize_features(x)
+        np.save(f"{name}.npy", q)
+        np.save(f"{name}_scale.npy", scale)
+    else:
+        np.save(f"{name}.npy", f32_to_bf16(x))
+rc = train.main([
+    "--device", "cpu", "--steps", "4", "--metrics-csv", "metrics.csv",
+    "video_tower.input_dim=12", "text_tower.input_dim=10",
+    "video_tower.embed_dim=8", "text_tower.embed_dim=8",
+    "video_tower.hidden_dim=16", "text_tower.hidden_dim=16",
+    "data.source=files", "data.video_path=video.npy", "data.text_path=text.npy",
+    f"data.features_dtype={DTYPE}", "data.batch_size=16",
+    "train.warmup_steps=1", "train.steps_per_call=2", "eval_every=2",
+    "checkpoint_dir=ckpt",
+])
+loaded = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "flax", "optax", "orbax",
+                                       "crossclr_tpu", "ml_dtypes"))
+print(json.dumps({"rc": rc, "loaded": loaded}))
+"""
+
+
+@pytest.mark.parametrize("dtype", ["int8", "bfloat16"])
+def test_port_trains_from_file_stores_without_jax(tmp_path, dtype):
+    """The MLP config trains from an int8 and from a bf16 file store,
+    pre-stacked at ``steps_per_call=2``, evaluates and checkpoints with jax,
+    flax, optax, orbax, the JAX package and ml_dtypes blocked."""
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run(
+        [sys.executable, "-c", STORE_SCRIPT.replace("DTYPE", repr(dtype))],
+        cwd=tmp_path, env=env, capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    result = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert result == {"rc": 0, "loaded": []}
+    assert sorted(p.name for p in (tmp_path / "ckpt").iterdir()) == [
+        "step_2.pt", "step_4.pt"]
 
 
 def test_port_trains_the_podslice_config_without_jax(tmp_path):
