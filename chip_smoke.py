@@ -14,7 +14,8 @@ the loss kernels (dual at its learnable τ, sym at a static τ), and
 training configs/podslice_32k.json at B = 65,536 through the GradCache
 two-pass step and the per-direction loss kernels; every training leg reads
 its batches through the host data path (the native gather into a pinned
-ring, prefetched to the card on a side stream).
+ring, prefetched to the card on a side stream); and the data-parallel
+step through the train CLI, one process per rank.
 Phases, one line each; any failure raises and exits non-zero:
 
   1. device    — a CUDA device must exist (there is no CPU path); prints
@@ -225,6 +226,34 @@ Phases, one line each; any failure raises and exits non-zero:
                  by the serial pageable iterator (infinite_batches, copied
                  on the step's thread) and by train.py's prefetched chunks;
                  prints both steady pairs/s.
+ 12. dp        — the train CLI in child processes of this script
+                 (--dp-worker, one per rank; each joined within DP_JOIN_S
+                 or the phase fails), one step a dispatch, each step
+                 logged: (a) configs/podslice_32k.json at its batch of
+                 32,768, 4 steps, in one child: with no group, then on a
+                 one-rank NCCL group from a launcher's environment
+                 (RANK=0 WORLD_SIZE=1, a free MASTER_PORT): every step's
+                 loss and grad_norm bit for bit, the same launches
+                 (sym_fwd and sym_bwd 4 each, no other kernel); (b) two
+                 ranks on the one card, each child joined by gloo before
+                 it calls the CLI with --device cuda:0 (NCCL refuses two
+                 ranks on one device), each running the same config
+                 (16,384 rows a rank, ZeRO-1, GradCache at chunk 1024,
+                 global negatives through the rows kernels at 16,384
+                 anchor rows of 32,768 x 256) and then
+                 configs/fullcrossclr_fused_ragged.json at 1024 (512 a
+                 rank, 5 steps), held to one process on the two ranks'
+                 HostShard batches joined: the loss and grad_norm per step
+                 and the mean |Δ| of the parameters after the last step
+                 (rank 0's checkpoint) within DP_LOSS_RTOL, DP_NORM_RTOL
+                 and DP_PARAM_MEAN, each rows kernel launched exactly 2
+                 times a step on each rank and no other kernel.  Prints
+                 each leg's steady pairs/s of the global batch and ms a
+                 step, and the phase's seconds.
+
+python3 chip_smoke.py --dp-fault {none,averaged,unsummed} runs (b) alone
+with that gradient reduction in the ranks and logs each reading beside
+its limit: the readings DP_PARAM_MEAN is set between.
 
 The second-to-last line is the kernels' JSON record: twelve kernels, each
 with its time, its plain version's, the library call's where one exists,
@@ -233,7 +262,9 @@ shape and build they were timed at and what the library call computes;
 the loss records add their pruned branch's time, plain time, bound and
 launches on the full-CrossCLR legs; the rows records are timed at 1024 x
 384 and add their time, plain time and bound at one rank's block (1024 of
-4096 x 384); the per-direction records are timed at 4096 x 256 and add
+4096 x 384), and their launches by path (the global losses and the dp
+phase's two legs; the loss records' add the dp phase's one-rank leg);
+the per-direction records are timed at 4096 x 256 and add
 their time and bound at the leg's 65,536 x 256.
 The last line is {"ok": true, "device": {...}}.
 
@@ -276,7 +307,9 @@ import importlib
 import io
 import json
 import math
+import os
 import re
+import socket
 import statistics
 import subprocess
 import sys
@@ -454,6 +487,49 @@ GRAD_CACHE_BATCH = 8192  # pass 3's masks against pass 1's
 # the leg's (the per-direction kernels)
 GRAD_CACHE_COMPARE = (GRAD_CACHE_BATCH, PODSLICE_BATCH)
 GRAD_CACHE_BOUND = 1e-5  # max |error| / max |gradient|, fp32 towers
+# the data-parallel phase: the podslice config at its own batch of 32,768
+# (4 steps) and the full-CrossCLR config at the leg's 1024 (5 steps), one
+# step a dispatch and every step logged, the eval and the checkpoint at the
+# end; (a) one NCCL rank against no group, (b) two gloo ranks on the one
+# card (NCCL refuses two ranks on one device) against one process on the
+# two ranks' HostShard batches joined
+DP_LEGS = {"podslice": PODSLICE_CONFIG, "full": FULL_CONFIG}
+DP_STEPS = {"podslice": 4, "full": 5}
+DP_OVERRIDES = {
+    # 36,410 pairs: 3,641 held out, 32,769 train rows, 16,384 a rank
+    "podslice": ["data.source=synthetic", "data.num_pairs=36410",
+                 "data.video_dim=512", "data.text_dim=384",
+                 "data.batch_size=32768", "train.warmup_steps=2",
+                 "train.steps_per_call=1", "eval_every=4", "log_every=1"],
+    # 1200 pairs: 120 held out, 1080 train rows, 540 a rank
+    "full": [*FULL_OVERRIDES, "data.num_pairs=1200", "train.steps_per_call=1",
+             "eval_every=5", "log_every=1"],
+}
+DP_RANKS = 2
+DP_JOIN_S = 300  # each group of child processes, start to exit
+# the two-rank step against one process on the joined batch: the loss per
+# step within DP_LOSS_RTOL of its value (the rows kernels against the sym
+# or dual pair, on bf16 operands; the transformer towers run at half the
+# rows), grad_norm within the JAX mesh tests' rtol 1e-3, and the mean |Δ|
+# over every parameter element after the last step within DP_PARAM_MEAN:
+# between what the sound step reads (1.169e-4 podslice, 1.113e-6 full, on
+# an H100) and what each rank's gradient left unsummed reads (1.288e-4,
+# 5.959e-5; python3 chip_smoke.py --dp-fault unsummed, PERF.md).  The
+# podslice gap is thin: Adam moves each element about lr a step whatever
+# its gradient, and the bf16 towers' near-zero entries flip sign in both
+# runs; its grad_norm (5.7e-7 sound, 0.65 unsummed) is the sharp check.
+# A mean instead of a sum moves no parameter (Adam is blind to the
+# gradient's scale): grad_norm alone catches it (relative error 0.5)
+DP_LOSS_RTOL = {"podslice": 1e-4, "full": 1e-3}
+DP_NORM_RTOL = 1e-3
+DP_PARAM_MEAN = {"podslice": 1.22e-4, "full": 1e-5}
+# printed beside the readings, not held: AdamW's |update| is at most
+# DP_ADAM_U / 2 · lr a step at these step counts (Cauchy-Schwarz on the
+# bias-corrected moments), so any two finite runs stay within
+# DP_ADAM_U · Σ lr of each other
+DP_ADAM_U = 2.02
+LAUNCHER_VARS = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "LOCAL_WORLD_SIZE",
+                 "MASTER_ADDR", "MASTER_PORT")
 GLOBAL_SHAPES = [(4096, 384), (1000, 384), (1000, 640)]
 GLOBAL_TIMING = [(1024, 384), (4096, 384), (4096, 512)]
 EMULATED_RANKS = 4
@@ -2948,6 +3024,349 @@ def store_legs_phase(fa, smi: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# data parallelism: one process per rank
+# ---------------------------------------------------------------------------
+
+
+def dp_worker(spec_path: Path) -> int:
+    """A child of the data-parallel phase: each run of ``spec["runs"]``
+    through ``train.main``, every kernel count set to 0 just before and
+    read just after, each step's loss and grad_norm recorded (as exact
+    hex).  A run that names an ``env`` runs with exactly those launcher
+    variables (none: no group).  With ``spec["join"]`` the child first
+    joins a gloo group itself, from the launcher's environment, on
+    ``spec["device"]``, and every run shares it (the emulation of two cards
+    on one: NCCL refuses two ranks on one device); ``spec["fault"]``
+    replaces the gradient reduction by a known-wrong one (``dp_fault``).
+    Writes the results to ``spec["out"]``."""
+    import torch.distributed as dist
+
+    spec = json.loads(spec_path.read_text())
+    sys.path.insert(0, str(ROOT))
+    torch.backends.cuda.matmul.allow_tf32 = False  # as the parent
+    from crossclr_tpu_torch import train
+    from crossclr_tpu_torch.training import Trainer
+
+    kernels = [importlib.import_module(f"crossclr_tpu_torch.ops.{m}") for m in
+               ("flash_attention", "fused_dual", "fused_global", "fused_crossclr")]
+    steps, backends = [], []
+    train_step = Trainer.train_step
+
+    def recording_step(self, state, batch):
+        state, metrics = train_step(self, state, batch)
+        steps.append((metrics["loss"], metrics["grad_norm"]))
+        backends.append(None if self.group is None else dist.get_backend(self.group))
+        return state, metrics
+
+    Trainer.train_step = recording_step
+    if spec.get("fault"):
+        Trainer.sum_grads = dp_fault(Trainer.sum_grads, spec["fault"])
+    grouped = spec.get("join") is not None
+    if grouped:
+        torch.cuda.set_device(torch.device(spec["device"]))
+        dist.init_process_group(spec["join"], init_method="env://")
+    results = []
+    try:
+        for run in spec["runs"]:
+            if "env" in run:
+                for k in LAUNCHER_VARS:
+                    os.environ.pop(k, None)
+                os.environ.update(run["env"])
+            steps.clear()
+            backends.clear()
+            for module in kernels:
+                reset_counts(module)
+            t0 = time.perf_counter()
+            rc = train.main(run["argv"])
+            torch.cuda.synchronize()
+            results.append({
+                "rc": rc, "seconds": time.perf_counter() - t0,
+                "loss": [float(x).hex() for x, _ in steps],
+                "grad_norm": [float(g).hex() for _, g in steps],
+                "backends": sorted(set(map(str, backends))),
+                "counts": {k: n for module in kernels
+                           for k, n in module.launch_counts.items()},
+            })
+    finally:
+        if grouped:
+            dist.destroy_process_group()
+    Path(spec["out"]).write_text(json.dumps(results))
+    return 0
+
+
+def dp_fault(sum_grads, fault: str):
+    """``Trainer.sum_grads`` with a known-wrong reduction, to read what the
+    dp checks read under it (``--dp-fault``): ``averaged`` divides the
+    summed gradients by the world size (DistributedDataParallel's mean
+    where the JAX step psums); ``unsummed`` leaves each rank its own
+    gradient (no collective: under ZeRO-1 its own rows of it)."""
+    import torch.distributed as dist
+
+    def averaged(self, grads, norms):
+        grads, norms, sq = sum_grads(self, grads, norms)
+        grads = {k: g / self.world for k, g in grads.items()}
+        return grads, norms, None if sq is None else sq / self.world ** 2
+
+    def unsummed(self, grads, norms):
+        collectives = dist.reduce_scatter_tensor, dist.all_reduce
+        dist.reduce_scatter_tensor = (
+            lambda out, inp, **kw: out.copy_(inp.view(self.world, -1)[self.rank]))
+        dist.all_reduce = lambda tensor, **kw: None
+        try:
+            return sum_grads(self, grads, norms)
+        finally:
+            dist.reduce_scatter_tensor, dist.all_reduce = collectives
+
+    return {"averaged": averaged, "unsummed": unsummed}[fault]
+
+
+def free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def dp_spawn(tmp: Path, tag: str, children: list[tuple[dict, dict]]) -> list:
+    """Start one ``--dp-worker`` child per ``(spec, launcher env)``, all
+    together, join them within DP_JOIN_S and return their results; a child
+    that fails, or any still running at the limit, fails the phase."""
+    base = {k: v for k, v in os.environ.items() if k not in LAUNCHER_VARS}
+    procs = []
+    try:
+        for i, (spec, env) in enumerate(children):
+            path = tmp / f"{tag}_{i}.json"
+            path.write_text(json.dumps({**spec, "out": str(tmp / f"{tag}_{i}_out.json")}))
+            procs.append(subprocess.Popen(
+                [sys.executable, str(ROOT / "chip_smoke.py"), "--dp-worker", str(path)],
+                cwd=ROOT, env={**base, **env}, stdout=sys.stderr))
+        deadline = time.monotonic() + DP_JOIN_S
+        for i, proc in enumerate(procs):
+            try:
+                rc = proc.wait(timeout=max(deadline - time.monotonic(), 1))
+            except subprocess.TimeoutExpired:
+                raise AssertionError(f"{tag}: child {i} still running after "
+                                     f"{DP_JOIN_S} s") from None
+            check(rc == 0, f"{tag}: child {i} exited {rc}")
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(30)
+    return [json.loads((tmp / f"{tag}_{i}_out.json").read_text())
+            for i in range(len(children))]
+
+
+def dp_argv(leg: str, tmp: Path, run: str, device: str = "cuda") -> list[str]:
+    # argparse takes the positional overrides after every option
+    options = ["--config", str(ROOT / DP_LEGS[leg]), "--steps", str(DP_STEPS[leg]),
+               "--device", device, "--metrics-csv", str(tmp / f"{run}.csv")]
+    return [*options, *DP_OVERRIDES[leg], f"checkpoint_dir={tmp / run}"]
+
+
+def dp_rate(tmp: Path, run: str) -> tuple[float, float]:
+    """The steady pairs/s of the global batch (the last logged step, the
+    clock restarted after the first dispatch) and ms a step."""
+    last = [r for r in csv_rows(tmp / f"{run}.csv") if r.get("loss")][-1]
+    return float(last["pairs_per_sec"]), 1000.0 / float(last["steps_per_sec"])
+
+
+def dp_reference(leg: str):
+    """One process, no group, on the DP_RANKS ranks' HostShard batches
+    joined, for the leg's steps: ``(each step's loss, grad_norm, the
+    final parameters on the host, the config)``."""
+    import numpy as np
+
+    from crossclr_tpu_torch.data import (HostShard, dataset_from_config,
+                                         infinite_batches, train_eval_split)
+    from crossclr_tpu_torch.training import Trainer
+    from crossclr_tpu_torch.utils.config import apply_overrides, load_config
+
+    cfg = apply_overrides(load_config(ROOT / DP_LEGS[leg]), DP_OVERRIDES[leg])
+    dataset, _ = dataset_from_config(cfg.data)
+    train_data, _ = train_eval_split(
+        dataset, max(int(len(dataset) * cfg.data.eval_fraction), 1))
+    b_loc = cfg.data.batch_size // DP_RANKS
+    streams = [infinite_batches(HostShard(train_data, r, DP_RANKS), b_loc,
+                                seed=cfg.data.seed) for r in range(DP_RANKS)]
+    trainer = Trainer(cfg.video_tower, cfg.text_tower, cfg.train, "cuda")
+    check(trainer.group is None, "the reference runs without a group")
+    state = trainer.init_state()
+    losses, norms = [], []
+    for _ in range(DP_STEPS[leg]):
+        parts = [next(s) for s in streams]
+        batch = {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
+        state, metrics = trainer.train_step(state, batch)
+        losses.append(float(metrics["loss"]))
+        norms.append(float(metrics["grad_norm"]))
+    params = {k: v.detach().float().cpu() for k, v in state.model.state_dict().items()}
+    return losses, norms, params, cfg
+
+
+def dp_one_rank(tmp: Path, smi: str) -> dict:
+    """(a) The podslice config at B = 32,768 in one child: with no group,
+    then on a one-rank NCCL group from a launcher's environment (RANK=0
+    WORLD_SIZE=1, a free MASTER_PORT): the per-step losses and grad_norms
+    bit for bit, the same launches.  Returns them."""
+    steps = DP_STEPS["podslice"]
+    launcher = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
+                "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(free_port())}
+    t0 = time.perf_counter()
+    (alone, grouped), = dp_spawn(tmp, "a", [(
+        {"runs": [{"argv": dp_argv("podslice", tmp, "a_alone"), "env": {}},
+                  {"argv": dp_argv("podslice", tmp, "a_group"), "env": launcher}]},
+        {})])
+    seconds = time.perf_counter() - t0
+    for run in (grouped, alone):
+        check(run["rc"] == 0 and len(run["loss"]) == steps,
+              f"(a): {run['rc']=}, {len(run['loss'])} steps")
+    check(grouped["loss"] == alone["loss"],
+          f"(a) losses: one NCCL rank {grouped['loss']} vs no group "
+          f"{alone['loss']}")
+    check(grouped["grad_norm"] == alone["grad_norm"],
+          f"(a) grad_norm: {grouped['grad_norm']} vs {alone['grad_norm']}")
+    check(grouped["backends"] == ["nccl"] and alone["backends"] == ["None"],
+          f"(a) groups: {grouped['backends']} and {alone['backends']}")
+    check(grouped["counts"] == alone["counts"],
+          f"(a) launches {grouped['counts']} vs {alone['counts']}")
+    check_only(grouped["counts"], {"sym_fwd": steps, "sym_bwd": steps},
+               "(a) one NCCL rank")
+    counts = {k: x for k, x in grouped["counts"].items() if x}
+    rate, ms = dp_rate(tmp, "a_group")
+    rate0, ms0 = dp_rate(tmp, "a_alone")
+    log("dp", f"(a) {PODSLICE_CONFIG} at B=32768, {steps} steps, no group then one "
+              f"NCCL rank in one child: losses bit for bit "
+              f"({', '.join(str(float.fromhex(x)) for x in grouped['loss'])}), "
+              f"grad_norm bit for bit, launches {counts} in both; the child "
+              f"{seconds:.1f} s, its runs {alone['seconds']:.1f} s and "
+              f"{grouped['seconds']:.1f} s")
+    log("dp", f"(a) steady train rate: one NCCL rank {rate:.1f} pairs/s "
+              f"({ms:.2f} ms a step), no group {rate0:.1f} pairs/s ({ms0:.2f} ms "
+              f"a step) ({smi})")
+    return counts
+
+
+def dp_two_ranks(tmp: Path, smi: str, fault: str | None = None) -> dict:
+    """(b) DP_RANKS ranks sharing cuda:0, each child joined by gloo before
+    it calls the CLI with --device cuda:0, running the podslice leg (global
+    negatives through the rows kernels at 16,384 anchor rows of 32,768 x
+    256, ZeRO-1, GradCache at chunk 1024) and then the full-CrossCLR leg
+    (crossclr_fused, learnable τ, 512 rows a rank), against one process on
+    the joined batches: the loss and grad_norm per step and the mean |Δ| of
+    the parameters after the last step (rank 0's checkpoint), each within
+    its limit; the rows kernels launched exactly 2 times a step on each
+    rank and no other kernel.  Returns the launches by leg.  With a
+    ``fault`` (``dp_fault``'s, or ``none`` for the port's own reduction)
+    in the children, each reading is logged beside its limit, as caught or
+    missed, and fails nothing."""
+    import numpy as np
+
+    from crossclr_tpu_torch.training.trainer import AdamW
+
+    def hold(ok: bool, what: str) -> None:
+        if fault is None:
+            check(ok, what)
+        else:
+            log("dp", f"fault {fault}: {'missed' if ok else 'CAUGHT'}: {what}")
+
+    port = str(free_port())
+    ranks = [({"join": "gloo", "device": "cuda:0",
+               "fault": None if fault == "none" else fault,
+               "runs": [{"argv": dp_argv(leg, tmp, f"b_{leg}_{r}", "cuda:0")}
+                        for leg in DP_LEGS]},
+              {"RANK": str(r), "WORLD_SIZE": str(DP_RANKS), "LOCAL_RANK": str(r),
+               "LOCAL_WORLD_SIZE": str(DP_RANKS), "MASTER_ADDR": "127.0.0.1",
+               "MASTER_PORT": port})
+             for r in range(DP_RANKS)]
+    t0 = time.perf_counter()
+    results = dp_spawn(tmp, "b", ranks)
+    seconds_children = time.perf_counter() - t0
+    out = {}
+    t0 = time.perf_counter()
+    for i, leg in enumerate(DP_LEGS):
+        runs = [res[i] for res in results]
+        n = DP_STEPS[leg]
+        losses, norms, params, cfg = dp_reference(leg)
+        adam = AdamW(cfg.train)
+        counts = {}
+        for r, run in enumerate(runs):
+            check(run["rc"] == 0 and len(run["loss"]) == n,
+                  f"(b) {leg} rank {r}: {run['rc']=}, {len(run['loss'])} steps")
+            check(run["backends"] == ["gloo"],
+                  f"(b) {leg} rank {r}: groups {run['backends']}, want gloo")
+            check_only(run["counts"], {k: 2 * n for k in
+                                       ("rows_lse", "rows_bwd_rows", "rows_bwd_cols")},
+                       f"(b) {leg} rank {r}")
+            for k, x in run["counts"].items():
+                counts[k] = counts.get(k, 0) + x
+            got = [float.fromhex(x) for x in run["loss"]]
+            loss_err = max(abs(g - w) / abs(w) for g, w in zip(got, losses))
+            hold(loss_err <= DP_LOSS_RTOL[leg],
+                 f"(b) {leg} rank {r}: losses {got} vs one process {losses}: "
+                 f"max relative error {loss_err:.3e} (limit {DP_LOSS_RTOL[leg]})")
+            got_norms = [float.fromhex(x) for x in run["grad_norm"]]
+            norm_err = max(abs(g - w) / abs(w) for g, w in zip(got_norms, norms))
+            hold(norm_err <= DP_NORM_RTOL,
+                 f"(b) {leg} rank {r}: grad_norm {got_norms} vs {norms}: "
+                 f"max relative error {norm_err:.3e} (limit {DP_NORM_RTOL})")
+            log("dp", f"(b) {leg} rank {r}: loss per step "
+                      + ", ".join(f"{x:.6f}" for x in got)
+                      + " vs one process " + ", ".join(f"{x:.6f}" for x in losses)
+                      + f": max relative error {loss_err:.3e} (limit "
+                      f"{DP_LOSS_RTOL[leg]}); grad_norm max relative error "
+                      f"{norm_err:.3e} (limit {DP_NORM_RTOL})")
+        saved = torch.load(tmp / f"b_{leg}_0" / f"step_{n}.pt", map_location="cpu",
+                           weights_only=True)
+        check(saved["model"].keys() == params.keys(), f"(b) {leg}: parameter names")
+        diffs = {k: (saved["model"][k].float() - v).abs() for k, v in params.items()}
+        worst = max(diffs, key=lambda k: diffs[k].max().item())
+        worst_err = diffs[worst].max().item()
+        # over every parameter element: each step's update moves every one
+        mean = (sum(d.double().sum().item() for d in diffs.values())
+                / sum(d.numel() for d in diffs.values()))
+        hold(mean <= DP_PARAM_MEAN[leg],
+             f"(b) {leg}: parameters after {n} steps vs one process: mean |Δ| "
+             f"{mean:.3e} (limit {DP_PARAM_MEAN[leg]:.3g})")
+        # printed, not held: AdamW's update is about lr a step whatever its
+        # gradient, so any two finite runs stay inside this
+        adam_gap = DP_ADAM_U * sum(adam.learning_rate(c) for c in range(n))
+        out[f"b_{leg}"] = counts
+        rate, ms = dp_rate(tmp, f"b_{leg}_0")
+        log("dp", f"(b) {leg} ({DP_LEGS[leg]}, B={cfg.data.batch_size}, "
+                  f"{cfg.data.batch_size // DP_RANKS} a rank, {DP_RANKS} gloo ranks "
+                  f"on cuda:0, {n} steps): parameters after the last step vs one "
+                  f"process: mean |Δ| {mean:.3e} (limit {DP_PARAM_MEAN[leg]:.3g}); "
+                  f"max |Δ| {worst_err:.3e} ({worst}; AdamW's widest gap "
+                  f"{adam_gap:.3e} = {DP_ADAM_U} x Σ lr); launches "
+                  f"{({k: x for k, x in counts.items() if x})}")
+        log("dp", f"(b) {leg} steady train rate: {rate:.1f} pairs/s of the "
+                  f"global batch ({ms:.2f} ms a step; both ranks on one card, "
+                  f"gloo) ({smi})")
+    seconds_references = time.perf_counter() - t0
+    log("dp", f"(b) {seconds_children:.1f} s for the {DP_RANKS} ranks' children "
+              f"(their runs: " + "; ".join(
+                  f"rank {r} " + ", ".join(f"{run['seconds']:.1f}" for run in res)
+                  for r, res in enumerate(results))
+              + f" s), {seconds_references:.1f} s for the one-process references")
+    return out
+
+
+def dp_phase(smi: str) -> dict:
+    """The data-parallel step through the train CLI, one process per rank:
+    (a) ``dp_one_rank``, (b) ``dp_two_ranks``.  Returns the launches by
+    leg."""
+    torch.cuda.empty_cache()  # the children share the card
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="crossclr_dp_") as tmp:
+        tmp = Path(tmp)
+        out = {"a": dp_one_rank(tmp, smi)}
+        seconds_a = time.perf_counter() - t0
+        out.update(dp_two_ranks(tmp, smi))
+    log("dp", f"the phase took {time.perf_counter() - t0:.1f} s: (a) "
+              f"{seconds_a:.1f} s, (b) {time.perf_counter() - t0 - seconds_a:.1f} s")
+    return out
+
+
 def loss_bounds(b: int, d: int, pruned: bool = False) -> dict:
     """Each loss kernel's least time at bf16 operands (the `default`
     tier), in units of one B×B×D product (2·B²·D operations) against the
@@ -2979,7 +3398,17 @@ def main(argv=None) -> int:
              "fused_global.cu and their headers (e.g. "
              "<unpacked git archive>/crossclr_tpu_torch/ops/csrc); prints their "
              "times and a JSON line of records")
+    parser.add_argument("--dp-worker", type=Path, default=None,
+                        help=argparse.SUPPRESS)  # a child of the dp phase
+    parser.add_argument(
+        "--dp-fault", choices=("none", "averaged", "unsummed"), default=None,
+        help="only run the dp phase's two ranks (b), with this gradient "
+             "reduction in the ranks (none: the port's own; averaged: "
+             "divided by the world size; unsummed: each rank's own), and "
+             "log each check's reading beside its limit without failing")
     args = parser.parse_args(argv)
+    if args.dp_worker is not None:
+        return dp_worker(args.dp_worker)
     smi = device_phase()
     sys.path.insert(0, str(ROOT))
     # the plain versions' products in full fp32 (PyTorch's default, stated)
@@ -2992,6 +3421,10 @@ def main(argv=None) -> int:
     if args.baseline is not None:
         records = baseline_phase(fa, fc, fd, fg, smi, args.baseline.resolve())
         print(json.dumps({"baseline": str(args.baseline), **records}), flush=True)
+        return 0
+    if args.dp_fault is not None:
+        with tempfile.TemporaryDirectory(prefix="crossclr_dp_") as tmp:
+            dp_two_ranks(Path(tmp), smi, args.dp_fault)
         return 0
     data_phase(smi)
     fwd_worst = kernel_phase(fa, smi)
@@ -3024,6 +3457,7 @@ def main(argv=None) -> int:
     direction_launches = podslice_train_phase(fa, fd, fg, fc, smi)
     grad_cache_phase(fc, smi)
     paths_phase(smi)
+    dp_launches = dp_phase(smi)
     log("train", f"flash_fwd launches: serving {serve_launches}, transformer "
                  f"training {flash_launches['flash_fwd']}")
 
@@ -3064,7 +3498,8 @@ def main(argv=None) -> int:
         ms, plain_ms = loss_times[(name, *SLICE_LOSS_SHAPE)]
         pruned_ms, pruned_plain_ms = pruned_times[(name, b, d)]
         launches = {"mlp": loss_launches[name],
-                    "full_crossclr": pruned_launches[name]}
+                    "full_crossclr": pruned_launches[name],
+                    "data_parallel_one_rank": dp_launches["a"].get(name, 0)}
         records.append({
             "name": name, "route": "cuda", "source": LOSS_SOURCE,
             "replaces": LOSS_REPLACES[name], "launches": sum(launches.values()),
@@ -3084,9 +3519,13 @@ def main(argv=None) -> int:
     for name in fg.KERNELS:
         ms, plain_ms = rows_times[(name, b, b, d)]
         rank_ms, rank_plain_ms = rows_times[(name, rank_loc, rank_b, rank_d)]
+        launches = {"global_losses": rows_launches[name],
+                    **{f"data_parallel_{leg}": dp_launches[f"b_{leg}"][name]
+                       for leg in DP_LEGS}}
         records.append({
             "name": name, "route": "cuda", "source": ROWS_SOURCE,
-            "replaces": ROWS_REPLACES[name], "launches": rows_launches[name],
+            "replaces": ROWS_REPLACES[name], "launches": sum(launches.values()),
+            "launches_by_path": launches,
             "max_abs_err": rows_worst[name], "ms": ms, "plain_ms": plain_ms,
             **bounds[name], "library_ms": None,
             "timed_at": f"B={b} D={d} bf16, keep masks at prune {PRUNE}",

@@ -283,7 +283,8 @@ class HostShard:
     ``floor(N/P)`` so that every process has the same shard length and
     therefore the same epoch boundaries; every process shuffles its shard
     with the same stream, so the global batch is a deterministic disjoint
-    union.  For the data-parallel step (ROADMAP queue 1 #16)."""
+    union.  Each rank of the data-parallel step reads its own shard at the
+    local batch (``train.py``; ``parallel.host_local_batch_size``)."""
 
     def __init__(self, dataset, process_index: int, process_count: int):
         usable = len(dataset) // process_count
@@ -494,8 +495,8 @@ def check_chunk_bytes(nbytes: int, n: int, budget: int) -> None:
 
 # the train stream's host ring: two buffers are enough, since the
 # prefetcher finishes each copy before it draws again (on the CPU it hands
-# over private copies); on a card the ring may lock at most this share of
-# the host's memory
+# over private copies); on a card the rings of one host's ranks may lock at
+# most this share of the host's memory together
 TRAIN_RING = 2
 PINNED_HOST_SHARE = 0.5
 
@@ -508,7 +509,8 @@ def host_memory_bytes() -> int:
 
 def train_stream(dataset, batch_size: int, n: int, *, device="cuda",
                  seed: int = 0, start_step: int = 0,
-                 max_chunk_bytes: int = 0) -> "DevicePrefetcher":
+                 max_chunk_bytes: int = 0,
+                 host_ranks: int = 1) -> "DevicePrefetcher":
     """The train CLI's data path: the batches of ``infinite_batches``
     (resumed at ``start_step``) on ``device``, ``n`` to a chunk.
 
@@ -518,8 +520,11 @@ def train_stream(dataset, batch_size: int, n: int, *, device="cuda",
     unstacked into ``[B, ...]`` batches, prefetched two ahead.  Before
     anything is allocated it refuses a stacked chunk (``n > 1``) over
     ``max_chunk_bytes`` (the trainer's ``stacked_budget``; 0: none), and on
-    a CUDA device a ring that would lock more than ``PINNED_HOST_SHARE`` of
-    the host's memory."""
+    a CUDA device a ring that would lock more than its rank's part of
+    ``PINNED_HOST_SHARE`` of the host's memory: the share over
+    ``host_ranks``, the ranks on this host, each of which locks its own
+    ring.  A data-parallel rank passes its :class:`HostShard` and its
+    local batch."""
     import torch
 
     device = torch.device(device)
@@ -531,14 +536,14 @@ def train_stream(dataset, batch_size: int, n: int, *, device="cuda",
         check_chunk_bytes(nbytes, n, max_chunk_bytes)
     pinned = device.type == "cuda"
     if pinned:
-        limit = int(host_memory_bytes() * PINNED_HOST_SHARE)
+        limit = int(host_memory_bytes() * PINNED_HOST_SHARE / host_ranks)
         if TRAIN_RING * nbytes > limit:
             raise ValueError(
                 f"the host ring of {TRAIN_RING} chunks of {n} x {batch_size} "
                 f"rows would lock {TRAIN_RING * nbytes / 2**30:.2f} GiB, over "
-                f"{PINNED_HOST_SHARE:.0%} of the host's memory "
-                f"({limit / 2**30:.2f} GiB) — lower train.steps_per_call or "
-                "data.batch_size")
+                f"{PINNED_HOST_SHARE:.0%} of the host's memory shared by "
+                f"{host_ranks} rank(s) on this host ({limit / 2**30:.2f} GiB) — "
+                "lower train.steps_per_call or data.batch_size")
     ring = _ring(fields, n * batch_size, TRAIN_RING,
                  _pinned_empty if pinned else np.empty)
     chunks = _chunks(fields, indices, batch_size, n, ring)
@@ -564,20 +569,16 @@ def stack_batches(batches: Iterator[dict], n: int) -> Iterator[dict]:
 def prefetch_to_device(batches: Iterator[dict], size: int = 2,
                        device="cuda", sharding=None) -> "DevicePrefetcher":
     """Keep up to ``size`` batches (or chunks) on ``device`` ahead of the
-    consumer: a :class:`DevicePrefetcher` over ``batches``.  One process
-    only: ``sharding`` and a multi-process group wait for the data-parallel
-    step (ROADMAP queue 1 #16)."""
-    import torch
-
+    consumer: a :class:`DevicePrefetcher` over ``batches``.  Under a
+    data-parallel group each rank owns its prefetcher on its own device,
+    over its own rows (:class:`HostShard`).  ``sharding`` is refused: a
+    rank's chunk is already its shard of the global batch, so there is
+    nothing to lay out across devices."""
     if sharding is not None:
         raise NotImplementedError(
-            "prefetch_to_device(sharding=...) is not ported to "
-            "crossclr_tpu_torch yet (ROADMAP queue 1 #16)")
-    if (torch.distributed.is_available() and torch.distributed.is_initialized()
-            and torch.distributed.get_world_size() > 1):
-        raise NotImplementedError(
-            "multi-process prefetch_to_device is not ported to "
-            "crossclr_tpu_torch yet (ROADMAP queue 1 #16)")
+            "prefetch_to_device(sharding=...) has no counterpart in "
+            "crossclr_tpu_torch (decided in ROADMAP queue 1 #16): each rank "
+            "prefetches its own HostShard's chunks to its own device")
     return DevicePrefetcher(batches, size, device)
 
 

@@ -299,13 +299,17 @@ class DualEncoder(nn.Module):
         self.text_tower = _build_tower(text_cfg, self.dropout_gen)
         self.logit_scale = nn.Parameter(torch.ones(()))
 
-    def reseed_dropout(self, seed: int, step: int, chunk: int | None = None) -> None:
+    def reseed_dropout(self, seed: int, step: int, chunk: int | None = None,
+                       rank: int | None = None) -> None:
         """Set the dropout generator as a pure function of ``(seed, step)``,
-        so a step's masks do not depend on what ran before it.  A ``chunk``
-        index (the two-pass step's) is folded in too, as the JAX step folds
-        ``chunk_idx`` into its key: re-encoding a chunk draws its masks
-        again."""
+        so a step's masks do not depend on what ran before it.  A data-
+        parallel ``rank`` (None at one rank) and a ``chunk`` index (the
+        two-pass step's) are folded in too, in that order, as the JAX step
+        folds ``axis_index`` and ``chunk_idx`` into its key: the ranks draw
+        different masks, and re-encoding a chunk draws its masks again."""
         value = ((int(seed) << 32) + int(step)) % (1 << 64)
+        if rank is not None:
+            value = (value * 0xBF58476D1CE4E5B9 + int(rank) + 1) % (1 << 64)
         if chunk is not None:
             # an odd multiplier mixes the chunk into every bit of the seed
             value = (value * 0x9E3779B97F4A7C15 + int(chunk) + 1) % (1 << 64)

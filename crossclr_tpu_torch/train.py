@@ -1,4 +1,5 @@
-"""Training CLI on one device: ``python -m crossclr_tpu_torch.train``.
+"""Training CLI: ``python -m crossclr_tpu_torch.train``, on one device or
+one process per rank.
 
 Counterpart of ``crossclr_tpu/train.py``: data → dual encoders →
 CrossCLR loss → AdamW → retrieval eval on a held-out split → checkpoints,
@@ -19,8 +20,24 @@ refused before anything is allocated when it exceeds the trainer's
 ``max_stacked_bytes`` budget; else one batch (two ahead).  fp32, bf16 and
 int8 stores train; an int8 batch is dequantized on the device.
 
-Refused rather than ignored: mesh flags other than one device (ROADMAP
-queue 1 item 11), ``--profile-dir`` and ``--tensorboard-dir`` (item 14).
+Data parallelism: under ``torchrun`` (or any launcher that sets ``RANK``,
+``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR`` and ``MASTER_PORT``) the
+ranks join one group before any device is used
+(``parallel.initialize_multihost``: ``nccl`` on ``--device cuda``, which
+means ``cuda:LOCAL_RANK``; ``gloo`` on ``--device cpu``).  Each rank
+reads its ``data.HostShard`` of the train split at the local batch ``data.batch_size / P`` and runs the data-parallel step
+(``training.Trainer``).  Rank 0 alone writes the metrics CSV and echoes,
+prints the resume and preemption notes, encodes the eval split and saves
+the checkpoints (the best ones too) while the others wait at a barrier;
+every rank restores the same checkpoint (its step broadcast from rank 0)
+and continues the exact batch sequence.  A SIGTERM or SIGINT on any rank
+stops every rank at the same dispatch boundary: the flag is all-reduced
+before each dispatch.  The group is destroyed on exit.  Without a
+launcher the run is the one-device run.
+
+Refused rather than ignored: tensor parallelism and the DCN layouts
+(``--n-model``, ``--mesh-dcn``, ``--mesh-granule``; ROADMAP queue 1
+item 13), ``--profile-dir`` and ``--tensorboard-dir`` (item 14).
 
 Examples:
   python -m crossclr_tpu_torch.train --config configs/youcook2_mlp.json \\
@@ -38,16 +55,22 @@ Examples:
       train.warmup_steps=2 checkpoint_dir=/tmp/podslice
   python -m crossclr_tpu_torch.train --device cpu --steps 50 \\
       data.batch_size=64 data.num_pairs=512
+  torchrun --nproc_per_node=4 -m crossclr_tpu_torch.train \\
+      --config configs/podslice_32k.json --steps 8 data.source=synthetic \\
+      data.num_pairs=36500 data.video_dim=512 data.text_dim=384 \\
+      train.warmup_steps=2 checkpoint_dir=/tmp/podslice
 
 The podslice config trains through the GradCache two-pass step
-(``train.embedding_chunk``); its ``zero1`` and ``global_negatives`` are
-inert on one device, as in the JAX trainer without a mesh.
+(``train.embedding_chunk``); past one rank through its global negatives
+and ZeRO-1 (``zero1``), both inert on one device, as in the JAX trainer
+without a mesh.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 import signal
 import sys
 from pathlib import Path
@@ -70,11 +93,6 @@ def chunk_steps(cfg) -> int:
 
 
 def main(argv: list[str] | None = None) -> int:
-    from .data import dataset_from_config, train_eval_split, train_stream
-    from .eval import _encode_split
-    from .evaluation import retrieval_metrics
-    from .training import CheckpointManager, Trainer
-    from .utils import MetricsWriter
     from .utils.config import ExperimentConfig, apply_overrides, load_config
 
     ap = argparse.ArgumentParser(description=__doc__)
@@ -91,17 +109,18 @@ def main(argv: list[str] | None = None) -> int:
                     "to train on the CPU)")
     ap.add_argument("--tensorboard-dir", default=None, help="not ported (refused)")
     ap.add_argument("--n-model", type=int, default=1,
-                    help="one device only: 1 (other values are refused)")
-    ap.add_argument("--mesh-dcn", default="auto", help="one device only (refused)")
+                    help="data parallelism only: 1 (other values are refused)")
+    ap.add_argument("--mesh-dcn", default="auto",
+                    help="data parallelism only (refused)")
     ap.add_argument("--mesh-granule", default="slice",
-                    help="one device only (refused)")
+                    help="data parallelism only (refused)")
     ap.add_argument("--profile-dir", default=None, help="not ported (refused)")
     ap.add_argument("overrides", nargs="*", help="section.key=value overrides")
     args = ap.parse_args(argv)
 
     if args.n_model != 1 or args.mesh_dcn != "auto" or args.mesh_granule != "slice":
-        raise _refuse("a device mesh (--n-model, --mesh-dcn, --mesh-granule)",
-                      "item 11")
+        raise _refuse("tensor parallelism and the DCN mesh layouts (--n-model, "
+                      "--mesh-dcn, --mesh-granule)", "item 13")
     if args.profile_dir:
         raise _refuse("--profile-dir", "item 14")
     if args.tensorboard_dir:
@@ -120,8 +139,34 @@ def main(argv: list[str] | None = None) -> int:
             cfg, train=dataclasses.replace(cfg.train, total_steps=args.steps)
         )
 
+    # the launcher's ranks join one group before any device is used
+    import torch.distributed as dist
+
+    from .parallel.multihost import initialize_multihost, rank_device
+
+    own_group = not (dist.is_available() and dist.is_initialized())
+    grouped = initialize_multihost(args.device)
+    try:
+        return _train(cfg, args, rank_device(args.device) if grouped else args.device)
+    finally:
+        if grouped and own_group:
+            dist.destroy_process_group()
+
+
+def _train(cfg, args, device) -> int:
+    """The run of :func:`main` on ``device``, after the group (if any)."""
+    from .data import HostShard, dataset_from_config, train_eval_split, train_stream
+    from .eval import _encode_split
+    from .evaluation import retrieval_metrics
+    from .parallel import host_local_batch_size
+    from .training import CheckpointManager, Trainer
+    from .utils import MetricsWriter
+
     # -- data: eval rows are held out of the train stream --------------------
     dataset, _ = dataset_from_config(cfg.data)
+    trainer = Trainer(cfg.video_tower, cfg.text_tower, cfg.train, device)
+    rank, world = trainer.rank, trainer.world
+    lead = rank == 0  # writes, echoes, evaluates and checkpoints
     if cfg.data.eval_fraction > 0:
         n_eval = max(int(len(dataset) * cfg.data.eval_fraction), 1)
         if n_eval >= len(dataset):
@@ -132,15 +177,25 @@ def main(argv: list[str] | None = None) -> int:
         train_data, eval_data = train_eval_split(dataset, n_eval)
     else:
         train_data = eval_data = dataset
-        print("data.eval_fraction=0: no held-out split; eval/R@K measures "
-              "memorization of training rows", file=sys.stderr)
+        if lead:
+            print("data.eval_fraction=0: no held-out split; eval/R@K measures "
+                  "memorization of training rows", file=sys.stderr)
     batch_size = cfg.data.batch_size
-    if len(train_data) < batch_size:
+    try:
+        local_batch = host_local_batch_size(batch_size)
+    except ValueError as e:
+        raise SystemExit(f"data.batch_size: {e}") from e
+    # the ranks on this host share its page-locked memory (torchrun's
+    # LOCAL_WORLD_SIZE; one rank a host without it)
+    host_ranks = int(os.environ.get("LOCAL_WORLD_SIZE", 1)) if world > 1 else 1
+    if world > 1:  # this rank's rows p::P, the same length on every rank
+        train_data = HostShard(train_data, rank, world)
+    if len(train_data) < local_batch:
         raise SystemExit(
             f"{len(train_data)} train rows < data.batch_size {batch_size}"
+            + (f" / {world} ranks" if world > 1 else "")
         )
 
-    trainer = Trainer(cfg.video_tower, cfg.text_tower, cfg.train, args.device)
     state = trainer.init_state()
     ckpt = CheckpointManager(cfg.checkpoint_dir) if cfg.checkpoint_dir else None
     best_ckpt = None
@@ -149,11 +204,17 @@ def main(argv: list[str] | None = None) -> int:
             Path(cfg.checkpoint_dir) / "best", max_to_keep=1,
             best_metric=cfg.train.keep_best_metric,
         )
-    if ckpt is not None and ckpt.latest_step() is not None:
-        state = ckpt.restore(state)
-        print(f"resumed from step {state.step}", file=sys.stderr)
 
-    writer = MetricsWriter(args.metrics_csv)
+    def latest_step() -> int:  # rank 0's newest checkpoint, -1 for none
+        step = ckpt.latest_step() if lead else None
+        return trainer.broadcast_int(-1 if step is None else step)
+
+    if ckpt is not None and (latest := latest_step()) >= 0:
+        state = trainer.restored_state(ckpt.restore(state, latest))
+        if lead:
+            print(f"resumed from step {state.step}", file=sys.stderr)
+
+    writer = MetricsWriter(args.metrics_csv) if lead else MetricsWriter(echo=False)
     stop_requested = {"flag": False}
 
     def _on_signal(signum, frame):
@@ -168,6 +229,9 @@ def main(argv: list[str] | None = None) -> int:
         except ValueError:  # not the main thread (tests): leave them alone
             pass
 
+    def should_stop() -> bool:  # the same answer on every rank
+        return trainer.any_rank(stop_requested["flag"])
+
     steps = cfg.train.total_steps
     done = state.step
     if args.stop_after is not None:
@@ -175,16 +239,17 @@ def main(argv: list[str] | None = None) -> int:
     n = chunk_steps(cfg)
     prestacked = n > 1
     spc = cfg.train.steps_per_call
-    if spc > 1 and not prestacked:
+    if spc > 1 and not prestacked and lead:
         print(f"train.steps_per_call={spc} does not divide eval_every="
               f"{cfg.eval_every}; host-side chunk pre-stacking disabled "
               f"(fit still runs {spc} steps per dispatch)", file=sys.stderr)
     it = None
     try:
         try:  # a resumed run continues the exact batch sequence
-            it = train_stream(train_data, batch_size, n, device=trainer.device,
+            it = train_stream(train_data, local_batch, n, device=trainer.device,
                               seed=cfg.data.seed, start_step=done,
-                              max_chunk_bytes=trainer.stacked_budget())
+                              max_chunk_bytes=trainer.stacked_budget(),
+                              host_ranks=host_ranks)
         except ValueError as e:  # the chunk or its host ring is too large
             raise SystemExit(str(e)) from e
         while done < steps:
@@ -192,36 +257,42 @@ def main(argv: list[str] | None = None) -> int:
                 state, _ = trainer.fit(
                     state, it, steps=min(cfg.eval_every, steps - done),
                     log_every=cfg.log_every, writer=writer,
-                    should_stop=lambda: stop_requested["flag"],
-                    prestacked=prestacked,
+                    should_stop=should_stop, prestacked=prestacked,
                 )
             except FloatingPointError as e:
                 # a poisoned state is not checkpointed: the last good
                 # checkpoint is the recovery point
                 raise SystemExit(f"aborted: {e}") from e
             done = state.step
-            if stop_requested["flag"]:
-                if ckpt is not None and ckpt.latest_step() != done:
-                    ckpt.save(done, state)
-                    print(f"preemption checkpoint saved at step {done}",
-                          file=sys.stderr)
+            # under ZeRO-1 every rank takes part in gathering the moments
+            if should_stop():  # a signal during the last dispatch counts too
+                if ckpt is not None and latest_step() != done:
+                    full = trainer.checkpoint_state(state)
+                    if lead:
+                        ckpt.save(done, full)
+                        print(f"preemption checkpoint saved at step {done}",
+                              file=sys.stderr)
                 break
-            eval_state = (trainer.ema_state(state) if cfg.train.eval_with_ema
-                          else state)
-            v_emb, t_emb = _encode_split(trainer, eval_state, eval_data,
-                                         batch_size)
-            metrics = retrieval_metrics(v_emb, t_emb)
-            writer({"step": done, **{f"eval/{k}": v for k, v in metrics.items()}})
-            if ckpt is not None:
-                ckpt.save(done, state)
-            if best_ckpt is not None:
-                if cfg.train.keep_best_metric not in metrics:
-                    raise SystemExit(
-                        f"train.keep_best_metric "
-                        f"{cfg.train.keep_best_metric!r} is not an eval "
-                        f"metric; available: {sorted(metrics)}"
-                    )
-                best_ckpt.save(done, state, metrics=metrics)
+            full = trainer.checkpoint_state(state) if ckpt is not None else None
+            if lead:
+                eval_state = (trainer.ema_state(state) if cfg.train.eval_with_ema
+                              else state)
+                v_emb, t_emb = _encode_split(trainer, eval_state, eval_data,
+                                             batch_size)
+                metrics = retrieval_metrics(v_emb, t_emb)
+                writer({"step": done,
+                        **{f"eval/{k}": v for k, v in metrics.items()}})
+                if ckpt is not None:
+                    ckpt.save(done, full)
+                if best_ckpt is not None:
+                    if cfg.train.keep_best_metric not in metrics:
+                        raise SystemExit(
+                            f"train.keep_best_metric "
+                            f"{cfg.train.keep_best_metric!r} is not an eval "
+                            f"metric; available: {sorted(metrics)}"
+                        )
+                    best_ckpt.save(done, full, metrics=metrics)
+            trainer.barrier()
     finally:
         if it is not None:
             it.close()  # stop and join the prefetch worker

@@ -43,9 +43,37 @@ with a message rather than ignored: ``optimizer="lamb"`` (ROADMAP queue 1
 item 13) and transformer-tower dropout under ``attention="xla"`` (item 10:
 its JAX mask comes from ``jax.random``).  Under ``attention="flash"``
 the towers' dropout generator is reseeded every step from
-``(train.seed, step)``, so a resumed run draws the same masks.  ``zero1`` and
-``global_negatives`` are inert on one device, as in the JAX trainer with
-``mesh=None``.
+``(train.seed, step)``, so a resumed run draws the same masks.
+
+**Data parallelism.**  Under the initialised default ``torch.distributed``
+group of P ranks (``parallel.initialize_multihost``) each rank encodes its own rows of the global batch (``data.HostShard``)
+and the step computes the JAX step on a ``make_mesh(n_data=P)`` mesh: the
+loss and the gradients of the GLOBAL batch, summed over ranks (the JAX
+step ``psum``s; not ``DistributedDataParallel``'s mean), then the same
+update on every rank.
+* ``global_negatives`` with ``crossclr_intra(_fused)`` or
+  ``crossclr(_fused)``: the loss is ``parallel.global_cross_clr_intra`` /
+  ``global_cross_clr`` (the ``_fused`` losses through the rows kernels),
+  which return the global value with the rank's own gradient.
+* Any other loss, or ``global_negatives=False``: the embeddings (and the
+  full CrossCLR losses' pooled raw inputs) are all-gathered and every rank
+  computes the plain loss L of the whole batch, as GSPMD partitions the
+  JAX step's full-batch loss; each rank differentiates L / P, since the
+  all-gather's backward sums the P ranks' identical cotangents.
+* The gradients travel in one flat buffer: one all-reduce (SUM) a step,
+  which also averages the embedding-norm metrics; the clip reads the
+  summed gradient's global norm.  Under ``zero1`` each moment is sharded
+  on the first dimension (of the torch layout) that P divides, as
+  ``_zero1_spec`` does: the shardable gradients are reduce-scattered, the
+  rest all-reduced, AdamW runs on the rank's rows and the parameters are
+  all-gathered; the numbers are the replicated update's.  The EMA stays
+  replicated.  Checkpoints hold full moments (:meth:`Trainer.checkpoint_state`
+  gathers, :meth:`Trainer.restored_state` cuts), so they restore at any
+  world size.
+* Parameters are broadcast from rank 0 after init and after a restore;
+  the rank is folded into the dropout seed (the JAX step folds
+  ``axis_index``), and at one rank the seeds are the one-device ones.
+At one rank the step is the one-device step, and its all-reduce a copy.
 """
 
 from __future__ import annotations
@@ -60,11 +88,17 @@ from typing import Any, Callable
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..data.datasets import check_chunk_bytes
 from ..data.quantize import dequantize_batch
 from ..losses import functional as F
 from ..models.encoders import DualEncoder, TowerConfig
+from ..parallel.global_loss import (
+    all_gather,
+    global_cross_clr,
+    global_cross_clr_intra,
+)
 
 __all__ = [
     "AdamW",
@@ -173,6 +207,9 @@ _TRACED_TEMP_LOSSES = ("crossclr_intra", "crossclr", "crossclr_fused",
                        "info_nce", "crossclr_intra_fused")
 # the full CrossCLR losses: pruning and positive weights from connectivity
 _WEIGHTED_LOSSES = ("crossclr", "crossclr_fused")
+# the losses that take the global-negative route over a group of ranks
+_GLOBAL_LOSSES = ("crossclr_intra", "crossclr_intra_fused", "crossclr",
+                  "crossclr_fused")
 
 # CLIP clamps exp(logit_scale) at 100; the same bound, symmetric
 _LOGIT_SCALE_BOUND = 4.6051702  # ln(100)
@@ -296,11 +333,16 @@ class AdamW:
 
     @torch.no_grad()
     def update(self, params: dict[str, torch.Tensor],
-               grads: dict[str, torch.Tensor], opt_state: dict) -> torch.Tensor:
+               grads: dict[str, torch.Tensor], opt_state: dict,
+               sq_norm: torch.Tensor | None = None) -> torch.Tensor:
         """Clip ``grads``, update ``params`` and ``opt_state`` in place;
         returns the global gradient norm before clipping (a device
-        scalar: no host sync)."""
-        gnorm = torch.sqrt(sum(torch.sum(g * g) for g in grads.values()))
+        scalar: no host sync).  ``sq_norm``: the squared global norm, when
+        ``grads`` hold only this rank's shards (ZeRO-1) and the caller
+        summed it over ranks."""
+        if sq_norm is None:
+            sq_norm = sum(torch.sum(g * g) for g in grads.values())
+        gnorm = torch.sqrt(sq_norm)
         keep = gnorm < self.clip_norm
         count = opt_state["count"]
         lr = self.learning_rate(count)
@@ -330,7 +372,9 @@ def make_optimizer(cfg: TrainConfig) -> AdamW:
 
 class Trainer:
     """Owns the dual towers' init, the train step and the loop, and the
-    eval-mode encode, on one explicit ``device``."""
+    eval-mode encode, on one explicit ``device``; under an initialised
+    default process group it is this rank's part of the data-parallel
+    step (see the module doc)."""
 
     def __init__(self, video_cfg: TowerConfig, text_cfg: TowerConfig,
                  train_cfg: TrainConfig, device: str | torch.device = "cuda"):
@@ -353,12 +397,36 @@ class Trainer:
             raise ValueError(
                 f"ema_decay must be in (0, 1), got {train_cfg.ema_decay}"
             )
+        grouped = dist.is_available() and dist.is_initialized()
+        self.group = dist.group.WORLD if grouped else None
+        self.world = dist.get_world_size() if grouped else 1
+        self.rank = dist.get_rank() if grouped else 0
+        # the JAX step's route (trainer.py _build_step): global negatives
+        # for the CrossCLR losses past one rank, else the gathered batch
+        self.use_global = (self.world > 1 and train_cfg.global_negatives
+                           and train_cfg.loss in _GLOBAL_LOSSES)
+        if self.use_global and "ring" in (video_cfg.attention, text_cfg.attention):
+            raise ValueError(
+                "attention='ring' (sequence parallelism over the model "
+                "axis) cannot run inside the data-axis global-negative "
+                "step; use global_negatives=False"
+            )
+        self.zero1 = train_cfg.zero1 and self.world > 1
         self.video_cfg = video_cfg
         self.text_cfg = text_cfg
         self.cfg = train_cfg
         self.device = torch.device(device)
         self.optimizer = make_optimizer(train_cfg)
         self._loss_fn = make_loss_fn(train_cfg)
+        # ZeRO-1: each parameter's sharded dimension, None = replicated
+        self._shard_dims: dict[str, int | None] = {}
+        # any_rank's host-side group: the default group when it is gloo,
+        # else a gloo group of its ranks, made here, where every rank of
+        # the default group arrives (new_group is a collective of them all)
+        self._vote_group = None
+        if grouped:
+            self._vote_group = (self.group if dist.get_backend() == "gloo"
+                                else dist.new_group(backend="gloo"))
         # once per trainer: the fit-startup check of the weighting channel
         self._weight_diag_done = False
 
@@ -398,6 +466,8 @@ class Trainer:
     WEIGHT_ESS_WARN = 0.02
 
     def _warn_if_degenerate_weights(self, batch: dict) -> None:
+        if self.rank != 0:  # rank 0 alone reports, on its own rows
+            return
         fracs = self.weight_degeneracy_check(batch)
         if not fracs:
             return
@@ -425,7 +495,9 @@ class Trainer:
         """Step-0 state: towers seeded from ``train.seed`` (or loaded from
         ``state_dict``, e.g. ``utils.params.state_dict_from_flax`` of a JAX
         trainer's params), fresh optimizer moments, and the EMA at the
-        initial parameters when ``ema_decay`` is set."""
+        initial parameters when ``ema_decay`` is set.  Under a group the
+        parameters are rank 0's (broadcast) and, under ZeRO-1, the moments
+        this rank's shards."""
         model = DualEncoder(self.video_cfg, self.text_cfg)
         init_params(model, self.cfg.seed,
                     0.0 if self.cfg.learnable_temperature else 1.0)
@@ -433,11 +505,112 @@ class Trainer:
             model.load_state_dict(state_dict, strict=True)
         model = model.to(self.device).eval()
         params = dict(model.named_parameters())
+        if self.group is not None:
+            self._broadcast(list(params.values()))
+        self._shard_dims = {k: _zero1_dim(p.shape, self.world) if self.zero1
+                            else None for k, p in params.items()}
         ema = None
         if self.cfg.ema_decay is not None:
             ema = {k: p.detach().clone() for k, p in params.items()}
         return TrainState(step=0, model=model,
-                          opt_state=self.optimizer.init(params), ema=ema)
+                          opt_state=self.optimizer.init(self._opt_params(params)),
+                          ema=ema)
+
+    # -- the group ------------------------------------------------------------
+
+    @torch.no_grad()
+    def _broadcast(self, tensors: list[torch.Tensor]) -> None:
+        """Rank 0's values of ``tensors`` on every rank, in place."""
+        flat = _flat(tensors)
+        dist.broadcast(flat, 0, group=self.group)
+        _unflat_into(flat, tensors)
+
+    def any_rank(self, flag: bool) -> bool:
+        """Whether ``flag`` is set on any rank (every rank calls it at the
+        same point: a stop that one rank's signal asked for stops all at the
+        same dispatch boundary).  The vote is a host tensor on a gloo group
+        (the trainer's own when it is gloo), so it never waits for the
+        device's queued work."""
+        if self.group is None:
+            return flag
+        t = torch.tensor([int(flag)])
+        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=self._vote_group)
+        return bool(t.item())
+
+    def broadcast_int(self, value: int) -> int:
+        """Rank 0's ``value`` on every rank."""
+        if self.group is None:
+            return value
+        t = torch.tensor([value], dtype=torch.int64, device=self.device)
+        dist.broadcast(t, 0, group=self.group)
+        return int(t.item())
+
+    def barrier(self) -> None:
+        if self.group is not None:
+            dist.barrier(group=self.group)
+
+    def _opt_params(self, params: dict) -> dict:
+        """What AdamW updates: under ZeRO-1 this rank's rows (a view) of
+        each sharded parameter, else the parameters."""
+        return {k: p if self._shard_dims[k] is None
+                else _shard(p, self._shard_dims[k], self.rank, self.world)
+                for k, p in params.items()}
+
+    @torch.no_grad()
+    def _gather_shards(self, shards: dict[str, torch.Tensor],
+                       out: dict[str, torch.Tensor]) -> None:
+        """Every rank's ``shards`` (ZeRO-1 rows) written into the full
+        tensors ``out`` in place: one all-gather."""
+        names = [k for k in shards if self._shard_dims[k] is not None]
+        if not names:
+            return
+        local = torch.cat([_rank_major(shards[k], self._shard_dims[k], 1)[0]
+                           for k in names])
+        gathered = local.new_empty(self.world * local.numel())
+        dist.all_gather_into_tensor(gathered, local, group=self.group)
+        gathered = gathered.view(self.world, -1)
+        offset = 0
+        for k in names:
+            dim, full = self._shard_dims[k], out[k]
+            moved = full.movedim(dim, 0).shape
+            n = full.numel() // self.world
+            piece = gathered[:, offset:offset + n].reshape(moved)
+            full.copy_(piece.movedim(0, dim))
+            offset += n
+
+    def checkpoint_state(self, state: TrainState) -> TrainState:
+        """``state`` as a checkpoint holds it: with full moments.  Under
+        ZeRO-1 a copy whose moments are gathered from every rank (a
+        collective: every rank calls it), else ``state`` itself."""
+        if not self.zero1:
+            return state
+        params = dict(state.model.named_parameters())
+        opt = {"count": state.opt_state["count"]}
+        for key in ("mu", "nu"):
+            full = {k: torch.empty_like(p) if self._shard_dims[k] is not None
+                    else state.opt_state[key][k] for k, p in params.items()}
+            self._gather_shards(state.opt_state[key], full)
+            opt[key] = full
+        return TrainState(step=state.step, model=state.model, opt_state=opt,
+                          ema=state.ema)
+
+    def restored_state(self, state: TrainState) -> TrainState:
+        """``state`` after ``CheckpointManager.restore`` (full moments):
+        under a group its parameters and EMA broadcast from rank 0 and,
+        under ZeRO-1, each moment cut to this rank's shard."""
+        if self.group is None:
+            return state
+        params = dict(state.model.named_parameters())
+        ema = [] if state.ema is None else list(state.ema.values())
+        self._broadcast(list(params.values()) + ema)
+        if self.zero1:
+            for key in ("mu", "nu"):
+                moments = state.opt_state[key]
+                for k, dim in self._shard_dims.items():
+                    if dim is not None:
+                        moments[k] = _shard(moments[k], dim, self.rank,
+                                            self.world).clone()
+        return state
 
     def ema_state(self, state: TrainState) -> TrainState:
         """``state`` with the EMA parameters in a copy of the model — what
@@ -458,10 +631,12 @@ class Trainer:
     def step_model(self, state: TrainState, chunk: int | None = None
                    ) -> torch.nn.Module:
         """``state``'s model in train mode with this step's attention-dropout
-        masks: its generator reseeded from ``(train.seed, step)`` (and the
-        two-pass step's ``chunk``), whatever ran before."""
+        masks: its generator reseeded from ``(train.seed, step)`` (past one
+        rank, the rank; and the two-pass step's ``chunk``), whatever ran
+        before."""
         model = state.model.train()
-        model.reseed_dropout(self.cfg.seed, state.step, chunk)
+        model.reseed_dropout(self.cfg.seed, state.step, chunk,
+                             rank=self.rank if self.world > 1 else None)
         return model
 
     def step_inputs(self, batch: dict) -> tuple:
@@ -483,6 +658,12 @@ class Trainer:
         clip); the full CrossCLR losses score connectivity on the raw
         inputs pooled over their valid steps only, so padding never
         counts."""
+        temperature, v_raw, t_raw = self._loss_args(model, video, text,
+                                                    video_mask, text_mask)
+        return self._loss_fn(v_emb, t_emb, v_raw, t_raw, temperature=temperature)
+
+    def _loss_args(self, model, video, text, video_mask, text_mask):
+        """``(temperature, v_raw, t_raw)`` of :meth:`step_loss`."""
         cfg = self.cfg
         temperature = None
         if cfg.learnable_temperature:
@@ -491,7 +672,43 @@ class Trainer:
         if cfg.loss in _WEIGHTED_LOSSES:
             v_raw = F.masked_mean_pool(video, video_mask)
             t_raw = F.masked_mean_pool(text, text_mask)
-        return self._loss_fn(v_emb, t_emb, v_raw, t_raw, temperature=temperature)
+        return temperature, v_raw, t_raw
+
+    def step_objective(self, model: torch.nn.Module, v_emb, t_emb, video, text,
+                       video_mask=None, text_mask=None):
+        """``(objective, loss)``: what this rank differentiates and the
+        step's loss of the GLOBAL batch.  One rank: both are
+        :meth:`step_loss`.  Past one rank, on the global-negative route the
+        global loss (its value global, its gradient this rank's own); else
+        the plain loss L of the all-gathered batch, with L / P to
+        differentiate (see the module doc)."""
+        if self.world == 1:
+            loss = self.step_loss(model, v_emb, t_emb, video, text,
+                                  video_mask, text_mask)
+            return loss, loss
+        cfg = self.cfg
+        temperature, v_raw, t_raw = self._loss_args(model, video, text,
+                                                    video_mask, text_mask)
+        if self.use_global:
+            kw = dict(group=self.group, negative_weight=cfg.negative_weight,
+                      temperature=cfg.temperature if temperature is None
+                      else temperature, use_fused=cfg.loss.endswith("_fused"),
+                      precision=cfg.loss_precision)
+            if cfg.loss in _WEIGHTED_LOSSES:
+                loss = global_cross_clr(
+                    v_emb, t_emb, v_raw, t_raw,
+                    weight_temperature=cfg.weight_temperature,
+                    prune_percent=cfg.prune_percent, weight_norm=cfg.weight_norm,
+                    candidate_chunk=cfg.global_candidate_chunk, **kw)
+            else:
+                loss = global_cross_clr_intra(v_emb, t_emb, **kw)
+            return loss, loss
+        gather = lambda x: None if x is None else all_gather(x, self.group)
+        loss = self._loss_fn(gather(v_emb), gather(t_emb),
+                             gather(None if v_raw is None else v_raw.detach()),
+                             gather(None if t_raw is None else t_raw.detach()),
+                             temperature=temperature)
+        return loss / self.world, loss
 
     def two_pass(self, batch_size: int) -> bool:
         """Whether a step of ``batch_size`` rows is the two-pass step:
@@ -513,9 +730,10 @@ class Trainer:
             return loss, (v_emb, t_emb), grads
         model = self.step_model(state)
         v_emb, t_emb = model(*inputs)
-        loss = self.step_loss(model, v_emb, t_emb, *inputs)
+        objective, loss = self.step_objective(model, v_emb, t_emb, *inputs)
         params = dict(model.named_parameters())
-        grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
+        grads = torch.autograd.grad(objective, list(params.values()),
+                                    allow_unused=True)
         return loss, (v_emb, t_emb), {
             k: torch.zeros_like(p) if g is None else g
             for (k, p), g in zip(params.items(), grads)}
@@ -525,7 +743,7 @@ class Trainer:
         n, c = inputs[0].shape[0], self.cfg.embedding_chunk
         if n % c:
             raise ValueError(
-                f"embedding_chunk {c} does not divide the batch {n}")
+                f"embedding_chunk {c} does not divide the (per-device) batch {n}")
         return [tuple(None if x is None else x[i:i + c] for x in inputs)
                 for i in range(0, n, c)]
 
@@ -544,10 +762,10 @@ class Trainer:
         ``logit_scale`` under a learnable τ).  The towers do not run."""
         v = v_emb.detach().requires_grad_()
         t = t_emb.detach().requires_grad_()
-        loss = self.step_loss(state.model, v, t, *inputs)
+        objective, loss = self.step_objective(state.model, v, t, *inputs)
         params = dict(state.model.named_parameters())
         d_v, d_t, *grads = torch.autograd.grad(
-            loss, [v, t, *params.values()], allow_unused=True)
+            objective, [v, t, *params.values()], allow_unused=True)
         direct = {k: g for k, g in zip(params, grads) if g is not None}
         return loss.detach(), d_v, d_t, direct
 
@@ -574,15 +792,61 @@ class Trainer:
             acc[name] = g + acc[name]
         return acc
 
-    def apply_grads(self, state: TrainState, grads: dict) -> dict:
-        """Clip and apply AdamW to ``state``'s parameters in place, clamp
-        ``logit_scale`` (learnable τ) and update the EMA; returns the
-        device-scalar metrics of the update."""
+    @torch.no_grad()
+    def sum_grads(self, grads: dict, norms: torch.Tensor):
+        """``(grads, norms, sq_norm)``: the gradients summed over the ranks
+        and the embedding-norm metrics ``[video, text]`` averaged, in one
+        flat buffer, one all-reduce (SUM).  Under ZeRO-1 the sharded
+        gradients are reduce-scattered first, so ``grads`` holds this
+        rank's rows of them, and ``sq_norm`` is the squared global norm
+        (the shards' squares summed over ranks in the same all-reduce,
+        each replicated leaf counted once); else None."""
+        names = [k for k in grads if self._shard_dims.get(k) is None]
+        shards = [k for k in grads if self._shard_dims.get(k) is not None]
+        sq = None
+        if shards:
+            dims = [self._shard_dims[k] for k in shards]
+            send = torch.cat([_rank_major(grads[k], d, self.world)
+                              for k, d in zip(shards, dims)], dim=1)
+            recv = send.new_empty(send.shape[1])
+            dist.reduce_scatter_tensor(recv, send.reshape(-1),
+                                       op=dist.ReduceOp.SUM, group=self.group)
+            grads = dict(grads)
+            offset = 0
+            for k, d in zip(shards, dims):
+                view = _shard(grads[k], d, self.rank, self.world)
+                n = view.numel()
+                piece = recv[offset:offset + n].view(view.movedim(d, 0).shape)
+                grads[k] = piece.movedim(0, d)
+                offset += n
+            sq = sum(torch.sum(grads[k] * grads[k]) for k in shards).reshape(1)
+        out = [grads[k] for k in names] + [norms / self.world]
+        if sq is not None:
+            out.append(sq)
+        flat = _flat(out)
+        dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=self.group)
+        out[-2 if sq is not None else -1] = norms
+        _unflat_into(flat, out)
+        if sq is not None:
+            sq = sq[0] + sum(torch.sum(grads[k] * grads[k]) for k in names)
+        return grads, norms, sq
+
+    def apply_grads(self, state: TrainState, grads: dict,
+                    sq_norm: torch.Tensor | None = None) -> dict:
+        """Clip and apply AdamW to ``state``'s parameters in place (under
+        ZeRO-1 to this rank's rows, from :meth:`sum_grads`' shards and
+        ``sq_norm``, then all-gathered), clamp ``logit_scale`` (learnable
+        τ) and update the EMA; returns the device-scalar metrics of the
+        update."""
         cfg = self.cfg
         model = state.model
         params = dict(model.named_parameters())
-        metrics = {"grad_norm": self.optimizer.update(params, grads, state.opt_state)}
+        opt_params = self._opt_params(params) if self.zero1 else params
+        metrics = {"grad_norm": self.optimizer.update(opt_params, grads,
+                                                      state.opt_state, sq_norm)}
         with torch.no_grad():
+            if self.zero1:
+                self._gather_shards(opt_params, params)
             if cfg.learnable_temperature:
                 model.logit_scale.clamp_(-_LOGIT_SCALE_BOUND, _LOGIT_SCALE_BOUND)
                 metrics["logit_scale"] = model.logit_scale.detach().clone()
@@ -601,10 +865,14 @@ class Trainer:
         and returns it with device-scalar metrics."""
         loss, (v_emb, t_emb), grads = self.value_and_grad(
             state, self.step_inputs(batch))
-        metrics = {"loss": loss.detach(), **self.apply_grads(state, grads)}
         with torch.no_grad():
-            metrics["video_emb_norm"] = torch.linalg.vector_norm(v_emb, dim=1).mean()
-            metrics["text_emb_norm"] = torch.linalg.vector_norm(t_emb, dim=1).mean()
+            norms = torch.stack([torch.linalg.vector_norm(v_emb, dim=1).mean(),
+                                 torch.linalg.vector_norm(t_emb, dim=1).mean()])
+        sq_norm = None
+        if self.group is not None:
+            grads, norms, sq_norm = self.sum_grads(grads, norms)
+        metrics = {"loss": loss.detach(), **self.apply_grads(state, grads, sq_norm)}
+        metrics["video_emb_norm"], metrics["text_emb_norm"] = norms
         state.step += 1
         return state, metrics
 
@@ -673,7 +941,8 @@ class Trainer:
         remain.  At each ``log_every`` boundary and at the end the metrics
         are read to the host with ``steps_per_sec`` and ``pairs_per_sec``
         (the clock restarts after the first dispatch, so they are
-        steady-state rates) and the global ``step``; a non-finite loss
+        steady-state rates; pairs of the global batch, every rank's rows)
+        and the global ``step``; a non-finite loss
         there raises ``FloatingPointError`` under ``abort_on_nonfinite``."""
         history = []
         it = iter(batches)
@@ -734,12 +1003,49 @@ class Trainer:
                         time.perf_counter() - t_steady, 1e-9
                     )
                 metrics["steps_per_sec"] = rate
-                metrics["pairs_per_sec"] = rate * batch_rows
+                # the global batch: every rank's rows
+                metrics["pairs_per_sec"] = rate * batch_rows * self.world
                 metrics["step"] = step_offset + done
                 history.append(metrics)
                 if writer is not None:
                     writer(metrics)
         return state, history
+
+
+def _flat(tensors: list[torch.Tensor]) -> torch.Tensor:
+    return torch.cat([t.reshape(-1) for t in tensors])
+
+
+def _unflat_into(flat: torch.Tensor, tensors: list[torch.Tensor]) -> None:
+    """The pieces of ``flat`` copied back into ``tensors``, in order: into
+    their own memory, so what reads them next sees the layout it saw
+    before (at one rank, the same bits as without a group)."""
+    offset = 0
+    for t in tensors:
+        n = t.numel()
+        t.copy_(flat[offset:offset + n].view_as(t))
+        offset += n
+
+
+def _zero1_dim(shape, world: int) -> int | None:
+    """ZeRO-1's sharded dimension: the first that ``world`` divides
+    (``_zero1_spec``), None for a leaf that stays replicated."""
+    for i, n in enumerate(shape):
+        if n >= world and n % world == 0:
+            return i
+    return None
+
+
+def _shard(x: torch.Tensor, dim: int, rank: int, world: int) -> torch.Tensor:
+    """Rank ``rank``'s rows of ``x`` along ``dim`` (a view)."""
+    n = x.shape[dim] // world
+    return x.narrow(dim, rank * n, n)
+
+
+def _rank_major(x: torch.Tensor, dim: int, world: int) -> torch.Tensor:
+    """``[world, -1]``: row r is rank r's shard of ``x``, flattened with
+    ``dim`` first."""
+    return x.movedim(dim, 0).reshape(world, -1)
 
 
 def _synchronize(device: torch.device) -> None:

@@ -7,13 +7,15 @@ size and answers one search over HTTP; others train the MLP, the
 transformer, the full-CrossCLR and the podslice configs (the full
 CrossCLR one also imports the global-negative losses of
 ``crossclr_tpu_torch.parallel``; the podslice one trains through the
-GradCache two-pass step), and the MLP config from int8 and bf16 file
-stores, written by the port's own quantizer and bf16 conversion, with
-``ml_dtypes`` blocked too.
+GradCache two-pass step, and once more on two ranks of a gloo group that
+``parallel.initialize_multihost`` starts from the launcher's environment),
+and the MLP config from int8 and bf16 file stores, written by the port's
+own quantizer and bf16 conversion, with ``ml_dtypes`` blocked too.
 """
 
 import json
 import os
+import socket
 import subprocess
 import sys
 from pathlib import Path
@@ -193,6 +195,31 @@ print(json.dumps({"rc": rc, "passes": len(passes), "loaded": loaded}))
 """
 
 
+DATA_PARALLEL_SCRIPT = SCRIPT.split("import json\n", 1)[0] + r"""
+import json
+import os
+
+from crossclr_tpu_torch import train
+
+rank = os.environ["RANK"]
+rc = train.main([
+    "--config", CONFIG, "--device", "cpu", "--steps", "4",
+    "--metrics-csv", f"metrics_{rank}.csv",
+    "video_tower.input_dim=12", "text_tower.input_dim=10",
+    "video_tower.embed_dim=8", "text_tower.embed_dim=8",
+    "video_tower.hidden_dim=16", "text_tower.hidden_dim=16",
+    "data.source=synthetic", "data.num_pairs=72", "data.video_dim=12",
+    "data.text_dim=10", "data.batch_size=32", "train.embedding_chunk=8",
+    "train.warmup_steps=1", "train.steps_per_call=2", "eval_every=2",
+    "checkpoint_dir=ckpt",
+])
+loaded = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "flax", "optax", "orbax",
+                                       "crossclr_tpu"))
+print(json.dumps({"rc": rc, "loaded": loaded}))
+"""
+
+
 STORE_SCRIPT = SCRIPT.split("import json\n", 1)[0].replace(
     '"crossclr_tpu")', '"crossclr_tpu", "ml_dtypes")') + r"""
 import json
@@ -260,6 +287,38 @@ def test_port_trains_the_podslice_config_without_jax(tmp_path):
     assert proc.returncode == 0, proc.stderr[-3000:]
     result = json.loads(proc.stdout.strip().splitlines()[-1])
     assert result == {"rc": 0, "passes": 4, "loaded": []}
+    assert sorted(p.name for p in (tmp_path / "ckpt").iterdir()) == [
+        "step_2.pt", "step_4.pt"]
+
+
+def test_port_trains_on_two_ranks_without_jax(tmp_path):
+    """The podslice config on two gloo ranks (``--device cpu``) that the
+    train CLI joins from ``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``,
+    ``MASTER_ADDR`` and a free ``MASTER_PORT`` (global negatives, ZeRO-1,
+    the two-pass step at 16 rows a rank) with jax, flax, optax and orbax
+    blocked; rank 0 alone writes the metrics and the checkpoints."""
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    script = DATA_PARALLEL_SCRIPT.replace(
+        "CONFIG", repr(str(REPO / "configs" / "podslice_32k.json")))
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", script], cwd=tmp_path,
+        env=dict(os.environ, PYTHONPATH=str(REPO), RANK=str(rank),
+                 LOCAL_RANK=str(rank), WORLD_SIZE="2", LOCAL_WORLD_SIZE="2",
+                 MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port)),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for rank in range(2)]
+    try:
+        outs = [p.communicate(timeout=300) for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    for p, (out, err) in zip(procs, outs):
+        assert p.returncode == 0, err[-3000:]
+        assert json.loads(out.strip().splitlines()[-1]) == {"rc": 0, "loaded": []}
+    assert (tmp_path / "metrics_0.csv").exists()
+    assert not (tmp_path / "metrics_1.csv").exists()
     assert sorted(p.name for p in (tmp_path / "ckpt").iterdir()) == [
         "step_2.pt", "step_4.pt"]
 
