@@ -3,7 +3,9 @@
 
 Drives the port's paths and proves that they went through the repo's own
 CUDA kernels: retrieval serving at the full width of
-configs/lsmdc_transformer.json with attention="flash" on both towers,
+configs/lsmdc_transformer.json with attention="flash" on both towers, from
+seeded weights and from a checkpoint the port trained (eval, /reload, the
+int8 index, micro-batching),
 training at the full width of configs/youcook2_mlp.json through the fused
 CrossCLR-intra loss kernels, training the transformer towers of
 configs/lsmdc_transformer.json through the flash forward and backward
@@ -84,6 +86,35 @@ Phases, one line each; any failure raises and exits non-zero:
                  no backward kernel launched), and that query embeddings
                  from the kernel path have cosine >= 0.999 with the same
                  weights run through the plain attention.
+  5b. serve    — serving what the port trains, through the entry points a
+                 user calls, on configs/lsmdc_transformer.json at full width
+                 (flash attention, dropout 0.1, EMA 0.999, 4096 synthetic
+                 pairs made once for the phase, batch 1024, one step a
+                 dispatch): train.main to step 4 with a checkpoint;
+                 eval.main on it (all rows with --embeddings-output and
+                 --topk 10, the held-out rows with --ema): finite metrics at
+                 step 4, flash_fwd launched and no backward kernel, rows/s
+                 of the whole CLI call; build_service --checkpoint-dir, its
+                 corpus against the eval dump, 8 HTTP searches each
+                 launching flash_fwd and no backward kernel; --corpus-emb
+                 on the eval dump under --strict-index; the int8 index
+                 (--corpus-dtype int8 on the same dump): the card's int32
+                 accumulators equal to a CPU int32 product bit for bit at
+                 256 and 1 query rows, every score of 256 text queries and
+                 of 256 corpus rows as exact-match queries within 1e-2 of
+                 the fp32 index, top-1 kept wherever the fp32 margin
+                 clears 2e-2; 16 concurrent HTTP clients behind a 5 ms
+                 window against the serial answers (indices equal, scores
+                 within 1e-5, fewer dispatches than requests); /search
+                 p50 of single-row queries for the fp32 and the int8 index
+                 and for 1 and 16 clients with and without the window, over
+                 HTTP (the client's clock) and through search() in the
+                 process (no JSON);
+                 then train.main resumed to step 8 in the same directory
+                 and POST /reload: step 8, the corpus re-encoded through
+                 flash_fwd, its seconds.  Counts set to 0 at the start of
+                 the phase and read at its end: flash_dq = flash_dkv =
+                 8 x 8.
   6. loss      — the four loss kernels of ops/csrc/fused_dual.cu (sym_fwd,
                  sym_bwd at τ=0.03; dual_fwd, dual_bwd at a tensor τ of 0.03
                  and 0.01) against their plain versions on the same CUDA
@@ -258,7 +289,9 @@ its limit: the readings DP_PARAM_MEAN is set between.
 The second-to-last line is the kernels' JSON record: twelve kernels, each
 with its time, its plain version's, the library call's where one exists,
 and its bound from this run's shapes; the flash records also name the
-shape and build they were timed at and what the library call computes;
+shape and build they were timed at and what the library call computes,
+and their launches by path (transformer training, the serve phase's
+train-eval-serve-reload and, for the forward, the slice's serving);
 the loss records add their pruned branch's time, plain time, bound and
 launches on the full-CrossCLR legs; the rows records are timed at 1024 x
 384 and add their time, plain time and bound at one rank's block (1024 of
@@ -433,6 +466,18 @@ TRANSFORMER_OVERRIDES = [
     f"text_tower.dropout={LEG_DROPOUT}",
     "train.warmup_steps=30", "eval_every=20", "log_every=10",
 ]
+# serving what the port trains: the transformer leg's config and widths
+# with an EMA, one step a dispatch (a pinned ring of two batches), trained
+# to SERVE_STEPS[0], evaluated and served, trained on to SERVE_STEPS[1]
+# and reloaded
+SERVE_STEPS = (4, 8)
+SERVE_OVERRIDES = [
+    *TRANSFORMER_OVERRIDES, "train.ema_decay=0.999", "train.warmup_steps=2",
+    "train.steps_per_call=1", "eval_every=4", "log_every=1",
+]
+INT8_SCORE_BOUND = 1e-2  # the JAX package's stated move of a cosine score
+SERVE_CLIENTS, BATCH_WINDOW_MS = 16, 5.0
+BATCHED_SCORE_TOL = 1e-5  # a batch of other rows: the same sums in another order
 # the transformer leg again from bf16 and int8 file stores written from the
 # same synthetic pairs (the JAX package's default store dtype is bf16)
 STORE_STEPS = 40  # two dispatches of 20: the second is the steady rate
@@ -1376,9 +1421,9 @@ def headline_turns(fd, pair_base, smi: str) -> list:
     return records
 
 
-def post(url: str, payload: dict) -> tuple[int, dict]:
+def post(url: str, payload: dict, path: str = "/search") -> tuple[int, dict]:
     req = urllib.request.Request(
-        url + "/search", data=json.dumps(payload).encode(),
+        url + path, data=json.dumps(payload).encode(),
         headers={"Content-Type": "application/json"}, method="POST",
     )
     with urllib.request.urlopen(req, timeout=300) as resp:
@@ -1478,6 +1523,365 @@ def slice_phase(fa, smi: str) -> int:
     log("slice", f"corpus encode (video + text towers, batch 1024): "
                  f"{len(data) / seconds:.1f} rows/s over {len(data)} rows ({smi})")
     return launches
+
+
+class Served:
+    """A service behind its HTTP server (serve.ServiceHTTPServer, as
+    ``python -m crossclr_tpu_torch.serve`` runs it) on 127.0.0.1:0."""
+
+    def __init__(self, service):
+        from crossclr_tpu_torch.serve import ServiceHTTPServer
+
+        self.service = service
+        self.httpd = ServiceHTTPServer(("127.0.0.1", 0), service)
+        self.thread = threading.Thread(target=self.httpd.serve_forever, daemon=True)
+        self.thread.start()
+        self.url = f"http://127.0.0.1:{self.httpd.server_address[1]}"
+
+    def close(self) -> None:
+        self.httpd.shutdown()
+        self.httpd.server_close()
+        if self.service._batcher is not None:
+            self.service._batcher.close()
+
+
+def search_latencies(send, clients: int, per_client: int) -> list[float]:
+    """Seconds of each single-row search ``send(row)``, on its caller's
+    clock; ``clients`` threads released together, each sending
+    ``per_client`` requests in turn."""
+    gate = threading.Barrier(clients, timeout=300)
+    out, errors = [], []
+
+    def client(i: int) -> None:
+        try:
+            gate.wait()
+            for j in range(per_client):
+                t0 = time.perf_counter()
+                send(i * per_client + j)
+                out.append(time.perf_counter() - t0)
+        except Exception as e:  # noqa: BLE001 — re-raised below
+            errors.append(e)
+
+    threads = [threading.Thread(target=client, args=(i,)) for i in range(clients)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(300)
+        check(not t.is_alive(), "a search client did not finish in 300 s")
+    if errors:
+        raise errors[0]
+    return out
+
+
+def serve_checkpoint_phase(fa, smi: str) -> dict:
+    """Serving what the port trains, through the entry points a user
+    calls: train.main on the transformer config at full width (flash
+    attention, dropout 0.1, EMA) to SERVE_STEPS[0] with a checkpoint;
+    eval.main on it (all rows with the embeddings and top-k dumps; the
+    held-out rows with --ema); build_service from the checkpoint and 8
+    HTTP searches, each launching flash_fwd and no backward kernel; a
+    --corpus-emb service on the eval dump under --strict-index; the int8
+    index (int32 accumulators against a CPU int32 product bit for bit;
+    for text queries and for corpus rows as exact-match queries, every
+    score within INT8_SCORE_BOUND of the fp32 index and top-1 kept
+    wherever the fp32 margin clears twice the bound); SERVE_CLIENTS
+    concurrent clients behind a
+    BATCH_WINDOW_MS window against the serial answers; /search latency;
+    then train.main resumed to SERVE_STEPS[1] and POST /reload: the step
+    advances and the corpus is re-encoded through the kernel.  Every
+    count is set to 0 at the start and read at the end.  Returns the
+    flash kernels' launches on this path."""
+    import numpy as np
+
+    from crossclr_tpu_torch import data as data_pkg
+    from crossclr_tpu_torch import eval as teval
+    from crossclr_tpu_torch import train
+    from crossclr_tpu_torch.evaluation import similarity_matrix
+    from crossclr_tpu_torch.evaluation.retrieval import (
+        _int8_dot, _quantize_queries, _quantized_sim)
+    from crossclr_tpu_torch.serve import build_service
+    from crossclr_tpu_torch.utils.config import apply_overrides, load_config
+
+    # the synthetic pairs are made once for every entry point of the phase
+    # (set-up, 14-18 s a time at this size), as a store would be read
+    made, dataset_from_config = {}, data_pkg.dataset_from_config
+
+    def dataset_once(data_cfg):
+        if data_cfg not in made:
+            made[data_cfg] = dataset_from_config(data_cfg)
+        return made[data_cfg]
+
+    config = str(ROOT / TRANSFORMER_CONFIG)
+    first, last = SERVE_STEPS
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="crossclr_serve_") as tmp, \
+            mock.patch.object(data_pkg, "dataset_from_config", dataset_once):
+        tmp = Path(tmp)
+        ckpt = str(tmp / "ckpt")
+        overrides = [*SERVE_OVERRIDES, f"checkpoint_dir={ckpt}"]
+        cfg = apply_overrides(load_config(config), overrides)
+        data, _ = dataset_once(cfg.data)
+        reset_counts(fa)  # this path's counts start here
+
+        def flash_delta(before: dict) -> dict:
+            return {k: fa.launch_counts[k] - before[k] for k in fa.launch_counts}
+
+        t0 = time.perf_counter()
+        rc = train.main(["--config", config, "--device", "cuda", "--steps",
+                         str(first), "--metrics-csv", str(tmp / "m.csv"), *overrides])
+        check(rc == 0, f"train.main exited {rc}")
+        log("serve", f"train.main to step {first} with a checkpoint (EMA 0.999): "
+                     f"{time.perf_counter() - t0:.2f} s; launches {dict(fa.launch_counts)}")
+
+        # eval: all rows live with the dumps, the held-out rows with --ema
+        runs = {}
+        for tag, flags in (
+            ("all", ["--split", "all", "--embeddings-output", str(tmp / "emb.npz"),
+                     "--topk", "10", "--topk-output", str(tmp / "topk.npz")]),
+            ("eval_ema", ["--split", "eval", "--ema"]),
+        ):
+            before = dict(fa.launch_counts)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rc = teval.main(["--config", config, "--device", "cuda", "--output",
+                             str(tmp / f"{tag}.json"), *flags, *overrides])
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            check(rc == 0, f"eval.main exited {rc}")
+            metrics = json.loads((tmp / f"{tag}.json").read_text())
+            launched = flash_delta(before)
+            check(all(math.isfinite(v) for k, v in metrics.items() if "/" in k),
+                  f"eval {tag}: metrics {metrics}")
+            check(metrics["step"] == first, f"eval {tag}: step {metrics['step']}")
+            check(launched["flash_fwd"] > 0 and launched["flash_dq"] == 0
+                  == launched["flash_dkv"], f"eval {tag}: launches {launched}")
+            runs[tag] = (metrics, seconds)
+            log("serve", f"eval.main --{tag.replace('_', ' --')}: {metrics['rows']} "
+                         f"rows in {seconds:.2f} s ({metrics['rows'] / seconds:.1f} "
+                         f"rows/s, the whole CLI call); v2t/R@1 "
+                         f"{metrics['v2t/R@1']:.3f} t2v/R@1 {metrics['t2v/R@1']:.3f} "
+                         f"MdR {metrics['v2t/MdR']}/{metrics['t2v/MdR']}; launches "
+                         f"{launched} ({smi})")
+        check(runs["eval_ema"][0].get("ema") is True, "eval --ema not recorded")
+        with np.load(tmp / "emb.npz") as z:
+            dump = {k: z[k] for k in z.files}
+        with np.load(tmp / "topk.npz") as z:
+            topk = {k: z[k] for k in z.files}
+        check(dump["video"].shape == (len(data), cfg.video_tower.embed_dim)
+              and int(dump["step"]) == first
+              and not bool(dump["ema"]), "the eval dump's shape, step or flavour")
+        check(topk["indices"].shape == (len(data), 10) and np.isfinite(
+            topk["scores"]).all(), "the top-k dump")
+
+        # the service from the checkpoint, searched over HTTP
+        before = dict(fa.launch_counts)
+        t0 = time.perf_counter()
+        service = build_service(cfg, ckpt, "video", device="cuda")
+        torch.cuda.synchronize()
+        encode = flash_delta(before)
+        check(service.step == service.index_step == first, "service step")
+        check(encode["flash_fwd"] > 0, f"corpus encode launches {encode}")
+        gap = float(np.abs(service.corpus_emb.cpu().numpy() - dump["video"]).max())
+        log("serve", f"build_service --checkpoint-dir (step {first}): "
+                     f"{time.perf_counter() - t0:.2f} s; corpus encode launches "
+                     f"{encode}; corpus vs the eval dump max |Δ| {gap:.3e}")
+        check(gap <= BATCHED_SCORE_TOL, f"corpus vs eval dump {gap}")
+        served = Served(service)
+        try:
+            start = 0
+            for rows in (1, 3, 5, 16) * 2:
+                before = dict(fa.launch_counts)
+                status, out = post(served.url, {
+                    "features": data.text[start:start + rows].tolist(),
+                    "mask": data.text_mask[start:start + rows].tolist(), "k": 10})
+                check(status == 200, f"/search answered {status}")
+                check_result(out, rows, 10, service.corpus_rows)
+                launched = flash_delta(before)
+                check(launched["flash_fwd"] > 0 and launched["flash_dq"] == 0
+                      == launched["flash_dkv"], f"a search launched {launched}")
+                start += rows
+            status, health = get(served.url, "/healthz")
+            check(status == 200 and health["step"] == first
+                  and health["index_step"] == first, f"/healthz {health}")
+
+            # the eval dump as a precomputed index, held strictly
+            pre = build_service(cfg, ckpt, "video", device="cuda",
+                                corpus_emb_path=str(tmp / "emb.npz"),
+                                strict_index=True)
+            check(not pre.index_stale and not pre.index_tower_mismatch
+                  and torch.equal(pre.corpus_emb.cpu(), torch.from_numpy(dump["video"])),
+                  "--corpus-emb index")
+            feats, mask = data.text[:64], data.text_mask[:64]
+            a, b = service.search(feats, mask, k=10), pre.search(feats, mask, k=10)
+            check(a["indices"] == b["indices"], "--corpus-emb answers")
+            log("serve", f"--corpus-emb (the eval dump, step {first}) under "
+                         f"--strict-index: served, 64 queries answered as the "
+                         f"checkpoint's own index does")
+
+            # the int8 index, from the same dump
+            q8 = build_service(cfg, ckpt, "video", device="cuda", corpus_dtype="int8",
+                               corpus_emb_path=str(tmp / "emb.npz"))
+            values = q8.corpus_emb.values
+            check(values.dtype == torch.int8 and values.is_cuda, "int8 index placement")
+            q = service.trainer.encode_modality(
+                service.state, "text", np.asarray(data.text[:256], np.float32),
+                np.asarray(data.text_mask[:256], np.float32))
+            qv, qs = _quantize_queries(q)
+            for rows in (256, 1):  # torch._int_mm's padding: one row too
+                acc = _int8_dot(qv[:rows], values)
+                want = qv[:rows].cpu().int() @ values.cpu().int().T
+                check(torch.equal(acc.cpu(), want),
+                      f"int8 accumulators at {rows} rows: card vs CPU int32")
+            # text queries, and corpus rows as exact-match queries (the JAX
+            # tests' case): every score within the bound of the fp32
+            # index's, and top-1 kept wherever the fp32 margin clears twice
+            # the bound (within it the two may rightly differ)
+            exact = torch.from_numpy(dump["video"][:256]).cuda()
+            report = []
+            for tag, queries in (("text", q), ("exact-match", exact)):
+                qv, qs = _quantize_queries(queries)
+                sim8 = _quantized_sim(qv, qs, q8.corpus_emb)
+                sim32 = similarity_matrix(queries, pre.corpus_emb)
+                score_err = (sim8 - sim32).abs().max().item()
+                top = sim32.topk(2, dim=1)
+                clear = (top.values[:, 0] - top.values[:, 1]) > 2 * INT8_SCORE_BOUND
+                same = sim8.argmax(dim=1) == top.indices[:, 0]
+                report.append(f"{tag} queries: scores max |Δ| {score_err:.3e} "
+                              f"(limit {INT8_SCORE_BOUND}), top-1 agreement "
+                              f"{same.float().mean().item():.4f}, {int(clear.sum())} "
+                              f"of 256 clear of twice the bound (all of them kept)")
+                check(score_err <= INT8_SCORE_BOUND, f"int8 {tag} scores {score_err}")
+                check(bool(same[clear].all()), f"int8 {tag} top-1 flipped past the bound")
+            self_top1 = (sim8.argmax(dim=1) == torch.arange(256, device="cuda"))
+            log("serve", "int8 index: accumulators equal a CPU int32 product bit "
+                         "for bit (256 and 1 query rows); " + "; ".join(report)
+                         + f"; exact-match self top-1 {self_top1.float().mean().item():.4f}")
+
+            # micro-batching: concurrent clients against the serial answers
+            win = build_service(cfg, ckpt, "video", device="cuda",
+                                corpus_emb_path=str(tmp / "emb.npz"),
+                                batch_window_ms=BATCH_WINDOW_MS)
+            win_served = Served(win)
+            try:
+                gate = threading.Barrier(SERVE_CLIENTS, timeout=300)
+                answers = [None] * SERVE_CLIENTS
+
+                def client(i: int) -> None:
+                    gate.wait()
+                    rows = slice(2 * i, 2 * i + 2)
+                    answers[i] = post(win_served.url, {
+                        "features": data.text[rows].tolist(),
+                        "mask": data.text_mask[rows].tolist(), "k": 5 + i % 6})
+
+                threads = [threading.Thread(target=client, args=(i,))
+                           for i in range(SERVE_CLIENTS)]
+                for t in threads:
+                    t.start()
+                for t in threads:
+                    t.join(300)
+                    check(not t.is_alive(), "a batched client did not finish")
+                worst = 0.0
+                for i, (status, out) in enumerate(answers):
+                    check(status == 200, f"batched /search answered {status}")
+                    rows = slice(2 * i, 2 * i + 2)
+                    want = pre.search(data.text[rows], data.text_mask[rows],
+                                      k=5 + i % 6)
+                    check(out["indices"] == want["indices"],
+                          f"client {i}: batched indices differ from serial")
+                    worst = max(worst, float(np.abs(np.asarray(out["scores"])
+                                                    - np.asarray(want["scores"])).max()))
+                dispatches = win.stats()["search_dispatches"]
+                log("serve", f"{SERVE_CLIENTS} concurrent clients, {BATCH_WINDOW_MS} "
+                             f"ms window: {dispatches} dispatches for "
+                             f"{SERVE_CLIENTS} requests; vs serial: indices equal, "
+                             f"scores max |Δ| {worst:.3e} (limit {BATCHED_SCORE_TOL})")
+                check(dispatches < SERVE_CLIENTS, f"no coalescing: {dispatches}")
+                check(worst <= BATCHED_SCORE_TOL, f"batched scores {worst}")
+
+                # /search latency, single-row queries, k=10: over HTTP on
+                # the client's clock (JSON of a [1, 96, 768] query both ways
+                # included), and search() called in the process
+                q8_served = Served(q8)
+                pre_served = Served(pre)
+
+                def over_http(url):
+                    def send(row):
+                        row %= len(data)
+                        status, _ = post(url, {
+                            "features": data.text[row:row + 1].tolist(),
+                            "mask": data.text_mask[row:row + 1].tolist(), "k": 10})
+                        check(status == 200, f"/search answered {status}")
+                    return send
+
+                def in_process(svc):
+                    def send(row):
+                        row %= len(data)
+                        svc.search(data.text[row:row + 1], data.text_mask[row:row + 1],
+                                   k=10)
+                    return send
+
+                try:
+                    p50 = {}
+                    for tag, http, svc, clients, per in (
+                        ("fp32, 1 client", pre_served.url, pre, 1, 32),
+                        ("int8, 1 client", q8_served.url, q8, 1, 32),
+                        ("fp32, 1 client, window", win_served.url, win, 1, 32),
+                        (f"fp32, {SERVE_CLIENTS} clients", pre_served.url, pre,
+                         SERVE_CLIENTS, 4),
+                        (f"fp32, {SERVE_CLIENTS} clients, window", win_served.url,
+                         win, SERVE_CLIENTS, 4),
+                    ):
+                        for how, send in (("http", over_http(http)),
+                                          ("search()", in_process(svc))):
+                            lats = sorted(search_latencies(send, clients, per))
+                            p50[f"{tag}, {how}"] = lats[len(lats) // 2] * 1e3
+                    log("serve", "/search p50 (ms, single-row queries, k=10, the "
+                                 f"caller's clock, {BATCH_WINDOW_MS} ms window): "
+                                 + "; ".join(f"{k} {v:.2f}" for k, v in p50.items())
+                                 + f" ({smi})")
+                finally:
+                    q8_served.close()
+                    pre_served.close()
+            finally:
+                win_served.close()
+
+            # training resumes in the same directory; /reload picks it up
+            before_corpus = service.corpus_emb.clone()
+            rc = train.main(["--config", config, "--device", "cuda", "--steps",
+                             str(last), "--metrics-csv", str(tmp / "m.csv"),
+                             *overrides])
+            check(rc == 0, f"train.main (resume) exited {rc}")
+            before = dict(fa.launch_counts)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            status, body = post(served.url, {}, path="/reload")
+            reload_s = time.perf_counter() - t0
+            launched = flash_delta(before)
+            check(status == 200 and body == {"status": "ok", "step": last,
+                                             "index_step": last}, f"/reload {body}")
+            check(launched["flash_fwd"] > 0 and launched["flash_dq"] == 0
+                  == launched["flash_dkv"], f"/reload launches {launched}")
+            check(not torch.equal(service.corpus_emb, before_corpus),
+                  "/reload did not re-encode the corpus")
+            status, out = post(served.url, {"features": data.text[:3].tolist(),
+                                            "mask": data.text_mask[:3].tolist(),
+                                            "k": 10})
+            check(status == 200, f"/search after /reload answered {status}")
+            check_result(out, 3, 10, service.corpus_rows)
+            log("serve", f"train.main resumed to step {last}; POST /reload: step "
+                         f"{first} -> {body['step']} in {reload_s:.2f} s (restore "
+                         f"and a corpus re-encode of {service.corpus_rows} rows); "
+                         f"launches {launched} ({smi})")
+        finally:
+            served.close()
+        launches = dict(fa.launch_counts)
+    log("serve", f"the phase took {time.perf_counter() - t_phase:.1f} s; flash "
+                 f"launches on this path {launches}")
+    want = 8 * last  # 4 layers x 2 towers a train step
+    check(launches["flash_dq"] == launches["flash_dkv"] == want,
+          f"serve phase backward launches {launches}, want {want}")
+    return launches
+
 
 
 # ---------------------------------------------------------------------------
@@ -3432,6 +3836,7 @@ def main(argv=None) -> int:
     flash_worst["flash_fwd"] = max(flash_worst["flash_fwd"], fwd_worst)
     flash_times = attention_timing_phase(fa, smi, flash_worst)
     serve_launches = slice_phase(fa, smi)
+    checkpoint_launches = serve_checkpoint_phase(fa, smi)
     loss_worst = loss_check_phase(fd)
     loss_times = loss_timing_phase(fd, smi)
     pruned_worst = pruned_check_phase(fd, fg)
@@ -3459,7 +3864,8 @@ def main(argv=None) -> int:
     paths_phase(smi)
     dp_launches = dp_phase(smi)
     log("train", f"flash_fwd launches: serving {serve_launches}, transformer "
-                 f"training {flash_launches['flash_fwd']}")
+                 f"training {flash_launches['flash_fwd']}, train-eval-serve-reload "
+                 f"{checkpoint_launches['flash_fwd']}")
 
     # the text tower at the leg's batch, timed in the build the leg's
     # train steps launch (dropout 0.1) against the plain version of the
@@ -3480,9 +3886,14 @@ def main(argv=None) -> int:
     }
     records = []
     for name, (kernel_key, plain_key, library_key, library_call) in flash_rows.items():
+        launches = {"transformer_training": flash_launches[name],
+                    "train_eval_serve_reload": checkpoint_launches[name]}
+        if name == "flash_fwd":
+            launches["serving_random_weights"] = serve_launches
         records.append({
             "name": name, "route": "cuda", "source": FLASH_SOURCES[name],
-            "replaces": FLASH_REPLACES[name], "launches": flash_launches[name],
+            "replaces": FLASH_REPLACES[name], "launches": sum(launches.values()),
+            "launches_by_path": launches,
             "max_abs_err": flash_worst[name],
             "ms": flash_times[(kernel_key, b, s)],
             "plain_ms": flash_times[(plain_key, b, s)],

@@ -5,16 +5,19 @@ The JAX package stays the reference; each module here keeps the name of
 its JAX counterpart so a reader can find it.  The port imports ``torch``
 and never ``jax`` or ``flax``.
 
-Layout (the retrieval-serving slice):
-  ops/         the flash-attention forward: a hand-written CUDA kernel for
-               sm_90a beside its plain PyTorch version
+Layout:
+  ops/         the hand-written CUDA kernels for sm_90a (flash attention,
+               the fused loss pairs, the rows and per-direction kernels),
+               each beside its plain PyTorch version
   models/      video / text towers as ``nn.Module``s
-  data/        synthetic and file-backed feature datasets, batching
-  training/    ``TrainConfig`` and the trainer's init/encode surface
-  evaluation/  cosine top-k retrieval
-  losses/      ``l2_normalize``
-  utils/       configs and the Flax → torch weight bridge
-  eval.py      split encoding;  serve.py  the HTTP retrieval service
+  data/        synthetic and file-backed feature stores, the native gather,
+               the prefetch to the device
+  training/    the trainer, its optimizer and checkpoints
+  evaluation/  cosine top-k retrieval (dense and int8 indexes), R@K / MdR
+  losses/      the CrossCLR losses
+  parallel/    the launcher's ranks and the global-negative losses
+  utils/       configs, the Flax → torch bridge, the torch tower import
+  train.py, eval.py, serve.py, import_torch_checkpoint.py: the CLIs
 """
 
 __version__ = "0.1.0"

@@ -1,6 +1,8 @@
-"""Retrieval and its metrics."""
+"""Retrieval, the int8 index and the retrieval metrics."""
 
 from .retrieval import (
+    QuantizedCorpus,
+    quantize_corpus,
     rank_of_ground_truth,
     retrieval_metrics,
     retrieve_topk,
@@ -8,6 +10,8 @@ from .retrieval import (
 )
 
 __all__ = [
+    "QuantizedCorpus",
+    "quantize_corpus",
     "rank_of_ground_truth",
     "retrieval_metrics",
     "retrieve_topk",

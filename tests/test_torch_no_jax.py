@@ -10,7 +10,12 @@ CrossCLR one also imports the global-negative losses of
 GradCache two-pass step, and once more on two ranks of a gloo group that
 ``parallel.initialize_multihost`` starts from the launcher's environment),
 and the MLP config from int8 and bf16 file stores, written by the port's
-own quantizer and bf16 conversion, with ``ml_dtypes`` blocked too.
+own quantizer and bf16 conversion, with ``ml_dtypes`` blocked too.  One
+more drives the slice of serving what the port trains: the torch import
+CLI writes a checkpoint, the eval CLI scores it, ``build_service`` serves
+it from ``--checkpoint-dir`` with the int8 index behind a batching
+window, the train CLI resumes from it, and one ``POST /reload`` picks the
+new step up.
 """
 
 import json
@@ -20,6 +25,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 
 REPO = Path(__file__).resolve().parent.parent
@@ -253,6 +259,93 @@ loaded = sorted(m for m in sys.modules
                                        "crossclr_tpu", "ml_dtypes"))
 print(json.dumps({"rc": rc, "loaded": loaded}))
 """
+
+
+SERVE_CHECKPOINT_SCRIPT = SCRIPT.split("import json\n", 1)[0] + r"""
+import json
+import threading
+import urllib.request
+from http.server import ThreadingHTTPServer
+
+import torch
+
+from crossclr_tpu_torch import eval as teval
+from crossclr_tpu_torch import import_torch_checkpoint, train
+from crossclr_tpu_torch.data import SyntheticPairs
+from crossclr_tpu_torch.models import DualEncoder
+from crossclr_tpu_torch.serve import _make_handler, build_service
+from crossclr_tpu_torch.utils.config import ExperimentConfig, apply_overrides
+
+overrides = [
+    "video_tower.input_dim=12", "text_tower.input_dim=10",
+    "video_tower.embed_dim=8", "text_tower.embed_dim=8",
+    "video_tower.hidden_dim=16", "text_tower.hidden_dim=16",
+    "data.num_pairs=64", "data.video_dim=12", "data.text_dim=10",
+    "data.batch_size=16", "train.warmup_steps=1", "eval_every=2",
+    "checkpoint_dir=ckpt",
+]
+cfg = apply_overrides(ExperimentConfig(), overrides)
+towers = DualEncoder(cfg.video_tower, cfg.text_tower)
+torch.save({f"{side}_tower.{k}": v for side in ("video", "text")
+            for k, v in getattr(towers, f"{side}_tower").state_dict().items()},
+           "towers.pt")
+rcs = [import_torch_checkpoint.main(["--torch-ckpt", "towers.pt", "--output",
+                                     "ckpt", *overrides])]
+rcs.append(teval.main(["--device", "cpu", "--split", "all",
+                       "--output", "metrics.json", *overrides]))
+service = build_service(cfg, "ckpt", "video", device="cpu", corpus_dtype="int8",
+                        batch_window_ms=5.0)
+rcs.append(train.main(["--device", "cpu", "--steps", "2", *overrides]))
+httpd = ThreadingHTTPServer(("127.0.0.1", 0), _make_handler(service))
+thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+thread.start()
+url = f"http://127.0.0.1:{httpd.server_address[1]}"
+data = SyntheticPairs(num_pairs=64, video_dim=12, text_dim=10)
+replies = []
+for path, body in (("/search", {"features": data.text[:2].tolist(), "k": 3}),
+                   ("/reload", {}),
+                   ("/search", {"features": data.text[:2].tolist(), "k": 3})):
+    req = urllib.request.Request(url + path, data=json.dumps(body).encode(),
+                                 method="POST")
+    with urllib.request.urlopen(req, timeout=120) as resp:
+        replies.append(json.loads(resp.read()))
+httpd.shutdown()
+httpd.server_close()
+service._batcher.close()
+with open("metrics.json") as fh:
+    metrics = json.load(fh)
+loaded = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "flax", "optax", "orbax",
+                                       "crossclr_tpu"))
+print(json.dumps({"rcs": rcs, "eval_step": metrics["step"],
+                  "rows": metrics["rows"], "replies": replies,
+                  "dispatches": service.stats()["search_dispatches"],
+                  "loaded": loaded}))
+"""
+
+
+def test_port_serves_what_it_trains_without_jax(tmp_path):
+    """The import CLI's checkpoint → the eval CLI → ``build_service`` from
+    the checkpoint directory (int8 index, 5 ms batching window) → the train
+    CLI resumed from it → ``POST /reload``, with jax, flax, optax, orbax
+    and the JAX package blocked."""
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run(
+        [sys.executable, "-c", SERVE_CHECKPOINT_SCRIPT], cwd=tmp_path, env=env,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    result = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert result["loaded"] == [] and result["rcs"] == [0, 0, 0]
+    assert result["eval_step"] == 0 and result["rows"] == 64
+    before, reload, after = result["replies"]
+    assert reload == {"status": "ok", "step": 2, "index_step": 2}
+    for out in (before, after):
+        assert np.asarray(out["indices"]).shape == (2, 3)
+    assert before["scores"] != after["scores"]
+    assert result["dispatches"] == 2
+    assert sorted(p.name for p in (tmp_path / "ckpt").iterdir()) == [
+        "step_0.pt", "step_2.pt"]
 
 
 @pytest.mark.parametrize("dtype", ["int8", "bfloat16"])
