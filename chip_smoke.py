@@ -16,8 +16,9 @@ the loss kernels (dual at its learnable τ, sym at a static τ), and
 training configs/podslice_32k.json at B = 65,536 through the GradCache
 two-pass step and the per-direction loss kernels; every training leg reads
 its batches through the host data path (the native gather into a pinned
-ring, prefetched to the card on a side stream); and the data-parallel
-step through the train CLI, one process per rank.
+ring, prefetched to the card on a side stream); the data-parallel
+step through the train CLI, one process per rank; and ring attention with
+the sequence-parallel step on a data x model grid of processes.
 Phases, one line each; any failure raises and exits non-zero:
 
   1. device    — a CUDA device must exist (there is no CPU path); prints
@@ -281,17 +282,57 @@ Phases, one line each; any failure raises and exits non-zero:
                  times a step on each rank and no other kernel.  Prints
                  each leg's steady pairs/s of the global batch and ms a
                  step, and the phase's seconds.
+ 13. ring      — ring attention (parallel/ring_attention.py) and the
+                 sequence-parallel train step, last: (a) on a one-rank
+                 NCCL group, the ring over it against the flash kernels at
+                 B=1024, S=96, both builds, dropout 0 and 0.1: the output
+                 bit for bit in both builds, dq/dk/dv bit for bit in fp32
+                 (bf16 checked too); then in RING_RANKS child processes
+                 (--ring-worker), gloo ranks sharing cuda:0 whose blocks
+                 are staged through page-locked host memory (NCCL refuses
+                 two ranks on one device; the transport logged), each
+                 rank's sequence shard of the same global inputs: at the
+                 transformer leg's shapes (B=1024, H=8, S in {96, 64},
+                 Dh=48, ragged masks, one entry fully masked), fp32 and
+                 bf16, dropout 0 and 0.1, the ring-of-flash's output and
+                 dq/dk/dv against the flash kernels on the whole sequence
+                 and against the plain ring on the card (fp32 at the flash
+                 limits; bf16 outputs at LIMITS, gradients within
+                 RING_BF16_REL of the largest entry; the gap of both bf16
+                 backwards to autograd through fp32 logged); at B=2,
+                 S=16,384 (bf16, dropout 0.1) against the flash kernels
+                 alone, and both timed (fwd, fwd+bwd; median of 5, host
+                 clock).  (b) in the same children, the train CLI on
+                 configs/lsmdc_transformer.json at full width with
+                 --n-model 2 and ring towers, dropout 0.1, batch 1024, 5
+                 steps, one step a dispatch, against one process (a
+                 --dp-worker child) of flash towers on the same batches:
+                 the loss and grad_norm per step within RING_LOSS_RTOL and
+                 RING_NORM_RTOL, both ranks equal bit for bit, the mean |Δ|
+                 of the parameters after the last step (rank 0's
+                 checkpoint) within RING_PARAM_MEAN, each rank launching
+                 flash_fwd, flash_dq and flash_dkv exactly 16 times a step
+                 (2 towers x 4 layers x 2 ring blocks; counts set to 0
+                 just before the CLI and read each step), the sym loss
+                 kernels launched; the ring checkpoint restored into flash
+                 towers that encode.  Prints both runs' steady pairs/s and
+                 ms a step (two ranks staged through the host on one card:
+                 not scaling) and the phase's seconds.
 
 python3 chip_smoke.py --dp-fault {none,averaged,unsummed} runs (b) alone
 with that gradient reduction in the ranks and logs each reading beside
 its limit: the readings DP_PARAM_MEAN is set between.
+python3 chip_smoke.py --sp-fault {none,unsummed,doubled} does the same for
+the ring phase's (b): the model group's gradient sum left out, or each
+rank's objective without its 1/n_model (RING_* limits).
 
 The second-to-last line is the kernels' JSON record: twelve kernels, each
 with its time, its plain version's, the library call's where one exists,
 and its bound from this run's shapes; the flash records also name the
 shape and build they were timed at and what the library call computes,
 and their launches by path (transformer training, the serve phase's
-train-eval-serve-reload and, for the forward, the slice's serving);
+train-eval-serve-reload, the ring phase's training on both ranks and, for
+the forward, the slice's serving);
 the loss records add their pruned branch's time, plain time, bound and
 launches on the full-CrossCLR legs; the rows records are timed at 1024 x
 384 and add their time, plain time and bound at one rank's block (1024 of
@@ -575,6 +616,51 @@ DP_PARAM_MEAN = {"podslice": 1.22e-4, "full": 1e-5}
 DP_ADAM_U = 2.02
 LAUNCHER_VARS = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "LOCAL_WORLD_SIZE",
                  "MASTER_ADDR", "MASTER_PORT")
+# the ring phase: RING_RANKS gloo ranks sharing cuda:0 (NCCL refuses two
+# ranks on one device) as a 1 x RING_RANKS grid.  (a) the ring-of-flash at
+# the transformer leg's attention shapes (the text and video towers at its
+# batch, H = 8, Dh = 48) and at one long sequence whose plain scores would
+# take B·H·S²·4 = 17 GB; (b) the train CLI on the transformer config at
+# full width with ring towers, batch LEG_BATCH (the leg's cut of the
+# config's 4096), one step a dispatch, against one process of flash towers
+# on the same batches (1200 pairs: 120 held out, 1080 train rows)
+RING_RANKS = 2
+RING_JOIN_S = 300  # the ranks' children, start to exit
+RING_LEG_SHAPES = [(LEG_BATCH, 96), (LEG_BATCH, 64)]
+RING_RATES = (0.0, LEG_DROPOUT)
+RING_LONG, RING_LONG_VALID = (2, 16384), 12000  # (B, S), entry 1's valid keys
+RING_TIMING_RUNS = 5
+RING_STEPS = 5
+RING_FLASH_LAUNCHES = 2 * 4 * RING_RANKS  # towers x layers x ring blocks, a step
+RING_OVERRIDES = [
+    "data.source=synthetic", "data.num_pairs=1200", "data.video_dim=512",
+    "data.text_dim=768", "data.video_seq_len=64", "data.text_seq_len=96",
+    "data.variable_lengths=true", f"data.batch_size={LEG_BATCH}",
+    f"video_tower.dropout={LEG_DROPOUT}", f"text_tower.dropout={LEG_DROPOUT}",
+    "train.warmup_steps=2", "train.steps_per_call=1", "eval_every=5",
+    "log_every=1",
+]
+# (a) limits: fp32 as the flash kernels against plain (LIMITS,
+# FLASH_GRAD_BOUND); bf16 outputs LIMITS; bf16 dq/dk/dv max |err| over
+# the largest |entry|, against the plain ring on the card (the same
+# algebra: Δ from the merged fp32 output) and against the flash kernels on
+# the whole sequence (Δ from the output rounded to bf16): set from an
+# H100's readings, at most 6.8e-3 of the largest entry in both (each
+# block's gradient rounds to bf16 before the fp32 sum, as in the JAX ring,
+# then the sum rounds again: one to two bf16 ulps of 2^-7 = 7.8e-3), at
+# two ulps
+RING_BF16_REL = 1.6e-2
+# (b) limits, bf16 ring towers against bf16 flash towers, set between what
+# the sound step reads on an H100 (loss 2.0e-5, grad_norm 3.7e-5,
+# parameters' mean |Δ| 2.5e-6) and what the faulted reductions read
+# (python3 chip_smoke.py --sp-fault, PERF.md): each rank's gradient share
+# unsummed, loss 3.1e-2, grad_norm 0.20-0.76, mean |Δ| 3.4e-5; each rank's
+# objective without 1/n_model, grad_norm 1.0 (AdamW is blind to the
+# gradient's scale: the loss and the parameters do not move, grad_norm
+# alone catches it)
+RING_LOSS_RTOL = 1e-3
+RING_NORM_RTOL = 1e-3
+RING_PARAM_MEAN = 1e-5
 GLOBAL_SHAPES = [(4096, 384), (1000, 384), (1000, 640)]
 GLOBAL_TIMING = [(1024, 384), (4096, 384), (4096, 512)]
 EMULATED_RANKS = 4
@@ -3771,6 +3857,479 @@ def dp_phase(smi: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# sequence parallelism: ring attention over a model group
+# ---------------------------------------------------------------------------
+
+
+def ring_shapes_check(fa, rank: int, group) -> list[dict]:
+    """(a) in one rank of a ring of RING_RANKS: at the transformer leg's
+    shapes, both builds, dropout 0 and LEG_DROPOUT, the ring-of-flash over
+    the group (this rank's sequence shard, every rank the same global
+    inputs) against the flash kernels on the whole sequence and against the
+    plain ring on the card, output and dq/dk/dv; the unchecked gap of both
+    bf16 backwards to autograd through the fp32 plain attention.  Then at
+    RING_LONG (bf16, dropout LEG_DROPOUT) against the flash kernels only,
+    and both timed.  Returns the readings; a reading outside its limit
+    raises."""
+    import torch.distributed as dist
+
+    from crossclr_tpu_torch.parallel.ring_attention import ring_attention
+
+    n = RING_RANKS
+    records = []
+
+    def ring(q, k, v, mask, g, lo, hi, impl, drop):
+        ql, kl, vl = (x[:, :, lo:hi].detach().clone().requires_grad_()
+                      for x in (q, k, v))
+        out = ring_attention(ql, kl, vl, None if mask is None else mask[:, lo:hi],
+                             group=group, block_impl=impl, **drop)
+        out.backward(g[:, :, lo:hi])
+        return out.detach(), ql.grad, kl.grad, vl.grad
+
+    def errs(got, want, lo, hi, sliced=True):
+        return [((a.float() - (w[:, :, lo:hi] if sliced else w).float()).abs().max().item(),
+                 (w[:, :, lo:hi] if sliced else w).float().abs().max().item())
+                for a, w in zip(got, want)]
+
+    def hold_out(got, want, dtype, tag):
+        atol, rtol, _ = LIMITS[dtype]
+        ok = bool(((got.float() - want.float()).abs()
+                   <= atol + rtol * want.float().abs()).all())
+        check(ok and bool(torch.isfinite(got.float()).all()),
+              f"{tag}: output outside atol {atol}, rtol {rtol}")
+
+    def hold_grads(pairs, dtype, tag):
+        for name, (err, top) in zip(("dq", "dk", "dv"), pairs):
+            limit = (FLASH_GRAD_BOUND if dtype == torch.float32 else RING_BF16_REL) * top
+            check(math.isfinite(err) and err <= limit,
+                  f"{tag}: {name} max|err| {err:.3e} over {limit:.3e}")
+
+    for b, s in RING_LEG_SHAPES:
+        lo, hi = rank * s // n, (rank + 1) * s // n
+        for dtype in (torch.float32, torch.bfloat16):
+            for rate in RING_RATES:
+                tag = f"B={b} S={s} {str(dtype)[6:]} dropout {rate}"
+                q, k, v, mask = qkv((b, 8, s, 48), dtype, 31 + s)
+                g = torch.randn(q.shape, generator=torch.Generator(device="cuda")
+                                .manual_seed(37 + s), device="cuda").to(dtype)
+                drop = dict(dropout_rate=rate, dropout_seed=41) if rate else {}
+                with torch.inference_mode():
+                    out_f, lse_f = fa.flash_attention_fwd(q, k, v, mask, **drop)
+                    whole = (out_f, *fa.flash_attention_bwd(q, k, v, mask, out_f,
+                                                            lse_f, g, **drop))
+                got = ring(q, k, v, mask, g, lo, hi, "flash", drop)
+                plain = ring(q, k, v, mask, g, lo, hi, "jnp", drop)
+                vs_whole = errs(got, whole, lo, hi)
+                vs_plain = errs(got, plain, lo, hi, sliced=False)
+                hold_out(got[0], whole[0][:, :, lo:hi], dtype, tag + " vs whole flash")
+                hold_out(got[0], plain[0], dtype, tag + " vs plain ring")
+                hold_grads(vs_whole[1:], dtype, tag + " vs whole flash")
+                hold_grads(vs_plain[1:], dtype, tag + " vs plain ring")
+                check(all(bool((x[-1] == 0).all()) for x in got),
+                      f"{tag}: the fully masked entry not zero")
+                record = {"tag": tag, "vs_whole": vs_whole, "vs_plain": vs_plain}
+                if dtype == torch.bfloat16:
+                    exact = attention_grads(fa.mha_reference, q.float(), k.float(),
+                                            v.float(), mask, g, **drop)
+                    record["ring_to_fp32"] = [
+                        (a.float() - w[:, :, lo:hi]).abs().max().item()
+                        for a, w in zip(got[1:], exact)]
+                    record["whole_to_fp32"] = [
+                        (a.float() - w).abs().max().item()
+                        for a, w in zip(whole[1:], exact)]
+                    del exact
+                records.append(record)
+                del q, k, v, g, whole, got, plain
+    # one long sequence: the plain scores would take B·H·S² fp32
+    b, s = RING_LONG
+    lo, hi = rank * s // n, (rank + 1) * s // n
+    q, k, v, _ = qkv((b, 8, s, 48), torch.bfloat16, 43)
+    mask = torch.ones(b, s, device="cuda")
+    mask[1, RING_LONG_VALID:] = 0.0  # the second entry ragged
+    g = torch.randn(q.shape, generator=torch.Generator(device="cuda").manual_seed(47),
+                    device="cuda").to(torch.bfloat16)
+    drop = dict(dropout_rate=LEG_DROPOUT, dropout_seed=53)
+    tag = f"B={b} S={s} bfloat16 dropout {LEG_DROPOUT}"
+    with torch.inference_mode():
+        out_f, lse_f = fa.flash_attention_fwd(q, k, v, mask, **drop)
+        whole = (out_f, *fa.flash_attention_bwd(q, k, v, mask, out_f, lse_f, g, **drop))
+    got = ring(q, k, v, mask, g, lo, hi, "flash", drop)
+    vs_whole = errs(got, whole, lo, hi)
+    hold_out(got[0], whole[0][:, :, lo:hi], torch.bfloat16, tag + " vs whole flash")
+    hold_grads(vs_whole[1:], torch.bfloat16, tag + " vs whole flash")
+    del whole, got
+
+    def ring_ms(grad: bool) -> list[float]:
+        times = []
+        for _ in range(RING_TIMING_RUNS):
+            dist.barrier(group=group)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if grad:
+                ring(q, k, v, mask, g, lo, hi, "flash", drop)
+            else:
+                with torch.inference_mode():
+                    ring_attention(q[:, :, lo:hi], k[:, :, lo:hi], v[:, :, lo:hi],
+                                   mask[:, lo:hi], group=group, block_impl="flash",
+                                   **drop)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return times
+
+    def whole_ms(grad: bool) -> list[float]:
+        # rank 0 alone, the others waiting at the barrier
+        times = []
+        if rank == 0:
+            for _ in range(RING_TIMING_RUNS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                if grad:
+                    attention_grads(fa.flash_attention, q, k, v, mask, g, **drop)
+                else:
+                    with torch.inference_mode():
+                        fa.flash_attention_fwd(q, k, v, mask, **drop)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+        dist.barrier(group=group)
+        return times
+
+    ring_ms(True)  # warm: the pinned host buffers, the kernels' first calls
+    timing = {"ring_fwd": ring_ms(False), "ring_fwd_bwd": ring_ms(True),
+              "whole_fwd": whole_ms(False), "whole_fwd_bwd": whole_ms(True)}
+    records.append({"tag": tag, "vs_whole": vs_whole, "timing": timing})
+    return records
+
+
+def ring_worker(spec_path: Path) -> int:
+    """A rank of the ring phase: joins a gloo group of RING_RANKS on cuda:0
+    from the launcher's environment (NCCL refuses two ranks on one
+    device), runs ``ring_shapes_check`` when ``spec["shapes"]``, then the
+    train CLI with ``spec["argv"]`` (``--n-model RING_RANKS``, ring towers),
+    every kernel count set to 0 just before and read just after, each
+    step's loss, grad_norm (exact hex) and flash launches recorded.
+    ``spec["fault"]`` breaks the model group's reduction (``sp_fault``).
+    Writes the results to ``spec["out"]``."""
+    import torch.distributed as dist
+
+    spec = json.loads(spec_path.read_text())
+    sys.path.insert(0, str(ROOT))
+    torch.backends.cuda.matmul.allow_tf32 = False  # as the parent
+    from crossclr_tpu_torch import train
+    from crossclr_tpu_torch.parallel.ring_attention import transport
+    from crossclr_tpu_torch.training import Trainer
+
+    fa = importlib.import_module("crossclr_tpu_torch.ops.flash_attention")
+    kernels = [importlib.import_module(f"crossclr_tpu_torch.ops.{m}") for m in
+               ("flash_attention", "fused_dual", "fused_global", "fused_crossclr")]
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method="env://")
+    rank = dist.get_rank()
+    out = {"transport": transport(dist.group.WORLD, "cuda:0")}
+    try:
+        if spec.get("shapes"):
+            t0 = time.perf_counter()
+            out["shapes"] = ring_shapes_check(fa, rank, dist.group.WORLD)
+            out["shapes_seconds"] = time.perf_counter() - t0
+        if spec.get("fault"):
+            sp_fault(Trainer, spec["fault"])
+        steps = []
+        train_step = Trainer.train_step
+
+        def recording_step(self, state, batch):
+            before = dict(fa.launch_counts)
+            state, metrics = train_step(self, state, batch)
+            steps.append((metrics["loss"], metrics["grad_norm"],
+                          {k: fa.launch_counts[k] - before[k] for k in fa.KERNELS}))
+            return state, metrics
+
+        Trainer.train_step = recording_step
+        for module in kernels:
+            reset_counts(module)
+        t0 = time.perf_counter()
+        rc = train.main(spec["argv"])
+        torch.cuda.synchronize()
+        out.update({
+            "rc": rc, "seconds": time.perf_counter() - t0,
+            "loss": [float(x).hex() for x, _, _ in steps],
+            "grad_norm": [float(g).hex() for _, g, _ in steps],
+            "step_launches": [c for _, _, c in steps],
+            "counts": {k: n for module in kernels
+                       for k, n in module.launch_counts.items()},
+        })
+    finally:
+        dist.destroy_process_group()
+    Path(spec["out"]).write_text(json.dumps(out))
+    return 0
+
+
+def sp_fault(trainer_cls, fault: str) -> None:
+    """A known-wrong reduction over the model group, to read what the ring
+    phase's checks read under it (``--sp-fault``): ``unsummed`` leaves each
+    rank its share of the gradient (no sum over the model group);
+    ``doubled`` leaves out the 1/n_model of each rank's objective, so the
+    sum counts every rank's whole gradient n_model times."""
+    if fault == "unsummed":
+        trainer_cls.sum_model_grads = lambda self, grads: grads
+    elif fault == "doubled":
+        objective = trainer_cls.step_objective
+
+        def doubled(self, *args, **kwargs):
+            value, loss = objective(self, *args, **kwargs)
+            return value * self.n_model, loss
+
+        trainer_cls.step_objective = doubled
+
+
+def ring_spawn(tmp: Path, tag: str, specs: list[dict]) -> list[dict]:
+    """One ``--ring-worker`` child per spec, ranks of one gloo group joined
+    from a launcher's environment, all started together and joined within
+    RING_JOIN_S; a child that fails, or any still running at the limit,
+    fails the phase."""
+    base = {k: v for k, v in os.environ.items() if k not in LAUNCHER_VARS}
+    port = str(free_port())
+    procs = []
+    try:
+        for r, spec in enumerate(specs):
+            path = tmp / f"{tag}_{r}.json"
+            path.write_text(json.dumps({**spec, "out": str(tmp / f"{tag}_{r}_out.json")}))
+            env = {"RANK": str(r), "WORLD_SIZE": str(len(specs)), "LOCAL_RANK": "0",
+                   "LOCAL_WORLD_SIZE": str(len(specs)), "MASTER_ADDR": "127.0.0.1",
+                   "MASTER_PORT": port}
+            procs.append(subprocess.Popen(
+                [sys.executable, str(ROOT / "chip_smoke.py"), "--ring-worker", str(path)],
+                cwd=ROOT, env={**base, **env}, stdout=sys.stderr))
+        deadline = time.monotonic() + RING_JOIN_S
+        for r, proc in enumerate(procs):
+            try:
+                rc = proc.wait(timeout=max(deadline - time.monotonic(), 1))
+            except subprocess.TimeoutExpired:
+                raise AssertionError(f"{tag}: rank {r} still running after "
+                                     f"{RING_JOIN_S} s") from None
+            check(rc == 0, f"{tag}: rank {r} exited {rc}")
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(30)
+    return [json.loads((tmp / f"{tag}_{r}_out.json").read_text())
+            for r in range(len(specs))]
+
+
+def ring_argv(tmp: Path, run: str, attention: str, n_model: int,
+              device: str) -> list[str]:
+    options = ["--config", str(ROOT / TRANSFORMER_CONFIG), "--steps", str(RING_STEPS),
+               "--device", device, "--metrics-csv", str(tmp / f"{run}.csv")]
+    if n_model > 1:
+        options += ["--n-model", str(n_model)]
+    return [*options, *RING_OVERRIDES, f"video_tower.attention={attention}",
+            f"text_tower.attention={attention}", f"checkpoint_dir={tmp / run}"]
+
+
+def ring_one_rank_check(fa) -> list[str]:
+    """(a) a one-rank NCCL group: the ring over it (no rotation) against the
+    flash kernels on the same inputs at the leg's text shape, both builds,
+    dropout 0 and LEG_DROPOUT: the output bit for bit in both builds, the
+    gradients bit for bit in fp32 (the same arithmetic: the merged output is
+    the kernel's, Δ from it); the bf16 gradients checked bit for bit too
+    and reported.  Returns the log lines."""
+    import torch.distributed as dist
+
+    from crossclr_tpu_torch.parallel.ring_attention import ring_attention, transport
+
+    b, s = RING_LEG_SHAPES[0]
+    lines = []
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        group = dist.group.WORLD
+        for dtype in (torch.float32, torch.bfloat16):
+            for rate in RING_RATES:
+                q, k, v, mask = qkv((b, 8, s, 48), dtype, 59)
+                g = torch.randn(q.shape, generator=torch.Generator(device="cuda")
+                                .manual_seed(61), device="cuda").to(dtype)
+                drop = dict(dropout_rate=rate, dropout_seed=67) if rate else {}
+                flash = attention_grads(fa.flash_attention, q, k, v, mask, g, **drop)
+                ring = attention_grads(
+                    lambda *a, **kw: ring_attention(*a, group=group, block_impl="flash",
+                                                    **kw), q, k, v, mask, g, **drop)
+                with torch.inference_mode():
+                    out_f = fa.flash_attention(q, k, v, mask, **drop)
+                    out_r = ring_attention(q, k, v, mask, group=group,
+                                           block_impl="flash", **drop)
+                same = [torch.equal(a, w) for a, w in zip(ring, flash)]
+                check(torch.equal(out_r, out_f), f"one NCCL rank {dtype} dropout "
+                                                 f"{rate}: output not bit for bit")
+                if dtype == torch.float32:
+                    check(all(same), f"one NCCL rank fp32 dropout {rate}: dq, dk, dv "
+                                     f"bit for bit {same}")
+                lines.append(f"{str(dtype)[6:]} dropout {rate}: output bit for bit, "
+                             f"dq/dk/dv bit for bit {same}")
+        lines.append(f"transport {transport(group, 'cuda')!r}")
+    finally:
+        dist.destroy_process_group()
+    return lines
+
+
+def ring_two_ranks(tmp: Path, smi: str, fault: str | None = None,
+                   shapes: bool = True) -> dict:
+    """(b) the train CLI at --n-model RING_RANKS on the transformer config at
+    full width with ring towers, RING_RANKS gloo ranks sharing cuda:0 (and
+    (a)'s shapes in the same children first, ``shapes``), against one
+    process of flash towers on the same batches: the loss and grad_norm per
+    step, the mean |Δ| of the parameters after the last step (rank 0's
+    checkpoint against the reference's), equal across the ranks, and the
+    flash kernels launched RING_FLASH_LAUNCHES times each a step on each
+    rank; the checkpoint restored into flash towers and encoding through
+    the flash forward.  With a ``fault`` (``sp_fault``'s, or ``none``) each
+    reading is logged beside its limit, as caught or missed, and fails
+    nothing.  Returns the flash kernels' launches (both ranks, the whole
+    run) and the readings."""
+    from crossclr_tpu_torch.training import CheckpointManager, Trainer
+    from crossclr_tpu_torch.utils.config import apply_overrides, load_config
+
+    def hold(ok: bool, what: str) -> None:
+        if fault is None:
+            check(ok, what)
+        else:
+            log("ring", f"fault {fault}: {'missed' if ok else 'CAUGHT'}: {what}")
+
+    # every rank the same command line, as a launcher gives it
+    specs = [{"shapes": shapes and fault is None,
+              "fault": None if fault in (None, "none") else fault,
+              "argv": ring_argv(tmp, "ring", "ring", RING_RANKS, "cuda:0")}] * RING_RANKS
+    t0 = time.perf_counter()
+    ranks = ring_spawn(tmp, "ring", specs)
+    seconds_ranks = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    (ref,), = dp_spawn(tmp, "ring_ref", [(
+        {"runs": [{"argv": ring_argv(tmp, "ring_ref", "flash", 1, "cuda"), "env": {}}]},
+        {})])
+    seconds_ref = time.perf_counter() - t0
+    check(ref["rc"] == 0 and len(ref["loss"]) == RING_STEPS,
+          f"(b) the flash reference: {ref['rc']=}, {len(ref['loss'])} steps")
+    want_loss = [float.fromhex(x) for x in ref["loss"]]
+    want_norm = [float.fromhex(x) for x in ref["grad_norm"]]
+    per_step = {k: RING_FLASH_LAUNCHES for k in ("flash_fwd", "flash_dq", "flash_dkv")}
+    launches = dict.fromkeys(per_step, 0)
+    for r, run in enumerate(ranks):
+        check(run["rc"] == 0 and len(run["loss"]) == RING_STEPS,
+              f"(b) rank {r}: {run['rc']=}, {len(run['loss'])} steps")
+        check(all(c == per_step for c in run["step_launches"]),
+              f"(b) rank {r}: flash launches per step {run['step_launches']}, "
+              f"want {per_step}")
+        check(run["counts"]["sym_fwd"] > 0 and run["counts"]["sym_bwd"] > 0,
+              f"(b) rank {r} launched no sym kernel: {run['counts']}")
+        for k in launches:
+            launches[k] += run["counts"][k]
+        got = [float.fromhex(x) for x in run["loss"]]
+        loss_err = max(abs(a - w) / abs(w) for a, w in zip(got, want_loss))
+        norms = [float.fromhex(x) for x in run["grad_norm"]]
+        norm_err = max(abs(a - w) / abs(w) for a, w in zip(norms, want_norm))
+        hold(loss_err <= RING_LOSS_RTOL,
+             f"(b) rank {r}: losses {got} vs one process of flash towers "
+             f"{want_loss}: max relative error {loss_err:.3e} (limit {RING_LOSS_RTOL})")
+        hold(norm_err <= RING_NORM_RTOL,
+             f"(b) rank {r}: grad_norm {norms} vs {want_norm}: max relative error "
+             f"{norm_err:.3e} (limit {RING_NORM_RTOL})")
+        log("ring", f"(b) rank {r}: loss max relative error {loss_err:.3e} (limit "
+                    f"{RING_LOSS_RTOL}), grad_norm {norm_err:.3e} (limit "
+                    f"{RING_NORM_RTOL})")
+    hold(ranks[0]["loss"] == ranks[1]["loss"]
+         and ranks[0]["grad_norm"] == ranks[1]["grad_norm"],
+         "(b) both ranks' losses and grad_norms bit for bit equal")
+    saved = torch.load(tmp / "ring" / f"step_{RING_STEPS}.pt", map_location="cpu",
+                       weights_only=True)
+    ref_saved = torch.load(tmp / "ring_ref" / f"step_{RING_STEPS}.pt",
+                           map_location="cpu", weights_only=True)
+    check(saved["model"].keys() == ref_saved["model"].keys(),
+          "(b) ring and flash towers' parameter names")
+    diffs = {k: (saved["model"][k].float() - v.float()).abs()
+             for k, v in ref_saved["model"].items()}
+    mean = (sum(d.double().sum().item() for d in diffs.values())
+            / sum(d.numel() for d in diffs.values()))
+    worst = max(diffs, key=lambda k: diffs[k].max().item())
+    params_line = (f"(b) parameters after {RING_STEPS} steps vs one process of flash "
+                   f"towers: mean |Δ| {mean:.3e} (limit {RING_PARAM_MEAN:.3g}); max "
+                   f"|Δ| {diffs[worst].max().item():.3e} ({worst})")
+    hold(mean <= RING_PARAM_MEAN, params_line)
+    log("ring", params_line)
+    # the ring run's checkpoint restores into flash towers, which encode
+    cfg = apply_overrides(load_config(ROOT / TRANSFORMER_CONFIG), [
+        *RING_OVERRIDES, "video_tower.attention=flash", "text_tower.attention=flash"])
+    trainer = Trainer(cfg.video_tower, cfg.text_tower, cfg.train, "cuda")
+    state = CheckpointManager(tmp / "ring").restore(trainer.init_state())
+    check(state.step == RING_STEPS and all(
+        torch.equal(p.detach().cpu(), saved["model"][k])
+        for k, p in state.model.state_dict().items()),
+          "(b) the ring checkpoint restored into flash towers")
+    gen = torch.Generator().manual_seed(71)
+    batch = {"video": torch.randn(4, 64, 512, generator=gen),
+             "text": torch.randn(4, 96, 768, generator=gen)}
+    v_emb, t_emb = trainer.encode(state, batch)
+    check(bool(torch.isfinite(v_emb).all() and torch.isfinite(t_emb).all()),
+          "(b) flash towers from the ring checkpoint: non-finite embeddings")
+    rate, ms = dp_rate(tmp, "ring")
+    rate_ref, ms_ref = dp_rate(tmp, "ring_ref")
+    log("ring", f"(b) {TRANSFORMER_CONFIG} at full width, ring towers, --n-model "
+                f"{RING_RANKS} on {RING_RANKS} gloo ranks sharing cuda:0 "
+                f"(transport {ranks[0]['transport']!r}), batch {LEG_BATCH}, dropout "
+                f"{LEG_DROPOUT}, {RING_STEPS} steps: loss per step "
+                + ", ".join(f"{float.fromhex(x):.6f}" for x in ranks[0]["loss"])
+                + " vs one process of flash towers "
+                + ", ".join(f"{x:.6f}" for x in want_loss)
+                + f"; flash launches per step and rank {per_step}; the checkpoint "
+                  f"restored into flash towers and encoded")
+    log("ring", f"(b) steady train rate: ring {rate:.1f} pairs/s ({ms:.2f} ms a "
+                f"step; {RING_RANKS} ranks on one card through gloo staged in host "
+                f"memory: not scaling), one process of flash towers {rate_ref:.1f} "
+                f"pairs/s ({ms_ref:.2f} ms a step) ({smi})")
+    log("ring", f"(b) {seconds_ranks:.1f} s for the ranks' children (train.main "
+                + ", ".join(f"{run['seconds']:.1f}" for run in ranks)
+                + f" s), {seconds_ref:.1f} s for the flash reference")
+    return {"launches": launches, "ranks": ranks}
+
+
+def ring_phase(fa, smi: str) -> dict:
+    """Ring attention and the sequence-parallel train step: (a) in the
+    ranks of (b) and on a one-rank NCCL group, (b) ``ring_two_ranks``.
+    Returns the flash kernels' launches on the ring training path."""
+    torch.cuda.empty_cache()  # the children share the card
+    t0 = time.perf_counter()
+    for line in ring_one_rank_check(fa):
+        log("ring", f"(a) one-rank NCCL group, B={RING_LEG_SHAPES[0][0]} "
+                    f"S={RING_LEG_SHAPES[0][1]}: {line}")
+    with tempfile.TemporaryDirectory(prefix="crossclr_ring_") as tmp:
+        out = ring_two_ranks(Path(tmp), smi)
+    for r, run in enumerate(out["ranks"]):
+        for rec in run["shapes"]:
+            whole = ", ".join(f"{n} {e:.3e} of max {m:.3e}" for n, (e, m) in
+                              zip(("out", "dq", "dk", "dv"), rec["vs_whole"]))
+            line = f"(a) rank {r}, {rec['tag']}: ring-of-flash vs the flash kernels " \
+                   f"on the whole sequence: {whole}"
+            if "vs_plain" in rec:
+                line += "; vs the plain ring: " + ", ".join(
+                    f"{n} {e:.3e}" for n, (e, _) in
+                    zip(("out", "dq", "dk", "dv"), rec["vs_plain"]))
+            if "ring_to_fp32" in rec:
+                line += ("; unchecked gap to fp32 autograd dq/dk/dv: ring "
+                         + ", ".join(f"{e:.3e}" for e in rec["ring_to_fp32"])
+                         + ", whole-sequence flash "
+                         + ", ".join(f"{e:.3e}" for e in rec["whole_to_fp32"]))
+            log("ring", line)
+            if "timing" in rec and r == 0:
+                t = {k: statistics.median(v) for k, v in rec["timing"].items() if v}
+                log("ring", f"(a) {rec['tag']} timed (median of {RING_TIMING_RUNS}, "
+                            f"host clock around a synchronize): ring of {RING_RANKS} "
+                            f"gloo ranks on one card fwd {t['ring_fwd']:.2f} ms, "
+                            f"fwd+bwd {t['ring_fwd_bwd']:.2f} ms; the flash kernels "
+                            f"on the whole sequence fwd {t['whole_fwd']:.2f} ms, "
+                            f"fwd+bwd {t['whole_fwd_bwd']:.2f} ms (host-staged ranks "
+                            f"sharing one card: not scaling) ({smi})")
+        log("ring", f"(a) rank {r}: {run['shapes_seconds']:.1f} s")
+    log("ring", f"the phase took {time.perf_counter() - t0:.1f} s ({smi})")
+    return out["launches"]
+
+
 def loss_bounds(b: int, d: int, pruned: bool = False) -> dict:
     """Each loss kernel's least time at bf16 operands (the `default`
     tier), in units of one B×B×D product (2·B²·D operations) against the
@@ -3804,15 +4363,27 @@ def main(argv=None) -> int:
              "times and a JSON line of records")
     parser.add_argument("--dp-worker", type=Path, default=None,
                         help=argparse.SUPPRESS)  # a child of the dp phase
+    parser.add_argument("--ring-worker", type=Path, default=None,
+                        help=argparse.SUPPRESS)  # a rank of the ring phase
     parser.add_argument(
         "--dp-fault", choices=("none", "averaged", "unsummed"), default=None,
         help="only run the dp phase's two ranks (b), with this gradient "
              "reduction in the ranks (none: the port's own; averaged: "
              "divided by the world size; unsummed: each rank's own), and "
              "log each check's reading beside its limit without failing")
+    parser.add_argument(
+        "--sp-fault", choices=("none", "unsummed", "doubled"), default=None,
+        help="only run the ring phase's train CLI (b), with this reduction "
+             "over the model group in the ranks (none: the port's own; "
+             "unsummed: each rank's share of the gradient, not summed over "
+             "the model group; doubled: each rank's objective without its "
+             "1/n_model), and log each check's reading beside its limit "
+             "without failing")
     args = parser.parse_args(argv)
     if args.dp_worker is not None:
         return dp_worker(args.dp_worker)
+    if args.ring_worker is not None:
+        return ring_worker(args.ring_worker)
     smi = device_phase()
     sys.path.insert(0, str(ROOT))
     # the plain versions' products in full fp32 (PyTorch's default, stated)
@@ -3829,6 +4400,10 @@ def main(argv=None) -> int:
     if args.dp_fault is not None:
         with tempfile.TemporaryDirectory(prefix="crossclr_dp_") as tmp:
             dp_two_ranks(Path(tmp), smi, args.dp_fault)
+        return 0
+    if args.sp_fault is not None:
+        with tempfile.TemporaryDirectory(prefix="crossclr_ring_") as tmp:
+            ring_two_ranks(Path(tmp), smi, args.sp_fault)
         return 0
     data_phase(smi)
     fwd_worst = kernel_phase(fa, smi)
@@ -3863,6 +4438,7 @@ def main(argv=None) -> int:
     grad_cache_phase(fc, smi)
     paths_phase(smi)
     dp_launches = dp_phase(smi)
+    ring_launches = ring_phase(fa, smi)
     log("train", f"flash_fwd launches: serving {serve_launches}, transformer "
                  f"training {flash_launches['flash_fwd']}, train-eval-serve-reload "
                  f"{checkpoint_launches['flash_fwd']}")
@@ -3887,7 +4463,8 @@ def main(argv=None) -> int:
     records = []
     for name, (kernel_key, plain_key, library_key, library_call) in flash_rows.items():
         launches = {"transformer_training": flash_launches[name],
-                    "train_eval_serve_reload": checkpoint_launches[name]}
+                    "train_eval_serve_reload": checkpoint_launches[name],
+                    "ring_training": ring_launches[name]}
         if name == "flash_fwd":
             launches["serving_random_weights"] = serve_launches
         records.append({

@@ -16,25 +16,40 @@ The arithmetic follows the Flax towers step by step:
 * ``pos_embed`` is cast to the compute dtype before the add;
 * pooling is a masked mean in fp32 and ``output_proj`` runs in fp32.
 
+``attention="ring"`` towers run sequence-parallel over the model group of
+a ``parallel.Mesh`` (:func:`parallel.ring_attention`): each rank keeps its
+``S / n_model`` tokens from ``input_proj`` to the pooling, adds its window
+of ``pos_embed``, and sums and counts its tokens for the masked mean; the
+sums and counts are added over the model group (:class:`_ModelSum`, whose
+backward adds the ranks' cotangents too), so every rank of the group
+pools the whole sequence.  Ring and flash towers share their parameter
+names (``_MHA_0``), so a checkpoint moves between them.
+
 Parameters stay fp32 and autograd runs through the casts, so both kinds
 of tower train.  Dropout acts in train mode only: ``MLPTower`` applies
 ``nn.Dropout`` after the GELU, and the transformer towers with
-``attention="flash"`` apply the flash kernels' attention-probability
-dropout, one seed in [0, 2^23) per attention call drawn from the
-``torch.Generator`` that :class:`DualEncoder` holds (the trainer reseeds
-it every step).  ``attention="xla"`` has no dropout: its JAX counterpart
-draws the mask from ``jax.random``, which the port cannot reproduce.
+``attention="flash"`` or ``"ring"`` apply the flash kernels'
+attention-probability dropout, one seed in [0, 2^23) per attention call
+drawn from the ``torch.Generator`` that :class:`DualEncoder` holds (the
+trainer reseeds it every step); a ring tower places its rows at their
+data coordinate's place in the global batch, so a grid drops what one
+device drops on the whole batch.  ``attention="xla"`` has no dropout: its
+JAX counterpart draws the mask from ``jax.random``, which the port cannot
+reproduce.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
 from ..ops.flash_attention import flash_attention
+from ..parallel.ring_attention import ring_attention
 
 __all__ = ["DualEncoder", "MLPTower", "TowerConfig", "TransformerTower"]
 
@@ -47,9 +62,11 @@ class TowerConfig:
     """Static architecture config for one tower; the fields and defaults
     of the JAX ``TowerConfig``, so the JSON configs load.  ``attention``
     takes ``"xla"`` (the Flax ``MultiHeadDotProductAttention`` arithmetic
-    in plain PyTorch) or ``"flash"`` (:func:`ops.flash_attention`: the CUDA
-    kernel on a CUDA tensor).  ``"ring"``, ``remat`` and ``ring_*`` are
-    accepted by the config and wait for later ports."""
+    in plain PyTorch), ``"flash"`` (:func:`ops.flash_attention`: the CUDA
+    kernel on a CUDA tensor) or ``"ring"`` (:func:`parallel.ring_attention`
+    over a mesh's model group, its blocks by ``ring_block_impl`` and
+    ``ring_interpret``).  ``remat`` is accepted by the config and waits for
+    a later port."""
 
     kind: str = "mlp"  # "mlp" | "transformer"
     input_dim: int = 512
@@ -147,17 +164,31 @@ class _HeadProjections(nn.Module):
         return self.out(o.reshape(b, s, self.heads * self.head_dim))
 
 
+def _ring_attend(q, k, v, mask=None, *, cfg: TowerConfig, mesh,
+                 dropout_rate: float = 0.0, dropout_seed=0):
+    """The ``attention="ring"`` core: this rank's sequence shard through
+    :func:`parallel.ring_attention` over the mesh's model group, its rows at
+    ``data_index · B · H`` in the global batch·head range."""
+    return ring_attention(
+        q, k, v, mask, group=mesh.model_group, block_impl=cfg.ring_block_impl,
+        interpret=cfg.ring_interpret, dropout_rate=dropout_rate,
+        dropout_seed=dropout_seed,
+        dropout_bh_offset=mesh.data_index * q.shape[0] * q.shape[1])
+
+
 class _MHA(_HeadProjections):
-    """``crossclr_tpu.models.encoders._MHA`` (attention="flash"): the
-    attention core is :func:`ops.flash_attention`, which launches the CUDA
-    kernels on CUDA tensors.  ``attend`` is the core as an attribute, so a
-    check can swap in the plain version on the same weights.  In train mode
-    with ``cfg.dropout > 0`` each call draws its dropout seed from
+    """``crossclr_tpu.models.encoders._MHA`` (attention="flash" or
+    "ring"): the attention core is :func:`ops.flash_attention`, which
+    launches the CUDA kernels on CUDA tensors, or the ring over ``mesh``.
+    ``attend`` is the core as an attribute, so a check can swap in the
+    plain version on the same weights.  In train mode with
+    ``cfg.dropout > 0`` each call draws its dropout seed from
     ``dropout_gen``, as the JAX ``_MHA`` draws one per call and step."""
 
-    def __init__(self, cfg: TowerConfig, dropout_gen: torch.Generator):
+    def __init__(self, cfg: TowerConfig, dropout_gen: torch.Generator, mesh=None):
         super().__init__(cfg)
-        self.attend = flash_attention
+        self.attend = (flash_attention if cfg.attention == "flash"
+                       else functools.partial(_ring_attend, cfg=cfg, mesh=mesh))
         self.dropout_gen = dropout_gen
 
     def forward(self, x, mask):
@@ -204,26 +235,24 @@ class MultiHeadDotProductAttention(_HeadProjections):
         return self._merge(torch.einsum("bhqk,bkhd->bqhd", weights, v))
 
 
-_ATTENTION = {"flash": "_MHA_0", "xla": "MultiHeadDotProductAttention_0"}
+_ATTENTION = {"flash": "_MHA_0", "ring": "_MHA_0",
+              "xla": "MultiHeadDotProductAttention_0"}
 
 
 class _Block(nn.Module):
     """Pre-norm transformer block (``LayerNorm_0``, attention,
     ``LayerNorm_1``, ``Dense_0``, ``Dense_1``)."""
 
-    def __init__(self, cfg: TowerConfig, dropout_gen: torch.Generator):
+    def __init__(self, cfg: TowerConfig, dropout_gen: torch.Generator, mesh=None):
         super().__init__()
         if cfg.attention not in _ATTENTION:
-            raise NotImplementedError(
-                f"attention={cfg.attention!r} is not ported to "
-                "crossclr_tpu_torch yet (supported: 'xla', 'flash')"
-            )
+            raise ValueError(f"unknown attention impl {cfg.attention!r}")
         self.cfg = cfg
         self.LayerNorm_0 = _ln(cfg.embed_dim)
         self.attn_name = _ATTENTION[cfg.attention]
         self.add_module(self.attn_name,
-                        _MHA(cfg, dropout_gen) if cfg.attention == "flash"
-                        else MultiHeadDotProductAttention(cfg))
+                        MultiHeadDotProductAttention(cfg) if cfg.attention == "xla"
+                        else _MHA(cfg, dropout_gen, mesh))
         self.LayerNorm_1 = _ln(cfg.embed_dim)
         self.Dense_0 = Dense(cfg.embed_dim, cfg.hidden_dim, cfg.dtype)
         self.Dense_1 = Dense(cfg.hidden_dim, cfg.embed_dim, cfg.dtype)
@@ -236,20 +265,49 @@ class _Block(nn.Module):
         return x + self.Dense_1(_gelu(self.Dense_0(y)))
 
 
+class _ModelSum(torch.autograd.Function):
+    """The sum of ``x`` over a model group, on every rank; its backward
+    sums the ranks' cotangents the same way.  Each rank differentiates
+    ``1/n_model`` of the loss of the pooled rows it shares with the group,
+    so the sum hands each rank the whole loss's cotangent for its tokens."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        x = x.clone()
+        dist.all_reduce(x, op=dist.ReduceOp.SUM, group=group)
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone()
+        dist.all_reduce(g, op=dist.ReduceOp.SUM, group=ctx.group)
+        return g, None
+
+
 class TransformerTower(nn.Module):
     """Transformer encoder over ``[B, S, input_dim]`` feature sequences:
     learned positions, pre-norm blocks, masked mean pooling, projection to
     ``embed_dim``.  ``mask``: ``[B, S]`` (1 = valid).  ``dropout_gen`` is
     the generator its attention-dropout seeds come from (the one
-    :class:`DualEncoder` holds and reseeds)."""
+    :class:`DualEncoder` holds and reseeds).  ``mesh`` (a
+    ``parallel.Mesh``) is needed by ``attention="ring"`` alone: every rank
+    of its model group takes the same rows and runs its sequence shard."""
 
-    def __init__(self, cfg: TowerConfig, dropout_gen: torch.Generator):
+    def __init__(self, cfg: TowerConfig, dropout_gen: torch.Generator, mesh=None):
         super().__init__()
+        if cfg.attention == "ring" and mesh is None:
+            raise ValueError(
+                "attention='ring' needs a mesh: construct the "
+                "DualEncoder/TransformerTower with mesh=..."
+            )
         self.cfg = cfg
+        # the model axis this tower's sequence is sharded over (ring only)
+        self.mesh = mesh if cfg.attention == "ring" else None
         self.input_proj = Dense(cfg.input_dim, cfg.embed_dim, cfg.dtype)
         self.pos_embed = nn.Parameter(torch.zeros(cfg.max_seq_len, cfg.embed_dim))
         for layer in range(cfg.num_layers):
-            self.add_module(f"block_{layer}", _Block(cfg, dropout_gen))
+            self.add_module(f"block_{layer}", _Block(cfg, dropout_gen, mesh))
         self.final_norm = _ln(cfg.embed_dim)
         self.output_proj = Dense(cfg.embed_dim, cfg.embed_dim, torch.float32)
 
@@ -261,23 +319,42 @@ class TransformerTower(nn.Module):
                 f"sequence length {s} exceeds TowerConfig.max_seq_len "
                 f"{cfg.max_seq_len} (positional embedding table size)"
             )
-        h = self.input_proj(x) + self.pos_embed[None, :s].to(cfg.dtype)
+        # this rank's sequence shard (all of it off a model axis), from
+        # input_proj to the pooling
+        n = 1 if self.mesh is None else self.mesh.n_model
+        if s % n:
+            raise ValueError(f"sequence length {s} not divisible by the model "
+                             f"axis {n}")
+        s_loc = s // n
+        lo = 0 if n == 1 else self.mesh.model_index * s_loc
+        if mask is not None:
+            mask = mask[:, lo:lo + s_loc]
+        h = (self.input_proj(x[:, lo:lo + s_loc])
+             + self.pos_embed[None, lo:lo + s_loc].to(cfg.dtype))
         for layer in range(cfg.num_layers):
             h = self.get_submodule(f"block_{layer}")(h, mask)
         h = self.final_norm(h.float())
-        if mask is None:
+        if n == 1 and mask is None:
             pooled = h.mean(dim=1)
-        else:
+        elif n == 1:
             w = mask.float()[:, :, None]
             pooled = (h * w).sum(dim=1) / w.sum(dim=1).clamp_min(1.0)
+        else:
+            w = (torch.ones_like(h[:, :, :1]) if mask is None
+                 else mask.float()[:, :, None])
+            # the masked sums and counts of the group's shards, one all-reduce
+            sums = _ModelSum.apply(torch.cat([(h * w).sum(dim=1), w.sum(dim=1)], 1),
+                                   self.mesh.model_group)
+            pooled = sums[:, :-1] / sums[:, -1:].clamp_min(1.0)
         return self.output_proj(pooled)
 
 
-def _build_tower(cfg: TowerConfig, dropout_gen: torch.Generator) -> nn.Module:
+def _build_tower(cfg: TowerConfig, dropout_gen: torch.Generator,
+                 mesh=None) -> nn.Module:
     if cfg.kind == "mlp":
         return MLPTower(cfg)
     if cfg.kind == "transformer":
-        return TransformerTower(cfg, dropout_gen)
+        return TransformerTower(cfg, dropout_gen, mesh)
     raise ValueError(f"unknown tower kind: {cfg.kind!r}")
 
 
@@ -288,15 +365,17 @@ class DualEncoder(nn.Module):
 
     ``dropout_gen`` is the CPU generator both transformer towers draw their
     attention-dropout seeds from, in a fixed order (video tower, then text
-    tower, block by block); ``reseed_dropout`` sets it for one step."""
+    tower, block by block); ``reseed_dropout`` sets it for one step.
+    ``mesh`` (a ``parallel.Mesh``) reaches the ``attention="ring"`` towers;
+    it is not part of the state_dict."""
 
-    def __init__(self, video_cfg: TowerConfig, text_cfg: TowerConfig):
+    def __init__(self, video_cfg: TowerConfig, text_cfg: TowerConfig, mesh=None):
         super().__init__()
         self.video_cfg = video_cfg
         self.text_cfg = text_cfg
         self.dropout_gen = torch.Generator()
-        self.video_tower = _build_tower(video_cfg, self.dropout_gen)
-        self.text_tower = _build_tower(text_cfg, self.dropout_gen)
+        self.video_tower = _build_tower(video_cfg, self.dropout_gen, mesh)
+        self.text_tower = _build_tower(text_cfg, self.dropout_gen, mesh)
         self.logit_scale = nn.Parameter(torch.ones(()))
 
     def reseed_dropout(self, seed: int, step: int, chunk: int | None = None,

@@ -35,9 +35,22 @@ stops every rank at the same dispatch boundary: the flag is all-reduced
 before each dispatch.  The group is destroyed on exit.  Without a
 launcher the run is the one-device run.
 
+Sequence parallelism: ``--n-model M`` lays the ranks out as the JAX
+package's ``make_mesh(n_data=P/M, n_model=M)`` grid (``parallel.make_mesh``;
+rank ``d·M + m``), for ``attention="ring"`` transformer towers on both
+sides.  The M ranks of a model group read the same rows (``HostShard`` by
+the data coordinate, local batch ``data.batch_size / (P/M)``), each runs
+one sequence shard of them through the ring, and the weights are
+replicated over the model group.  Rank 0 alone writes and checkpoints;
+every rank of its model group encodes the eval split with it (the ring
+needs them all), the other model groups wait at the barrier.  Tensor
+parallelism is not ported: ``--n-model`` past 1 with any other tower is
+refused (ROADMAP queue 1 item 13).
+
 Refused rather than ignored: tensor parallelism and the DCN layouts
-(``--n-model``, ``--mesh-dcn``, ``--mesh-granule``; ROADMAP queue 1
-item 13), ``--profile-dir`` and ``--tensorboard-dir`` (item 14).
+(``--n-model`` past 1 without ring towers, ``--mesh-dcn``,
+``--mesh-granule``; ROADMAP queue 1 item 13), ``--profile-dir`` and
+``--tensorboard-dir`` (item 14).
 
 Examples:
   python -m crossclr_tpu_torch.train --config configs/youcook2_mlp.json \\
@@ -59,6 +72,12 @@ Examples:
       --config configs/podslice_32k.json --steps 8 data.source=synthetic \\
       data.num_pairs=36500 data.video_dim=512 data.text_dim=384 \\
       train.warmup_steps=2 checkpoint_dir=/tmp/podslice
+  torchrun --nproc_per_node=2 -m crossclr_tpu_torch.train \\
+      --config configs/lsmdc_transformer.json --n-model 2 --steps 5 \\
+      video_tower.attention=ring text_tower.attention=ring \\
+      data.source=synthetic data.num_pairs=1200 data.video_dim=512 \\
+      data.text_dim=768 data.video_seq_len=64 data.text_seq_len=96 \\
+      data.batch_size=1024 checkpoint_dir=/tmp/lsmdc_ring
 
 The podslice config trains through the GradCache two-pass step
 (``train.embedding_chunk``); past one rank through its global negatives
@@ -109,18 +128,20 @@ def main(argv: list[str] | None = None) -> int:
                     "to train on the CPU)")
     ap.add_argument("--tensorboard-dir", default=None, help="not ported (refused)")
     ap.add_argument("--n-model", type=int, default=1,
-                    help="data parallelism only: 1 (other values are refused)")
+                    help="ranks of the model axis: each sequence is sharded "
+                    "over them through attention='ring' towers (no tensor "
+                    "parallelism)")
     ap.add_argument("--mesh-dcn", default="auto",
-                    help="data parallelism only (refused)")
+                    help="not ported (other values are refused)")
     ap.add_argument("--mesh-granule", default="slice",
-                    help="data parallelism only (refused)")
+                    help="not ported (other values are refused)")
     ap.add_argument("--profile-dir", default=None, help="not ported (refused)")
     ap.add_argument("overrides", nargs="*", help="section.key=value overrides")
     args = ap.parse_args(argv)
 
-    if args.n_model != 1 or args.mesh_dcn != "auto" or args.mesh_granule != "slice":
-        raise _refuse("tensor parallelism and the DCN mesh layouts (--n-model, "
-                      "--mesh-dcn, --mesh-granule)", "item 13")
+    if args.mesh_dcn != "auto" or args.mesh_granule != "slice":
+        raise _refuse("the DCN mesh layouts (--mesh-dcn, --mesh-granule)",
+                      "item 13")
     if args.profile_dir:
         raise _refuse("--profile-dir", "item 14")
     if args.tensorboard_dir:
@@ -129,6 +150,11 @@ def main(argv: list[str] | None = None) -> int:
     cfg = load_config(args.config) if args.config else ExperimentConfig()
     if args.overrides:
         cfg = apply_overrides(cfg, args.overrides)
+    if args.n_model > 1 and not all(
+            t.kind == "transformer" and t.attention == "ring"
+            for t in (cfg.video_tower, cfg.text_tower)):
+        raise _refuse("tensor parallelism (--n-model past 1 with towers that "
+                      "are not attention='ring' transformer towers)", "item 13")
     if cfg.train.eval_with_ema and cfg.train.ema_decay is None:
         raise SystemExit(
             "train.eval_with_ema requires train.ema_decay (the state "
@@ -142,31 +168,38 @@ def main(argv: list[str] | None = None) -> int:
     # the launcher's ranks join one group before any device is used
     import torch.distributed as dist
 
+    from .parallel.mesh import make_mesh
     from .parallel.multihost import initialize_multihost, rank_device
 
     own_group = not (dist.is_available() and dist.is_initialized())
     grouped = initialize_multihost(args.device)
     try:
-        return _train(cfg, args, rank_device(args.device) if grouped else args.device)
+        try:  # every rank lays out the same grid (1 x 1 without a group)
+            mesh = make_mesh(n_model=args.n_model)
+        except ValueError as e:
+            raise SystemExit(f"--n-model {args.n_model}: {e}") from e
+        return _train(cfg, args, rank_device(args.device) if grouped else args.device,
+                      mesh)
     finally:
         if grouped and own_group:
             dist.destroy_process_group()
 
 
-def _train(cfg, args, device) -> int:
-    """The run of :func:`main` on ``device``, after the group (if any)."""
+def _train(cfg, args, device, mesh) -> int:
+    """The run of :func:`main` on ``device``, after the group and its grid
+    (if any)."""
     from .data import HostShard, dataset_from_config, train_eval_split, train_stream
     from .eval import _encode_split
     from .evaluation import retrieval_metrics
-    from .parallel import host_local_batch_size
     from .training import CheckpointManager, Trainer
     from .utils import MetricsWriter
 
     # -- data: eval rows are held out of the train stream --------------------
     dataset, _ = dataset_from_config(cfg.data)
-    trainer = Trainer(cfg.video_tower, cfg.text_tower, cfg.train, device)
-    rank, world = trainer.rank, trainer.world
-    lead = rank == 0  # writes, echoes, evaluates and checkpoints
+    trainer = Trainer(cfg.video_tower, cfg.text_tower, cfg.train, device, mesh)
+    rank, world = trainer.rank, trainer.world  # the data coordinate and axis
+    lead = trainer.global_rank == 0  # writes, echoes and checkpoints
+    evaluates = rank == 0  # the lead's model group: the ring needs them all
     if cfg.data.eval_fraction > 0:
         n_eval = max(int(len(dataset) * cfg.data.eval_fraction), 1)
         if n_eval >= len(dataset):
@@ -181,14 +214,15 @@ def _train(cfg, args, device) -> int:
             print("data.eval_fraction=0: no held-out split; eval/R@K measures "
                   "memorization of training rows", file=sys.stderr)
     batch_size = cfg.data.batch_size
-    try:
-        local_batch = host_local_batch_size(batch_size)
-    except ValueError as e:
-        raise SystemExit(f"data.batch_size: {e}") from e
+    if batch_size % world:
+        raise SystemExit(f"data.batch_size: global batch {batch_size} not "
+                         f"divisible by {world} data shards")
+    local_batch = batch_size // world
     # the ranks on this host share its page-locked memory (torchrun's
     # LOCAL_WORLD_SIZE; one rank a host without it)
-    host_ranks = int(os.environ.get("LOCAL_WORLD_SIZE", 1)) if world > 1 else 1
-    if world > 1:  # this rank's rows p::P, the same length on every rank
+    host_ranks = (int(os.environ.get("LOCAL_WORLD_SIZE", 1))
+                  if trainer.world_group is not None else 1)
+    if world > 1:  # this data shard's rows p::P, the same length on every rank
         train_data = HostShard(train_data, rank, world)
     if len(train_data) < local_batch:
         raise SystemExit(
@@ -274,11 +308,12 @@ def _train(cfg, args, device) -> int:
                               file=sys.stderr)
                 break
             full = trainer.checkpoint_state(state) if ckpt is not None else None
-            if lead:
+            if evaluates:
                 eval_state = (trainer.ema_state(state) if cfg.train.eval_with_ema
                               else state)
                 v_emb, t_emb = _encode_split(trainer, eval_state, eval_data,
                                              batch_size)
+            if lead:
                 metrics = retrieval_metrics(v_emb, t_emb)
                 writer({"step": done,
                         **{f"eval/{k}": v for k, v in metrics.items()}})

@@ -74,6 +74,24 @@ update on every rank.
   the rank is folded into the dropout seed (the JAX step folds
   ``axis_index``), and at one rank the seeds are the one-device ones.
 At one rank the step is the one-device step, and its all-reduce a copy.
+
+**Sequence parallelism.**  With ``mesh`` a ``parallel.make_mesh(n_data,
+n_model)`` grid of ``n_model > 1``, the data group above is the mesh's
+data group, and each model group's ranks take the same rows (their data
+coordinate's) and run the ``attention="ring"`` towers on one sequence
+shard each, with replicated weights (tensor parallelism, the JAX mesh's
+other use of the model axis, is not ported: ROADMAP queue 1 item 13).  The
+step is the JAX GSPMD step's (``use_global`` is off past one model rank):
+the plain loss L of the whole batch, the embeddings all-gathered over the
+data group.  Each rank differentiates L / (n_data · n_model): the towers'
+pooling sums over the model group in both directions
+(``models.encoders._ModelSum``), so every gradient, partial upstream of
+the pooling and whole below it, is right once summed over the model group
+(:meth:`Trainer.sum_model_grads`) and then over the data group as above.
+No rank is folded into the dropout seed, as the JAX step folds
+``axis_index`` only on its global-negative route: each data shard's rows
+take their place in the global batch·head range instead, so the masks are
+one device's on the whole batch.
 """
 
 from __future__ import annotations
@@ -99,6 +117,7 @@ from ..parallel.global_loss import (
     global_cross_clr,
     global_cross_clr_intra,
 )
+from ..parallel.mesh import Mesh, make_mesh
 
 __all__ = [
     "AdamW",
@@ -374,13 +393,17 @@ class Trainer:
     """Owns the dual towers' init, the train step and the loop, and the
     eval-mode encode, on one explicit ``device``; under an initialised
     default process group it is this rank's part of the data-parallel
-    step (see the module doc)."""
+    step, on ``mesh`` (``parallel.make_mesh``'s grid; by default the data
+    axis over every rank) its part of the data × model step (see the
+    module doc).  ``rank`` and ``world`` are the data coordinate and the
+    data axis's size, ``global_rank`` the rank in the default group."""
 
     def __init__(self, video_cfg: TowerConfig, text_cfg: TowerConfig,
-                 train_cfg: TrainConfig, device: str | torch.device = "cuda"):
+                 train_cfg: TrainConfig, device: str | torch.device = "cuda",
+                 mesh: Mesh | None = None):
         for cfg in (video_cfg, text_cfg):
             if (cfg.kind == "transformer" and cfg.dropout > 0
-                    and cfg.attention != "flash"):
+                    and cfg.attention == "xla"):
                 raise NotImplementedError(
                     f"training dropout of transformer towers with attention="
                     f"{cfg.attention!r} is not ported to crossclr_tpu_torch "
@@ -398,12 +421,32 @@ class Trainer:
                 f"ema_decay must be in (0, 1), got {train_cfg.ema_decay}"
             )
         grouped = dist.is_available() and dist.is_initialized()
-        self.group = dist.group.WORLD if grouped else None
-        self.world = dist.get_world_size() if grouped else 1
-        self.rank = dist.get_rank() if grouped else 0
+        if mesh is None and grouped:
+            mesh = make_mesh()  # the data axis over every rank
+        self.mesh = mesh
+        self.world_group = dist.group.WORLD if grouped else None
+        self.global_rank = dist.get_rank() if grouped else 0
+        self.group = None if mesh is None else mesh.data_group
+        self.world = 1 if mesh is None else mesh.n_data
+        self.rank = 0 if mesh is None else mesh.data_index
+        self.model_group = None if mesh is None else mesh.model_group
+        self.n_model = 1 if mesh is None else mesh.n_model
+        if self.n_model > 1:
+            for side, cfg in (("video", video_cfg), ("text", text_cfg)):
+                if cfg.kind != "transformer" or cfg.attention != "ring":
+                    raise NotImplementedError(
+                        f"n_model={self.n_model} with a {side} tower of kind "
+                        f"{cfg.kind!r}, attention {cfg.attention!r}: the port's "
+                        "model axis carries the sequence shards of "
+                        "attention='ring' transformer towers only; tensor "
+                        "parallelism is not ported to crossclr_tpu_torch yet "
+                        "(ROADMAP queue 1 item 13)"
+                    )
         # the JAX step's route (trainer.py _build_step): global negatives
-        # for the CrossCLR losses past one rank, else the gathered batch
-        self.use_global = (self.world > 1 and train_cfg.global_negatives
+        # for the CrossCLR losses past one data rank on a grid with no
+        # model axis, else the gathered batch
+        self.use_global = (self.world > 1 and self.n_model == 1
+                           and train_cfg.global_negatives
                            and train_cfg.loss in _GLOBAL_LOSSES)
         if self.use_global and "ring" in (video_cfg.attention, text_cfg.attention):
             raise ValueError(
@@ -425,7 +468,7 @@ class Trainer:
         # the default group arrives (new_group is a collective of them all)
         self._vote_group = None
         if grouped:
-            self._vote_group = (self.group if dist.get_backend() == "gloo"
+            self._vote_group = (self.world_group if dist.get_backend() == "gloo"
                                 else dist.new_group(backend="gloo"))
         # once per trainer: the fit-startup check of the weighting channel
         self._weight_diag_done = False
@@ -466,7 +509,7 @@ class Trainer:
     WEIGHT_ESS_WARN = 0.02
 
     def _warn_if_degenerate_weights(self, batch: dict) -> None:
-        if self.rank != 0:  # rank 0 alone reports, on its own rows
+        if self.global_rank != 0:  # rank 0 alone reports, on its own rows
             return
         fracs = self.weight_degeneracy_check(batch)
         if not fracs:
@@ -498,14 +541,14 @@ class Trainer:
         initial parameters when ``ema_decay`` is set.  Under a group the
         parameters are rank 0's (broadcast) and, under ZeRO-1, the moments
         this rank's shards."""
-        model = DualEncoder(self.video_cfg, self.text_cfg)
+        model = DualEncoder(self.video_cfg, self.text_cfg, mesh=self.mesh)
         init_params(model, self.cfg.seed,
                     0.0 if self.cfg.learnable_temperature else 1.0)
         if state_dict is not None:
             model.load_state_dict(state_dict, strict=True)
         model = model.to(self.device).eval()
         params = dict(model.named_parameters())
-        if self.group is not None:
+        if self.world_group is not None:
             self._broadcast(list(params.values()))
         self._shard_dims = {k: _zero1_dim(p.shape, self.world) if self.zero1
                             else None for k, p in params.items()}
@@ -522,7 +565,7 @@ class Trainer:
     def _broadcast(self, tensors: list[torch.Tensor]) -> None:
         """Rank 0's values of ``tensors`` on every rank, in place."""
         flat = _flat(tensors)
-        dist.broadcast(flat, 0, group=self.group)
+        dist.broadcast(flat, 0, group=self.world_group)
         _unflat_into(flat, tensors)
 
     def any_rank(self, flag: bool) -> bool:
@@ -531,7 +574,7 @@ class Trainer:
         same dispatch boundary).  The vote is a host tensor on a gloo group
         (the trainer's own when it is gloo), so it never waits for the
         device's queued work."""
-        if self.group is None:
+        if self.world_group is None:
             return flag
         t = torch.tensor([int(flag)])
         dist.all_reduce(t, op=dist.ReduceOp.MAX, group=self._vote_group)
@@ -539,15 +582,15 @@ class Trainer:
 
     def broadcast_int(self, value: int) -> int:
         """Rank 0's ``value`` on every rank."""
-        if self.group is None:
+        if self.world_group is None:
             return value
         t = torch.tensor([value], dtype=torch.int64, device=self.device)
-        dist.broadcast(t, 0, group=self.group)
+        dist.broadcast(t, 0, group=self.world_group)
         return int(t.item())
 
     def barrier(self) -> None:
-        if self.group is not None:
-            dist.barrier(group=self.group)
+        if self.world_group is not None:
+            dist.barrier(group=self.world_group)
 
     def _opt_params(self, params: dict) -> dict:
         """What AdamW updates: under ZeRO-1 this rank's rows (a view) of
@@ -598,7 +641,7 @@ class Trainer:
         """``state`` after ``CheckpointManager.restore`` (full moments):
         under a group its parameters and EMA broadcast from rank 0 and,
         under ZeRO-1, each moment cut to this rank's shard."""
-        if self.group is None:
+        if self.world_group is None:
             return state
         params = dict(state.model.named_parameters())
         ema = [] if state.ema is None else list(state.ema.values())
@@ -632,11 +675,12 @@ class Trainer:
                    ) -> torch.nn.Module:
         """``state``'s model in train mode with this step's attention-dropout
         masks: its generator reseeded from ``(train.seed, step)`` (past one
-        rank, the rank; and the two-pass step's ``chunk``), whatever ran
-        before."""
+        data rank with no model axis, the rank; and the two-pass step's
+        ``chunk``), whatever ran before."""
         model = state.model.train()
+        fold = self.world > 1 and self.n_model == 1
         model.reseed_dropout(self.cfg.seed, state.step, chunk,
-                             rank=self.rank if self.world > 1 else None)
+                             rank=self.rank if fold else None)
         return model
 
     def step_inputs(self, batch: dict) -> tuple:
@@ -680,9 +724,9 @@ class Trainer:
         step's loss of the GLOBAL batch.  One rank: both are
         :meth:`step_loss`.  Past one rank, on the global-negative route the
         global loss (its value global, its gradient this rank's own); else
-        the plain loss L of the all-gathered batch, with L / P to
-        differentiate (see the module doc)."""
-        if self.world == 1:
+        the plain loss L of the batch all-gathered over the data group,
+        with L / (P · n_model) to differentiate (see the module doc)."""
+        if self.world == 1 and self.n_model == 1:
             loss = self.step_loss(model, v_emb, t_emb, video, text,
                                   video_mask, text_mask)
             return loss, loss
@@ -703,12 +747,14 @@ class Trainer:
             else:
                 loss = global_cross_clr_intra(v_emb, t_emb, **kw)
             return loss, loss
-        gather = lambda x: None if x is None else all_gather(x, self.group)
+        def gather(x):
+            return x if x is None or self.world == 1 else all_gather(x, self.group)
+
         loss = self._loss_fn(gather(v_emb), gather(t_emb),
                              gather(None if v_raw is None else v_raw.detach()),
                              gather(None if t_raw is None else t_raw.detach()),
                              temperature=temperature)
-        return loss / self.world, loss
+        return loss / (self.world * self.n_model), loss
 
     def two_pass(self, batch_size: int) -> bool:
         """Whether a step of ``batch_size`` rows is the two-pass step:
@@ -793,6 +839,17 @@ class Trainer:
         return acc
 
     @torch.no_grad()
+    def sum_model_grads(self, grads: dict) -> dict:
+        """The gradients summed over the model group, in one flat buffer,
+        one all-reduce (SUM): each rank's share of the whole gradient (see
+        the module doc) made whole on every rank of the group."""
+        tensors = list(grads.values())
+        flat = _flat(tensors)
+        dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=self.model_group)
+        _unflat_into(flat, tensors)
+        return grads
+
+    @torch.no_grad()
     def sum_grads(self, grads: dict, norms: torch.Tensor):
         """``(grads, norms, sq_norm)``: the gradients summed over the ranks
         and the embedding-norm metrics ``[video, text]`` averaged, in one
@@ -869,6 +926,8 @@ class Trainer:
             norms = torch.stack([torch.linalg.vector_norm(v_emb, dim=1).mean(),
                                  torch.linalg.vector_norm(t_emb, dim=1).mean()])
         sq_norm = None
+        if self.model_group is not None:
+            grads = self.sum_model_grads(grads)
         if self.group is not None:
             grads, norms, sq_norm = self.sum_grads(grads, norms)
         metrics = {"loss": loss.detach(), **self.apply_grads(state, grads, sq_norm)}
@@ -880,7 +939,10 @@ class Trainer:
 
     def encode(self, state: TrainState, batch: dict):
         """``(video_emb, text_emb)`` fp32 ``[B, E]`` for a host or device
-        batch (int8 features dequantized on the device), in eval mode."""
+        batch (int8 features dequantized on the device), in eval mode.  With
+        ring towers every rank of the model group calls it on the same
+        batch: the ring runs over them all, as the JAX encode does under its
+        mesh."""
         with torch.inference_mode():
             return state.model.eval()(*self.step_inputs(batch))
 

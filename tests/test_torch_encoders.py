@@ -163,7 +163,8 @@ def test_port_config_mirrors_every_tower_field():
     jnames = [f.name for f in dataclasses.fields(jenc.TowerConfig)]
     tnames = [f.name for f in dataclasses.fields(tenc.TowerConfig)]
     assert tnames == jnames
-    with pytest.raises(NotImplementedError, match="ring"):
+    # a ring tower needs a mesh (its model group), as the JAX _MHA does
+    with pytest.raises(ValueError, match="attention='ring' needs a mesh"):
         tenc.TransformerTower(tenc.TowerConfig(kind="transformer",
                                                attention="ring"),
                               torch.Generator())

@@ -8,7 +8,10 @@ transformer, the full-CrossCLR and the podslice configs (the full
 CrossCLR one also imports the global-negative losses of
 ``crossclr_tpu_torch.parallel``; the podslice one trains through the
 GradCache two-pass step, and once more on two ranks of a gloo group that
-``parallel.initialize_multihost`` starts from the launcher's environment),
+``parallel.initialize_multihost`` starts from the launcher's environment;
+the transformer config on two ranks as a 1 × 2 grid of ring-attention
+towers, ``parallel.mesh`` and ``parallel.ring_attention``, whose
+checkpoint restores into flash towers),
 and the MLP config from int8 and bf16 file stores, written by the port's
 own quantizer and bf16 conversion, with ``ml_dtypes`` blocked too.  One
 more drives the slice of serving what the port trains: the torch import
@@ -226,6 +229,46 @@ print(json.dumps({"rc": rc, "loaded": loaded}))
 """
 
 
+RING_SCRIPT = SCRIPT.split("import json\n", 1)[0] + r"""
+import json
+import os
+
+import torch
+
+from crossclr_tpu_torch import train
+from crossclr_tpu_torch.models.encoders import DualEncoder
+from crossclr_tpu_torch.utils.config import apply_overrides, load_config
+
+rank = os.environ["RANK"]
+tiny = [
+    "video_tower.input_dim=12", "text_tower.input_dim=10",
+    "video_tower.embed_dim=8", "text_tower.embed_dim=8",
+    "video_tower.hidden_dim=16", "text_tower.hidden_dim=16",
+    "video_tower.num_layers=1", "text_tower.num_layers=1",
+    "video_tower.num_heads=2", "text_tower.num_heads=2",
+    "video_tower.dropout=0.1", "text_tower.dropout=0.1",
+    "data.source=synthetic", "data.num_pairs=48", "data.video_dim=12",
+    "data.text_dim=10", "data.video_seq_len=8", "data.text_seq_len=6",
+    "data.variable_lengths=true", "data.batch_size=16",
+    "train.warmup_steps=1", "train.steps_per_call=1", "eval_every=2",
+]
+ring = ["video_tower.attention=ring", "text_tower.attention=ring"]
+rc = train.main([
+    "--config", CONFIG, "--device", "cpu", "--steps", "4", "--n-model", "2",
+    "--metrics-csv", f"metrics_{rank}.csv", *tiny, *ring, "checkpoint_dir=ckpt",
+])
+cfg = apply_overrides(load_config(CONFIG), tiny + [
+    "video_tower.attention=flash", "text_tower.attention=flash"])
+flash = DualEncoder(cfg.video_tower, cfg.text_tower)
+flash.load_state_dict(torch.load("ckpt/step_4.pt", weights_only=True)["model"])
+loaded = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "flax", "optax", "orbax",
+                                       "crossclr_tpu"))
+print(json.dumps({"rc": rc, "loaded": loaded,
+                  "ring": "crossclr_tpu_torch.parallel.ring_attention" in sys.modules}))
+"""
+
+
 STORE_SCRIPT = SCRIPT.split("import json\n", 1)[0].replace(
     '"crossclr_tpu")', '"crossclr_tpu", "ml_dtypes")') + r"""
 import json
@@ -410,6 +453,39 @@ def test_port_trains_on_two_ranks_without_jax(tmp_path):
     for p, (out, err) in zip(procs, outs):
         assert p.returncode == 0, err[-3000:]
         assert json.loads(out.strip().splitlines()[-1]) == {"rc": 0, "loaded": []}
+    assert (tmp_path / "metrics_0.csv").exists()
+    assert not (tmp_path / "metrics_1.csv").exists()
+    assert sorted(p.name for p in (tmp_path / "ckpt").iterdir()) == [
+        "step_2.pt", "step_4.pt"]
+
+
+def test_port_trains_ring_towers_on_a_grid_without_jax(tmp_path):
+    """The transformer config's ring-attention towers with dropout on two
+    gloo ranks as a 1 × 2 grid (``--n-model 2``) that the train CLI joins
+    from the launcher's environment, with jax, flax, optax and orbax
+    blocked: rank 0 alone writes the metrics and the checkpoints, and a
+    checkpoint loads into flash towers."""
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    script = RING_SCRIPT.replace(
+        "CONFIG", repr(str(REPO / "configs" / "lsmdc_transformer.json")))
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", script], cwd=tmp_path,
+        env=dict(os.environ, PYTHONPATH=str(REPO), RANK=str(rank),
+                 LOCAL_RANK=str(rank), WORLD_SIZE="2", LOCAL_WORLD_SIZE="2",
+                 MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port)),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for rank in range(2)]
+    try:
+        outs = [p.communicate(timeout=300) for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    for p, (out, err) in zip(procs, outs):
+        assert p.returncode == 0, err[-3000:]
+        assert json.loads(out.strip().splitlines()[-1]) == {
+            "rc": 0, "loaded": [], "ring": True}
     assert (tmp_path / "metrics_0.csv").exists()
     assert not (tmp_path / "metrics_1.csv").exists()
     assert sorted(p.name for p in (tmp_path / "ckpt").iterdir()) == [
