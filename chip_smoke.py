@@ -17,8 +17,9 @@ training configs/podslice_32k.json at B = 65,536 through the GradCache
 two-pass step and the per-direction loss kernels; every training leg reads
 its batches through the host data path (the native gather into a pinned
 ring, prefetched to the card on a side stream); the data-parallel
-step through the train CLI, one process per rank; and ring attention with
-the sequence-parallel step on a data x model grid of processes.
+step through the train CLI, one process per rank; ring attention with
+the sequence-parallel step on a data x model grid of processes; and
+tensor parallelism (towers split over the model axis) and LAMB.
 Phases, one line each; any failure raises and exits non-zero:
 
   1. device    — a CUDA device must exist (there is no CPU path); prints
@@ -283,7 +284,7 @@ Phases, one line each; any failure raises and exits non-zero:
                  each leg's steady pairs/s of the global batch and ms a
                  step, and the phase's seconds.
  13. ring      — ring attention (parallel/ring_attention.py) and the
-                 sequence-parallel train step, last: (a) on a one-rank
+                 sequence-parallel train step: (a) on a one-rank
                  NCCL group, the ring over it against the flash kernels at
                  B=1024, S=96, both builds, dropout 0 and 0.1: the output
                  bit for bit in both builds, dq/dk/dv bit for bit in fp32
@@ -318,26 +319,59 @@ Phases, one line each; any failure raises and exits non-zero:
                  towers that encode.  Prints both runs' steady pairs/s and
                  ms a step (two ranks staged through the host on one card:
                  not scaling) and the phase's seconds.
+ 14. tp        — tensor parallelism and LAMB, last: (a) in TP_RANKS
+                 --ring-worker children (gloo ranks sharing cuda:0), the
+                 train CLI on configs/lsmdc_transformer.json at full width
+                 with --n-model 2 and flash towers, which splits both
+                 towers tensor-parallel (each rank 4 of the 8 heads,
+                 Dense_0 / Dense_1 and input_proj / output_proj split),
+                 dropout 0.1, batch 1024, 5 steps, against the ring phase's
+                 one process of flash towers on the same batches: the loss
+                 and grad_norm per step within TP_LOSS_RTOL and
+                 TP_NORM_RTOL, both ranks equal bit for bit, the mean |Δ| of
+                 the parameters after the last step (rank 0's checkpoint,
+                 whole tensors) within TP_PARAM_MEAN, each rank launching
+                 flash_fwd, flash_dq and flash_dkv exactly TP_FLASH_LAUNCHES
+                 times a step on its own heads and the sym pair once a
+                 step; the checkpoint restored in one process (whole towers
+                 and moments) and encoding; the eval CLI in one process on
+                 it.  (b) the MLP leg's config at full width under
+                 train.optimizer=lamb (LAMB_OVERRIDES, 40 steps): the loss
+                 falls, the sym pair 40 launches; one LAMB update on the
+                 card from its checkpoint against the same update in
+                 float64 on the CPU within LAMB_UPDATE_RTOL of each
+                 parameter's largest |Δ|; then the dp phase's two-rank
+                 podslice leg under LAMB (podslice_lamb) against one
+                 process.  Prints each run's ms a step and the phase's
+                 seconds.  The attention phase also recovers the keep mask
+                 of a rank's heads (heads 4-7 of 8 on a second data shard)
+                 and checks the forward at heads 8-15 of 16.
 
-python3 chip_smoke.py --dp-fault {none,averaged,unsummed} runs (b) alone
-with that gradient reduction in the ranks and logs each reading beside
-its limit: the readings DP_PARAM_MEAN is set between.
+python3 chip_smoke.py --dp-fault {none,averaged,unsummed} runs (b) alone,
+the podslice leg under LAMB too, with that gradient reduction in the
+ranks and logs each reading beside its limit: the readings DP_PARAM_MEAN
+is set between.
 python3 chip_smoke.py --sp-fault {none,unsummed,doubled} does the same for
-the ring phase's (b): the model group's gradient sum left out, or each
-rank's objective without its 1/n_model (RING_* limits).
+the ring phase's (b): the model group's gradient sum left out, or the ring
+towers' summed gradients not divided by n_model (RING_* limits).
+python3 chip_smoke.py --tp-fault {none,uncopied} does the same for the tp
+phase's (a): the cotangent of a split layer's replicated input not summed
+over the model group (TP_* limits).
 
 The second-to-last line is the kernels' JSON record: twelve kernels, each
 with its time, its plain version's, the library call's where one exists,
 and its bound from this run's shapes; the flash records also name the
 shape and build they were timed at and what the library call computes,
 and their launches by path (transformer training, the serve phase's
-train-eval-serve-reload, the ring phase's training on both ranks and, for
-the forward, the slice's serving);
+train-eval-serve-reload, the ring and the tp phases' training on both
+ranks and, for the forward, the slice's serving);
 the loss records add their pruned branch's time, plain time, bound and
 launches on the full-CrossCLR legs; the rows records are timed at 1024 x
 384 and add their time, plain time and bound at one rank's block (1024 of
-4096 x 384), and their launches by path (the global losses and the dp
-phase's two legs; the loss records' add the dp phase's one-rank leg);
+4096 x 384), and their launches by path (the global losses, the dp
+phase's two legs and the tp phase's podslice leg under LAMB; the loss
+records' add the dp phase's one-rank leg, the tp phase's split training
+and its LAMB MLP leg);
 the per-direction records are timed at 4096 x 256 and add
 their time and bound at the leg's 65,536 x 256.
 The last line is {"ok": true, "device": {...}}.
@@ -579,8 +613,10 @@ GRAD_CACHE_BOUND = 1e-5  # max |error| / max |gradient|, fp32 towers
 # end; (a) one NCCL rank against no group, (b) two gloo ranks on the one
 # card (NCCL refuses two ranks on one device) against one process on the
 # two ranks' HostShard batches joined
-DP_LEGS = {"podslice": PODSLICE_CONFIG, "full": FULL_CONFIG}
-DP_STEPS = {"podslice": 4, "full": 5}
+DP_LEGS = {"podslice": PODSLICE_CONFIG, "full": FULL_CONFIG,
+           "podslice_lamb": PODSLICE_CONFIG}
+DP_PHASE_LEGS = ("podslice", "full")  # the tp phase runs podslice_lamb
+DP_STEPS = {"podslice": 4, "full": 5, "podslice_lamb": 4}
 DP_OVERRIDES = {
     # 36,410 pairs: 3,641 held out, 32,769 train rows, 16,384 a rank
     "podslice": ["data.source=synthetic", "data.num_pairs=36410",
@@ -591,6 +627,7 @@ DP_OVERRIDES = {
     "full": [*FULL_OVERRIDES, "data.num_pairs=1200", "train.steps_per_call=1",
              "eval_every=5", "log_every=1"],
 }
+DP_OVERRIDES["podslice_lamb"] = [*DP_OVERRIDES["podslice"], "train.optimizer=lamb"]
 DP_RANKS = 2
 DP_JOIN_S = 300  # each group of child processes, start to exit
 # the two-rank step against one process on the joined batch: the loss per
@@ -606,9 +643,12 @@ DP_JOIN_S = 300  # each group of child processes, start to exit
 # runs; its grad_norm (5.7e-7 sound, 0.65 unsummed) is the sharp check.
 # A mean instead of a sum moves no parameter (Adam is blind to the
 # gradient's scale): grad_norm alone catches it (relative error 0.5)
-DP_LOSS_RTOL = {"podslice": 1e-4, "full": 1e-3}
+# The podslice leg under LAMB (the tp phase): loss 2.5e-6 and mean |Δ|
+# 6.088e-6 sound, 2.9e-5 and 6.810e-6 unsummed (grad_norm 1.9e-7 against
+# 0.50); its limits sit between, as podslice's do
+DP_LOSS_RTOL = {"podslice": 1e-4, "full": 1e-3, "podslice_lamb": 1e-5}
 DP_NORM_RTOL = 1e-3
-DP_PARAM_MEAN = {"podslice": 1.22e-4, "full": 1e-5}
+DP_PARAM_MEAN = {"podslice": 1.22e-4, "full": 1e-5, "podslice_lamb": 6.4e-6}
 # printed beside the readings, not held: AdamW's |update| is at most
 # DP_ADAM_U / 2 · lr a step at these step counts (Cauchy-Schwarz on the
 # bias-corrected moments), so any two finite runs stay within
@@ -661,6 +701,32 @@ RING_BF16_REL = 1.6e-2
 RING_LOSS_RTOL = 1e-3
 RING_NORM_RTOL = 1e-3
 RING_PARAM_MEAN = 1e-5
+# the tp phase: (a) the ring phase's leg (the transformer config at full
+# width, flash attention, dropout 0.1, batch 1024, 5 one-step dispatches)
+# through the train CLI at --n-model TP_RANKS with flash towers, so every
+# tower is split tensor-parallel over TP_RANKS gloo ranks sharing cuda:0
+# (host-staged: NCCL refuses two ranks on one device), against the ring
+# phase's one process of flash towers on the same batches; each rank runs
+# kernels 1-3 once a layer and tower a step on its own heads
+TP_RANKS = 2
+TP_FLASH_LAUNCHES = 2 * 4  # towers x layers, a step and rank
+# (a) limits, bf16 split towers against bf16 whole towers: between what the
+# sound step reads on an H100 (loss 5.3e-5, grad_norm 1.2e-4, parameters'
+# mean |Δ| 3.4e-6) and what the step reads with the cotangent of the split
+# layers' replicated inputs left unsummed (python3 chip_smoke.py
+# --tp-fault uncopied, PERF.md: loss 0.81, grad_norm 0.36, mean |Δ| 2.6e-4)
+TP_LOSS_RTOL = 1e-3
+TP_NORM_RTOL = 1e-3
+TP_PARAM_MEAN = 2e-5
+# (b) LAMB: the MLP leg's config at full width, batch 1024, with
+# train.optimizer=lamb at a LAMB rate; one update on the card against the
+# same update in float64 on the CPU, max |error| over the largest |Δ| of
+# each parameter
+LAMB_STEPS = 40
+LAMB_OVERRIDES = ["train.optimizer=lamb", "train.learning_rate=0.005",
+                  "train.warmup_steps=5", "train.steps_per_call=1",
+                  f"eval_every={LAMB_STEPS}", "log_every=5"]
+LAMB_UPDATE_RTOL = 1e-6
 GLOBAL_SHAPES = [(4096, 384), (1000, 384), (1000, 640)]
 GLOBAL_TIMING = [(1024, 384), (4096, 384), (4096, 512)]
 EMULATED_RANKS = 4
@@ -861,8 +927,11 @@ def attention_check_phase(fa) -> dict:
         for s in (64, 96, 37):
             q, k, v, mask = qkv((4, 8, s, 48), dtype, seed=100 + s)
             for rate in (0.1, 0.5):
-                # S=37 sits at nonzero offsets, as a ring block would
-                offsets = (dict(q_offset=5, k_offset=70, bh_offset=32)
+                # S=37 sits at nonzero offsets, as a ring block would, and
+                # its 8 heads are heads 8-15 of 16, as a tensor-parallel
+                # rank's are
+                offsets = (dict(q_offset=5, k_offset=70, bh_offset=32,
+                                head_count=16, head_offset=8)
                            if s == 37 else {})
                 tag = (f"{str(dtype)[6:]} S={s} dropout {rate}"
                        + (f" at {offsets}" if offsets else ""))
@@ -877,6 +946,7 @@ def attention_check_phase(fa) -> dict:
     for dtype in (torch.float32, torch.bfloat16):
         for s in (64, 96):
             keep_mask_check(fa, dtype, s, rate)
+            keep_mask_check(fa, dtype, s, rate, split=2)
     repeat_launch_check(fa)
     for dtype in (torch.float32, torch.bfloat16):
         for s in (64, 96, 37):
@@ -894,21 +964,28 @@ def attention_check_phase(fa) -> dict:
     return worst
 
 
-def keep_mask_check(fa, dtype, s: int, rate: float) -> None:
+def keep_mask_check(fa, dtype, s: int, rate: float, split: int = 1) -> None:
     """The keep mask read back exactly through the forward's output and
-    through dv, at Dh = S."""
+    through dv, at Dh = S.  With ``split`` > 1 the launch holds the last
+    8 / split heads of 8 (``head_count``, ``head_offset``) of a second data
+    shard's rows (``bh_offset``), as a tensor-parallel rank does: its mask
+    is that slice of the whole mask."""
     b, h, seed = 2, 8, 4242 + s
-    zeros = torch.zeros(b, h, s, s, device="cuda", dtype=dtype)
-    eye = torch.eye(s, device="cuda", dtype=dtype).expand(b, h, s, s).contiguous()
+    hl = h // split
+    place = {} if split == 1 else dict(head_count=h, head_offset=h - hl,
+                                       bh_offset=b * h)
+    zeros = torch.zeros(b, hl, s, s, device="cuda", dtype=dtype)
+    eye = torch.eye(s, device="cuda", dtype=dtype).expand(b, hl, s, s).contiguous()
     mask = torch.ones(b, s, device="cuda")
     mask[1, s // 3:] = 0.0
-    drop = dict(dropout_rate=rate, dropout_seed=seed)
+    drop = dict(dropout_rate=rate, dropout_seed=seed, **place)
     with torch.inference_mode():
         out, lse = fa.flash_attention_fwd(zeros, zeros, eye, mask, **drop)
-        delta = torch.zeros(b, h, s, device="cuda")  # dv does not read it
+        delta = torch.zeros(b, hl, s, device="cuda")  # dv does not read it
         _, dv = fa.flash_dkv_cuda(zeros, zeros, zeros, mask, lse, delta, eye, **drop)
     n_scale = mask.sum(dim=1)[:, None, None, None] * (1 - rate)
-    keep = fa.dropout_keep_mask(b, h, s, seed, rate, device="cuda")
+    keep = fa.dropout_keep_mask(b, h, s, seed, rate, bh_offset=place.get("bh_offset", 0),
+                                device="cuda")[:, h - hl:]
     want = (keep & mask.bool()[:, None, None, :]).float()
     for what, got, expect in (("forward", out.float() * n_scale, want),
                               ("dv", dv.float() * n_scale, want.transpose(-1, -2))):
@@ -917,8 +994,10 @@ def keep_mask_check(fa, dtype, s: int, rate: float) -> None:
               f"{dtype} S={s}: the keep mask through the {what} differs from "
               f"dropout_keep_mask (max |x·n·(1−r) − keep| {off:.3e})")
         log("attention", f"keep mask recovered exactly through the {what}, "
-                         f"{str(dtype)[6:]} S=Dh={s}, rate {rate}: kept "
-                         f"{want[0].mean().item():.4f} of entry 0, max "
+                         f"{str(dtype)[6:]} S=Dh={s}, rate {rate}"
+                         + (f", heads {h - hl}-{h - 1} of {h} at bh_offset "
+                            f"{b * h}" if split > 1 else "")
+                         + f": kept {want[0].mean().item():.4f} of entry 0, max "
                          f"|x·n·(1−r) − keep| {off:.2e} (limit {KEEP_OFF[dtype]:.2e})")
 
 
@@ -1156,6 +1235,22 @@ class ParentLossLibrary:
         return fn
 
 
+class HeadlessFlashLibrary:
+    """Another revision's flash library from before the dropout words
+    carried a head count and offset, called as this checkout's wrapper
+    calls it: the two head words (the launch's own heads and offset 0 on
+    every call the baseline compares) are dropped before the stream."""
+
+    def __init__(self, lib):
+        self.lib = lib
+
+    def __getattr__(self, name):
+        fn = getattr(self.lib, name)
+        if name.startswith("crossclr_flash_"):
+            return lambda *args: fn(*args[:-3], args[-1])
+        return fn
+
+
 def build_baseline(fa, fc, fd, fg, csrc: Path, out_dir: Path) -> dict:
     """Build another revision's flash, per-direction, loss-pair and rows
     sources (``csrc`` holds its flash_fwd.cu, flash_bwd.cu,
@@ -1181,11 +1276,16 @@ def build_baseline(fa, fc, fd, fg, csrc: Path, out_dir: Path) -> dict:
         check(proc.returncode == 0, f"baseline {csrc / source} did not build:\n{text}")
         lib = ctypes.CDLL(str(so))
         adapted = source in (fd.SOURCE, fg.SOURCE)
+        # a revision before the head words: no head_count, head_offset
+        headless = (source in fa._SIGNATURES
+                    and "head_offset" not in (csrc / "flash_common.cuh").read_text())
         for name, argtypes in signatures[source].items():
             if adapted:
                 argtypes = ParentLossLibrary.argtypes(lib, name, argtypes)
                 if argtypes is None:
                     continue
+            if headless:
+                argtypes = argtypes[:-3] + argtypes[-1:]
             getattr(lib, name).argtypes = argtypes
             getattr(lib, name).restype = (
                 ctypes.c_longlong if name in queries and len(argtypes) >= 4
@@ -1195,7 +1295,8 @@ def build_baseline(fa, fc, fd, fg, csrc: Path, out_dir: Path) -> dict:
             if hasattr(lib, name):
                 getattr(lib, name).argtypes = [ctypes.c_int]
                 getattr(lib, name).restype = ctypes.c_char_p
-        libs[source] = ParentLossLibrary(lib) if adapted else lib
+        libs[source] = (ParentLossLibrary(lib) if adapted
+                        else HeadlessFlashLibrary(lib) if headless else lib)
     return libs
 
 
@@ -3594,9 +3695,8 @@ def dp_fault(sum_grads, fault: str):
     import torch.distributed as dist
 
     def averaged(self, grads, norms):
-        grads, norms, sq = sum_grads(self, grads, norms)
-        grads = {k: g / self.world for k, g in grads.items()}
-        return grads, norms, None if sq is None else sq / self.world ** 2
+        grads, norms = sum_grads(self, grads, norms)
+        return {k: g / self.world for k, g in grads.items()}, norms
 
     def unsummed(self, grads, norms):
         collectives = dist.reduce_scatter_tensor, dist.all_reduce
@@ -3736,7 +3836,8 @@ def dp_one_rank(tmp: Path, smi: str) -> dict:
     return counts
 
 
-def dp_two_ranks(tmp: Path, smi: str, fault: str | None = None) -> dict:
+def dp_two_ranks(tmp: Path, smi: str, fault: str | None = None,
+                 legs=DP_PHASE_LEGS) -> dict:
     """(b) DP_RANKS ranks sharing cuda:0, each child joined by gloo before
     it calls the CLI with --device cuda:0, running the podslice leg (global
     negatives through the rows kernels at 16,384 anchor rows of 32,768 x
@@ -3745,7 +3846,9 @@ def dp_two_ranks(tmp: Path, smi: str, fault: str | None = None) -> dict:
     the joined batches: the loss and grad_norm per step and the mean |Δ| of
     the parameters after the last step (rank 0's checkpoint), each within
     its limit; the rows kernels launched exactly 2 times a step on each
-    rank and no other kernel.  Returns the launches by leg.  With a
+    rank and no other kernel.  ``legs`` names the legs to run (the tp
+    phase runs ``podslice_lamb``: the podslice leg under LAMB).  Returns
+    the launches by leg.  With a
     ``fault`` (``dp_fault``'s, or ``none`` for the port's own reduction)
     in the children, each reading is logged beside its limit, as caught or
     missed, and fails nothing."""
@@ -3763,7 +3866,7 @@ def dp_two_ranks(tmp: Path, smi: str, fault: str | None = None) -> dict:
     ranks = [({"join": "gloo", "device": "cuda:0",
                "fault": None if fault == "none" else fault,
                "runs": [{"argv": dp_argv(leg, tmp, f"b_{leg}_{r}", "cuda:0")}
-                        for leg in DP_LEGS]},
+                        for leg in legs]},
               {"RANK": str(r), "WORLD_SIZE": str(DP_RANKS), "LOCAL_RANK": str(r),
                "LOCAL_WORLD_SIZE": str(DP_RANKS), "MASTER_ADDR": "127.0.0.1",
                "MASTER_PORT": port})
@@ -3773,7 +3876,7 @@ def dp_two_ranks(tmp: Path, smi: str, fault: str | None = None) -> dict:
     seconds_children = time.perf_counter() - t0
     out = {}
     t0 = time.perf_counter()
-    for i, leg in enumerate(DP_LEGS):
+    for i, leg in enumerate(legs):
         runs = [res[i] for res in results]
         n = DP_STEPS[leg]
         losses, norms, params, cfg = dp_reference(leg)
@@ -3820,14 +3923,15 @@ def dp_two_ranks(tmp: Path, smi: str, fault: str | None = None) -> dict:
         # printed, not held: AdamW's update is about lr a step whatever its
         # gradient, so any two finite runs stay inside this
         adam_gap = DP_ADAM_U * sum(adam.learning_rate(c) for c in range(n))
+        gap = (f"AdamW's widest gap {adam_gap:.3e} = {DP_ADAM_U} x Σ lr"
+               if cfg.train.optimizer == "adamw" else cfg.train.optimizer)
         out[f"b_{leg}"] = counts
         rate, ms = dp_rate(tmp, f"b_{leg}_0")
         log("dp", f"(b) {leg} ({DP_LEGS[leg]}, B={cfg.data.batch_size}, "
                   f"{cfg.data.batch_size // DP_RANKS} a rank, {DP_RANKS} gloo ranks "
                   f"on cuda:0, {n} steps): parameters after the last step vs one "
                   f"process: mean |Δ| {mean:.3e} (limit {DP_PARAM_MEAN[leg]:.3g}); "
-                  f"max |Δ| {worst_err:.3e} ({worst}; AdamW's widest gap "
-                  f"{adam_gap:.3e} = {DP_ADAM_U} x Σ lr); launches "
+                  f"max |Δ| {worst_err:.3e} ({worst}; {gap}); launches "
                   f"{({k: x for k, x in counts.items() if x})}")
         log("dp", f"(b) {leg} steady train rate: {rate:.1f} pairs/s of the "
                   f"global batch ({ms:.2f} ms a step; both ranks on one card, "
@@ -4002,14 +4106,16 @@ def ring_shapes_check(fa, rank: int, group) -> list[dict]:
 
 
 def ring_worker(spec_path: Path) -> int:
-    """A rank of the ring phase: joins a gloo group of RING_RANKS on cuda:0
+    """A rank of the ring or the tp phase: joins a gloo group on cuda:0
     from the launcher's environment (NCCL refuses two ranks on one
     device), runs ``ring_shapes_check`` when ``spec["shapes"]``, then the
-    train CLI with ``spec["argv"]`` (``--n-model RING_RANKS``, ring towers),
-    every kernel count set to 0 just before and read just after, each
-    step's loss, grad_norm (exact hex) and flash launches recorded.
-    ``spec["fault"]`` breaks the model group's reduction (``sp_fault``).
-    Writes the results to ``spec["out"]``."""
+    train CLI with ``spec["argv"]`` (``--n-model``: ring towers, or flash
+    towers split tensor-parallel), every kernel count set to 0 just before
+    and read just after, each step's loss, grad_norm (exact hex) and flash
+    launches recorded.  ``spec["fault"]`` breaks the model group's
+    reduction (``sp_fault``), ``spec["tp_fault"]`` a conjugate collective
+    of the split towers (``tp_fault``).  Writes the results to
+    ``spec["out"]``."""
     import torch.distributed as dist
 
     spec = json.loads(spec_path.read_text())
@@ -4033,6 +4139,8 @@ def ring_worker(spec_path: Path) -> int:
             out["shapes_seconds"] = time.perf_counter() - t0
         if spec.get("fault"):
             sp_fault(Trainer, spec["fault"])
+        if spec.get("tp_fault"):
+            tp_fault(spec["tp_fault"])
         steps = []
         train_step = Trainer.train_step
 
@@ -4067,18 +4175,34 @@ def sp_fault(trainer_cls, fault: str) -> None:
     """A known-wrong reduction over the model group, to read what the ring
     phase's checks read under it (``--sp-fault``): ``unsummed`` leaves each
     rank its share of the gradient (no sum over the model group);
-    ``doubled`` leaves out the 1/n_model of each rank's objective, so the
-    sum counts every rank's whole gradient n_model times."""
+    ``doubled`` leaves out the division of the ring towers' summed
+    gradients by n_model, so the sum counts every rank's whole gradient
+    n_model times."""
     if fault == "unsummed":
         trainer_cls.sum_model_grads = lambda self, grads: grads
     elif fault == "doubled":
-        objective = trainer_cls.step_objective
+        summed = trainer_cls.sum_model_grads
 
-        def doubled(self, *args, **kwargs):
-            value, loss = objective(self, *args, **kwargs)
-            return value * self.n_model, loss
+        def doubled(self, grads):
+            grads = summed(self, grads)
+            for k in self._ring_summed:
+                grads[k].mul_(self.n_model)
+            return grads
 
-        trainer_cls.step_objective = doubled
+        trainer_cls.sum_model_grads = doubled
+
+
+def tp_fault(fault: str) -> None:
+    """A conjugate collective of the split towers left out, to read what
+    the tp phase's checks read under it (``--tp-fault``): ``uncopied``
+    leaves the cotangent of a split layer's replicated input unsummed
+    over the model group (``copy_to_model``'s backward an identity), so
+    every gradient below a split layer holds this rank's heads' and hidden
+    units' share only."""
+    from crossclr_tpu_torch.parallel import tensor_parallel
+
+    if fault == "uncopied":
+        tensor_parallel._CopyToModel.backward = staticmethod(lambda ctx, g: (g, None))
 
 
 def ring_spawn(tmp: Path, tag: str, specs: list[dict]) -> list[dict]:
@@ -4286,20 +4410,22 @@ def ring_two_ranks(tmp: Path, smi: str, fault: str | None = None,
     log("ring", f"(b) {seconds_ranks:.1f} s for the ranks' children (train.main "
                 + ", ".join(f"{run['seconds']:.1f}" for run in ranks)
                 + f" s), {seconds_ref:.1f} s for the flash reference")
-    return {"launches": launches, "ranks": ranks}
+    return {"launches": launches, "ranks": ranks, "ref": ref}
 
 
-def ring_phase(fa, smi: str) -> dict:
+def ring_phase(fa, smi: str, tmp: Path) -> dict:
     """Ring attention and the sequence-parallel train step: (a) in the
-    ranks of (b) and on a one-rank NCCL group, (b) ``ring_two_ranks``.
-    Returns the flash kernels' launches on the ring training path."""
+    ranks of (b) and on a one-rank NCCL group, (b) ``ring_two_ranks`` in
+    ``tmp`` (where its one process of flash towers stays for the tp
+    phase).  Returns ``ring_two_ranks``' result: the flash kernels'
+    launches on the ring training path, the ranks' and the reference's
+    readings."""
     torch.cuda.empty_cache()  # the children share the card
     t0 = time.perf_counter()
     for line in ring_one_rank_check(fa):
         log("ring", f"(a) one-rank NCCL group, B={RING_LEG_SHAPES[0][0]} "
                     f"S={RING_LEG_SHAPES[0][1]}: {line}")
-    with tempfile.TemporaryDirectory(prefix="crossclr_ring_") as tmp:
-        out = ring_two_ranks(Path(tmp), smi)
+    out = ring_two_ranks(tmp, smi)
     for r, run in enumerate(out["ranks"]):
         for rec in run["shapes"]:
             whole = ", ".join(f"{n} {e:.3e} of max {m:.3e}" for n, (e, m) in
@@ -4327,7 +4453,238 @@ def ring_phase(fa, smi: str) -> dict:
                             f"sharing one card: not scaling) ({smi})")
         log("ring", f"(a) rank {r}: {run['shapes_seconds']:.1f} s")
     log("ring", f"the phase took {time.perf_counter() - t0:.1f} s ({smi})")
-    return out["launches"]
+    return out
+
+
+# ---------------------------------------------------------------------------
+# tensor parallelism over a model group, and LAMB
+# ---------------------------------------------------------------------------
+
+
+def tp_two_ranks(tmp: Path, smi: str, fault: str | None = None,
+                 ref: dict | None = None) -> dict:
+    """(a) the train CLI at --n-model TP_RANKS on the transformer config at
+    full width with flash towers, which splits both tensor-parallel, over
+    TP_RANKS gloo ranks sharing cuda:0, against one process of flash towers
+    on the same batches (``ref``: the ring phase's, run here when None):
+    the loss and grad_norm per step, the mean |Δ| of the parameters after
+    the last step (rank 0's checkpoint, whole tensors) within the TP_*
+    limits, both ranks equal, each rank launching flash_fwd, flash_dq and
+    flash_dkv exactly TP_FLASH_LAUNCHES times a step on its own heads and
+    the sym pair once a step; the checkpoint restored in one process (whole
+    towers and moments) and encoding, and the eval CLI on it in one
+    process.  With a ``fault`` (``tp_fault``'s, or ``none``) each reading is
+    logged beside its limit, as caught or missed, and fails nothing.
+    Returns the launches of both ranks' whole runs by kernel."""
+    from crossclr_tpu_torch import eval as teval
+    from crossclr_tpu_torch.training import CheckpointManager, Trainer
+    from crossclr_tpu_torch.utils.config import apply_overrides, load_config
+
+    def hold(ok: bool, what: str) -> None:
+        if fault is None:
+            check(ok, what)
+        else:
+            log("tp", f"fault {fault}: {'missed' if ok else 'CAUGHT'}: {what}")
+
+    flash = ["video_tower.attention=flash", "text_tower.attention=flash"]
+    specs = [{"shapes": False, "tp_fault": None if fault in (None, "none") else fault,
+              "argv": ring_argv(tmp, "tp", "flash", TP_RANKS, "cuda:0")}] * TP_RANKS
+    t0 = time.perf_counter()
+    ranks = ring_spawn(tmp, "tp", specs)
+    seconds_ranks = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    if ref is None:
+        (ref,), = dp_spawn(tmp, "ring_ref", [(
+            {"runs": [{"argv": ring_argv(tmp, "ring_ref", "flash", 1, "cuda"),
+                       "env": {}}]}, {})])
+    seconds_ref = time.perf_counter() - t0
+    check(ref["rc"] == 0 and len(ref["loss"]) == RING_STEPS,
+          f"(a) the flash reference: {ref['rc']=}, {len(ref['loss'])} steps")
+    want_loss = [float.fromhex(x) for x in ref["loss"]]
+    want_norm = [float.fromhex(x) for x in ref["grad_norm"]]
+    per_step = {k: TP_FLASH_LAUNCHES for k in ("flash_fwd", "flash_dq", "flash_dkv")}
+    launches = {}
+    for r, run in enumerate(ranks):
+        check(run["rc"] == 0 and len(run["loss"]) == RING_STEPS,
+              f"(a) rank {r}: {run['rc']=}, {len(run['loss'])} steps")
+        check(all(c == per_step for c in run["step_launches"]),
+              f"(a) rank {r}: flash launches per step {run['step_launches']}, "
+              f"want {per_step}")
+        check_only(run["counts"], {"sym_fwd": RING_STEPS, "sym_bwd": RING_STEPS,
+                                   "flash_fwd": run["counts"]["flash_fwd"],
+                                   "flash_dq": RING_STEPS * TP_FLASH_LAUNCHES,
+                                   "flash_dkv": RING_STEPS * TP_FLASH_LAUNCHES},
+                   f"(a) rank {r}")
+        for k, x in run["counts"].items():
+            launches[k] = launches.get(k, 0) + x
+        got = [float.fromhex(x) for x in run["loss"]]
+        loss_err = max(abs(a - w) / abs(w) for a, w in zip(got, want_loss))
+        norms = [float.fromhex(x) for x in run["grad_norm"]]
+        norm_err = max(abs(a - w) / abs(w) for a, w in zip(norms, want_norm))
+        hold(loss_err <= TP_LOSS_RTOL,
+             f"(a) rank {r}: losses {got} vs one process of flash towers "
+             f"{want_loss}: max relative error {loss_err:.3e} (limit {TP_LOSS_RTOL})")
+        hold(norm_err <= TP_NORM_RTOL,
+             f"(a) rank {r}: grad_norm {norms} vs {want_norm}: max relative error "
+             f"{norm_err:.3e} (limit {TP_NORM_RTOL})")
+        log("tp", f"(a) rank {r}: loss max relative error {loss_err:.3e} (limit "
+                  f"{TP_LOSS_RTOL}), grad_norm {norm_err:.3e} (limit {TP_NORM_RTOL})")
+    hold(ranks[0]["loss"] == ranks[1]["loss"]
+         and ranks[0]["grad_norm"] == ranks[1]["grad_norm"],
+         "(a) both ranks' losses and grad_norms bit for bit equal")
+    saved = torch.load(tmp / "tp" / f"step_{RING_STEPS}.pt", map_location="cpu",
+                       weights_only=True)
+    ref_saved = torch.load(tmp / "ring_ref" / f"step_{RING_STEPS}.pt",
+                           map_location="cpu", weights_only=True)
+    check(saved["model"].keys() == ref_saved["model"].keys() and all(
+        saved["model"][k].shape == v.shape for k, v in ref_saved["model"].items()),
+          "(a) the split run's checkpoint holds the whole towers' tensors")
+    diffs = {k: (saved["model"][k].float() - v.float()).abs()
+             for k, v in ref_saved["model"].items()}
+    mean = (sum(d.double().sum().item() for d in diffs.values())
+            / sum(d.numel() for d in diffs.values()))
+    worst = max(diffs, key=lambda k: diffs[k].max().item())
+    params_line = (f"(a) parameters after {RING_STEPS} steps vs one process of "
+                   f"flash towers: mean |Δ| {mean:.3e} (limit {TP_PARAM_MEAN:.3g}); "
+                   f"max |Δ| {diffs[worst].max().item():.3e} ({worst})")
+    hold(mean <= TP_PARAM_MEAN, params_line)
+    log("tp", params_line)
+    # the split run's checkpoint in one process: whole towers and moments
+    cfg = apply_overrides(load_config(ROOT / TRANSFORMER_CONFIG),
+                          [*RING_OVERRIDES, *flash])
+    trainer = Trainer(cfg.video_tower, cfg.text_tower, cfg.train, "cuda")
+    state = trainer.restored_state(
+        CheckpointManager(tmp / "tp").restore(trainer.init_state()))
+    check(state.step == RING_STEPS and all(
+        torch.equal(p.detach().cpu(), saved["model"][k])
+        and state.opt_state["mu"][k].shape == p.shape
+        for k, p in state.model.state_dict().items()),
+          "(a) the split run's checkpoint restored in one process")
+    gen = torch.Generator().manual_seed(73)
+    batch = {"video": torch.randn(4, 64, 512, generator=gen),
+             "text": torch.randn(4, 96, 768, generator=gen)}
+    v_emb, t_emb = trainer.encode(state, batch)
+    check(bool(torch.isfinite(v_emb).all() and torch.isfinite(t_emb).all()),
+          "(a) the restored towers: non-finite embeddings")
+    t0 = time.perf_counter()
+    rc = teval.main(["--config", str(ROOT / TRANSFORMER_CONFIG), "--device", "cuda",
+                     "--checkpoint-dir", str(tmp / "tp"), "--output",
+                     str(tmp / "tp_eval.json"), *RING_OVERRIDES, *flash])
+    seconds_eval = time.perf_counter() - t0
+    check(rc == 0, f"(a) eval.main on the split run's checkpoint exited {rc}")
+    metrics = json.loads((tmp / "tp_eval.json").read_text())
+    check(metrics["step"] == RING_STEPS and all(
+        math.isfinite(v) for v in metrics.values() if isinstance(v, float)),
+          f"(a) eval.main metrics {metrics}")
+    _, evals = train_rows(tmp / "tp.csv")
+    rate, ms = dp_rate(tmp, "tp")
+    rate_ref, ms_ref = dp_rate(tmp, "ring_ref")
+    log("tp", f"(a) {TRANSFORMER_CONFIG} at full width, flash towers split over "
+              f"--n-model {TP_RANKS} on {TP_RANKS} gloo ranks sharing cuda:0, batch "
+              f"{LEG_BATCH}, dropout {LEG_DROPOUT}, {RING_STEPS} steps: loss per step "
+              + ", ".join(f"{float.fromhex(x):.6f}" for x in ranks[0]["loss"])
+              + " vs one process " + ", ".join(f"{x:.6f}" for x in want_loss)
+              + f"; flash launches per step and rank {per_step}; the checkpoint "
+                f"restored in one process and encoded")
+    log("tp", f"(a) eval.main in one process on the split run's checkpoint: "
+              f"v2t/R@1 {metrics['v2t/R@1']:.3f}, t2v/R@1 {metrics['t2v/R@1']:.3f} "
+              f"over {metrics['rows']} rows in {seconds_eval:.1f} s; the split "
+              f"run's own eval at step {RING_STEPS}: v2t/R@1 "
+              + (f"{float(evals[-1]['eval/v2t/R@1']):.3f}, t2v/R@1 "
+                 f"{float(evals[-1]['eval/t2v/R@1']):.3f}" if evals else "none"))
+    log("tp", f"(a) steady train rate: split towers {rate:.1f} pairs/s ({ms:.2f} ms "
+              f"a step; {TP_RANKS} ranks on one card through gloo staged in host "
+              f"memory: not scaling), one process of flash towers {rate_ref:.1f} "
+              f"pairs/s ({ms_ref:.2f} ms a step) ({smi})")
+    log("tp", f"(a) {seconds_ranks:.1f} s for the ranks' children (train.main "
+              + ", ".join(f"{run['seconds']:.1f}" for run in ranks)
+              + f" s), {seconds_ref:.1f} s for the flash reference")
+    return launches
+
+
+def lamb_phase(fd, smi: str, tmp: Path) -> dict:
+    """(b) LAMB: the MLP leg's config at full width, batch 1024, through
+    the train CLI with LAMB_OVERRIDES for LAMB_STEPS steps: the loss falls
+    and the sym pair launches once a step; then, from its checkpoint, one
+    update on the card (fp32) against the same update in float64 on the
+    CPU from the same recorded gradients, moments and parameters: each
+    parameter's max |error| within LAMB_UPDATE_RTOL of its largest |Δ|.
+    Returns the sym pair's launches."""
+    from crossclr_tpu_torch import train
+    from crossclr_tpu_torch.data import dataset_from_config, epoch_batches
+    from crossclr_tpu_torch.training import LAMB, CheckpointManager, Trainer
+    from crossclr_tpu_torch.utils.config import apply_overrides, load_config
+
+    ckpt, metrics = tmp / "lamb", tmp / "lamb.csv"
+    reset_counts(fd)
+    t0 = time.perf_counter()
+    run_train(train, ["--steps", str(LAMB_STEPS), "--metrics-csv", str(metrics)],
+              [*LAMB_OVERRIDES, f"checkpoint_dir={ckpt}"])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = dict(fd.launch_counts)
+    check_only(counts, {"sym_fwd": LAMB_STEPS, "sym_bwd": LAMB_STEPS}, "(b) LAMB leg")
+    rows, evals = train_rows(metrics)
+    losses = check_train_rows(rows, evals, int(16384 * 0.1), "(b) LAMB leg")
+    cfg = apply_overrides(load_config(ROOT / TRAIN_CONFIG),
+                          [*TRAIN_OVERRIDES, *LAMB_OVERRIDES])
+    trainer = Trainer(cfg.video_tower, cfg.text_tower, cfg.train, "cuda")
+    check(isinstance(trainer.optimizer, LAMB), "(b) the trainer's optimizer")
+    state = CheckpointManager(ckpt).restore(trainer.init_state())
+    dataset, _ = dataset_from_config(cfg.data)
+    batch = next(epoch_batches(dataset, cfg.data.batch_size, seed=1))
+    _, _, grads = trainer.value_and_grad(state, trainer.step_inputs(batch))
+    params = {k: p.detach() for k, p in state.model.named_parameters()}
+
+    def moments(to):
+        return {"count": state.opt_state["count"],
+                **{m: {k: to(v) for k, v in state.opt_state[m].items()}
+                   for m in ("mu", "nu")}}
+
+    def host(x):
+        return x.detach().double().cpu()
+
+    _, card = trainer.optimizer.updates(params, grads, moments(torch.clone))
+    _, want = trainer.optimizer.updates({k: host(v) for k, v in params.items()},
+                                        {k: host(v) for k, v in grads.items()},
+                                        moments(host))
+    errs = {k: ((host(card[k]) - w).abs().max() / w.abs().max()).item()
+            for k, w in want.items() if w.abs().max() > 0}
+    worst = max(errs, key=errs.get)
+    check(errs[worst] <= LAMB_UPDATE_RTOL,
+          f"(b) one LAMB update on the card vs float64 on the CPU: {worst} "
+          f"max |error| {errs[worst]:.3e} of its largest |Δ| (limit "
+          f"{LAMB_UPDATE_RTOL})")
+    log("tp", f"(b) {TRAIN_CONFIG} at full width with LAMB (lr "
+              f"{cfg.train.learning_rate}, batch {cfg.data.batch_size}): "
+              f"{LAMB_STEPS} steps in {seconds:.1f} s, loss {losses[0]:.4f} (step "
+              f"{rows[0]['step']}) -> {losses[-1]:.4f}; eval v2t/R@1 "
+              f"{float(evals[-1]['eval/v2t/R@1']):.2f}; steady "
+              f"{float(rows[-1]['pairs_per_sec']):.1f} pairs/s ({smi}); launches "
+              f"{({k: x for k, x in counts.items() if x})}")
+    log("tp", f"(b) one LAMB update at step {state.step} on the card (fp32) vs "
+              f"float64 on the CPU from the same gradients and moments: worst "
+              f"{worst} max |error| {errs[worst]:.3e} of its largest |Δ| (limit "
+              f"{LAMB_UPDATE_RTOL}) over {len(errs)} parameters")
+    return counts
+
+
+def tp_phase(fa, fd, smi: str, tmp: Path, ring: dict | None) -> dict:
+    """Tensor parallelism and LAMB, last: (a) ``tp_two_ranks`` against the
+    ring phase's one process of flash towers, (b) ``lamb_phase`` and the dp
+    phase's two-rank podslice leg under LAMB (``dp_two_ranks``).  Returns
+    the launches of each path."""
+    torch.cuda.empty_cache()  # the children share the card
+    t0 = time.perf_counter()
+    out = {"tp": tp_two_ranks(tmp, smi, ref=None if ring is None else ring["ref"])}
+    seconds_a = time.perf_counter() - t0
+    out["lamb"] = lamb_phase(fd, smi, tmp)
+    seconds_lamb = time.perf_counter() - t0 - seconds_a
+    out.update(dp_two_ranks(tmp, smi, legs=("podslice_lamb",)))
+    log("tp", f"the phase took {time.perf_counter() - t0:.1f} s: (a) {seconds_a:.1f} "
+              f"s, (b) the MLP leg {seconds_lamb:.1f} s, the podslice leg "
+              f"{time.perf_counter() - t0 - seconds_a - seconds_lamb:.1f} s ({smi})")
+    return out
 
 
 def loss_bounds(b: int, d: int, pruned: bool = False) -> dict:
@@ -4376,14 +4733,22 @@ def main(argv=None) -> int:
         help="only run the ring phase's train CLI (b), with this reduction "
              "over the model group in the ranks (none: the port's own; "
              "unsummed: each rank's share of the gradient, not summed over "
-             "the model group; doubled: each rank's objective without its "
-             "1/n_model), and log each check's reading beside its limit "
-             "without failing")
+             "the model group; doubled: the ring towers' summed gradients "
+             "not divided by n_model), and log each check's reading beside "
+             "its limit without failing")
+    parser.add_argument(
+        "--tp-fault", choices=("none", "uncopied"), default=None,
+        help="only run the tp phase's train CLI (a), with this conjugate "
+             "collective in the ranks (none: the port's own; uncopied: the "
+             "cotangent of a split layer's replicated input not summed over "
+             "the model group), and log each check's reading beside its "
+             "limit without failing")
     args = parser.parse_args(argv)
     if args.dp_worker is not None:
         return dp_worker(args.dp_worker)
     if args.ring_worker is not None:
         return ring_worker(args.ring_worker)
+    t_start = time.perf_counter()
     smi = device_phase()
     sys.path.insert(0, str(ROOT))
     # the plain versions' products in full fp32 (PyTorch's default, stated)
@@ -4399,11 +4764,15 @@ def main(argv=None) -> int:
         return 0
     if args.dp_fault is not None:
         with tempfile.TemporaryDirectory(prefix="crossclr_dp_") as tmp:
-            dp_two_ranks(Path(tmp), smi, args.dp_fault)
+            dp_two_ranks(Path(tmp), smi, args.dp_fault, legs=tuple(DP_LEGS))
         return 0
     if args.sp_fault is not None:
         with tempfile.TemporaryDirectory(prefix="crossclr_ring_") as tmp:
             ring_two_ranks(Path(tmp), smi, args.sp_fault)
+        return 0
+    if args.tp_fault is not None:
+        with tempfile.TemporaryDirectory(prefix="crossclr_tp_") as tmp:
+            tp_two_ranks(Path(tmp), smi, args.tp_fault)
         return 0
     data_phase(smi)
     fwd_worst = kernel_phase(fa, smi)
@@ -4438,7 +4807,11 @@ def main(argv=None) -> int:
     grad_cache_phase(fc, smi)
     paths_phase(smi)
     dp_launches = dp_phase(smi)
-    ring_launches = ring_phase(fa, smi)
+    # the ring phase's one process of flash towers serves the tp phase too
+    with tempfile.TemporaryDirectory(prefix="crossclr_grid_") as tmp:
+        ring = ring_phase(fa, smi, Path(tmp))
+        tp_launches = tp_phase(fa, fd, smi, Path(tmp), ring)
+    ring_launches = ring["launches"]
     log("train", f"flash_fwd launches: serving {serve_launches}, transformer "
                  f"training {flash_launches['flash_fwd']}, train-eval-serve-reload "
                  f"{checkpoint_launches['flash_fwd']}")
@@ -4464,7 +4837,8 @@ def main(argv=None) -> int:
     for name, (kernel_key, plain_key, library_key, library_call) in flash_rows.items():
         launches = {"transformer_training": flash_launches[name],
                     "train_eval_serve_reload": checkpoint_launches[name],
-                    "ring_training": ring_launches[name]}
+                    "ring_training": ring_launches[name],
+                    "tensor_parallel_training": tp_launches["tp"][name]}
         if name == "flash_fwd":
             launches["serving_random_weights"] = serve_launches
         records.append({
@@ -4487,7 +4861,9 @@ def main(argv=None) -> int:
         pruned_ms, pruned_plain_ms = pruned_times[(name, b, d)]
         launches = {"mlp": loss_launches[name],
                     "full_crossclr": pruned_launches[name],
-                    "data_parallel_one_rank": dp_launches["a"].get(name, 0)}
+                    "data_parallel_one_rank": dp_launches["a"].get(name, 0),
+                    "tensor_parallel_training": tp_launches["tp"].get(name, 0),
+                    "lamb_mlp": tp_launches["lamb"].get(name, 0)}
         records.append({
             "name": name, "route": "cuda", "source": LOSS_SOURCE,
             "replaces": LOSS_REPLACES[name], "launches": sum(launches.values()),
@@ -4509,7 +4885,9 @@ def main(argv=None) -> int:
         rank_ms, rank_plain_ms = rows_times[(name, rank_loc, rank_b, rank_d)]
         launches = {"global_losses": rows_launches[name],
                     **{f"data_parallel_{leg}": dp_launches[f"b_{leg}"][name]
-                       for leg in DP_LEGS}}
+                       for leg in DP_PHASE_LEGS},
+                    "data_parallel_podslice_lamb":
+                        tp_launches["b_podslice_lamb"][name]}
         records.append({
             "name": name, "route": "cuda", "source": ROWS_SOURCE,
             "replaces": ROWS_REPLACES[name], "launches": sum(launches.values()),
@@ -4541,6 +4919,7 @@ def main(argv=None) -> int:
             "leg_bound_ms": leg_bounds[name]["bound_ms"],
             "leg_timed_at": f"B={PODSLICE_BATCH} D=256 bf16",
         })
+    log("smoke", f"the run took {time.perf_counter() - t_start:.1f} s ({smi})")
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -25,6 +25,20 @@ backward adds the ranks' cotangents too), so every rank of the group
 pools the whole sequence.  Ring and flash towers share their parameter
 names (``_MHA_0``), so a checkpoint moves between them.
 
+Every other tower on a mesh of ``n_model > 1`` runs tensor-parallel over
+the model group (:mod:`parallel.tensor_parallel`, the JAX trainer's
+``_tp_spec_for_param``): each rank holds its slice of every parameter the
+rule shards (:class:`Dense` with ``split``), the transformer blocks split
+their heads (``out`` and ``Dense_1`` row-parallel, ``Dense_0``
+column-parallel), an MLP tower splits block 0's ``skip``/``fc1`` by
+column and ``fc2`` by row, ``input_proj`` is column-parallel and
+``output_proj`` row-parallel; the residual stream, the LayerNorms, the
+pooling and the embeddings are whole on every rank.  A flash tower's
+dropout places the rank's heads among the global ones (the kernels'
+``head_count``/``head_offset``), so the grid drops what one device drops.
+:meth:`DualEncoder.full_state_dict` joins the shards and
+:meth:`DualEncoder.shard_state_dict` cuts them.
+
 Parameters stay fp32 and autograd runs through the casts, so both kinds
 of tower train.  Dropout acts in train mode only: ``MLPTower`` applies
 ``nn.Dropout`` after the GELU, and the transformer towers with
@@ -50,6 +64,14 @@ from torch import nn
 
 from ..ops.flash_attention import flash_attention
 from ..parallel.ring_attention import ring_attention
+from ..parallel.tensor_parallel import (
+    ModelShards,
+    copy_to_model,
+    gather_from_model,
+    reduce_from_model,
+    shard,
+    tp_dim,
+)
 
 __all__ = ["DualEncoder", "MLPTower", "TowerConfig", "TransformerTower"]
 
@@ -85,15 +107,65 @@ class TowerConfig:
 
 class Dense(nn.Linear):
     """``flax.linen.Dense`` with ``dtype``: the product in the compute
-    dtype, then the bias added in that dtype."""
+    dtype, then the bias added in that dtype.
 
-    def __init__(self, in_features: int, out_features: int, dtype: torch.dtype):
+    Tensor-parallel (``shards`` set, see :func:`_dense`): ``split =
+    "column"`` holds this rank's rows of the weight and adds its slice of
+    the bias (the bias itself a slice where the rule shards it); ``"row"``
+    holds this rank's input columns, reads this rank's slice of the input,
+    and adds the whole bias after the group's partial products are summed.
+    The conjugate collectives on the inputs are the caller's."""
+
+    def __init__(self, in_features: int, out_features: int, dtype: torch.dtype,
+                 split: str | None = None, shards: ModelShards | None = None,
+                 bias_features: int | None = None):
         super().__init__(in_features, out_features)
+        if bias_features is not None and bias_features != out_features:
+            self.bias = nn.Parameter(torch.empty(bias_features))
         self.compute_dtype = dtype
+        self.split = split
+        self.shards = shards
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
-        return torch.matmul(x.to(dt), self.weight.to(dt).t()) + self.bias.to(dt)
+        y = torch.matmul(x.to(dt), self.weight.to(dt).t())
+        bias = self.bias
+        if self.split == "row":
+            y = reduce_from_model(y, self.shards)
+        elif self.split == "column" and bias.shape[0] != y.shape[-1]:
+            bias = shard(bias, 0, self.shards.index, self.shards.n)
+        return y + bias.to(dt)
+
+
+def _dense(name: str, in_features: int, out_features: int, dtype: torch.dtype,
+           shards: ModelShards | None, what: tuple[str, str]) -> Dense:
+    """The tower layer ``name`` as this rank holds it: whole without
+    ``shards`` or where the rule replicates it, else its column or row
+    slice; ``what`` names the output and input widths for the refusal of a
+    width the model axis does not divide."""
+    dim = None if shards is None else tp_dim(f"{name}.weight",
+                                             (out_features, in_features))
+    if dim is None:
+        return Dense(in_features, out_features, dtype)
+    if dim == 0:
+        local = shards.check(out_features, what[0])
+        bias = local if tp_dim(f"{name}.bias", (out_features,)) == 0 else out_features
+        return Dense(in_features, local, dtype, "column", shards, bias)
+    return Dense(shards.check(in_features, what[1]), out_features, dtype, "row",
+                 shards)
+
+
+def _row_input(layer: Dense, x: torch.Tensor, shards) -> torch.Tensor:
+    """A whole activation as the input of ``layer``: its slice for a
+    row-parallel layer (the cotangent summed over the group), else itself."""
+    if layer.split != "row":
+        return x
+    return shard(copy_to_model(x, shards), x.dim() - 1, shards.index, shards.n)
+
+
+def _column_output(layer: Dense, y: torch.Tensor, shards) -> torch.Tensor:
+    """``layer``'s output made whole: the group's column shards joined."""
+    return gather_from_model(y, shards) if layer.split == "column" else y
 
 
 def _gelu(x: torch.Tensor) -> torch.Tensor:
@@ -106,20 +178,26 @@ def _ln(dim: int) -> nn.LayerNorm:
 
 class MLPTower(nn.Module):
     """Residual MLP blocks over pooled features, then an fp32 LayerNorm;
-    block 0 reads ``input_dim``, later blocks ``embed_dim``."""
+    block 0 reads ``input_dim``, later blocks ``embed_dim``.  With
+    ``shards`` the rule splits block 0 only: ``skip`` and ``fc1`` by
+    column (``skip``'s shards joined before the residual add), ``fc2`` by
+    row."""
 
-    def __init__(self, cfg: TowerConfig):
+    def __init__(self, cfg: TowerConfig, shards: ModelShards | None = None):
         super().__init__()
         self.cfg = cfg
+        self.shards = shards
         in_dim = cfg.input_dim
         self.num_blocks = max(cfg.num_layers, 1)
         for layer in range(self.num_blocks):
             suffix = "" if layer == 0 else f"_{layer}"
-            self.add_module(f"skip{suffix}", Dense(in_dim, cfg.embed_dim, cfg.dtype))
-            self.add_module(f"fc1{suffix}", Dense(in_dim, cfg.hidden_dim, cfg.dtype))
-            self.add_module(
-                f"fc2{suffix}", Dense(cfg.hidden_dim, cfg.embed_dim, cfg.dtype)
-            )
+            for name, (n_in, n_out) in (("skip", (in_dim, cfg.embed_dim)),
+                                        ("fc1", (in_dim, cfg.hidden_dim)),
+                                        ("fc2", (cfg.hidden_dim, cfg.embed_dim))):
+                what = ("hidden_dim" if name == "fc1" else "embed_dim",
+                        "hidden_dim" if name == "fc2" else "input width")
+                self.add_module(name + suffix, _dense(name + suffix, n_in, n_out,
+                                                      cfg.dtype, shards, what))
             in_dim = cfg.embed_dim
         self.norm = _ln(cfg.embed_dim)
         # no parameters: the state_dict keys stay the Flax paths
@@ -129,20 +207,24 @@ class MLPTower(nn.Module):
         h = x.to(self.cfg.dtype)
         for layer in range(self.num_blocks):
             suffix = "" if layer == 0 else f"_{layer}"
-            skip = self.get_submodule(f"skip{suffix}")(h)
-            y = _gelu(self.get_submodule(f"fc1{suffix}")(h))
+            skip_l, fc1_l, fc2_l = (self.get_submodule(n + suffix)
+                                    for n in ("skip", "fc1", "fc2"))
+            h_in = h if fc1_l.split is None else copy_to_model(h, self.shards)
+            skip = _column_output(skip_l, skip_l(h_in), self.shards)
+            y = _gelu(fc1_l(h_in))
             if self.dropout is not None:
                 y = self.dropout(y)
-            h = skip + self.get_submodule(f"fc2{suffix}")(y)
+            h = skip + fc2_l(y)
         return self.norm(h.float())
 
 
 class _HeadProjections(nn.Module):
     """The q/k/v/out projections of Flax multi-head attention, held as
     ``[E, E]`` Linears (Flax's ``[E, H, Dh]`` / ``[H, Dh, E]`` kernels
-    flattened)."""
+    flattened).  With ``shards`` this rank holds ``H / n`` heads: their
+    q/k/v rows and ``out``'s input columns (row-parallel)."""
 
-    def __init__(self, cfg: TowerConfig):
+    def __init__(self, cfg: TowerConfig, shards: ModelShards | None = None):
         super().__init__()
         if cfg.embed_dim % cfg.num_heads:
             raise ValueError(
@@ -150,14 +232,22 @@ class _HeadProjections(nn.Module):
                 f"{cfg.num_heads}"
             )
         self.cfg = cfg
-        self.heads = cfg.num_heads
+        self.shards = shards
+        self.heads = (cfg.num_heads if shards is None
+                      else shards.check(cfg.num_heads, "num_heads"))
         self.head_dim = cfg.embed_dim // cfg.num_heads
         for name in ("query", "key", "value", "out"):
-            self.add_module(name, Dense(cfg.embed_dim, cfg.embed_dim, cfg.dtype))
+            self.add_module(name, _dense(name, cfg.embed_dim, cfg.embed_dim,
+                                         cfg.dtype, shards,
+                                         ("embed_dim", "embed_dim")))
 
     def _split(self, x: torch.Tensor, name: str) -> torch.Tensor:
         b, s, _ = x.shape
         return self.get_submodule(name)(x).view(b, s, self.heads, self.head_dim)
+
+    def _input(self, x: torch.Tensor) -> torch.Tensor:
+        """The block's whole activation as the local heads' input."""
+        return x if self.shards is None else copy_to_model(x, self.shards)
 
     def _merge(self, o: torch.Tensor) -> torch.Tensor:
         b, s = o.shape[:2]
@@ -185,13 +275,16 @@ class _MHA(_HeadProjections):
     ``cfg.dropout > 0`` each call draws its dropout seed from
     ``dropout_gen``, as the JAX ``_MHA`` draws one per call and step."""
 
-    def __init__(self, cfg: TowerConfig, dropout_gen: torch.Generator, mesh=None):
-        super().__init__(cfg)
+    def __init__(self, cfg: TowerConfig, dropout_gen: torch.Generator, mesh=None,
+                 shards: ModelShards | None = None):
+        super().__init__(cfg, shards)
         self.attend = (flash_attention if cfg.attention == "flash"
                        else functools.partial(_ring_attend, cfg=cfg, mesh=mesh))
         self.dropout_gen = dropout_gen
+        self.mesh = mesh
 
     def forward(self, x, mask):
+        x = self._input(x)
         # [B, S, H, Dh] -> [B, H, S, Dh]
         q, k, v = (
             self._split(x, n).transpose(1, 2) for n in ("query", "key", "value")
@@ -199,8 +292,13 @@ class _MHA(_HeadProjections):
         if self.training and self.cfg.dropout > 0:
             seed = int(torch.randint(0, _SEED_RANGE, (),
                                      generator=self.dropout_gen))
+            place = {}
+            if self.shards is not None:  # this rank's heads of the global rows
+                h = self.cfg.num_heads
+                place = dict(head_count=h, head_offset=self.shards.index * self.heads,
+                             bh_offset=self.mesh.data_index * q.shape[0] * h)
             out = self.attend(q, k, v, mask, dropout_rate=self.cfg.dropout,
-                              dropout_seed=seed)
+                              dropout_seed=seed, **place)
         else:
             out = self.attend(q, k, v, mask)
         return self._merge(out.transpose(1, 2).to(self.cfg.dtype))
@@ -221,6 +319,7 @@ class MultiHeadDotProductAttention(_HeadProjections):
                 "jax.random; use attention='flash'"
             )
         dt = self.cfg.dtype
+        x = self._input(x)
         q, k, v = (self._split(x, n) for n in ("query", "key", "value"))
         q = q / torch.tensor(self.head_dim**0.5, dtype=torch.float32).to(dt)
         logits = torch.einsum("bqhd,bkhd->bhqk", q, k)
@@ -241,28 +340,46 @@ _ATTENTION = {"flash": "_MHA_0", "ring": "_MHA_0",
 
 class _Block(nn.Module):
     """Pre-norm transformer block (``LayerNorm_0``, attention,
-    ``LayerNorm_1``, ``Dense_0``, ``Dense_1``)."""
+    ``LayerNorm_1``, ``Dense_0``, ``Dense_1``).  With ``shards`` the
+    attention splits its heads and the MLP pair splits by shape, as the
+    rule does: the wider side's dimension (column then row where hidden >
+    embed, row then column where it is narrower)."""
 
-    def __init__(self, cfg: TowerConfig, dropout_gen: torch.Generator, mesh=None):
+    def __init__(self, cfg: TowerConfig, dropout_gen: torch.Generator, mesh=None,
+                 shards: ModelShards | None = None):
         super().__init__()
         if cfg.attention not in _ATTENTION:
             raise ValueError(f"unknown attention impl {cfg.attention!r}")
         self.cfg = cfg
+        self.shards = shards
         self.LayerNorm_0 = _ln(cfg.embed_dim)
         self.attn_name = _ATTENTION[cfg.attention]
         self.add_module(self.attn_name,
-                        MultiHeadDotProductAttention(cfg) if cfg.attention == "xla"
-                        else _MHA(cfg, dropout_gen, mesh))
+                        MultiHeadDotProductAttention(cfg, shards)
+                        if cfg.attention == "xla"
+                        else _MHA(cfg, dropout_gen, mesh, shards))
         self.LayerNorm_1 = _ln(cfg.embed_dim)
-        self.Dense_0 = Dense(cfg.embed_dim, cfg.hidden_dim, cfg.dtype)
-        self.Dense_1 = Dense(cfg.hidden_dim, cfg.embed_dim, cfg.dtype)
+        e, h = cfg.embed_dim, cfg.hidden_dim
+        self.Dense_0 = _dense("Dense_0", e, h, cfg.dtype, shards,
+                              ("hidden_dim", "embed_dim"))
+        self.Dense_1 = _dense("Dense_1", h, e, cfg.dtype, shards,
+                              ("embed_dim", "hidden_dim"))
 
     def forward(self, x, mask):
         dt = self.cfg.dtype
         y = self.LayerNorm_0(x.float()).to(dt)
         x = x + self.get_submodule(self.attn_name)(y, mask)
         y = self.LayerNorm_1(x.float()).to(dt)
-        return x + self.Dense_1(_gelu(self.Dense_0(y)))
+        return x + self._mlp(y)
+
+    def _mlp(self, y):
+        d0, d1, shards = self.Dense_0, self.Dense_1, self.shards
+        if d0.split == "column":  # hidden > embed: the hidden stays sharded
+            return d1(_gelu(d0(copy_to_model(y, shards))))
+        h = _gelu(d0(_row_input(d0, y, shards)))
+        if d1.split == "column":
+            h = copy_to_model(h, shards)
+        return _column_output(d1, d1(h), shards)
 
 
 class _ModelSum(torch.autograd.Function):
@@ -291,10 +408,13 @@ class TransformerTower(nn.Module):
     ``embed_dim``.  ``mask``: ``[B, S]`` (1 = valid).  ``dropout_gen`` is
     the generator its attention-dropout seeds come from (the one
     :class:`DualEncoder` holds and reseeds).  ``mesh`` (a
-    ``parallel.Mesh``) is needed by ``attention="ring"`` alone: every rank
-    of its model group takes the same rows and runs its sequence shard."""
+    ``parallel.Mesh``) is needed by ``attention="ring"``, where every rank
+    of its model group takes the same rows and runs its sequence shard,
+    and by ``shards`` (tensor parallelism over its model group): its
+    data coordinate places a rank's rows for dropout."""
 
-    def __init__(self, cfg: TowerConfig, dropout_gen: torch.Generator, mesh=None):
+    def __init__(self, cfg: TowerConfig, dropout_gen: torch.Generator, mesh=None,
+                 shards: ModelShards | None = None):
         super().__init__()
         if cfg.attention == "ring" and mesh is None:
             raise ValueError(
@@ -304,12 +424,15 @@ class TransformerTower(nn.Module):
         self.cfg = cfg
         # the model axis this tower's sequence is sharded over (ring only)
         self.mesh = mesh if cfg.attention == "ring" else None
-        self.input_proj = Dense(cfg.input_dim, cfg.embed_dim, cfg.dtype)
+        self.shards = shards
+        self.input_proj = _dense("input_proj", cfg.input_dim, cfg.embed_dim,
+                                 cfg.dtype, shards, ("embed_dim", "input_dim"))
         self.pos_embed = nn.Parameter(torch.zeros(cfg.max_seq_len, cfg.embed_dim))
         for layer in range(cfg.num_layers):
-            self.add_module(f"block_{layer}", _Block(cfg, dropout_gen, mesh))
+            self.add_module(f"block_{layer}", _Block(cfg, dropout_gen, mesh, shards))
         self.final_norm = _ln(cfg.embed_dim)
-        self.output_proj = Dense(cfg.embed_dim, cfg.embed_dim, torch.float32)
+        self.output_proj = _dense("output_proj", cfg.embed_dim, cfg.embed_dim,
+                                  torch.float32, shards, ("embed_dim", "embed_dim"))
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor | None = None):
         cfg = self.cfg
@@ -329,7 +452,10 @@ class TransformerTower(nn.Module):
         lo = 0 if n == 1 else self.mesh.model_index * s_loc
         if mask is not None:
             mask = mask[:, lo:lo + s_loc]
-        h = (self.input_proj(x[:, lo:lo + s_loc])
+        x = x[:, lo:lo + s_loc]
+        if self.input_proj.split:
+            x = copy_to_model(x, self.shards)
+        h = (_column_output(self.input_proj, self.input_proj(x), self.shards)
              + self.pos_embed[None, lo:lo + s_loc].to(cfg.dtype))
         for layer in range(cfg.num_layers):
             h = self.get_submodule(f"block_{layer}")(h, mask)
@@ -346,16 +472,24 @@ class TransformerTower(nn.Module):
             sums = _ModelSum.apply(torch.cat([(h * w).sum(dim=1), w.sum(dim=1)], 1),
                                    self.mesh.model_group)
             pooled = sums[:, :-1] / sums[:, -1:].clamp_min(1.0)
-        return self.output_proj(pooled)
+        return self.output_proj(_row_input(self.output_proj, pooled, self.shards))
 
 
 def _build_tower(cfg: TowerConfig, dropout_gen: torch.Generator,
-                 mesh=None) -> nn.Module:
+                 mesh=None, shards: ModelShards | None = None) -> nn.Module:
     if cfg.kind == "mlp":
-        return MLPTower(cfg)
+        return MLPTower(cfg, shards)
     if cfg.kind == "transformer":
-        return TransformerTower(cfg, dropout_gen, mesh)
+        return TransformerTower(cfg, dropout_gen, mesh, shards)
     raise ValueError(f"unknown tower kind: {cfg.kind!r}")
+
+
+def tensor_parallel(cfg: TowerConfig, mesh) -> bool:
+    """Whether a tower of ``cfg`` on ``mesh`` splits its weights over the
+    model axis: every tower but a ring tower (whose model axis carries
+    the sequence) past one model rank."""
+    return (mesh is not None and mesh.n_model > 1
+            and not (cfg.kind == "transformer" and cfg.attention == "ring"))
 
 
 class DualEncoder(nn.Module):
@@ -366,17 +500,64 @@ class DualEncoder(nn.Module):
     ``dropout_gen`` is the CPU generator both transformer towers draw their
     attention-dropout seeds from, in a fixed order (video tower, then text
     tower, block by block); ``reseed_dropout`` sets it for one step.
-    ``mesh`` (a ``parallel.Mesh``) reaches the ``attention="ring"`` towers;
-    it is not part of the state_dict."""
+    ``mesh`` (a ``parallel.Mesh``) reaches the ``attention="ring"`` towers
+    and, past one model rank, splits every other tower tensor-parallel
+    (:func:`tensor_parallel`; ``split=False`` builds the whole towers, as
+    a checkpoint holds them); it is not part of the state_dict.
+    ``tp_dims`` maps every parameter to the dimension this rank holds a
+    slice of (None: whole)."""
 
-    def __init__(self, video_cfg: TowerConfig, text_cfg: TowerConfig, mesh=None):
+    def __init__(self, video_cfg: TowerConfig, text_cfg: TowerConfig, mesh=None,
+                 split: bool = True):
         super().__init__()
         self.video_cfg = video_cfg
         self.text_cfg = text_cfg
         self.dropout_gen = torch.Generator()
-        self.video_tower = _build_tower(video_cfg, self.dropout_gen, mesh)
-        self.text_tower = _build_tower(text_cfg, self.dropout_gen, mesh)
+        self.mesh = mesh
+        for side, cfg in (("video", video_cfg), ("text", text_cfg)):
+            shards = (ModelShards.of(mesh) if split and tensor_parallel(cfg, mesh)
+                      else None)
+            self.add_module(f"{side}_tower",
+                            _build_tower(cfg, self.dropout_gen, mesh, shards))
         self.logit_scale = nn.Parameter(torch.ones(()))
+        self.tp_dims = dict.fromkeys((k for k, _ in self.named_parameters()))
+        for name, module in self.named_modules():
+            if isinstance(module, Dense) and module.split is not None:
+                column = module.split == "column"
+                self.tp_dims[f"{name}.weight"] = 0 if column else 1
+                if column and module.bias.shape[0] == module.weight.shape[0]:
+                    self.tp_dims[f"{name}.bias"] = 0
+
+    def shard_state_dict(self, full: dict) -> dict:
+        """This rank's slices of a whole state_dict (a checkpoint's)."""
+        return {k: v if self.tp_dims.get(k) is None
+                else shard(v, self.tp_dims[k], self.mesh.model_index, self.mesh.n_model)
+                for k, v in full.items()}
+
+    def full_state_dict(self, local: dict | None = None) -> dict:
+        """The whole tensors of ``local`` (this rank's state_dict, or any
+        dict of tensors keyed alike): every split one joined over the
+        model group in one all-gather, the others as they are.  A
+        collective of the model group."""
+        local = self.state_dict() if local is None else local
+        names = [k for k in local if self.tp_dims.get(k) is not None]
+        if not names:
+            return dict(local)
+        n = self.mesh.n_model
+        flat = torch.cat([local[k].detach().movedim(self.tp_dims[k], 0).reshape(-1)
+                          for k in names])
+        gathered = flat.new_empty(n * flat.numel())
+        dist.all_gather_into_tensor(gathered, flat, group=self.mesh.model_group)
+        gathered = gathered.view(n, -1)
+        out, offset = dict(local), 0
+        for k in names:
+            piece = local[k].movedim(self.tp_dims[k], 0)
+            size = piece.numel()
+            whole = gathered[:, offset:offset + size].reshape(n * piece.shape[0],
+                                                              *piece.shape[1:])
+            out[k] = whole.movedim(0, self.tp_dims[k]).contiguous()
+            offset += size
+        return out
 
     def reseed_dropout(self, seed: int, step: int, chunk: int | None = None,
                        rank: int | None = None) -> None:

@@ -862,7 +862,8 @@ cudaError_t launch_dq_bf16(const Args& a, cudaStream_t stream) {
 
 int launch(int dtype, bool dkv, const Args& a, void* stream) {
   if (a.bh < 1 || a.s < 1 || a.dh < 1 || a.dh > kMaxDh || a.heads < 1 ||
-      a.bh % a.heads || !(a.drop.rate >= 0.f && a.drop.rate < 1.f))
+      a.bh % a.heads || !(a.drop.rate >= 0.f && a.drop.rate < 1.f) ||
+      a.drop.head_offset < 0 || a.drop.head_offset + a.heads > a.drop.head_count)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
@@ -877,19 +878,22 @@ int launch(int dtype, bool dkv, const Args& a, void* stream) {
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v, dout and the gradients);
 // lse and delta fp32 [BH, S]; mask fp32 [B, S] or null.  The dropout words
-// are those of the forward.  Each returns a cudaError_t; the launch is
-// asynchronous on `stream`.
+// (the head count and head offset too) are those of the forward.  Each
+// returns a cudaError_t; the launch is asynchronous on `stream`.
 extern "C" int crossclr_flash_dq(int dtype, const void* q, const void* k,
                                  const void* v, const void* dout,
                                  const void* lse, const void* delta,
                                  const void* mask, void* dq, int bh, int s,
                                  int dh, int heads, float scale, float rate,
                                  unsigned int seed, int q_offset, int k_offset,
-                                 int bh_offset, void* stream) {
-  const Args a{q, k, v, dout, static_cast<const float*>(lse),
-               static_cast<const float*>(delta), static_cast<const float*>(mask),
-               dq, nullptr, nullptr, bh, s, dh, heads, scale,
-               Dropout{rate, seed, q_offset, k_offset, bh_offset}};
+                                 int bh_offset, int head_count,
+                                 int head_offset, void* stream) {
+  Args a{q, k, v, dout, static_cast<const float*>(lse),
+         static_cast<const float*>(delta), static_cast<const float*>(mask),
+         dq, nullptr, nullptr, bh, s, dh, heads, scale,
+         Dropout{rate, seed, q_offset, k_offset, bh_offset, heads, head_count,
+                 head_offset, 0u, 0}};
+  head_divisor(a.drop);
   return launch(dtype, false, a, stream);
 }
 
@@ -899,11 +903,14 @@ extern "C" int crossclr_flash_dkv(int dtype, const void* q, const void* k,
                                   const void* mask, void* dk, void* dv, int bh,
                                   int s, int dh, int heads, float scale,
                                   float rate, unsigned int seed, int q_offset,
-                                  int k_offset, int bh_offset, void* stream) {
-  const Args a{q, k, v, dout, static_cast<const float*>(lse),
-               static_cast<const float*>(delta), static_cast<const float*>(mask),
-               nullptr, dk, dv, bh, s, dh, heads, scale,
-               Dropout{rate, seed, q_offset, k_offset, bh_offset}};
+                                  int k_offset, int bh_offset, int head_count,
+                                  int head_offset, void* stream) {
+  Args a{q, k, v, dout, static_cast<const float*>(lse),
+         static_cast<const float*>(delta), static_cast<const float*>(mask),
+         nullptr, dk, dv, bh, s, dh, heads, scale,
+         Dropout{rate, seed, q_offset, k_offset, bh_offset, heads, head_count,
+                 head_offset, 0u, 0}};
+  head_divisor(a.drop);
   return launch(dtype, true, a, stream);
 }
 

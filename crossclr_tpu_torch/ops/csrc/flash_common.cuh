@@ -29,14 +29,35 @@ __device__ __forceinline__ void store_f32(float* p, float x) { *p = x; }
 
 // The dropout words of one launch: the JAX kernels' (1, 4) SMEM operand
 // [seed, q_offset, k_offset, bh_offset] (`seed_operand`), the seed already
-// folded to [0, 2^23) by the caller, and the rate.
+// folded to [0, 2^23) by the caller, and the rate; then the launch's head
+// count, the global head count and the first local head's place among
+// them, which place a tensor-parallel rank's heads [head_offset,
+// head_offset + heads) of head_count inside the global batch·head range
+// (heads == head_count and head_offset 0 on one device), and `heads` as
+// a multiply-shift divisor (head_divisor).
 struct Dropout {
   float rate;
   uint32_t seed;
   int q_offset;
   int k_offset;
   int bh_offset;
+  int heads;
+  int head_count;
+  int head_offset;
+  uint32_t div_mul;
+  int div_shr;
 };
+
+// `heads` as (mul, shr) with n / heads == __umulhi(n, mul) >> shr for
+// every n < 2^31 (the round-up multiply of CUTLASS's FastDivmod); heads
+// 1 is (0, 0) and divided by no one.  Host code, once a launch.
+inline void head_divisor(Dropout& d) {
+  int l = 0;
+  while ((1 << l) < d.heads) ++l;  // ceil(log2(heads))
+  d.div_mul = d.heads <= 1 ? 0u
+      : static_cast<uint32_t>(((1ull << (31 + l)) + d.heads - 1) / d.heads);
+  d.div_shr = d.heads <= 1 ? 0 : l - 1;
+}
 
 // crossclr_tpu `_hash_keep` / `_keep_from_grids`, bit for bit: each index
 // mixed on its own (xorshift-multiply), the words summed with the
@@ -56,9 +77,17 @@ __device__ __forceinline__ uint32_t keep_key_word(const Dropout& d, int kj) {
   hk ^= hk >> 13;
   return hk * 0xC2B2AE3Du;
 }
-// the per-(batch·head) term plus the seed
+// the per-(batch·head) term plus the seed: local bh = b·heads + h sits at
+// bh_offset + b·head_count + head_offset + h of the global range (bh +
+// bh_offset when the launch holds every head, the parent's arithmetic)
 __device__ __forceinline__ uint32_t keep_bh_word(const Dropout& d, int bh) {
-  return static_cast<uint32_t>(bh + d.bh_offset + 1) * kBhPrime + d.seed;
+  int global = bh + d.bh_offset + d.head_offset;
+  if (d.head_count != d.heads) {
+    const int b = d.heads == 1 ? bh
+        : static_cast<int>(__umulhi(static_cast<uint32_t>(bh), d.div_mul) >> d.div_shr);
+    global += b * (d.head_count - d.heads);
+  }
+  return static_cast<uint32_t>(global + 1) * kBhPrime + d.seed;
 }
 __device__ __forceinline__ bool keep_words(const Dropout& d, uint32_t hq,
                                            uint32_t hk, uint32_t hbh) {

@@ -501,18 +501,24 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 
 // dtype: 0 = float32, 1 = bfloat16.  mask may be null.  rate in [0, 1);
 // seed already folded to [0, 2^23); the offsets place the call's query and
-// key indices and its bh range inside the global ones (0 on one device).
+// key indices and its bh range inside the global ones (0 on one device);
+// the call's `heads` are heads [head_offset, head_offset + heads) of
+// head_count (head_count = heads, head_offset = 0 on one device).
 // Returns a cudaError_t; the launch is asynchronous on `stream`.
 extern "C" int crossclr_flash_fwd(int dtype, const void* q, const void* k,
                                   const void* v, const void* mask, void* out,
                                   void* lse, int bh, int s, int dh, int heads,
                                   float scale, float rate, unsigned int seed,
                                   int q_offset, int k_offset, int bh_offset,
+                                  int head_count, int head_offset,
                                   void* stream) {
   if (bh < 1 || s < 1 || dh < 1 || dh > kMaxDh || heads < 1 || bh % heads ||
-      !(rate >= 0.f && rate < 1.f))
+      !(rate >= 0.f && rate < 1.f) || head_offset < 0 ||
+      head_offset + heads > head_count)
     return (int)cudaErrorInvalidValue;
-  const Dropout drop{rate, seed, q_offset, k_offset, bh_offset};
+  Dropout drop{rate,      seed,  q_offset,   k_offset,    bh_offset,
+               heads,     head_count, head_offset, 0u, 0};
+  head_divisor(drop);
   const float* m = static_cast<const float*>(mask);
   float* l = static_cast<float*>(lse);
   cudaStream_t st = static_cast<cudaStream_t>(stream);

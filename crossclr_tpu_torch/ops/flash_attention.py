@@ -30,7 +30,9 @@ zeroes normalized probabilities and scales the survivors by 1/(1−r); the
 softmax denominator keeps every term.  The seed goes through
 :func:`fold_seed` (fp32 round, then mod 2^23), the offsets place a call's
 tiles inside a longer sequence and a wider batch·head range (0 on one
-device).
+device), and ``head_count`` / ``head_offset`` place a tensor-parallel
+rank's heads among the global heads (``bh = b·head_count + head_offset +
+h``; the call's own head count and 0 on one device).
 
 Layout: the public functions take ``[B, H, S, Dh]`` and a ``[B, S]`` key
 mask (1 = valid), as the JAX package does.  The kernels read the folded
@@ -125,15 +127,21 @@ def _hash_keep(q_idx, k_idx, bh_term, seed: int, rate: float) -> torch.Tensor:
 
 def dropout_keep_mask(b: int, h: int, s: int, seed, rate: float, sk=None,
                       q_offset: int = 0, k_offset: int = 0,
-                      bh_offset: int = 0, device=None) -> torch.Tensor:
+                      bh_offset: int = 0, head_count: int | None = None,
+                      head_offset: int = 0, device=None) -> torch.Tensor:
     """The kernels' attention-dropout keep mask as a bool ``[B, H, S, Sk]``
     tensor.  ``q_offset``/``k_offset`` place the window inside a longer
     sequence and ``bh_offset`` these rows inside the global folded
-    batch·head range (``bh = b·H + h``)."""
+    batch·head range; the ``h`` heads are heads ``head_offset ..`` of
+    ``head_count`` (default ``h``): ``bh = bh_offset + b·head_count +
+    head_offset + h``."""
     sk = s if sk is None else sk
+    head_count = h if head_count is None else int(head_count)
     q_idx = (int(q_offset) + torch.arange(s, device=device))[:, None]
     k_idx = (int(k_offset) + torch.arange(sk, device=device))[None, :]
-    bh = torch.arange(b * h, device=device) + 1 + int(bh_offset)
+    bh = (torch.arange(b, device=device)[:, None] * head_count
+          + torch.arange(h, device=device)[None, :]).reshape(-1)
+    bh = bh + 1 + int(bh_offset) + int(head_offset)
     bh_term = _mul32(bh & _U32, _BH_PRIME)[:, None, None]
     keep = _hash_keep(q_idx[None], k_idx[None], bh_term, fold_seed(seed), rate)
     return keep.reshape(b, h, s, sk)
@@ -146,7 +154,7 @@ def dropout_keep_mask(b: int, h: int, s: int, seed, rate: float, sk=None,
 
 def mha_reference(q, k, v, mask=None, scale=None, return_lse=False, *,
                   dropout_rate=0.0, dropout_seed=0, q_offset=0, k_offset=0,
-                  bh_offset=0):
+                  bh_offset=0, head_count=None, head_offset=0):
     """Plain multi-head attention over ``[B, H, S, Dh]`` in fp32.
 
     ``mask``: ``[B, S]`` key padding (1 = valid); a masked logit is -inf
@@ -171,7 +179,8 @@ def mha_reference(q, k, v, mask=None, scale=None, return_lse=False, *,
         b, h, sq, sk = p.shape
         keep = dropout_keep_mask(b, h, sq, dropout_seed, dropout_rate, sk=sk,
                                  q_offset=q_offset, k_offset=k_offset,
-                                 bh_offset=bh_offset, device=p.device)
+                                 bh_offset=bh_offset, head_count=head_count,
+                                 head_offset=head_offset, device=p.device)
         p = torch.where(keep, p * (1.0 / (1.0 - dropout_rate)),
                         torch.zeros_like(p))
     out = torch.einsum("bhqk,bhkd->bhqd", p, v.float())
@@ -191,7 +200,8 @@ def _bwd_plain(q, k, v, mask, lse, delta, dout, scale, drop):
     ``lse`` and ``delta``: ``P = exp(s − lse)`` (0 on a masked key and on a
     row with no valid key), ``P̂ = keep·P/(1−r)`` and
     ``dS = P∘(keep·dP/(1−r) − delta)``.  Returns ``(P̂, dS, scale)``."""
-    rate, _, q_offset, k_offset, bh_offset = _dropout_words(**drop)
+    rate, _, q_offset, k_offset, bh_offset, head_count, head_offset = \
+        _dropout_words(q.shape[1], **drop)
     scale = q.shape[-1] ** -0.5 if scale is None else scale
     s = scale * torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float())
     if mask is not None:
@@ -203,7 +213,8 @@ def _bwd_plain(q, k, v, mask, lse, delta, dout, scale, drop):
         b, h, sq, sk = p.shape
         keep = dropout_keep_mask(b, h, sq, drop["dropout_seed"], rate, sk=sk,
                                  q_offset=q_offset, k_offset=k_offset,
-                                 bh_offset=bh_offset, device=p.device)
+                                 bh_offset=bh_offset, head_count=head_count,
+                                 head_offset=head_offset, device=p.device)
         inv = 1.0 / (1.0 - rate)
         dp = torch.where(keep, dp * inv, torch.zeros_like(dp))
         p_hat = torch.where(keep, p * inv, torch.zeros_like(p))
@@ -232,7 +243,8 @@ def flash_dkv_plain(q, k, v, mask, lse, delta, dout, scale=None, **drop):
 
 _int, _uint, _float = ctypes.c_int, ctypes.c_uint, ctypes.c_float
 _ptr = ctypes.c_void_p
-_DROPOUT_ARGS = [_float, _uint, _int, _int, _int]  # rate, seed, offsets
+# rate, seed, offsets, head count and head offset
+_DROPOUT_ARGS = [_float, _uint, _int, _int, _int, _int, _int]
 _SIGNATURES = {
     "flash_fwd.cu": {
         "crossclr_flash_fwd": [_int, *[_ptr] * 6, _int, _int, _int, _int,
@@ -273,15 +285,22 @@ def _launch(name: str, source: str, fn_name: str, *args, device) -> None:
         launch_counts[name] += 1
 
 
-def _dropout_words(dropout_rate: float = 0.0, dropout_seed=0,
-                   q_offset: int = 0, k_offset: int = 0,
-                   bh_offset: int = 0) -> tuple:
-    """The kernels' trailing arguments: rate, folded seed, offsets."""
+def _dropout_words(heads: int, dropout_rate: float = 0.0, dropout_seed=0,
+                   q_offset: int = 0, k_offset: int = 0, bh_offset: int = 0,
+                   head_count: int | None = None,
+                   head_offset: int = 0) -> tuple:
+    """The kernels' trailing arguments for a call of ``heads`` heads:
+    rate, folded seed, offsets, the global head count (``heads`` when
+    None) and the first head's place among them."""
     if not 0.0 <= dropout_rate < 1.0:
         raise ValueError(f"dropout_rate must be in [0, 1), got {dropout_rate}")
+    head_count = heads if head_count is None else int(head_count)
+    if not 0 <= head_offset <= head_count - heads:
+        raise ValueError(f"heads [{head_offset}, {head_offset + heads}) lie "
+                         f"outside the {head_count} global heads")
     folded = fold_seed(dropout_seed) if dropout_rate > 0.0 else 0
     return (float(dropout_rate), folded, int(q_offset), int(k_offset),
-            int(bh_offset))
+            int(bh_offset), head_count, int(head_offset))
 
 
 def _check_qkv(q, k, v, name: str) -> None:
@@ -318,7 +337,8 @@ def _ptr_or_none(x):
 
 
 def flash_attention_fwd(q, k, v, mask=None, scale=None, *, dropout_rate=0.0,
-                        dropout_seed=0, q_offset=0, k_offset=0, bh_offset=0):
+                        dropout_seed=0, q_offset=0, k_offset=0, bh_offset=0,
+                        head_count=None, head_offset=0):
     """Launch the forward kernel on ``[B, H, S, Dh]`` CUDA tensors.
 
     Returns ``(out [B, H, S, Dh] in q's dtype, lse [B, H, S] fp32)``.
@@ -326,8 +346,8 @@ def flash_attention_fwd(q, k, v, mask=None, scale=None, *, dropout_rate=0.0,
     raises too.
     """
     _check_qkv(q, k, v, "flash_attention_fwd")
-    words = _dropout_words(dropout_rate, dropout_seed, q_offset, k_offset,
-                           bh_offset)
+    words = _dropout_words(q.shape[1], dropout_rate, dropout_seed, q_offset,
+                           k_offset, bh_offset, head_count, head_offset)
     b, h, s, dh = q.shape
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     mask = _mask_arg(mask, b, s, q.device)
@@ -358,7 +378,7 @@ def _bwd_args(q, k, v, mask, lse, delta, dout, scale, drop, name):
             f"{name} takes contiguous q, k, v, dout of one dtype and fp32 lse, "
             "delta"
         )
-    words = _dropout_words(**drop)
+    words = _dropout_words(h, **drop)
     mask = _mask_arg(mask, b, s, q.device)
     scale = dh**-0.5 if scale is None else scale
     head = (_DTYPE_CODES[q.dtype], *(t.data_ptr() for t in tensors),
@@ -431,7 +451,7 @@ class _FlashAttention(torch.autograd.Function):
 
 def flash_attention(q, k, v, mask=None, *, scale=None, dropout_rate=0.0,
                     dropout_seed=0, q_offset=0, k_offset=0, bh_offset=0,
-                    return_lse=False):
+                    head_count=None, head_offset=0, return_lse=False):
     """Attention over ``[B, H, S, Dh]`` with an optional ``[B, S]`` key mask
     and attention-probability dropout; differentiable in q, k and v.
 
@@ -444,7 +464,8 @@ def flash_attention(q, k, v, mask=None, *, scale=None, dropout_rate=0.0,
     if not 0.0 <= dropout_rate < 1.0:
         raise ValueError(f"dropout_rate must be in [0, 1), got {dropout_rate}")
     drop = dict(dropout_rate=float(dropout_rate), dropout_seed=dropout_seed,
-                q_offset=q_offset, k_offset=k_offset, bh_offset=bh_offset)
+                q_offset=q_offset, k_offset=k_offset, bh_offset=bh_offset,
+                head_count=head_count, head_offset=head_offset)
     if q.is_cuda:
         out, lse = _FlashAttention.apply(q, k, v, mask, scale, drop)
         return (out, lse) if return_lse else out

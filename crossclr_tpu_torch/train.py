@@ -35,22 +35,24 @@ stops every rank at the same dispatch boundary: the flag is all-reduced
 before each dispatch.  The group is destroyed on exit.  Without a
 launcher the run is the one-device run.
 
-Sequence parallelism: ``--n-model M`` lays the ranks out as the JAX
-package's ``make_mesh(n_data=P/M, n_model=M)`` grid (``parallel.make_mesh``;
-rank ``d·M + m``), for ``attention="ring"`` transformer towers on both
-sides.  The M ranks of a model group read the same rows (``HostShard`` by
-the data coordinate, local batch ``data.batch_size / (P/M)``), each runs
-one sequence shard of them through the ring, and the weights are
-replicated over the model group.  Rank 0 alone writes and checkpoints;
-every rank of its model group encodes the eval split with it (the ring
-needs them all), the other model groups wait at the barrier.  Tensor
-parallelism is not ported: ``--n-model`` past 1 with any other tower is
-refused (ROADMAP queue 1 item 13).
+The model axis: ``--n-model M`` lays the ranks out as the JAX package's
+``make_mesh(n_data=P/M, n_model=M, dcn=--mesh-dcn,
+granule=--mesh-granule)`` grid (``parallel.make_mesh``; by default rank
+``d·M + m``; a DCN layout keeps each model group inside one node and runs
+the data axis node by node).  The M ranks of a model group read the same
+rows (``HostShard`` by the data coordinate, local batch ``data.batch_size
+/ (P/M)``).  An ``attention="ring"`` transformer tower runs one sequence
+shard a rank through the ring with replicated weights; every other tower
+(flash and xla transformers, MLPs) is split tensor-parallel over the
+group, each rank holding its slices of the weights (``training.Trainer``).
+Rank 0 alone writes and checkpoints (whole tensors: its model group's
+slices joined); every rank of its model group encodes the eval split with
+it (the ring and the split towers need them all), the other model groups
+wait at the barrier.  A checkpoint restores on any grid, and in one
+process for the serve and eval CLIs.
 
-Refused rather than ignored: tensor parallelism and the DCN layouts
-(``--n-model`` past 1 without ring towers, ``--mesh-dcn``,
-``--mesh-granule``; ROADMAP queue 1 item 13), ``--profile-dir`` and
-``--tensorboard-dir`` (item 14).
+Refused rather than ignored: ``--profile-dir`` and ``--tensorboard-dir``
+(ROADMAP queue 1 item 14).
 
 Examples:
   python -m crossclr_tpu_torch.train --config configs/youcook2_mlp.json \\
@@ -78,6 +80,13 @@ Examples:
       data.source=synthetic data.num_pairs=1200 data.video_dim=512 \\
       data.text_dim=768 data.video_seq_len=64 data.text_seq_len=96 \\
       data.batch_size=1024 checkpoint_dir=/tmp/lsmdc_ring
+  torchrun --nproc_per_node=4 -m crossclr_tpu_torch.train \\
+      --config configs/lsmdc_transformer.json --n-model 2 --steps 5 \\
+      video_tower.attention=flash text_tower.attention=flash \\
+      video_tower.dropout=0.1 text_tower.dropout=0.1 train.optimizer=lamb \\
+      train.zero1=true data.source=synthetic data.num_pairs=1200 \\
+      data.video_dim=512 data.text_dim=768 data.video_seq_len=64 \\
+      data.text_seq_len=96 data.batch_size=1024 checkpoint_dir=/tmp/lsmdc_tp
 
 The podslice config trains through the GradCache two-pass step
 (``train.embedding_chunk``); past one rank through its global negatives
@@ -128,20 +137,22 @@ def main(argv: list[str] | None = None) -> int:
                     "to train on the CPU)")
     ap.add_argument("--tensorboard-dir", default=None, help="not ported (refused)")
     ap.add_argument("--n-model", type=int, default=1,
-                    help="ranks of the model axis: each sequence is sharded "
-                    "over them through attention='ring' towers (no tensor "
-                    "parallelism)")
+                    help="ranks of the model axis: attention='ring' towers "
+                    "shard each sequence over them, every other tower its "
+                    "weights (tensor parallelism)")
     ap.add_argument("--mesh-dcn", default="auto",
-                    help="not ported (other values are refused)")
-    ap.add_argument("--mesh-granule", default="slice",
-                    help="not ported (other values are refused)")
+                    help="DCN granule count: 'auto' counts the nodes, an "
+                    "integer forces it (each model group stays inside one "
+                    "granule; only the data axis crosses them)")
+    ap.add_argument("--mesh-granule", choices=("slice", "process", "contiguous"),
+                    default="slice",
+                    help="what a DCN granule is: 'slice' the node "
+                    "(GROUP_RANK, else the hostname), 'process' the rank, "
+                    "'contiguous' --mesh-dcn equal blocks of ranks")
     ap.add_argument("--profile-dir", default=None, help="not ported (refused)")
     ap.add_argument("overrides", nargs="*", help="section.key=value overrides")
     args = ap.parse_args(argv)
 
-    if args.mesh_dcn != "auto" or args.mesh_granule != "slice":
-        raise _refuse("the DCN mesh layouts (--mesh-dcn, --mesh-granule)",
-                      "item 13")
     if args.profile_dir:
         raise _refuse("--profile-dir", "item 14")
     if args.tensorboard_dir:
@@ -150,11 +161,6 @@ def main(argv: list[str] | None = None) -> int:
     cfg = load_config(args.config) if args.config else ExperimentConfig()
     if args.overrides:
         cfg = apply_overrides(cfg, args.overrides)
-    if args.n_model > 1 and not all(
-            t.kind == "transformer" and t.attention == "ring"
-            for t in (cfg.video_tower, cfg.text_tower)):
-        raise _refuse("tensor parallelism (--n-model past 1 with towers that "
-                      "are not attention='ring' transformer towers)", "item 13")
     if cfg.train.eval_with_ema and cfg.train.ema_decay is None:
         raise SystemExit(
             "train.eval_with_ema requires train.ema_decay (the state "
@@ -175,7 +181,9 @@ def main(argv: list[str] | None = None) -> int:
     grouped = initialize_multihost(args.device)
     try:
         try:  # every rank lays out the same grid (1 x 1 without a group)
-            mesh = make_mesh(n_model=args.n_model)
+            mesh = make_mesh(n_model=args.n_model, granule=args.mesh_granule,
+                             dcn=args.mesh_dcn if args.mesh_dcn == "auto"
+                             else int(args.mesh_dcn))
         except ValueError as e:
             raise SystemExit(f"--n-model {args.n_model}: {e}") from e
         return _train(cfg, args, rank_device(args.device) if grouped else args.device,
@@ -196,10 +204,14 @@ def _train(cfg, args, device, mesh) -> int:
 
     # -- data: eval rows are held out of the train stream --------------------
     dataset, _ = dataset_from_config(cfg.data)
-    trainer = Trainer(cfg.video_tower, cfg.text_tower, cfg.train, device, mesh)
+    try:  # a width the model axis does not divide is refused here
+        trainer = Trainer(cfg.video_tower, cfg.text_tower, cfg.train, device, mesh)
+        state = trainer.init_state()
+    except ValueError as e:
+        raise SystemExit(str(e)) from e
     rank, world = trainer.rank, trainer.world  # the data coordinate and axis
     lead = trainer.global_rank == 0  # writes, echoes and checkpoints
-    evaluates = rank == 0  # the lead's model group: the ring needs them all
+    evaluates = rank == 0  # the lead's model group: its towers need them all
     if cfg.data.eval_fraction > 0:
         n_eval = max(int(len(dataset) * cfg.data.eval_fraction), 1)
         if n_eval >= len(dataset):
@@ -230,7 +242,6 @@ def _train(cfg, args, device, mesh) -> int:
             + (f" / {world} ranks" if world > 1 else "")
         )
 
-    state = trainer.init_state()
     ckpt = CheckpointManager(cfg.checkpoint_dir) if cfg.checkpoint_dir else None
     best_ckpt = None
     if ckpt is not None and cfg.train.keep_best_metric:
@@ -244,7 +255,9 @@ def _train(cfg, args, device, mesh) -> int:
         return trainer.broadcast_int(-1 if step is None else step)
 
     if ckpt is not None and (latest := latest_step()) >= 0:
-        state = trainer.restored_state(ckpt.restore(state, latest))
+        # a checkpoint holds whole towers: restored into them, then cut
+        state = trainer.restored_state(
+            ckpt.restore(trainer.checkpoint_state(state), latest))
         if lead:
             print(f"resumed from step {state.step}", file=sys.stderr)
 

@@ -2,6 +2,7 @@
 
 from .checkpoint import CheckpointManager
 from .trainer import (
+    LAMB,
     AdamW,
     TrainConfig,
     Trainer,
@@ -12,6 +13,7 @@ from .trainer import (
 )
 
 __all__ = [
+    "LAMB",
     "AdamW",
     "CheckpointManager",
     "TrainConfig",

@@ -10,8 +10,9 @@ configs load.  The step:
   the full CrossCLR losses score connectivity on the raw inputs, each
   mean-pooled over its valid steps (:meth:`Trainer.step_loss`);
 * takes the gradient of every parameter, its global norm before clipping,
-  and applies :class:`AdamW` (optax's ``clip_by_global_norm`` +
-  ``adamw`` with a warmup-cosine schedule, written out);
+  and applies :class:`AdamW` or, under ``optimizer="lamb"``, :class:`LAMB`
+  (optax's ``clip_by_global_norm`` + ``adamw`` / ``lamb`` with a
+  warmup-cosine schedule, written out);
 * clamps ``logit_scale`` to ±ln 100 after the update (learnable τ) and
   updates the EMA (``ema_decay``).
 
@@ -39,9 +40,9 @@ under the ``max_stacked_bytes`` budget); for the full CrossCLR losses it
 first reports on stderr, once per trainer, the positive weights' effective
 sample size on the first batch, and warns if the weight softmax is
 near-one-hot there (:meth:`Trainer.weight_degeneracy_check`).  Refused
-with a message rather than ignored: ``optimizer="lamb"`` (ROADMAP queue 1
-item 13) and transformer-tower dropout under ``attention="xla"`` (item 10:
-its JAX mask comes from ``jax.random``).  Under ``attention="flash"``
+with a message rather than ignored: transformer-tower dropout under
+``attention="xla"`` (ROADMAP queue 1 item 10: its JAX mask comes from
+``jax.random``).  Under ``attention="flash"``
 the towers' dropout generator is reseeded every step from
 ``(train.seed, step)``, so a resumed run draws the same masks.
 
@@ -65,39 +66,52 @@ update on every rank.
   summed gradient's global norm.  Under ``zero1`` each moment is sharded
   on the first dimension (of the torch layout) that P divides, as
   ``_zero1_spec`` does: the shardable gradients are reduce-scattered, the
-  rest all-reduced, AdamW runs on the rank's rows and the parameters are
-  all-gathered; the numbers are the replicated update's.  The EMA stays
-  replicated.  Checkpoints hold full moments (:meth:`Trainer.checkpoint_state`
-  gathers, :meth:`Trainer.restored_state` cuts), so they restore at any
-  world size.
+  rest all-reduced, the optimizer runs on the rank's rows and the
+  parameters are all-gathered; the numbers are the replicated update's
+  (the clip's squared norm and LAMB's per-leaf norms are each one
+  all-reduce of the shards' sums, :meth:`Trainer.global_leaf_sums`).  The
+  EMA stays replicated.  Checkpoints hold full moments
+  (:meth:`Trainer.checkpoint_state` gathers, :meth:`Trainer.restored_state`
+  cuts), so they restore at any world size.
 * Parameters are broadcast from rank 0 after init and after a restore;
   the rank is folded into the dropout seed (the JAX step folds
   ``axis_index``), and at one rank the seeds are the one-device ones.
 At one rank the step is the one-device step, and its all-reduce a copy.
 
-**Sequence parallelism.**  With ``mesh`` a ``parallel.make_mesh(n_data,
+**The model axis.**  With ``mesh`` a ``parallel.make_mesh(n_data,
 n_model)`` grid of ``n_model > 1``, the data group above is the mesh's
 data group, and each model group's ranks take the same rows (their data
-coordinate's) and run the ``attention="ring"`` towers on one sequence
-shard each, with replicated weights (tensor parallelism, the JAX mesh's
-other use of the model axis, is not ported: ROADMAP queue 1 item 13).  The
-step is the JAX GSPMD step's (``use_global`` is off past one model rank):
-the plain loss L of the whole batch, the embeddings all-gathered over the
-data group.  Each rank differentiates L / (n_data · n_model): the towers'
-pooling sums over the model group in both directions
-(``models.encoders._ModelSum``), so every gradient, partial upstream of
-the pooling and whole below it, is right once summed over the model group
-(:meth:`Trainer.sum_model_grads`) and then over the data group as above.
-No rank is folded into the dropout seed, as the JAX step folds
-``axis_index`` only on its global-negative route: each data shard's rows
-take their place in the global batch·head range instead, so the masks are
-one device's on the whole batch.
+coordinate's).  Each tower uses the model axis its own way:
+``attention="ring"`` towers run one sequence shard a rank with replicated
+weights (sequence parallelism); every other tower is split
+tensor-parallel (``models.encoders``, the JAX ``_tp_spec_for_param``), each
+rank holding its slices.  The step is the JAX GSPMD step's
+(``use_global`` is off past one model rank): every rank computes the
+plain loss L of the whole batch, the embeddings all-gathered over the data
+group, and differentiates L / n_data.  Then one all-reduce over the model
+group (:meth:`Trainer.sum_model_grads`) sums what a rank holds only a part
+of: a ring tower's gradients (its pooling sums over the model group in
+both directions, ``models.encoders._ModelSum``, so each rank holds
+n_model times its share: the sum is divided by n_model) and a
+tensor-parallel tower's replicated biases that each rank consumes as a
+slice (``parallel.tensor_parallel.consumed_sliced``); the sharded
+gradients are their slices already and the other replicated ones whole.
+The clip's norm and LAMB's counts each shard once.  ZeRO-1 cuts a rank's
+tensor-parallel slice again over the data group (on another dimension, as
+``_zero1_spec`` does).  Checkpoints hold whole tensors: :meth:`Trainer.
+checkpoint_state` joins the slices, :meth:`Trainer.restored_state` cuts
+them, so a checkpoint restores on any grid and in one process.  No rank is
+folded into the dropout seed, as the JAX step folds ``axis_index`` only on
+its global-negative route: each data shard's rows (and a tensor-parallel
+rank's heads) take their place in the global batch·head range instead, so
+the masks are one device's on the whole batch.
 """
 
 from __future__ import annotations
 
 import copy
 import dataclasses
+import functools
 import itertools
 import math
 import sys
@@ -111,16 +125,18 @@ import torch.distributed as dist
 from ..data.datasets import check_chunk_bytes
 from ..data.quantize import dequantize_batch
 from ..losses import functional as F
-from ..models.encoders import DualEncoder, TowerConfig
+from ..models.encoders import DualEncoder, TowerConfig, tensor_parallel
 from ..parallel.global_loss import (
     all_gather,
     global_cross_clr,
     global_cross_clr_intra,
 )
 from ..parallel.mesh import Mesh, make_mesh
+from ..parallel.tensor_parallel import consumed_sliced
 
 __all__ = [
     "AdamW",
+    "LAMB",
     "TrainConfig",
     "TrainState",
     "Trainer",
@@ -317,16 +333,6 @@ class AdamW:
     no_decay = ("logit_scale",)
 
     def __init__(self, cfg: TrainConfig):
-        if cfg.optimizer == "lamb":
-            raise NotImplementedError(
-                "optimizer='lamb' is not ported to crossclr_tpu_torch yet "
-                "(ROADMAP queue 1 item 13)"
-            )
-        if cfg.optimizer != "adamw":
-            raise ValueError(
-                f"TrainConfig.optimizer must be 'adamw' or 'lamb', got "
-                f"{cfg.optimizer!r}"
-            )
         self.peak = cfg.learning_rate
         self.warmup = cfg.warmup_steps
         self.decay_steps = max(cfg.total_steps, cfg.warmup_steps + 1)
@@ -350,38 +356,104 @@ class AdamW:
             "nu": {k: torch.zeros_like(p) for k, p in params.items()},
         }
 
+    def _clipped(self, grads: dict, reduce):
+        """``(gnorm, keep)``: the global norm of ``grads`` (the leaves'
+        squares as the whole leaves' where ``reduce`` is given) and whether
+        it is under the clip."""
+        sq = [torch.sum(g * g) for g in grads.values()]
+        if reduce is not None:
+            sq = list(reduce(torch.stack(sq)[None])[0])
+        gnorm = torch.sqrt(sum(sq))
+        return gnorm, gnorm < self.clip_norm
+
+    def _adam(self, name, p, g, opt_state, bc1, bc2) -> torch.Tensor:
+        """The moments' update in place; returns the decayed Adam step."""
+        mu, nu = opt_state["mu"][name], opt_state["nu"][name]
+        mu.copy_((1 - self.b1) * g + self.b1 * mu)
+        nu.copy_((1 - self.b2) * (g * g) + self.b2 * nu)
+        u = (mu / bc1) / (torch.sqrt(nu / bc2) + self.eps)
+        if name not in self.no_decay:
+            u = u + self.weight_decay * p
+        return u
+
     @torch.no_grad()
     def update(self, params: dict[str, torch.Tensor],
                grads: dict[str, torch.Tensor], opt_state: dict,
-               sq_norm: torch.Tensor | None = None) -> torch.Tensor:
+               reduce: Callable | None = None) -> torch.Tensor:
         """Clip ``grads``, update ``params`` and ``opt_state`` in place;
         returns the global gradient norm before clipping (a device
-        scalar: no host sync).  ``sq_norm``: the squared global norm, when
-        ``grads`` hold only this rank's shards (ZeRO-1) and the caller
-        summed it over ranks."""
-        if sq_norm is None:
-            sq_norm = sum(torch.sum(g * g) for g in grads.values())
-        gnorm = torch.sqrt(sq_norm)
-        keep = gnorm < self.clip_norm
+        scalar: no host sync).  ``reduce``: where ``grads`` hold shards
+        (ZeRO-1, tensor parallelism), what turns a ``[k, n_leaves]``
+        tensor of this rank's per-leaf sums (in ``params``' order) into
+        the whole leaves' (:meth:`Trainer.global_leaf_sums`)."""
+        gnorm, keep = self._clipped(grads, reduce)
         count = opt_state["count"]
         lr = self.learning_rate(count)
         bc1 = 1.0 - self.b1 ** (count + 1)
         bc2 = 1.0 - self.b2 ** (count + 1)
         for name, p in params.items():
             g = torch.where(keep, grads[name], grads[name] / gnorm * self.clip_norm)
-            mu, nu = opt_state["mu"][name], opt_state["nu"][name]
-            mu.copy_((1 - self.b1) * g + self.b1 * mu)
-            nu.copy_((1 - self.b2) * (g * g) + self.b2 * nu)
-            u = (mu / bc1) / (torch.sqrt(nu / bc2) + self.eps)
-            if name not in self.no_decay:
-                u = u + self.weight_decay * p
-            p.add_(-lr * u)
+            p.add_(-lr * self._adam(name, p, g, opt_state, bc1, bc2))
         opt_state["count"] = count + 1
         return gnorm
 
 
+class LAMB(AdamW):
+    """``optax.chain(clip_by_global_norm(clip_norm), lamb(schedule, b1=0.9,
+    b2=0.999, eps=1e-6, eps_root=0, weight_decay, mask))`` (optax 0.2.6)
+    written out: :class:`AdamW`'s clip, moments and decayed step ``u``
+    (eps 1e-6), then per leaf ``u ← u · ‖p‖/‖u‖``, or ``u`` itself where
+    either norm is 0 (the trust ratio applies to ``logit_scale`` too),
+    then ``p ← p − lr(count) · u``.  The per-leaf squared norms of ``p``
+    and ``u`` are one ``[2, n_leaves]`` tensor, reduced once where the
+    leaves are shards.  Its state is AdamW's (``count``, ``mu``, ``nu``)."""
+
+    eps = 1e-6
+
+    @torch.no_grad()
+    def update(self, params: dict[str, torch.Tensor],
+               grads: dict[str, torch.Tensor], opt_state: dict,
+               reduce: Callable | None = None) -> torch.Tensor:
+        gnorm, deltas = self.updates(params, grads, opt_state, reduce)
+        for name, p in params.items():
+            p.add_(deltas[name])
+        return gnorm
+
+    @torch.no_grad()
+    def updates(self, params: dict[str, torch.Tensor],
+                grads: dict[str, torch.Tensor], opt_state: dict,
+                reduce: Callable | None = None) -> tuple:
+        """``(gnorm, deltas)``: what :meth:`update` adds to each
+        parameter, ``opt_state`` updated in place and ``params`` not."""
+        gnorm, keep = self._clipped(grads, reduce)
+        count = opt_state["count"]
+        lr = self.learning_rate(count)
+        bc1 = 1.0 - self.b1 ** (count + 1)
+        bc2 = 1.0 - self.b2 ** (count + 1)
+        steps = {}
+        for name, p in params.items():
+            g = torch.where(keep, grads[name], grads[name] / gnorm * self.clip_norm)
+            steps[name] = self._adam(name, p, g, opt_state, bc1, bc2)
+        sums = torch.stack([torch.stack([torch.sum(p * p) for p in params.values()]),
+                            torch.stack([torch.sum(u * u) for u in steps.values()])])
+        if reduce is not None:
+            sums = reduce(sums)
+        norms = torch.sqrt(sums)
+        ratios = torch.where((norms[0] == 0) | (norms[1] == 0),
+                             torch.ones_like(norms[0]), norms[0] / norms[1])
+        opt_state["count"] = count + 1
+        return gnorm, {name: -lr * (steps[name] * ratios[i])
+                       for i, name in enumerate(params)}
+
+
 def make_optimizer(cfg: TrainConfig) -> AdamW:
-    return AdamW(cfg)
+    """:class:`AdamW` or :class:`LAMB`, by ``cfg.optimizer``."""
+    if cfg.optimizer == "adamw":
+        return AdamW(cfg)
+    if cfg.optimizer == "lamb":
+        return LAMB(cfg)
+    raise ValueError(
+        f"TrainConfig.optimizer must be 'adamw' or 'lamb', got {cfg.optimizer!r}")
 
 
 # ---------------------------------------------------------------------------
@@ -396,7 +468,9 @@ class Trainer:
     step, on ``mesh`` (``parallel.make_mesh``'s grid; by default the data
     axis over every rank) its part of the data × model step (see the
     module doc).  ``rank`` and ``world`` are the data coordinate and the
-    data axis's size, ``global_rank`` the rank in the default group."""
+    data axis's size, ``model_index`` and ``n_model`` the model
+    coordinate and axis, ``global_rank`` the rank in the default group;
+    ``tensor_parallel`` whether a tower is split over the model axis."""
 
     def __init__(self, video_cfg: TowerConfig, text_cfg: TowerConfig,
                  train_cfg: TrainConfig, device: str | torch.device = "cuda",
@@ -431,17 +505,9 @@ class Trainer:
         self.rank = 0 if mesh is None else mesh.data_index
         self.model_group = None if mesh is None else mesh.model_group
         self.n_model = 1 if mesh is None else mesh.n_model
-        if self.n_model > 1:
-            for side, cfg in (("video", video_cfg), ("text", text_cfg)):
-                if cfg.kind != "transformer" or cfg.attention != "ring":
-                    raise NotImplementedError(
-                        f"n_model={self.n_model} with a {side} tower of kind "
-                        f"{cfg.kind!r}, attention {cfg.attention!r}: the port's "
-                        "model axis carries the sequence shards of "
-                        "attention='ring' transformer towers only; tensor "
-                        "parallelism is not ported to crossclr_tpu_torch yet "
-                        "(ROADMAP queue 1 item 13)"
-                    )
+        self.model_index = 0 if mesh is None else mesh.model_index
+        self.tensor_parallel = any(tensor_parallel(c, mesh)
+                                   for c in (video_cfg, text_cfg))
         # the JAX step's route (trainer.py _build_step): global negatives
         # for the CrossCLR losses past one data rank on a grid with no
         # model axis, else the gathered batch
@@ -461,8 +527,15 @@ class Trainer:
         self.device = torch.device(device)
         self.optimizer = make_optimizer(train_cfg)
         self._loss_fn = make_loss_fn(train_cfg)
-        # ZeRO-1: each parameter's sharded dimension, None = replicated
+        # set by init_state from the model: ZeRO-1's sharded dimension of
+        # each parameter (None = replicated over the data group), the
+        # dimension a tensor-parallel rank holds a slice of (None: whole),
+        # the gradients summed over the model group and, of them, the ring
+        # towers' (divided by n_model after the sum)
         self._shard_dims: dict[str, int | None] = {}
+        self._tp_dims: dict[str, int | None] = {}
+        self._model_summed: list[str] = []
+        self._ring_summed: list[str] = []
         # any_rank's host-side group: the default group when it is gloo,
         # else a gloo group of its ranks, made here, where every rank of
         # the default group arrives (new_group is a collective of them all)
@@ -537,21 +610,31 @@ class Trainer:
     def init_state(self, state_dict: dict | None = None) -> TrainState:
         """Step-0 state: towers seeded from ``train.seed`` (or loaded from
         ``state_dict``, e.g. ``utils.params.state_dict_from_flax`` of a JAX
-        trainer's params), fresh optimizer moments, and the EMA at the
-        initial parameters when ``ema_decay`` is set.  Under a group the
-        parameters are rank 0's (broadcast) and, under ZeRO-1, the moments
-        this rank's shards."""
-        model = DualEncoder(self.video_cfg, self.text_cfg, mesh=self.mesh)
+        trainer's params; whole tensors either way), fresh optimizer
+        moments, and the EMA at the initial parameters when ``ema_decay``
+        is set.  Under a group the parameters are rank 0's (broadcast),
+        under tensor parallelism this rank's slices of them and, under
+        ZeRO-1, the moments this rank's shards."""
+        model = DualEncoder(self.video_cfg, self.text_cfg, mesh=self.mesh,
+                            split=False)
         init_params(model, self.cfg.seed,
                     0.0 if self.cfg.learnable_temperature else 1.0)
         if state_dict is not None:
             model.load_state_dict(state_dict, strict=True)
-        model = model.to(self.device).eval()
-        params = dict(model.named_parameters())
+        model = model.to(self.device)
         if self.world_group is not None:
-            self._broadcast(list(params.values()))
-        self._shard_dims = {k: _zero1_dim(p.shape, self.world) if self.zero1
-                            else None for k, p in params.items()}
+            self._broadcast(list(model.parameters()))
+        model = self._split(model).eval()
+        params = dict(model.named_parameters())
+        self._tp_dims = dict(model.tp_dims)
+        rings = [f"{side}_tower." for side, cfg in (("video", self.video_cfg),
+                                                    ("text", self.text_cfg))
+                 if self.n_model > 1 and cfg.attention == "ring"]
+        self._ring_summed = [k for k in params if k.startswith(tuple(rings))]
+        self._model_summed = self._ring_summed + [
+            k for k in params if consumed_sliced(k, self._tp_dims)]
+        self._shard_dims = {k: _zero1_dim(p.shape, self.world, self._tp_dims[k])
+                            if self.zero1 else None for k, p in params.items()}
         ema = None
         if self.cfg.ema_decay is not None:
             ema = {k: p.detach().clone() for k, p in params.items()}
@@ -592,6 +675,40 @@ class Trainer:
         if self.world_group is not None:
             dist.barrier(group=self.world_group)
 
+    def _split(self, model: DualEncoder) -> DualEncoder:
+        """``model`` (whole towers, on the device) as this rank holds it:
+        itself, or under tensor parallelism a model of this rank's slices."""
+        if not self.tensor_parallel:
+            return model
+        local = DualEncoder(self.video_cfg, self.text_cfg, mesh=self.mesh)
+        local.load_state_dict(local.shard_state_dict(model.state_dict()))
+        return local.to(self.device)
+
+    def _whole(self, state: TrainState) -> DualEncoder:
+        """A model of whole towers holding ``state``'s parameters (the
+        slices joined over the model group: a collective of it)."""
+        model = DualEncoder(self.video_cfg, self.text_cfg, mesh=self.mesh,
+                            split=False)
+        model.load_state_dict(state.model.full_state_dict())
+        return model.to(self.device)
+
+    @torch.no_grad()
+    def global_leaf_sums(self, names: list[str], local: torch.Tensor
+                         ) -> torch.Tensor:
+        """Per-leaf sums ``[k, len(names)]`` over this rank's pieces of
+        the leaves ``names`` as the whole leaves' sums, in one all-reduce
+        over every rank: a leaf counts on a rank where it is a ZeRO-1
+        shard or the rank's data coordinate is 0, and where it is a
+        tensor-parallel slice or the model coordinate is 0, so each piece
+        counts once."""
+        counts = torch.tensor(
+            [(self._shard_dims.get(k) is not None or self.rank == 0)
+             and (self._tp_dims.get(k) is not None or self.model_index == 0)
+             for k in names], device=local.device)
+        total = torch.where(counts, local, torch.zeros_like(local))
+        dist.all_reduce(total, op=dist.ReduceOp.SUM, group=self.world_group)
+        return total
+
     def _opt_params(self, params: dict) -> dict:
         """What AdamW updates: under ZeRO-1 this rank's rows (a view) of
         each sharded parameter, else the parameters."""
@@ -622,10 +739,11 @@ class Trainer:
             offset += n
 
     def checkpoint_state(self, state: TrainState) -> TrainState:
-        """``state`` as a checkpoint holds it: with full moments.  Under
-        ZeRO-1 a copy whose moments are gathered from every rank (a
-        collective: every rank calls it), else ``state`` itself."""
-        if not self.zero1:
+        """``state`` as a checkpoint holds it: whole tensors.  Under ZeRO-1
+        or tensor parallelism a copy whose moments are gathered from every
+        rank and whose model and EMA hold whole towers (a collective: every
+        rank calls it), else ``state`` itself."""
+        if not (self.zero1 or self.tensor_parallel):
             return state
         params = dict(state.model.named_parameters())
         opt = {"count": state.opt_state["count"]}
@@ -634,18 +752,34 @@ class Trainer:
                     else state.opt_state[key][k] for k, p in params.items()}
             self._gather_shards(state.opt_state[key], full)
             opt[key] = full
-        return TrainState(step=state.step, model=state.model, opt_state=opt,
-                          ema=state.ema)
+        model, ema = state.model, state.ema
+        if self.tensor_parallel:
+            opt["mu"], opt["nu"] = (model.full_state_dict(opt[k]) for k in ("mu", "nu"))
+            ema = None if ema is None else model.full_state_dict(ema)
+            model = self._whole(state)
+        return TrainState(step=state.step, model=model, opt_state=opt, ema=ema)
 
     def restored_state(self, state: TrainState) -> TrainState:
-        """``state`` after ``CheckpointManager.restore`` (full moments):
-        under a group its parameters and EMA broadcast from rank 0 and,
-        under ZeRO-1, each moment cut to this rank's shard."""
+        """``state`` after ``CheckpointManager.restore`` into whole towers
+        (:meth:`checkpoint_state`'s, or :meth:`init_state`'s on one rank):
+        under a group its parameters and EMA broadcast from rank 0, under
+        tensor parallelism cut to this rank's slices (a new model), and
+        under ZeRO-1 each moment cut to this rank's shard."""
         if self.world_group is None:
             return state
         params = dict(state.model.named_parameters())
         ema = [] if state.ema is None else list(state.ema.values())
         self._broadcast(list(params.values()) + ema)
+        if self.tensor_parallel:
+            model = self._split(state.model).eval()
+            cut = model.shard_state_dict
+            state = TrainState(
+                step=state.step, model=model,
+                opt_state={"count": state.opt_state["count"],
+                           **{k: {n: t.clone() for n, t in cut(state.opt_state[k]).items()}
+                              for k in ("mu", "nu")}},
+                ema=None if state.ema is None
+                else {n: t.clone() for n, t in cut(state.ema).items()})
         if self.zero1:
             for key in ("mu", "nu"):
                 moments = state.opt_state[key]
@@ -725,7 +859,7 @@ class Trainer:
         :meth:`step_loss`.  Past one rank, on the global-negative route the
         global loss (its value global, its gradient this rank's own); else
         the plain loss L of the batch all-gathered over the data group,
-        with L / (P · n_model) to differentiate (see the module doc)."""
+        with L / P to differentiate (see the module doc)."""
         if self.world == 1 and self.n_model == 1:
             loss = self.step_loss(model, v_emb, t_emb, video, text,
                                   video_mask, text_mask)
@@ -754,7 +888,7 @@ class Trainer:
                              gather(None if v_raw is None else v_raw.detach()),
                              gather(None if t_raw is None else t_raw.detach()),
                              temperature=temperature)
-        return loss / (self.world * self.n_model), loss
+        return loss / self.world, loss
 
     def two_pass(self, batch_size: int) -> bool:
         """Whether a step of ``batch_size`` rows is the two-pass step:
@@ -840,27 +974,29 @@ class Trainer:
 
     @torch.no_grad()
     def sum_model_grads(self, grads: dict) -> dict:
-        """The gradients summed over the model group, in one flat buffer,
-        one all-reduce (SUM): each rank's share of the whole gradient (see
-        the module doc) made whole on every rank of the group."""
-        tensors = list(grads.values())
+        """The gradients a rank holds a part of, summed over the model
+        group in one flat buffer, one all-reduce (SUM): the ring towers'
+        (then divided by n_model) and the tensor-parallel towers' biases
+        consumed as slices (see the module doc); the others as they are."""
+        tensors = [grads[k] for k in self._model_summed]
+        if not tensors:
+            return grads
         flat = _flat(tensors)
         dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=self.model_group)
         _unflat_into(flat, tensors)
+        for k in self._ring_summed:
+            grads[k].div_(self.n_model)
         return grads
 
     @torch.no_grad()
     def sum_grads(self, grads: dict, norms: torch.Tensor):
-        """``(grads, norms, sq_norm)``: the gradients summed over the ranks
-        and the embedding-norm metrics ``[video, text]`` averaged, in one
-        flat buffer, one all-reduce (SUM).  Under ZeRO-1 the sharded
-        gradients are reduce-scattered first, so ``grads`` holds this
-        rank's rows of them, and ``sq_norm`` is the squared global norm
-        (the shards' squares summed over ranks in the same all-reduce,
-        each replicated leaf counted once); else None."""
+        """``(grads, norms)``: the gradients summed over the ranks and the
+        embedding-norm metrics ``[video, text]`` averaged, in one flat
+        buffer, one all-reduce (SUM).  Under ZeRO-1 the sharded gradients
+        are reduce-scattered first, so ``grads`` holds this rank's rows of
+        them."""
         names = [k for k in grads if self._shard_dims.get(k) is None]
         shards = [k for k in grads if self._shard_dims.get(k) is not None]
-        sq = None
         if shards:
             dims = [self._shard_dims[k] for k in shards]
             send = torch.cat([_rank_major(grads[k], d, self.world)
@@ -876,31 +1012,28 @@ class Trainer:
                 piece = recv[offset:offset + n].view(view.movedim(d, 0).shape)
                 grads[k] = piece.movedim(0, d)
                 offset += n
-            sq = sum(torch.sum(grads[k] * grads[k]) for k in shards).reshape(1)
         out = [grads[k] for k in names] + [norms / self.world]
-        if sq is not None:
-            out.append(sq)
         flat = _flat(out)
         dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=self.group)
-        out[-2 if sq is not None else -1] = norms
+        out[-1] = norms
         _unflat_into(flat, out)
-        if sq is not None:
-            sq = sq[0] + sum(torch.sum(grads[k] * grads[k]) for k in names)
-        return grads, norms, sq
+        return grads, norms
 
-    def apply_grads(self, state: TrainState, grads: dict,
-                    sq_norm: torch.Tensor | None = None) -> dict:
-        """Clip and apply AdamW to ``state``'s parameters in place (under
-        ZeRO-1 to this rank's rows, from :meth:`sum_grads`' shards and
-        ``sq_norm``, then all-gathered), clamp ``logit_scale`` (learnable
-        τ) and update the EMA; returns the device-scalar metrics of the
-        update."""
+    def apply_grads(self, state: TrainState, grads: dict) -> dict:
+        """Clip and apply the optimizer to ``state``'s parameters in place
+        (under ZeRO-1 to this rank's rows, from :meth:`sum_grads`' shards,
+        then all-gathered; the norms of shards through
+        :meth:`global_leaf_sums`), clamp ``logit_scale`` (learnable τ) and
+        update the EMA; returns the device-scalar metrics of the update."""
         cfg = self.cfg
         model = state.model
         params = dict(model.named_parameters())
         opt_params = self._opt_params(params) if self.zero1 else params
+        reduce = None
+        if self.zero1 or self.tensor_parallel:
+            reduce = functools.partial(self.global_leaf_sums, list(opt_params))
         metrics = {"grad_norm": self.optimizer.update(opt_params, grads,
-                                                      state.opt_state, sq_norm)}
+                                                      state.opt_state, reduce)}
         with torch.no_grad():
             if self.zero1:
                 self._gather_shards(opt_params, params)
@@ -925,12 +1058,11 @@ class Trainer:
         with torch.no_grad():
             norms = torch.stack([torch.linalg.vector_norm(v_emb, dim=1).mean(),
                                  torch.linalg.vector_norm(t_emb, dim=1).mean()])
-        sq_norm = None
         if self.model_group is not None:
             grads = self.sum_model_grads(grads)
         if self.group is not None:
-            grads, norms, sq_norm = self.sum_grads(grads, norms)
-        metrics = {"loss": loss.detach(), **self.apply_grads(state, grads, sq_norm)}
+            grads, norms = self.sum_grads(grads, norms)
+        metrics = {"loss": loss.detach(), **self.apply_grads(state, grads)}
         metrics["video_emb_norm"], metrics["text_emb_norm"] = norms
         state.step += 1
         return state, metrics
@@ -1089,11 +1221,12 @@ def _unflat_into(flat: torch.Tensor, tensors: list[torch.Tensor]) -> None:
         offset += n
 
 
-def _zero1_dim(shape, world: int) -> int | None:
-    """ZeRO-1's sharded dimension: the first that ``world`` divides
-    (``_zero1_spec``), None for a leaf that stays replicated."""
+def _zero1_dim(shape, world: int, taken: int | None = None) -> int | None:
+    """ZeRO-1's sharded dimension: the first that ``world`` divides, other
+    than the tensor-parallel dimension ``taken`` (``_zero1_spec``), None
+    for a leaf that stays replicated."""
     for i, n in enumerate(shape):
-        if n >= world and n % world == 0:
+        if i != taken and n >= world and n % world == 0:
             return i
     return None
 

@@ -11,7 +11,8 @@ GradCache two-pass step, and once more on two ranks of a gloo group that
 ``parallel.initialize_multihost`` starts from the launcher's environment;
 the transformer config on two ranks as a 1 × 2 grid of ring-attention
 towers, ``parallel.mesh`` and ``parallel.ring_attention``, whose
-checkpoint restores into flash towers),
+checkpoint restores into flash towers, then of flash towers split by
+``parallel.tensor_parallel`` and trained with LAMB),
 and the MLP config from int8 and bf16 file stores, written by the port's
 own quantizer and bf16 conversion, with ``ml_dtypes`` blocked too.  One
 more drives the slice of serving what the port trains: the torch import
@@ -261,11 +262,21 @@ cfg = apply_overrides(load_config(CONFIG), tiny + [
     "video_tower.attention=flash", "text_tower.attention=flash"])
 flash = DualEncoder(cfg.video_tower, cfg.text_tower)
 flash.load_state_dict(torch.load("ckpt/step_4.pt", weights_only=True)["model"])
+# the same grid splitting flash towers tensor-parallel, LAMB under ZeRO-1
+# (one data rank: inert), laid out by a forced DCN granule count of 1
+rc_tp = train.main([
+    "--config", CONFIG, "--device", "cpu", "--steps", "2", "--n-model", "2",
+    "--mesh-dcn", "1", "--metrics-csv", f"metrics_tp_{rank}.csv", *tiny,
+    "video_tower.attention=flash", "text_tower.attention=flash",
+    "train.optimizer=lamb", "train.zero1=true", "checkpoint_dir=ckpt_tp",
+])
+flash.load_state_dict(torch.load("ckpt_tp/step_2.pt", weights_only=True)["model"])
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "flax", "optax", "orbax",
                                        "crossclr_tpu"))
-print(json.dumps({"rc": rc, "loaded": loaded,
-                  "ring": "crossclr_tpu_torch.parallel.ring_attention" in sys.modules}))
+print(json.dumps({"rc": rc, "rc_tp": rc_tp, "loaded": loaded,
+                  "ring": "crossclr_tpu_torch.parallel.ring_attention" in sys.modules,
+                  "tp": "crossclr_tpu_torch.parallel.tensor_parallel" in sys.modules}))
 """
 
 
@@ -464,7 +475,9 @@ def test_port_trains_ring_towers_on_a_grid_without_jax(tmp_path):
     gloo ranks as a 1 × 2 grid (``--n-model 2``) that the train CLI joins
     from the launcher's environment, with jax, flax, optax and orbax
     blocked: rank 0 alone writes the metrics and the checkpoints, and a
-    checkpoint loads into flash towers."""
+    checkpoint loads into flash towers; then flash towers split
+    tensor-parallel on the same grid (``parallel.tensor_parallel``), LAMB,
+    ``--mesh-dcn``, whose whole checkpoint loads the same way."""
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         port = s.getsockname()[1]
@@ -485,11 +498,13 @@ def test_port_trains_ring_towers_on_a_grid_without_jax(tmp_path):
     for p, (out, err) in zip(procs, outs):
         assert p.returncode == 0, err[-3000:]
         assert json.loads(out.strip().splitlines()[-1]) == {
-            "rc": 0, "loaded": [], "ring": True}
+            "rc": 0, "rc_tp": 0, "loaded": [], "ring": True, "tp": True}
     assert (tmp_path / "metrics_0.csv").exists()
     assert not (tmp_path / "metrics_1.csv").exists()
     assert sorted(p.name for p in (tmp_path / "ckpt").iterdir()) == [
         "step_2.pt", "step_4.pt"]
+    assert (tmp_path / "metrics_tp_0.csv").exists()
+    assert not (tmp_path / "metrics_tp_1.csv").exists()
 
 
 def test_port_trains_full_crossclr_without_jax(tmp_path):

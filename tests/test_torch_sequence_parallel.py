@@ -116,10 +116,6 @@ def _rank_cases(world: int, shared: Path) -> dict:
     trainer = Trainer(*_towers(dropout=DROPOUT), TrainConfig(**BASE), device="cpu",
                       mesh=mesh)
     out["dropout"] = _run(trainer, init, rows)
-    try:  # no tensor parallelism: flash towers on the model axis are refused
-        Trainer(*_towers("flash"), TrainConfig(**BASE), device="cpu", mesh=mesh)
-    except NotImplementedError as e:
-        out["refusal"] = str(e)
     return out
 
 
@@ -261,16 +257,10 @@ def test_ring_dropout_is_the_one_device_flash_run(request, tmp_path_factory, wor
         assert not np.allclose(res["dropout"]["loss"], res["auto"]["loss"], rtol=1e-4)
 
 
-def test_the_model_axis_refuses_tensor_parallel_towers(request, tmp_path_factory):
-    ranks, _, _ = _world(request, tmp_path_factory, 2)
-    for res in ranks:
-        assert "item 13" in res["refusal"] and "attention='ring'" in res["refusal"]
-
-
 def test_mesh_without_a_group_and_its_refusals():
     """One rank without a group: the 1 × 1 grid with no groups (JAX's
-    one-device mesh); a grid that does not cover the ranks and the DCN
-    layouts are refused; a ring tower without a mesh raises."""
+    one-device mesh), under the DCN layouts too; a grid that does not
+    cover the ranks is refused; a ring tower without a mesh raises."""
     mesh = make_mesh()
     assert (mesh.n_data, mesh.n_model, mesh.data_index, mesh.model_index) == (1, 1, 0, 0)
     assert mesh.data_group is None and mesh.model_group is None
@@ -279,9 +269,10 @@ def test_mesh_without_a_group_and_its_refusals():
         make_mesh(n_model=2)
     with pytest.raises(ValueError, match="must cover"):
         make_mesh(n_data=2)
-    for kw in ({"dcn": 2}, {"granule": "process"}):
-        with pytest.raises(NotImplementedError, match="item 13"):
-            make_mesh(**kw)
+    for kw in ({"dcn": 1}, {"granule": "process"},
+               {"dcn": 1, "granule": "contiguous"}):
+        dcn = make_mesh(**kw)
+        assert (dcn.n_data, dcn.n_model, dcn.data_group) == (1, 1, None)
     with pytest.raises(ValueError, match="attention='ring' needs a mesh"):
         Trainer(*_towers(), TrainConfig(**BASE), device="cpu").init_state()
     # at 1 x 1 the ring is one block: flash towers' values on the same weights

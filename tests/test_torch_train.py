@@ -24,10 +24,12 @@ from crossclr_tpu_torch.data import SyntheticPairs, epoch_batches, infinite_batc
 from crossclr_tpu_torch.evaluation import retrieval_metrics
 from crossclr_tpu_torch.models.encoders import DualEncoder, TowerConfig
 from crossclr_tpu_torch.training import (
+    LAMB,
     AdamW,
     CheckpointManager,
     TrainConfig,
     Trainer,
+    make_optimizer,
 )
 from crossclr_tpu_torch.utils.params import state_dict_from_flax
 
@@ -164,8 +166,13 @@ def test_schedule_and_clip_follow_optax():
         p, {"w": torch.tensor([3.0, 0.0, 4.0])}, state)
     assert float(gnorm) == 5.0
     torch.testing.assert_close(state["mu"]["w"], 0.1 * torch.tensor([0.6, 0.0, 0.8]))
-    with pytest.raises(NotImplementedError, match="item 13"):
-        AdamW(TrainConfig(optimizer="lamb"))
+    # LAMB shares the clip, the schedule and the moments' shape
+    lamb = make_optimizer(TrainConfig(optimizer="lamb", clip_norm=1.0))
+    assert isinstance(lamb, LAMB) and lamb.eps == 1e-6
+    state = lamb.init(p)
+    assert float(lamb.update(p, {"w": torch.tensor([3.0, 0.0, 4.0])}, state)) == 5.0
+    torch.testing.assert_close(state["mu"]["w"], 0.1 * torch.tensor([0.6, 0.0, 0.8]))
+    assert state["count"] == 1 and set(state) == {"count", "mu", "nu"}
 
 
 def test_steps_per_call_equals_single_steps():
@@ -242,8 +249,12 @@ def test_overfit_synthetic_retrieval():
 
 
 def test_refusals():
-    with pytest.raises(NotImplementedError, match="item 13"):
-        _port_trainer(optimizer="lamb")
+    # LAMB trains where it was refused; an unknown optimizer is refused
+    trainer = _port_trainer(optimizer="lamb")
+    _, metrics = trainer.train_step(trainer.init_state(), _batches(1)[0])
+    assert np.isfinite(float(metrics["loss"]))
+    with pytest.raises(ValueError, match="'adamw' or 'lamb'"):
+        _port_trainer(optimizer="sgd")
     # the full CrossCLR losses train, a learnable τ included
     batch = _batches(1)[0]
     for loss in ("crossclr", "crossclr_fused"):
@@ -347,7 +358,10 @@ def test_cli_trains_evaluates_and_resumes(tmp_path):
 def test_cli_refuses_what_is_not_ported(flag):
     from crossclr_tpu_torch import train
 
-    with pytest.raises(SystemExit, match="not ported"):
+    # the model axis is ported: one process cannot hold a model axis of 2
+    match = ("1 ranks not divisible by model axis 2" if flag[0] == "--n-model"
+             else "not ported")
+    with pytest.raises(SystemExit, match=match):
         train.main([*flag, *CLI_ARGS])
 
 
