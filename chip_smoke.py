@@ -117,6 +117,41 @@ Phases, one line each; any failure raises and exits non-zero:
                  flash_fwd, its seconds.  Counts set to 0 at the start of
                  the phase and read at its end: flash_dq = flash_dkv =
                  8 x 8.
+  5c. aot      — on the serve phase's checkpoint (step 8): eval.main on all
+                 rows (the dump and the one-process metrics); the live
+                 services for the fp32 index (encoded), the bf16 and the
+                 int8 index (the dump); export_search of each, text ->
+                 video, queries 96 x 768 with a mask, k = 16 (export s,
+                 artifact MB); an --aot-worker child loads each with
+                 SearchArtifact alone (load s; crossclr_tpu_torch.models,
+                 .training and .serve never imported), searches at 1, 5
+                 and 64 rows (indices equal to the live search(), scores
+                 within 1e-5; kernel 1 launched exactly 4 times a search),
+                 times 20 searches at 1 and at 64 rows against the live
+                 ones, and serves the fp32 artifact with serve --artifact
+                 over HTTP (answers equal to SearchArtifact.search, k
+                 clamped, /reload refused, SIGTERM).
+  5d. shard    — two --shard-worker gloo ranks sharing cuda:0 (host-staged):
+                 serve --shard-corpus from the checkpoint (each rank
+                 encodes its 2048 rows), fp32 and int8, rank 0 on HTTP
+                 (1, 5, 64 query rows; /reload; SIGTERM stops both)
+                 against the aot phase's one-process services (indices
+                 equal, scores within 1e-5); the eval CLI on the ranks
+                 against one process (R@K equal, MdR and MnR within 1e-6,
+                 the top-10 dump equal); sharded_retrieve_topk on
+                 1,048,576 x 384 fp32 rows (1.5 GB, a block a rank), 64
+                 queries, k = 16, against dense retrieve_topk, ms a search
+                 each; then a one-rank NCCL group's sharded search bit for
+                 bit with the dense one (fp32, and int8 on 65,536 rows).
+  5e. profile  — the transformer leg for 2 one-step dispatches:
+                 --save-config round-trips; --tensorboard-dir refused
+                 naming the missing package with both writers' imports
+                 blocked, and where one is installed (the card's machine
+                 has one) its event file written; --profile-dir's trace names
+                 the flash forward, dq, dk/dv and sym kernels among its
+                 kernel events, flash_dq = flash_dkv = 16 and sym_fwd =
+                 sym_bwd = 2; utils.profiling.nan_debug raises at the
+                 operator that makes a NaN on the card.
   6. loss      — the four loss kernels of ops/csrc/fused_dual.cu (sym_fwd,
                  sym_bwd at τ=0.03; dual_fwd, dual_bwd at a tensor τ of 0.03
                  and 0.01) against their plain versions on the same CUDA
@@ -364,7 +399,9 @@ and its bound from this run's shapes; the flash records also name the
 shape and build they were timed at and what the library call computes,
 and their launches by path (transformer training, the serve phase's
 train-eval-serve-reload, the ring and the tp phases' training on both
-ranks and, for the forward, the slice's serving);
+ranks, the profile phase's training and, for the forward, the slice's
+serving, the aot phase's eval, encodes and artifact searches and the
+shard phase's ranks);
 the loss records add their pruned branch's time, plain time, bound and
 launches on the full-CrossCLR legs; the rows records are timed at 1024 x
 384 and add their time, plain time and bound at one rank's block (1024 of
@@ -424,6 +461,7 @@ import sys
 import tempfile
 import threading
 import time
+import urllib.error
 import urllib.request
 from http.server import ThreadingHTTPServer
 from pathlib import Path
@@ -551,6 +589,36 @@ SERVE_OVERRIDES = [
     "train.steps_per_call=1", "eval_every=4", "log_every=1",
 ]
 INT8_SCORE_BOUND = 1e-2  # the JAX package's stated move of a cosine score
+# the aot, shard and profile phases (PR 19), on the serve phase's
+# checkpoint: text -> video search artifacts, k = AOT_K, queries of the
+# text tower's S x D with a mask; their answers at AOT_ROWS rows against
+# the live search() (the same program op for op: indices equal, scores
+# within AOT_SCORE_TOL), kernel 1 once per layer of the text tower a search
+AOT_K = 16
+AOT_QUERY_SHAPE = (96, 768)
+AOT_ROWS = (1, 5, 64)
+AOT_REPS = 20  # searches timed at 1 and at 64 rows, each
+AOT_SCORE_TOL = 1e-5
+AOT_FLASH_PER_SEARCH = 4
+WORKER_JOIN_S = 300  # the aot and shard phases' children, start to exit
+# the shard phase: SHARD_RANKS gloo ranks sharing cuda:0; /search at
+# SHARD_ROWS rows, k = 10; sharded_retrieve_topk on SHARD_BIG fp32 rows
+# (1.5 GB) made on the card from SHARD_SEED, SHARD_QUERIES queries; a
+# one-rank NCCL group on it and on SHARD_INT8_ROWS of it as an int8 index;
+# the eval CLI on the ranks against one process: R@K equal, MdR and MnR
+# within EVAL_MEAN_TOL (the ranks' partial counts are exact integers)
+SHARD_RANKS = 2
+SHARD_ROWS = (1, 5, 64)
+SHARD_BIG = (1_048_576, 384)
+SHARD_QUERIES, SHARD_K = 64, 16
+SHARD_SEED = 71
+SHARD_REPS = 10
+SHARD_INT8_ROWS = 65_536
+EVAL_MEAN_TOL = 1e-6
+# the profile phase: the transformer leg for PROFILE_STEPS one-step
+# dispatches under --profile-dir; the trace's kernel events must name these
+PROFILE_STEPS = 2
+PROFILE_KERNELS = ("flash_fwd", "flash_dq", "flash_dkv", "sym_fwd", "sym_bwd")
 SERVE_CLIENTS, BATCH_WINDOW_MS = 16, 5.0
 BATCHED_SCORE_TOL = 1e-5  # a batch of other rows: the same sums in another order
 # the transformer leg again from bf16 and int8 file stores written from the
@@ -1760,7 +1828,32 @@ def search_latencies(send, clients: int, per_client: int) -> list[float]:
     return out
 
 
-def serve_checkpoint_phase(fa, smi: str) -> dict:
+@contextlib.contextmanager
+def dataset_once():
+    """The synthetic pairs made once for every entry point inside the scope
+    (set-up, 14-18 s a time at the transformer legs' size), as a store
+    would be read: ``data.dataset_from_config`` memoized, a synthetic
+    config by the fields ``SyntheticPairs`` reads (its paths and batch size
+    make no other pairs), another by the whole config."""
+    from crossclr_tpu_torch import data as data_pkg
+
+    made, make = {}, data_pkg.dataset_from_config
+
+    def once(data_cfg):
+        key = data_cfg
+        if data_cfg.source == "synthetic":
+            key = (data_cfg.num_pairs, data_cfg.video_dim, data_cfg.text_dim,
+                   data_cfg.video_seq_len, data_cfg.text_seq_len,
+                   data_cfg.variable_lengths, data_cfg.seed)
+        if key not in made:
+            made[key] = make(data_cfg)
+        return made[key]
+
+    with mock.patch.object(data_pkg, "dataset_from_config", once):
+        yield once
+
+
+def serve_checkpoint_phase(fa, smi: str, tmp: Path) -> dict:
     """Serving what the port trains, through the entry points a user
     calls: train.main on the transformer config at full width (flash
     attention, dropout 0.1, EMA) to SERVE_STEPS[0] with a checkpoint;
@@ -1776,8 +1869,10 @@ def serve_checkpoint_phase(fa, smi: str) -> dict:
     BATCH_WINDOW_MS window against the serial answers; /search latency;
     then train.main resumed to SERVE_STEPS[1] and POST /reload: the step
     advances and the corpus is re-encoded through the kernel.  Every
-    count is set to 0 at the start and read at the end.  Returns the
-    flash kernels' launches on this path."""
+    count is set to 0 at the start and read at the end.  The checkpoint
+    (``tmp / "ckpt"``, at SERVE_STEPS[1]) stays for the aot, shard and
+    profile phases; the caller holds the pairs in ``dataset_once``.
+    Returns the flash kernels' launches on this path."""
     import numpy as np
 
     from crossclr_tpu_torch import data as data_pkg
@@ -1789,279 +1884,267 @@ def serve_checkpoint_phase(fa, smi: str) -> dict:
     from crossclr_tpu_torch.serve import build_service
     from crossclr_tpu_torch.utils.config import apply_overrides, load_config
 
-    # the synthetic pairs are made once for every entry point of the phase
-    # (set-up, 14-18 s a time at this size), as a store would be read
-    made, dataset_from_config = {}, data_pkg.dataset_from_config
-
-    def dataset_once(data_cfg):
-        if data_cfg not in made:
-            made[data_cfg] = dataset_from_config(data_cfg)
-        return made[data_cfg]
-
     config = str(ROOT / TRANSFORMER_CONFIG)
     first, last = SERVE_STEPS
     t_phase = time.perf_counter()
-    with tempfile.TemporaryDirectory(prefix="crossclr_serve_") as tmp, \
-            mock.patch.object(data_pkg, "dataset_from_config", dataset_once):
-        tmp = Path(tmp)
-        ckpt = str(tmp / "ckpt")
-        overrides = [*SERVE_OVERRIDES, f"checkpoint_dir={ckpt}"]
-        cfg = apply_overrides(load_config(config), overrides)
-        data, _ = dataset_once(cfg.data)
-        reset_counts(fa)  # this path's counts start here
+    ckpt = str(tmp / "ckpt")
+    overrides = [*SERVE_OVERRIDES, f"checkpoint_dir={ckpt}"]
+    cfg = apply_overrides(load_config(config), overrides)
+    data, _ = data_pkg.dataset_from_config(cfg.data)
+    reset_counts(fa)  # this path's counts start here
 
-        def flash_delta(before: dict) -> dict:
-            return {k: fa.launch_counts[k] - before[k] for k in fa.launch_counts}
+    def flash_delta(before: dict) -> dict:
+        return {k: fa.launch_counts[k] - before[k] for k in fa.launch_counts}
 
-        t0 = time.perf_counter()
-        rc = train.main(["--config", config, "--device", "cuda", "--steps",
-                         str(first), "--metrics-csv", str(tmp / "m.csv"), *overrides])
-        check(rc == 0, f"train.main exited {rc}")
-        log("serve", f"train.main to step {first} with a checkpoint (EMA 0.999): "
-                     f"{time.perf_counter() - t0:.2f} s; launches {dict(fa.launch_counts)}")
+    t0 = time.perf_counter()
+    rc = train.main(["--config", config, "--device", "cuda", "--steps",
+                     str(first), "--metrics-csv", str(tmp / "m.csv"), *overrides])
+    check(rc == 0, f"train.main exited {rc}")
+    log("serve", f"train.main to step {first} with a checkpoint (EMA 0.999): "
+                 f"{time.perf_counter() - t0:.2f} s; launches {dict(fa.launch_counts)}")
 
-        # eval: all rows live with the dumps, the held-out rows with --ema
-        runs = {}
-        for tag, flags in (
-            ("all", ["--split", "all", "--embeddings-output", str(tmp / "emb.npz"),
-                     "--topk", "10", "--topk-output", str(tmp / "topk.npz")]),
-            ("eval_ema", ["--split", "eval", "--ema"]),
-        ):
-            before = dict(fa.launch_counts)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            rc = teval.main(["--config", config, "--device", "cuda", "--output",
-                             str(tmp / f"{tag}.json"), *flags, *overrides])
-            torch.cuda.synchronize()
-            seconds = time.perf_counter() - t0
-            check(rc == 0, f"eval.main exited {rc}")
-            metrics = json.loads((tmp / f"{tag}.json").read_text())
-            launched = flash_delta(before)
-            check(all(math.isfinite(v) for k, v in metrics.items() if "/" in k),
-                  f"eval {tag}: metrics {metrics}")
-            check(metrics["step"] == first, f"eval {tag}: step {metrics['step']}")
-            check(launched["flash_fwd"] > 0 and launched["flash_dq"] == 0
-                  == launched["flash_dkv"], f"eval {tag}: launches {launched}")
-            runs[tag] = (metrics, seconds)
-            log("serve", f"eval.main --{tag.replace('_', ' --')}: {metrics['rows']} "
-                         f"rows in {seconds:.2f} s ({metrics['rows'] / seconds:.1f} "
-                         f"rows/s, the whole CLI call); v2t/R@1 "
-                         f"{metrics['v2t/R@1']:.3f} t2v/R@1 {metrics['t2v/R@1']:.3f} "
-                         f"MdR {metrics['v2t/MdR']}/{metrics['t2v/MdR']}; launches "
-                         f"{launched} ({smi})")
-        check(runs["eval_ema"][0].get("ema") is True, "eval --ema not recorded")
-        with np.load(tmp / "emb.npz") as z:
-            dump = {k: z[k] for k in z.files}
-        with np.load(tmp / "topk.npz") as z:
-            topk = {k: z[k] for k in z.files}
-        check(dump["video"].shape == (len(data), cfg.video_tower.embed_dim)
-              and int(dump["step"]) == first
-              and not bool(dump["ema"]), "the eval dump's shape, step or flavour")
-        check(topk["indices"].shape == (len(data), 10) and np.isfinite(
-            topk["scores"]).all(), "the top-k dump")
-
-        # the service from the checkpoint, searched over HTTP
+    # eval: all rows live with the dumps, the held-out rows with --ema
+    runs = {}
+    for tag, flags in (
+        ("all", ["--split", "all", "--embeddings-output", str(tmp / "emb.npz"),
+                 "--topk", "10", "--topk-output", str(tmp / "topk.npz")]),
+        ("eval_ema", ["--split", "eval", "--ema"]),
+    ):
         before = dict(fa.launch_counts)
-        t0 = time.perf_counter()
-        service = build_service(cfg, ckpt, "video", device="cuda")
         torch.cuda.synchronize()
-        encode = flash_delta(before)
-        check(service.step == service.index_step == first, "service step")
-        check(encode["flash_fwd"] > 0, f"corpus encode launches {encode}")
-        gap = float(np.abs(service.corpus_emb.cpu().numpy() - dump["video"]).max())
-        log("serve", f"build_service --checkpoint-dir (step {first}): "
-                     f"{time.perf_counter() - t0:.2f} s; corpus encode launches "
-                     f"{encode}; corpus vs the eval dump max |Δ| {gap:.3e}")
-        check(gap <= BATCHED_SCORE_TOL, f"corpus vs eval dump {gap}")
-        served = Served(service)
-        try:
-            start = 0
-            for rows in (1, 3, 5, 16) * 2:
-                before = dict(fa.launch_counts)
-                status, out = post(served.url, {
-                    "features": data.text[start:start + rows].tolist(),
-                    "mask": data.text_mask[start:start + rows].tolist(), "k": 10})
-                check(status == 200, f"/search answered {status}")
-                check_result(out, rows, 10, service.corpus_rows)
-                launched = flash_delta(before)
-                check(launched["flash_fwd"] > 0 and launched["flash_dq"] == 0
-                      == launched["flash_dkv"], f"a search launched {launched}")
-                start += rows
-            status, health = get(served.url, "/healthz")
-            check(status == 200 and health["step"] == first
-                  and health["index_step"] == first, f"/healthz {health}")
+        t0 = time.perf_counter()
+        rc = teval.main(["--config", config, "--device", "cuda", "--output",
+                         str(tmp / f"{tag}.json"), *flags, *overrides])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        check(rc == 0, f"eval.main exited {rc}")
+        metrics = json.loads((tmp / f"{tag}.json").read_text())
+        launched = flash_delta(before)
+        check(all(math.isfinite(v) for k, v in metrics.items() if "/" in k),
+              f"eval {tag}: metrics {metrics}")
+        check(metrics["step"] == first, f"eval {tag}: step {metrics['step']}")
+        check(launched["flash_fwd"] > 0 and launched["flash_dq"] == 0
+              == launched["flash_dkv"], f"eval {tag}: launches {launched}")
+        runs[tag] = (metrics, seconds)
+        log("serve", f"eval.main --{tag.replace('_', ' --')}: {metrics['rows']} "
+                     f"rows in {seconds:.2f} s ({metrics['rows'] / seconds:.1f} "
+                     f"rows/s, the whole CLI call); v2t/R@1 "
+                     f"{metrics['v2t/R@1']:.3f} t2v/R@1 {metrics['t2v/R@1']:.3f} "
+                     f"MdR {metrics['v2t/MdR']}/{metrics['t2v/MdR']}; launches "
+                     f"{launched} ({smi})")
+    check(runs["eval_ema"][0].get("ema") is True, "eval --ema not recorded")
+    with np.load(tmp / "emb.npz") as z:
+        dump = {k: z[k] for k in z.files}
+    with np.load(tmp / "topk.npz") as z:
+        topk = {k: z[k] for k in z.files}
+    check(dump["video"].shape == (len(data), cfg.video_tower.embed_dim)
+          and int(dump["step"]) == first
+          and not bool(dump["ema"]), "the eval dump's shape, step or flavour")
+    check(topk["indices"].shape == (len(data), 10) and np.isfinite(
+        topk["scores"]).all(), "the top-k dump")
 
-            # the eval dump as a precomputed index, held strictly
-            pre = build_service(cfg, ckpt, "video", device="cuda",
-                                corpus_emb_path=str(tmp / "emb.npz"),
-                                strict_index=True)
-            check(not pre.index_stale and not pre.index_tower_mismatch
-                  and torch.equal(pre.corpus_emb.cpu(), torch.from_numpy(dump["video"])),
-                  "--corpus-emb index")
-            feats, mask = data.text[:64], data.text_mask[:64]
-            a, b = service.search(feats, mask, k=10), pre.search(feats, mask, k=10)
-            check(a["indices"] == b["indices"], "--corpus-emb answers")
-            log("serve", f"--corpus-emb (the eval dump, step {first}) under "
-                         f"--strict-index: served, 64 queries answered as the "
-                         f"checkpoint's own index does")
-
-            # the int8 index, from the same dump
-            q8 = build_service(cfg, ckpt, "video", device="cuda", corpus_dtype="int8",
-                               corpus_emb_path=str(tmp / "emb.npz"))
-            values = q8.corpus_emb.values
-            check(values.dtype == torch.int8 and values.is_cuda, "int8 index placement")
-            q = service.trainer.encode_modality(
-                service.state, "text", np.asarray(data.text[:256], np.float32),
-                np.asarray(data.text_mask[:256], np.float32))
-            qv, qs = _quantize_queries(q)
-            for rows in (256, 1):  # torch._int_mm's padding: one row too
-                acc = _int8_dot(qv[:rows], values)
-                want = qv[:rows].cpu().int() @ values.cpu().int().T
-                check(torch.equal(acc.cpu(), want),
-                      f"int8 accumulators at {rows} rows: card vs CPU int32")
-            # text queries, and corpus rows as exact-match queries (the JAX
-            # tests' case): every score within the bound of the fp32
-            # index's, and top-1 kept wherever the fp32 margin clears twice
-            # the bound (within it the two may rightly differ)
-            exact = torch.from_numpy(dump["video"][:256]).cuda()
-            report = []
-            for tag, queries in (("text", q), ("exact-match", exact)):
-                qv, qs = _quantize_queries(queries)
-                sim8 = _quantized_sim(qv, qs, q8.corpus_emb)
-                sim32 = similarity_matrix(queries, pre.corpus_emb)
-                score_err = (sim8 - sim32).abs().max().item()
-                top = sim32.topk(2, dim=1)
-                clear = (top.values[:, 0] - top.values[:, 1]) > 2 * INT8_SCORE_BOUND
-                same = sim8.argmax(dim=1) == top.indices[:, 0]
-                report.append(f"{tag} queries: scores max |Δ| {score_err:.3e} "
-                              f"(limit {INT8_SCORE_BOUND}), top-1 agreement "
-                              f"{same.float().mean().item():.4f}, {int(clear.sum())} "
-                              f"of 256 clear of twice the bound (all of them kept)")
-                check(score_err <= INT8_SCORE_BOUND, f"int8 {tag} scores {score_err}")
-                check(bool(same[clear].all()), f"int8 {tag} top-1 flipped past the bound")
-            self_top1 = (sim8.argmax(dim=1) == torch.arange(256, device="cuda"))
-            log("serve", "int8 index: accumulators equal a CPU int32 product bit "
-                         "for bit (256 and 1 query rows); " + "; ".join(report)
-                         + f"; exact-match self top-1 {self_top1.float().mean().item():.4f}")
-
-            # micro-batching: concurrent clients against the serial answers
-            win = build_service(cfg, ckpt, "video", device="cuda",
-                                corpus_emb_path=str(tmp / "emb.npz"),
-                                batch_window_ms=BATCH_WINDOW_MS)
-            win_served = Served(win)
-            try:
-                gate = threading.Barrier(SERVE_CLIENTS, timeout=300)
-                answers = [None] * SERVE_CLIENTS
-
-                def client(i: int) -> None:
-                    gate.wait()
-                    rows = slice(2 * i, 2 * i + 2)
-                    answers[i] = post(win_served.url, {
-                        "features": data.text[rows].tolist(),
-                        "mask": data.text_mask[rows].tolist(), "k": 5 + i % 6})
-
-                threads = [threading.Thread(target=client, args=(i,))
-                           for i in range(SERVE_CLIENTS)]
-                for t in threads:
-                    t.start()
-                for t in threads:
-                    t.join(300)
-                    check(not t.is_alive(), "a batched client did not finish")
-                worst = 0.0
-                for i, (status, out) in enumerate(answers):
-                    check(status == 200, f"batched /search answered {status}")
-                    rows = slice(2 * i, 2 * i + 2)
-                    want = pre.search(data.text[rows], data.text_mask[rows],
-                                      k=5 + i % 6)
-                    check(out["indices"] == want["indices"],
-                          f"client {i}: batched indices differ from serial")
-                    worst = max(worst, float(np.abs(np.asarray(out["scores"])
-                                                    - np.asarray(want["scores"])).max()))
-                dispatches = win.stats()["search_dispatches"]
-                log("serve", f"{SERVE_CLIENTS} concurrent clients, {BATCH_WINDOW_MS} "
-                             f"ms window: {dispatches} dispatches for "
-                             f"{SERVE_CLIENTS} requests; vs serial: indices equal, "
-                             f"scores max |Δ| {worst:.3e} (limit {BATCHED_SCORE_TOL})")
-                check(dispatches < SERVE_CLIENTS, f"no coalescing: {dispatches}")
-                check(worst <= BATCHED_SCORE_TOL, f"batched scores {worst}")
-
-                # /search latency, single-row queries, k=10: over HTTP on
-                # the client's clock (JSON of a [1, 96, 768] query both ways
-                # included), and search() called in the process
-                q8_served = Served(q8)
-                pre_served = Served(pre)
-
-                def over_http(url):
-                    def send(row):
-                        row %= len(data)
-                        status, _ = post(url, {
-                            "features": data.text[row:row + 1].tolist(),
-                            "mask": data.text_mask[row:row + 1].tolist(), "k": 10})
-                        check(status == 200, f"/search answered {status}")
-                    return send
-
-                def in_process(svc):
-                    def send(row):
-                        row %= len(data)
-                        svc.search(data.text[row:row + 1], data.text_mask[row:row + 1],
-                                   k=10)
-                    return send
-
-                try:
-                    p50 = {}
-                    for tag, http, svc, clients, per in (
-                        ("fp32, 1 client", pre_served.url, pre, 1, 32),
-                        ("int8, 1 client", q8_served.url, q8, 1, 32),
-                        ("fp32, 1 client, window", win_served.url, win, 1, 32),
-                        (f"fp32, {SERVE_CLIENTS} clients", pre_served.url, pre,
-                         SERVE_CLIENTS, 4),
-                        (f"fp32, {SERVE_CLIENTS} clients, window", win_served.url,
-                         win, SERVE_CLIENTS, 4),
-                    ):
-                        for how, send in (("http", over_http(http)),
-                                          ("search()", in_process(svc))):
-                            lats = sorted(search_latencies(send, clients, per))
-                            p50[f"{tag}, {how}"] = lats[len(lats) // 2] * 1e3
-                    log("serve", "/search p50 (ms, single-row queries, k=10, the "
-                                 f"caller's clock, {BATCH_WINDOW_MS} ms window): "
-                                 + "; ".join(f"{k} {v:.2f}" for k, v in p50.items())
-                                 + f" ({smi})")
-                finally:
-                    q8_served.close()
-                    pre_served.close()
-            finally:
-                win_served.close()
-
-            # training resumes in the same directory; /reload picks it up
-            before_corpus = service.corpus_emb.clone()
-            rc = train.main(["--config", config, "--device", "cuda", "--steps",
-                             str(last), "--metrics-csv", str(tmp / "m.csv"),
-                             *overrides])
-            check(rc == 0, f"train.main (resume) exited {rc}")
+    # the service from the checkpoint, searched over HTTP
+    before = dict(fa.launch_counts)
+    t0 = time.perf_counter()
+    service = build_service(cfg, ckpt, "video", device="cuda")
+    torch.cuda.synchronize()
+    encode = flash_delta(before)
+    check(service.step == service.index_step == first, "service step")
+    check(encode["flash_fwd"] > 0, f"corpus encode launches {encode}")
+    gap = float(np.abs(service.corpus_emb.cpu().numpy() - dump["video"]).max())
+    log("serve", f"build_service --checkpoint-dir (step {first}): "
+                 f"{time.perf_counter() - t0:.2f} s; corpus encode launches "
+                 f"{encode}; corpus vs the eval dump max |Δ| {gap:.3e}")
+    check(gap <= BATCHED_SCORE_TOL, f"corpus vs eval dump {gap}")
+    served = Served(service)
+    try:
+        start = 0
+        for rows in (1, 3, 5, 16) * 2:
             before = dict(fa.launch_counts)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            status, body = post(served.url, {}, path="/reload")
-            reload_s = time.perf_counter() - t0
+            status, out = post(served.url, {
+                "features": data.text[start:start + rows].tolist(),
+                "mask": data.text_mask[start:start + rows].tolist(), "k": 10})
+            check(status == 200, f"/search answered {status}")
+            check_result(out, rows, 10, service.corpus_rows)
             launched = flash_delta(before)
-            check(status == 200 and body == {"status": "ok", "step": last,
-                                             "index_step": last}, f"/reload {body}")
             check(launched["flash_fwd"] > 0 and launched["flash_dq"] == 0
-                  == launched["flash_dkv"], f"/reload launches {launched}")
-            check(not torch.equal(service.corpus_emb, before_corpus),
-                  "/reload did not re-encode the corpus")
-            status, out = post(served.url, {"features": data.text[:3].tolist(),
-                                            "mask": data.text_mask[:3].tolist(),
-                                            "k": 10})
-            check(status == 200, f"/search after /reload answered {status}")
-            check_result(out, 3, 10, service.corpus_rows)
-            log("serve", f"train.main resumed to step {last}; POST /reload: step "
-                         f"{first} -> {body['step']} in {reload_s:.2f} s (restore "
-                         f"and a corpus re-encode of {service.corpus_rows} rows); "
-                         f"launches {launched} ({smi})")
+                  == launched["flash_dkv"], f"a search launched {launched}")
+            start += rows
+        status, health = get(served.url, "/healthz")
+        check(status == 200 and health["step"] == first
+              and health["index_step"] == first, f"/healthz {health}")
+
+        # the eval dump as a precomputed index, held strictly
+        pre = build_service(cfg, ckpt, "video", device="cuda",
+                            corpus_emb_path=str(tmp / "emb.npz"),
+                            strict_index=True)
+        check(not pre.index_stale and not pre.index_tower_mismatch
+              and torch.equal(pre.corpus_emb.cpu(), torch.from_numpy(dump["video"])),
+              "--corpus-emb index")
+        feats, mask = data.text[:64], data.text_mask[:64]
+        a, b = service.search(feats, mask, k=10), pre.search(feats, mask, k=10)
+        check(a["indices"] == b["indices"], "--corpus-emb answers")
+        log("serve", f"--corpus-emb (the eval dump, step {first}) under "
+                     f"--strict-index: served, 64 queries answered as the "
+                     f"checkpoint's own index does")
+
+        # the int8 index, from the same dump
+        q8 = build_service(cfg, ckpt, "video", device="cuda", corpus_dtype="int8",
+                           corpus_emb_path=str(tmp / "emb.npz"))
+        values = q8.corpus_emb.values
+        check(values.dtype == torch.int8 and values.is_cuda, "int8 index placement")
+        q = service.trainer.encode_modality(
+            service.state, "text", np.asarray(data.text[:256], np.float32),
+            np.asarray(data.text_mask[:256], np.float32))
+        qv, qs = _quantize_queries(q)
+        for rows in (256, 1):  # torch._int_mm's padding: one row too
+            acc = _int8_dot(qv[:rows], values)
+            want = qv[:rows].cpu().int() @ values.cpu().int().T
+            check(torch.equal(acc.cpu(), want),
+                  f"int8 accumulators at {rows} rows: card vs CPU int32")
+        # text queries, and corpus rows as exact-match queries (the JAX
+        # tests' case): every score within the bound of the fp32
+        # index's, and top-1 kept wherever the fp32 margin clears twice
+        # the bound (within it the two may rightly differ)
+        exact = torch.from_numpy(dump["video"][:256]).cuda()
+        report = []
+        for tag, queries in (("text", q), ("exact-match", exact)):
+            qv, qs = _quantize_queries(queries)
+            sim8 = _quantized_sim(qv, qs, q8.corpus_emb)
+            sim32 = similarity_matrix(queries, pre.corpus_emb)
+            score_err = (sim8 - sim32).abs().max().item()
+            top = sim32.topk(2, dim=1)
+            clear = (top.values[:, 0] - top.values[:, 1]) > 2 * INT8_SCORE_BOUND
+            same = sim8.argmax(dim=1) == top.indices[:, 0]
+            report.append(f"{tag} queries: scores max |Δ| {score_err:.3e} "
+                          f"(limit {INT8_SCORE_BOUND}), top-1 agreement "
+                          f"{same.float().mean().item():.4f}, {int(clear.sum())} "
+                          f"of 256 clear of twice the bound (all of them kept)")
+            check(score_err <= INT8_SCORE_BOUND, f"int8 {tag} scores {score_err}")
+            check(bool(same[clear].all()), f"int8 {tag} top-1 flipped past the bound")
+        self_top1 = (sim8.argmax(dim=1) == torch.arange(256, device="cuda"))
+        log("serve", "int8 index: accumulators equal a CPU int32 product bit "
+                     "for bit (256 and 1 query rows); " + "; ".join(report)
+                     + f"; exact-match self top-1 {self_top1.float().mean().item():.4f}")
+
+        # micro-batching: concurrent clients against the serial answers
+        win = build_service(cfg, ckpt, "video", device="cuda",
+                            corpus_emb_path=str(tmp / "emb.npz"),
+                            batch_window_ms=BATCH_WINDOW_MS)
+        win_served = Served(win)
+        try:
+            gate = threading.Barrier(SERVE_CLIENTS, timeout=300)
+            answers = [None] * SERVE_CLIENTS
+
+            def client(i: int) -> None:
+                gate.wait()
+                rows = slice(2 * i, 2 * i + 2)
+                answers[i] = post(win_served.url, {
+                    "features": data.text[rows].tolist(),
+                    "mask": data.text_mask[rows].tolist(), "k": 5 + i % 6})
+
+            threads = [threading.Thread(target=client, args=(i,))
+                       for i in range(SERVE_CLIENTS)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(300)
+                check(not t.is_alive(), "a batched client did not finish")
+            worst = 0.0
+            for i, (status, out) in enumerate(answers):
+                check(status == 200, f"batched /search answered {status}")
+                rows = slice(2 * i, 2 * i + 2)
+                want = pre.search(data.text[rows], data.text_mask[rows],
+                                  k=5 + i % 6)
+                check(out["indices"] == want["indices"],
+                      f"client {i}: batched indices differ from serial")
+                worst = max(worst, float(np.abs(np.asarray(out["scores"])
+                                                - np.asarray(want["scores"])).max()))
+            dispatches = win.stats()["search_dispatches"]
+            log("serve", f"{SERVE_CLIENTS} concurrent clients, {BATCH_WINDOW_MS} "
+                         f"ms window: {dispatches} dispatches for "
+                         f"{SERVE_CLIENTS} requests; vs serial: indices equal, "
+                         f"scores max |Δ| {worst:.3e} (limit {BATCHED_SCORE_TOL})")
+            check(dispatches < SERVE_CLIENTS, f"no coalescing: {dispatches}")
+            check(worst <= BATCHED_SCORE_TOL, f"batched scores {worst}")
+
+            # /search latency, single-row queries, k=10: over HTTP on
+            # the client's clock (JSON of a [1, 96, 768] query both ways
+            # included), and search() called in the process
+            q8_served = Served(q8)
+            pre_served = Served(pre)
+
+            def over_http(url):
+                def send(row):
+                    row %= len(data)
+                    status, _ = post(url, {
+                        "features": data.text[row:row + 1].tolist(),
+                        "mask": data.text_mask[row:row + 1].tolist(), "k": 10})
+                    check(status == 200, f"/search answered {status}")
+                return send
+
+            def in_process(svc):
+                def send(row):
+                    row %= len(data)
+                    svc.search(data.text[row:row + 1], data.text_mask[row:row + 1],
+                               k=10)
+                return send
+
+            try:
+                p50 = {}
+                for tag, http, svc, clients, per in (
+                    ("fp32, 1 client", pre_served.url, pre, 1, 32),
+                    ("int8, 1 client", q8_served.url, q8, 1, 32),
+                    ("fp32, 1 client, window", win_served.url, win, 1, 32),
+                    (f"fp32, {SERVE_CLIENTS} clients", pre_served.url, pre,
+                     SERVE_CLIENTS, 4),
+                    (f"fp32, {SERVE_CLIENTS} clients, window", win_served.url,
+                     win, SERVE_CLIENTS, 4),
+                ):
+                    for how, send in (("http", over_http(http)),
+                                      ("search()", in_process(svc))):
+                        lats = sorted(search_latencies(send, clients, per))
+                        p50[f"{tag}, {how}"] = lats[len(lats) // 2] * 1e3
+                log("serve", "/search p50 (ms, single-row queries, k=10, the "
+                             f"caller's clock, {BATCH_WINDOW_MS} ms window): "
+                             + "; ".join(f"{k} {v:.2f}" for k, v in p50.items())
+                             + f" ({smi})")
+            finally:
+                q8_served.close()
+                pre_served.close()
         finally:
-            served.close()
-        launches = dict(fa.launch_counts)
+            win_served.close()
+
+        # training resumes in the same directory; /reload picks it up
+        before_corpus = service.corpus_emb.clone()
+        rc = train.main(["--config", config, "--device", "cuda", "--steps",
+                         str(last), "--metrics-csv", str(tmp / "m.csv"),
+                         *overrides])
+        check(rc == 0, f"train.main (resume) exited {rc}")
+        before = dict(fa.launch_counts)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        status, body = post(served.url, {}, path="/reload")
+        reload_s = time.perf_counter() - t0
+        launched = flash_delta(before)
+        check(status == 200 and body == {"status": "ok", "step": last,
+                                         "index_step": last}, f"/reload {body}")
+        check(launched["flash_fwd"] > 0 and launched["flash_dq"] == 0
+              == launched["flash_dkv"], f"/reload launches {launched}")
+        check(not torch.equal(service.corpus_emb, before_corpus),
+              "/reload did not re-encode the corpus")
+        status, out = post(served.url, {"features": data.text[:3].tolist(),
+                                        "mask": data.text_mask[:3].tolist(),
+                                        "k": 10})
+        check(status == 200, f"/search after /reload answered {status}")
+        check_result(out, 3, 10, service.corpus_rows)
+        log("serve", f"train.main resumed to step {last}; POST /reload: step "
+                     f"{first} -> {body['step']} in {reload_s:.2f} s (restore "
+                     f"and a corpus re-encode of {service.corpus_rows} rows); "
+                     f"launches {launched} ({smi})")
+    finally:
+        served.close()
+    launches = dict(fa.launch_counts)
     log("serve", f"the phase took {time.perf_counter() - t_phase:.1f} s; flash "
                  f"launches on this path {launches}")
     want = 8 * last  # 4 layers x 2 towers a train step
@@ -2069,6 +2152,630 @@ def serve_checkpoint_phase(fa, smi: str) -> dict:
           f"serve phase backward launches {launches}, want {want}")
     return launches
 
+
+
+# ---------------------------------------------------------------------------
+# exported artifacts, the sharded index and the profiling hooks (PR 19), on
+# the serve phase's checkpoint
+# ---------------------------------------------------------------------------
+
+
+def served_until_sigterm(serve, argv: list[str], requests) -> tuple[int, dict]:
+    """``serve.main(argv)`` in this process with ``requests(url)`` run in a
+    thread once it listens; the thread then sends this process SIGTERM, as
+    a pod eviction would.  Returns main's code and what ``requests``
+    returned."""
+    import signal
+
+    ready, address, replies = threading.Event(), [], {}
+
+    class Server(serve.ServiceHTTPServer):
+        def __init__(self, addr, service):
+            super().__init__(addr, service)
+            address.append(self.server_address)
+            ready.set()
+
+    def client():
+        try:
+            check(ready.wait(300), "the server did not start listening")
+            replies.update(requests(f"http://127.0.0.1:{address[0][1]}"))
+        except Exception as e:  # noqa: BLE001 — reported by the caller
+            replies["error"] = f"{type(e).__name__}: {e}"
+        finally:
+            os.kill(os.getpid(), signal.SIGTERM)
+
+    with mock.patch.object(serve, "ServiceHTTPServer", Server):
+        thread = threading.Thread(target=client)
+        thread.start()
+        rc = serve.main(argv)
+        thread.join(300)
+    return rc, replies
+
+
+def post_any(url: str, payload: dict, path: str) -> tuple[int, dict]:
+    """``post`` that returns an HTTP error's code and body too."""
+    try:
+        return post(url, payload, path)
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def aot_worker(spec_path: Path) -> int:
+    """A child of the aot phase, a process that has imported none of the
+    port: loads each artifact with ``SearchArtifact`` alone (its time, and
+    which of the port's modules that imported), searches the phase's
+    queries at AOT_ROWS rows with kernel 1's launches counted per search,
+    times AOT_REPS searches at 1 and 64 rows, then serves the fp32
+    artifact through ``serve --artifact`` over HTTP: /search against
+    ``SearchArtifact.search``, /reload refused.  Writes ``spec["out"]``."""
+    import numpy as np
+
+    spec = json.loads(spec_path.read_text())
+    sys.path.insert(0, str(ROOT))
+    torch.backends.cuda.matmul.allow_tf32 = False  # as the parent
+    from crossclr_tpu_torch.aot import SearchArtifact
+
+    with np.load(spec["queries"]) as z:
+        feats, mask = z["text"], z["mask"]
+    out = {}
+    for dtype, path in spec["artifacts"].items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        art = SearchArtifact.load(path)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        fa = sys.modules["crossclr_tpu_torch.ops.flash_attention"]
+        port = sorted(m for m in sys.modules if m.startswith("crossclr_tpu_torch."))
+        results, per_search = {}, []
+        for rows in AOT_ROWS:
+            before = fa.launch_counts["flash_fwd"]
+            results[rows] = art.search(feats[:rows], mask[:rows])
+            per_search.append(fa.launch_counts["flash_fwd"] - before)
+        p50 = {}
+        for rows in (1, 64):
+            lats = []
+            for _ in range(AOT_REPS):
+                t0 = time.perf_counter()
+                art.search(feats[:rows], mask[:rows])
+                lats.append(time.perf_counter() - t0)
+            p50[rows] = statistics.median(lats) * 1e3
+        out[dtype] = {"load_s": load_s, "port_modules": port, "results": results,
+                      "per_search": per_search, "p50_ms": p50}
+    from crossclr_tpu_torch import serve
+
+    art = SearchArtifact.load(spec["artifacts"]["float32"])
+
+    def requests(url):
+        got = {}
+        for k in (AOT_K, 99):
+            got[k] = post_any(url, {"features": feats[:3].tolist(),
+                                    "mask": mask[:3].tolist(), "k": k}, "/search")
+        got["want"] = art.search(feats[:3], mask[:3])
+        got["reload"] = post_any(url, {}, "/reload")
+        got["health"] = get(url, "/healthz")[1]
+        return got
+
+    rc, replies = served_until_sigterm(
+        serve, ["--artifact", spec["artifacts"]["float32"], "--port", "0"], requests)
+    out["http"] = {"rc": rc, **{str(k): v for k, v in replies.items()}}
+    out["flash_fwd"] = sys.modules["crossclr_tpu_torch.ops.flash_attention"].launch_counts[
+        "flash_fwd"]
+    Path(spec["out"]).write_text(json.dumps(out))
+    return 0
+
+
+def worker_spawn(tmp: Path, tag: str, flag: str, specs: list[dict],
+                 join_s: float = WORKER_JOIN_S) -> list[dict]:
+    """One ``chip_smoke.py <flag>`` child per spec, all started together,
+    each given a launcher's environment as a rank of them (a worker that
+    joins no group ignores it; the ranks of the ring, tp and shard phases
+    join one gloo group from it on cuda:0, as NCCL refuses two ranks on
+    one device).  A child that fails, or any still running after
+    ``join_s``, fails the phase.  Returns each child's ``out`` JSON."""
+    base = {k: v for k, v in os.environ.items() if k not in LAUNCHER_VARS}
+    port = str(free_port())
+    procs = []
+    try:
+        for r, spec in enumerate(specs):
+            path = tmp / f"{tag}_{r}.json"
+            path.write_text(json.dumps({**spec, "out": str(tmp / f"{tag}_{r}_out.json")}))
+            env = {"RANK": str(r), "WORLD_SIZE": str(len(specs)), "LOCAL_RANK": "0",
+                   "LOCAL_WORLD_SIZE": str(len(specs)), "MASTER_ADDR": "127.0.0.1",
+                   "MASTER_PORT": port}
+            procs.append(subprocess.Popen(
+                [sys.executable, str(ROOT / "chip_smoke.py"), flag, str(path)],
+                cwd=ROOT, env={**base, **env}, stdout=sys.stderr))
+        deadline = time.monotonic() + join_s
+        for r, proc in enumerate(procs):
+            try:
+                rc = proc.wait(timeout=max(deadline - time.monotonic(), 1))
+            except subprocess.TimeoutExpired:
+                raise AssertionError(f"{tag}: child {r} still running after "
+                                     f"{join_s} s") from None
+            check(rc == 0, f"{tag}: child {r} exited {rc}")
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(30)
+    return [json.loads((tmp / f"{tag}_{r}_out.json").read_text())
+            for r in range(len(specs))]
+
+
+def same_answers(got: dict, want: dict, tag: str, tol: float = AOT_SCORE_TOL) -> float:
+    """Indices equal and scores within ``tol``; returns the scores' max |Δ|."""
+    import numpy as np
+
+    check(got["indices"] == want["indices"], f"{tag}: indices differ")
+    gap = float(np.abs(np.asarray(got["scores"]) - np.asarray(want["scores"])).max())
+    check(gap <= tol, f"{tag}: scores max |Δ| {gap} > {tol}")
+    return gap
+
+
+def search_cost_turns(fa, svc, feats, mask) -> list[str]:
+    """What this slice adds to a live search, in turns in one call (after
+    the phase's path counts are read): search()'s p50 at 1 row, k = 10,
+    with ``evaluation.topk`` (exact ties to the lowest index) and with
+    ``torch.topk`` patched in its place (repaired, plain, plain,
+    repaired; AOT_REPS searches each); and one forward launch at the
+    query's attention shape through ``crossclr::flash_fwd`` against the
+    direct ctypes launch, 200 of each in turns.  Returns log lines."""
+    from crossclr_tpu_torch.evaluation import retrieval
+
+    def p50() -> float:
+        lats = []
+        for _ in range(AOT_REPS):
+            t0 = time.perf_counter()
+            svc.search(feats[:1], mask[:1], k=10)
+            lats.append(time.perf_counter() - t0)
+        return statistics.median(lats) * 1e3
+
+    def plain(scores, k, index=None):
+        return tuple(torch.topk(scores, k, dim=-1))
+
+    got = {"evaluation.topk": [], "torch.topk": []}
+    for tag in ("evaluation.topk", "torch.topk", "torch.topk", "evaluation.topk"):
+        with (mock.patch.object(retrieval, "topk", plain) if tag == "torch.topk"
+              else contextlib.nullcontext()):
+            got[tag].append(p50())
+    q, k, v, _ = qkv((1, 8, AOT_QUERY_SHAPE[0], 48), torch.bfloat16, 73)
+    m = torch.ones((1, AOT_QUERY_SHAPE[0]), device="cuda")
+    per_call = {"crossclr::flash_fwd": [], "ctypes launch": []}
+    calls = {"crossclr::flash_fwd": lambda: fa.flash_attention(q, k, v, m),
+             "ctypes launch": lambda: fa.flash_attention_fwd(q, k, v, m)}
+    with torch.inference_mode():
+        for tag in ("crossclr::flash_fwd", "ctypes launch", "ctypes launch",
+                    "crossclr::flash_fwd"):
+            calls[tag]()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(200):
+                calls[tag]()
+            torch.cuda.synchronize()
+            per_call[tag].append((time.perf_counter() - t0) / 200 * 1e6)
+    return [
+        "search() p50 at 1 row, k=10, in turns: "
+        + "; ".join(f"{t} {', '.join(f'{x:.3f}' for x in v)} ms" for t, v in got.items()),
+        f"one forward at [1, 8, {AOT_QUERY_SHAPE[0]}, 48] bf16, in turns: "
+        + "; ".join(f"{t} {', '.join(f'{x:.1f}' for x in v)} us a call"
+                    for t, v in per_call.items()),
+    ]
+
+
+def aot_phase(fa, smi: str, tmp: Path) -> dict:
+    """Exported search artifacts of the serve phase's checkpoint (the
+    transformer config at full width, flash towers, SERVE_STEPS[1]):
+    ``eval.main`` at that step (all rows: the embeddings dump, and the one
+    process the shard phase's ranks are held to); the live services for
+    the fp32 index (encoded from the checkpoint) and the bf16 and int8
+    ones (the dump); ``export_search`` of each, text → video, queries
+    AOT_QUERY_SHAPE with a mask, k = AOT_K; the artifacts loaded and
+    searched in an ``--aot-worker`` child (no model code imported;
+    AOT_FLASH_PER_SEARCH launches of kernel 1 per search; the live
+    ``search()``'s indices, scores within AOT_SCORE_TOL, at AOT_ROWS
+    rows), and served there by ``serve --artifact``.  Every count is set
+    to 0 at the start and read at the end, the child's added.  Returns
+    ``{"launches", "services", "eval"}`` for the shard phase."""
+    import numpy as np
+
+    from crossclr_tpu_torch import data as data_pkg
+    from crossclr_tpu_torch import eval as teval
+    from crossclr_tpu_torch.aot import export_search, save_artifact
+    from crossclr_tpu_torch.serve import build_service
+    from crossclr_tpu_torch.utils.config import apply_overrides, load_config
+
+    t_phase = time.perf_counter()
+    config = str(ROOT / TRANSFORMER_CONFIG)
+    ckpt = str(tmp / "ckpt")
+    overrides = [*SERVE_OVERRIDES, f"checkpoint_dir={ckpt}"]
+    cfg = apply_overrides(load_config(config), overrides)
+    data, _ = data_pkg.dataset_from_config(cfg.data)
+    reset_counts(fa)
+    rc = teval.main(["--config", config, "--device", "cuda", "--split", "all",
+                     "--embeddings-output", str(tmp / "emb_last.npz"), "--topk", "10",
+                     "--topk-output", str(tmp / "topk_last.npz"), "--output",
+                     str(tmp / "eval_last.json"), *overrides])
+    check(rc == 0, f"eval.main exited {rc}")
+    services = {"float32": build_service(cfg, ckpt, "video", device="cuda")}
+    for dtype in ("bfloat16", "int8"):
+        services[dtype] = build_service(cfg, ckpt, "video", device="cuda",
+                                        corpus_dtype=dtype, strict_index=True,
+                                        corpus_emb_path=str(tmp / "emb_last.npz"))
+    rows = max(AOT_ROWS)
+    feats = np.asarray(data.text[:rows], np.float32)
+    mask = np.asarray(data.text_mask[:rows], np.float32)
+    np.savez(tmp / "aot_queries.npz", text=feats, mask=mask)
+    artifacts, lines, live = {}, [], {}
+    for dtype, svc in services.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        blob, meta, parts = export_search(svc, k=AOT_K, query_shape=AOT_QUERY_SHAPE)
+        export_s = time.perf_counter() - t0
+        path = tmp / f"search_{dtype}.npz"
+        save_artifact(str(path), blob, meta, parts)
+        artifacts[dtype] = str(path)
+        check(meta["platforms"] == ["cuda"] and meta["index_dtype"] == dtype
+              and meta["step"] == SERVE_STEPS[1], f"{dtype} artifact meta {meta}")
+        answers = {n: svc.search(feats[:n], mask[:n], k=AOT_K) for n in AOT_ROWS}
+        p50 = {}
+        for n in (1, 64):
+            lats = []
+            for _ in range(AOT_REPS):
+                t0 = time.perf_counter()
+                svc.search(feats[:n], mask[:n], k=AOT_K)
+                lats.append(time.perf_counter() - t0)
+            p50[n] = statistics.median(lats) * 1e3
+        live[dtype] = (answers, p50, export_s, path.stat().st_size / 2**20)
+    parent = dict(fa.launch_counts)
+    lines.extend(search_cost_turns(fa, services["float32"], feats, mask))
+    (child,) = worker_spawn(tmp, "aot", "--aot-worker",
+                            [{"artifacts": artifacts, "queries": str(tmp / "aot_queries.npz")}])
+    for dtype, (answers, p50, export_s, mb) in live.items():
+        got = child[dtype]
+        check(not {"crossclr_tpu_torch.models", "crossclr_tpu_torch.training",
+                   "crossclr_tpu_torch.serve"} & set(got["port_modules"]),
+              f"{dtype}: loading the artifact imported {got['port_modules']}")
+        check(got["per_search"] == [AOT_FLASH_PER_SEARCH] * len(AOT_ROWS),
+              f"{dtype}: kernel 1 launches per search {got['per_search']}")
+        gaps = [same_answers(got["results"][str(n)], answers[n], f"aot {dtype} {n} rows")
+                for n in AOT_ROWS]
+        lines.append(f"{dtype}: export {export_s:.2f} s, {mb:.2f} MB, load "
+                     f"{got['load_s']:.2f} s (modules of the port: "
+                     f"{', '.join(m.split('.', 1)[1] for m in got['port_modules'] if m.count('.') == 1)}); "
+                     f"vs live search() at {AOT_ROWS} rows: indices equal, scores max "
+                     f"|Δ| {max(gaps):.3e}; p50 ms artifact / live: 1 row "
+                     f"{got['p50_ms']['1']:.2f} / {p50[1]:.2f}, 64 rows "
+                     f"{got['p50_ms']['64']:.2f} / {p50[64]:.2f}; kernel 1 "
+                     f"{got['per_search']} launches per search")
+    http = child["http"]
+    check(http["rc"] == 0 and "error" not in http, f"serve --artifact: {http}")
+    for k in (str(AOT_K), "99"):  # k past the baked width clamps to it
+        status, body = http[k]
+        check(status == 200, f"serve --artifact /search k={k}: {status}")
+        same_answers(body, http["want"], f"serve --artifact k={k}", tol=0.0)
+    check(http["reload"][0] == 400 and "immutable" in http["reload"][1]["error"],
+          f"serve --artifact /reload {http['reload']}")
+    check(http["health"]["artifact"] is True, f"/healthz {http['health']}")
+    # every search of the child: AOT_ROWS and the timed ones of each
+    # artifact, then three of the fp32 one over HTTP and beside it
+    child_launches = child["flash_fwd"]
+    want = AOT_FLASH_PER_SEARCH * (3 * (len(AOT_ROWS) + 2 * AOT_REPS) + 3)
+    check(child_launches == want, f"the child's kernel 1 launches {child_launches}, "
+                                  f"want {want}")
+    launches = {"flash_fwd": parent["flash_fwd"] + child_launches}
+    check(parent["flash_dq"] == parent["flash_dkv"] == 0, f"aot launches {parent}")
+    for line in lines:  # each carries the card's name and power limit
+        log("aot", f"{line} ({smi})")
+    log("aot", f"serve --artifact over HTTP: /search = SearchArtifact.search bit for "
+               f"bit at k = {AOT_K} and 99 (clamped), /reload refused (400); the phase "
+               f"took {time.perf_counter() - t_phase:.1f} s; kernel 1 launches "
+               f"{parent['flash_fwd']} here + {child_launches} in the child ({smi})")
+    return {"launches": launches, "services": services,
+            "eval": json.loads((tmp / "eval_last.json").read_text())}
+
+
+def shard_worker(spec_path: Path) -> int:
+    """A rank of the shard phase: joins a gloo group on cuda:0 from the
+    launcher's environment, then (1) ``serve --shard-corpus`` from the
+    checkpoint for each index dtype, rank 0 answering HTTP (SHARD_ROWS-row
+    searches, k = 10; /reload on the fp32 index) until it sends itself
+    SIGTERM; (2) the eval CLI on the ranks; (3) ``sharded_retrieve_topk``
+    on SHARD_BIG fp32 rows made on the card from a seed, each rank keeping
+    its block, SHARD_QUERIES queries, timed; rank 0 also times dense
+    ``retrieve_topk`` on the whole index and keeps both answers.  Kernel
+    counts are set to 0 before each part and read after.  Writes
+    ``spec["out"]``."""
+    import numpy as np
+    import torch.distributed as dist
+
+    spec = json.loads(spec_path.read_text())
+    sys.path.insert(0, str(ROOT))
+    torch.backends.cuda.matmul.allow_tf32 = False  # as the parent
+    from crossclr_tpu_torch import data as data_pkg
+    from crossclr_tpu_torch import eval as teval
+    from crossclr_tpu_torch import serve
+    from crossclr_tpu_torch.evaluation import retrieve_topk, shard_corpus, sharded_retrieve_topk
+
+    fa = importlib.import_module("crossclr_tpu_torch.ops.flash_attention")
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method="env://")
+    rank = dist.get_rank()
+    out = {}
+    try:
+        with dataset_once():
+            from crossclr_tpu_torch.utils.config import apply_overrides, load_config
+
+            cfg = apply_overrides(load_config(spec["config"]), spec["overrides"])
+            data, _ = data_pkg.dataset_from_config(cfg.data)
+            for dtype in ("float32", "int8"):
+                def requests(url, dtype=dtype):
+                    got, start = {}, 0
+                    for n in SHARD_ROWS:
+                        got[n] = post_any(url, {
+                            "features": data.text[start:start + n].tolist(),
+                            "mask": data.text_mask[start:start + n].tolist(),
+                            "k": 10}, "/search")
+                        start += n
+                    if dtype == "float32":
+                        got["reload"] = post_any(url, {}, "/reload")
+                    got["health"] = get(url, "/healthz")[1]
+                    return got
+
+                argv = ["--shard-corpus", "--device", "cuda:0", "--port", "0",
+                        "--config", spec["config"], "--corpus-dtype", dtype,
+                        *spec["overrides"]]
+                reset_counts(fa)
+                t0 = time.perf_counter()
+                if rank == 0:
+                    rc, replies = served_until_sigterm(serve, argv, requests)
+                else:
+                    rc, replies = serve.main(argv), {}
+                out[dtype] = {"rc": rc, "seconds": time.perf_counter() - t0,
+                              "launches": dict(fa.launch_counts),
+                              "replies": {str(k): v for k, v in replies.items()}}
+            reset_counts(fa)
+            t0 = time.perf_counter()
+            rc = teval.main(["--config", spec["config"], "--device", "cuda:0",
+                             "--split", "all", "--topk", "10", "--topk-output",
+                             spec["topk"], "--output", spec["eval"], *spec["overrides"]])
+            out["eval"] = {"rc": rc, "seconds": time.perf_counter() - t0,
+                           "launches": dict(fa.launch_counts)}
+        n, d = SHARD_BIG
+        gen = torch.Generator(device="cuda").manual_seed(SHARD_SEED)
+        whole = torch.randn((n, d), generator=gen, device="cuda")
+        queries = torch.randn((SHARD_QUERIES, d), generator=gen, device="cuda")
+        local = shard_corpus(whole)
+        if rank:
+            del whole
+        torch.cuda.synchronize()
+
+        def timed(fn):
+            lats, res = [], None
+            for i in range(SHARD_REPS + 2):
+                dist.barrier()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res = fn()
+                torch.cuda.synchronize()
+                if i >= 2:  # two warm-ups
+                    lats.append(time.perf_counter() - t0)
+            return res, statistics.median(lats) * 1e3
+
+        (s, i), sharded_ms = timed(lambda: sharded_retrieve_topk(
+            queries, local, k=SHARD_K, n_real=n))
+        big = {"sharded_ms": sharded_ms, "local_rows": int(local.shape[0])}
+        if rank == 0:
+            lats = []
+            for j in range(SHARD_REPS + 2):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                ds, di = retrieve_topk(queries, whole, k=SHARD_K)
+                torch.cuda.synchronize()
+                if j >= 2:
+                    lats.append(time.perf_counter() - t0)
+            big.update(dense_ms=statistics.median(lats) * 1e3,
+                       same_indices=bool(torch.equal(i, di)),
+                       max_score_gap=float((s - ds).abs().max()))
+        out["big"] = big
+    finally:
+        dist.destroy_process_group()
+    Path(spec["out"]).write_text(json.dumps(out))
+    return 0
+
+
+def shard_phase(fa, smi: str, tmp: Path, aot: dict) -> dict:
+    """The row-sharded index on SHARD_RANKS gloo ranks sharing cuda:0
+    (``--shard-worker`` children, host-staged as the dp, ring and tp
+    phases), against one process: ``serve --shard-corpus`` from the serve
+    phase's checkpoint (each rank encodes its 2048 rows of 4096 through
+    kernel 1) for the fp32 and the int8 index, the aot phase's one-process
+    services' answers (indices equal, scores within AOT_SCORE_TOL) and
+    /reload; the eval CLI on the ranks against the aot phase's one
+    process (R@K equal, MdR and MnR within EVAL_MEAN_TOL, the top-k dump's
+    indices equal); ``sharded_retrieve_topk`` on SHARD_BIG fp32 rows
+    against dense ``retrieve_topk``, timed; then a one-rank NCCL group's
+    sharded search bit for bit with the dense one.  Returns kernel 1's
+    launches in the ranks."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from crossclr_tpu_torch import data as data_pkg
+    from crossclr_tpu_torch.evaluation import (
+        quantize_corpus, retrieve_topk, shard_corpus, sharded_retrieve_topk)
+    from crossclr_tpu_torch.utils.config import apply_overrides, load_config
+
+    t_phase = time.perf_counter()
+    config = str(ROOT / TRANSFORMER_CONFIG)
+    overrides = [*SERVE_OVERRIDES, f"checkpoint_dir={tmp / 'ckpt'}"]
+    data, _ = data_pkg.dataset_from_config(
+        apply_overrides(load_config(config), overrides).data)
+    spec = {"config": config, "overrides": overrides, "eval": str(tmp / "eval_sharded.json"),
+            "topk": str(tmp / "topk_sharded.npz")}
+    ranks = worker_spawn(tmp, "shard", "--shard-worker", [spec] * SHARD_RANKS)
+    lead = ranks[0]
+    launches = {"flash_fwd": 0}
+    lines = []
+    for dtype in ("float32", "int8"):
+        got = lead[dtype]["replies"]
+        check(all(r[dtype]["rc"] == 0 for r in ranks) and "error" not in got,
+              f"serve --shard-corpus {dtype}: {[r[dtype]['rc'] for r in ranks]} {got}")
+        svc = aot["services"][dtype]
+        gaps, start = [], 0
+        for n in SHARD_ROWS:
+            status, body = got[str(n)]
+            check(status == 200, f"sharded /search {dtype} {n} rows: {status}")
+            want = svc.search(data.text[start:start + n], data.text_mask[start:start + n],
+                              k=10)
+            gaps.append(same_answers(body, want, f"shard {dtype} {n} rows"))
+            start += n
+        if dtype == "float32":
+            check(got["reload"] == [200, {"status": "ok", "step": SERVE_STEPS[1],
+                                          "index_step": SERVE_STEPS[1]}],
+                  f"sharded /reload {got['reload']}")
+        check(got["health"]["corpus_rows"] == svc.corpus_rows, f"/healthz {got['health']}")
+        for r, rank in enumerate(ranks):
+            check(rank[dtype]["launches"]["flash_fwd"] > 0,
+                  f"rank {r} {dtype}: no encode through kernel 1")
+            launches["flash_fwd"] += rank[dtype]["launches"]["flash_fwd"]
+        lines.append(f"serve --shard-corpus {dtype}: {SHARD_RANKS} ranks, "
+                     f"{lead[dtype]['seconds']:.1f} s start to stop; vs one process "
+                     f"at {SHARD_ROWS} rows: indices equal, scores max |Δ| "
+                     f"{max(gaps):.3e}; kernel 1 "
+                     f"{[r[dtype]['launches']['flash_fwd'] for r in ranks]} by rank")
+    # the eval CLI on the ranks against one process
+    want, got = aot["eval"], json.loads(Path(spec["eval"]).read_text())
+    for key, value in want.items():
+        if "R@" in key or not isinstance(value, float):
+            check(got[key] == value, f"sharded eval {key}: {got[key]} vs {value}")
+        else:
+            check(abs(got[key] - value) <= EVAL_MEAN_TOL,
+                  f"sharded eval {key}: {got[key]} vs {value}")
+    with np.load(tmp / "topk_last.npz") as a, np.load(spec["topk"]) as b:
+        check(np.array_equal(a["indices"], b["indices"]), "sharded eval top-k dump")
+    for r, rank in enumerate(ranks):
+        check(rank["eval"]["rc"] == 0 and rank["eval"]["launches"]["flash_fwd"] > 0,
+              f"rank {r} eval {rank['eval']}")
+        launches["flash_fwd"] += rank["eval"]["launches"]["flash_fwd"]
+    lines.append(f"eval CLI on {SHARD_RANKS} ranks ({lead['eval']['seconds']:.1f} s): "
+                 f"R@K equal to one process, MdR/MnR within {EVAL_MEAN_TOL} "
+                 f"(v2t/R@1 {got['v2t/R@1']:.3f}, t2v/MnR {got['t2v/MnR']:.3f}), "
+                 f"top-10 dump equal")
+    big = lead["big"]
+    check(big["same_indices"] and big["max_score_gap"] <= AOT_SCORE_TOL,
+          f"sharded_retrieve_topk at {SHARD_BIG}: {big}")
+    lines.append(f"sharded_retrieve_topk, {SHARD_BIG[0]} x {SHARD_BIG[1]} fp32 "
+                 f"({SHARD_BIG[0] * SHARD_BIG[1] * 4 / 1e9:.2f} GB, {big['local_rows']} "
+                 f"rows a rank), {SHARD_QUERIES} queries, k={SHARD_K}: "
+                 f"{' / '.join(f'{r['big']['sharded_ms']:.2f}' for r in ranks)} ms a search "
+                 f"by rank (2 gloo ranks on one card, host-staged) against dense "
+                 f"retrieve_topk {big['dense_ms']:.2f} ms in one process; indices equal, "
+                 f"scores max |Δ| {big['max_score_gap']:.3e}")
+    # a one-rank NCCL group: the dense search bit for bit
+    n, d = SHARD_BIG
+    gen = torch.Generator(device="cuda").manual_seed(SHARD_SEED)
+    whole = torch.randn((n, d), generator=gen, device="cuda")
+    queries = torch.randn((SHARD_QUERIES, d), generator=gen, device="cuda")
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        for tag, index in (("fp32", whole), ("int8", None)):
+            if index is None:
+                index = quantize_corpus(whole[:SHARD_INT8_ROWS]).to("cuda")
+            got = sharded_retrieve_topk(queries, shard_corpus(index), k=SHARD_K)
+            want = retrieve_topk(queries, index, k=SHARD_K)
+            check(all(torch.equal(a, b) for a, b in zip(got, want)),
+                  f"one NCCL rank {tag}: not the dense search bit for bit")
+    finally:
+        dist.destroy_process_group()
+    del whole
+    lines.append(f"one NCCL rank: sharded_retrieve_topk bit for bit with "
+                 f"retrieve_topk (fp32 {n} x {d}, int8 {SHARD_INT8_ROWS} x {d})")
+    for line in lines:  # each carries the card's name and power limit
+        log("shard", f"{line} ({smi})")
+    log("shard", f"the phase took {time.perf_counter() - t_phase:.1f} s; kernel 1 "
+                 f"launches in the ranks {launches['flash_fwd']} ({smi})")
+    return launches
+
+
+def profile_phase(fa, fd, smi: str, tmp: Path) -> dict:
+    """The profiling hooks on the transformer leg (full width, flash,
+    dropout 0.1, batch 1024), PROFILE_STEPS one-step dispatches from the
+    serve phase's pairs: ``--save-config`` writes the resolved config and
+    it loads back equal; ``--tensorboard-dir`` is refused naming the
+    missing package with both writers' imports blocked and, where one is
+    installed, writes its event file;
+    ``--profile-dir`` writes a trace whose kernel events name the flash
+    forward, dq, dk/dv and sym kernels; ``utils.profiling.nan_debug``
+    raises at the operator that makes a NaN on the card.  Counts are set
+    to 0 before the profiled run and read after.  Returns its launches."""
+    import importlib.util
+
+    from crossclr_tpu_torch import train
+    from crossclr_tpu_torch.utils.config import apply_overrides, load_config
+    from crossclr_tpu_torch.utils.profiling import nan_debug
+
+    t_phase = time.perf_counter()
+    config = str(ROOT / TRANSFORMER_CONFIG)
+    overrides = [*TRANSFORMER_OVERRIDES, "train.steps_per_call=1",
+                 f"eval_every={PROFILE_STEPS}", f"checkpoint_dir={tmp / 'profiled'}"]
+    argv = ["--config", config, "--device", "cuda", "--steps", str(PROFILE_STEPS)]
+    lines = []
+    # each run trains from step 0 in a directory of its own
+    elsewhere = [*overrides, f"checkpoint_dir={tmp / 'tensorboard'}"]
+    rc = train.main([*argv, "--save-config", str(tmp / "resolved.json"), *overrides])
+    want = apply_overrides(load_config(config), [*overrides,
+                                                 f"train.total_steps={PROFILE_STEPS}"])
+    check(rc == 0 and load_config(tmp / "resolved.json") == want,
+          "--save-config did not round-trip")
+    lines.append("--save-config: the resolved config loads back equal")
+    # refused, naming what is missing, where neither writer is importable
+    with mock.patch.dict(sys.modules, {"tensorboardX": None, "tensorboard": None}):
+        try:
+            train.main([*argv, "--tensorboard-dir", str(tmp / "tb"), *elsewhere])
+            raise AssertionError("--tensorboard-dir ran without a TensorBoard writer")
+        except SystemExit as e:
+            check("neither tensorboardX nor tensorboard" in str(e),
+                  f"--tensorboard-dir refused with {e}")
+            lines.append(f"--tensorboard-dir with both writers blocked: {e}")
+    writers = [m for m in ("tensorboardX", "tensorboard") if importlib.util.find_spec(m)]
+    if writers:  # and streamed where one is installed
+        check(train.main([*argv, "--tensorboard-dir", str(tmp / "tb"), *elsewhere]) == 0
+              and any((tmp / "tb").glob("events.out.tfevents.*")), "--tensorboard-dir")
+        lines.append(f"--tensorboard-dir: event file written ({', '.join(writers)} "
+                     "installed on this machine)")
+    reset_counts(fa)
+    reset_counts(fd)
+    t0 = time.perf_counter()
+    rc = train.main([*argv, "--profile-dir", str(tmp / "trace"), "--metrics-csv",
+                     str(tmp / "profiled.csv"), *overrides])
+    seconds = time.perf_counter() - t0
+    launches = {**dict(fa.launch_counts), **dict(fd.launch_counts)}
+    check(rc == 0, f"train.main --profile-dir exited {rc}")
+    traces = list((tmp / "trace").glob("*.pt.trace.json"))
+    check(len(traces) == 1, f"--profile-dir wrote {traces}")
+    events = json.loads(traces[0].read_text())["traceEvents"]
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    named = {k: sum(k in name for name in kernels) for k in PROFILE_KERNELS}
+    check(all(named.values()), f"the trace's kernel events name {named}")
+    per_step = 2 * 4 * PROFILE_STEPS  # towers x layers a step
+    check(launches["flash_dq"] == launches["flash_dkv"] == per_step
+          and launches["sym_fwd"] == launches["sym_bwd"] == PROFILE_STEPS,
+          f"profiled launches {launches}")
+    lines.append(f"--profile-dir: {traces[0].stat().st_size / 2**20:.1f} MB trace, "
+                 f"{len(kernels)} kernel events; by name {named}; the run "
+                 f"{seconds:.1f} s with the trace written; launches "
+                 f"{ {k: v for k, v in launches.items() if v} }")
+    x = torch.tensor([-1.0, 4.0], device="cuda", requires_grad=True)
+    try:
+        with nan_debug():
+            (torch.sqrt(x) * 0.0).sum().backward()
+        raise AssertionError("nan_debug did not raise on a NaN gradient")
+    except RuntimeError as e:
+        check("SqrtBackward0" in str(e) and "nan" in str(e), f"nan_debug: {e}")
+    lines.append("nan_debug: raised at SqrtBackward0 on the card")
+    for line in lines:  # each carries the card's name and power limit
+        log("profile", f"{line} ({smi})")
+    log("profile", f"the phase took {time.perf_counter() - t_phase:.1f} s ({smi})")
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -3581,11 +4288,12 @@ def store_legs_phase(fa, smi: str) -> dict:
     written from its synthetic pairs: flash_dq and flash_dkv launched
     8 x STORE_STEPS times each, the loss falling.  Returns {dtype: steady
     pairs/s}."""
+    from crossclr_tpu_torch import data as data_pkg
     from crossclr_tpu_torch import train
-    from crossclr_tpu_torch.data import SyntheticPairs
+    from crossclr_tpu_torch.utils.config import apply_overrides, load_config
 
-    data = SyntheticPairs(num_pairs=4096, video_dim=512, text_dim=768,
-                          video_seq_len=64, text_seq_len=96, variable_lengths=True)
+    data, _ = data_pkg.dataset_from_config(apply_overrides(
+        load_config(ROOT / TRANSFORMER_CONFIG), TRANSFORMER_OVERRIDES).data)
     base = [o for o in TRANSFORMER_OVERRIDES if not o.startswith("data.")]
     out = {}
     with tempfile.TemporaryDirectory(prefix="crossclr_smoke_") as tmp:
@@ -4205,41 +4913,6 @@ def tp_fault(fault: str) -> None:
         tensor_parallel._CopyToModel.backward = staticmethod(lambda ctx, g: (g, None))
 
 
-def ring_spawn(tmp: Path, tag: str, specs: list[dict]) -> list[dict]:
-    """One ``--ring-worker`` child per spec, ranks of one gloo group joined
-    from a launcher's environment, all started together and joined within
-    RING_JOIN_S; a child that fails, or any still running at the limit,
-    fails the phase."""
-    base = {k: v for k, v in os.environ.items() if k not in LAUNCHER_VARS}
-    port = str(free_port())
-    procs = []
-    try:
-        for r, spec in enumerate(specs):
-            path = tmp / f"{tag}_{r}.json"
-            path.write_text(json.dumps({**spec, "out": str(tmp / f"{tag}_{r}_out.json")}))
-            env = {"RANK": str(r), "WORLD_SIZE": str(len(specs)), "LOCAL_RANK": "0",
-                   "LOCAL_WORLD_SIZE": str(len(specs)), "MASTER_ADDR": "127.0.0.1",
-                   "MASTER_PORT": port}
-            procs.append(subprocess.Popen(
-                [sys.executable, str(ROOT / "chip_smoke.py"), "--ring-worker", str(path)],
-                cwd=ROOT, env={**base, **env}, stdout=sys.stderr))
-        deadline = time.monotonic() + RING_JOIN_S
-        for r, proc in enumerate(procs):
-            try:
-                rc = proc.wait(timeout=max(deadline - time.monotonic(), 1))
-            except subprocess.TimeoutExpired:
-                raise AssertionError(f"{tag}: rank {r} still running after "
-                                     f"{RING_JOIN_S} s") from None
-            check(rc == 0, f"{tag}: rank {r} exited {rc}")
-    finally:
-        for proc in procs:
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait(30)
-    return [json.loads((tmp / f"{tag}_{r}_out.json").read_text())
-            for r in range(len(specs))]
-
-
 def ring_argv(tmp: Path, run: str, attention: str, n_model: int,
               device: str) -> list[str]:
     options = ["--config", str(ROOT / TRANSFORMER_CONFIG), "--steps", str(RING_STEPS),
@@ -4322,7 +4995,7 @@ def ring_two_ranks(tmp: Path, smi: str, fault: str | None = None,
               "fault": None if fault in (None, "none") else fault,
               "argv": ring_argv(tmp, "ring", "ring", RING_RANKS, "cuda:0")}] * RING_RANKS
     t0 = time.perf_counter()
-    ranks = ring_spawn(tmp, "ring", specs)
+    ranks = worker_spawn(tmp, "ring", "--ring-worker", specs, RING_JOIN_S)
     seconds_ranks = time.perf_counter() - t0
     t0 = time.perf_counter()
     (ref,), = dp_spawn(tmp, "ring_ref", [(
@@ -4490,7 +5163,7 @@ def tp_two_ranks(tmp: Path, smi: str, fault: str | None = None,
     specs = [{"shapes": False, "tp_fault": None if fault in (None, "none") else fault,
               "argv": ring_argv(tmp, "tp", "flash", TP_RANKS, "cuda:0")}] * TP_RANKS
     t0 = time.perf_counter()
-    ranks = ring_spawn(tmp, "tp", specs)
+    ranks = worker_spawn(tmp, "tp", "--ring-worker", specs, RING_JOIN_S)
     seconds_ranks = time.perf_counter() - t0
     t0 = time.perf_counter()
     if ref is None:
@@ -4722,6 +5395,10 @@ def main(argv=None) -> int:
                         help=argparse.SUPPRESS)  # a child of the dp phase
     parser.add_argument("--ring-worker", type=Path, default=None,
                         help=argparse.SUPPRESS)  # a rank of the ring phase
+    parser.add_argument("--aot-worker", type=Path, default=None,
+                        help=argparse.SUPPRESS)  # the aot phase's loader
+    parser.add_argument("--shard-worker", type=Path, default=None,
+                        help=argparse.SUPPRESS)  # a rank of the shard phase
     parser.add_argument(
         "--dp-fault", choices=("none", "averaged", "unsummed"), default=None,
         help="only run the dp phase's two ranks (b), with this gradient "
@@ -4748,6 +5425,10 @@ def main(argv=None) -> int:
         return dp_worker(args.dp_worker)
     if args.ring_worker is not None:
         return ring_worker(args.ring_worker)
+    if args.aot_worker is not None:
+        return aot_worker(args.aot_worker)
+    if args.shard_worker is not None:
+        return shard_worker(args.shard_worker)
     t_start = time.perf_counter()
     smi = device_phase()
     sys.path.insert(0, str(ROOT))
@@ -4774,13 +5455,39 @@ def main(argv=None) -> int:
         with tempfile.TemporaryDirectory(prefix="crossclr_tp_") as tmp:
             tp_two_ranks(Path(tmp), smi, args.tp_fault)
         return 0
+    seconds, clock = {}, [t_start]
+
+    def took(phase: str) -> None:  # the seconds since the last phase ended
+        seconds[phase] = round(time.perf_counter() - clock[0], 1)
+        clock[0] = time.perf_counter()
+
+    took("device and build")
     data_phase(smi)
+    took("data")
     fwd_worst = kernel_phase(fa, smi)
     flash_worst = attention_check_phase(fa)
     flash_worst["flash_fwd"] = max(flash_worst["flash_fwd"], fwd_worst)
     flash_times = attention_timing_phase(fa, smi, flash_worst)
+    took("kernel and attention")
+    # every in-process leg's synthetic pairs are made once, from here to the
+    # paths phase
+    pairs = contextlib.ExitStack()
+    pairs.enter_context(dataset_once())
     serve_launches = slice_phase(fa, smi)
-    checkpoint_launches = serve_checkpoint_phase(fa, smi)
+    took("slice")
+    # the serve phase's checkpoint serves the aot, shard and profile phases
+    with tempfile.TemporaryDirectory(prefix="crossclr_serve_") as tmp:
+        tmp = Path(tmp)
+        checkpoint_launches = serve_checkpoint_phase(fa, smi, tmp)
+        took("serve")
+        aot = aot_phase(fa, smi, tmp)
+        took("aot")
+        shard_launches = shard_phase(fa, smi, tmp, aot)
+        took("shard")
+        aot_launches = aot["launches"]
+        del aot  # its services
+        profile_launches = profile_phase(fa, fd, smi, tmp)
+        took("profile")
     loss_worst = loss_check_phase(fd)
     loss_times = loss_timing_phase(fd, smi)
     pruned_worst = pruned_check_phase(fd, fg)
@@ -4793,24 +5500,37 @@ def main(argv=None) -> int:
         direction_worst[name] = max(direction_worst[name], leg_worst[name])
     loss_worst["sym_bwd"] = max(loss_worst["sym_bwd"], leg_worst["sym_bwd"])
     direction_times = direction_timing_phase(fc, fd, smi)
+    took("loss and direction")
     rows_worst = global_check_phase(fd, fg)
     rows_launches = global_loss_phase(fg)
     rows_times = global_timing_phase(fd, fg, smi, rows_worst)
+    took("global")
     loss_launches = train_phase(fd, smi)
+    took("train mlp")
     flash_launches = transformer_train_phase(fa, fd, smi)
+    took("train transformer")
     store_legs_phase(fa, smi)
+    took("store legs")
     # the pruned branch's path: the full-CrossCLR legs, dual then sym
     pruned_launches = {**full_train_phase(fa, fd, fg, fc, smi),
                        **full_static_phase(fa, fd, fg, fc, smi)}
+    took("train full-CrossCLR")
     # the per-direction kernels' path: large-batch training
     direction_launches = podslice_train_phase(fa, fd, fg, fc, smi)
+    took("train large-batch")
     grad_cache_phase(fc, smi)
+    took("gradcache")
     paths_phase(smi)
+    took("paths")
+    pairs.close()  # the child-process phases below make their own
     dp_launches = dp_phase(smi)
+    took("dp")
     # the ring phase's one process of flash towers serves the tp phase too
     with tempfile.TemporaryDirectory(prefix="crossclr_grid_") as tmp:
         ring = ring_phase(fa, smi, Path(tmp))
+        took("ring")
         tp_launches = tp_phase(fa, fd, smi, Path(tmp), ring)
+        took("tp")
     ring_launches = ring["launches"]
     log("train", f"flash_fwd launches: serving {serve_launches}, transformer "
                  f"training {flash_launches['flash_fwd']}, train-eval-serve-reload "
@@ -4838,9 +5558,12 @@ def main(argv=None) -> int:
         launches = {"transformer_training": flash_launches[name],
                     "train_eval_serve_reload": checkpoint_launches[name],
                     "ring_training": ring_launches[name],
-                    "tensor_parallel_training": tp_launches["tp"][name]}
+                    "tensor_parallel_training": tp_launches["tp"][name],
+                    "profiled_training": profile_launches[name]}
         if name == "flash_fwd":
             launches["serving_random_weights"] = serve_launches
+            launches["aot_artifact"] = aot_launches["flash_fwd"]
+            launches["sharded_serve_eval"] = shard_launches["flash_fwd"]
         records.append({
             "name": name, "route": "cuda", "source": FLASH_SOURCES[name],
             "replaces": FLASH_REPLACES[name], "launches": sum(launches.values()),
@@ -4863,7 +5586,8 @@ def main(argv=None) -> int:
                     "full_crossclr": pruned_launches[name],
                     "data_parallel_one_rank": dp_launches["a"].get(name, 0),
                     "tensor_parallel_training": tp_launches["tp"].get(name, 0),
-                    "lamb_mlp": tp_launches["lamb"].get(name, 0)}
+                    "lamb_mlp": tp_launches["lamb"].get(name, 0),
+                    "profiled_training": profile_launches.get(name, 0)}
         records.append({
             "name": name, "route": "cuda", "source": LOSS_SOURCE,
             "replaces": LOSS_REPLACES[name], "launches": sum(launches.values()),
@@ -4919,6 +5643,7 @@ def main(argv=None) -> int:
             "leg_bound_ms": leg_bounds[name]["bound_ms"],
             "leg_timed_at": f"B={PODSLICE_BATCH} D=256 bf16",
         })
+    log("smoke", f"seconds by phase: {seconds} ({smi})")
     log("smoke", f"the run took {time.perf_counter() - t_start:.1f} s ({smi})")
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {

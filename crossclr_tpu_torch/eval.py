@@ -1,7 +1,7 @@
 """CLI retrieval evaluation: ``python -m crossclr_tpu_torch.eval``.
 
-Counterpart of ``crossclr_tpu/eval.py`` on one device: restore a
-checkpoint that ``crossclr_tpu_torch.train`` (or
+Counterpart of ``crossclr_tpu/eval.py``: restore a checkpoint that
+``crossclr_tpu_torch.train`` (or
 ``crossclr_tpu_torch.import_torch_checkpoint``) wrote, encode a split with
 the dual towers, print the bidirectional retrieval metrics (R@K, MdR,
 MnR) as one JSON line, and optionally dump the embeddings (the ``.npz``
@@ -10,8 +10,13 @@ Batches are gathered by the native thread pool (``data.epoch_batches``);
 fp32, bf16 and int8 stores encode alike, an int8 batch dequantized on the
 device by ``Trainer.encode``.
 
-Not ported yet, and refused: sharded eval under a launcher's ranks (the
-JAX CLI ranks over its device mesh there).
+Under a launcher's ranks (``torchrun``: ``RANK``, ``WORLD_SIZE``, ...) the
+ranks join one group (``parallel.initialize_multihost``) and each encodes
+its ``evaluation.row_block`` of the split; the metrics rank each
+direction's gathered queries against the corpus rows where they lie
+(``retrieval_metrics(group=)``, the JAX CLI's ranking over its mesh) and
+``--topk`` merges each rank's winners (``sharded_retrieve_topk``).  Rank 0
+alone prints and writes the dumps (the embeddings gathered to it).
 
 Examples:
   python -m crossclr_tpu_torch.eval --config cfg.json --checkpoint-dir ckpt
@@ -19,17 +24,19 @@ Examples:
       --embeddings-output emb.npz
   python -m crossclr_tpu_torch.eval --config cfg.json --topk 10 \\
       --topk-queries text --topk-output retrievals.npz
+  torchrun --nproc_per_node=2 -m crossclr_tpu_torch.eval --config cfg.json \\
+      --checkpoint-dir ckpt
 """
 
 from __future__ import annotations
 
 import argparse
 import json
-import os
 import sys
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .data import epoch_batches
 
@@ -48,10 +55,7 @@ def _encode_split(trainer, state, data, batch_size: int):
 
 
 def main(argv: list[str] | None = None) -> int:
-    from .data import dataset_from_config, train_eval_split
-    from .evaluation import retrieval_metrics, retrieve_topk
-    from .training import CheckpointManager, Trainer
-    from .utils.config import ExperimentConfig, apply_overrides, load_config
+    from .parallel.multihost import initialize_multihost, rank_device
 
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--config", default=None, help="ExperimentConfig JSON path")
@@ -102,17 +106,35 @@ def main(argv: list[str] | None = None) -> int:
         help="skip checkpoint restore (smoke tests / baselines)",
     )
     ap.add_argument("--device", default="cuda",
-                    help="torch device (default cuda; pass cpu explicitly "
-                    "to evaluate on the CPU)")
+                    help="torch device (default cuda, cuda:LOCAL_RANK under a "
+                    "launcher; pass cpu explicitly to evaluate on the CPU)")
     ap.add_argument("overrides", nargs="*", help="section.key=value overrides")
     args = ap.parse_args(argv)
 
-    if int(os.environ.get("WORLD_SIZE", 1)) > 1:
-        raise SystemExit(
-            "sharded eval (ranking over a launcher's ranks) is not ported to "
-            "crossclr_tpu_torch yet; run the eval CLI as one process, or use "
-            "python -m crossclr_tpu.eval for it"
-        )
+    own_group = not dist.is_initialized()
+    grouped = initialize_multihost(args.device)
+    try:
+        return _evaluate(args, rank_device(args.device) if grouped else args.device,
+                         dist.group.WORLD if grouped else None)
+    finally:
+        if grouped and own_group:
+            dist.destroy_process_group()
+
+
+def _evaluate(args, device, group) -> int:
+    """The run of :func:`main` on ``device``; ``group``: the launcher's
+    ranks, None for one process."""
+    from .data import RowSubset, dataset_from_config, train_eval_split
+    from .evaluation import (
+        gather_row_blocks,
+        retrieval_metrics,
+        retrieve_topk,
+        row_block,
+        sharded_retrieve_topk,
+    )
+    from .evaluation.retrieval import _pad_rows
+    from .training import CheckpointManager, Trainer
+    from .utils.config import ExperimentConfig, apply_overrides, load_config
 
     cfg = load_config(args.config) if args.config else ExperimentConfig()
     if args.overrides:
@@ -135,8 +157,13 @@ def main(argv: list[str] | None = None) -> int:
     else:
         data = dataset
 
-    trainer = Trainer(cfg.video_tower, cfg.text_tower, cfg.train, args.device)
+    trainer = Trainer(cfg.video_tower, cfg.text_tower, cfg.train, device)
     batch_size = args.batch_size or min(cfg.data.batch_size, len(data))
+    n = len(data)
+    lead = group is None or dist.get_rank(group) == 0
+    if group is not None:  # this rank's rows of the split
+        world = dist.get_world_size(group)
+        data = RowSubset(data, *row_block(n, dist.get_rank(group), world))
     state = trainer.init_state()
     ckpt_dir = args.checkpoint_dir or cfg.checkpoint_dir
     if not args.random_params:
@@ -151,23 +178,31 @@ def main(argv: list[str] | None = None) -> int:
     if args.ema:
         state = trainer.ema_state(state)
 
-    v_emb, t_emb = _encode_split(trainer, state, data, batch_size)
+    if len(data):
+        v_emb, t_emb = _encode_split(trainer, state, data,
+                                     min(batch_size, len(data)))
+    else:  # a rank past the last row (more ranks than blocks of rows)
+        v_emb = torch.zeros((0, cfg.video_tower.embed_dim), device=trainer.device)
+        t_emb = torch.zeros((0, cfg.text_tower.embed_dim), device=trainer.device)
+    v_loc, t_loc = v_emb, t_emb
+    if group is not None and (args.embeddings_output or args.topk is not None):
+        v_emb, t_emb = (gather_row_blocks(x, n, group) for x in (v_loc, t_loc))
 
     ks = tuple(int(k) for k in args.ks.split(","))
-    metrics = retrieval_metrics(v_emb, t_emb, ks=ks)
+    metrics = retrieval_metrics(v_loc, t_loc, ks=ks, group=group)
     metrics.update(
-        {"split": args.split, "rows": int(v_emb.shape[0]),
-         "step": int(state.step)}
+        {"split": args.split, "rows": n, "step": int(state.step)}
     )
     if args.ema:
         metrics["ema"] = True
     line = json.dumps(metrics)
-    print(line)
-    if args.output:
-        with open(args.output, "w") as f:
-            f.write(line + "\n")
+    if lead:
+        print(line)
+        if args.output:
+            with open(args.output, "w") as f:
+                f.write(line + "\n")
 
-    if args.embeddings_output:
+    if args.embeddings_output and lead:
         np.savez(
             args.embeddings_output,
             video=v_emb.cpu().numpy(),
@@ -186,10 +221,17 @@ def main(argv: list[str] | None = None) -> int:
         )
 
     if args.topk is not None:
-        q, c = (t_emb, v_emb) if args.topk_queries == "text" else (v_emb, t_emb)
+        text = args.topk_queries == "text"
+        q = t_emb if text else v_emb
         with torch.inference_mode():
-            scores, idx = retrieve_topk(q, c, k=args.topk)
-        if args.topk_output:
+            if group is None:
+                scores, idx = retrieve_topk(q, v_emb if text else t_emb,
+                                            k=args.topk)
+            else:  # the gathered queries against this rank's rows
+                c_loc = _pad_rows(v_loc if text else t_loc, -(-n // world))
+                scores, idx = sharded_retrieve_topk(q, c_loc, k=args.topk,
+                                                    group=group, n_real=n)
+        if args.topk_output and lead:
             np.savez(
                 args.topk_output,
                 scores=scores.cpu().numpy(),

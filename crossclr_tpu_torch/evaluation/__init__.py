@@ -2,18 +2,30 @@
 
 from .retrieval import (
     QuantizedCorpus,
+    encode_corpus,
+    gather_row_blocks,
     quantize_corpus,
     rank_of_ground_truth,
     retrieval_metrics,
     retrieve_topk,
+    row_block,
+    shard_corpus,
+    sharded_retrieve_topk,
     similarity_matrix,
+    topk,
 )
 
 __all__ = [
     "QuantizedCorpus",
+    "encode_corpus",
+    "gather_row_blocks",
     "quantize_corpus",
     "rank_of_ground_truth",
     "retrieval_metrics",
     "retrieve_topk",
+    "row_block",
+    "shard_corpus",
+    "sharded_retrieve_topk",
     "similarity_matrix",
+    "topk",
 ]

@@ -1,12 +1,20 @@
 """Cosine top-k retrieval, the int8 index and the video↔text retrieval
 metrics.
 
-Counterpart of the one-device branches of
-``crossclr_tpu/evaluation/retrieval.py``: R@K, median rank (MdR) and mean
-rank (MnR) in both directions, and top-k search over a dense or an int8
-(:class:`QuantizedCorpus`) index.  Every fp32 product runs with TF32 off
-(PyTorch's default), as the JAX package scores at HIGHEST precision; the
-int8 product accumulates exactly in int32.
+Counterpart of ``crossclr_tpu/evaluation/retrieval.py``: R@K, median rank
+(MdR) and mean rank (MnR) in both directions, and top-k search over a
+dense or an int8 (:class:`QuantizedCorpus`) index.  Every fp32 product
+runs with TF32 off (PyTorch's default), as the JAX package scores at
+HIGHEST precision; the int8 product accumulates exactly in int32.  Top-k
+keeps ``lax.top_k``'s order (:func:`topk`): scores descending, exact ties
+to the lowest index.
+
+The row-sharded index spans the ranks of a ``torch.distributed`` group in
+place of the JAX package's mesh axis: rank r keeps rows ``[r·per,
+(r+1)·per)`` of the corpus, ``per = ceil(N / P)``, zero-padded to ``per``
+(:func:`shard_corpus`).  :func:`sharded_retrieve_topk` merges O(k)
+winners a rank; ``retrieval_metrics(group=)`` sums partial rank counts.
+On a gloo group, CUDA tensors are staged through host memory.
 """
 
 from __future__ import annotations
@@ -15,17 +23,24 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..data.quantize import symmetric_int8_rows
 from ..losses.functional import l2_normalize
 
 __all__ = [
     "QuantizedCorpus",
+    "encode_corpus",
+    "gather_row_blocks",
     "quantize_corpus",
     "rank_of_ground_truth",
     "retrieval_metrics",
     "retrieve_topk",
+    "row_block",
+    "shard_corpus",
+    "sharded_retrieve_topk",
     "similarity_matrix",
+    "topk",
 ]
 
 # past this many rows the [N, N] similarity is not materialized: ranks are
@@ -88,13 +103,15 @@ def _int8_dot(q_values: torch.Tensor, c_values: torch.Tensor) -> torch.Tensor:
     """``q_values @ c_values.T`` as exact int32 sums (int8 ``[M, D]`` x int8
     ``[N, D]`` -> int32 ``[M, N]``; D·127² < 2³¹ for any embedding width)
     through ``torch._int_mm``, both operands zero-padded to its shape
-    rules and the result cut back to ``[M, N]``."""
+    rules and the result cut back to ``[M, N]``.  The queries always get
+    17 zero rows below them, so nothing branches on M (an exported
+    program keeps it symbolic)."""
     m, d = q_values.shape
     n = c_values.shape[0]
     mult = _INT_MM_MULTIPLE
     d_pad = -(-d // mult) * mult
     n_pad = -(-n // mult) * mult
-    a = _pad_to(q_values, max(m, _INT_MM_MIN_ROWS), d_pad)
+    a = torch.nn.functional.pad(q_values, (0, d_pad - d, 0, _INT_MM_MIN_ROWS))
     b = _pad_to(c_values, n_pad, d_pad)
     return torch._int_mm(a, b.t())[:m, :n]
 
@@ -151,12 +168,24 @@ def _metrics_from_ranks(ranks: torch.Tensor, ks) -> dict:
 
 def retrieval_metrics(video_emb: torch.Tensor, text_emb: torch.Tensor,
                       ks: tuple[int, ...] = (1, 5, 10),
-                      query_chunk: int | None = None) -> dict[str, float]:
+                      query_chunk: int | None = None,
+                      group=None) -> dict[str, float]:
     """Bidirectional retrieval metrics as host floats
     (``v2t/R@1`` … ``t2v/MnR``) for aligned ``[N, D]`` embeddings (row i of
     each is a ground-truth pair).  Past 16384 rows, or with
     ``query_chunk``, ranks are computed in query chunks; both paths give
-    the same ranks."""
+    the same ranks.
+
+    ``group``: a ``torch.distributed`` group whose ranks each pass their
+    :func:`row_block` of both modalities' rows.  Each direction's queries
+    are gathered and its corpus side stays sharded: a rank holds a
+    ``[chunk, N/P]`` score block, the ground truth is read from its
+    owner's block and summed, and the partial counts are summed (the JAX
+    package's ``retrieval_metrics(mesh=)``; chunks of 4096 by default).
+    Every rank returns the metrics."""
+    if group is not None:
+        return _sharded_metrics(video_emb, text_emb, ks,
+                                query_chunk or 4096, group)
     n = video_emb.shape[0]
     if query_chunk is None and n > _DENSE_SIM_MAX_ROWS:
         query_chunk = 4096
@@ -176,6 +205,44 @@ def retrieval_metrics(video_emb: torch.Tensor, text_emb: torch.Tensor,
     return {k: float(x) for k, x in out.items()}
 
 
+def topk(scores: torch.Tensor, k: int, index: torch.Tensor | None = None):
+    """The ``k`` largest fp32 ``scores`` along the last dimension in
+    ``lax.top_k``'s order: descending, exact ties to the lowest index
+    (``torch.topk`` leaves the order of ties unspecified).  ``index``: each
+    column's index (int64 below 2³¹, broadcast against ``scores``; default
+    its position).  Each score becomes an int64 key whose high word is the
+    score's order-preserving int32 image and whose low word is ``2³² − 1 −
+    index``, so all keys differ and one ``torch.topk`` of them is the
+    order.  Returns ``(scores fp32, indices int64)``."""
+    s = scores.float() + 0.0  # -0.0 ties +0.0, as in a float comparison
+    bits = s.view(torch.int32)
+    ordered = bits ^ ((bits >> 31) & 0x7FFFFFFF)  # negatives: the rest flipped
+    low = ~(torch.arange(s.shape[-1], dtype=torch.int32, device=s.device)
+            if index is None else index.to(torch.int32))
+    # little-endian words (low, high) of one int64: high · 2³² + low unsigned
+    key = torch.stack([low.expand_as(bits), ordered], dim=-1).view(torch.int64)[..., 0]
+    pos = torch.topk(key, k, dim=-1).indices
+    return (s.gather(-1, pos),
+            pos if index is None else index.expand_as(s).gather(-1, pos))
+
+
+def _similarity(query_emb: torch.Tensor, corpus_emb):
+    """``(q, sim)``: the queries as the index scores them and ``sim(rows)``,
+    the cosine scores of query rows ``rows`` against the whole index
+    (fp32 product, or int8 x int8 -> int32 for a :class:`QuantizedCorpus`)."""
+    if isinstance(corpus_emb, QuantizedCorpus):
+        q, q_scales = _quantize_queries(query_emb)
+        return q, lambda rows: _quantized_sim(q[rows], q_scales[rows], corpus_emb)
+    q = l2_normalize(query_emb.float(), dim=1)
+    c = l2_normalize(corpus_emb.float(), dim=1)
+    return q, lambda rows: torch.matmul(q[rows], c.T)
+
+
+def _corpus_rows(corpus) -> int:
+    c = corpus.values if isinstance(corpus, QuantizedCorpus) else corpus
+    return int(c.shape[0])
+
+
 def retrieve_topk(query_emb: torch.Tensor, corpus_emb, *, k: int = 10,
                   query_chunk: int = 1024):
     """Top-k corpus rows per query by cosine similarity, in blocks of
@@ -183,27 +250,176 @@ def retrieve_topk(query_emb: torch.Tensor, corpus_emb, *, k: int = 10,
     ``corpus_emb`` is a dense ``[Nc, D]`` tensor (an fp32 product) or a
     :class:`QuantizedCorpus` (the queries quantized on their device, the
     product int8 x int8 -> int32).  Returns ``(scores [Nq, k] fp32,
-    indices [Nq, k] int64)``, scores descending."""
-    if isinstance(corpus_emb, QuantizedCorpus):
-        q, q_scales = _quantize_queries(query_emb)
-        n_rows = corpus_emb.values.shape[0]
-
-        def sim(rows: slice) -> torch.Tensor:
-            return _quantized_sim(q[rows], q_scales[rows], corpus_emb)
-    else:
-        q = l2_normalize(query_emb.float(), dim=1)
-        c = l2_normalize(corpus_emb.float(), dim=1)
-        n_rows = c.shape[0]
-
-        def sim(rows: slice) -> torch.Tensor:
-            return torch.matmul(q[rows], c.T)
-    k = min(k, n_rows)  # top-k cannot exceed the corpus
+    indices [Nq, k] int64)``, scores descending, exact ties to the lowest
+    corpus index (:func:`topk`)."""
+    q, sim = _similarity(query_emb, corpus_emb)
+    k = min(k, _corpus_rows(corpus_emb))  # top-k cannot exceed the corpus
     scores, idx = [], []
     for start in range(0, q.shape[0], query_chunk):
-        s, i = torch.topk(sim(slice(start, start + query_chunk)), k, dim=1)
+        s, i = topk(sim(slice(start, start + query_chunk)), k)
         scores.append(s)
         idx.append(i)
     if not scores:
         return (torch.zeros((0, k), device=q.device),
                 torch.zeros((0, k), dtype=torch.int64, device=q.device))
     return torch.cat(scores), torch.cat(idx)
+
+
+# ---------------------------------------------------------------------------
+# the row-sharded index over a torch.distributed group
+# ---------------------------------------------------------------------------
+
+
+def row_block(n: int, rank: int, world: int) -> tuple[int, int]:
+    """Rows ``[lo, hi)`` of ``n`` that ``rank`` of ``world`` holds: blocks
+    of ``ceil(n / world)`` in rank order (the last ones short or empty),
+    the JAX package's ``shard_corpus`` layout."""
+    per = -(-n // world)
+    return min(n, rank * per), min(n, (rank + 1) * per)
+
+
+def _rank_world(group) -> tuple[int, int]:
+    return dist.get_rank(group), dist.get_world_size(group)
+
+
+def _staged(t: torch.Tensor, group) -> bool:
+    """Whether ``t`` crosses ``group`` through host memory: a CUDA tensor
+    on a gloo group."""
+    return t.is_cuda and dist.get_backend(group) == "gloo"
+
+
+def _all_gather(t: torch.Tensor, group) -> torch.Tensor:
+    """Every rank's ``t`` stacked ``[P, *t.shape]`` in rank order."""
+    src = (t.cpu() if _staged(t, group) else t).contiguous()
+    world = dist.get_world_size(group)
+    out = src.new_empty((world * src.shape[0], *src.shape[1:]))
+    dist.all_gather_into_tensor(out, src, group=group)
+    return out.view(world, *src.shape).to(t.device)
+
+
+def _all_reduce(t: torch.Tensor, group) -> torch.Tensor:
+    """The sum of every rank's ``t``."""
+    src = t.cpu() if _staged(t, group) else t.clone()
+    dist.all_reduce(src, group=group)
+    return src.to(t.device)
+
+
+def _pad_rows(x: torch.Tensor, rows: int) -> torch.Tensor:
+    if x.shape[0] == rows:
+        return x
+    out = x.new_zeros((rows, *x.shape[1:]))
+    out[:x.shape[0]] = x
+    return out
+
+
+def gather_row_blocks(x_loc: torch.Tensor, n: int, group) -> torch.Tensor:
+    """Every rank's :func:`row_block` of ``n`` rows, joined in row order on
+    every rank: each block padded to ``ceil(n / P)`` rows, all-gathered and
+    cut to ``n`` (only the last blocks are short, so the real rows come
+    first)."""
+    world = dist.get_world_size(group)
+    per = -(-n // world)
+    return _all_gather(_pad_rows(x_loc, per), group).reshape(world * per, -1)[:n]
+
+
+def shard_corpus(corpus_emb, group=None, *, device=None):
+    """This rank's :func:`row_block` of a whole corpus (``[N, D]`` array or
+    tensor, or a :class:`QuantizedCorpus`), zero-padded to ``ceil(N/P)``
+    rows so every rank holds one block shape; a padded int8 row has value
+    0 and scale 0.  The block is cut on the host side of a host corpus and
+    moved to ``device`` alone (default: the corpus' device, the CPU for a
+    host array), so no device ever holds the whole index.  ``group``:
+    default the default group."""
+    rank, world = _rank_world(group)
+    n = _corpus_rows(corpus_emb)
+    per = -(-n // world)
+    lo, hi = row_block(n, rank, world)
+
+    def block(x):
+        x = x if isinstance(x, torch.Tensor) else torch.from_numpy(np.asarray(x))
+        return _pad_rows(x[lo:hi], per).to(device or x.device)
+
+    if isinstance(corpus_emb, QuantizedCorpus):
+        return QuantizedCorpus(block(corpus_emb.values), block(corpus_emb.scales))
+    return block(corpus_emb)
+
+
+def sharded_retrieve_topk(query_emb: torch.Tensor, corpus_emb, *, k: int = 10,
+                          group=None, n_real: int | None = None,
+                          query_chunk: int = 1024):
+    """:func:`retrieve_topk` over an index row-sharded across ``group``
+    (default the default group), from this rank's :func:`shard_corpus`
+    block; every rank passes the same queries.  Each rank scores its rows,
+    masks its padded rows (global index ``>= n_real``, default every row)
+    to −inf, keeps a local top ``min(k, rows_per)`` with the global
+    indices, and all-gathers only those O(k) winners; the ``P·k_loc``
+    candidates are re-ranked by :func:`topk`, so exact ties resolve to the
+    lowest global index, as on the whole index.  No rank's top-k can hold
+    more than ``min(k, rows_per)`` of the global top-k, so the merge loses
+    nothing.  Every rank returns ``(scores [Nq, k], indices [Nq, k])``."""
+    rank, world = _rank_world(group)
+    rows_per = _corpus_rows(corpus_emb)
+    n_real = rows_per * world if n_real is None else int(n_real)
+    q, sim = _similarity(query_emb, corpus_emb)
+    k = min(k, n_real)
+    k_loc = min(k, rows_per)
+    gidx = rank * rows_per + torch.arange(rows_per, device=q.device)
+    real = gidx < n_real
+    scores, idx = [], []
+    for start in range(0, max(q.shape[0], 1), query_chunk):
+        block = sim(slice(start, start + query_chunk))
+        block = torch.where(real, block, float("-inf"))
+        s_loc, g_loc = topk(block, k_loc, gidx)
+        nq = s_loc.shape[0]
+        s_all = _all_gather(s_loc, group).movedim(0, 1).reshape(nq, world * k_loc)
+        g_all = _all_gather(g_loc, group).movedim(0, 1).reshape(nq, world * k_loc)
+        s, i = topk(s_all, k, g_all)
+        scores.append(s)
+        idx.append(i)
+    return torch.cat(scores), torch.cat(idx)
+
+
+def _sharded_metrics(video_loc, text_loc, ks, query_chunk: int, group) -> dict:
+    """:func:`retrieval_metrics` over ``group``, each rank holding its
+    :func:`row_block` of both modalities (the JAX package's
+    ``_sharded_ranks_fn``, rank for rank)."""
+    rank, world = _rank_world(group)
+    dev = video_loc.device
+    counts = _all_gather(torch.tensor([video_loc.shape[0]], device=dev), group)
+    counts = [int(c) for c in counts.reshape(-1)]
+    n = sum(counts)
+    if counts != [hi - lo for lo, hi in (row_block(n, r, world) for r in range(world))]:
+        raise ValueError(f"ranks hold {counts} rows: not the row blocks of {n}")
+    per = -(-n // world)
+    gidx = rank * per + torch.arange(per, device=dev)
+    chunk = min(query_chunk, n)
+    out = {}
+    for tag, q_loc, c_loc in (("v2t", video_loc, text_loc),
+                              ("t2v", text_loc, video_loc)):
+        q = gather_row_blocks(l2_normalize(q_loc.float(), dim=1), n, group)
+        c = _pad_rows(l2_normalize(c_loc.float(), dim=1), per)
+        partial = []
+        for start in range(0, n, chunk):
+            sim = torch.matmul(q[start:start + chunk], c.T)
+            qi = torch.arange(start, start + sim.shape[0], device=dev)
+            self_col = gidx[None, :] == qi[:, None]
+            # the truth is the very product the comparisons see, read from
+            # its owner's block (the other ranks add zeros)
+            truth = _all_reduce(torch.where(self_col, sim, 0.0).sum(dim=1), group)
+            valid = (gidx < n)[None, :] & ~self_col
+            partial.append(((sim > truth[:, None]) & valid).sum(dim=1))
+        ranks = _all_reduce(torch.cat(partial), group)
+        out.update({f"{tag}/{k}": x for k, x in _metrics_from_ranks(ranks, ks).items()})
+    return {k: float(x) for k, x in out.items()}
+
+
+def encode_corpus(encode_fn, batches, *, side: str = "video") -> torch.Tensor:
+    """One modality's embeddings of every batch, concatenated.
+    ``encode_fn(batch) -> (video_emb, text_emb)`` (e.g. ``Trainer.encode``
+    with its state bound); ``side`` picks the modality."""
+    if side not in ("video", "text"):
+        raise ValueError(f"side must be 'video' or 'text', got {side!r}")
+    out = [encode_fn(batch)[0 if side == "video" else 1] for batch in batches]
+    if not out:
+        raise ValueError("encode_corpus received no batches")
+    return torch.cat(out)

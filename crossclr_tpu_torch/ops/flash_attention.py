@@ -426,16 +426,62 @@ def flash_attention_bwd(q, k, v, mask, out, lse, dout, scale=None, **drop):
     return dq, dk, dv
 
 
+# kernel 1 as an operator of its own, so ``torch.export`` records a call of
+# it (a ctypes launch reads the data pointers of the tensors it traces
+# with, which a traced fake tensor does not have): the CUDA implementation
+# launches the forward kernel, the CPU one is the plain version, the fake
+# one gives the shapes, for a symbolic batch too
+_FLASH_FWD_SCHEMA = (
+    "(Tensor q, Tensor k, Tensor v, Tensor? mask, float scale, "
+    "float dropout_rate, int dropout_seed, int q_offset, int k_offset, "
+    "int bh_offset, int head_count, int head_offset) -> (Tensor, Tensor)"
+)
+
+
+@torch.library.custom_op("crossclr::flash_fwd", mutates_args=(),
+                         device_types="cuda", schema=_FLASH_FWD_SCHEMA)
+def _flash_fwd_op(q, k, v, mask, scale, dropout_rate, dropout_seed, q_offset,
+                  k_offset, bh_offset, head_count, head_offset):
+    return flash_attention_fwd(
+        q, k, v, mask, scale, dropout_rate=dropout_rate,
+        dropout_seed=dropout_seed, q_offset=q_offset, k_offset=k_offset,
+        bh_offset=bh_offset, head_count=head_count, head_offset=head_offset)
+
+
+@_flash_fwd_op.register_kernel("cpu")
+def _(q, k, v, mask, scale, dropout_rate, dropout_seed, q_offset, k_offset,
+      bh_offset, head_count, head_offset):
+    return mha_reference(
+        q, k, v, mask, scale, True, dropout_rate=dropout_rate,
+        dropout_seed=dropout_seed, q_offset=q_offset, k_offset=k_offset,
+        bh_offset=bh_offset, head_count=head_count, head_offset=head_offset)
+
+
+@_flash_fwd_op.register_fake
+def _(q, k, v, mask, scale, *_):
+    return torch.empty_like(q), q.new_empty(q.shape[:3], dtype=torch.float32)
+
+
+def _flash_fwd(q, k, v, mask, scale, drop):
+    """``(out, lse)`` of ``crossclr::flash_fwd``: the forward kernel on CUDA
+    tensors, :func:`mha_reference` on CPU tensors; ``drop`` holds the
+    keyword arguments of the dropout words."""
+    words = _dropout_words(q.shape[1], **drop)
+    scale = q.shape[-1] ** -0.5 if scale is None else float(scale)
+    return torch.ops.crossclr.flash_fwd(q, k, v, mask, scale, *words)
+
+
 class _FlashAttention(torch.autograd.Function):
-    """The forward kernel, and the dq and dk/dv kernels as its backward.
-    ``drop`` holds the keyword arguments of the dropout words."""
+    """The forward kernel (through ``crossclr::flash_fwd``), and the dq and
+    dk/dv kernels as its backward.  ``drop`` holds the keyword arguments of
+    the dropout words."""
 
     @staticmethod
     def forward(ctx, q, k, v, mask, scale, drop):
         # saved once in the layout the kernels read
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
         mask = _mask_arg(mask, q.shape[0], q.shape[2], q.device)
-        out, lse = flash_attention_fwd(q, k, v, mask, scale, **drop)
+        out, lse = _flash_fwd(q, k, v, mask, scale, drop)
         ctx.save_for_backward(q, k, v, mask, out, lse)
         ctx.scale, ctx.drop = scale, drop
         ctx.mark_non_differentiable(lse)
@@ -457,16 +503,22 @@ def flash_attention(q, k, v, mask=None, *, scale=None, dropout_rate=0.0,
 
     The tensors' device decides the route: CUDA tensors launch the kernels
     (the forward, and under autograd the dq and dk/dv kernels in the
-    backward), CPU tensors take :func:`mha_reference` under autograd.
-    Nothing is retried on another route.  Returns the output in q's dtype
-    (and the fp32 lse ``[B, H, S]`` with ``return_lse``, not differentiable).
+    backward), CPU tensors take :func:`mha_reference`, under autograd
+    directly.  Without autograd both go through ``crossclr::flash_fwd``,
+    which is what ``torch.export`` captures.  Nothing is retried on
+    another route.  Returns the output in q's dtype (and the fp32 lse
+    ``[B, H, S]`` with ``return_lse``, not differentiable).
     """
     if not 0.0 <= dropout_rate < 1.0:
         raise ValueError(f"dropout_rate must be in [0, 1), got {dropout_rate}")
     drop = dict(dropout_rate=float(dropout_rate), dropout_seed=dropout_seed,
                 q_offset=q_offset, k_offset=k_offset, bh_offset=bh_offset,
                 head_count=head_count, head_offset=head_offset)
-    if q.is_cuda:
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        if not q.is_cuda:
+            return mha_reference(q, k, v, mask, scale, return_lse, **drop)
         out, lse = _FlashAttention.apply(q, k, v, mask, scale, drop)
-        return (out, lse) if return_lse else out
-    return mha_reference(q, k, v, mask, scale, return_lse, **drop)
+    else:
+        out, lse = _flash_fwd(q, k, v, mask, scale, drop)
+    return (out, lse) if return_lse else out

@@ -1,7 +1,7 @@
 """Retrieval serving: ``python -m crossclr_tpu_torch.serve``.
 
-Counterpart of ``crossclr_tpu/serve.py`` on one device: restore a
-checkpoint that ``crossclr_tpu_torch.train`` (or the import CLI,
+Counterpart of ``crossclr_tpu/serve.py``: restore a checkpoint that
+``crossclr_tpu_torch.train`` (or the import CLI,
 ``crossclr_tpu_torch.import_torch_checkpoint``) wrote, encode one modality
 of the dataset as the corpus (held on the device), and answer
 nearest-neighbour search over HTTP with the same surface:
@@ -26,14 +26,26 @@ mismatch); ``--corpus-dtype`` stores the index in bfloat16 or int8
 The corpus encode reads fp32, bf16 and int8 feature stores
 (``data.features_dtype``) through the native gather.
 
-Not ported yet, and refused with a message rather than ignored:
-``--shard-corpus`` (the row-sharded index) and ``--artifact`` (AOT
-artifact serving).
+``--artifact`` serves an exported search artifact (``aot.py``, written by
+``python -m crossclr_tpu_torch.export_serving``) over the same surface
+with no config, model code or checkpoint; /reload is refused.
+
+``--shard-corpus`` row-shards the index over a launcher's ranks
+(``torchrun``; two at least): rank r encodes and holds rows ``[r·per,
+(r+1)·per)`` (``evaluation.row_block``), rank 0 alone listens, and every
+search is one dispatch of all ranks: rank 0 broadcasts a header (the
+operation, the query shape, whether a mask comes, k) and the queries,
+each rank encodes them and keeps its top-k, and the O(k) winners are
+merged (``evaluation.sharded_retrieve_topk``).  /reload restores and
+re-encodes on every rank; SIGTERM on rank 0 stops every rank.
 
 Example:
   python -m crossclr_tpu_torch.serve --config configs/lsmdc_transformer.json \\
       --checkpoint-dir /tmp/lsmdc --corpus video --port 8777 \\
       video_tower.attention=flash text_tower.attention=flash
+  torchrun --nproc_per_node=2 -m crossclr_tpu_torch.serve --shard-corpus \\
+      --config configs/lsmdc_transformer.json --checkpoint-dir /tmp/lsmdc
+  python -m crossclr_tpu_torch.serve --artifact search.npz --port 8777
 """
 
 from __future__ import annotations
@@ -41,6 +53,7 @@ from __future__ import annotations
 import argparse
 import collections
 import json
+import os
 import sys
 import threading
 import time
@@ -48,18 +61,10 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import numpy as np
 import torch
-
-from .training.trainer import to_tensor
+import torch.distributed as dist
 
 _CORPUS_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
                   "int8": torch.int8}
-
-
-def _not_ported(what: str) -> SystemExit:
-    return SystemExit(
-        f"{what} is not ported to crossclr_tpu_torch yet; use "
-        "python -m crossclr_tpu.serve for it"
-    )
 
 
 class _ServiceStats:
@@ -105,22 +110,39 @@ class _ServiceStats:
         return out
 
 
+# the operations of a sharded dispatch, the first word of its header
+_NOOP, _SEARCH, _RELOAD, _STOP = range(4)
+# an idle sharded service's rank 0 sends a no-op this often, so the other
+# ranks' wait for the next header never reaches the group's time limit
+KEEPALIVE_SECONDS = 60.0
+
+
 class RetrievalService(_ServiceStats):
-    """Towers + encoded corpus on one device + the query → top-k path.
+    """Towers + encoded corpus on the device + the query → top-k path.
 
     ``corpus_side``: which modality is indexed ("video" or "text");
     queries are the OTHER modality's raw features, encoded by its tower.
     Device work (searches and reloads) is serialized with a lock.
+
+    ``group``: the index is row-sharded over this ``torch.distributed``
+    group; ``corpus_emb`` is then this rank's :func:`evaluation.row_block`
+    of the ``corpus_rows`` rows.  Rank 0 answers the requests and every
+    other rank runs :meth:`follow`.
     """
 
     def __init__(self, trainer, state, corpus_emb, corpus_side: str,
                  ids: list[str] | None = None,
                  index_step: int | None = None,
-                 corpus_dtype: torch.dtype = torch.float32):
+                 corpus_dtype: torch.dtype = torch.float32,
+                 group=None, corpus_rows: int | None = None):
         super().__init__()
         self.trainer = trainer
         self.state = state
-        self.corpus_rows = int(corpus_emb.shape[0])
+        self.group = group
+        # the real row count (before any shard padding): it clamps k and is
+        # what /healthz reports
+        self.corpus_rows = int(corpus_emb.shape[0] if corpus_rows is None
+                               else corpus_rows)
         # bfloat16 storage halves the index (scoring still runs in fp32);
         # int8 quarters it (see _place_corpus)
         self.corpus_dtype = corpus_dtype
@@ -138,10 +160,11 @@ class RetrievalService(_ServiceStats):
         # /reload reply say
         self.index_step = index_step
         self._lock = threading.Lock()
+        self._last_dispatch = time.monotonic()
 
     # set by build_service when a checkpoint directory was restored:
-    # (step | None) -> (restored state, corpus embeddings or None to keep
-    # the index, index_step)
+    # (step | None) -> (restored state, corpus embeddings (this rank's rows
+    # when sharded) or None to keep the index, index_step)
     _reloader = None
     # set by build_service: a precomputed index encoded with the other
     # tower flavour (EMA vs live) than the one answering queries, which
@@ -150,35 +173,47 @@ class RetrievalService(_ServiceStats):
     # set by build_service (single-query convenience reshaping)
     _query_ndim: int = 2
     _batcher = None
+    _keepalive = None
 
     def _place_corpus(self, corpus_emb):
         """The index on the trainer's device in its storage dtype; int8
         rows are L2-normalized and quantized on the host
-        (``evaluation.quantize_corpus``)."""
-        if self.corpus_dtype == torch.int8:
-            from .evaluation import quantize_corpus
+        (``evaluation.quantize_corpus``).  A sharded index is this rank's
+        rows zero-padded to ``ceil(corpus_rows / P)`` (a padded int8 row
+        has value 0 and scale 0)."""
+        from .evaluation import QuantizedCorpus, quantize_corpus
+        from .evaluation.retrieval import _pad_rows
+        from .training.trainer import to_tensor
 
-            return quantize_corpus(corpus_emb).to(self.trainer.device)
-        return to_tensor(corpus_emb, self.trainer.device, self.corpus_dtype)
+        dev = self.trainer.device
+        if self.corpus_dtype == torch.int8:
+            index = quantize_corpus(corpus_emb)
+        else:
+            index = to_tensor(corpus_emb, dev if self.group is None else "cpu",
+                              self.corpus_dtype)
+        if self.group is None:
+            return index.to(dev)
+        per = -(-self.corpus_rows // dist.get_world_size(self.group))
+        if isinstance(index, QuantizedCorpus):
+            return QuantizedCorpus(*(_pad_rows(x, per) for x in index)).to(dev)
+        return _pad_rows(index, per).to(dev)
 
     def reload(self, step: int | None = None) -> int:
         """Swap in the latest (or the given) checkpoint without restarting:
         restore it, then re-encode the corpus (or keep a precomputed
         ``--corpus-emb`` index, whose step then trails), all under the
-        device lock, so a search never sees half a swap.  Returns the
-        restored step."""
+        device lock, so a search never sees half a swap.  Sharded, every
+        rank restores and re-encodes its rows, and the swap happens on
+        every rank or on none.  Returns the restored step."""
         if self._reloader is None:
             raise RuntimeError(
                 "service has no checkpoint directory to reload from "
                 "(started with --random-params?)"
             )
         with self._lock:
-            new_state, corpus, self.index_step = self._reloader(step)
-            self.state = new_state
-            if corpus is not None:
-                self.corpus_rows = int(corpus.shape[0])
-                self.corpus_emb = self._place_corpus(corpus)
-            self.step = int(new_state.step)
+            if self.group is not None:
+                self._send(_RELOAD, arg=-1 if step is None else step)
+            self._reload_here(step)
         if self.index_stale:
             print(
                 f"warning: /reload restored step {self.step} but the "
@@ -188,6 +223,27 @@ class RetrievalService(_ServiceStats):
                 file=sys.stderr,
             )
         return self.step
+
+    def _reload_here(self, step: int | None) -> None:
+        """This rank's part of :meth:`reload`, under the lock."""
+        try:
+            new = self._reloader(step)
+            err = None
+        except Exception as e:  # noqa: BLE001 — every rank must vote
+            new, err = None, e
+        if self.group is not None:
+            failed = torch.tensor([int(err is not None)])
+            dist.all_reduce(failed, group=self._host_group())
+            if err is None and int(failed):
+                err = RuntimeError("reload failed on another rank; the "
+                                   "service keeps its checkpoint")
+        if err is not None:
+            raise err
+        new_state, corpus, self.index_step = new
+        self.state = new_state
+        if corpus is not None:
+            self.corpus_emb = self._place_corpus(corpus)
+        self.step = int(new_state.step)
 
     @property
     def index_stale(self) -> bool:
@@ -216,17 +272,109 @@ class RetrievalService(_ServiceStats):
 
     def _dispatch(self, features, mask, k: int):
         """fp32 ``[b, ...]`` features → ``(scores [b, k], indices [b, k])``
-        numpy; ``k`` pre-clamped to ``[1, corpus_rows]``."""
-        from .evaluation import retrieve_topk
-
+        numpy; ``k`` pre-clamped to ``[1, corpus_rows]``.  Sharded, the
+        other ranks are sent the dispatch first."""
         with self._lock:
             self._dispatch_count += 1
-            q = self.trainer.encode_modality(
-                self.state, self.query_side, features, mask
-            )
-            with torch.inference_mode():
+            if self.group is not None:
+                self._send(_SEARCH, features, mask, k)
+            return self._search_here(features, mask, k)
+
+    def _search_here(self, features, mask, k: int):
+        from .evaluation import retrieve_topk, sharded_retrieve_topk
+
+        q = self.trainer.encode_modality(
+            self.state, self.query_side, features, mask
+        )
+        with torch.inference_mode():
+            if self.group is None:
                 scores, idx = retrieve_topk(q, self.corpus_emb, k=k)
-            return scores.cpu().numpy(), idx.cpu().numpy()
+            else:
+                scores, idx = sharded_retrieve_topk(
+                    q, self.corpus_emb, k=k, group=self.group,
+                    n_real=self.corpus_rows)
+        return scores.cpu().numpy(), idx.cpu().numpy()
+
+    # -- the sharded dispatch ------------------------------------------------
+
+    def _host_group(self):
+        """The group's host-side twin: the group itself on gloo, else a
+        gloo group of its ranks (made once, on every rank alike)."""
+        if dist.get_backend(self.group) == "gloo":
+            return self.group
+        if getattr(self, "_gloo", None) is None:
+            self._gloo = dist.new_group(backend="gloo")
+        return self._gloo
+
+    def _send(self, op: int, features=None, mask=None, arg: int = 0) -> None:
+        """Rank 0: the header ``[op, b, S (0 for pooled), D, mask?, arg]``,
+        then the queries and the mask, to every rank."""
+        self._last_dispatch = time.monotonic()
+        shape = () if features is None else features.shape
+        b, d = (shape[0], shape[-1]) if shape else (0, 0)
+        s = shape[1] if len(shape) == 3 else 0
+        header = torch.tensor([op, b, s, d, int(mask is not None), arg])
+        group = self._host_group()
+        dist.broadcast(header, 0, group=group)
+        if op == _SEARCH:
+            dist.broadcast(torch.from_numpy(np.ascontiguousarray(features)), 0,
+                           group=group)
+            if mask is not None:
+                dist.broadcast(torch.from_numpy(np.ascontiguousarray(mask)), 0,
+                               group=group)
+
+    def follow(self) -> None:
+        """Every rank but 0: take part in each dispatch rank 0 sends until
+        it sends the stop."""
+        group = self._host_group()
+        while True:
+            header = torch.zeros(6, dtype=torch.int64)
+            dist.broadcast(header, 0, group=group)
+            op, b, s, d, has_mask, arg = (int(x) for x in header)
+            if op == _STOP:
+                return
+            if op == _RELOAD:
+                with self._lock:
+                    try:
+                        self._reload_here(None if arg < 0 else arg)
+                    except Exception as e:  # noqa: BLE001 — rank 0 reports
+                        print(f"reload failed: {e}", file=sys.stderr)
+            elif op == _SEARCH:
+                features = torch.empty((b, s, d) if s else (b, d))
+                dist.broadcast(features, 0, group=group)
+                mask = None
+                if has_mask:
+                    mask = torch.empty((b, s))
+                    dist.broadcast(mask, 0, group=group)
+                with self._lock:
+                    self._search_here(features.numpy(),
+                                      None if mask is None else mask.numpy(), arg)
+
+    def start_keepalive(self, interval: float = KEEPALIVE_SECONDS) -> None:
+        """Rank 0 of a sharded service: send a no-op whenever ``interval``
+        seconds pass without a dispatch."""
+        stop = threading.Event()
+
+        def run():
+            while not stop.wait(interval / 4):
+                with self._lock:
+                    if time.monotonic() - self._last_dispatch >= interval:
+                        self._send(_NOOP)
+
+        self._keepalive = (stop, threading.Thread(target=run, daemon=True))
+        self._keepalive[1].start()
+
+    def close(self) -> None:
+        """Stop the batcher and the keepalive; sharded, send every other
+        rank the stop."""
+        if self._batcher is not None:
+            self._batcher.close()
+        if self._keepalive is not None:
+            self._keepalive[0].set()
+            self._keepalive[1].join()
+        if self.group is not None and dist.get_rank(self.group) == 0:
+            with self._lock:
+                self._send(_STOP)
 
     def search(self, features, mask=None, k: int = 10):
         features = np.asarray(features, np.float32)
@@ -260,6 +408,62 @@ class RetrievalService(_ServiceStats):
         self._batcher = _MicroBatcher(
             self._dispatch, window_ms=window_ms, max_batch=max_batch
         )
+
+
+class ArtifactService(_ServiceStats):
+    """Serve an exported :class:`~crossclr_tpu_torch.aot.SearchArtifact`
+    over the same HTTP surface as the live service (/search, /healthz,
+    /metrics) with no model code, config or checkpoint.  An artifact is
+    immutable: /reload is refused; export again and restart to take new
+    weights.  ``k`` is clamped to the k fixed at export (a smaller k takes
+    the first columns, as the live service clamps to the corpus)."""
+
+    is_artifact = True
+    index_step = None
+    index_stale = False
+    index_tower_mismatch = False
+
+    def __init__(self, artifact):
+        super().__init__()
+        self.artifact = artifact
+        meta = artifact.meta
+        self.corpus_rows = int(meta["corpus_rows"])
+        self.corpus_side = meta["corpus_side"]
+        self.query_side = meta["query_side"]
+        self.step = int(meta["step"])
+        self.k_max = int(meta["k"])
+        self.corpus_dtype = _CORPUS_DTYPES[meta["index_dtype"]]
+        self.ids = artifact.ids
+        # one dispatch at a time, as the live service's device lock
+        self._lock = threading.Lock()
+
+    def search(self, features, mask=None, k: int = 10):
+        features = np.asarray(features, np.float32)
+        k = int(min(k, self.k_max))
+        if k <= 0:  # the k=0 contract: empty per-query result lists
+            n = (
+                features.shape[0]
+                if features.ndim > len(self.artifact.meta["query_shape"])
+                else 1
+            )
+            out = {"indices": [[] for _ in range(n)],
+                   "scores": [[] for _ in range(n)]}
+            if self.ids is not None:
+                out["ids"] = [[] for _ in range(n)]
+            return out
+        with self._lock:
+            self._dispatch_count += 1
+            return self.artifact.search(features, mask=mask, k=k)
+
+    def reload(self, step: int | None = None) -> int:
+        raise RuntimeError(
+            "artifact services are immutable — re-export "
+            "(python -m crossclr_tpu_torch.export_serving) and restart to "
+            "pick up new weights"
+        )
+
+    def close(self) -> None:
+        pass
 
 
 class _MicroBatcher:
@@ -404,6 +608,8 @@ def _make_handler(service: RetrievalService):
                 "query_side": service.query_side,
                 "step": service.step,
             }
+            if getattr(service, "is_artifact", False):
+                health["artifact"] = True
             if service.corpus_dtype != torch.float32:
                 health["corpus_dtype"] = str(service.corpus_dtype).removeprefix(
                     "torch."
@@ -503,7 +709,8 @@ def build_service(cfg, checkpoint_dir: str | None, corpus_side: str,
                   batch_window_ms: float | None = None,
                   strict_index: bool = False,
                   device: str | torch.device = "cuda",
-                  state_dict=None) -> RetrievalService:
+                  state_dict=None,
+                  shard_corpus: bool = False) -> RetrievalService:
     """Construct the service: dataset → trainer → restore → encode corpus.
 
     Weights come from the latest checkpoint of ``checkpoint_dir`` (a
@@ -516,15 +723,30 @@ def build_service(cfg, checkpoint_dir: str | None, corpus_side: str,
     be set, so the checkpoint carries them).  ``corpus_emb_path``: an
     ``.npz`` written by either package's ``eval --embeddings-output``,
     served instead of encoding the corpus at startup.
+
+    ``shard_corpus``: row-shard the index over the default process group
+    (two ranks at least; every rank calls this): each rank encodes, or
+    cuts from the ``.npz``, only its :func:`evaluation.row_block` of the
+    corpus.  Results equal the one-device service's up to the products'
+    rounding in the scores (``evaluation.sharded_retrieve_topk``).
     """
-    from .data import dataset_from_config
+    from .data import RowSubset, dataset_from_config
     from .eval import _encode_split
+    from .evaluation import row_block
     from .training import CheckpointManager, Trainer
 
     if corpus_dtype is None:
         corpus_dtype = "float32"
     if corpus_dtype not in _CORPUS_DTYPES:
         raise SystemExit(f"unknown corpus dtype {corpus_dtype!r}")
+    group = None
+    if shard_corpus:
+        if not (dist.is_initialized() and dist.get_world_size() > 1):
+            raise SystemExit(
+                "--shard-corpus needs more than one rank: start the service "
+                "under a launcher (torchrun --nproc_per_node=P)"
+            )
+        group = dist.group.WORLD
 
     # dataset_from_config also validates the ids manifest against the
     # store, so a stale manifest fails at startup, not mid-request
@@ -551,6 +773,17 @@ def build_service(cfg, checkpoint_dir: str | None, corpus_side: str,
         state = trainer.init_state(state_dict)
         if use_ema:
             state = trainer.ema_state(state)
+
+    def block(n: int) -> tuple[int, int]:  # this rank's rows of the index
+        return row_block(n, dist.get_rank(group), dist.get_world_size(group))
+
+    def encode(state):  # the corpus rows this process indexes
+        rows = dataset if group is None else RowSubset(dataset, *block(len(dataset)))
+        if len(rows) == 0:
+            dim = (cfg.video_tower if corpus_side == "video" else cfg.text_tower).embed_dim
+            return torch.zeros((0, dim))
+        v, t = _encode_split(trainer, state, rows, min(batch_size, len(rows)))
+        return v if corpus_side == "video" else t
 
     tower_mismatch = False
     if corpus_emb_path is not None:
@@ -608,15 +841,21 @@ def build_service(cfg, checkpoint_dir: str | None, corpus_side: str,
             )
             ids = None
         index_step = npz_step
+        n_rows = corpus_emb.shape[0]
+        if group is not None:
+            corpus_emb = corpus_emb[slice(*block(n_rows))]
     else:
-        v_emb, t_emb = _encode_split(trainer, state, dataset, batch_size)
-        corpus_emb = v_emb if corpus_side == "video" else t_emb
+        n_rows = len(dataset)
+        corpus_emb = encode(state)
         index_step = state.step
 
     service = RetrievalService(
         trainer, state, corpus_emb, corpus_side, ids, index_step=index_step,
-        corpus_dtype=_CORPUS_DTYPES[corpus_dtype],
+        corpus_dtype=_CORPUS_DTYPES[corpus_dtype], group=group,
+        corpus_rows=n_rows,
     )
+    if group is not None:
+        service._host_group()  # made now, on every rank alike
     service.index_tower_mismatch = tower_mismatch
     query_feats = dataset.text if corpus_side == "video" else dataset.video
     service._query_ndim = query_feats.ndim
@@ -633,8 +872,7 @@ def build_service(cfg, checkpoint_dir: str | None, corpus_side: str,
                 # a precomputed index is kept: only the query tower moves,
                 # and the index's step stays, so the mismatch is reported
                 return new_state, None, service.index_step
-            v, t = _encode_split(trainer, new_state, dataset, batch_size)
-            return new_state, v if corpus_side == "video" else t, new_state.step
+            return new_state, encode(new_state), new_state.step
 
         service._reloader = reloader
     return service
@@ -660,8 +898,9 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument(
         "--device",
         default="cuda",
-        help="torch device of the towers and the index (default cuda; "
-        "pass cpu explicitly to serve on the CPU)",
+        help="torch device of the towers and the index (default cuda, "
+        "cuda:LOCAL_RANK under a launcher; pass cpu explicitly to serve on "
+        "the CPU)",
     )
     ap.add_argument(
         "--corpus-emb",
@@ -669,8 +908,13 @@ def main(argv: list[str] | None = None) -> int:
         help=".npz from `eval --embeddings-output`: serve this precomputed "
         "index instead of encoding the corpus at startup",
     )
-    ap.add_argument("--shard-corpus", action="store_true",
-                    help="not ported yet (refused)")
+    ap.add_argument(
+        "--shard-corpus",
+        action="store_true",
+        help="row-shard the index over a launcher's ranks (two at least): "
+        "the servable corpus grows with the ranks instead of one card's "
+        "memory; rank 0 listens",
+    )
     ap.add_argument(
         "--ema",
         action="store_true",
@@ -702,35 +946,94 @@ def main(argv: list[str] | None = None) -> int:
         "with a warning",
     )
     ap.add_argument("--random-params", action="store_true")
-    ap.add_argument("--artifact", default=None,
-                    help="not ported yet (refused)")
+    ap.add_argument(
+        "--artifact",
+        default=None,
+        help=".npz from `python -m crossclr_tpu_torch.export_serving`: "
+        "serve the exported artifact directly, loading no config, model "
+        "code or checkpoint; /reload is refused (artifacts are immutable)",
+    )
     ap.add_argument("overrides", nargs="*")
     args = ap.parse_args(argv)
 
-    for flag, given in (
-        ("--artifact (AOT artifact serving)", args.artifact),
-        ("--shard-corpus (row-sharded index)", args.shard_corpus),
-    ):
-        if given:
-            raise _not_ported(flag)
+    if args.artifact is not None:
+        conflicts = [
+            flag
+            for flag, given in (
+                ("--config", args.config),
+                ("--checkpoint-dir", args.checkpoint_dir),
+                ("--corpus-emb", args.corpus_emb),
+                ("--shard-corpus", args.shard_corpus),
+                ("--ema", args.ema),
+                ("--random-params", args.random_params),
+                ("--strict-index", args.strict_index),
+                ("--batch-size", args.batch_size),
+                ("--batch-window-ms", args.batch_window_ms),
+                # default-valued flags: another value asks for something
+                # the artifact cannot change
+                ("--corpus", args.corpus != "video" and args.corpus),
+                (
+                    "--corpus-dtype",
+                    args.corpus_dtype != "float32" and args.corpus_dtype,
+                ),
+                ("overrides", args.overrides),
+            )
+            if given
+        ]
+        if conflicts:
+            raise SystemExit(
+                f"--artifact is self-contained; drop {', '.join(conflicts)} "
+                "(corpus/index/tower choices were baked at export time)"
+            )
+        from .aot import SearchArtifact
 
-    cfg = load_config(args.config) if args.config else ExperimentConfig()
-    if args.overrides:
-        cfg = apply_overrides(cfg, args.overrides)
-    service = build_service(
-        cfg,
-        args.checkpoint_dir or cfg.checkpoint_dir,
-        args.corpus,
-        batch_size=args.batch_size,
-        random_params=args.random_params,
-        corpus_emb_path=args.corpus_emb,
-        use_ema=args.ema,
-        corpus_dtype=args.corpus_dtype,
-        batch_window_ms=args.batch_window_ms,
-        strict_index=args.strict_index,
-        device=args.device,
-    )
-    httpd = ServiceHTTPServer((args.host, args.port), service)
+        device = None if args.device == "cuda" else args.device
+        service = ArtifactService(SearchArtifact.load(args.artifact, device))
+        return _serve(service, args.host, args.port, "AOT artifact")
+
+    from .parallel.multihost import initialize_multihost, rank_device
+
+    own_group = not dist.is_initialized()
+    grouped = initialize_multihost(args.device) if args.shard_corpus else False
+    if not args.shard_corpus and int(os.environ.get("WORLD_SIZE", 1)) > 1:
+        raise SystemExit("under a launcher's ranks the service shards its "
+                         "index: pass --shard-corpus")
+    try:
+        cfg = load_config(args.config) if args.config else ExperimentConfig()
+        if args.overrides:
+            cfg = apply_overrides(cfg, args.overrides)
+        service = build_service(
+            cfg,
+            args.checkpoint_dir or cfg.checkpoint_dir,
+            args.corpus,
+            batch_size=args.batch_size,
+            random_params=args.random_params,
+            corpus_emb_path=args.corpus_emb,
+            use_ema=args.ema,
+            corpus_dtype=args.corpus_dtype,
+            batch_window_ms=args.batch_window_ms,
+            strict_index=args.strict_index,
+            device=rank_device(args.device) if grouped else args.device,
+            shard_corpus=args.shard_corpus,
+        )
+        if grouped and dist.get_rank() != 0:
+            service.follow()  # until rank 0 sends the stop
+            return 0
+        if grouped:
+            service.start_keepalive()
+        how = f"device {service.trainer.device}" + (
+            f", index sharded over {dist.get_world_size()} ranks"
+            if grouped else "")
+        return _serve(service, args.host, args.port, how)
+    finally:
+        if grouped and own_group:
+            dist.destroy_process_group()
+
+
+def _serve(service, host: str, port: int, how: str) -> int:
+    """Answer HTTP requests until SIGTERM (or ^C), then finish the requests
+    in flight and close the service."""
+    httpd = ServiceHTTPServer((host, port), service)
 
     # graceful SIGTERM: stop accepting, finish in-flight requests, exit 0.
     # shutdown() must run off the serving thread.
@@ -746,9 +1049,8 @@ def main(argv: list[str] | None = None) -> int:
 
     print(
         f"serving {service.corpus_rows} {service.corpus_side} rows on "
-        f"http://{args.host}:{httpd.server_address[1]} "
-        f"(queries: raw {service.query_side} features, device "
-        f"{service.trainer.device})",
+        f"http://{host}:{httpd.server_address[1]} "
+        f"(queries: raw {service.query_side} features, {how})",
         file=sys.stderr,
     )
     try:
@@ -757,8 +1059,7 @@ def main(argv: list[str] | None = None) -> int:
         pass
     finally:
         httpd.server_close()
-        if service._batcher is not None:
-            service._batcher.close()
+        service.close()
     print("server stopped", file=sys.stderr)
     return 0
 

@@ -51,8 +51,13 @@ it (the ring and the split towers need them all), the other model groups
 wait at the barrier.  A checkpoint restores on any grid, and in one
 process for the serve and eval CLIs.
 
-Refused rather than ignored: ``--profile-dir`` and ``--tensorboard-dir``
-(ROADMAP queue 1 item 14).
+Tooling: ``--profile-dir`` traces the first train chunk on rank 0
+(``utils.profiling.trace``: a ``torch.profiler`` Chrome trace of the host
+operators and the card's kernels); ``--tensorboard-dir`` streams rank 0's
+metrics to TensorBoard event files (``tensorboardX``, or
+``torch.utils.tensorboard`` with the ``tensorboard`` package; refused with
+the missing package's name when neither is installed);
+``--save-config PATH`` writes the resolved config as JSON and exits.
 
 Examples:
   python -m crossclr_tpu_torch.train --config configs/youcook2_mlp.json \\
@@ -97,18 +102,12 @@ without a mesh.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import os
 import signal
 import sys
 from pathlib import Path
-
-
-def _refuse(what: str, item: str) -> SystemExit:
-    return SystemExit(
-        f"{what} is not ported to crossclr_tpu_torch yet (ROADMAP queue 1 "
-        f"{item}); use python -m crossclr_tpu.train for it"
-    )
 
 
 def chunk_steps(cfg) -> int:
@@ -121,7 +120,12 @@ def chunk_steps(cfg) -> int:
 
 
 def main(argv: list[str] | None = None) -> int:
-    from .utils.config import ExperimentConfig, apply_overrides, load_config
+    from .utils.config import (
+        ExperimentConfig,
+        apply_overrides,
+        load_config,
+        save_config,
+    )
 
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--config", default=None, help="ExperimentConfig JSON path")
@@ -135,7 +139,9 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; pass cpu explicitly "
                     "to train on the CPU)")
-    ap.add_argument("--tensorboard-dir", default=None, help="not ported (refused)")
+    ap.add_argument("--tensorboard-dir", default=None,
+                    help="also stream scalar metrics to TensorBoard event "
+                    "files here (needs tensorboardX or tensorboard)")
     ap.add_argument("--n-model", type=int, default=1,
                     help="ranks of the model axis: attention='ring' towers "
                     "shard each sequence over them, every other tower its "
@@ -149,14 +155,21 @@ def main(argv: list[str] | None = None) -> int:
                     help="what a DCN granule is: 'slice' the node "
                     "(GROUP_RANK, else the hostname), 'process' the rank, "
                     "'contiguous' --mesh-dcn equal blocks of ranks")
-    ap.add_argument("--profile-dir", default=None, help="not ported (refused)")
+    ap.add_argument("--save-config", default=None,
+                    help="write the resolved config (JSON) here and exit")
+    ap.add_argument("--profile-dir", default=None,
+                    help="write a torch.profiler trace of the first train "
+                    "chunk (host operators and the card's kernels) here")
     ap.add_argument("overrides", nargs="*", help="section.key=value overrides")
     args = ap.parse_args(argv)
 
-    if args.profile_dir:
-        raise _refuse("--profile-dir", "item 14")
-    if args.tensorboard_dir:
-        raise _refuse("--tensorboard-dir", "item 14")
+    if args.tensorboard_dir:  # refused before any work when it cannot write
+        from .utils.logging import _summary_writer
+
+        try:
+            _summary_writer()
+        except RuntimeError as e:
+            raise SystemExit(f"--tensorboard-dir: {e}") from e
 
     cfg = load_config(args.config) if args.config else ExperimentConfig()
     if args.overrides:
@@ -170,6 +183,10 @@ def main(argv: list[str] | None = None) -> int:
         cfg = dataclasses.replace(
             cfg, train=dataclasses.replace(cfg.train, total_steps=args.steps)
         )
+    if args.save_config:
+        save_config(cfg, args.save_config)
+        print(f"wrote {args.save_config}")
+        return 0
 
     # the launcher's ranks join one group before any device is used
     import torch.distributed as dist
@@ -201,6 +218,7 @@ def _train(cfg, args, device, mesh) -> int:
     from .evaluation import retrieval_metrics
     from .training import CheckpointManager, Trainer
     from .utils import MetricsWriter
+    from .utils.profiling import trace as profiler_trace
 
     # -- data: eval rows are held out of the train stream --------------------
     dataset, _ = dataset_from_config(cfg.data)
@@ -261,7 +279,8 @@ def _train(cfg, args, device, mesh) -> int:
         if lead:
             print(f"resumed from step {state.step}", file=sys.stderr)
 
-    writer = MetricsWriter(args.metrics_csv) if lead else MetricsWriter(echo=False)
+    writer = (MetricsWriter(args.metrics_csv, tensorboard_dir=args.tensorboard_dir)
+              if lead else MetricsWriter(echo=False))
     stop_requested = {"flag": False}
 
     def _on_signal(signum, frame):
@@ -299,17 +318,27 @@ def _train(cfg, args, device, mesh) -> int:
                               host_ranks=host_ranks)
         except ValueError as e:  # the chunk or its host ring is too large
             raise SystemExit(str(e)) from e
+        first_chunk = True
         while done < steps:
-            try:
-                state, _ = trainer.fit(
-                    state, it, steps=min(cfg.eval_every, steps - done),
-                    log_every=cfg.log_every, writer=writer,
-                    should_stop=should_stop, prestacked=prestacked,
-                )
-            except FloatingPointError as e:
-                # a poisoned state is not checkpointed: the last good
-                # checkpoint is the recovery point
-                raise SystemExit(f"aborted: {e}") from e
+            # rank 0 traces the first chunk: its first dispatch and the
+            # steady steps, a bounded file
+            profiling = bool(args.profile_dir) and first_chunk and lead
+            with (profiler_trace(args.profile_dir) if profiling
+                  else contextlib.nullcontext()):
+                try:
+                    state, _ = trainer.fit(
+                        state, it, steps=min(cfg.eval_every, steps - done),
+                        log_every=cfg.log_every, writer=writer,
+                        should_stop=should_stop, prestacked=prestacked,
+                    )
+                except FloatingPointError as e:
+                    # a poisoned state is not checkpointed: the last good
+                    # checkpoint is the recovery point
+                    raise SystemExit(f"aborted: {e}") from e
+            if profiling:
+                print(f"profiler trace written to {args.profile_dir}",
+                      file=sys.stderr)
+            first_chunk = False
             done = state.step
             # under ZeRO-1 every rank takes part in gathering the moments
             if should_stop():  # a signal during the last dispatch counts too

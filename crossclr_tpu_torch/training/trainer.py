@@ -1188,7 +1188,8 @@ class Trainer:
                         f"non-finite loss {metrics['loss']} at step "
                         f"{step_offset + done}; aborting (resume from the "
                         "last checkpoint; set train.abort_on_nonfinite=false "
-                        "to continue anyway)"
+                        "to continue anyway, or use utils.profiling.nan_debug "
+                        "to locate the source)"
                     )
                 if first_dispatch:
                     rate = n / max(t_steady - t_start, 1e-9)

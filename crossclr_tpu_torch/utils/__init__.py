@@ -6,6 +6,7 @@ from .config import (
     ExperimentConfig,
     apply_overrides,
     load_config,
+    save_config,
 )
 from .logging import MetricsWriter
 from .params import state_dict_from_flax
@@ -25,6 +26,7 @@ __all__ = [
     "load_config",
     "logit_scale_from_torch",
     "params_from_torch",
+    "save_config",
     "state_dict_from_flax",
     "state_dict_from_params",
 ]

@@ -22,6 +22,7 @@ __all__ = [
     "ExperimentConfig",
     "apply_overrides",
     "load_config",
+    "save_config",
 ]
 
 
@@ -96,6 +97,12 @@ def _from_dict(cls, d: dict):
             val = _dtype(val)
         kwargs[f.name] = val
     return cls(**kwargs)
+
+
+def save_config(cfg: ExperimentConfig, path: str | Path) -> None:
+    """Write ``cfg`` as the JAX package's ``save_config`` writes it (dtypes
+    by name, indent 2); :func:`load_config` of either package reads it."""
+    Path(path).write_text(json.dumps(_to_dict(cfg), indent=2))
 
 
 def load_config(path: str | Path) -> ExperimentConfig:

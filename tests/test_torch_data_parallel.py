@@ -49,6 +49,7 @@ import torch.multiprocessing as mp
 from crossclr_tpu_torch.data import SyntheticPairs, epoch_batches
 from crossclr_tpu_torch.models.encoders import DualEncoder, TowerConfig
 from crossclr_tpu_torch.training import CheckpointManager, TrainConfig, Trainer
+from tests.torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 REPO = Path(__file__).resolve().parent.parent
 B, DV, DT, HIDDEN, EMBED, STEPS = 32, 24, 20, 32, 16, 3

@@ -30,6 +30,7 @@ import torch
 
 from crossclr_tpu_torch.ops import fused_crossclr as fc
 from crossclr_tpu_torch.ops.fused_dual import _dots
+from tests.torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
 def _smoke():

@@ -40,6 +40,7 @@ from test_torch_sym_bf16_operands import parts_on_h100
 from test_torch_sym_fwd_bf16_operands import _smoke, collapsed
 
 from crossclr_tpu_torch.ops import fused_dual as fd
+from tests.torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 DS_RTOL = _smoke().DS_RTOL
 LANES = 256  # sum_partials_kernel's threads

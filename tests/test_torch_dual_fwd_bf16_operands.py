@@ -39,6 +39,7 @@ import torch
 from test_torch_sym_fwd_bf16_operands import LSE_TOL, TILE, _inputs, collapsed, fwd_parts
 
 from crossclr_tpu_torch.ops import fused_dual as fd
+from tests.torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 LOG2E = 1.4426950408889634
 MASKED = -1e9  # an excluded logit, in log2 units as in natural ones

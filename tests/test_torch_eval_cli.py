@@ -228,8 +228,13 @@ def test_random_params_and_the_missing_checkpoint(tmp_path, capsys):
 
 
 def test_sharded_eval_is_refused_under_a_launcher(monkeypatch):
+    """Sharded eval is ported (``tests/test_torch_sharded_retrieval.py``
+    runs it on gloo ranks); a launcher that sets ``WORLD_SIZE`` without
+    its rendezvous is refused with the variables it missed."""
+    for var in ("RANK", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(var, raising=False)
     monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(SystemExit, match="sharded eval"):
+    with pytest.raises(RuntimeError, match="RANK, LOCAL_RANK, MASTER_ADDR"):
         teval.main(["--random-params", "--device", "cpu", *OVERRIDES])
 
 

@@ -32,6 +32,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+from tests.torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 port = importlib.import_module("crossclr_tpu_torch.ops.flash_attention")
 

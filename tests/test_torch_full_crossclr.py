@@ -26,6 +26,7 @@ from crossclr_tpu_torch.losses import functional as F
 from crossclr_tpu_torch.models.encoders import DualEncoder, TowerConfig
 from crossclr_tpu_torch.training import TrainConfig, Trainer
 from crossclr_tpu_torch.utils.params import state_dict_from_flax
+from tests.torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 ATOL = RTOL = 2e-5
 GRAD_RTOL, GRAD_ATOL = 2e-4, 2e-5

@@ -27,6 +27,7 @@ import torch
 
 from crossclr_tpu_torch.ops import fused_crossclr as fc
 from crossclr_tpu_torch.ops import fused_dual as fd
+from tests.torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 ATOL = RTOL = 2e-5
 GRAD_RTOL, GRAD_ATOL = 1e-4, 1e-6  # highest

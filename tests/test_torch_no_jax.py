@@ -19,7 +19,9 @@ more drives the slice of serving what the port trains: the torch import
 CLI writes a checkpoint, the eval CLI scores it, ``build_service`` serves
 it from ``--checkpoint-dir`` with the int8 index behind a batching
 window, the train CLI resumes from it, and one ``POST /reload`` picks the
-new step up.
+new step up.  And an exported search artifact loads and searches with
+jax blocked, importing none of the port's model, training or serving
+code.
 """
 
 import json
@@ -263,7 +265,10 @@ cfg = apply_overrides(load_config(CONFIG), tiny + [
 flash = DualEncoder(cfg.video_tower, cfg.text_tower)
 flash.load_state_dict(torch.load("ckpt/step_4.pt", weights_only=True)["model"])
 # the same grid splitting flash towers tensor-parallel, LAMB under ZeRO-1
-# (one data rank: inert), laid out by a forced DCN granule count of 1
+# (one data rank: inert), laid out by a forced DCN granule count of 1; its
+# group meets on a port of its own (another process may have taken the
+# first group's port since that group closed)
+os.environ["MASTER_PORT"] = os.environ["TP_MASTER_PORT"]
 rc_tp = train.main([
     "--config", CONFIG, "--device", "cpu", "--steps", "2", "--n-model", "2",
     "--mesh-dcn", "1", "--metrics-csv", f"metrics_tp_{rank}.csv", *tiny,
@@ -478,16 +483,18 @@ def test_port_trains_ring_towers_on_a_grid_without_jax(tmp_path):
     checkpoint loads into flash towers; then flash towers split
     tensor-parallel on the same grid (``parallel.tensor_parallel``), LAMB,
     ``--mesh-dcn``, whose whole checkpoint loads the same way."""
-    with socket.socket() as s:
+    with socket.socket() as s, socket.socket() as s_tp:
         s.bind(("127.0.0.1", 0))
-        port = s.getsockname()[1]
+        s_tp.bind(("127.0.0.1", 0))
+        port, tp_port = s.getsockname()[1], s_tp.getsockname()[1]
     script = RING_SCRIPT.replace(
         "CONFIG", repr(str(REPO / "configs" / "lsmdc_transformer.json")))
     procs = [subprocess.Popen(
         [sys.executable, "-c", script], cwd=tmp_path,
         env=dict(os.environ, PYTHONPATH=str(REPO), RANK=str(rank),
                  LOCAL_RANK=str(rank), WORLD_SIZE="2", LOCAL_WORLD_SIZE="2",
-                 MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port)),
+                 MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                 TP_MASTER_PORT=str(tp_port)),
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
         for rank in range(2)]
     try:
@@ -571,3 +578,56 @@ def test_port_serves_without_jax(tmp_path):
     idx = result["indices"]
     assert len(idx) == 2 and all(len(r) == 3 for r in idx)
     assert all(0 <= i < 16 for r in idx for i in r)
+
+
+LOAD_SCRIPT = SCRIPT.split("import json\n", 1)[0] + r"""
+import json
+
+import numpy as np
+
+from crossclr_tpu_torch.aot import SearchArtifact
+
+art = SearchArtifact.load("art.npz")
+out = art.search(np.ones((2, 3, 10), np.float32), np.ones((2, 3), np.float32))
+port = sorted(m for m in sys.modules if m.startswith("crossclr_tpu_torch."))
+loaded = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "flax", "crossclr_tpu"))
+print(json.dumps({"indices": out["indices"], "port": port, "loaded": loaded}))
+"""
+
+
+def test_port_exports_and_loads_an_artifact_without_jax(tmp_path):
+    """A flash-tower search artifact written by the export CLI (here; every
+    module of the port imports with jax blocked in
+    ``test_port_trains_without_jax``) loads and searches in a process with
+    jax blocked that imports no model, training, serving or data code of
+    the port: the operator package and the losses it imports alone."""
+    from crossclr_tpu_torch import export_serving, train
+
+    overrides = [
+        "video_tower.kind=transformer", "text_tower.kind=transformer",
+        "video_tower.attention=flash", "text_tower.attention=flash",
+        "video_tower.input_dim=12", "text_tower.input_dim=10",
+        "video_tower.embed_dim=8", "text_tower.embed_dim=8",
+        "video_tower.hidden_dim=16", "text_tower.hidden_dim=16",
+        "video_tower.num_heads=2", "text_tower.num_heads=2",
+        "video_tower.num_layers=1", "text_tower.num_layers=1",
+        "video_tower.max_seq_len=4", "text_tower.max_seq_len=3",
+        "data.num_pairs=16", "data.video_dim=12", "data.text_dim=10",
+        "data.video_seq_len=4", "data.text_seq_len=3", "data.batch_size=8",
+    ]
+    cfg = str(tmp_path / "cfg.json")
+    assert train.main(["--save-config", cfg, "--device", "cpu", *overrides]) == 0
+    assert export_serving.main(["--config", cfg, "--random-params", "--device", "cpu",
+                                "--k", "3", "--query-shape", "3,10",
+                                "--output", str(tmp_path / "art.npz")]) == 0
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run(
+        [sys.executable, "-c", LOAD_SCRIPT], cwd=tmp_path, env=env,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    served = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert served["loaded"] == []
+    assert {m.split(".")[1] for m in served["port"]} == {"aot", "ops", "losses"}
+    assert np.asarray(served["indices"]).shape == (2, 3)

@@ -41,6 +41,7 @@ from test_torch_rows_lse_bf16_operands import TAU, W, _masks, split_parts
 from test_torch_sym_bf16_operands import TILE, _operand
 
 from crossclr_tpu_torch.ops import fused_global as fg
+from tests.torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
 def cols_parts(bl: int, n: int, d: int, sms: int = H100_SMS) -> int:

@@ -39,6 +39,7 @@ from test_torch_sym_bf16_operands import GRAD_BOUND, TILE, _operand, _ratio
 from test_torch_sym_fwd_bf16_operands import LSE_TOL
 
 from crossclr_tpu_torch.ops import fused_global as fg
+from tests.torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 H100_SMS = 132
 

@@ -50,6 +50,7 @@ from test_torch_rows_bwd_rows_bf16_operands import H100_SMS, LSE_TOL, _inputs
 from test_torch_sym_bf16_operands import TILE
 
 from crossclr_tpu_torch.ops import fused_global as fg
+from tests.torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 LOG2E = 1.4426950408889634
 MASKED = -1e9  # an excluded logit, in log2 units as in natural ones

@@ -47,6 +47,7 @@ from crossclr_tpu_torch.data import SyntheticPairs, epoch_batches
 from crossclr_tpu_torch.models.encoders import DualEncoder, TowerConfig
 from crossclr_tpu_torch.parallel import make_mesh
 from crossclr_tpu_torch.training import TrainConfig, Trainer
+from tests.torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 JOIN_SECONDS = 240
 B, STEPS, DV, DT, SV, ST = 8, 3, 12, 10, 8, 6

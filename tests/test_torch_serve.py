@@ -195,9 +195,14 @@ def test_bf16_index_and_refused_options():
 
     with pytest.raises(SystemExit, match="--random-params"):
         tserve.build_service(cfg, None, "video", device="cpu")
-    for flag in (["--artifact", "a.npz"], ["--shard-corpus"]):
-        with pytest.raises(SystemExit, match="not ported"):
-            tserve.main(flag)
+    # --artifact and --shard-corpus are ported (tests/test_torch_aot.py,
+    # tests/test_torch_sharded_retrieval.py): an artifact takes no model
+    # flags, and one process cannot shard the index
+    with pytest.raises(SystemExit, match="self-contained; drop --random-params"):
+        tserve.main(["--artifact", "a.npz", "--random-params"])
+    with pytest.raises(SystemExit, match="needs more than one rank"):
+        tserve.main(["--shard-corpus", "--random-params", "--device", "cpu",
+                     *OVERRIDES])
 
 
 def test_precomputed_corpus_index(tmp_path):

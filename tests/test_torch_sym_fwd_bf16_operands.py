@@ -33,6 +33,7 @@ import pytest
 import torch
 
 from crossclr_tpu_torch.ops import fused_dual as fd
+from tests.torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
 def _smoke():

@@ -53,6 +53,7 @@ from crossclr_tpu_torch.ops.flash_attention import dropout_keep_mask
 from crossclr_tpu_torch.parallel import Mesh, make_mesh
 from crossclr_tpu_torch.parallel.mesh import grid_layout
 from crossclr_tpu_torch.training import CheckpointManager, TrainConfig, Trainer
+from tests.torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 JOIN_SECONDS = 240
 B, STEPS, DV, DT, SV, ST = 8, 3, 12, 10, 8, 6

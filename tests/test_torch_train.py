@@ -32,6 +32,7 @@ from crossclr_tpu_torch.training import (
     make_optimizer,
 )
 from crossclr_tpu_torch.utils.params import state_dict_from_flax
+from tests.torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 FP32 = dict(loss_rtol=1e-5, loss_atol=0.0, param_atol=2e-5)
 BF16 = dict(loss_rtol=0.0, loss_atol=5e-2, param_atol=2e-3)
@@ -355,14 +356,76 @@ def test_cli_trains_evaluates_and_resumes(tmp_path):
 
 @pytest.mark.parametrize("flag", [["--n-model", "2"], ["--profile-dir", "x"],
                                   ["--tensorboard-dir", "x"]])
-def test_cli_refuses_what_is_not_ported(flag):
+def test_cli_refuses_what_is_not_ported(flag, tmp_path, monkeypatch, capsys):
+    """Every flag of the JAX CLI is ported: one process cannot hold a model
+    axis of 2; ``--profile-dir`` writes a trace of the first chunk;
+    ``--tensorboard-dir`` names the package it misses when neither
+    TensorBoard writer is installed, and streams the scalars through one
+    when it is (a stub ``SummaryWriter`` here)."""
+    import json
+    import sys
+    import types
+
     from crossclr_tpu_torch import train
 
-    # the model axis is ported: one process cannot hold a model axis of 2
-    match = ("1 ranks not divisible by model axis 2" if flag[0] == "--n-model"
-             else "not ported")
-    with pytest.raises(SystemExit, match=match):
-        train.main([*flag, *CLI_ARGS])
+    if flag[0] == "--n-model":
+        with pytest.raises(SystemExit, match="1 ranks not divisible by model axis 2"):
+            train.main([*flag, *CLI_ARGS])
+        return
+    args = ["--steps", "10", *CLI_ARGS, f"checkpoint_dir={tmp_path / 'ckpt'}"]
+    if flag[0] == "--profile-dir":
+        trace_dir = tmp_path / "trace"
+        assert train.main(["--profile-dir", str(trace_dir), *args]) == 0
+        (trace,) = trace_dir.glob("*.pt.trace.json")
+        names = {e.get("name") for e in json.loads(trace.read_text())["traceEvents"]}
+        assert any(str(n).startswith("aten::") for n in names)
+        return
+    for name in ("tensorboardX", "tensorboard"):
+        monkeypatch.setitem(sys.modules, name, None)  # neither installed
+    with pytest.raises(SystemExit, match="neither tensorboardX nor tensorboard"):
+        train.main(["--tensorboard-dir", str(tmp_path / "tb"), *args])
+
+    scalars = []
+
+    class SummaryWriter:
+        def __init__(self, logdir):
+            self.logdir = logdir
+
+        def add_scalar(self, key, value, step):
+            scalars.append((key, value, step))
+
+        def flush(self):
+            pass
+
+        def close(self):
+            pass
+
+    monkeypatch.setitem(sys.modules, "tensorboardX",
+                        types.SimpleNamespace(SummaryWriter=SummaryWriter))
+    assert train.main(["--tensorboard-dir", str(tmp_path / "tb"), *args]) == 0
+    steps = {step for key, _, step in scalars if key == "eval/v2t/R@1"}
+    assert steps == {10}
+    assert {step for key, _, step in scalars if key == "loss"} == {5, 10}
+    assert all(np.isfinite(v) for _, v, _ in scalars)
+
+
+def test_save_config_round_trips(tmp_path, capsys):
+    """``--save-config`` writes the resolved config and exits; it loads back
+    equal in both packages."""
+    from crossclr_tpu.utils import config as jconfig
+    from crossclr_tpu_torch import train
+    from crossclr_tpu_torch.utils import config as tconfig
+
+    path = tmp_path / "cfg.json"
+    assert train.main(["--save-config", str(path), "--steps", "7", *CLI_ARGS]) == 0
+    assert f"wrote {path}" in capsys.readouterr().out
+    cfg = tconfig.load_config(path)
+    assert cfg == tconfig.apply_overrides(tconfig.ExperimentConfig(),
+                                          CLI_ARGS[2:] + ["train.total_steps=7"])
+    tconfig.save_config(cfg, tmp_path / "again.json")
+    assert (tmp_path / "again.json").read_text() == path.read_text()
+    jcfg = jconfig.load_config(path)
+    assert jcfg.train.total_steps == 7 and jcfg.video_tower.hidden_dim == 32
 
 
 @pytest.mark.parametrize("learnable", [False, True])

@@ -29,6 +29,7 @@ from crossclr_tpu_torch.data import SyntheticPairs, epoch_batches, infinite_batc
 from crossclr_tpu_torch.models.encoders import DualEncoder, TowerConfig
 from crossclr_tpu_torch.training import CheckpointManager, TrainConfig, Trainer
 from crossclr_tpu_torch.utils.params import state_dict_from_flax
+from tests.torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 BASE = dict(learning_rate=1e-3, warmup_steps=2, total_steps=20, temperature=0.1)
 STEPS = 5
