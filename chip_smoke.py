@@ -614,6 +614,11 @@ SHARD_QUERIES, SHARD_K = 64, 16
 SHARD_SEED = 71
 SHARD_REPS = 10
 SHARD_INT8_ROWS = 65_536
+# dense retrieve_topk (lax.top_k's tie order: evaluation.topk's two
+# passes) against the same search through torch.topk of the fp32 scores, on the
+# whole SHARD_BIG index at these query counts, in turns
+TOPK_QUERIES = (64, 1024)
+TOPK_REPS = 4
 EVAL_MEAN_TOL = 1e-6
 # the profile phase: the transformer leg for PROFILE_STEPS one-step
 # dispatches under --profile-dir; the trace's kernel events must name these
@@ -2583,6 +2588,60 @@ def shard_worker(spec_path: Path) -> int:
     return 0
 
 
+def topk_cost(whole, gen) -> list[str]:
+    """What ``retrieve_topk``'s tie order costs at corpus scale: the dense
+    search of TOPK_QUERIES queries on the whole SHARD_BIG index (its
+    ``topk``: the k-th score, then int32 words that rank ties by
+    position) against the same search with ``torch.topk`` of the fp32
+    scores (ties in no set order), in turns (ours, plain, plain, ours,
+    ...; one warm-up each), ms a search by CUDA-synchronized wall clock,
+    and the peak memory each allocates on top of the index.  The scores
+    must be equal, and tie groups straddling the k-th score must come
+    out in ``lax.top_k``'s order on the card."""
+    from crossclr_tpu_torch.evaluation import retrieve_topk, topk
+    from crossclr_tpu_torch.losses.functional import l2_normalize
+
+    ties = torch.tensor([[1.0, -0.0, 0.0, 3.0, 3.0, float("-inf"), -2.5, 3.0, 1.0]],
+                        device="cuda")
+    check(topk(ties, 6)[1].tolist() == [[3, 4, 7, 0, 8, 1]],
+          f"topk's order of ties on the card: {topk(ties, 6)[1].tolist()}")
+
+    def plain(q, c, k, chunk=1024):  # retrieve_topk with torch.topk
+        q, c = l2_normalize(q, dim=1), l2_normalize(c, dim=1)
+        s, i = zip(*(torch.topk(q[a:a + chunk] @ c.T, k)
+                     for a in range(0, q.shape[0], chunk)))
+        return torch.cat(s), torch.cat(i)
+
+    lines = []
+    for nq in TOPK_QUERIES:
+        q = torch.randn((nq, whole.shape[1]), generator=gen, device="cuda")
+        ms = {"ours": [], "plain": []}
+        peak, res = {}, {}
+        for rep in range(TOPK_REPS + 1):
+            for name in (("ours", "plain") if rep % 2 == 0 else ("plain", "ours")):
+                fn = retrieve_topk if name == "ours" else plain
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                base = torch.cuda.memory_allocated()
+                t0 = time.perf_counter()
+                res[name] = fn(q, whole, k=SHARD_K)
+                torch.cuda.synchronize()
+                if rep:
+                    ms[name].append((time.perf_counter() - t0) * 1e3)
+                peak[name] = (torch.cuda.max_memory_allocated() - base) / 2**30
+        check(torch.equal(res["ours"][0], res["plain"][0]),
+              f"retrieve_topk at {nq} queries: scores differ from torch.topk's")
+        same = float((res["ours"][1] == res["plain"][1]).all(dim=1).float().mean())
+        lines.append(
+            f"dense retrieve_topk, {nq} queries x {whole.shape[0]} x {whole.shape[1]} "
+            f"fp32, k={SHARD_K}: {statistics.median(ms['ours']):.2f} ms a search, peak "
+            f"{peak['ours']:.2f} GiB over the index; the same search through "
+            f"torch.topk {statistics.median(ms['plain']):.2f} ms, peak "
+            f"{peak['plain']:.2f} GiB (medians of {TOPK_REPS} in turns; scores "
+            f"equal, indices equal in {same:.4f} of the rows)")
+    return lines
+
+
 def shard_phase(fa, smi: str, tmp: Path, aot: dict) -> dict:
     """The row-sharded index on SHARD_RANKS gloo ranks sharing cuda:0
     (``--shard-worker`` children, host-staged as the dp, ring and tp
@@ -2594,8 +2653,8 @@ def shard_phase(fa, smi: str, tmp: Path, aot: dict) -> dict:
     process (R@K equal, MdR and MnR within EVAL_MEAN_TOL, the top-k dump's
     indices equal); ``sharded_retrieve_topk`` on SHARD_BIG fp32 rows
     against dense ``retrieve_topk``, timed; then a one-rank NCCL group's
-    sharded search bit for bit with the dense one.  Returns kernel 1's
-    launches in the ranks."""
+    sharded search bit for bit with the dense one, and :func:`topk_cost`.
+    Returns kernel 1's launches in the ranks."""
     import numpy as np
     import torch.distributed as dist
 
@@ -2686,9 +2745,10 @@ def shard_phase(fa, smi: str, tmp: Path, aot: dict) -> dict:
                   f"one NCCL rank {tag}: not the dense search bit for bit")
     finally:
         dist.destroy_process_group()
-    del whole
     lines.append(f"one NCCL rank: sharded_retrieve_topk bit for bit with "
                  f"retrieve_topk (fp32 {n} x {d}, int8 {SHARD_INT8_ROWS} x {d})")
+    lines += topk_cost(whole, gen)
+    del whole
     for line in lines:  # each carries the card's name and power limit
         log("shard", f"{line} ({smi})")
     log("shard", f"the phase took {time.perf_counter() - t_phase:.1f} s; kernel 1 "

@@ -127,12 +127,12 @@ def _evaluate(args, device, group) -> int:
     from .data import RowSubset, dataset_from_config, train_eval_split
     from .evaluation import (
         gather_row_blocks,
+        pad_block,
         retrieval_metrics,
         retrieve_topk,
         row_block,
         sharded_retrieve_topk,
     )
-    from .evaluation.retrieval import _pad_rows
     from .training import CheckpointManager, Trainer
     from .utils.config import ExperimentConfig, apply_overrides, load_config
 
@@ -228,7 +228,7 @@ def _evaluate(args, device, group) -> int:
                 scores, idx = retrieve_topk(q, v_emb if text else t_emb,
                                             k=args.topk)
             else:  # the gathered queries against this rank's rows
-                c_loc = _pad_rows(v_loc if text else t_loc, -(-n // world))
+                c_loc = pad_block(v_loc if text else t_loc, n, group)
                 scores, idx = sharded_retrieve_topk(q, c_loc, k=args.topk,
                                                     group=group, n_real=n)
         if args.topk_output and lead:

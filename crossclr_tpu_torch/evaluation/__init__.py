@@ -4,6 +4,9 @@ from .retrieval import (
     QuantizedCorpus,
     encode_corpus,
     gather_row_blocks,
+    local_candidates,
+    merge_candidates,
+    pad_block,
     quantize_corpus,
     rank_of_ground_truth,
     retrieval_metrics,
@@ -19,6 +22,9 @@ __all__ = [
     "QuantizedCorpus",
     "encode_corpus",
     "gather_row_blocks",
+    "local_candidates",
+    "merge_candidates",
+    "pad_block",
     "quantize_corpus",
     "rank_of_ground_truth",
     "retrieval_metrics",

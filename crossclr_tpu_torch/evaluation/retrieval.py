@@ -12,8 +12,8 @@ to the lowest index.
 The row-sharded index spans the ranks of a ``torch.distributed`` group in
 place of the JAX package's mesh axis: rank r keeps rows ``[r·per,
 (r+1)·per)`` of the corpus, ``per = ceil(N / P)``, zero-padded to ``per``
-(:func:`shard_corpus`).  :func:`sharded_retrieve_topk` merges O(k)
-winners a rank; ``retrieval_metrics(group=)`` sums partial rank counts.
+(:func:`pad_block`, :func:`shard_corpus`).  :func:`sharded_retrieve_topk`
+merges O(k) winners a rank; ``retrieval_metrics(group=)`` sums partial rank counts.
 On a gloo group, CUDA tensors are staged through host memory.
 """
 
@@ -32,6 +32,9 @@ __all__ = [
     "QuantizedCorpus",
     "encode_corpus",
     "gather_row_blocks",
+    "local_candidates",
+    "merge_candidates",
+    "pad_block",
     "quantize_corpus",
     "rank_of_ground_truth",
     "retrieval_metrics",
@@ -207,23 +210,36 @@ def retrieval_metrics(video_emb: torch.Tensor, text_emb: torch.Tensor,
 
 def topk(scores: torch.Tensor, k: int, index: torch.Tensor | None = None):
     """The ``k`` largest fp32 ``scores`` along the last dimension in
-    ``lax.top_k``'s order: descending, exact ties to the lowest index
+    ``lax.top_k``'s order: descending, exact ties to the lowest position
     (``torch.topk`` leaves the order of ties unspecified).  ``index``: each
-    column's index (int64 below 2³¹, broadcast against ``scores``; default
-    its position).  Each score becomes an int64 key whose high word is the
-    score's order-preserving int32 image and whose low word is ``2³² − 1 −
-    index``, so all keys differ and one ``torch.topk`` of them is the
-    order.  Returns ``(scores fp32, indices int64)``."""
-    s = scores.float() + 0.0  # -0.0 ties +0.0, as in a float comparison
-    bits = s.view(torch.int32)
-    ordered = bits ^ ((bits >> 31) & 0x7FFFFFFF)  # negatives: the rest flipped
-    low = ~(torch.arange(s.shape[-1], dtype=torch.int32, device=s.device)
-            if index is None else index.to(torch.int32))
-    # little-endian words (low, high) of one int64: high · 2³² + low unsigned
-    key = torch.stack([low.expand_as(bits), ordered], dim=-1).view(torch.int64)[..., 0]
-    pos = torch.topk(key, k, dim=-1).indices
-    return (s.gather(-1, pos),
-            pos if index is None else index.expand_as(s).gather(-1, pos))
+    column's index, returned in place of its position (broadcast against
+    ``scores``); it must rise with the position among equal scores, as a
+    block's global rows do, and the merge's candidates (each rank's in
+    this order, rank by rank).
+
+    One ``torch.topk`` finds the k-th largest score ``t``; a second ranks
+    int32 words, ``2³¹ − 1`` above ``t``, ``−position`` at ``t`` and
+    ``−2³¹`` below, so a score tied with ``t`` outside the first k still
+    wins on position; the k picked are put in order by two sorts of
+    ``[.., k]``.  The word is the only temporary as large as ``scores``,
+    with a one-byte mask.  Returns ``(scores fp32, indices int64)``."""
+    s = scores.float()
+    t = torch.topk(s, k, dim=-1, sorted=False).values.amin(dim=-1, keepdim=True)
+    at = s == t
+    pos = torch.arange(s.shape[-1], dtype=torch.int32, device=s.device)
+    word = torch.where(at, -pos, torch.iinfo(torch.int32).min)
+    del at
+    above = s > t
+    word.masked_fill_(above, torch.iinfo(torch.int32).max)
+    del above
+    picked = torch.topk(word, k, dim=-1, sorted=False).indices
+    del word
+    picked = picked.sort(dim=-1).values  # ties in position order ...
+    vals = s.gather(-1, picked)
+    order = vals.sort(dim=-1, descending=True, stable=True).indices  # ... kept
+    picked = picked.gather(-1, order)
+    return (vals.gather(-1, order),
+            picked if index is None else index.expand_as(s).gather(-1, picked))
 
 
 def _similarity(query_emb: torch.Tensor, corpus_emb):
@@ -312,36 +328,79 @@ def _pad_rows(x: torch.Tensor, rows: int) -> torch.Tensor:
     return out
 
 
+def pad_block(local, n: int, group=None):
+    """This rank's :func:`row_block` of an ``n``-row index (a tensor, or a
+    :class:`QuantizedCorpus`) zero-padded to ``ceil(n / P)`` rows, the
+    block shape every rank of ``group`` holds; a padded int8 row has value
+    0 and scale 0.  ``group``: default the default group."""
+    per = -(-n // dist.get_world_size(group))
+    if isinstance(local, QuantizedCorpus):
+        return QuantizedCorpus(_pad_rows(local.values, per), _pad_rows(local.scales, per))
+    return _pad_rows(local, per)
+
+
 def gather_row_blocks(x_loc: torch.Tensor, n: int, group) -> torch.Tensor:
     """Every rank's :func:`row_block` of ``n`` rows, joined in row order on
-    every rank: each block padded to ``ceil(n / P)`` rows, all-gathered and
+    every rank: each block padded (:func:`pad_block`), all-gathered and
     cut to ``n`` (only the last blocks are short, so the real rows come
     first)."""
     world = dist.get_world_size(group)
-    per = -(-n // world)
-    return _all_gather(_pad_rows(x_loc, per), group).reshape(world * per, -1)[:n]
+    return _all_gather(pad_block(x_loc, n, group), group).reshape(
+        world * -(-n // world), -1)[:n]
 
 
-def shard_corpus(corpus_emb, group=None, *, device=None):
-    """This rank's :func:`row_block` of a whole corpus (``[N, D]`` array or
-    tensor, or a :class:`QuantizedCorpus`), zero-padded to ``ceil(N/P)``
-    rows so every rank holds one block shape; a padded int8 row has value
-    0 and scale 0.  The block is cut on the host side of a host corpus and
-    moved to ``device`` alone (default: the corpus' device, the CPU for a
-    host array), so no device ever holds the whole index.  ``group``:
-    default the default group."""
+def shard_corpus(corpus_emb, group=None):
+    """This rank's :func:`pad_block` of a whole corpus (``[N, D]`` array or
+    tensor, or a :class:`QuantizedCorpus`), on the corpus' device (the CPU
+    for a host array).  ``group``: default the default group."""
     rank, world = _rank_world(group)
     n = _corpus_rows(corpus_emb)
-    per = -(-n // world)
-    lo, hi = row_block(n, rank, world)
+    rows = slice(*row_block(n, rank, world))
 
-    def block(x):
-        x = x if isinstance(x, torch.Tensor) else torch.from_numpy(np.asarray(x))
-        return _pad_rows(x[lo:hi], per).to(device or x.device)
+    def cut(x):
+        return (x if isinstance(x, torch.Tensor) else torch.from_numpy(np.asarray(x)))[rows]
 
     if isinstance(corpus_emb, QuantizedCorpus):
-        return QuantizedCorpus(block(corpus_emb.values), block(corpus_emb.scales))
-    return block(corpus_emb)
+        return pad_block(QuantizedCorpus(*map(cut, corpus_emb)), n, group)
+    return pad_block(cut(corpus_emb), n, group)
+
+
+def local_candidates(query_emb: torch.Tensor, corpus_emb, *, k: int,
+                     group=None, n_real: int | None = None,
+                     query_chunk: int = 1024):
+    """This rank's half of :func:`sharded_retrieve_topk`, with no
+    collective: the queries scored against this rank's :func:`pad_block`,
+    padded rows (global index ``>= n_real``, default every row) masked to
+    −inf, and the local top ``min(k, rows_per)`` kept with their global
+    indices.  ``k``: already clamped to ``n_real``.  Returns ``(scores
+    [Nq, k_loc], global indices [Nq, k_loc])`` for
+    :func:`merge_candidates`."""
+    rank, world = _rank_world(group)
+    rows_per = _corpus_rows(corpus_emb)
+    n_real = rows_per * world if n_real is None else int(n_real)
+    q, sim = _similarity(query_emb, corpus_emb)
+    gidx = rank * rows_per + torch.arange(rows_per, device=q.device)
+    real = gidx < n_real
+    k_loc = min(k, rows_per)
+    scores, idx = [], []
+    for start in range(0, max(q.shape[0], 1), query_chunk):
+        block = torch.where(real, sim(slice(start, start + query_chunk)), float("-inf"))
+        s, i = topk(block, k_loc, gidx)
+        scores.append(s)
+        idx.append(i)
+    return torch.cat(scores), torch.cat(idx)
+
+
+def merge_candidates(scores: torch.Tensor, gidx: torch.Tensor, *, k: int, group=None):
+    """Every rank's :func:`local_candidates` all-gathered (only these O(k)
+    winners a query cross ``group``) and re-ranked by :func:`topk`, so
+    exact ties resolve to the lowest global index.  Every rank returns
+    ``(scores [Nq, k], indices [Nq, k])``."""
+    nq, k_loc = scores.shape
+    world = dist.get_world_size(group)
+    s_all = _all_gather(scores, group).movedim(0, 1).reshape(nq, world * k_loc)
+    g_all = _all_gather(gidx, group).movedim(0, 1).reshape(nq, world * k_loc)
+    return topk(s_all, k, g_all)
 
 
 def sharded_retrieve_topk(query_emb: torch.Tensor, corpus_emb, *, k: int = 10,
@@ -349,34 +408,17 @@ def sharded_retrieve_topk(query_emb: torch.Tensor, corpus_emb, *, k: int = 10,
                           query_chunk: int = 1024):
     """:func:`retrieve_topk` over an index row-sharded across ``group``
     (default the default group), from this rank's :func:`shard_corpus`
-    block; every rank passes the same queries.  Each rank scores its rows,
-    masks its padded rows (global index ``>= n_real``, default every row)
-    to −inf, keeps a local top ``min(k, rows_per)`` with the global
-    indices, and all-gathers only those O(k) winners; the ``P·k_loc``
-    candidates are re-ranked by :func:`topk`, so exact ties resolve to the
-    lowest global index, as on the whole index.  No rank's top-k can hold
-    more than ``min(k, rows_per)`` of the global top-k, so the merge loses
-    nothing.  Every rank returns ``(scores [Nq, k], indices [Nq, k])``."""
-    rank, world = _rank_world(group)
-    rows_per = _corpus_rows(corpus_emb)
-    n_real = rows_per * world if n_real is None else int(n_real)
-    q, sim = _similarity(query_emb, corpus_emb)
-    k = min(k, n_real)
-    k_loc = min(k, rows_per)
-    gidx = rank * rows_per + torch.arange(rows_per, device=q.device)
-    real = gidx < n_real
-    scores, idx = [], []
-    for start in range(0, max(q.shape[0], 1), query_chunk):
-        block = sim(slice(start, start + query_chunk))
-        block = torch.where(real, block, float("-inf"))
-        s_loc, g_loc = topk(block, k_loc, gidx)
-        nq = s_loc.shape[0]
-        s_all = _all_gather(s_loc, group).movedim(0, 1).reshape(nq, world * k_loc)
-        g_all = _all_gather(g_loc, group).movedim(0, 1).reshape(nq, world * k_loc)
-        s, i = topk(s_all, k, g_all)
-        scores.append(s)
-        idx.append(i)
-    return torch.cat(scores), torch.cat(idx)
+    block; every rank passes the same queries.  Each rank keeps its local
+    top ``min(k, rows_per)`` (:func:`local_candidates`) and the ``P·k_loc``
+    candidates are merged (:func:`merge_candidates`).  No rank's top-k can
+    hold more than ``min(k, rows_per)`` of the global top-k, so the merge
+    loses nothing.  Every rank returns ``(scores [Nq, k], indices [Nq,
+    k])``."""
+    rows = _corpus_rows(corpus_emb) * dist.get_world_size(group)
+    k = min(k, rows if n_real is None else int(n_real))
+    cands = local_candidates(query_emb, corpus_emb, k=k, group=group,
+                             n_real=n_real, query_chunk=query_chunk)
+    return merge_candidates(*cands, k=k, group=group)
 
 
 def _sharded_metrics(video_loc, text_loc, ks, query_chunk: int, group) -> dict:
@@ -397,7 +439,7 @@ def _sharded_metrics(video_loc, text_loc, ks, query_chunk: int, group) -> dict:
     for tag, q_loc, c_loc in (("v2t", video_loc, text_loc),
                               ("t2v", text_loc, video_loc)):
         q = gather_row_blocks(l2_normalize(q_loc.float(), dim=1), n, group)
-        c = _pad_rows(l2_normalize(c_loc.float(), dim=1), per)
+        c = pad_block(l2_normalize(c_loc.float(), dim=1), n, group)
         partial = []
         for start in range(0, n, chunk):
             sim = torch.matmul(q[start:start + chunk], c.T)

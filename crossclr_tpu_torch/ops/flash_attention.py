@@ -459,7 +459,8 @@ def _(q, k, v, mask, scale, dropout_rate, dropout_seed, q_offset, k_offset,
 
 @_flash_fwd_op.register_fake
 def _(q, k, v, mask, scale, *_):
-    return torch.empty_like(q), q.new_empty(q.shape[:3], dtype=torch.float32)
+    # contiguous, as both implementations return them, whatever q's strides
+    return q.new_empty(q.shape), q.new_empty(q.shape[:3], dtype=torch.float32)
 
 
 def _flash_fwd(q, k, v, mask, scale, drop):

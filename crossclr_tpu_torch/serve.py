@@ -35,9 +35,11 @@ with no config, model code or checkpoint; /reload is refused.
 (r+1)·per)`` (``evaluation.row_block``), rank 0 alone listens, and every
 search is one dispatch of all ranks: rank 0 broadcasts a header (the
 operation, the query shape, whether a mask comes, k) and the queries,
-each rank encodes them and keeps its top-k, and the O(k) winners are
-merged (``evaluation.sharded_retrieve_topk``).  /reload restores and
-re-encodes on every rank; SIGTERM on rank 0 stops every rank.
+each rank encodes them and keeps its top-k, every rank votes that it
+did, and the O(k) winners are merged (``evaluation.local_candidates``,
+``merge_candidates``); a search that fails on any rank fails on all of
+them, and each keeps serving.  /reload restores and re-encodes on every
+rank; SIGTERM on rank 0 stops every rank.
 
 Example:
   python -m crossclr_tpu_torch.serve --config configs/lsmdc_transformer.json \\
@@ -181,8 +183,7 @@ class RetrievalService(_ServiceStats):
         (``evaluation.quantize_corpus``).  A sharded index is this rank's
         rows zero-padded to ``ceil(corpus_rows / P)`` (a padded int8 row
         has value 0 and scale 0)."""
-        from .evaluation import QuantizedCorpus, quantize_corpus
-        from .evaluation.retrieval import _pad_rows
+        from .evaluation import pad_block, quantize_corpus
         from .training.trainer import to_tensor
 
         dev = self.trainer.device
@@ -191,12 +192,9 @@ class RetrievalService(_ServiceStats):
         else:
             index = to_tensor(corpus_emb, dev if self.group is None else "cpu",
                               self.corpus_dtype)
-        if self.group is None:
-            return index.to(dev)
-        per = -(-self.corpus_rows // dist.get_world_size(self.group))
-        if isinstance(index, QuantizedCorpus):
-            return QuantizedCorpus(*(_pad_rows(x, per) for x in index)).to(dev)
-        return _pad_rows(index, per).to(dev)
+        if self.group is not None:
+            index = pad_block(index, self.corpus_rows, self.group)
+        return index.to(dev)
 
     def reload(self, step: int | None = None) -> int:
         """Swap in the latest (or the given) checkpoint without restarting:
@@ -281,18 +279,35 @@ class RetrievalService(_ServiceStats):
             return self._search_here(features, mask, k)
 
     def _search_here(self, features, mask, k: int):
-        from .evaluation import retrieve_topk, sharded_retrieve_topk
+        """This rank's part of a search, under the lock.  Sharded, every
+        rank votes before the merge, so an error on any rank (an encode
+        or a score block out of memory) raises on every rank and each of
+        them keeps serving."""
+        from .evaluation import local_candidates, merge_candidates, retrieve_topk
 
-        q = self.trainer.encode_modality(
-            self.state, self.query_side, features, mask
-        )
-        with torch.inference_mode():
+        try:
+            q = self.trainer.encode_modality(
+                self.state, self.query_side, features, mask
+            )
+            with torch.inference_mode():
+                if self.group is None:
+                    scores, idx = retrieve_topk(q, self.corpus_emb, k=k)
+                    return scores.cpu().numpy(), idx.cpu().numpy()
+                cands = local_candidates(q, self.corpus_emb, k=k, group=self.group,
+                                         n_real=self.corpus_rows)
+            err = None
+        except Exception as e:  # noqa: BLE001 — every rank must vote
             if self.group is None:
-                scores, idx = retrieve_topk(q, self.corpus_emb, k=k)
-            else:
-                scores, idx = sharded_retrieve_topk(
-                    q, self.corpus_emb, k=k, group=self.group,
-                    n_real=self.corpus_rows)
+                raise
+            err = e
+        failed = torch.tensor([int(err is not None)])
+        dist.all_reduce(failed, group=self._host_group())
+        if err is not None:
+            raise err
+        if int(failed):
+            raise RuntimeError("search failed on another rank")
+        with torch.inference_mode():
+            scores, idx = merge_candidates(*cands, k=k, group=self.group)
         return scores.cpu().numpy(), idx.cpu().numpy()
 
     # -- the sharded dispatch ------------------------------------------------
@@ -347,8 +362,11 @@ class RetrievalService(_ServiceStats):
                     mask = torch.empty((b, s))
                     dist.broadcast(mask, 0, group=group)
                 with self._lock:
-                    self._search_here(features.numpy(),
-                                      None if mask is None else mask.numpy(), arg)
+                    try:
+                        self._search_here(features.numpy(),
+                                          None if mask is None else mask.numpy(), arg)
+                    except Exception as e:  # noqa: BLE001 — rank 0 reports
+                        print(f"search failed: {e}", file=sys.stderr)
 
     def start_keepalive(self, interval: float = KEEPALIVE_SECONDS) -> None:
         """Rank 0 of a sharded service: send a no-op whenever ``interval``

@@ -415,3 +415,20 @@ def test_exported_graph_holds_the_flash_operator(seq):
     xla = _service(apply_overrides(_seq_cfg(), ["text_tower.attention=xla"]))
     blob, _, _ = export_search(xla, k=3, query_shape=(4, 16))
     assert b"crossclr.flash_fwd" not in blob
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_flash_operator_fake_matches_its_cpu_implementation(masked):
+    """``torch.library.opcheck`` of ``crossclr::flash_fwd`` on the
+    ``[B, S, H, Dh] -> [B, H, S, Dh]`` transpose view the towers hand it
+    under no-grad: the fake implementation's shapes, dtypes and strides
+    are the real (contiguous) outputs', for the batch the export makes
+    symbolic too."""
+    import crossclr_tpu_torch.ops  # noqa: F401  (registers the operator)
+
+    g = torch.Generator().manual_seed(0)
+    q, k, v = (torch.randn(2, 5, 2, 8, generator=g).transpose(1, 2) for _ in range(3))
+    assert not q.is_contiguous()
+    mask = (torch.arange(5) < torch.tensor([[5], [3]])).float() if masked else None
+    torch.library.opcheck(torch.ops.crossclr.flash_fwd.default,
+                          (q, k, v, mask, 8 ** -0.5, 0.0, 0, 0, 0, 0, 2, 0))

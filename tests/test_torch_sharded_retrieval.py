@@ -137,6 +137,20 @@ def _rank_index(rank: int, world: int) -> dict:
     return out
 
 
+def _fail_twice(svc, rank: int, world: int) -> None:
+    """The service's first search fails in the last rank's encode, its
+    second in rank 0's, as a batch out of device memory would."""
+    encode, calls = svc.trainer.encode_modality, []
+
+    def failing(*args, **kw):
+        calls.append(None)
+        if (len(calls), rank) in ((1, world - 1), (2, 0)):
+            raise RuntimeError(f"injected failure on rank {rank}")
+        return encode(*args, **kw)
+
+    svc.trainer.encode_modality = failing
+
+
 def _rank_serve(rank: int, world: int, shared: Path) -> dict:
     """The sharded service through build_service (fp32 and int8, encoded
     and precomputed index), then through main() over HTTP with /reload
@@ -151,9 +165,18 @@ def _rank_serve(rank: int, world: int, shared: Path) -> dict:
         svc = tserve.build_service(cfg, None, "video", random_params=True,
                                    device="cpu", shard_corpus=True, **kw)
         assert svc.corpus_rows == 48
+        if name == "fp32":
+            _fail_twice(svc, rank, world)
         if rank:
             svc.follow()
             continue
+        if name == "fp32":  # two searches that fail, then the good ones
+            failed = []
+            for _ in range(2):
+                with pytest.raises(RuntimeError) as err:
+                    svc.search(q, k=3)
+                failed.append(str(err.value))
+            out["serve/failed"] = failed
         out[f"serve/{name}"] = {k: svc.search(q, k=k) for k in SERVE_KS}
         out[f"serve/{name}/k0"] = svc.search(q, k=0)
         svc.close()
@@ -444,6 +467,17 @@ def test_shard_corpus_service_matches_single_device(world, name):
     assert ranks[0][f"serve/{name}/k0"] == plain.search(q, k=0)
 
 
+def test_shard_corpus_service_survives_failed_searches(world):
+    """A search that fails on a following rank, then one that fails on
+    rank 0, raise on rank 0 and leave every rank serving: the searches
+    after them (``test_shard_corpus_service_matches_single_device``'s
+    fp32 answers) still equal one process's."""
+    _, ranks, _ = world
+    assert ranks[0]["serve/failed"] == ["search failed on another rank",
+                                        "injected failure on rank 0"]
+    assert "serve/fp32" in ranks[0]
+
+
 def test_shard_corpus_cli_reloads_and_stops_on_sigterm(world):
     """``serve --shard-corpus`` over HTTP: searches equal one process's,
     /reload restores step 1 on every rank (a missing step is refused, the
@@ -522,12 +556,32 @@ def test_retrieve_topk_breaks_exact_ties_as_jax(index):
 
 
 def test_topk_order_key_decodes_scores_exactly():
-    """``evaluation.topk``'s int64 keys give back the scores bit for bit,
-    negative ones, −inf and ties of +0 and −0 included."""
+    """``evaluation.topk`` gives back the scores bit for bit in
+    ``lax.top_k``'s order, negative ones, −inf and ties of +0 and −0
+    included."""
     s = torch.tensor([[0.5, -0.0, -1.5, float("-inf"), 0.0, 0.5, -1e-30, 3e38]])
     got_s, got_i = tev.topk(s, 8)
     assert got_i.tolist() == [[7, 0, 5, 1, 4, 6, 2, 3]]
-    assert torch.equal(got_s, s[0, got_i[0]][None] + 0.0)
+    assert torch.equal(got_s.view(torch.int32), s[0, got_i[0]][None].view(torch.int32))
+
+
+@pytest.mark.parametrize("k", [1, 7, 10, 33])
+def test_topk_ties_across_the_kth_score_match_jax(k):
+    """Scores drawn from a few values, so tie groups straddle the k-th
+    score and are larger than k: ``evaluation.topk`` picks and orders as
+    ``lax.top_k`` does, with and without an index."""
+    import jax
+
+    rng = np.random.default_rng(14 + k)
+    s = rng.integers(-3, 4, size=(6, 300)).astype(np.float32) / 4
+    s[0] = 0.25  # 300 equally close rows: one tie group
+    want_s, want_i = jax.lax.top_k(s, k)
+    got_s, got_i = tev.topk(torch.from_numpy(s), k)
+    np.testing.assert_array_equal(got_i.numpy(), np.asarray(want_i))
+    np.testing.assert_array_equal(got_s.numpy(), np.asarray(want_s))
+    index = 1000 + 3 * torch.arange(300)
+    np.testing.assert_array_equal(tev.topk(torch.from_numpy(s), k, index)[1].numpy(),
+                                  1000 + 3 * np.asarray(want_i))
 
 
 def test_encode_corpus_matches_jax():
