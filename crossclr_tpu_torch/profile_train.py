@@ -3,19 +3,21 @@
 Builds the trainer of ``train.py`` from a config plus overrides (no eval,
 no checkpoints), warms it up with ``--warmup`` steps, then measures:
 
-* a synchronised split of single steps (median of ``--repeats``) on the
-  train CLI's data path (``data.train_stream`` at ``train.chunk_steps``):
-  the consumer's wait for the next batch (with stacked chunks, at a
-  chunk's first step only; ``wait_mean`` is its mean per step), the
-  step's inputs (a chunk's batch indexed, an int8 batch dequantized), towers
-  forward, loss forward, backward (under ``train.embedding_chunk``: the
-  two-pass step's pass 1, pass 2 and pass 3), the optimizer update
-  (``Trainer.apply_grads``: AdamW, the clamp and the EMA) and the whole
-  step; beside it the prefetch worker's gather and host→device copy (its
-  stream's events) of the batches drawn meanwhile;
+* a split of single steps (median of ``--repeats``), each from a
+  synchronised start, on the train CLI's data path (``data.train_stream``
+  at ``train.chunk_steps``): the consumer's wait for the next batch (with
+  stacked chunks, at a chunk's first step only; ``wait_mean`` is its mean
+  per step), then the spans ``Trainer.train_step`` records under
+  ``utils.profiling.recording``, host and device ms: the step's inputs (a
+  chunk's batch indexed, an int8 batch dequantized), the towers' forward,
+  the loss, the backward (under ``train.embedding_chunk``: the two-pass
+  step's passes 1, 2 and 3), the optimizer (``Trainer.apply_grads``:
+  AdamW, the clamp and the EMA) and the whole step; beside it the
+  prefetch worker's gather and host→device copy (its stream's events) of
+  the batches drawn meanwhile;
 * the same split on the serial pageable path, for comparison: the host
-  gather (``data.infinite_batches``) and the pageable copy on the step's
-  own thread;
+  gather (``data.infinite_batches``), the pageable copy in the step's
+  inputs;
 * one ``Trainer.fit`` of ``--steps`` steps on the train CLI's path under
   ``torch.profiler``: its wall time and pairs/s, the device's busy share
   (the union of the device events' intervals over the wall time), the
@@ -23,8 +25,7 @@ no checkpoints), warms it up with ``--warmup`` steps, then measures:
   device time.
 
 Each line carries nvidia-smi's name and power limit on a CUDA device;
-``--out`` also writes the numbers as JSON.  The split re-times the pieces
-of ``Trainer.train_step`` one by one and must follow it when that changes.
+``--out`` also writes the numbers as JSON.
 
 Examples (the training slices of chip_smoke.py):
   python -m crossclr_tpu_torch.profile_train --config configs/youcook2_mlp.json \\
@@ -76,65 +77,51 @@ def _sync(device: torch.device) -> None:
 
 def split_step(trainer, state, batches, repeats: int,
                stacked: bool = False) -> dict[str, float]:
-    """Median ms of each part of ``Trainer.train_step`` over ``repeats``
-    synchronised steps (the parts in its order): the batch (from a
-    ``DevicePrefetcher``: the consumer's ``wait`` and the step's
-    ``inputs``, with the worker's ``worker_gather`` and ``worker_h2d`` of
-    the batches it drew meanwhile; else the serial ``gather`` and pageable
-    ``h2d``), one pass (towers forward, loss forward, backward), or under
-    ``embedding_chunk`` the two-pass step's passes 1, 2 (the loss and its
-    embedding gradients) and 3.  ``stacked``: ``batches`` yields
-    ``[n, B, ...]`` chunks, drawn every ``n`` steps."""
+    """Median ms of each part of ``repeats`` calls of ``Trainer.train_step``,
+    each from a synchronised start, in order: the batch (from a
+    ``DevicePrefetcher``: the consumer's ``wait``, with the worker's
+    ``worker_gather`` and ``worker_h2d`` of the batches it drew meanwhile;
+    else the serial ``gather``), then the step's spans (``train.inputs``,
+    ``train.forward`` or ``train.encode``, ``train.loss``,
+    ``train.backward``, ``train.optimizer``; ``whole`` the ``train.step``
+    span) by their host ms, the host's dispatch, and on a CUDA device by
+    their device ms under ``<part> device``.  ``stacked``: ``batches``
+    yields ``[n, B, ...]`` chunks, drawn every ``n`` steps."""
     from .data import DevicePrefetcher
+    from .utils.profiling import clear_spans, recording, span_log
 
     dev = trainer.device
     times: dict[str, list[float]] = {}
     prefetched = isinstance(batches, DevicePrefetcher)
     if prefetched:
         seen = {k: len(batches.stats[k]) for k in ("gather_ms", "h2d_ms")}
-
-    def lap(name, t0):
-        _sync(dev)
-        t1 = time.perf_counter()
-        times.setdefault(name, []).append((t1 - t0) * 1e3)
-        return t1
-
-    params = dict(state.model.named_parameters())
+    wait = "wait" if prefetched else "gather"
     chunk, i = None, 0
-    for _ in range(repeats):
-        _sync(dev)
-        start = t = time.perf_counter()
-        if not stacked:
-            batch = next(batches)
-        else:
-            if chunk is None or i == chunk["video"].shape[0]:
-                chunk, i = next(batches), 0
-            batch = {k: v[i] for k, v in chunk.items()}
-            i += 1
-        t = lap("wait" if prefetched else "gather", t)
-        inputs = trainer.step_inputs(batch)
-        t = lap("inputs" if prefetched else "h2d", t)
-        if trainer.two_pass(inputs[0].shape[0]):
-            v_emb, t_emb = trainer.encode_chunks(state, inputs)
-            t = lap("pass1_encode", t)
-            _, d_v, d_t, direct = trainer.embedding_grads(state, v_emb, t_emb, inputs)
-            t = lap("pass2_loss", t)
-            grads = trainer.tower_grads(state, inputs, d_v, d_t, direct)
-            t = lap("pass3_towers", t)
-        else:
-            model = trainer.step_model(state)
-            v_emb, t_emb = model(*inputs)
-            t = lap("towers_fwd", t)
-            loss = trainer.step_loss(model, v_emb, t_emb, *inputs)
-            t = lap("loss_fwd", t)
-            grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
-            grads = {k: torch.zeros_like(p) if g is None else g
-                     for (k, p), g in zip(params.items(), grads)}
-            t = lap("backward", t)
-        trainer.apply_grads(state, grads)
-        lap("optimizer", t)
-        lap("whole", start)
-        state.step += 1
+    clear_spans()
+    with recording():
+        for _ in range(repeats):
+            _sync(dev)
+            t = time.perf_counter()
+            if not stacked:
+                batch = next(batches)
+            else:
+                if chunk is None or i == chunk["video"].shape[0]:
+                    chunk, i = next(batches), 0
+                batch = {k: v[i] for k, v in chunk.items()}
+                i += 1
+            _sync(dev)
+            times.setdefault(wait, []).append((time.perf_counter() - t) * 1e3)
+            trainer.train_step(state, batch)
+    log = span_log()
+    clear_spans()
+    steps = {r["index"] for r in log if r["name"] == "train.step"}
+    # the steps' layers first, in their order; the whole step last
+    for r in sorted(log, key=lambda r: r["index"] in steps):
+        if r["index"] in steps or r["parent"] in steps:
+            part = "whole" if r["index"] in steps else r["name"]
+            times.setdefault(part, []).append(r["host_ms"])
+            if r["device_ms"] is not None:
+                times.setdefault(f"{part} device", []).append(r["device_ms"])
     if prefetched:
         for key, part in (("gather_ms", "worker_gather"), ("h2d_ms", "worker_h2d")):
             drawn = batches.stats[key][seen[key]:]
@@ -250,13 +237,13 @@ def main(argv: list[str] | None = None) -> int:
             tag += f", two-pass step (chunk {cfg.train.embedding_chunk})"
 
         parts = split_step(trainer, state, batches, args.repeats, stacked=n > 1)
-        print(f"{tag}: median ms per part of {args.repeats} synchronised steps, "
-              "prefetched: " + ", ".join(f"{k} {v:.3f}" for k, v in parts.items())
+        print(f"{tag}: median ms per part of {args.repeats} steps from a synchronised "
+              "start, prefetched: " + ", ".join(f"{k} {v:.3f}" for k, v in parts.items())
               + f" ({card})", flush=True)
         serial = split_step(trainer, state, infinite_batches(
             dataset, b, seed=cfg.data.seed), args.repeats)
-        print(f"{tag}: median ms per part of {args.repeats} synchronised steps, "
-              "serial pageable: " + ", ".join(f"{k} {v:.3f}" for k, v in serial.items())
+        print(f"{tag}: median ms per part of {args.repeats} steps from a synchronised "
+              "start, serial pageable: " + ", ".join(f"{k} {v:.3f}" for k, v in serial.items())
               + f" ({card})", flush=True)
         fit = profiled_fit(trainer, state, batches, args.steps, prestacked=n > 1)
     finally:

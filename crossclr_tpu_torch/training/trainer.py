@@ -133,6 +133,7 @@ from ..parallel.global_loss import (
 )
 from ..parallel.mesh import Mesh, make_mesh
 from ..parallel.tensor_parallel import consumed_sliced
+from ..utils.profiling import span
 
 __all__ = [
     "AdamW",
@@ -902,21 +903,29 @@ class Trainer:
         parameter the loss does not reach, ``logit_scale`` at a fixed τ,
         gets zeros, as under ``jax.grad``).  The two-pass step when
         ``embedding_chunk`` is below the batch, else one pass."""
-        if self.two_pass(inputs[0].shape[0]):
-            v_emb, t_emb = self.encode_chunks(state, inputs)
-            loss, d_v, d_t, direct = self.embedding_grads(state, v_emb, t_emb,
-                                                          inputs)
-            grads = self.tower_grads(state, inputs, d_v, d_t, direct)
+        rows = inputs[0].shape[0]
+        if self.two_pass(rows):
+            chunks = rows // self.cfg.embedding_chunk
+            with span("train.encode", chunks):
+                v_emb, t_emb = self.encode_chunks(state, inputs)
+            with span("train.loss"):
+                loss, d_v, d_t, direct = self.embedding_grads(state, v_emb, t_emb,
+                                                              inputs)
+            with span("train.backward", chunks):
+                grads = self.tower_grads(state, inputs, d_v, d_t, direct)
             return loss, (v_emb, t_emb), grads
-        model = self.step_model(state)
-        v_emb, t_emb = model(*inputs)
-        objective, loss = self.step_objective(model, v_emb, t_emb, *inputs)
-        params = dict(model.named_parameters())
-        grads = torch.autograd.grad(objective, list(params.values()),
-                                    allow_unused=True)
-        return loss, (v_emb, t_emb), {
-            k: torch.zeros_like(p) if g is None else g
-            for (k, p), g in zip(params.items(), grads)}
+        with span("train.forward"):
+            model = self.step_model(state)
+            v_emb, t_emb = model(*inputs)
+        with span("train.loss"):
+            objective, loss = self.step_objective(model, v_emb, t_emb, *inputs)
+        with span("train.backward"):
+            params = dict(model.named_parameters())
+            grads = torch.autograd.grad(objective, list(params.values()),
+                                        allow_unused=True)
+            grads = {k: torch.zeros_like(p) if g is None else g
+                     for (k, p), g in zip(params.items(), grads)}
+        return loss, (v_emb, t_emb), grads
 
     def _chunks(self, inputs: tuple) -> list[tuple]:
         """The two-pass step's row chunks of ``inputs``, in order."""
@@ -1052,19 +1061,33 @@ class Trainer:
 
     def train_step(self, state: TrainState, batch: dict) -> tuple[TrainState, dict]:
         """One optimizer step on a host batch; updates ``state`` in place
-        and returns it with device-scalar metrics."""
-        loss, (v_emb, t_emb), grads = self.value_and_grad(
-            state, self.step_inputs(batch))
-        with torch.no_grad():
-            norms = torch.stack([torch.linalg.vector_norm(v_emb, dim=1).mean(),
-                                 torch.linalg.vector_norm(t_emb, dim=1).mean()])
-        if self.model_group is not None:
-            grads = self.sum_model_grads(grads)
-        if self.group is not None:
-            grads, norms = self.sum_grads(grads, norms)
-        metrics = {"loss": loss.detach(), **self.apply_grads(state, grads)}
-        metrics["video_emb_norm"], metrics["text_emb_norm"] = norms
-        state.step += 1
+        and returns it with device-scalar metrics.
+
+        Its layers are spans (``utils.profiling.span``): ``train.step``
+        (count: the batch's rows) holds ``train.inputs``; one pass's
+        ``train.forward``, ``train.loss`` and ``train.backward``, or the
+        two-pass step's ``train.encode``, ``train.loss`` and
+        ``train.backward`` (counts: chunks); ``train.collectives`` where a
+        group exists; ``train.optimizer`` (count: parameter leaves)."""
+        with span("train.step", len(batch["video"]), step=state.step,
+                  device=self.device):
+            with span("train.inputs"):
+                inputs = self.step_inputs(batch)
+            loss, (v_emb, t_emb), grads = self.value_and_grad(state, inputs)
+            with torch.no_grad():
+                norms = torch.stack([torch.linalg.vector_norm(v_emb, dim=1).mean(),
+                                     torch.linalg.vector_norm(t_emb, dim=1).mean()])
+            if self.model_group is not None or self.group is not None:
+                with span("train.collectives"):
+                    if self.model_group is not None:
+                        grads = self.sum_model_grads(grads)
+                    if self.group is not None:
+                        grads, norms = self.sum_grads(grads, norms)
+            with span("train.optimizer", len(grads)):
+                update = self.apply_grads(state, grads)
+            metrics = {"loss": loss.detach(), **update}
+            metrics["video_emb_norm"], metrics["text_emb_norm"] = norms
+            state.step += 1
         return state, metrics
 
     # -- eval ---------------------------------------------------------------

@@ -6,17 +6,189 @@ Counterpart of ``crossclr_tpu/utils/profiling.py``: :func:`trace` takes a
 place of ``jax_debug_nans``, :func:`checked` checks a function's outputs
 for non-finite values, and :class:`StepTimer` counts steps and pairs per
 second.
+
+:func:`span` marks a layer of the program (the train step's inputs,
+towers, loss, backward, collectives and optimizer): while a
+``torch.profiler`` session is active, or inside :func:`recording`, each
+span keeps its host interval and, on a CUDA device, its device interval
+between two timing events, in a bounded in-memory log that
+:func:`span_log` reads; it also enters ``record_function``, so a
+:func:`trace` shows the same spans.  Otherwise a span is one shared
+no-op context.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
+import itertools
+import threading
 import time
 from pathlib import Path
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
 
-__all__ = ["trace", "nan_debug", "checked", "StepTimer"]
+__all__ = ["trace", "nan_debug", "checked", "StepTimer", "span", "recording",
+           "span_log", "clear_spans"]
+
+LOG_SIZE = 4096  # span records kept; the oldest are dropped first
+POOL_GROWTH = 64  # timing events made at once when a device's pool runs dry
+
+_OFF = contextlib.nullcontext()
+_log: collections.deque = collections.deque(maxlen=LOG_SIZE)
+_pool: dict[int, list] = {}  # free timing events by CUDA device index
+_lock = threading.Lock()
+_local = threading.local()  # a thread's open spans (innermost last), its native id
+_indices = itertools.count()
+_recording = 0  # open recording() scopes
+
+
+class _Record:
+    __slots__ = ("index", "name", "parent", "thread", "step", "count", "device",
+                 "host_start_ns", "host_end_ns", "events", "device_ms")
+
+
+class _Span:
+    """One recorded span: the host clock (``time.time_ns()``, the clock of
+    the profiler's events) read first at entry and last at exit, the
+    device's timing events recorded on the current stream innermost."""
+
+    __slots__ = ("record", "annotation", "stream")
+
+    def __init__(self, name: str, count, step, device):
+        rec = self.record = _Record()
+        rec.name, rec.count, rec.step, rec.device = name, count, step, device
+        rec.events = rec.device_ms = None
+
+    def __enter__(self):
+        rec = self.record
+        rec.host_start_ns = time.time_ns()
+        try:
+            stack = _local.stack
+        except AttributeError:  # the thread's first span
+            stack = _local.stack = []
+            _local.thread = threading.get_native_id()
+        parent = stack[-1] if stack else None
+        rec.index = next(_indices)
+        rec.parent = None if parent is None else parent.index
+        rec.thread = _local.thread
+        if rec.step is None and parent is not None:
+            rec.step = parent.step
+        if rec.device is None:
+            rec.device = None if parent is None else parent.device
+        else:
+            device = torch.device(rec.device)
+            if device.type != "cuda":
+                rec.device = None
+            elif device.index is None:
+                rec.device = torch.device("cuda", torch.cuda.current_device())
+            else:
+                rec.device = device
+        self.annotation = torch.profiler.record_function(rec.name)
+        self.annotation.__enter__()
+        if rec.device is not None:
+            rec.events = _take_events(rec.device)
+            self.stream = torch.cuda.current_stream(rec.device)
+            rec.events[0].record(self.stream)
+        stack.append(rec)
+        return rec
+
+    def __exit__(self, *exc):
+        rec = self.record
+        if rec.events is not None:
+            rec.events[1].record(self.stream)
+        self.annotation.__exit__(*exc)
+        _local.stack.pop()
+        rec.host_end_ns = time.time_ns()
+        with _lock:
+            _log.append(rec)
+        return False
+
+
+def span(name: str, count: int | None = None, *, step: int | None = None,
+         device: torch.device | str | None = None):
+    """A context that records the layer ``name`` while a ``torch.profiler``
+    session is active (``torch.autograd.profiler._is_profiler_enabled``)
+    or inside :func:`recording`; otherwise one shared no-op context (a
+    flag read: no allocation, no CUDA call).
+
+    ``count`` is the span's work (rows, chunks, parameter leaves);
+    ``step`` the train step it belongs to and ``device`` where its work
+    runs, both taken from the enclosing span of the same thread when not
+    given.  On a CUDA device the span's device time runs between timing
+    events recorded on the device's current stream at entry and exit."""
+    if not (_recording or _autograd_profiler._is_profiler_enabled):
+        return _OFF
+    return _Span(name, count, step, device)
+
+
+@contextlib.contextmanager
+def recording():
+    """Within the scope, :func:`span` records without a profiler."""
+    global _recording
+    with _lock:
+        _recording += 1
+    try:
+        yield
+    finally:
+        with _lock:
+            _recording -= 1
+
+
+def _take_events(device: torch.device) -> tuple:
+    """Two timing events of ``device`` from its pool; a dry pool grows by
+    :data:`POOL_GROWTH` events, each recorded once (a CUDA event is made at
+    its first record), so that spans reuse events rather than make them."""
+    with _lock:
+        pool = _pool.setdefault(device.index, [])
+        if len(pool) < 2:
+            stream = torch.cuda.current_stream(device)
+            for _ in range(POOL_GROWTH):
+                event = torch.cuda.Event(enable_timing=True)
+                event.record(stream)
+                pool.append(event)
+        return pool.pop(), pool.pop()
+
+
+def _give_events(rec: _Record) -> None:
+    if rec.events is not None:
+        _pool[rec.device.index].extend(rec.events)
+        rec.events = None
+
+
+def span_log() -> list[dict]:
+    """The recorded spans, in the order they were entered: ``index``,
+    ``name``, ``parent`` (the enclosing span's index, or None), ``thread``
+    (its native id), ``step``, ``count``, ``host_start_ns`` and
+    ``host_end_ns`` (``time.time_ns()``), ``host_ms`` and ``device_ms``
+    (None off a CUDA device).  Device times are read from the spans'
+    events here, once, waiting for any the device has not reached; the
+    events go back to the pool."""
+    out = []
+    with _lock:
+        for rec in sorted(_log, key=lambda r: r.index):
+            if rec.events is not None:
+                start, end = rec.events
+                end.synchronize()
+                rec.device_ms = start.elapsed_time(end)
+                _give_events(rec)
+            out.append({
+                "index": rec.index, "name": rec.name, "parent": rec.parent,
+                "thread": rec.thread, "step": rec.step, "count": rec.count,
+                "host_start_ns": rec.host_start_ns, "host_end_ns": rec.host_end_ns,
+                "host_ms": (rec.host_end_ns - rec.host_start_ns) / 1e6,
+                "device_ms": rec.device_ms,
+            })
+    return out
+
+
+def clear_spans() -> None:
+    """Empty the span log (its unread events go back to the pool)."""
+    with _lock:
+        for rec in _log:
+            _give_events(rec)
+        _log.clear()
 
 
 @contextlib.contextmanager
@@ -25,7 +197,8 @@ def trace(logdir: str | Path):
     kernels (``torch.profiler``, CPU and CUDA activities), and write a
     Chrome trace (``<host>_<pid>.<time>.pt.trace.json``) into ``logdir``
     at exit; TensorBoard's profiler plugin and ``chrome://tracing`` read
-    it.  Yields the profiler."""
+    it.  It shows the program's spans (:func:`span`) by name.  Yields
+    the profiler."""
     from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
 
     activities = [ProfilerActivity.CPU]

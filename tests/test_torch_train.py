@@ -429,9 +429,10 @@ def test_save_config_round_trips(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("learnable", [False, True])
-def test_profile_split_takes_the_steps_of_train_step(learnable):
-    """The profiler's re-timed pieces of a step update the state exactly
-    as ``Trainer.train_step`` does (same batches, same init)."""
+def test_profile_split_reads_the_spans_of_train_step(learnable):
+    """The profiler's split runs ``Trainer.train_step`` itself and reports
+    its spans: the parts are the step's layers, and the state is a plain
+    run's bit for bit (same batches, same init)."""
     from crossclr_tpu_torch.profile_train import split_step
 
     cfg = dict(loss="crossclr_intra_fused", learnable_temperature=learnable,
@@ -445,8 +446,10 @@ def test_profile_split_takes_the_steps_of_train_step(learnable):
         state = trainer.init_state()
         if split:
             parts = split_step(trainer, state, iter(batches), repeats=2)
-            assert list(parts) == ["gather", "h2d", "towers_fwd", "loss_fwd",
-                                   "backward", "optimizer", "whole"]
+            assert list(parts) == ["gather", "train.inputs", "train.forward",
+                                   "train.loss", "train.backward",
+                                   "train.optimizer", "whole"]
+            assert parts["whole"] >= parts["train.backward"] > 0
         else:
             for batch in batches:
                 state, _ = trainer.train_step(state, batch)
@@ -512,3 +515,50 @@ def test_cuda_train_steps_match_cpu(cuda, learnable):
     _state_dicts_close(states[1], states[0], FP32["param_atol"])
     route = ("dual_fwd", "dual_bwd") if learnable else ("sym_fwd", "sym_bwd")
     assert all(fd.launch_counts[k] - before[k] == 3 for k in route)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("chunk", [None, 8])
+def test_cuda_step_spans_hold_the_steps_launches(cuda, chunk):
+    """Under ``torch.profiler`` with CUDA activity only, as the benchmark's
+    traced block runs it, every kernel launch lies inside a ``train.step``
+    span's host interval, and each step holds launches: the spans and the
+    profiler's events share a clock.  Each span's device ms is positive,
+    and a step's child spans take no more device time than the step."""
+    import time
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from crossclr_tpu_torch.utils.profiling import clear_spans, span_log
+
+    trainer = Trainer(_tower(TowerConfig, torch.float32, 24),
+                      _tower(TowerConfig, torch.float32, 20),
+                      TrainConfig(**{**BASE, "loss": "crossclr_intra_fused",
+                                     "embedding_chunk": chunk}), device=cuda)
+    state = trainer.init_state()
+    batches = _batches(4)
+    trainer.train_step(state, batches[0])  # kernels built and loaded
+    torch.cuda.synchronize()
+    clear_spans()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for batch in batches[1:]:
+            trainer.train_step(state, batch)
+            torch.cuda.synchronize()
+            time.sleep(0.005)
+    spans = span_log()
+    clear_spans()
+    steps = [r for r in spans if r["name"] == "train.step"]
+    assert len(steps) == 3
+    launches = [(e.start_ns(), e.end_ns()) for e in prof.profiler.kineto_results.events()
+                if e.device_type() == DeviceType.CPU and "LaunchKernel" in e.name()]
+    assert launches
+    for a, b in launches:
+        assert any(s["host_start_ns"] <= a and b <= s["host_end_ns"] for s in steps), \
+            (a, b, [(s["host_start_ns"], s["host_end_ns"]) for s in steps])
+    for s in steps:
+        assert any(s["host_start_ns"] <= a <= s["host_end_ns"] for a, _ in launches)
+        children = [r["device_ms"] for r in spans if r["parent"] == s["index"]]
+        assert len(children) == 5
+        assert sum(children) <= s["device_ms"] * (1 + 1e-6)
+    assert all(r["device_ms"] > 0 for r in spans), spans
