@@ -12,7 +12,8 @@ no checkpoints), warms it up with ``--warmup`` steps, then measures:
   chunk's batch indexed, an int8 batch dequantized), the towers' forward,
   the loss, the backward (under ``train.embedding_chunk``: the two-pass
   step's passes 1, 2 and 3), the optimizer (``Trainer.apply_grads``:
-  AdamW, the clamp and the EMA) and the whole step; beside it the
+  AdamW, the clamp and the EMA) and the step span; ``whole``, the
+  synchronised wall time from the draw to the step's end; beside it the
   prefetch worker's gather and host→device copy (its stream's events) of
   the batches drawn meanwhile;
 * the same split on the serial pageable path, for comparison: the host
@@ -83,10 +84,11 @@ def split_step(trainer, state, batches, repeats: int,
     ``worker_gather`` and ``worker_h2d`` of the batches it drew meanwhile;
     else the serial ``gather``), then the step's spans (``train.inputs``,
     ``train.forward`` or ``train.encode``, ``train.loss``,
-    ``train.backward``, ``train.optimizer``; ``whole`` the ``train.step``
-    span) by their host ms, the host's dispatch, and on a CUDA device by
-    their device ms under ``<part> device``.  ``stacked``: ``batches``
-    yields ``[n, B, ...]`` chunks, drawn every ``n`` steps."""
+    ``train.backward``, ``train.optimizer``, then ``train.step``) by their
+    host ms, the host's dispatch, and on a CUDA device by their device ms
+    under ``<part> device``; last ``whole``, the wall time from the draw
+    to a synchronize after the step.  ``stacked``: ``batches`` yields
+    ``[n, B, ...]`` chunks, drawn every ``n`` steps."""
     from .data import DevicePrefetcher
     from .utils.profiling import clear_spans, recording, span_log
 
@@ -96,7 +98,7 @@ def split_step(trainer, state, batches, repeats: int,
     if prefetched:
         seen = {k: len(batches.stats[k]) for k in ("gather_ms", "h2d_ms")}
     wait = "wait" if prefetched else "gather"
-    chunk, i = None, 0
+    chunk, i, wall = None, 0, []
     clear_spans()
     with recording():
         for _ in range(repeats):
@@ -112,16 +114,18 @@ def split_step(trainer, state, batches, repeats: int,
             _sync(dev)
             times.setdefault(wait, []).append((time.perf_counter() - t) * 1e3)
             trainer.train_step(state, batch)
+            _sync(dev)
+            wall.append((time.perf_counter() - t) * 1e3)
     log = span_log()
     clear_spans()
     steps = {r["index"] for r in log if r["name"] == "train.step"}
-    # the steps' layers first, in their order; the whole step last
+    # the steps' layers first, in their order; the step span last
     for r in sorted(log, key=lambda r: r["index"] in steps):
         if r["index"] in steps or r["parent"] in steps:
-            part = "whole" if r["index"] in steps else r["name"]
-            times.setdefault(part, []).append(r["host_ms"])
+            times.setdefault(r["name"], []).append(r["host_ms"])
             if r["device_ms"] is not None:
-                times.setdefault(f"{part} device", []).append(r["device_ms"])
+                times.setdefault(f"{r['name']} device", []).append(r["device_ms"])
+    times["whole"] = wall
     if prefetched:
         for key, part in (("gather_ms", "worker_gather"), ("h2d_ms", "worker_h2d")):
             drawn = batches.stats[key][seen[key]:]

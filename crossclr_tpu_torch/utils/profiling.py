@@ -33,19 +33,17 @@ __all__ = ["trace", "nan_debug", "checked", "StepTimer", "span", "recording",
            "span_log", "clear_spans"]
 
 LOG_SIZE = 4096  # span records kept; the oldest are dropped first
-POOL_GROWTH = 64  # timing events made at once when a device's pool runs dry
 
 _OFF = contextlib.nullcontext()
 _log: collections.deque = collections.deque(maxlen=LOG_SIZE)
-_pool: dict[int, list] = {}  # free timing events by CUDA device index
 _lock = threading.Lock()
-_local = threading.local()  # a thread's open spans (innermost last), its native id
+_local = threading.local()  # a thread's open spans, innermost last
 _indices = itertools.count()
 _recording = 0  # open recording() scopes
 
 
 class _Record:
-    __slots__ = ("index", "name", "parent", "thread", "step", "count", "device",
+    __slots__ = ("index", "name", "parent", "step", "count", "device",
                  "host_start_ns", "host_end_ns", "events", "device_ms")
 
 
@@ -68,11 +66,9 @@ class _Span:
             stack = _local.stack
         except AttributeError:  # the thread's first span
             stack = _local.stack = []
-            _local.thread = threading.get_native_id()
         parent = stack[-1] if stack else None
         rec.index = next(_indices)
         rec.parent = None if parent is None else parent.index
-        rec.thread = _local.thread
         if rec.step is None and parent is not None:
             rec.step = parent.step
         if rec.device is None:
@@ -88,7 +84,8 @@ class _Span:
         self.annotation = torch.profiler.record_function(rec.name)
         self.annotation.__enter__()
         if rec.device is not None:
-            rec.events = _take_events(rec.device)
+            rec.events = (torch.cuda.Event(enable_timing=True),
+                          torch.cuda.Event(enable_timing=True))
             self.stream = torch.cuda.current_stream(rec.device)
             rec.events[0].record(self.stream)
         stack.append(rec)
@@ -113,11 +110,12 @@ def span(name: str, count: int | None = None, *, step: int | None = None,
     or inside :func:`recording`; otherwise one shared no-op context (a
     flag read: no allocation, no CUDA call).
 
-    ``count`` is the span's work (rows, chunks, parameter leaves);
-    ``step`` the train step it belongs to and ``device`` where its work
-    runs, both taken from the enclosing span of the same thread when not
-    given.  On a CUDA device the span's device time runs between timing
-    events recorded on the device's current stream at entry and exit."""
+    ``count`` is the span's work (rows, chunks, parameter leaves), by
+    which a reader gives its time a unit; ``step`` the train step it
+    belongs to and ``device`` where its work runs, both taken from the
+    enclosing span of the same thread when not given.  On a CUDA device
+    the span's device time runs between two timing events recorded on the
+    device's current stream at entry and exit."""
     if not (_recording or _autograd_profiler._is_profiler_enabled):
         return _OFF
     return _Span(name, count, step, device)
@@ -136,35 +134,13 @@ def recording():
             _recording -= 1
 
 
-def _take_events(device: torch.device) -> tuple:
-    """Two timing events of ``device`` from its pool; a dry pool grows by
-    :data:`POOL_GROWTH` events, each recorded once (a CUDA event is made at
-    its first record), so that spans reuse events rather than make them."""
-    with _lock:
-        pool = _pool.setdefault(device.index, [])
-        if len(pool) < 2:
-            stream = torch.cuda.current_stream(device)
-            for _ in range(POOL_GROWTH):
-                event = torch.cuda.Event(enable_timing=True)
-                event.record(stream)
-                pool.append(event)
-        return pool.pop(), pool.pop()
-
-
-def _give_events(rec: _Record) -> None:
-    if rec.events is not None:
-        _pool[rec.device.index].extend(rec.events)
-        rec.events = None
-
-
 def span_log() -> list[dict]:
     """The recorded spans, in the order they were entered: ``index``,
-    ``name``, ``parent`` (the enclosing span's index, or None), ``thread``
-    (its native id), ``step``, ``count``, ``host_start_ns`` and
-    ``host_end_ns`` (``time.time_ns()``), ``host_ms`` and ``device_ms``
-    (None off a CUDA device).  Device times are read from the spans'
-    events here, once, waiting for any the device has not reached; the
-    events go back to the pool."""
+    ``name``, ``parent`` (the enclosing span's index, or None), ``step``,
+    ``count``, ``host_start_ns`` and ``host_end_ns`` (``time.time_ns()``),
+    ``host_ms`` and ``device_ms`` (None off a CUDA device).  Device times
+    are read from the spans' events here, once, waiting for any the
+    device has not reached."""
     out = []
     with _lock:
         for rec in sorted(_log, key=lambda r: r.index):
@@ -172,10 +148,10 @@ def span_log() -> list[dict]:
                 start, end = rec.events
                 end.synchronize()
                 rec.device_ms = start.elapsed_time(end)
-                _give_events(rec)
+                rec.events = None
             out.append({
                 "index": rec.index, "name": rec.name, "parent": rec.parent,
-                "thread": rec.thread, "step": rec.step, "count": rec.count,
+                "step": rec.step, "count": rec.count,
                 "host_start_ns": rec.host_start_ns, "host_end_ns": rec.host_end_ns,
                 "host_ms": (rec.host_end_ns - rec.host_start_ns) / 1e6,
                 "device_ms": rec.device_ms,
@@ -184,10 +160,8 @@ def span_log() -> list[dict]:
 
 
 def clear_spans() -> None:
-    """Empty the span log (its unread events go back to the pool)."""
+    """Empty the span log."""
     with _lock:
-        for rec in _log:
-            _give_events(rec)
         _log.clear()
 
 

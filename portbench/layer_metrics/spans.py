@@ -10,9 +10,11 @@ and while a profiler session is active the program records its spans:
 between two CUDA events.  Nothing else of a run records.  The readers run
 after the traffic, in its process: the first reads the program's log,
 prints every span's mean device and host ms a step and how much of the
-traced span the steps cover on stderr, keeps the steps in ``readings``
-for the others, and empties the log.  A program without spans, or a
-trace that is not a CUDA device's, gives None."""
+traced span the steps cover on stderr, with each traced step's device ms
+by span (labelled by the step's ``step``) and each counted span's device
+ms a unit of its ``count`` (rows, chunks, parameter leaves); keeps the
+steps in ``readings`` for the others, and empties the log.  A program
+without spans, or a trace that is not a CUDA device's, gives None."""
 
 from __future__ import annotations
 
@@ -76,6 +78,20 @@ def _report(log: list[dict], steps: list[dict], summary: dict) -> None:
     print(f"portbench: program spans, mean device ms / host ms a step over {n} "
           "traced steps: " + ", ".join(f"{k} {device[k] / n:.3f} / {host[k] / n:.3f}"
                                        for k in device), file=sys.stderr)
+    for s in steps:
+        parts = [(STEP, s["step"]["device_ms"])] + [
+            (name, sum(r["device_ms"] for r in rs)) for name, rs in s["children"].items()]
+        print(f"portbench: traced step {s['step']['step']}, device ms: "
+              + ", ".join(f"{k} {ms:.3f}" for k, ms in parts), file=sys.stderr)
+    per_unit = defaultdict(lambda: [0.0, 0])
+    for r in log:
+        if r["count"]:
+            per_unit[r["name"]][0] += r["device_ms"] or 0.0
+            per_unit[r["name"]][1] += r["count"]
+    if per_unit:
+        print("portbench: device ms a unit of the span's count, over the traced steps: "
+              + ", ".join(f"{k} {ms / units:.5f} (count {units // n})"
+                          for k, (ms, units) in per_unit.items()), file=sys.stderr)
     step_ms = [s["step"]["device_ms"] for s in steps]
     window_ms = summary["window_s"] * 1e3
     print(f"portbench: {STEP} spans cover {sum(step_ms):.3f} device ms of the traced "

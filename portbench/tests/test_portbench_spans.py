@@ -13,23 +13,28 @@ from portbench import harness
 TRACE = {"device": "cuda", "window_s": 0.5}
 
 
-def _record(index, name, parent, device_ms):
-    return {"index": index, "name": name, "parent": parent, "thread": 1, "step": 0,
-            "count": None, "host_start_ns": 0, "host_end_ns": 1, "host_ms": 1e-6,
+def _record(index, name, parent, device_ms, step=0, count=None):
+    return {"index": index, "name": name, "parent": parent, "step": step,
+            "count": count, "host_start_ns": 0, "host_end_ns": 1, "host_ms": 1e-6,
             "device_ms": device_ms}
 
 
-def _log(children: dict[str, float], steps: int = 2) -> list[dict]:
-    """``steps`` train steps, step i's child spans at ``(i + 1)`` times
-    ``children``' device ms, and the step at their sum plus 1 ms."""
+def _log(children: dict[str, float], steps: int = 2,
+         counts: dict[str, int] | None = None) -> list[dict]:
+    """``steps`` train steps numbered from 10, step i's child spans at
+    ``(i + 1)`` times ``children``' device ms, and the step at their sum
+    plus 1 ms; spans named in ``counts`` carry that count."""
+    counts = counts or {}
     out, index = [], 0
     for i in range(steps):
         step = index
         out.append(_record(step, "train.step", None,
-                           (i + 1) * sum(children.values()) + 1.0))
+                           (i + 1) * sum(children.values()) + 1.0, step=10 + i,
+                           count=counts.get("train.step")))
         index += 1
         for name, ms in children.items():
-            out.append(_record(index, name, step, (i + 1) * ms))
+            out.append(_record(index, name, step, (i + 1) * ms, step=10 + i,
+                               count=counts.get(name)))
             index += 1
     return out
 
@@ -79,6 +84,24 @@ def test_coverage_lines(program_log, capsys):
     err = capsys.readouterr().err
     assert "4.000 device ms of the traced span's 500.000 ms (0.80%)" in err
     assert "child spans cover 75.00%" in err
+
+
+def test_steps_and_counts_lines(program_log, capsys):
+    """Each traced step's device ms by span under its step number, and
+    each counted span's device ms a unit of its count."""
+    program_log["log"] = _log({"train.encode": 3.0, "train.optimizer": 2.0},
+                              counts={"train.step": 64, "train.encode": 4,
+                                      "train.optimizer": 8})
+    _read("towers_ms.gradcache", {"trace": TRACE, "trace_steps": 2})
+    err = capsys.readouterr().err
+    assert ("traced step 10, device ms: train.step 6.000, train.encode 3.000, "
+            "train.optimizer 2.000") in err
+    assert ("traced step 11, device ms: train.step 11.000, train.encode 6.000, "
+            "train.optimizer 4.000") in err
+    # (6 + 11) ms over 2 x 64 rows; 9 ms over 2 x 4 chunks; 6 ms over 2 x 8 leaves
+    assert ("device ms a unit of the span's count, over the traced steps: "
+            "train.step 0.13281 (count 64), train.encode 1.12500 (count 4), "
+            "train.optimizer 0.37500 (count 8)") in err
 
 
 @pytest.mark.parametrize("trace", [None, {"device": "cpu", "window_s": 0.5}])

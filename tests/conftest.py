@@ -10,19 +10,6 @@ instead (single chip; mesh tests skip).
 """
 
 import os
-import sys
-import types
-from pathlib import Path
-
-# The test modules import their helpers as ``tests.<module>``.  This
-# directory has no ``__init__.py``, so a ``tests`` package installed in
-# site-packages, as some environments have, would win the name: bind it
-# to this directory first.
-_HERE = str(Path(__file__).resolve().parent)
-if _HERE not in list(getattr(sys.modules.get("tests"), "__path__", [])):
-    _tests = types.ModuleType("tests")
-    _tests.__path__ = [_HERE]
-    sys.modules["tests"] = _tests
 
 if os.environ.get("CROSSCLR_TESTS_BACKEND", "cpu") == "cpu":
     import jax

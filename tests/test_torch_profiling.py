@@ -181,7 +181,7 @@ def test_step_spans_under_the_profiler(empty_log, chunk, children):
     end = step["host_start_ns"]
     for r in rest:
         assert r["parent"] == step["index"] and r["step"] == 7
-        assert r["thread"] == step["thread"] and r["device_ms"] is None
+        assert r["device_ms"] is None
         assert end <= r["host_start_ns"] <= r["host_end_ns"] <= step["host_end_ns"]
         assert r["host_ms"] == (r["host_end_ns"] - r["host_start_ns"]) / 1e6
         end = r["host_end_ns"]

@@ -448,8 +448,8 @@ def test_profile_split_reads_the_spans_of_train_step(learnable):
             parts = split_step(trainer, state, iter(batches), repeats=2)
             assert list(parts) == ["gather", "train.inputs", "train.forward",
                                    "train.loss", "train.backward",
-                                   "train.optimizer", "whole"]
-            assert parts["whole"] >= parts["train.backward"] > 0
+                                   "train.optimizer", "train.step", "whole"]
+            assert parts["whole"] >= parts["train.step"] >= parts["train.backward"] > 0
         else:
             for batch in batches:
                 state, _ = trainer.train_step(state, batch)
