@@ -424,11 +424,10 @@ kernels against that revision's on the same operands, bit for bit where
 the design was kept (every fp32 output, the bf16 flash forward, dq and
 dk/dv, lse_fwd and lse_bwd in both tiers, sym_fwd, dual_fwd, sym_bwd and
 dual_bwd in both tiers, unpruned and pruned, at 1024 x 256 and 1024 x 384,
-rows_bwd_rows in both tiers and rows_lse and rows_bwd_cols in fp32, pruned
-and not, at 1024 x 384; the redesigned bf16 rows_lse and rows_bwd_cols
-(REDESIGNED) are logged only: they are held to their plain versions by the
-phases above; a revision whose entry points take no scratch is called
-through ParentLossLibrary);
+the rows kernels in both tiers, pruned and not, at 1024 x 384; the
+redesigned bf16 sym_bwd (REDESIGNED) is logged only: it is held to its
+plain version by the phases above; a revision whose entry points take no
+scratch is called through ParentLossLibrary);
 then at B=1024, S in {96, 64}, H=8, Dh=48, bf16, dropout 0 and 0.1 each
 flash kernel timed in turns (baseline, this, this, baseline; median of 20
 each) beside its plain version, SDPA and its bound; bf16 lse_fwd and
@@ -438,9 +437,10 @@ bf16 sym_fwd, dual_fwd, sym_bwd and dual_bwd at 1024 x 256 and, pruned,
 1024 x 384 (median of 20) beside their plain versions and bounds, and
 dual_fwd also at 4096 x 512; bf16 rows_lse, rows_bwd_rows and
 rows_bwd_cols at 1024 x 384 and at one rank's block (1024 of 4096 x 384,
-offset 1024), pruned; and the loss fwd+bwd at the headline 4096 x 512 through the sym and the
-dual route (default tier) beside the plain pair's; the last line is a
-JSON record of those times.
+offset 1024), pruned; bf16 sym_bwd at the benchmark cells' 32,768 x 256
+and 4096 x 384 beside its bound; and the loss fwd+bwd at the headline
+4096 x 512 through the sym and the dual route (default tier) beside the
+plain pair's; the last line is a JSON record of those times.
 """
 
 import argparse
@@ -497,12 +497,14 @@ DIRECTION_SOURCE = "crossclr_tpu_torch/ops/csrc/fused_crossclr.cu"
 # the loss kernels' bf16 tensor-core builds and their instantiations: lse_fwd
 # (3 feature-chunk widths), lse_bwd (3 widths x the factored and
 # subtract-first forms), sym_fwd, dual_fwd, sym_bwd, dual_bwd, rows_lse,
-# rows_bwd_rows and rows_bwd_cols (3 widths x unpruned and pruned each)
+# rows_bwd_rows and rows_bwd_cols (3 widths x unpruned and pruned each), and
+# sym_bwd's Hopper design (unpruned at 64 and 128 candidate rows, pruned at 64)
 LOSS_MMA_KERNELS = {"fused_crossclr.cu": (("direction_fwd_bf16_kernel", 3),
                                           ("direction_bwd_bf16_kernel", 6)),
                     "fused_dual.cu": (("sym_fwd_bf16_kernel", 6),
                                       ("dual_fwd_bf16_kernel", 6),
                                       ("sym_bwd_bf16_kernel", 6),
+                                      ("sym_bwd_wgmma_kernel", 3),
                                       ("dual_bwd_bf16_kernel", 6)),
                     "fused_global.cu": (("rows_lse_bf16_kernel", 6),
                                         ("rows_bwd_rows_bf16_kernel", 6),
@@ -518,7 +520,7 @@ TRANSFORMER_LOSS_SHAPE = (1024, 384)  # configs/lsmdc_transformer.json
 HEADLINE_LOSS_SHAPE = (4096, 512)  # the reference's headline benchmark
 # the bf16 builds this revision redesigned: --baseline holds them to their
 # plain versions (the phases above), not to the baseline's bits
-REDESIGNED = ("rows_lse", "rows_bwd_cols")
+REDESIGNED = ("sym_bwd",)
 NEG_WEIGHT = 0.8
 # loss kernels vs plain (tests/test_fused_kernel.py:37,133,169,251): lse
 # atol = rtol = 2e-5; gradients max |err| <= 5e-5 of the largest |entry|;
@@ -668,6 +670,7 @@ PODSLICE_CONFIG = "configs/podslice_32k.json"
 # twice the config's batch, past the JAX dual kernels' budget at D = 256
 # (B > 49,152), so the loss takes the per-direction kernels
 PODSLICE_BATCH = 65536
+PODSLICE_CELL_BATCH = 32768  # portbench's podslice_train
 PODSLICE_STEPS = 8  # one dispatch at the config's steps_per_call
 PODSLICE_PAIRS = 73000  # 7300 held out for eval, 65,700 left to train on
 PODSLICE_OVERRIDES = [
@@ -1264,7 +1267,8 @@ class ParentLossLibrary:
     crossclr_dual_fwd and crossclr_rows_bwd_rows before theirs did,
     crossclr_rows_lse and crossclr_rows_bwd_cols before theirs did), the
     scratch argument is dropped and the size query answers 0; its
-    crossclr_dual_bwd_partials took n alone."""
+    crossclr_dual_bwd_partials took n alone; a revision before the Hopper
+    sym backward never takes it (crossclr_sym_bwd_wgmma answers 0)."""
 
     # entry point: (its scratch-size query, the index of its scratch argument)
     SPLITS = {"crossclr_sym_fwd": ("crossclr_sym_fwd_scratch", 7),
@@ -1292,6 +1296,8 @@ class ParentLossLibrary:
         if name == "crossclr_dual_bwd_partials" and not hasattr(
                 lib, "crossclr_dual_bwd_scratch"):
             return argtypes[1:2]
+        if name == "crossclr_sym_bwd_wgmma" and not hasattr(lib, name):
+            return None
         return argtypes
 
     def __getattr__(self, name):
@@ -1301,6 +1307,8 @@ class ParentLossLibrary:
             return lambda *args: fn(*args[:index], *args[index + 1:])
         if fn is None and name.endswith("_scratch"):
             return lambda *_: 0
+        if fn is None and name == "crossclr_sym_bwd_wgmma":
+            return lambda *_: 0  # a revision before the Hopper sym backward
         if name == "crossclr_dual_bwd_partials" and "crossclr_dual_bwd" in self.unsplit:
             return lambda dtype, n, d, pruned: fn(n)
         if fn is None:
@@ -1618,6 +1626,27 @@ def baseline_phase(fa, fc, fd, fg, smi: str, csrc: Path) -> dict:
                                   f"{record['plain_ms']:.4f}, bound "
                                   f"{record['bound_ms']:.4f} ({record['bound_by']}) "
                                   f"(median of 20; {smi})")
+        # kernel 5, the sym backward, where the benchmark's cells run it:
+        # podslice_train's 32,768 x 256 (median of 5) and lsmdc_train's
+        # 4096 x 384 (median of 20), in turns with the baseline's, beside
+        # its bound
+        for (b, d), n in (((PODSLICE_CELL_BATCH, 256), 5), ((4096, 384), 20)):
+            v32, t32, g_v, g_t = loss_inputs(b, d, seed=3)
+            v, t = (x.contiguous() for x in fd._fetch_cast("default", v32, t32))
+            del v32, t32
+            lse = fd.sym_fwd_cuda(v, t, s, NEG_WEIGHT)
+            new, old = turns(lambda: fd.sym_bwd_cuda(v, t, *lse, g_v, g_t, s, NEG_WEIGHT),
+                             pair_base, n, 2)
+            record = {"name": "sym_bwd", "B": b, "D": d, "pruned": False, "ms": new,
+                      "baseline_ms": old, "plain_ms": None,
+                      **loss_bounds(b, d)["sym_bwd"], "library_ms": None}
+            records["loss"].append(record)
+            log("baseline", f"sym_bwd B={b} D={d} bf16 operands τ=0.03: "
+                            f"{new[0]:.4f} / {new[1]:.4f} ms, baseline {old[0]:.4f} / "
+                            f"{old[1]:.4f}, bound {record['bound_ms']:.4f} "
+                            f"({record['bound_by']}) (median of {n}; {smi})")
+            del v, t, lse
+            torch.cuda.empty_cache()
         # the rows kernels at the full-CrossCLR leg's shape (1024 anchors
         # against their own batch) and at one rank's, pruned
         b, d = GLOBAL_TIMING[0]
@@ -2818,7 +2847,8 @@ def profile_phase(fa, fd, smi: str, tmp: Path) -> dict:
     check(all(named.values()), f"the trace's kernel events name {named}")
     per_step = 2 * 4 * PROFILE_STEPS  # towers x layers a step
     check(launches["flash_dq"] == launches["flash_dkv"] == per_step
-          and launches["sym_fwd"] == launches["sym_bwd"] == PROFILE_STEPS,
+          and launches["sym_fwd"] == launches["sym_bwd"] == PROFILE_STEPS
+          and launches["sym_bwd_wgmma"] == PROFILE_STEPS,
           f"profiled launches {launches}")
     lines.append(f"--profile-dir: {traces[0].stat().st_size / 2**20:.1f} MB trace, "
                  f"{len(kernels)} kernel events; by name {named}; the run "
@@ -3886,6 +3916,13 @@ def check_only(counts: dict, want: dict, tag: str) -> None:
           f"{tag}: launches {counts}, want {want} and none of any other kernel")
 
 
+def sym_launches(steps: int) -> dict:
+    """A sym-route leg's launches: a forward and a backward a step, each
+    backward in the Hopper design (the legs' features are contiguous
+    copies, 256 or 384 wide)."""
+    return {"sym_fwd": steps, "sym_bwd": steps, "sym_bwd_wgmma": steps}
+
+
 def full_train_phase(fa, fd, fg, fc, smi: str) -> dict:
     """The training CLI on the full-CrossCLR config at full width, its
     learnable τ: the keep-mask branch of the dual kernels.  Returns the
@@ -3929,8 +3966,7 @@ def full_static_phase(fa, fd, fg, fc, smi: str) -> dict:
     counts, rows, evals, seconds, _ = run_full_leg(
         fa, fd, fg, fc, FULL_STATIC_STEPS, ["train.learnable_temperature=false"])
     losses = check_train_rows(rows, evals, n_eval, "static-τ full-CrossCLR leg")
-    check_only(counts, {"sym_fwd": FULL_STATIC_STEPS, "sym_bwd": FULL_STATIC_STEPS},
-               "static-τ full-CrossCLR leg")
+    check_only(counts, sym_launches(FULL_STATIC_STEPS), "static-τ full-CrossCLR leg")
     launched = {k: x for k, x in counts.items() if x}
     log("train", f"static-τ full-CrossCLR leg (τ=0.03, sym route, batch "
                  f"{LEG_BATCH}): {FULL_STATIC_STEPS} steps in {seconds:.1f} s; loss "
@@ -4587,8 +4623,7 @@ def dp_one_rank(tmp: Path, smi: str) -> dict:
           f"(a) groups: {grouped['backends']} and {alone['backends']}")
     check(grouped["counts"] == alone["counts"],
           f"(a) launches {grouped['counts']} vs {alone['counts']}")
-    check_only(grouped["counts"], {"sym_fwd": steps, "sym_bwd": steps},
-               "(a) one NCCL rank")
+    check_only(grouped["counts"], sym_launches(steps), "(a) one NCCL rank")
     counts = {k: x for k, x in grouped["counts"].items() if x}
     rate, ms = dp_rate(tmp, "a_group")
     rate0, ms0 = dp_rate(tmp, "a_alone")
@@ -5243,7 +5278,7 @@ def tp_two_ranks(tmp: Path, smi: str, fault: str | None = None,
         check(all(c == per_step for c in run["step_launches"]),
               f"(a) rank {r}: flash launches per step {run['step_launches']}, "
               f"want {per_step}")
-        check_only(run["counts"], {"sym_fwd": RING_STEPS, "sym_bwd": RING_STEPS,
+        check_only(run["counts"], {**sym_launches(RING_STEPS),
                                    "flash_fwd": run["counts"]["flash_fwd"],
                                    "flash_dq": RING_STEPS * TP_FLASH_LAUNCHES,
                                    "flash_dkv": RING_STEPS * TP_FLASH_LAUNCHES},
@@ -5356,7 +5391,7 @@ def lamb_phase(fd, smi: str, tmp: Path) -> dict:
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     counts = dict(fd.launch_counts)
-    check_only(counts, {"sym_fwd": LAMB_STEPS, "sym_bwd": LAMB_STEPS}, "(b) LAMB leg")
+    check_only(counts, sym_launches(LAMB_STEPS), "(b) LAMB leg")
     rows, evals = train_rows(metrics)
     losses = check_train_rows(rows, evals, int(16384 * 0.1), "(b) LAMB leg")
     cfg = apply_overrides(load_config(ROOT / TRAIN_CONFIG),

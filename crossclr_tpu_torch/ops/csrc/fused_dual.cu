@@ -117,7 +117,34 @@
 //     that kernel's block (loss_mma.cuh's bwd_block: coefficients in fp32
 //     registers, hi + lo bf16 coefficient fragments times the candidate
 //     tile into fp32 register accumulators); the keep masks enter the
-//     coefficient stage only, as the role selects above.
+//     coefficient stage only, as the role selects above.  It now runs only
+//     where the Hopper build below cannot: d % 8 != 0, an unaligned base,
+//     or d > 384.
+//   * sym_bwd_wgmma_kernel (the same _sym_bwd_kernel, both variants): the
+//     Hopper design (loss_wgmma.cuh).  What bounds the mma.sync block on
+//     this card: at the podslice cell's 32,768 x 256 it took 32.5 ms a call
+//     (PERF.md §5) for 12 issued products of 2·n²·d, 6.6 TFLOP, 6.7 ms
+//     at 989 TFLOP/s: about 20% of the tensor cores' rate, because
+//     mma.sync from ldmatrix fragments, in 16-feature steps each added in
+//     fp32, by 8 warps of one 64-row block a SM, cannot reach it; only
+//     wgmma can.  The function itself needs 6 such products (the bound
+//     chip_smoke.py counts, 3.3 ms).  The design keeps the 12 products and
+//     their arithmetic, and issues them as the card wants: a block of 128
+//     anchor rows (two consumer warpgroups of 64) and one 256-feature
+//     chunk, whose candidate tiles (128 rows up to d = 256 unpruned, else
+//     64) a producer warp streams by TMA into a ring of 128-byte swizzled
+//     stages; each stage feeds both of its products, the logits by wgmma
+//     from shared memory and the gradient by wgmma with the hi and lo
+//     coefficient parts in registers (as FlashAttention-3 feeds P·V), so
+//     each candidate tile is read from L2 once per 128 anchor rows, half as
+//     often as by 64-row blocks.  The logits run as one accumulator over
+//     the depth; the gradient's sum over candidates keeps its short chains
+//     (a quarter of the chunk over one tile from zero, added in fp32).
+//     Where n leaves SMs idle the candidate tiles split into parts as the
+//     other builds do (split_parts, one block an SM), whose partials
+//     bwd_sum_kernel adds in index order; at n = 32,768 the 512 blocks run
+//     3.9 waves unsplit.  There it takes 10.6-10.9 ms a call, the issued
+//     products at 61-63% of the bf16 peak (NVIDIA H100 80GB HBM3, 700 W).
 //   * dual_bwd_bf16_kernel: the same block in its subtract-first form, the
 //     scale read from device memory once per block, each block also summing
 //     its share of Σ coeff⊙z (the ds weights above) from feature chunk 0
@@ -134,6 +161,7 @@
 
 #include "loss_mma.cuh"
 #include "loss_tiles.cuh"
+#include "loss_wgmma.cuh"
 
 namespace {
 
@@ -686,6 +714,37 @@ sym_bwd_bf16_kernel(const bf16* __restrict__ v, const bf16* __restrict__ t,
       (z + 1) * tiles / parts);
 }
 
+// The Hopper sym backward (loss_wgmma.cuh): block (x, y, z) takes anchor
+// rows [128 x, 128 x + 128) of direction y / chunks (the keep masks swapped
+// with the roles as above), gradient features [256 (y % chunks), + 256) and
+// the candidate tiles (kCand rows) of part z of gridDim.z; one part writes
+// s · the gradient rows to dv / dt, more write each part's fp32 sum to its
+// slice [z][direction] of `part`, which bwd_sum_kernel adds in index order.
+template <bool kPruned, int kCand>
+__global__ void __launch_bounds__(loss_wgmma::kThreadsW, 1)
+sym_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_v,
+                     const __grid_constant__ CUtensorMap map_t,
+                     const unsigned char* __restrict__ kv,
+                     const unsigned char* __restrict__ kt, float s, float w,
+                     const float* __restrict__ lse_v,
+                     const float* __restrict__ lse_t,
+                     const float* __restrict__ g_v, const float* __restrict__ g_t,
+                     float* __restrict__ dv, float* __restrict__ dt,
+                     float* __restrict__ part, int n, int d, int stages) {
+  using namespace loss_wgmma;
+  const int chunks = (d + kOutF - 1) / kOutF;
+  const bool text = (int)blockIdx.y >= chunks;
+  const int tiles = (n + kCand - 1) / kCand, parts = gridDim.z, z = blockIdx.z;
+  float* out = parts == 1 ? (text ? dt : dv)
+                          : part + (size_t)(2 * z + (text ? 1 : 0)) * n * d;
+  sym_bwd_block<kPruned, kCand>(
+      text ? &map_t : &map_v, text ? &map_v : &map_t, text ? kt : kv,
+      text ? kv : kt, s, w, text ? lse_t : lse_v, text ? lse_v : lse_t,
+      text ? g_t : g_v, text ? g_v : g_t, out, parts == 1 ? s : 1.f, n, d,
+      blockIdx.x * kRowsW, blockIdx.y - (text ? chunks : 0), z * tiles / parts,
+      (z + 1) * tiles / parts, stages);
+}
+
 // The dual backward: the block of sym_bwd_bf16_kernel (the same grid and
 // `part`) in the subtract-first form at the scale *scale_ptr, and the
 // block's share of Σ coeff⊙z in ds_part[(2 z + direction) · gridDim.x + x]
@@ -864,6 +923,81 @@ cudaError_t launch_sym_bwd_bf16(const void* v, const void* t, const void* kv,
                         stream);
 }
 
+// The shapes the Hopper sym backward takes (TMA: d % 8 == 0 and 16-byte
+// aligned bases; the anchor tile and two stages in shared memory: d <=
+// 384); the pointers are checked at launch.  Every n: it was the faster at
+// each shape timed, 1024 rows included (PERF.md, kernel table row 5).
+bool wgmma_shape(int n, int d) {
+  return n >= 1 && d % 8 == 0 && d <= loss_wgmma::kMaxBoxes * loss_wgmma::kBoxF;
+}
+
+bool wgmma_takes(int n, int d, const void* v, const void* t) {
+  return wgmma_shape(n, d) && aligned16(v) && aligned16(t);
+}
+
+struct WgmmaPlan {
+  size_t smem;
+  int stages, parts;
+};
+
+// The Hopper sym backward's plan: its ring's stages and shared memory, and
+// the parts its candidate tiles split into where its blocks (one an SM)
+// leave SMs idle
+template <bool kPruned, int kCand>
+cudaError_t wgmma_plan(int n, int d, WgmmaPlan* plan) {
+  using namespace loss_wgmma;
+  int sms = 0;
+  const cudaError_t err = prepare(
+      reinterpret_cast<const void*>(sym_bwd_wgmma_kernel<kPruned, kCand>), &sms);
+  if (err != cudaSuccess) return err;
+  const int boxes = (d + kBoxF - 1) / kBoxF;
+  const int chunks = (d + kOutF - 1) / kOutF;
+  plan->stages = ring_stages(kCand, boxes);
+  plan->smem = smem_bytes(kCand, boxes, plan->stages);
+  const int blocks = 2 * chunks * ((n + kRowsW - 1) / kRowsW);
+  plan->parts = split_parts((n + kCand - 1) / kCand, blocks, sms);
+  return cudaSuccess;
+}
+
+// f(std::integral_constant<int, kCand>{}) for the Hopper sym backward's
+// candidate rows at d (loss_wgmma::cand_rows); the pruned variant is built
+// at 64 alone
+template <bool kPruned, typename F>
+cudaError_t by_cand(int d, F f) {
+  if constexpr (!kPruned)
+    if (loss_wgmma::cand_rows(d, false) == 128)
+      return f(std::integral_constant<int, 128>{});
+  return f(std::integral_constant<int, 64>{});
+}
+
+template <bool kPruned, int kCand>
+cudaError_t launch_sym_bwd_wgmma(const void* v, const void* t, const void* kv,
+                                 const void* kt, float s, float w,
+                                 const float* lse_v, const float* lse_t,
+                                 const float* g_v, const float* g_t, float* dv,
+                                 float* dt, float* part, int n, int d,
+                                 cudaStream_t stream) {
+  using namespace loss_wgmma;
+  WgmmaPlan plan;
+  cudaError_t err = wgmma_plan<kPruned, kCand>(n, d, &plan);
+  if (err != cudaSuccess) return err;
+  if (plan.parts > 1 && part == nullptr) return cudaErrorInvalidValue;
+  CUtensorMap map_v, map_t;
+  err = tensor_map(&map_v, v, n, d, kCand);
+  if (err == cudaSuccess) err = tensor_map(&map_t, t, n, d, kCand);
+  if (err != cudaSuccess) return err;
+  const int chunks = (d + kOutF - 1) / kOutF;
+  const dim3 grid((n + kRowsW - 1) / kRowsW, 2 * chunks, plan.parts);
+  sym_bwd_wgmma_kernel<kPruned, kCand><<<grid, kThreadsW, plan.smem, stream>>>(
+      map_v, map_t, static_cast<const unsigned char*>(kv),
+      static_cast<const unsigned char*>(kt), s, w, lse_v, lse_t, g_v, g_t, dv,
+      dt, part, n, d, plan.stages);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || plan.parts == 1) return err;
+  return launch_bwd_sum(part, plan.parts, nullptr, s, dv, dt, (size_t)n * d,
+                        stream);
+}
+
 template <int kWarpF, bool kPruned>
 cudaError_t launch_dual_bwd_bf16(const void* v, const void* t, const void* kv,
                                  const void* kt, const float* scale, float w,
@@ -919,12 +1053,24 @@ cudaError_t plan_parts(PlanKind kind, int n, int d, bool pruned, int* parts) {
 }
 
 // per part: `each` floats of scratch where the bf16 plan splits, else 0; a
-// negative value is a cudaError_t, negated
+// negative value is a cudaError_t, negated.  A shape the Hopper sym
+// backward takes names the larger of its plan's and the mma.sync block's
+// (which an unaligned base takes instead)
 long long split_scratch(PlanKind kind, int dtype, int n, int d, int pruned,
                         long long each) {
   if (dtype != 1 || n < 1 || d < 1) return 0;
   int parts = 1;
-  const cudaError_t err = plan_parts(kind, n, d, pruned != 0, &parts);
+  cudaError_t err = plan_parts(kind, n, d, pruned != 0, &parts);
+  if (err == cudaSuccess && kind == kSymBwd && wgmma_shape(n, d)) {
+    WgmmaPlan plan{0, 0, 1};
+    err = by_pruned(pruned != 0, [&](auto p) {
+      constexpr bool kPruned = decltype(p)::value;
+      return by_cand<kPruned>(d, [&](auto cand) {
+        return wgmma_plan<kPruned, decltype(cand)::value>(n, d, &plan);
+      });
+    });
+    parts = plan.parts > parts ? plan.parts : parts;
+  }
   if (err != cudaSuccess) return -(long long)err;
   return parts > 1 ? parts * each : 0;
 }
@@ -1067,12 +1213,24 @@ extern "C" int crossclr_sym_bwd(int dtype, const void* v, const void* t,
       return launch_bwd<float, false, kPruned>(
           v, t, keep_v, keep_t, nullptr, scale, w, lv, lt, gv, gt, ov, ot,
           nullptr, n, d, st);
+    if (wgmma_takes(n, d, v, t))
+      return by_cand<kPruned>(d, [&](auto cand) {
+        return launch_sym_bwd_wgmma<kPruned, decltype(cand)::value>(
+            v, t, keep_v, keep_t, scale, w, lv, lt, gv, gt, ov, ot, pt, n, d, st);
+      });
     return by_width(d, [&](auto width) {
       return launch_sym_bwd_bf16<decltype(width)::value, kPruned>(
           v, t, keep_v, keep_t, scale, w, lv, lt, gv, gt, ov, ot, pt, n, d,
           st);
     });
   });
+}
+
+// 1 where crossclr_sym_bwd runs the Hopper design for these features, else
+// 0 (the float32 build, the mma.sync block)
+extern "C" int crossclr_sym_bwd_wgmma(int dtype, const void* v, const void* t,
+                                      int n, int d) {
+  return dtype == 1 && wgmma_takes(n, d, v, t) ? 1 : 0;
 }
 
 // The float32 scratch `ds_part` holds crossclr_dual_bwd_partials(dtype, n,

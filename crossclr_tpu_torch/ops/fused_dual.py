@@ -36,7 +36,10 @@ The bf16 builds (the ``default`` tier) of all four are tensor-core kernels
 log2 units at the static shift, the dual forward keeps an online max in
 log2 units; each backward runs the per-direction backward's block per
 direction, factored (sym) or subtract-first with a ``Σ coeff⊙z`` partial
-per block (dual), the keep masks as role selects on the coefficients.
+per block (dual), the keep masks as role selects on the coefficients.  The
+sym backward's bf16 build runs a Hopper design where the features allow
+it (``csrc/loss_wgmma.cuh``: TMA-fed warpgroup products, 128 anchor rows a
+block), the same arithmetic issued as the card wants it.
 Where ``B`` leaves the card idle their candidate tiles split over more
 blocks whose fp32 partial sums (the dual forward's partial ``(m, l)``) a
 second kernel adds in a fixed order, in a scratch buffer allocated here:
@@ -77,8 +80,9 @@ __all__ = [
 ]
 
 KERNELS = ("sym_fwd", "sym_bwd", "dual_fwd", "dual_bwd")
-# launches of each CUDA kernel, counted where its wrapper launches it
-launch_counts = dict.fromkeys(KERNELS, 0)
+# launches of each CUDA kernel, counted where its wrapper launches it, and
+# ("sym_bwd_wgmma") those of the sym backward that took its Hopper design
+launch_counts = {**dict.fromkeys(KERNELS, 0), "sym_bwd_wgmma": 0}
 _count_lock = threading.Lock()
 
 SOURCE = "fused_dual.cu"
@@ -288,6 +292,8 @@ _SIGNATURES = {
     "crossclr_sym_bwd_scratch": [_int, _int, _int, _int],
     "crossclr_dual_bwd_scratch": [_int, _int, _int, _int],
     "crossclr_dual_bwd_partials": [_int, _int, _int, _int],
+    # (dtype, v, t, B, D) -> 1 where crossclr_sym_bwd takes the Hopper design
+    "crossclr_sym_bwd_wgmma": [_int, _ptr, _ptr, _int, _int],
 }
 _SIZE_QUERIES = ("crossclr_sym_fwd_scratch", "crossclr_dual_fwd_scratch",
                  "crossclr_sym_bwd_scratch", "crossclr_dual_bwd_scratch",
@@ -427,7 +433,9 @@ def sym_bwd_cuda(v, t, lse_v, lse_t, g_v, g_t, scale: float, neg_weight: float,
     """Launch the sym backward; returns fp32 ``(dV, dT)`` ``[B, D]``.  The
     bf16 build splits the candidates over more blocks where ``B`` leaves
     the card idle: its fp32 partial gradients go to a scratch buffer of
-    the size the library names, allocated here."""
+    the size the library names, allocated here.  A launch that took the
+    bf16 build's Hopper design (the library says which) is also counted
+    under ``"sym_bwd_wgmma"``."""
     _check_features(v, t, "sym_bwd")
     b, d = v.shape
     _check_masks(keep_video, keep_text, b, v.device, "sym_bwd")
@@ -445,6 +453,9 @@ def sym_bwd_cuda(v, t, lse_v, lse_t, g_v, g_t, scale: float, neg_weight: float,
             lse_t.data_ptr(), g_v.data_ptr(), g_t.data_ptr(), dv.data_ptr(),
             dt.data_ptr(), _ptr_of(part), b, d, float(scale), float(neg_weight),
             device=v.device)
+    if lib.crossclr_sym_bwd_wgmma(code, v.data_ptr(), t.data_ptr(), b, d):
+        with _count_lock:
+            launch_counts["sym_bwd_wgmma"] += 1
     return dv, dt
 
 

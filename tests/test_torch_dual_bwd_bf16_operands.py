@@ -1,7 +1,7 @@
 """The bf16 dual backward's operand rounding, candidate split and Σ coeff⊙z order, held to the smoke's limits on the CPU.
 
 The bf16 build of the dual backward (``dual_bwd``, ``csrc/fused_dual.cu``)
-runs the sym backward's tensor-core block (``csrc/loss_mma.cuh``) in its
+runs ``csrc/loss_mma.cuh``'s mma.sync block (``bwd_block``) in its
 subtract-first form: the logits take the bf16 features as they are
 (exact mma operands); the coefficients ``g_r·exp(z − lse_r) + g_c·exp(z −
 lse_c)`` are formed in fp32, each role's term selected away where its
@@ -36,7 +36,7 @@ import pytest
 import torch
 from test_torch_sym_bf16_operands import GRAD_BOUND, TILE, _inputs, _ratio
 from test_torch_sym_bf16_operands import emulate as emulate_grads
-from test_torch_sym_bf16_operands import parts_on_h100
+from test_torch_sym_bf16_operands import mma_parts_on_h100
 from test_torch_sym_fwd_bf16_operands import _smoke, collapsed
 
 from crossclr_tpu_torch.ops import fused_dual as fd
@@ -122,7 +122,7 @@ def test_split_coefficients_and_partials_stay_within_the_smoke_limits(b, d, tau,
     """Both directions at the card's split: dV, dT within GRAD_BOUND of
     ``dual_bwd_plain``, Σ coeff⊙z from the block partials in the kernels'
     order within DS_RTOL."""
-    parts = parts_on_h100(b, d)
+    parts = mma_parts_on_h100(b, d)
     with torch.inference_mode():
         v, t, scale, coeffs, logits, want = _case(b, d, tau, pruned, seed=b + d)
         got = emulate_grads(v, t, *coeffs, scale, 0.8, "split", parts)
@@ -171,7 +171,7 @@ def test_split_matches_the_interpreted_pallas_dual_bwd(pruned):
     from crossclr_tpu.ops.fused_dual import _dual_bwd
 
     b, d, tau, w = 128, 256, 0.03, 0.8
-    assert parts_on_h100(b, d) == 2
+    assert mma_parts_on_h100(b, d) == 2
     v, t, keep, g_v, g_t = _inputs(b, d, seed=3)
     keep = keep if pruned else None
     scale = torch.full((1,), 1.0 / tau)
@@ -252,13 +252,13 @@ def test_cuda_bf16_dual_bwd_matches_plain(cuda, n, d, keep):
 @pytest.mark.requires_cuda
 def test_cuda_dual_bwd_split_follows_the_plan(cuda):
     """On the H100's 132 SMs the library's scratch and partial counts name
-    the split this file emulates (the sym backward's); the fp32 build
+    the split this file emulates (the mma.sync block's); the fp32 build
     keeps one partial per (direction, row tile) and needs no scratch."""
     if torch.cuda.get_device_properties(cuda).multi_processor_count != 132:
         pytest.skip("the emulated split is the H100's (132 SMs)")
     lib = fd._library()
     for n, d in ((1, 256), (1000, 256), (1024, 384), (4096, 512), (65536, 256)):
-        parts, tiles = parts_on_h100(n, d), -(-n // TILE)
+        parts, tiles = mma_parts_on_h100(n, d), -(-n // TILE)
         assert lib.crossclr_dual_bwd_scratch(1, n, d, 0) == (
             2 * n * d * parts if parts > 1 else 0)
         assert lib.crossclr_dual_bwd_partials(1, n, d, 0) == 2 * parts * tiles

@@ -370,6 +370,36 @@ def test_cuda_kernels_match_plain(cuda, b, d, dtype):
         "sym_fwd": 1, "sym_bwd": 1, "dual_fwd": 1, "dual_bwd": 1}
 
 
+# kernel 5 where its callers run it: podslice_train's 32,768 x 256,
+# lsmdc_train's 4096 x 384 (two gradient chunks), the MLP leg's 1024 x 256,
+# a ragged B and a D off the 64-feature box
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("b,d", [(32768, 256), (4096, 384), (1024, 256), (1000, 256),
+                                 (1024, 200)])
+@pytest.mark.parametrize("tau", [0.03, 0.0125])
+def test_cuda_sym_bwd_matches_plain(cuda, b, d, tau):
+    """The bf16 sym backward against its plain version (GRAD_BOUND), two
+    launches alike bit for bit, and both counted under ``sym_bwd_wgmma``
+    where the library says they took the Hopper design (at podslice_train's
+    32,768 x 256 they must)."""
+    v, t = (torch.from_numpy(x).to(cuda, torch.bfloat16) for x in _features(b, d, seed=b))
+    g_v, g_t = (torch.from_numpy(x).to(cuda) for x in _cotangents(b))
+    s, w = 1.0 / tau, 0.8
+    lse = fd.sym_fwd_plain(v, t, s, w)
+    takes = fd._library().crossclr_sym_bwd_wgmma(1, v.data_ptr(), t.data_ptr(), b, d)
+    if (b, d) == (32768, 256):
+        assert takes == 1
+    before = dict(fd.launch_counts)
+    got = fd.sym_bwd_cuda(v, t, *lse, g_v, g_t, s, w)
+    again = fd.sym_bwd_cuda(v, t, *lse, g_v, g_t, s, w)
+    torch.cuda.synchronize()
+    assert {k: fd.launch_counts[k] - before[k] for k in ("sym_bwd", "sym_bwd_wgmma")} == {
+        "sym_bwd": 2, "sym_bwd_wgmma": 2 * takes}
+    for a, c, r in zip(got, again, fd.sym_bwd_plain(v, t, *lse, g_v, g_t, s, w)):
+        assert torch.equal(a, c)
+        _assert_grad_close(a.cpu(), r.cpu())
+
+
 @pytest.mark.requires_cuda
 @pytest.mark.parametrize("tensor_tau", [False, True])
 def test_cuda_fused_loss_matches_cpu(cuda, tensor_tau):

@@ -420,6 +420,32 @@ def test_cuda_pruned_kernels_match_plain(cuda, b, d, dtype, kept):
 
 
 @pytest.mark.requires_cuda
+@pytest.mark.parametrize("b,d", [(32768, 256), (4096, 384), (1024, 256), (1000, 256),
+                                 (1024, 200)])
+@pytest.mark.parametrize("tau", [0.03, 0.0125])
+def test_cuda_pruned_sym_bwd_matches_plain(cuda, b, d, tau):
+    """The pruned bf16 sym backward at kernel 5's shapes (masks about 80%
+    kept) against its plain version, two launches alike bit for bit, both
+    counted under ``sym_bwd_wgmma`` where the library says they took the
+    Hopper design."""
+    v, t = (torch.from_numpy(x).to(cuda, torch.bfloat16) for x in _features(b, d, seed=b))
+    keep = tuple(m.to(cuda) for m in _torch_masks(*_masks(b)))
+    g_v, g_t = (torch.from_numpy(x).to(cuda) for x in _cotangents(b))
+    s = 1.0 / tau
+    lse = fd.sym_fwd_plain(v, t, s, W, *keep)
+    takes = fd._library().crossclr_sym_bwd_wgmma(1, v.data_ptr(), t.data_ptr(), b, d)
+    before = dict(fd.launch_counts)
+    got = fd.sym_bwd_cuda(v, t, *lse, g_v, g_t, s, W, *keep)
+    again = fd.sym_bwd_cuda(v, t, *lse, g_v, g_t, s, W, *keep)
+    torch.cuda.synchronize()
+    assert {k: fd.launch_counts[k] - before[k] for k in ("sym_bwd", "sym_bwd_wgmma")} == {
+        "sym_bwd": 2, "sym_bwd_wgmma": 2 * takes}
+    for a, c, r in zip(got, again, fd.sym_bwd_plain(v, t, *lse, g_v, g_t, s, W, *keep)):
+        assert torch.equal(a, c)
+        _assert_grad_close(a.cpu(), r.cpu())
+
+
+@pytest.mark.requires_cuda
 @pytest.mark.parametrize("tensor_tau", [False, True])
 def test_cuda_cross_clr_fused_takes_the_pair(cuda, tensor_tau):
     """On the card ``cross_clr_fused`` launches one forward and one
