@@ -72,10 +72,13 @@ from ..parallel.tensor_parallel import (
     shard,
     tp_dim,
 )
+from .mla_moe import MLAMoETower
 
 __all__ = ["DualEncoder", "MLPTower", "TowerConfig", "TransformerTower"]
 
 _LN_EPS = 1e-6  # flax.linen.LayerNorm default
+# the tower kinds that read [B, S, input_dim] sequences under a key mask
+SEQUENCE_KINDS = ("transformer", "mla_moe")
 _SEED_RANGE = 1 << 23  # the flash kernels' seeds, as the JAX _MHA draws them
 
 
@@ -88,9 +91,18 @@ class TowerConfig:
     kernel on a CUDA tensor) or ``"ring"`` (:func:`parallel.ring_attention`
     over a mesh's model group, its blocks by ``ring_block_impl`` and
     ``ring_interpret``).  ``remat`` is accepted by the config and waits for
-    a later port."""
+    a later port.
 
-    kind: str = "mlp"  # "mlp" | "transformer"
+    The fields after ``ring_interpret`` are the port's own, for the
+    ``"mla_moe"`` kind (:mod:`models.mla_moe`, a DeepSeek-V3 text tower):
+    its residual width ``model_dim`` (``hidden_size`` in a published
+    config), latent attention's widths, the routed and shared experts',
+    the router's scale and the RoPE and RMSNorm constants, named as the
+    published config names them.  ``num_layers``, ``num_heads`` and
+    ``hidden_dim`` (the dense layers' MLP width) keep their meaning;
+    ``embed_dim`` is the output width."""
+
+    kind: str = "mlp"  # "mlp" | "transformer" | "mla_moe"
     input_dim: int = 512
     embed_dim: int = 256
     hidden_dim: int = 1024
@@ -103,6 +115,19 @@ class TowerConfig:
     attention: str = "xla"
     ring_block_impl: str = "auto"
     ring_interpret: bool = False
+    model_dim: int = 2048
+    kv_lora_rank: int = 512
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
+    moe_intermediate_size: int = 1408
+    n_routed_experts: int = 64
+    num_experts_per_tok: int = 6
+    n_shared_experts: int = 2
+    first_k_dense_replace: int = 1
+    routed_scaling_factor: float = 2.446
+    rope_theta: float = 50000.0
+    rms_norm_eps: float = 1e-5
 
 
 class Dense(nn.Linear):
@@ -481,6 +506,8 @@ def _build_tower(cfg: TowerConfig, dropout_gen: torch.Generator,
         return MLPTower(cfg, shards)
     if cfg.kind == "transformer":
         return TransformerTower(cfg, dropout_gen, mesh, shards)
+    if cfg.kind == "mla_moe":
+        return MLAMoETower(cfg, mesh, shards)
     raise ValueError(f"unknown tower kind: {cfg.kind!r}")
 
 
@@ -585,7 +612,7 @@ class DualEncoder(nn.Module):
             raise ValueError(f"side must be 'video' or 'text', got {side!r}")
         cfg = self.video_cfg if side == "video" else self.text_cfg
         tower = self.video_tower if side == "video" else self.text_tower
-        if cfg.kind == "transformer":
+        if cfg.kind in SEQUENCE_KINDS:
             return tower(x, mask).float()
         if mask is not None:
             raise ValueError(

@@ -81,7 +81,8 @@
 // at wide heads (at Dh = 100 a dk/dv element missed them on the card), so
 // the split carries those operands to about 16 bits at twice those
 // products' mma count; the kernels stay bound by bytes.
-// Any S and any Dh <= 128 run without padding.
+// Any S and any Dh <= 128 run without padding; the bf16 builds also take
+// Dh in (176, 192] (latent attention, its values zero-padded by the caller).
 
 #include <math.h>
 #include <stddef.h>
@@ -810,6 +811,7 @@ cudaError_t launch_dkv_bf16(const Args& a, cudaStream_t stream) {
     FLASH_DKV_BF16(96)
     FLASH_DKV_BF16(112)
     FLASH_DKV_BF16(128)
+    FLASH_DKV_BF16(192)
   }
 #undef FLASH_DKV_BF16
   return cudaErrorInvalidValue;
@@ -855,13 +857,15 @@ cudaError_t launch_dq_bf16(const Args& a, cudaStream_t stream) {
     FLASH_DQ_BF16(96)
     FLASH_DQ_BF16(112)
     FLASH_DQ_BF16(128)
+    FLASH_DQ_BF16(192)
   }
 #undef FLASH_DQ_BF16
   return cudaErrorInvalidValue;
 }
 
 int launch(int dtype, bool dkv, const Args& a, void* stream) {
-  if (a.bh < 1 || a.s < 1 || a.dh < 1 || a.dh > kMaxDh || a.heads < 1 ||
+  if (a.bh < 1 || a.s < 1 || a.heads < 1 ||
+      !(dtype == 1 ? bf16_head_dim(a.dh) : a.dh >= 1 && a.dh <= kMaxDh) ||
       a.bh % a.heads || !(a.drop.rate >= 0.f && a.drop.rate < 1.f) ||
       a.drop.head_offset < 0 || a.drop.head_offset + a.heads > a.drop.head_count)
     return (int)cudaErrorInvalidValue;

@@ -20,6 +20,12 @@ constexpr int kBlockQ = 64;
 constexpr int kBlockK = 64;
 constexpr int kThreads = 4 * kBlockQ;  // four threads per tile row
 constexpr int kMaxDh = 128;
+// the bf16 builds take every head dim up to kMaxDh, and latent attention's
+// query/key width of 192 (its values zero-padded to it by the caller)
+constexpr int kMlaDh = 192;
+__host__ __device__ constexpr bool bf16_head_dim(int dh) {
+  return (dh >= 1 && dh <= kMaxDh) || (dh > kMlaDh - 16 && dh <= kMlaDh);
+}
 constexpr int kColsPerThread = kBlockK / 4;
 constexpr float kMaxFloor = -1e30f;  // crossclr_tpu _MAX_FLOOR
 constexpr uint32_t kBhPrime = 0x27D4EB2Fu;  // crossclr_tpu _BH_PRIME

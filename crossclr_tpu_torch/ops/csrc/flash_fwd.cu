@@ -58,7 +58,9 @@
 // then left the limits against the fp32 plain backward on the card at
 // B = 1024.  The kernel stays bound by bytes.  The head dim is padded to a
 // multiple of 16 in shared memory (zero-filled) and is a template
-// argument; any S >= 1 and any Dh <= 128 run.
+// argument; any S >= 1 and any Dh <= 128 run, and Dh in (176, 192] for
+// latent attention (MLA), whose 128-wide values the caller zero-pads to the
+// query/key width and whose extra output columns it drops.
 
 #include <math.h>
 #include <stddef.h>
@@ -450,6 +452,7 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v,
     FLASH_FWD_BF16(96)
     FLASH_FWD_BF16(112)
     FLASH_FWD_BF16(128)
+    FLASH_FWD_BF16(192)
   }
 #undef FLASH_FWD_BF16
   return cudaErrorInvalidValue;
@@ -512,7 +515,8 @@ extern "C" int crossclr_flash_fwd(int dtype, const void* q, const void* k,
                                   int q_offset, int k_offset, int bh_offset,
                                   int head_count, int head_offset,
                                   void* stream) {
-  if (bh < 1 || s < 1 || dh < 1 || dh > kMaxDh || heads < 1 || bh % heads ||
+  if (bh < 1 || s < 1 || dh < 1 || heads < 1 || bh % heads ||
+      !(dtype == 1 ? bf16_head_dim(dh) : dh <= kMaxDh) ||
       !(rate >= 0.f && rate < 1.f) || head_offset < 0 ||
       head_offset + heads > head_count)
     return (int)cudaErrorInvalidValue;

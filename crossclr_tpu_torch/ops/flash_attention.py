@@ -39,7 +39,9 @@ mask (1 = valid), as the JAX package does.  The kernels read the folded
 ``[B·H, S, Dh]`` view (``bh = b·H + h``) and index the mask by batch entry,
 so the mask is never repeated per head.  Neither the TPU's 128-lane
 head-dim padding nor its divisor-only block sizes carry over: the kernels
-mask the edges of any S and any ``Dh <= 128``.
+mask the edges of any S and any ``Dh <= 128``; the bf16 builds also take
+latent attention's 192-wide queries and keys, with its 128-wide values
+zero-padded to that width (:func:`flash_attention`).
 """
 
 from __future__ import annotations
@@ -67,6 +69,9 @@ __all__ = [
 # row's lse
 MAX_FLOOR = -1e30
 MAX_HEAD_DIM = 128
+# latent attention's query/key width: the bf16 builds take head dims in
+# (MLA_HEAD_DIM - 16, MLA_HEAD_DIM] besides those up to MAX_HEAD_DIM
+MLA_HEAD_DIM = 192
 
 KERNELS = ("flash_fwd", "flash_dq", "flash_dkv")
 # launches of each CUDA kernel, counted where its wrapper launches it
@@ -316,9 +321,12 @@ def _check_qkv(q, k, v, name: str) -> None:
             f"the kernels take float32 or bfloat16 q, k, v of one dtype, got "
             f"{q.dtype}, {k.dtype}, {v.dtype}"
         )
-    if not 1 <= q.shape[-1] <= MAX_HEAD_DIM:
+    dh = q.shape[-1]
+    if not (1 <= dh <= MAX_HEAD_DIM or (
+            q.dtype == torch.bfloat16 and MLA_HEAD_DIM - 16 < dh <= MLA_HEAD_DIM)):
         raise ValueError(
-            f"head dim {q.shape[-1]} is outside [1, {MAX_HEAD_DIM}]"
+            f"head dim {dh} is outside [1, {MAX_HEAD_DIM}] (and, in bf16, "
+            f"({MLA_HEAD_DIM - 16}, {MLA_HEAD_DIM}])"
         )
     if k.device != q.device or v.device != q.device:
         raise ValueError("q, k, v must lie on one device")
@@ -500,7 +508,11 @@ def flash_attention(q, k, v, mask=None, *, scale=None, dropout_rate=0.0,
                     dropout_seed=0, q_offset=0, k_offset=0, bh_offset=0,
                     head_count=None, head_offset=0, return_lse=False):
     """Attention over ``[B, H, S, Dh]`` with an optional ``[B, S]`` key mask
-    and attention-probability dropout; differentiable in q, k and v.
+    and attention-probability dropout; differentiable in q, k and v.  ``v``
+    may be narrower than q and k (latent attention's 128-wide values under
+    192-wide queries and keys): it is zero-padded to their width for the
+    kernels, which take one head width, and the output's padded columns
+    are dropped, so their gradient is nought.
 
     The tensors' device decides the route: CUDA tensors launch the kernels
     (the forward, and under autograd the dq and dk/dv kernels in the
@@ -515,6 +527,12 @@ def flash_attention(q, k, v, mask=None, *, scale=None, dropout_rate=0.0,
     drop = dict(dropout_rate=float(dropout_rate), dropout_seed=dropout_seed,
                 q_offset=q_offset, k_offset=k_offset, bh_offset=bh_offset,
                 head_count=head_count, head_offset=head_offset)
+    dv = v.shape[-1]
+    if dv < q.shape[-1]:
+        v = torch.nn.functional.pad(v, (0, q.shape[-1] - dv))
+        out = flash_attention(q, k, v, mask, scale=scale, return_lse=return_lse,
+                              **drop)
+        return (out[0][..., :dv], out[1]) if return_lse else out[..., :dv]
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         if not q.is_cuda:

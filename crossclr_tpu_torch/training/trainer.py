@@ -24,8 +24,10 @@ model's direct parameters (``logit_scale``), pass 3 re-runs each chunk's
 towers with autograd and back-propagates its slice of the embeddings'
 gradient into summed parameter gradients.  Each chunk's dropout
 generator is reseeded from ``(train.seed, step, chunk)``, so pass 3 draws
-pass 1's masks again.  The gradient is the one-pass step's; only one
-chunk's activations are alive at a time.
+pass 1's masks again, and an ``mla_moe`` tower's routed layers replay
+pass 1's choices (``models.mla_moe.routing``), so pass 3 routes each
+chunk bit for bit as pass 1 did.  The gradient is the one-pass step's;
+only one chunk's activations are alive at a time.
 
 Batches arrive as host arrays or as tensors already on the device (what
 ``data.prefetch_to_device`` yields), which are not copied again.  An int8
@@ -126,6 +128,7 @@ from ..data.datasets import check_chunk_bytes
 from ..data.quantize import dequantize_batch
 from ..losses import functional as F
 from ..models.encoders import DualEncoder, TowerConfig, tensor_parallel
+from ..models.mla_moe import routing
 from ..parallel.global_loss import (
     all_gather,
     global_cross_clr,
@@ -213,7 +216,10 @@ def init_params(model: torch.nn.Module, seed: int, logit_scale: float = 1.0) -> 
     truncated at two standard deviations), zero biases, unit LayerNorm
     scales, ``pos_embed`` ~ N(0, 0.02²); ``logit_scale`` starts at
     ``logit_scale`` (the trainer passes 0 under ``learnable_temperature``,
-    so ``exp(0) = 1`` reproduces ``cfg.temperature``, else 1)."""
+    so ``exp(0) = 1`` reproduces ``cfg.temperature``, else 1).  A 3-D
+    weight (an ``mla_moe`` tower's grouped experts, ``[E, in, out]``) takes
+    the same scale by its ``in``; the routers' correction biases (buffers)
+    are drawn after the parameters, normal with std 0.1."""
     gen = torch.Generator().manual_seed(int(seed))
     for name, p in model.named_parameters():
         leaf = name.rsplit(".", 1)[-1]
@@ -232,6 +238,9 @@ def init_params(model: torch.nn.Module, seed: int, logit_scale: float = 1.0) -> 
             ) * (1.0 / math.sqrt(p.shape[1]) / 0.87962566)
         with torch.no_grad():
             p.copy_(value)
+    for name, b in model.named_buffers():
+        if name.endswith("e_score_correction_bias"):
+            b.copy_(torch.randn(b.shape, generator=gen) * 0.1)
 
 
 # ---------------------------------------------------------------------------
@@ -546,6 +555,9 @@ class Trainer:
                                 else dist.new_group(backend="gloo"))
         # once per trainer: the fit-startup check of the weighting channel
         self._weight_diag_done = False
+        # the last step's MoE choices, a list a forward (a chunk) of lists a
+        # MoE layer of [tokens, top-k] indices: what its gradients ran with
+        self.routes_used: list = []
 
     # -- diagnostics ---------------------------------------------------------
 
@@ -618,9 +630,10 @@ class Trainer:
         ZeRO-1, the moments this rank's shards."""
         model = DualEncoder(self.video_cfg, self.text_cfg, mesh=self.mesh,
                             split=False)
-        init_params(model, self.cfg.seed,
-                    0.0 if self.cfg.learnable_temperature else 1.0)
-        if state_dict is not None:
+        if state_dict is None:
+            init_params(model, self.cfg.seed,
+                        0.0 if self.cfg.learnable_temperature else 1.0)
+        else:  # it replaces every leaf and persistent buffer
             model.load_state_dict(state_dict, strict=True)
         model = model.to(self.device)
         if self.world_group is not None:
@@ -906,17 +919,20 @@ class Trainer:
         rows = inputs[0].shape[0]
         if self.two_pass(rows):
             chunks = rows // self.cfg.embedding_chunk
+            routes = []
             with span("train.encode", chunks):
-                v_emb, t_emb = self.encode_chunks(state, inputs)
+                v_emb, t_emb = self.encode_chunks(state, inputs, routes)
             with span("train.loss"):
                 loss, d_v, d_t, direct = self.embedding_grads(state, v_emb, t_emb,
                                                               inputs)
             with span("train.backward", chunks):
-                grads = self.tower_grads(state, inputs, d_v, d_t, direct)
+                grads = self.tower_grads(state, inputs, d_v, d_t, direct, routes)
             return loss, (v_emb, t_emb), grads
         with span("train.forward"):
             model = self.step_model(state)
-            v_emb, t_emb = model(*inputs)
+            with routing(model) as used:
+                v_emb, t_emb = model(*inputs)
+            self.routes_used = [used]
         with span("train.loss"):
             objective, loss = self.step_objective(model, v_emb, t_emb, *inputs)
         with span("train.backward"):
@@ -936,12 +952,20 @@ class Trainer:
         return [tuple(None if x is None else x[i:i + c] for x in inputs)
                 for i in range(0, n, c)]
 
-    def encode_chunks(self, state: TrainState, inputs: tuple):
+    def encode_chunks(self, state: TrainState, inputs: tuple,
+                      routes: list | None = None):
         """Pass 1 of the two-pass step: the train-mode embeddings of the
-        whole batch, encoded chunk by chunk without autograd."""
+        whole batch, encoded chunk by chunk without autograd.  Each chunk's
+        MoE choices (``models.mla_moe.routing``; none without MoE layers)
+        are appended to ``routes`` where it is given."""
+        embs = []
         with torch.no_grad():
-            embs = [self.step_model(state, i)(*rows)
-                    for i, rows in enumerate(self._chunks(inputs))]
+            for i, rows in enumerate(self._chunks(inputs)):
+                model = self.step_model(state, i)
+                with routing(model) as chosen:
+                    embs.append(model(*rows))
+                if routes is not None:
+                    routes.append(chosen)
         return (torch.cat([v for v, _ in embs]), torch.cat([t for _, t in embs]))
 
     def embedding_grads(self, state: TrainState, v_emb, t_emb, inputs: tuple):
@@ -959,17 +983,23 @@ class Trainer:
         return loss.detach(), d_v, d_t, direct
 
     def tower_grads(self, state: TrainState, inputs: tuple, d_v, d_t,
-                    direct: dict) -> dict:
+                    direct: dict, routes: list | None = None) -> dict:
         """Pass 3: each chunk's towers re-run with autograd (its dropout
-        masks drawn again) and back-propagated from its rows of ``d_v``,
-        ``d_t``; the parameter gradients summed over chunks in order, then
-        pass 2's ``direct`` gradients added (the JAX step's ``d_params +
-        g_towers``)."""
+        masks drawn again, and with ``routes``, pass 1's MoE choices
+        replayed, so the gradients are those of the model whose loss pass 2
+        took) and back-propagated from its rows of ``d_v``, ``d_t``; the
+        parameter gradients summed over chunks in order, then pass 2's
+        ``direct`` gradients added (the JAX step's ``d_params +
+        g_towers``).  ``routes_used`` keeps the choices each chunk ran with."""
         params = dict(state.model.named_parameters())
         acc = {k: torch.zeros_like(p) for k, p in params.items()}
         c = self.cfg.embedding_chunk
+        self.routes_used = []
         for i, rows in enumerate(self._chunks(inputs)):
-            embs = self.step_model(state, i)(*rows)
+            model = self.step_model(state, i)
+            with routing(model, None if routes is None else routes[i]) as used:
+                embs = model(*rows)
+            self.routes_used.append(used)
             grads = torch.autograd.grad(
                 embs, list(params.values()),
                 grad_outputs=(d_v[i * c:(i + 1) * c], d_t[i * c:(i + 1) * c]),

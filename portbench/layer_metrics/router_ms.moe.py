@@ -1,0 +1,11 @@
+"""The device ms a traced step spends routing (``moe.route``: the router,
+top-k and the permutation into expert order) and combining
+(``moe.combine``: each token's weighted outputs gathered back), the
+forward of GradCache's passes 1 and 3, in the cells of an ``mla_moe``
+text tower."""
+
+from portbench.layer_metrics.moe_spans import span_ms
+
+
+def read(readings: dict, ctx) -> float | None:
+    return span_ms(readings, ("moe.route", "moe.combine"))

@@ -162,7 +162,13 @@ def test_converter_is_strict():
 def test_port_config_mirrors_every_tower_field():
     jnames = [f.name for f in dataclasses.fields(jenc.TowerConfig)]
     tnames = [f.name for f in dataclasses.fields(tenc.TowerConfig)]
-    assert tnames == jnames
+    # every JAX field, in order; then the port's own, for its "mla_moe" kind
+    assert tnames[:len(jnames)] == jnames
+    assert tnames[len(jnames):] == [
+        "model_dim", "kv_lora_rank", "qk_nope_head_dim", "qk_rope_head_dim",
+        "v_head_dim", "moe_intermediate_size", "n_routed_experts",
+        "num_experts_per_tok", "n_shared_experts", "first_k_dense_replace",
+        "routed_scaling_factor", "rope_theta", "rms_norm_eps"]
     # a ring tower needs a mesh (its model group), as the JAX _MHA does
     with pytest.raises(ValueError, match="attention='ring' needs a mesh"):
         tenc.TransformerTower(tenc.TowerConfig(kind="transformer",
